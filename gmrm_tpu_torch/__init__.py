@@ -1,0 +1,22 @@
+"""gmrm_tpu_torch — the PyTorch / CUDA (Hopper) port of gmrm_tpu.
+
+The same BayesR-family Gibbs sampler as :mod:`gmrm_tpu`, on one NVIDIA
+H100: plain tensor code is PyTorch, and every Pallas kernel of the
+single-device training path is a hand-written CUDA C++ kernel for
+``sm_90a`` (``gmrm_tpu_torch/csrc``), built with ``nvcc`` at first use and
+bound with ``ctypes`` (``ops/_build.py``).  On CPU tensors each kernel
+wrapper runs the kernel's plain PyTorch version instead, which is what the
+CPU tests hold against the JAX package.
+
+This package imports ``torch`` and never ``jax`` or ``flax``.  It reuses the
+NumPy-only modules of ``gmrm_tpu``: the I/O readers and writers, the
+simulator, ``Options`` and the CLI parser.
+
+The slice covered so far is single-device training in wave mode (W > 1)
+on the cached-Gram composite sweep; see ROADMAP.md for what is still to
+be ported.
+"""
+
+__version__ = "0.1.0"
+
+from gmrm_tpu.config import Options  # noqa: F401  (NumPy-only)

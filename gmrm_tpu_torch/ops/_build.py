@@ -1,0 +1,150 @@
+"""Build, load and launch the CUDA kernels of ``gmrm_tpu_torch/csrc``.
+
+The sources are compiled at first use with ``nvcc`` into one shared
+library with a plain C interface, keyed by a hash of the sources, in the
+git-ignored directory ``gmrm_tpu_torch/_build``, and loaded with
+``ctypes``.  Nothing is built or imported at module import: the CPU tests
+import every module on a machine without ``nvcc``.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0, since a
+refused launch never runs and a later synchronize does not report it.
+No ``--use_fast_math``: ``expf``/``logf``/``sqrtf`` stay IEEE-accurate next
+to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types (pointers and the stream as c_void_p, so
+# ctypes never cuts a 64-bit address to 32 bits).
+SIGNATURES = {
+    # bed, na, out, nblocks, B, mb, nt, stream
+    "gmrm_gram_cache": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # bed, rows, eps, mave, msig, c, T, B, mb, stream
+    "gmrm_block_cdot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
+    # zerob, i2se, dbeta, beta_new, comp_new, acum_new, T, B, K, W, stream
+    "gmrm_wave_scan": [_P] * 17 + [_I, _I, _I, _I, _P],
+    # bed, rows, d, mave, na, eps, T, B, mb, stream
+    "gmrm_eps_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+# Launches per kernel since the last reset_launch_counts().  A wrapper
+# adds one where it launches its kernel and nowhere else, so a run can
+# show that its main path went through the kernels.
+_LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
+             "eps_update": 0}
+
+
+def launch_counts() -> dict:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of gmrm_tpu_torch "
+                       "are built from source at first use")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into BUILD_DIR (once per source hash)."""
+    lib = BUILD_DIR / f"libgmrm_kernels_{source_hash()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = BUILD_DIR / "build.log"
+    log.write_text(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                   f"# {time.perf_counter() - t0:.1f} s\n")
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.gmrm_error_string.argtypes = [ctypes.c_int]
+    lib.gmrm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(kernel: str, *args) -> None:
+    """Call ``gmrm_<kernel>`` on the current stream, count the launch and
+    raise on a launch error.  Tensors pass as their data pointers."""
+    lib = library()
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, f"gmrm_{kernel}")(*conv, stream)
+    if err != 0:
+        raise RuntimeError(f"gmrm_{kernel} launch failed: "
+                           f"{lib.gmrm_error_string(err).decode()}")
+    _LAUNCHES[kernel] += 1
+
+
+def check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Device, dtype, shape and contiguity checks of a kernel operand."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

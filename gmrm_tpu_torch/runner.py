@@ -1,0 +1,333 @@
+"""End-to-end single-device training (port of gmrm_tpu/runner.py).
+
+Loads the inputs, builds the static inputs (marker statistics and the Gram
+cache), runs the Gibbs chain and writes the reference's ``.csv`` / ``.bet``
+/ ``.cpn`` artifacts.  Iterations are queued back to back; the host waits
+on the device only at thin boundaries and at the end of the chain.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from gmrm_tpu.config import Options
+from gmrm_tpu.io.bed import bed_bytes_per_marker, read_bed
+from gmrm_tpu.io.grouping import read_dim, read_group_index
+from gmrm_tpu.io.phen import Phenotype, read_phen
+from gmrm_tpu.io.writers import (
+    HistoryWriter, format_csv_record, write_csv_record,
+)
+from gmrm_tpu_torch.config import resolve_plan
+from gmrm_tpu_torch.ops import _build
+from gmrm_tpu_torch.ops.blockops import marker_stats
+from gmrm_tpu_torch.ops.decode import to_phase_planes
+from gmrm_tpu_torch.ops.sweep_kernel import build_gram_cache
+from gmrm_tpu_torch.sampler.dists import RngPlan, beta_11
+from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
+from gmrm_tpu_torch.sampler.state import (
+    SamplerState, StaticInputs, init_state, pad_bed, pi_prior_from_cva,
+)
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means CUDA; a CUDA device without CUDA raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; gmrm_tpu_torch runs on "
+                           "an NVIDIA GPU (pass device='cpu' to run the "
+                           "plain PyTorch versions of its kernels)")
+    return dev
+
+
+@dataclass
+class LoadedData:
+    """Host-side preprocessed inputs."""
+    n: int
+    m_total: int
+    m_local: int
+    mb_pad: int
+    m_pad: int
+    bed: np.ndarray              # (m_pad, mb_pad) uint8
+    phens: List[Phenotype]
+    eps0: np.ndarray             # (T, 4, mb_pad)
+    na: np.ndarray               # (T, 4, mb_pad)
+    nonas: np.ndarray            # (T,)
+    group_of: np.ndarray         # (m_pad,) int32
+    mtotgrp: np.ndarray          # (G,) int32
+    out_basenames: List[str]
+    # Interleaved storage: original-order values = stored[:, inv_order].
+    inv_order: np.ndarray
+
+
+def interleave_order(m_local: int, nblocks: int):
+    """Stride interleave of the markers across Gram blocks.
+
+    Block membership is permanent under the block-preserving shuffle, so
+    genomically adjacent (high-LD) markers sharing a block would share a
+    wave, blind to each other's moves.  Storing marker j at the
+    stable-sorted position of key (j mod nblocks) puts consecutive markers
+    in consecutive blocks (gmrm_tpu/runner.py:66).
+    Returns (order, inv): storage row i holds original marker order[i];
+    original-order values = stored[inv].
+    """
+    order = np.argsort(np.arange(m_local) % max(nblocks, 1), kind="stable")
+    inv = np.argsort(order, kind="stable")
+    return order, inv
+
+
+def stem(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+LANE_PAD = 512        # packed bytes per marker row, padded with 0x55
+
+
+def load_data(opt: Options) -> LoadedData:
+    """Read and preprocess all inputs (gmrm_tpu/runner.py:94, whole marker
+    range of one device).  Storage is always block-interleaved: the port
+    runs only wave mode (W > 1), where gmrm_tpu interleaves too
+    (runner.py:446)."""
+    n, m_total = read_dim(opt.dim_file)
+    if opt.trunc_markers:
+        m_total = min(m_total, opt.trunc_markers)
+    n_markers = m_total
+    mb = bed_bytes_per_marker(n)
+    mb_pad = round_up(mb, LANE_PAD)
+    m_pad = round_up(max(n_markers, 1), opt.block_size)
+
+    bed = read_bed(opt.bed_file, n, m_total, 0, n_markers)
+    order, inv_order = interleave_order(n_markers, m_pad // opt.block_size)
+    bed = pad_bed(bed[order], m_pad, mb_pad)
+
+    phens = [read_phen(fp, n) for fp in opt.phen_files]
+    t = len(phens)
+    eps0 = np.zeros((t, 4, mb_pad))
+    na = np.zeros((t, 4, mb_pad))
+    for i, ph in enumerate(phens):
+        eps0[i, :, :mb] = to_phase_planes(ph.epsilon_padded())
+        na[i, :, :mb] = to_phase_planes(ph.na_vector_padded())
+    nonas = np.array([ph.nonas for ph in phens], dtype=np.float64)
+
+    if opt.group_index_file:
+        gidx_all = read_group_index(opt.group_index_file, opt.n_groups)
+        if gidx_all.shape[0] < m_total:
+            raise IOError(f"group index file has {gidx_all.shape[0]} "
+                          f"entries < Mt = {m_total}")
+        gidx_all = gidx_all[:m_total]
+    else:
+        gidx_all = np.zeros(m_total, dtype=np.int32)
+    group_of = np.zeros(m_pad, dtype=np.int32)
+    group_of[:n_markers] = gidx_all[order]
+    mtotgrp = np.bincount(gidx_all, minlength=opt.n_groups).astype(np.int32)
+
+    return LoadedData(
+        n=n, m_total=m_total, m_local=n_markers, mb_pad=mb_pad,
+        m_pad=m_pad, bed=bed, phens=phens, eps0=eps0, na=na,
+        nonas=nonas, group_of=group_of, mtotgrp=mtotgrp,
+        out_basenames=[stem(fp) for fp in opt.phen_files],
+        inv_order=inv_order,
+    )
+
+
+def shared_na_of(data: LoadedData) -> bool:
+    """One NA mask serves every trait when no phenotype has NAs."""
+    return all(ph.nas == 0 for ph in data.phens)
+
+
+def build_static(data: LoadedData, opt: Options, device) -> StaticInputs:
+    """Marker statistics and the one-time Gram cache (no --cache-dir)."""
+    f32 = torch.float32
+    bed = torch.as_tensor(data.bed, device=device)
+    na = torch.as_tensor(data.na, dtype=f32, device=device).contiguous()
+    nonas = torch.as_tensor(data.nonas, dtype=f32, device=device)
+    mave, msig = marker_stats(bed, na, nonas)
+    # Zero the stats of pad rows (all-missing decode gives 0/0).
+    valid = (torch.arange(data.m_pad, device=device) < data.m_local)[None]
+    mave = torch.where(valid, mave, 0.0).contiguous()
+    msig = torch.where(valid, msig, 0.0).contiguous()
+    gram_cache = build_gram_cache(bed, na, block_size=opt.block_size,
+                                  shared_na=shared_na_of(data))
+    return StaticInputs(
+        bed=bed, na=na, mave=mave, msig=msig,
+        group_of=torch.as_tensor(data.group_of, dtype=torch.int64,
+                                 device=device),
+        mtotgrp=torch.as_tensor(data.mtotgrp, dtype=torch.int64,
+                                device=device),
+        nonas=nonas,
+        cva=torch.as_tensor(opt.cva, dtype=f32, device=device),
+        cvai=torch.as_tensor(opt.cvai, dtype=f32, device=device),
+        n_total=float(data.n), m_local=int(data.m_local),
+        gram_cache=gram_cache,
+    )
+
+
+def init_sampler_state(data: LoadedData, opt: Options,
+                       device) -> SamplerState:
+    """sigmaG ~ Beta(1,1) per group, 0 for empty groups (bayes.cpp:327);
+    drawn on the CPU so the start does not depend on the device."""
+    t = len(data.phens)
+    g, k = opt.cva.shape
+    sigmag0 = beta_11(RngPlan(opt.seed, "cpu").gen(0, "init"), (t, g)).numpy()
+    sigmag0 = np.where(data.mtotgrp[None, :] == 0, 0.0, sigmag0)
+    return init_state(t, data.m_pad, g, k, data.eps0,
+                      pi_prior_from_cva(np.asarray(opt.cva)), sigmag0,
+                      device)
+
+
+@dataclass
+class RunResult:
+    state: SamplerState
+    iter_seconds: List[float] = field(default_factory=list)
+    beta_mean: Optional[np.ndarray] = None   # (T, M) posterior mean
+    chain_seconds: float = 0.0               # wall-clock of the chain
+    startup_seconds: float = 0.0             # load + stats + Gram cache
+    iters_run: int = 0
+    kernel_launches: dict = field(default_factory=dict)  # in this run
+
+
+class OutputSet:
+    """Per-trait .csv/.bet/.cpn writers for a fresh run (reference
+    phenotype.cpp:129-203)."""
+
+    def __init__(self, opt: Options, data: LoadedData):
+        self.enabled = bool(opt.out_dir)
+        self.csv_paths, self.bet, self.cpn = [], [], []
+        if not self.enabled:
+            return
+        opt.ensure_out_dir()
+        for base in data.out_basenames:
+            b = os.path.join(opt.out_dir, base)
+            if os.path.exists(b + ".csv"):
+                os.remove(b + ".csv")
+            self.csv_paths.append(b + ".csv")
+            self.bet.append(HistoryWriter(b + ".bet", data.m_total, "f8"))
+            self.cpn.append(HistoryWriter(b + ".cpn", data.m_total, "i4"))
+
+    def write_thinned(self, rec: int, it: int, host: dict, m0: np.ndarray,
+                      data: LoadedData):
+        """``host`` holds sigmag/sigmae/pi_est and natural-order betas/comp
+        (T, m_local) as NumPy arrays."""
+        if not self.enabled:
+            return
+        for ti in range(len(self.bet)):
+            row = format_csv_record(it, host["sigmag"][ti],
+                                    float(host["sigmae"][ti]),
+                                    int(m0[ti].sum()), host["pi_est"][ti])
+            write_csv_record(self.csv_paths[ti], rec, row)
+            self.bet[ti].write_record(it, host["betas"][ti], rec=rec)
+            self.cpn[ti].write_record(it, host["comp"][ti], rec=rec)
+
+
+_SIGMA_DIVERGED = 1.0e6
+
+
+def check_finite_chain(sigmag, sigmae, it: int) -> None:
+    """Fail loudly on a divergent chain (non-finite or exploding variances;
+    valid chains have sigmaE + sum sigmaG ~ 1 on the scaled phenotypes)."""
+    sg = np.asarray(sigmag, np.float64)
+    se = np.asarray(sigmae, np.float64)
+    bad = (not (np.isfinite(sg).all() and np.isfinite(se).all())
+           or se.max(initial=0.0) > _SIGMA_DIVERGED
+           or sg.max(initial=0.0) > _SIGMA_DIVERGED)
+    if bad:
+        raise FloatingPointError(
+            f"FATAL  : chain diverged by iteration {it} (non-finite or "
+            f"exploding sigmaG/sigmaE).  On small panels with extreme "
+            f"local LD the wave relaxation can be unstable — rerun with a "
+            f"smaller --block-size, or with gmrm_tpu --wave-size 1.")
+
+
+def _host_record(state: SamplerState, data: LoadedData) -> dict:
+    """One device-to-host copy of what a thinned record needs, with the
+    marker axis back in original order."""
+    ml = data.m_local
+    host = {k: getattr(state, k).cpu().numpy()
+            for k in ("sigmag", "sigmae", "pi_est")}
+    for k in ("betas", "comp"):
+        x = getattr(state, k)[:, :ml].cpu().numpy()
+        host[k] = x[:, data.inv_order]
+    return host
+
+
+def run_training(opt: Options, device=None, verbose: bool = True
+                 ) -> RunResult:
+    """The --process path on one device (None means CUDA)."""
+    dev = resolve_device(device)
+    launches0 = _build.launch_counts()
+    # f32 stays f32: the c-dot/Gram arithmetic is held to the JAX package
+    # at f32 tolerances, and TF32 keeps only ~3 decimal digits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt.validate()
+    if opt.cva is None:
+        opt.load_group_mixtures()
+    t_start = time.perf_counter()
+    _, m_pre = read_dim(opt.dim_file)
+    if opt.trunc_markers:
+        m_pre = min(m_pre, opt.trunc_markers)
+    resolve_plan(opt, dev.type, m_pre, verbose=verbose)
+    data = load_data(opt)
+    if verbose:
+        print(f"INFO   : time to load genotype + phenotype data = "
+              f"{time.perf_counter() - t_start:.2f} seconds.")
+    t0 = time.perf_counter()
+    static = build_static(data, opt, dev)
+    state = init_sampler_state(data, opt, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if verbose:
+        print(f"INFO   : time to compute the markers' statistics and the "
+              f"Gram cache: {time.perf_counter() - t0:.2f} seconds.")
+    result = RunResult(state=state,
+                       startup_seconds=time.perf_counter() - t_start)
+    outputs = OutputSet(opt, data)
+    rng = RngPlan(opt.seed, dev)
+    beta_acc = np.zeros((len(data.phens), data.m_local))
+    n_rec = 0
+
+    t_chain = time.perf_counter()
+    for it in range(1, opt.iterations + 1):
+        t0 = time.perf_counter()
+        state, aux = gibbs_iteration(
+            state, static, it, rng, block_size=opt.block_size,
+            wave=opt.wave_size, shuffle=opt.shuffle_markers)
+        if it % opt.output_thin_rate == 0:
+            host = _host_record(state, data)
+            check_finite_chain(host["sigmag"], host["sigmae"], it)
+            outputs.write_thinned(n_rec, it, host, aux.m0.cpu().numpy(),
+                                  data)
+            beta_acc += host["betas"]
+            n_rec += 1
+            if verbose:
+                sg_sum = host["sigmag"].sum(axis=1)
+                for ti in range(sg_sum.shape[0]):
+                    print(f"RESULT : i:{it} p:{ti}  sum sigmaG = "
+                          f"{sg_sum[ti]:20.15f}  sigmaE = "
+                          f"{host['sigmae'][ti]:20.15f}")
+        if verbose and opt.verbosity_level(1):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            print(f"RESULT : It {it}  total proc time = "
+                  f"{time.perf_counter() - t0:7.3f} sec")
+        result.iter_seconds.append(time.perf_counter() - t0)
+
+    check_finite_chain(state.sigmag.cpu().numpy(),
+                       state.sigmae.cpu().numpy(), opt.iterations)
+    result.chain_seconds = time.perf_counter() - t_chain
+    result.iters_run = opt.iterations
+    result.state = state
+    result.kernel_launches = {k: v - launches0[k]
+                              for k, v in _build.launch_counts().items()}
+    if n_rec:
+        result.beta_mean = beta_acc / n_rec
+    return result

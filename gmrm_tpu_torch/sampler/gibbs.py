@@ -1,0 +1,251 @@
+"""One Gibbs iteration (port of gmrm_tpu/sampler/gibbs.py).
+
+Structure, as in the reference outer loop (bayes.cpp:340-671):
+
+1. the intercept step (gibbs.py:458-464),
+2. the block-preserving shuffle: a random block order ``pi_b`` and a
+   random row order ``win`` within each block (gibbs.py:497-502),
+3. the marker sweep over Gram blocks, on the cached-Gram composite path
+   (gibbs.py:353-397 with ``use_cache``): per block the c-dot kernel, the
+   cached Gram gathered to processing order and scaled in plain PyTorch,
+   the wave-scan kernel and the residual-update kernel,
+4. the hyperparameter block (gibbs.py:529-568).
+
+Nothing here waits on the device: the block order reaches the kernels as
+device-side row indices, so a chain of iterations is queued without a
+host sync.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gmrm_tpu.config import V0E, S02E, V0G, S02G
+from gmrm_tpu_torch.ops.block_kernels import block_cdot, block_eps_update_
+from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks, wave_scan
+from gmrm_tpu_torch.ops.sweep_kernel import build_sweep_tables
+from gmrm_tpu_torch.sampler.dists import (
+    RngPlan, dirichlet_from_counts, inv_scaled_chisq,
+)
+from gmrm_tpu_torch.sampler.state import SamplerState, StaticInputs
+
+
+class IterAux(NamedTuple):
+    """Per-iteration observables (the .csv row ingredients)."""
+    m0: torch.Tensor         # (T, G)
+    e_sqn: torch.Tensor      # (T,)
+
+
+def _natural_cass(comp, group_of, sigmag, m_local, K):
+    """Per-(group, component) counts over live markers (valid and in a
+    group with sigmaG != 0), from natural-order components (reference
+    bayes.cpp:583-589)."""
+    T, m_pad = comp.shape
+    G = sigmag.shape[1]
+    valid = torch.arange(m_pad, device=comp.device) < m_local
+    live = valid[None, :] & (sigmag[:, group_of] != 0.0)
+    idx = group_of[None, :] * K + comp.long()
+    cass = torch.zeros((T, G * K), dtype=torch.int32, device=comp.device)
+    cass.scatter_add_(1, idx, live.to(torch.int32))
+    return cass.reshape(T, G, K)
+
+
+def cached_gram_scaled(gram_cache, blk, win2, mave_blk, msig_blk):
+    """The block's scaled Gram (T, B, B) in processing order.
+
+    ``blk`` (1,) is the natural block and ``win2`` (2B,) = [win, win + B];
+    one exact row and column gather of the cached raw quadrants, then the
+    scaling expression of gibbs.py:279-293 (NT = 1 broadcasts over traits).
+    """
+    B = mave_blk.shape[1]
+    gf = gram_cache.index_select(0, blk)[0]                # (NT, 2B, 2B)
+    gf = gf.index_select(1, win2).index_select(2, win2)
+    g1 = gf[:, :B, :B]
+    g2 = gf[:, B:, :B]
+    g2t = gf[:, :B, B:]
+    g3 = gf[:, B:, B:]
+    mr = mave_blk[:, None, :]                              # (T, 1, B)
+    mc = mave_blk[:, :, None]                              # (T, B, 1)
+    sr = msig_blk[:, None, :]
+    sc = msig_blk[:, :, None]
+    graw = g1 - mr * g2t - mc * g2 + (mc * mr) * g3
+    return ((sc * sr) * graw).contiguous()
+
+
+def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
+                 static: StaticInputs, pi_b, win, u_all, z_all, *, wave):
+    """The full marker sweep with all randomness injected.
+
+    pi_b (nblocks,) block order; win (nblocks, B) row order within each
+    block; u_all/z_all (nblocks, T, B) uniforms and standard normals.
+    ``eps`` is updated IN PLACE (the residual-update kernel adds each
+    block's delta into it).  Returns (eps, betas, comp, acum, cass).
+    """
+    nblocks, B = win.shape
+    T, m_pad = betas.shape
+    K = static.cva.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    nonas = static.nonas
+
+    lc_t, rd_t, sqb_t = build_sweep_tables(
+        sigmag, sigmae, pi_est, static.cva, static.cvai, nonas,
+        static.n_total)
+    i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
+
+    # Processing order: slot k holds marker perm[k] = pi_b*B + win.  Every
+    # per-marker operand is gathered once and split into contiguous
+    # (nblocks, ..., B) blocks.
+    win = win.long()
+    perm = (pi_b.long()[:, None] * B + win).reshape(-1)     # (m_pad,)
+    rows = perm.to(i32).reshape(nblocks, B)
+    win2 = torch.cat([win, win + B], dim=1)                 # (nblocks, 2B)
+    blk_idx = pi_b.long().reshape(nblocks, 1)
+
+    def split(y):        # (..., m_pad) processing order -> (nb, ..., B)
+        y = y.reshape(*y.shape[:-1], nblocks, B)
+        return y.movedim(-2, 0).contiguous()
+
+    def blocks(x):       # (..., m_pad) storage order -> (nb, ..., B)
+        return split(x[..., perm])
+
+    grp_p = static.group_of[perm]
+    mave_p = blocks(static.mave)
+    msig_p = blocks(static.msig)
+    beta_p = blocks(betas)
+    comp_p = blocks(comp.to(i32))
+    acum_p = blocks(acum)
+    lc_p = split(lc_t[:, :, grp_p])                         # (nb, K, T, B)
+    rd_p = split(rd_t[:, :, grp_p])
+    sqb_p = split(sqb_t[:, :, grp_p])
+    live, zerob = scan_masks(grp_p, perm < static.m_local, sigmag)
+    live_p = split(live)
+    zerob_p = split(zerob)
+    nm1 = nonas.to(f32)[:, None] - 1.0
+
+    outs = []
+    for b in range(nblocks):
+        c = block_cdot(static.bed, rows[b], eps, mave_p[b], msig_p[b])
+        gs = cached_gram_scaled(static.gram_cache, blk_idx[b], win2[b],
+                                mave_p[b], msig_p[b])
+        base = c + beta_p[b] * nm1
+        dbeta, beta_new, comp_new, acum_new = wave_scan(
+            base, lc_p[b], rd_p[b], sqb_p[b], gs, beta_p[b], comp_p[b],
+            acum_p[b], u_all[b], z_all[b], live_p[b], zerob_p[b], i2se,
+            wave=wave)
+        block_eps_update_(static.bed, rows[b], msig_p[b] * dbeta,
+                          mave_p[b], static.na, eps)
+        outs.append((beta_new, comp_new, acum_new))
+
+    def natural(k, like):                 # (nb, T, B) -> (T, m_pad)
+        y = torch.stack([o[k] for o in outs], dim=1).reshape(T, m_pad)
+        out = torch.empty_like(like)
+        out[:, perm] = y
+        return out
+
+    betas = natural(0, betas)
+    comp = natural(1, comp.to(i32))
+    acum = natural(2, acum)
+    cass = _natural_cass(comp, static.group_of, sigmag, static.m_local, K)
+    return eps, betas, comp, acum, cass
+
+
+def hyper_block(betas, cass, eps, sigmag, pi_est, static: StaticInputs,
+                gen):
+    """Hyperparameters after the sweep (gibbs.py:529-568).
+
+    ``gen(name)`` gives the generator of draw ``name`` in ("sigmag", "pi",
+    "sigmae").  Returns (sigmag, sigmae, pi_est, m0, e_sqn).
+    """
+    f32 = torch.float32
+    T = betas.shape[0]
+    G = static.cva.shape[0]
+    beta_sqn = torch.zeros((T, G), dtype=f32, device=betas.device)
+    beta_sqn.index_add_(1, static.group_of, betas * betas)
+    mtot = static.mtotgrp
+    m0 = torch.where(mtot > 0, mtot - cass[:, :, 0].long(),
+                     torch.zeros_like(mtot))                # (T, G)
+    m0f = m0.to(f32)
+    active = (mtot[None, :] > 0) & (m0 > 0) & (cass.sum(dim=2) > 0)
+
+    a_g = V0G + m0f
+    b_g = (beta_sqn * m0f + V0G * S02G) / torch.clamp(a_g, min=1e-30)
+    sg_draw = inv_scaled_chisq(gen("sigmag"), a_g,
+                               torch.clamp(b_g, min=1e-30))
+    sigmag_new = torch.where(
+        mtot[None, :] > 0,
+        torch.where(active, sg_draw, torch.zeros_like(sg_draw)), sigmag)
+
+    pi_draw = dirichlet_from_counts(gen("pi"), cass.to(f32) + 1.0)
+    pi_new = torch.where(active[:, :, None], pi_draw, pi_est)
+
+    e_sqn = (eps * eps).sum(dim=(1, 2))
+    sigmae_new = inv_scaled_chisq(
+        gen("sigmae"), torch.full_like(e_sqn, V0E + static.n_total),
+        (e_sqn + V0E * S02E) / (V0E + static.n_total))
+    return sigmag_new, sigmae_new, pi_new, m0, e_sqn
+
+
+def block_order(rng: RngPlan, it: int, nblocks: int, B: int, shuffle: bool):
+    """Block order pi_b (nblocks,) and within-block row order win
+    (nblocks, B), as gibbs.py:497-510."""
+    dev = rng.device
+    if not shuffle:
+        return (torch.arange(nblocks, device=dev),
+                torch.arange(B, device=dev).expand(nblocks, B))
+    pi_b = torch.randperm(nblocks, generator=rng.gen(it, "block_order"),
+                          device=dev)
+    r = torch.rand((nblocks, B), generator=rng.gen(it, "row_order"),
+                   device=dev)
+    return pi_b, torch.argsort(r, dim=1)
+
+
+def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
+                    rng: RngPlan, *, block_size: int, wave: int,
+                    shuffle: bool = True):
+    """One iteration; ``it`` is 1-based (runner.py:517).  The residual
+    buffer of ``state`` is updated in place and carried into the result."""
+    T = state.eps.shape[0]
+    m_pad = state.betas.shape[1]
+    B = block_size
+    if m_pad % B:
+        raise ValueError("pad markers to a multiple of block_size")
+    nblocks = m_pad // B
+    dev = state.eps.device
+    na = static.na
+    nonas = static.nonas
+
+    # --- 1. intercept step (gibbs.py:458-464) ---------------------------
+    eps = state.eps
+    eps += state.mu[:, None, None] * na
+    if it == 1:
+        sigmae = 0.5 * (eps * eps).sum(dim=(1, 2)) / nonas
+    else:
+        sigmae = state.sigmae
+    z_mu = torch.randn((T,), generator=rng.gen(it, "mu"), device=dev)
+    # Mean epssum/nonas = 0: the reference never updates epssum.
+    mu_new = state.epssum / nonas + torch.sqrt(sigmae / nonas) * z_mu
+    eps -= mu_new[:, None, None] * na
+
+    # --- 2. block-preserving shuffle and the sweep's draws --------------
+    pi_b, win = block_order(rng, it, nblocks, B, shuffle)
+    u_all = torch.rand((nblocks, T, B), generator=rng.gen(it, "u"),
+                       device=dev)
+    z_all = torch.randn((nblocks, T, B), generator=rng.gen(it, "z"),
+                        device=dev)
+
+    # --- 3. marker sweep --------------------------------------------------
+    eps, betas, comp, acum, cass = marker_sweep(
+        eps, state.betas, state.comp, state.acum, state.sigmag, sigmae,
+        state.pi_est, static, pi_b, win, u_all, z_all, wave=wave)
+
+    # --- 4. hyperparameter block ----------------------------------------
+    sigmag, sigmae_new, pi_est, m0, e_sqn = hyper_block(
+        betas, cass, eps, state.sigmag, state.pi_est, static,
+        lambda name: rng.gen(it, name))
+    new_state = state.replace(
+        eps=eps, betas=betas, comp=comp, acum=acum, cass=cass,
+        sigmag=sigmag, sigmae=sigmae_new, pi_est=pi_est, mu=mu_new)
+    return new_state, IterAux(m0=m0, e_sqn=e_sqn)
+

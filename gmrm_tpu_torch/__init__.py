@@ -12,9 +12,9 @@ This package imports ``torch`` and never ``jax`` or ``flax``.  It reuses the
 NumPy-only modules of ``gmrm_tpu``: the I/O readers and writers, the
 simulator, ``Options`` and the CLI parser.
 
-The slice covered so far is single-device training in wave mode (W > 1)
-on the cached-Gram composite sweep; see ROADMAP.md for what is still to
-be ported.
+The slice covered so far is single-device training: wave mode (W > 1) on
+the cached-Gram composite sweep, and the exact serial sweep (W = 1); see
+ROADMAP.md for what is still to be ported.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Build, load and launch the CUDA kernels of ``gmrm_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, keyed by a hash of the sources, in the
+The sources are compiled at first use with ``nvcc``, one process per
+``.cu`` file, all started together, and linked into one shared library
+with a plain C interface, keyed by a hash of the sources, in the
 git-ignored directory ``gmrm_tpu_torch/_build``, and loaded with
 ``ctypes``.  Nothing is built or imported at module import: the CPU tests
 import every module on a machine without ``nvcc``.
@@ -32,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,13 +49,18 @@ SIGNATURES = {
     "gmrm_wave_scan": [_P] * 17 + [_I, _I, _I, _I, _P],
     # bed, rows, d, mave, na, eps, T, B, mb, stream
     "gmrm_eps_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # bed, rows, eps, na, mave, msig, raw, c, gs, T, B, mb, nt, stream
+    "gmrm_block_gram": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
+    # zerob, i2se, dbeta, beta_new, comp_new, acum_new, T, B, K, stream
+    "gmrm_serial_scan": [_P] * 17 + [_I, _I, _I, _P],
 }
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper
 # adds one where it launches its kernel and nowhere else, so a run can
 # show that its main path went through the kernels.
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
-             "eps_update": 0}
+             "eps_update": 0, "block_gram": 0, "serial_scan": 0}
 
 
 def launch_counts() -> dict:
@@ -89,26 +95,42 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; returns [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0]) for cmd, p in procs]
+    return [(cmd, p.returncode, out)
+            for (cmd, out), (_, p) in zip(outs, procs)]
+
+
 def build() -> Path:
     """Compile csrc/*.cu into BUILD_DIR (once per source hash)."""
     lib = BUILD_DIR / f"libgmrm_kernels_{source_hash()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    objs = [work / f"{p.stem}.o" for p in _sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = BUILD_DIR / "build.log"
-    log.write_text(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                   f"# {time.perf_counter() - t0:.1f} s\n")
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    runs = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                      str(o), str(CSRC / f"{o.stem}.cu")] for o in objs])
+    if all(rc == 0 for _, rc, _ in runs):
+        runs += _run_all([[nvcc, "-shared", "-o", str(work / "lib.so"),
+                           *map(str, objs)]])
+    (BUILD_DIR / "build.log").write_text(
+        "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in runs)
+        + f"# {time.perf_counter() - t0:.1f} s\n")
+    failed = [(cmd, rc, out) for cmd, rc, out in runs if rc != 0]
+    if failed:
+        shutil.rmtree(work)
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                           f"{out[-4000:]}")
+    os.replace(work / "lib.so", lib)
+    shutil.rmtree(work)
     return lib
 
 

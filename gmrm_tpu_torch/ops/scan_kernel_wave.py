@@ -7,9 +7,9 @@ Gram correction is folded before the next wave.  This is the relaxation
 the reference makes across W co-scheduled MPI ranks (bayes.cpp:375-553).
 
 ``wave_scan`` takes the per-marker tables and launches csrc/wave_scan.cu
-(or runs ``wave_scan_plain`` on CPU tensors); ``block_scan_wave`` adds the
-per-marker prep of scan_kernel_wave.py:204-239 in plain PyTorch and
-returns the same ``BlockScanResult`` as the JAX function.
+(or runs ``wave_scan_plain`` on CPU tensors); the per-marker prep of
+scan_kernel_wave.py:204-239 is in
+``gmrm_tpu_torch.sampler.scan.block_scan_wave``.
 """
 
 from __future__ import annotations
@@ -17,8 +17,6 @@ from __future__ import annotations
 import torch
 
 from gmrm_tpu_torch.ops import _build
-from gmrm_tpu_torch.ops.sweep_kernel import build_sweep_tables
-from gmrm_tpu_torch.sampler.scan import BlockScanResult
 
 MAX_K = 16     # mixture components the kernel keeps in registers
 
@@ -134,35 +132,3 @@ def scan_masks(grp, valid, sigmag):
     live = valid[None, :] & ~adav
     zerob = valid[None, :] & adav
     return live.to(torch.int32), zerob.to(torch.int32)
-
-
-def block_scan_wave(c, gs, beta_old, comp_old, acum_old, grp, valid, u, z,
-                    sigmag, sigmae, pi_est, cva, cvai, nonas, n_total, *,
-                    wave) -> BlockScanResult:
-    """Drop-in counterpart of ``make_block_scan_wave(wave)`` of the JAX
-    package: the per-marker prep, kernel 3 and the block's cass counts."""
-    T = c.shape[0]
-    G, K = cva.shape
-    f32 = torch.float32
-    lc_t, rd_t, sqb_t = build_sweep_tables(sigmag, sigmae, pi_est, cva,
-                                           cvai, nonas, n_total)
-    grp = grp.long()
-
-    def per_marker(tab):                      # (K, T, G) -> (K, T, B)
-        return tab[:, :, grp].contiguous()
-
-    base = (c.to(f32) + beta_old.to(f32)
-            * (nonas.to(f32)[:, None] - 1.0)).contiguous()
-    live, zerob = scan_masks(grp, valid, sigmag)
-    i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
-    dbeta, beta_new, comp_new, acum_new = wave_scan(
-        base, per_marker(lc_t), per_marker(rd_t), per_marker(sqb_t),
-        gs.to(f32).contiguous(), beta_old.to(f32).contiguous(),
-        comp_old.to(torch.int32).contiguous(),
-        acum_old.to(f32).contiguous(), u.to(f32).contiguous(),
-        z.to(f32).contiguous(), live, zerob, i2se, wave=wave)
-    idx = grp[None, :] * K + comp_new.long()
-    cass_inc = torch.zeros((T, G * K), dtype=torch.int32, device=c.device)
-    cass_inc.scatter_add_(1, idx, live)
-    return BlockScanResult(dbeta, beta_new, comp_new, acum_new,
-                           cass_inc.reshape(T, G, K))

@@ -15,23 +15,32 @@ from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.decode import decode_planes
 
 
-def gram_cache_plain(bed: torch.Tensor, na_in: torch.Tensor,
-                     block_size: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel 1: (nblocks, NT, 2B, 2B) float32.
+def raw_gram_plain(bed_rows: torch.Tensor,
+                   na_in: torch.Tensor) -> torch.Tensor:
+    """Raw NA-masked Gram quadrants (NT, 2B, 2B) float32 of ``[A; B]`` for
+    the marker rows ``bed_rows`` (B, mb).
 
     Every entry is an exact integer count below 2^24, so float32 products
-    and sums give it exactly in any order.
+    and sums give it exactly in any order (TF32 off).
     """
-    m_pad, mb = bed.shape
+    a, b = decode_planes(bed_rows)                           # (B, 4, mb)
+    B = a.shape[0]
+    nt = na_in.shape[0]
+    ab = torch.cat([a, b], dim=0).reshape(2 * B, -1)
+    naf = na_in.to(torch.float32).reshape(nt, 1, -1)
+    return (ab[None] * naf) @ ab.T
+
+
+def gram_cache_plain(bed: torch.Tensor, na_in: torch.Tensor,
+                     block_size: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel 1: (nblocks, NT, 2B, 2B) float32."""
+    m_pad = bed.shape[0]
     B = block_size
     nt = na_in.shape[0]
-    naf = na_in.to(torch.float32).reshape(nt, 1, 4 * mb)
     out = torch.empty((m_pad // B, nt, 2 * B, 2 * B), dtype=torch.float32,
                       device=bed.device)
     for blk in range(m_pad // B):
-        a, b = decode_planes(bed[blk * B:(blk + 1) * B])      # (B, 4, mb)
-        ab = torch.cat([a, b], dim=0).reshape(2 * B, 4 * mb)
-        out[blk] = (ab[None] * naf) @ ab.T
+        out[blk] = raw_gram_plain(bed[blk * B:(blk + 1) * B], na_in)
     return out
 
 

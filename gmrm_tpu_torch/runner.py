@@ -1,9 +1,10 @@
 """End-to-end single-device training (port of gmrm_tpu/runner.py).
 
-Loads the inputs, builds the static inputs (marker statistics and the Gram
-cache), runs the Gibbs chain and writes the reference's ``.csv`` / ``.bet``
-/ ``.cpn`` artifacts.  Iterations are queued back to back; the host waits
-on the device only at thin boundaries and at the end of the chain.
+Loads the inputs, builds the static inputs (marker statistics, and the
+Gram cache in wave mode), runs the Gibbs chain and writes the reference's
+``.csv`` / ``.bet`` / ``.cpn`` artifacts.  Iterations are queued back to
+back; the host waits on the device only at thin boundaries and at the end
+of the chain.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ class LoadedData:
     group_of: np.ndarray         # (m_pad,) int32
     mtotgrp: np.ndarray          # (G,) int32
     out_basenames: List[str]
-    # Interleaved storage: original-order values = stored[:, inv_order].
+    # Original-order values = stored[:, inv_order]: the inverse of the
+    # block interleave in wave mode, the identity at W = 1.
     inv_order: np.ndarray
 
 
@@ -94,8 +96,8 @@ LANE_PAD = 512        # packed bytes per marker row, padded with 0x55
 
 def load_data(opt: Options) -> LoadedData:
     """Read and preprocess all inputs (gmrm_tpu/runner.py:94, whole marker
-    range of one device).  Storage is always block-interleaved: the port
-    runs only wave mode (W > 1), where gmrm_tpu interleaves too
+    range of one device) for the resolved plan ``opt.wave_size``.  Storage
+    is block-interleaved in wave mode (W > 1) only, as gmrm_tpu does
     (runner.py:446)."""
     n, m_total = read_dim(opt.dim_file)
     if opt.trunc_markers:
@@ -106,8 +108,13 @@ def load_data(opt: Options) -> LoadedData:
     m_pad = round_up(max(n_markers, 1), opt.block_size)
 
     bed = read_bed(opt.bed_file, n, m_total, 0, n_markers)
-    order, inv_order = interleave_order(n_markers, m_pad // opt.block_size)
-    bed = pad_bed(bed[order], m_pad, mb_pad)
+    if opt.wave_size > 1:
+        order, inv_order = interleave_order(n_markers,
+                                            m_pad // opt.block_size)
+        bed = bed[order]
+    else:
+        order = inv_order = np.arange(n_markers)
+    bed = pad_bed(bed, m_pad, mb_pad)
 
     phens = [read_phen(fp, n) for fp in opt.phen_files]
     t = len(phens)
@@ -145,7 +152,9 @@ def shared_na_of(data: LoadedData) -> bool:
 
 
 def build_static(data: LoadedData, opt: Options, device) -> StaticInputs:
-    """Marker statistics and the one-time Gram cache (no --cache-dir)."""
+    """Marker statistics, and in wave mode the one-time Gram cache (no
+    --cache-dir); W = 1 recomputes each block's Gram in the sweep
+    (gmrm_tpu/runner.py:223-225)."""
     f32 = torch.float32
     bed = torch.as_tensor(data.bed, device=device)
     na = torch.as_tensor(data.na, dtype=f32, device=device).contiguous()
@@ -155,8 +164,11 @@ def build_static(data: LoadedData, opt: Options, device) -> StaticInputs:
     valid = (torch.arange(data.m_pad, device=device) < data.m_local)[None]
     mave = torch.where(valid, mave, 0.0).contiguous()
     msig = torch.where(valid, msig, 0.0).contiguous()
-    gram_cache = build_gram_cache(bed, na, block_size=opt.block_size,
-                                  shared_na=shared_na_of(data))
+    shared_na = shared_na_of(data)
+    gram_cache = None
+    if opt.wave_size > 1:
+        gram_cache = build_gram_cache(bed, na, block_size=opt.block_size,
+                                      shared_na=shared_na)
     return StaticInputs(
         bed=bed, na=na, mave=mave, msig=msig,
         group_of=torch.as_tensor(data.group_of, dtype=torch.int64,
@@ -167,7 +179,7 @@ def build_static(data: LoadedData, opt: Options, device) -> StaticInputs:
         cva=torch.as_tensor(opt.cva, dtype=f32, device=device),
         cvai=torch.as_tensor(opt.cvai, dtype=f32, device=device),
         n_total=float(data.n), m_local=int(data.m_local),
-        gram_cache=gram_cache,
+        gram_cache=gram_cache, shared_na=shared_na,
     )
 
 
@@ -190,7 +202,7 @@ class RunResult:
     iter_seconds: List[float] = field(default_factory=list)
     beta_mean: Optional[np.ndarray] = None   # (T, M) posterior mean
     chain_seconds: float = 0.0               # wall-clock of the chain
-    startup_seconds: float = 0.0             # load + stats + Gram cache
+    startup_seconds: float = 0.0             # load + stats (+ Gram cache)
     iters_run: int = 0
     kernel_launches: dict = field(default_factory=dict)  # in this run
 
@@ -244,7 +256,7 @@ def check_finite_chain(sigmag, sigmae, it: int) -> None:
             f"FATAL  : chain diverged by iteration {it} (non-finite or "
             f"exploding sigmaG/sigmaE).  On small panels with extreme "
             f"local LD the wave relaxation can be unstable — rerun with a "
-            f"smaller --block-size, or with gmrm_tpu --wave-size 1.")
+            f"smaller --block-size, or with --wave-size 1.")
 
 
 def _host_record(state: SamplerState, data: LoadedData) -> dict:
@@ -286,8 +298,9 @@ def run_training(opt: Options, device=None, verbose: bool = True
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     if verbose:
-        print(f"INFO   : time to compute the markers' statistics and the "
-              f"Gram cache: {time.perf_counter() - t0:.2f} seconds.")
+        what = " and the Gram cache" if static.gram_cache is not None else ""
+        print(f"INFO   : time to compute the markers' statistics{what}: "
+              f"{time.perf_counter() - t0:.2f} seconds.")
     result = RunResult(state=state,
                        startup_seconds=time.perf_counter() - t_start)
     outputs = OutputSet(opt, data)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 PURPOSES = ("init", "mu", "block_order", "row_order", "u", "z", "sigmag",
-            "pi", "sigmae")
+            "pi", "sigmae", "marker_order")
 
 # Marsaglia-Tsang accepts a candidate with probability >= 0.95 for every
 # shape >= 1; the chance that an element rejects all ROUNDS candidates is

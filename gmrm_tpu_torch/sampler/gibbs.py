@@ -3,16 +3,20 @@
 Structure, as in the reference outer loop (bayes.cpp:340-671):
 
 1. the intercept step (gibbs.py:458-464),
-2. the block-preserving shuffle: a random block order ``pi_b`` and a
-   random row order ``win`` within each block (gibbs.py:497-502),
-3. the marker sweep over Gram blocks, on the cached-Gram composite path
-   (gibbs.py:353-397 with ``use_cache``): per block the c-dot kernel, the
-   cached Gram gathered to processing order and scaled in plain PyTorch,
-   the wave-scan kernel and the residual-update kernel,
+2. the shuffle (gibbs.py:489-511): in wave mode (W > 1) block-preserving,
+   a random block order and a random row order within each block; at
+   W = 1 a uniform shuffle of the real markers with pad slots last,
+3. the marker sweep over Gram blocks (gibbs.py:353-400).  Per block:
+   - W > 1, the cached-Gram composite path (``use_cache``): the c-dot
+     kernel, then the cached Gram gathered to processing order and scaled
+     in plain PyTorch, then the wave-scan kernel;
+   - W = 1, the exact serial path: the block-Gram kernel (c and the
+     scaled Gram), then the serial-scan kernel;
+   then the residual-update kernel,
 4. the hyperparameter block (gibbs.py:529-568).
 
-Nothing here waits on the device: the block order reaches the kernels as
-device-side row indices, so a chain of iterations is queued without a
+Nothing here waits on the device: the processing order reaches the kernels
+as device-side row indices, so a chain of iterations is queued without a
 host sync.
 """
 
@@ -23,7 +27,9 @@ from typing import NamedTuple
 import torch
 
 from gmrm_tpu.config import V0E, S02E, V0G, S02G
+from gmrm_tpu_torch.ops.block_gram import block_gram_scaled, scale_gram
 from gmrm_tpu_torch.ops.block_kernels import block_cdot, block_eps_update_
+from gmrm_tpu_torch.ops.scan_kernel import serial_scan
 from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks, wave_scan
 from gmrm_tpu_torch.ops.sweep_kernel import build_sweep_tables
 from gmrm_tpu_torch.sampler.dists import (
@@ -57,33 +63,26 @@ def cached_gram_scaled(gram_cache, blk, win2, mave_blk, msig_blk):
 
     ``blk`` (1,) is the natural block and ``win2`` (2B,) = [win, win + B];
     one exact row and column gather of the cached raw quadrants, then the
-    scaling expression of gibbs.py:279-293 (NT = 1 broadcasts over traits).
+    scaling of ops/block_gram.scale_gram (gibbs.py:279-293).
     """
-    B = mave_blk.shape[1]
     gf = gram_cache.index_select(0, blk)[0]                # (NT, 2B, 2B)
     gf = gf.index_select(1, win2).index_select(2, win2)
-    g1 = gf[:, :B, :B]
-    g2 = gf[:, B:, :B]
-    g2t = gf[:, :B, B:]
-    g3 = gf[:, B:, B:]
-    mr = mave_blk[:, None, :]                              # (T, 1, B)
-    mc = mave_blk[:, :, None]                              # (T, B, 1)
-    sr = msig_blk[:, None, :]
-    sc = msig_blk[:, :, None]
-    graw = g1 - mr * g2t - mc * g2 + (mc * mr) * g3
-    return ((sc * sr) * graw).contiguous()
+    return scale_gram(gf, mave_blk, msig_blk)
 
 
 def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
-                 static: StaticInputs, pi_b, win, u_all, z_all, *, wave):
+                 static: StaticInputs, blocks, u_all, z_all, *, wave):
     """The full marker sweep with all randomness injected.
 
-    pi_b (nblocks,) block order; win (nblocks, B) row order within each
-    block; u_all/z_all (nblocks, T, B) uniforms and standard normals.
-    ``eps`` is updated IN PLACE (the residual-update kernel adds each
-    block's delta into it).  Returns (eps, betas, comp, acum, cass).
+    blocks (nblocks, B) the processing order, as in the JAX package: slot
+    k of the sweep holds marker ``blocks.reshape(-1)[k]``.  With wave > 1
+    every row must lie in one natural block (the block-preserving
+    shuffle), whose Gram comes from ``static.gram_cache``; at wave = 1 any
+    permutation goes.  u_all/z_all (nblocks, T, B) uniforms and standard
+    normals.  ``eps`` is updated IN PLACE (the residual-update kernel adds
+    each block's delta into it).  Returns (eps, betas, comp, acum, cass).
     """
-    nblocks, B = win.shape
+    nblocks, B = blocks.shape
     T, m_pad = betas.shape
     K = static.cva.shape[1]
     f32, i32 = torch.float32, torch.int32
@@ -94,28 +93,35 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
         static.n_total)
     i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
 
-    # Processing order: slot k holds marker perm[k] = pi_b*B + win.  Every
-    # per-marker operand is gathered once and split into contiguous
-    # (nblocks, ..., B) blocks.
-    win = win.long()
-    perm = (pi_b.long()[:, None] * B + win).reshape(-1)     # (m_pad,)
+    # Processing order: every per-marker operand is gathered once and split
+    # into contiguous (nblocks, ..., B) blocks.
+    perm = blocks.reshape(-1).long()                        # (m_pad,)
     rows = perm.to(i32).reshape(nblocks, B)
-    win2 = torch.cat([win, win + B], dim=1)                 # (nblocks, 2B)
-    blk_idx = pi_b.long().reshape(nblocks, 1)
+    if wave > 1:
+        blk_idx = perm.reshape(nblocks, B)[:, :1] // B      # (nblocks, 1)
+        win = perm.reshape(nblocks, B) - blk_idx * B
+        win2 = torch.cat([win, win + B], dim=1)             # (nblocks, 2B)
+
+        def scan(*args):
+            return wave_scan(*args, wave=wave)
+    else:
+        na_gram = (static.na[:1] if static.shared_na
+                   else static.na).contiguous()
+        scan = serial_scan
 
     def split(y):        # (..., m_pad) processing order -> (nb, ..., B)
         y = y.reshape(*y.shape[:-1], nblocks, B)
         return y.movedim(-2, 0).contiguous()
 
-    def blocks(x):       # (..., m_pad) storage order -> (nb, ..., B)
+    def gathered(x):     # (..., m_pad) storage order -> (nb, ..., B)
         return split(x[..., perm])
 
     grp_p = static.group_of[perm]
-    mave_p = blocks(static.mave)
-    msig_p = blocks(static.msig)
-    beta_p = blocks(betas)
-    comp_p = blocks(comp.to(i32))
-    acum_p = blocks(acum)
+    mave_p = gathered(static.mave)
+    msig_p = gathered(static.msig)
+    beta_p = gathered(betas)
+    comp_p = gathered(comp.to(i32))
+    acum_p = gathered(acum)
     lc_p = split(lc_t[:, :, grp_p])                         # (nb, K, T, B)
     rd_p = split(rd_t[:, :, grp_p])
     sqb_p = split(sqb_t[:, :, grp_p])
@@ -126,14 +132,17 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
 
     outs = []
     for b in range(nblocks):
-        c = block_cdot(static.bed, rows[b], eps, mave_p[b], msig_p[b])
-        gs = cached_gram_scaled(static.gram_cache, blk_idx[b], win2[b],
-                                mave_p[b], msig_p[b])
-        base = c + beta_p[b] * nm1
-        dbeta, beta_new, comp_new, acum_new = wave_scan(
-            base, lc_p[b], rd_p[b], sqb_p[b], gs, beta_p[b], comp_p[b],
-            acum_p[b], u_all[b], z_all[b], live_p[b], zerob_p[b], i2se,
-            wave=wave)
+        if wave > 1:
+            c = block_cdot(static.bed, rows[b], eps, mave_p[b], msig_p[b])
+            gs = cached_gram_scaled(static.gram_cache, blk_idx[b], win2[b],
+                                    mave_p[b], msig_p[b])
+        else:
+            c, gs = block_gram_scaled(static.bed, rows[b], eps, na_gram,
+                                      mave_p[b], msig_p[b])
+        dbeta, beta_new, comp_new, acum_new = scan(
+            c + beta_p[b] * nm1, lc_p[b], rd_p[b], sqb_p[b], gs, beta_p[b],
+            comp_p[b], acum_p[b], u_all[b], z_all[b], live_p[b],
+            zerob_p[b], i2se)
         block_eps_update_(static.bed, rows[b], msig_p[b] * dbeta,
                           mave_p[b], static.na, eps)
         outs.append((beta_new, comp_new, acum_new))
@@ -187,18 +196,29 @@ def hyper_block(betas, cass, eps, sigmag, pi_est, static: StaticInputs,
     return sigmag_new, sigmae_new, pi_new, m0, e_sqn
 
 
-def block_order(rng: RngPlan, it: int, nblocks: int, B: int, shuffle: bool):
-    """Block order pi_b (nblocks,) and within-block row order win
-    (nblocks, B), as gibbs.py:497-510."""
+def block_order(rng: RngPlan, it: int, nblocks: int, B: int, *,
+                shuffle: bool, wave: int, m_local: int):
+    """The sweep's processing order (nblocks, B) (gibbs.py:489-511).
+
+    wave > 1: the block-preserving shuffle, a random block order pi_b and
+    a random row order win within each block, slot order pi_b*B + win.
+    wave = 1: a uniform shuffle of the m_local real markers, pad slots
+    pinned to the end.  Without shuffle, the natural order.
+    """
     dev = rng.device
+    m_pad = nblocks * B
     if not shuffle:
-        return (torch.arange(nblocks, device=dev),
-                torch.arange(B, device=dev).expand(nblocks, B))
-    pi_b = torch.randperm(nblocks, generator=rng.gen(it, "block_order"),
-                          device=dev)
-    r = torch.rand((nblocks, B), generator=rng.gen(it, "row_order"),
+        return torch.arange(m_pad, device=dev).reshape(nblocks, B)
+    if wave > 1:
+        pi_b = torch.randperm(nblocks, generator=rng.gen(it, "block_order"),
+                              device=dev)
+        r = torch.rand((nblocks, B), generator=rng.gen(it, "row_order"),
+                       device=dev)
+        return pi_b[:, None] * B + torch.argsort(r, dim=1)
+    r = torch.rand((m_pad,), generator=rng.gen(it, "marker_order"),
                    device=dev)
-    return pi_b, torch.argsort(r, dim=1)
+    r = torch.where(torch.arange(m_pad, device=dev) < m_local, r, 2.0)
+    return torch.argsort(r, stable=True).reshape(nblocks, B)
 
 
 def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
@@ -228,8 +248,9 @@ def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
     mu_new = state.epssum / nonas + torch.sqrt(sigmae / nonas) * z_mu
     eps -= mu_new[:, None, None] * na
 
-    # --- 2. block-preserving shuffle and the sweep's draws --------------
-    pi_b, win = block_order(rng, it, nblocks, B, shuffle)
+    # --- 2. the shuffle and the sweep's draws ----------------------------
+    blocks = block_order(rng, it, nblocks, B, shuffle=shuffle, wave=wave,
+                         m_local=static.m_local)
     u_all = torch.rand((nblocks, T, B), generator=rng.gen(it, "u"),
                        device=dev)
     z_all = torch.randn((nblocks, T, B), generator=rng.gen(it, "z"),
@@ -238,7 +259,7 @@ def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
     # --- 3. marker sweep --------------------------------------------------
     eps, betas, comp, acum, cass = marker_sweep(
         eps, state.betas, state.comp, state.acum, state.sigmag, sigmae,
-        state.pi_est, static, pi_b, win, u_all, z_all, wave=wave)
+        state.pi_est, static, blocks, u_all, z_all, wave=wave)
 
     # --- 4. hyperparameter block ----------------------------------------
     sigmag, sigmae_new, pi_est, m0, e_sqn = hyper_block(

@@ -51,8 +51,12 @@ class StaticInputs:
     n_total: float           # the dims N
     m_local: int             # real (unpadded) marker count
     # Raw Gram quadrants per natural block, (nblocks, NT, 2B, 2B) float32
-    # (ops/sweep_kernel.build_gram_cache).
-    gram_cache: torch.Tensor
+    # (ops/sweep_kernel.build_gram_cache); None at W = 1, whose uniform
+    # shuffle recomputes each block's Gram (gmrm_tpu/runner.py:223-225).
+    gram_cache: Optional[torch.Tensor] = None
+    # One NA mask serves every trait (no phenotype has NAs): the W = 1
+    # block Gram is then computed once for all traits (NT = 1).
+    shared_na: bool = False
 
 
 def pad_bed(bed: np.ndarray, m_pad: int,
@@ -124,11 +128,18 @@ def state_from_numpy(d: dict, device) -> SamplerState:
 
 
 def static_from_numpy(d: dict, device) -> StaticInputs:
-    """The JAX package's StaticInputs leaves as NumPy arrays."""
+    """The JAX package's StaticInputs leaves as NumPy arrays.  Its
+    ``gram_cache`` is None on a W = 1 run; ``shared_na``, which the JAX
+    package passes to its sweep as an argument, keeps its default unless
+    ``d`` has it."""
     kw = {}
     for f in dataclasses.fields(StaticInputs):
-        x = d.get(f.name)
-        if f.name == "n_total":
+        if f.name not in d:
+            continue
+        x = d[f.name]
+        if x is None or f.name == "shared_na":
+            kw[f.name] = x
+        elif f.name == "n_total":
             kw[f.name] = float(x)
         elif f.name == "m_local":
             kw[f.name] = int(x)

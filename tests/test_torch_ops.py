@@ -21,8 +21,8 @@ from gmrm_tpu_torch.ops.blockops import marker_stats
 from gmrm_tpu_torch.ops.decode import (
     decode_planes, from_phase_planes, to_phase_planes,
 )
-from gmrm_tpu_torch.ops.scan_kernel_wave import block_scan_wave
 from gmrm_tpu_torch.ops.sweep_kernel import build_gram_cache
+from gmrm_tpu_torch.sampler.scan import block_scan_wave
 
 torch.set_num_threads(2)
 

@@ -1,6 +1,6 @@
 """The port's training path end to end on the CPU: run_training and the
-CLI, artifacts, chain quality, the JAX-free import, and the options the
-ported slice refuses."""
+CLI, artifacts, chain quality, the JAX-free import, the exact serial (W=1)
+runs and the options the ported slice refuses."""
 
 import os
 import subprocess
@@ -97,9 +97,7 @@ print('OK', res.iters_run)
     ["--cache-dir", "cache"],
     ["--devices", "2"],
     ["--dtype", "float64"],
-    ["--wave-size", "1"],
-    ["--block-size", "12"],          # no wave of 32/16/8 divides it
-], ids=lambda f: f[0] + (f[1] if f[0] == "--block-size" else ""))
+], ids=lambda f: f[0])
 def test_cli_refuses_uncovered_options(sim_tiny, flags):
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),
@@ -123,4 +121,23 @@ def test_cli_trains_and_refuses_missing_cuda(sim_tiny, tmp_path):
             cli.main(argv)
     # Too few blocks for the auto wave: the plan falls back to W=1.
     i = argv.index("--wave-size")
-    assert cli.main(argv[:i] + argv[i + 2:], device="cpu") == 1
+    assert cli.main(argv[:i] + argv[i + 2:], device="cpu") == 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--wave-size", "1", "--block-size", "8"],
+    ["--block-size", "12"],          # no wave of 32/16/8 divides it
+    ["--use-pallas", "0", "--block-size", "8"],
+], ids=["wave1", "block12", "no_pallas"])
+def test_cli_trains_exact_serial(sim_tiny, tmp_path, flags):
+    """Flags that resolve to W=1 train through the exact serial sweep and
+    write the chain in the original marker order."""
+    argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
+            "--phen-files", ",".join(sim_tiny.phens),
+            "--group-index-file", sim_tiny.gri,
+            "--group-mixture-file", sim_tiny.grm, "--iterations", "3",
+            "--out-dir", str(tmp_path), "--verbosity", "-1"] + flags
+    assert cli.main(argv, device="cpu") == 0
+    its, bet = read_history(str(tmp_path / "test1.bet"), "f8")
+    assert list(its) == [1, 2, 3] and bet.shape == (3, sim_tiny.m)
+    assert np.isfinite(bet).all()

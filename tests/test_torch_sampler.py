@@ -76,13 +76,13 @@ def test_sweep_matches_both_jax_paths(small_setup, wave, monkeypatch):
 
     jargs = (jnp.asarray(eps), jnp.asarray(betas), state.comp, state.acum,
              jnp.asarray(sigmag), jnp.asarray(sigmae), state.pi_est, static)
-    blocks = jnp.asarray((pi_b[:, None] * B + win).reshape(nblocks, B))
+    blocks = (pi_b[:, None] * B + win).reshape(nblocks, B)
     want = {}
     for name, mega in (("mega", True), ("composed", False)):
         want[name] = jax.device_get(jgibbs.marker_sweep(
-            *jargs, blocks, jnp.asarray(u), jnp.asarray(z), use_pallas=True,
-            shared_na=shared_na, wave_size=wave, pallas_upd=True,
-            megakernel=mega,
+            *jargs, jnp.asarray(blocks), jnp.asarray(u), jnp.asarray(z),
+            use_pallas=True, shared_na=shared_na, wave_size=wave,
+            pallas_upd=True, megakernel=mega,
             block_perm=(jnp.asarray(pi_b), jnp.asarray(win))))
 
     dev = torch.device("cpu")
@@ -92,8 +92,8 @@ def test_sweep_matches_both_jax_paths(small_setup, wave, monkeypatch):
         torch.from_numpy(eps.copy()), torch.from_numpy(betas),
         tstate.comp, tstate.acum, torch.from_numpy(sigmag),
         torch.from_numpy(sigmae), tstate.pi_est, tstatic,
-        torch.from_numpy(pi_b), torch.from_numpy(win), torch.from_numpy(u),
-        torch.from_numpy(z), wave=wave)
+        torch.from_numpy(blocks), torch.from_numpy(u), torch.from_numpy(z),
+        wave=wave)
     g_eps, g_beta, g_comp, g_acum, g_cass = (x.numpy() for x in got)
     assert (g_comp[:, :data.m_local] != 0).any()
     for name, (w_eps, w_beta, w_comp, w_acum, w_cass) in want.items():

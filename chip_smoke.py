@@ -11,19 +11,32 @@ Phases, each of which must pass (any failure exits non-zero):
    training paths' shapes (T=4 traits, B=128, W=32, K=4, mb_pad=2560),
    with shared (NT=1) and per-trait (NT=4) NA masks, timed beside the
    plain version by replaying a CUDA graph of many calls (device time),
-   and per eager call;
-3. the wave path's (W=32) one-sweep agreement gate: marker_sweep with the
-   kernels on the card against the same sweep from the plain versions (on
-   the host CPU), with the same injected processing order and draws;
+   and per eager call.  The whole-sweep kernel runs one sweep of the
+   anchor's 157 blocks (an adaV group, a partly padded last block) against
+   its plain version and against the composed chain of kernels 2, 3 and 4;
+   one launch is a whole sweep, so it is timed with CUDA events around
+   eager launches;
+3. the wave path's (W=32) one-sweep agreement gate at the anchor: the
+   default marker_sweep, so the whole-sweep kernel, on the card against the
+   same sweep from the plain versions (on the host CPU), with the same
+   injected processing order and draws;
 3b. the exact serial path's (W=1) one-sweep gate on a small panel
    (N=10,000 x Mt=4,096 x 4 traits with phenotype NAs: 32 blocks, so the
    auto plan resolves to W=1, as it does for users' small panels);
+3c. the large-N regime (N=100,000 x Mt=4,096 x 4 traits with phenotype NAs,
+   mb_pad=25,088, explicit W=32): one sweep through the whole-sweep kernel
+   against the composed kernels on the card, same order and draws;
 4. the training entry point, gmrm_tpu_torch.runner.run_training, on the
    reference anchor (N=10,000 x Mt=20,000 x 4 traits, bench.py:50-57) in
-   wave mode for 20 iterations with thinned output, checking the kernel
-   launch counts of the wave path, the chain and the written artifacts;
+   wave mode for 20 iterations with thinned output: the whole-sweep kernel
+   launches once per iteration and kernels 2-6 not at all; the chain and
+   the written artifacts are checked;
 4b. the same at W=1 (--wave-size 1) for 10 iterations, checking the
-   launch counts of the exact serial path.
+   launch counts of the exact serial path;
+4c. the composed wave path (megakernel=False) for 5 iterations of
+   gibbs_iteration at the anchor, checking its launch counts;
+5. a torch.profiler window over 5 whole-sweep iterations at the anchor:
+   device-busy and wall time per iteration, idle share, launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -46,8 +59,25 @@ N, MT = 10_000, 20_000
 ITERS, THIN = 20, 5
 MT_SMALL = 4_096        # the W=1 gate's panel: 32 blocks of B
 ITERS_SERIAL = 10
-WAVE_KERNELS = ("gram_cache", "block_cdot", "wave_scan", "eps_update")
+ITERS_COMPOSED = 5
+N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
+MEGA_KERNELS = ("gram_cache", "sweep_blocks")
+COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
 SERIAL_KERNELS = ("block_gram", "serial_scan", "eps_update")
+
+# Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
+# memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
+HBM_BPS, F32_OPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+
+
+def bound_of(nbytes, *ops_and_rates):
+    """The least milliseconds the card could take: the larger of the bytes
+    the function must move over the memory rate and its operations, each
+    type over its peak rate.  Returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = sum(ops / rate for ops, rate in ops_and_rates)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def fail(msg):
@@ -137,7 +167,10 @@ def kernel_phase(dev, gen):
     na_trait = na_shared * (torch.rand((T, 4, MB), generator=gen,
                                        device=dev) > 0.03)
     rows_of = torch.randperm(m_pad, generator=gen, device=dev)
-    out, times = {}, {}
+    out, times, bounds = {}, {}, {}
+    f4 = 4                                   # bytes per float32 / int32
+    tb, plane = T * B * f4, T * 4 * MB * f4  # a (T, B) and a (T, 4, mb) array
+    block_ops = 4 * T * B * 4 * MB           # flops of A.eps and B.eps
 
     def timed(name, kernel, plain, reps, plain_reps):
         """Graph-replay ms of the kernel and its plain version, and the
@@ -159,6 +192,11 @@ def kernel_phase(dev, gen):
             bed, na, block_size=B, shared_na=shared),
             lambda: sk.gram_cache_plain(bed, na_in, B), 3, 3)
     out["gram_cache"] = 0.0
+    # NT = 1, as the first timing: bed and mask in, the cache out; the
+    # Gram's multiply-adds are on integers below 256.
+    bounds["gram_cache"] = bound_of(
+        bed.numel() + 4 * MB * f4 + nblocks * (2 * B) ** 2 * f4,
+        (2 * nblocks * (2 * B) ** 2 * 4 * MB, INT8_OPS))
 
     # Kernel 2: the c-dot of one block in processing order.
     eps = torch.randn((T, 4, MB), generator=gen, device=dev) * na_trait
@@ -170,6 +208,8 @@ def kernel_phase(dev, gen):
     out["block_cdot"] = close("block_cdot", got, want, 1e-5, 1e-5)
     timed("block_cdot", lambda: bk.block_cdot(bed, rows, eps, mave, msig),
           lambda: bk.block_cdot_plain(bed, rows, eps, mave, msig), 200, 200)
+    bounds["block_cdot"] = bound_of(B * MB + plane + 3 * tb + B * f4,
+                                    (block_ops, F32_OPS))
 
     # Kernel 4: the residual update, from a zero residual so the compared
     # values are the update itself.
@@ -189,6 +229,8 @@ def kernel_phase(dev, gen):
               lambda: bk.block_eps_update_plain_(bed, rows, d, mave, na, e1),
               200, 200)
     out["eps_update"] = err
+    bounds["eps_update"] = bound_of(B * MB + 3 * plane + 2 * tb + B * f4,
+                                    (block_ops, F32_OPS))
 
     # Kernel 3: the wave scan on identical inputs, with an adaV group and
     # pad markers.
@@ -232,6 +274,14 @@ def kernel_phase(dev, gen):
                               (want[0], want[1], want[3])))
     timed("wave_scan", lambda: sw.wave_scan(*args, wave=W),
           lambda: sw.wave_scan_plain(*args, W), 200, 20)
+    # The fold reads the Gram rows of a wave only when one of its markers
+    # moved: count the waves of this case that did.
+    moved = int((want[0].reshape(T, B // W, W) != 0).any(dim=2).any(dim=0)
+                .sum())
+    scan_bytes = 3 * K * tb + 12 * tb + T * f4
+    bounds["wave_scan"] = bound_of(
+        scan_bytes + moved * T * W * B * f4,
+        (moved * 2 * T * W * B + T * B * K * 12, F32_OPS))
 
     # Kernel 5: the W=1 block's c and scaled Gram, gs bit-equal.
     err = 0.0
@@ -247,6 +297,10 @@ def kernel_phase(dev, gen):
             lambda: bg.block_gram_scaled_plain(
                 bed, rows, eps, na_in, mave, msig), 100, 20)
     out["block_gram"] = err
+    bounds["block_gram"] = bound_of(
+        B * MB + 4 * MB * f4 + plane + 3 * tb + B * f4 + T * B * B * f4,
+        (2 * (2 * B) ** 2 * 4 * MB, INT8_OPS),
+        (block_ops + 9 * T * B * B, F32_OPS))
 
     # Kernel 6: the serial scan on the inputs of kernel 3 (adaV group, pad
     # markers), then with |base| of order 1e3 so the 700 guards fire.
@@ -269,13 +323,175 @@ def kernel_phase(dev, gen):
     if len(drawn) < 2:
         fail("serial_scan parity cases drew a single component")
     out["serial_scan"] = err
-    return {name: (err, *times[name]) for name, err in out.items()}
+    bounds["serial_scan"] = bound_of(
+        scan_bytes + T * B * B * f4,
+        (2 * T * B * B + T * B * K * K * 4, F32_OPS))
+    return {name: (err, *times[name], bounds[name])
+            for name, err in out.items()}
+
+
+def sweep_operands(dev, gen, shared):
+    """One sweep's operands at the anchor's shapes: 157 blocks of B=128
+    (the last with 96 pad slots), G=3 groups, one of them adaV for trait 0,
+    a standardized residual and the statistics of a random bed."""
+    import torch
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.ops.blockops import marker_stats
+    from gmrm_tpu_torch.sampler.state import StaticInputs
+
+    nblocks = -(-MT // B)
+    m_pad = nblocks * B
+    G = 3
+    bed = torch.randint(0, 256, (m_pad, MB), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    bed[MT:] = 0x55
+    bed[:, MB - 60:] = 0x55
+    na = torch.ones((T, 4, MB), device=dev)
+    na[:, :, MB - 60:] = 0
+    if not shared:
+        na = na * (torch.rand((T, 4, MB), generator=gen, device=dev) > 0.03)
+    nonas = na.sum(dim=(1, 2))
+    mave, msig = marker_stats(bed, na, nonas)
+    valid = (torch.arange(m_pad, device=dev) < MT)[None]
+    mave = torch.where(valid, mave, 0.0).contiguous()
+    msig = torch.where(valid, msig, 0.0).contiguous()
+    eps = torch.randn((T, 4, MB), generator=gen, device=dev) * na
+    eps = (eps * torch.sqrt((nonas - 1) / (eps * eps).sum(dim=(1, 2)))
+           [:, None, None]).contiguous()
+    cva = torch.tensor([[0.0, 1e-4, 1e-3, 1e-2]] * G, device=dev)
+    cvai = torch.zeros_like(cva)
+    cvai[:, 1:] = 1.0 / cva[:, 1:]
+    group_of = torch.randint(0, G, (m_pad,), generator=gen, device=dev)
+    static = StaticInputs(
+        bed=bed, na=na.contiguous(), mave=mave, msig=msig, group_of=group_of,
+        mtotgrp=torch.bincount(group_of[:MT], minlength=G), nonas=nonas,
+        cva=cva, cvai=cvai, n_total=float(4 * MB - 240), m_local=MT,
+        gram_cache=sk.build_gram_cache(bed, na, block_size=B,
+                                       shared_na=shared),
+        shared_na=shared)
+    sigmag = torch.rand((T, G), generator=gen, device=dev) * 0.4 + 0.1
+    sigmag[0, 1] = 0.0
+    pi = torch.rand((T, G, K), generator=gen, device=dev) + 0.1
+    comp = torch.randint(0, K, (T, m_pad), generator=gen, device=dev,
+                         dtype=torch.int32)
+    state = dict(
+        eps=eps, sigmag=sigmag, pi=pi / pi.sum(-1, keepdim=True),
+        sigmae=0.5 * (eps * eps).sum(dim=(1, 2)) / nonas, comp=comp,
+        betas=(torch.randn((T, m_pad), generator=gen, device=dev) * 0.01
+               * (comp > 0) * valid).contiguous(),
+        acum=torch.rand((T, m_pad), generator=gen, device=dev))
+    blk = torch.randperm(nblocks, generator=gen, device=dev)
+    win = torch.argsort(torch.rand((nblocks, B), generator=gen, device=dev),
+                        dim=1)
+    draws = (torch.rand((nblocks, T, B), generator=gen, device=dev),
+             torch.randn((nblocks, T, B), generator=gen, device=dev))
+    return static, state, blk, win, draws
+
+
+def sweep_kernel_phase(dev, gen):
+    """Phase 2, the whole-sweep kernel: one sweep at the anchor's shapes
+    against its plain version on the card, NT = 1 and NT = T, and timed
+    beside the plain version and the composed chain of kernels 2, 3, 4."""
+    import torch
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.sampler.gibbs import _natural_cass, marker_sweep
+
+    i32 = torch.int32
+    err, ms, plain_ms, composed_ms, bound = 0.0, [], [], [], None
+    for shared in (True, False):
+        static, st, blk, win, (u, z) = sweep_operands(dev, gen, shared)
+        nt = static.gram_cache.shape[1]
+        nblocks, m_pad = blk.numel(), static.bed.shape[0]
+        tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
+                                       static.cva, static.cvai, static.nonas,
+                                       static.n_total)
+        ops = (static.bed, blk.to(i32), win.to(i32).contiguous(),
+               static.m_local, static.gram_cache, None,
+               static.na[:nt].contiguous(), static.mave, static.msig,
+               st["betas"], st["comp"], st["acum"], static.group_of, u, z,
+               st["sigmag"], *tables, 1.0 / (2.0 * st["sigmae"]),
+               static.nonas)
+
+        def run(fn, eps):
+            return fn(*ops[:5], eps, *ops[6:], wave=W)
+
+        got = run(sk.sweep_blocks, st["eps"].clone())
+        torch.cuda.synchronize()
+        want = run(sk.sweep_blocks_plain, st["eps"].clone())
+        name = f"sweep_blocks (NT={nt})"
+        cass = [_natural_cass(x[2], static.group_of, st["sigmag"], MT, K)
+                for x in (got, want)]
+        diff = got[2] != want[2]
+        if diff.any():
+            # u of each natural slot, to state how close the draw was.
+            rows = (blk[:, None] * B + win).reshape(-1)
+            u_nat = torch.empty_like(want[3])
+            u_nat[:, rows] = u.movedim(1, 0).reshape(T, m_pad)
+            margin = torch.minimum((u_nat - got[3]).abs(),
+                                   (u_nat - want[3]).abs())[diff].min()
+            fail(f"{name}: comp differs from the plain version in "
+                 f"{int(diff.sum())} of {diff.numel()} entries; least "
+                 f"margin |u - cdf| {float(margin):.3e}")
+        if not torch.equal(*cass):
+            fail(f"{name}: cass differs from the plain version")
+        d_beta, d_eps = max_err(got[1], want[1]), max_err(got[0], want[0])
+        if d_beta > 1e-4 or d_eps > 1e-4:
+            fail(f"{name}: max|dbeta| {d_beta:.3e}, max|deps| {d_eps:.3e} "
+                 f"exceed 1e-4")
+        close(f"{name} acum", got[3], want[3], 1e-5, 1e-5)
+        live = (torch.arange(m_pad, device=dev) < MT)[None] & (
+            st["sigmag"][:, static.group_of] != 0)
+        if len(torch.unique(want[2][live])) < 2:
+            fail(f"{name}: the parity case drew a single component")
+        zeroed = ~live & (torch.arange(m_pad, device=dev) < MT)[None]
+        if not (zeroed.any() and (got[1][zeroed] == 0).all()
+                and (got[3][zeroed] == 1).all()
+                and torch.equal(got[1][:, MT:], st["betas"][:, MT:])):
+            fail(f"{name}: the adaV group or the pad slots came out wrong")
+        err = max(err, d_beta, d_eps)
+
+        eps_t = st["eps"].clone()
+
+        def sweep(fn):
+            eps_t.copy_(st["eps"])
+            return run(fn, eps_t)
+
+        blocks = blk[:, None] * B + win
+
+        def composed():
+            eps_t.copy_(st["eps"])
+            return marker_sweep(eps_t, st["betas"], st["comp"], st["acum"],
+                                st["sigmag"], st["sigmae"], st["pi"], static,
+                                blocks, u, z, wave=W, megakernel=False)
+
+        ms.append(call_ms(lambda: sweep(sk.sweep_blocks), 10))
+        plain_ms.append(call_ms(lambda: sweep(sk.sweep_blocks_plain), 1))
+        composed_ms.append(call_ms(composed, 2))
+        if bound is None:
+            # Bytes: every operand once.  Operations: A.eps, B.eps and the
+            # update per block, the Gram entries a later wave reads, and the
+            # fold of each wave that moved a marker in this sweep.
+            dbeta = torch.where(live, st["betas"] - got[1],
+                                0.0)[:, blocks.reshape(-1)]
+            moved = int((dbeta.reshape(T, nblocks, B // W, W) != 0)
+                        .any(dim=3).any(dim=0)[:, :-1].sum())
+            nbytes = (static.bed.numel() + 4 * (
+                static.gram_cache.numel() + 2 * st["eps"].numel()
+                + nt * 4 * MB + 9 * T * m_pad + m_pad + 2 * u.numel()
+                + nblocks * (B + 1)))
+            flops = (nblocks * (2 * 4 * T * B * 4 * MB
+                                + 9 * T * (B * B - B * W) // 2
+                                + T * B * K * 12)
+                     + moved * 2 * T * W * B)
+            bound = bound_of(nbytes, (flops, F32_OPS))
+    plan = sk.sweep_plan(T, B, MB, 1, K, W)
+    return (err, ms, plain_ms, composed_ms, bound), plan
 
 
 def anchor_dataset(tmp):
     """The reference anchor of bench.py:50-57 (N=10k, Mt=20k, 4 traits)."""
     import numpy as np
-    from gmrm_tpu.io.sim import simulate
+    from gmrm_tpu_torch.io.sim import simulate
     return simulate(tmp, n=N, m=MT, n_traits=T, n_causal=MT // 4, h2=0.5,
                     n_groups=1, na_rate=0.0, seed=171014,
                     mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
@@ -285,15 +501,26 @@ def small_dataset(tmp):
     """The W=1 gate's panel: the anchor's N and traits, 4,096 markers, 2%
     phenotype NAs (so NT=4)."""
     import numpy as np
-    from gmrm_tpu.io.sim import simulate
+    from gmrm_tpu_torch.io.sim import simulate
     return simulate(tmp, n=N, m=MT_SMALL, n_traits=T, n_causal=MT_SMALL // 4,
                     h2=0.5, n_groups=1, na_rate=0.02, seed=171015,
                     mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
 
 
+def big_dataset(tmp):
+    """The large-N gate's panel: N=100,000 (mb_pad=25,088, where the JAX
+    package leaves its resident kernel for the N-tiled one at T=4, B=128),
+    4,096 markers, 4 traits with 2% phenotype NAs (NT=4)."""
+    import numpy as np
+    from gmrm_tpu_torch.io.sim import simulate
+    return simulate(tmp, n=N_BIG, m=MT_BIG, n_traits=T, n_causal=MT_BIG // 4,
+                    h2=0.5, n_groups=1, na_rate=0.02, seed=171016,
+                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
+
+
 def anchor_options(sim, out_dir, wave=W, iterations=ITERS):
     """``wave`` None lets the plan pick the wave, as a user's run does."""
-    from gmrm_tpu.config import Options
+    from gmrm_tpu_torch.config import Options
     opt = Options(bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
                   group_index_file=sim.gri, group_mixture_file=sim.grm,
                   iterations=iterations, seed=42, out_dir=out_dir,
@@ -303,13 +530,18 @@ def anchor_options(sim, out_dir, wave=W, iterations=ITERS):
     return opt
 
 
-def sweep_gate(sim, dev, wave, name):
-    """Phases 3 and 3b: one sweep with the kernels vs the plain versions.
+def sweep_gate(sim, dev, wave, name, card, against="plain"):
+    """Phases 3, 3b and 3c: one sweep through the default marker_sweep on
+    the card (the whole-sweep kernel at W>1, kernels 5, 6 and 4 at W=1)
+    against the plain versions on the host CPU or, with ``against``
+    "composed", against the composed kernels 2, 3, 4 on the card.
     ``wave`` None is the auto plan, which must resolve to W=1."""
     import numpy as np
     import torch
     from gmrm_tpu_torch import runner
     from gmrm_tpu_torch.config import resolve_plan
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.sweep_kernel import sweep_plan
     from gmrm_tpu_torch.sampler.gibbs import marker_sweep
 
     opt = anchor_options(sim, "", wave)
@@ -332,37 +564,69 @@ def sweep_gate(sim, dev, wave, name):
         rng.uniform(size=(nblocks, T, B)).astype(np.float32),
         rng.normal(size=(nblocks, T, B)).astype(np.float32))]
     sigmae = 0.5 * (state.eps * state.eps).sum(dim=(1, 2)) / static.nonas
-    res = {}
-    for key, d, st, sta in (("kernels", dev, state, static),
-                            ("plain", torch.device("cpu"),
-                             to_device(state, "cpu"),
-                             to_device(static, "cpu"))):
+    if against == "plain":
+        other = (torch.device("cpu"), to_device(state, "cpu"),
+                 to_device(static, "cpu"), None)
+    else:
+        other = (dev, state, static, False)
+    res, counts = {}, {}
+    for key, (d, st, sta, mega) in (("kernels", (dev, state, static, None)),
+                                    (against, other)):
+        _build.reset_launch_counts()
         out = marker_sweep(
             st.eps.clone(), st.betas, st.comp, st.acum, st.sigmag,
             sigmae.to(d), st.pi_est, sta, *[x.to(d) for x in inj],
-            wave=opt.wave_size)
+            wave=opt.wave_size, megakernel=mega)
         res[key] = [x.cpu() for x in out]
+        counts[key] = {k: v for k, v in _build.launch_counts().items() if v}
+    want_counts = ({"sweep_blocks": 1} if opt.wave_size > 1
+                   else dict.fromkeys(SERIAL_KERNELS, nblocks))
+    if counts["kernels"] != want_counts or (
+            against == "composed"
+            and counts[against] != dict.fromkeys(COMPOSED_KERNELS, nblocks)):
+        fail(f"{name}: launches {counts}")
     (ke, kb, kc, _, kcass), (pe, pb, pc, _, pcass) = (res["kernels"],
-                                                      res["plain"])
+                                                      res[against])
     n_diff = int((kc != pc).sum())
     db = float((kb - pb).abs().max())
     de = float((ke - pe).abs().max())
-    print(f"# {name} (W={opt.wave_size}, NT="
-          f"{1 if static.shared_na else T}, {nblocks} blocks): comp "
+    nt = 1 if static.shared_na else T
+    print(f"# {name} (W={opt.wave_size}, NT={nt}, {nblocks} blocks, "
+          f"mb_pad={data.mb_pad}) against the {against} sweep: comp "
           f"mismatches {n_diff} of {kc.numel()}, cass equal "
           f"{torch.equal(kcass, pcass)}, max|dbeta| {db:.3e}, max|deps| "
           f"{de:.3e}", flush=True)
     if n_diff or not torch.equal(kcass, pcass) or db > 1e-4 or de > 1e-4:
-        fail(f"{name}: the kernels disagree with the plain sweep")
+        fail(f"{name}: the kernels disagree with the {against} sweep")
+    if opt.wave_size > 1:
+        plan = sweep_plan(T, B, data.mb_pad, nt, K, opt.wave_size)
+        dev_inj = [x.to(dev) for x in inj]
+
+        def sweep_ms(mega, reps):
+            return call_ms(lambda: marker_sweep(
+                state.eps.clone(), state.betas, state.comp, state.acum,
+                state.sigmag, sigmae, state.pi_est, static, *dev_inj,
+                wave=opt.wave_size, megakernel=mega), reps)
+
+        timing = f"{sweep_ms(None, 5):.3f} ms per marker_sweep"
+        if against == "composed":
+            timing += f", composed {sweep_ms(False, 2):.3f} ms"
+        print(f"# {name}: whole-sweep kernel grid {plan['grid']} CTAs x "
+              f"{plan['cols']} byte columns, eps {plan['eps_bytes_per_cta']} "
+              f"bytes per CTA, {plan['smem_bytes']} bytes of shared memory; "
+              f"resident in shared memory: {', '.join(plan['resident'])}; "
+              f"{timing} (CUDA events around eager calls)  [{card}]",
+              flush=True)
     return 0 if static.gram_cache is None else static.gram_cache.numel() * 4
 
 
 def training_phase(sim, dev, tmp, wave, iterations):
-    """Phases 4 and 4b: run_training through the entry point.  The path's
-    kernels each launch once per block and iteration (the Gram cache once
-    per run), and the other path's kernels not at all."""
+    """Phases 4 and 4b: run_training through the entry point.  In wave mode
+    the Gram cache launches once per run and the whole-sweep kernel once per
+    iteration; at W=1 the path's kernels each launch once per block and
+    iteration.  The other paths' kernels launch not at all."""
     import numpy as np
-    from gmrm_tpu.io.writers import read_history
+    from gmrm_tpu_torch.io.writers import read_history
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.runner import check_finite_chain, run_training
 
@@ -372,10 +636,11 @@ def training_phase(sim, dev, tmp, wave, iterations):
     res = run_training(opt, device=dev, verbose=False)
     launches = _build.launch_counts()
     nblocks = -(-MT // B)
-    path = WAVE_KERNELS if wave > 1 else SERIAL_KERNELS
+    per_run = {"gram_cache": 1, "sweep_blocks": iterations}
+    path = MEGA_KERNELS if wave > 1 else SERIAL_KERNELS
     for name, n in launches.items():
-        want = (0 if name not in path else 1 if name == "gram_cache"
-                else nblocks * iterations)
+        want = (0 if name not in path
+                else per_run.get(name, nblocks * iterations))
         if n != want:
             fail(f"W={wave} training: kernel {name} launched {n} times, "
                  f"expected {want}")
@@ -397,6 +662,110 @@ def training_phase(sim, dev, tmp, wave, iterations):
     sg = res.state.sigmag.sum(dim=1).cpu().numpy()
     se = res.state.sigmae.cpu().numpy()
     return res, launches, steady, sg / (sg + se)
+
+
+def chain_setup(sim, dev):
+    """The anchor's data, static inputs, start state and RNG plan, as
+    run_training builds them."""
+    from gmrm_tpu_torch import runner
+    from gmrm_tpu_torch.config import resolve_plan
+    from gmrm_tpu_torch.sampler.dists import RngPlan
+
+    opt = anchor_options(sim, "")
+    resolve_plan(opt, "cuda", sim.m)
+    data = runner.load_data(opt)
+    return (opt, runner.build_static(data, opt, dev),
+            runner.init_sampler_state(data, opt, dev), RngPlan(opt.seed, dev))
+
+
+def composed_phase(sim, dev):
+    """Phase 4c: the composed wave path (kernels 2, 3 and 4 per block) for
+    a few iterations of gibbs_iteration, so the earlier path stays driven."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.runner import check_finite_chain
+    from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
+
+    opt, static, state, rng = chain_setup(sim, dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    seconds = []
+    for it in range(1, ITERS_COMPOSED + 1):
+        t0 = time.perf_counter()
+        state, _ = gibbs_iteration(state, static, it, rng, block_size=B,
+                                   wave=opt.wave_size, megakernel=False)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    nblocks = -(-MT // B)
+    for name, n in launches.items():
+        want = nblocks * ITERS_COMPOSED if name in COMPOSED_KERNELS else 0
+        if n != want:
+            fail(f"composed path: kernel {name} launched {n} times, "
+                 f"expected {want}")
+    check_finite_chain(state.sigmag.cpu().numpy(),
+                       state.sigmae.cpu().numpy(), ITERS_COMPOSED)
+    return launches, sum(seconds[1:]) / (ITERS_COMPOSED - 1)
+
+
+def profile_phase(sim, dev):
+    """Phase 5: torch.profiler over 5 whole-sweep iterations at the anchor
+    after 2 of warm-up.  Returns the device-busy and wall milliseconds per
+    iteration, launches per iteration and the busiest device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
+
+    opt, static, state, rng = chain_setup(sim, dev)
+    for it in (1, 2):
+        state, _ = gibbs_iteration(state, static, it, rng, block_size=B,
+                                   wave=opt.wave_size)
+    torch.cuda.synchronize()
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(3, 3 + n):
+            state, _ = gibbs_iteration(state, static, it, rng, block_size=B,
+                                       wave=opt.wave_size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events
+               if "cuda" in str(e.device_type).lower() and e.name != ""]
+    def device_us(e):            # named cuda_time before torch 2.4
+        return getattr(e, "device_time", None) or e.cuda_time
+
+    busy_us = sum(device_us(e) for e in kernels)
+    if busy_us <= 0:
+        fail("torch.profiler recorded no device time")
+    launches = sum(1 for e in events if e.name.startswith("cudaLaunch"))
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + device_us(e)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return (busy_us / 1e3 / n, wall * 1e3 / n, launches / n,
+            [(k[:48], round(v / 1e3 / n, 3)) for k, v in top])
+
+
+SOURCES = {
+    "gram_cache": ("gmrm_tpu_torch/csrc/gram_cache.cu",
+                   "gmrm_tpu/ops/sweep_kernel.py:1158"),
+    "block_cdot": ("gmrm_tpu_torch/csrc/block_cdot.cu",
+                   "gmrm_tpu/ops/pallas_kernels.py:275"),
+    "wave_scan": ("gmrm_tpu_torch/csrc/wave_scan.cu",
+                  "gmrm_tpu/ops/scan_kernel_wave.py:57"),
+    "eps_update": ("gmrm_tpu_torch/csrc/eps_update.cu",
+                   "gmrm_tpu/ops/pallas_kernels.py:352"),
+    "block_gram": ("gmrm_tpu_torch/csrc/block_gram.cu",
+                   "gmrm_tpu/ops/pallas_kernels.py:135"),
+    "serial_scan": ("gmrm_tpu_torch/csrc/serial_scan.cu",
+                    "gmrm_tpu/ops/scan_kernel.py:61"),
+    "sweep_blocks": ("gmrm_tpu_torch/csrc/sweep_blocks.cu",
+                     "gmrm_tpu/ops/sweep_kernel.py:371"),
+}
+# The whole-sweep kernel also stands for the N-tiled TPU kernel.
+ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576"}
 
 
 def main():
@@ -429,21 +798,41 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261016)
     kernels = kernel_phase(dev, gen)
-    for name, (err, t_k, t_p, t_call) in kernels.items():
+    for name, (err, t_k, t_p, t_call, bound) in kernels.items():
         print(f"# {name}: max abs err {err:.3e}; kernel ms {t_k}, plain ms "
               f"{t_p} (CUDA graph replay); kernel ms per eager call "
-              f"{t_call}  [{card}]", flush=True)
+              f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}  [{card}]",
+              flush=True)
+    (err, t_k, t_p, t_c, bound), plan = sweep_kernel_phase(dev, gen)
+    kernels["sweep_blocks"] = (err, t_k, t_p, None, bound)
+    chain = 157 * sum(kernels[k][1][0] for k in COMPOSED_KERNELS)
+    print(f"# sweep_blocks, one sweep of {-(-MT // B)} blocks at NT=1 and "
+          f"NT={T}: comp and cass equal to the plain version, max abs err of "
+          f"beta and eps {err:.3e}; kernel ms per sweep {t_k}, plain ms "
+          f"{t_p}, composed chain (kernels 2+3+4 and their torch glue) ms "
+          f"{t_c}, all by CUDA events around eager calls (a cooperative "
+          f"launch; one launch is a whole sweep); the three composed kernels "
+          f"alone by graph replay: {chain:.3f} ms per sweep; bound "
+          f"{bound[0]:.5f} ms by {bound[1]}; grid {plan['grid']} CTAs x "
+          f"{plan['cols']} byte columns, eps {plan['eps_bytes_per_cta']} "
+          f"bytes per CTA, resident in shared memory: "
+          f"{', '.join(plan['resident'])}  [{card}]", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         sim = anchor_dataset(os.path.join(tmp, "data"))
         small = small_dataset(os.path.join(tmp, "small"))
-        print(f"# anchor and small datasets simulated in "
+        big = big_dataset(os.path.join(tmp, "big"))
+        print(f"# anchor, small and large-N datasets simulated in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        cache_bytes = sweep_gate(sim, dev, W, "sweep gate")
-        sweep_gate(small, dev, None, "W=1 sweep gate")
+        cache_bytes = sweep_gate(sim, dev, W, "sweep gate", card)
+        sweep_gate(small, dev, None, "W=1 sweep gate", card)
+        sweep_gate(big, dev, W, "large-N sweep gate", card,
+                   against="composed")
         runs = {w: training_phase(sim, dev, tmp, w, iters)
                 for w, iters in ((W, ITERS), (1, ITERS_SERIAL))}
+        composed_launches, composed_s = composed_phase(sim, dev)
+        busy_ms, wall_ms, n_launch, top = profile_phase(sim, dev)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2) in runs.items():
         startup = ("load + stats + Gram cache of "
@@ -456,28 +845,30 @@ def main():
               f"{res.iters_run} iterations; h2 "
               f"{[round(float(x), 3) for x in h2]}; launches {launches}  "
               f"[{card}]", flush=True)
+    print(f"# composed wave path (megakernel=False), W={W}: "
+          f"{composed_s * 1e3:.2f} ms/iteration = {MT / composed_s:.0f} "
+          f"markers/s over iterations 2-{ITERS_COMPOSED}, each ended by a "
+          f"synchronize; launches {composed_launches}  [{card}]", flush=True)
+    print(f"# profiler, whole-sweep path, 5 iterations: device busy "
+          f"{busy_ms:.3f} ms/iteration, wall {wall_ms:.3f} ms/iteration, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {n_launch:.1f} launches "
+          f"per iteration; busiest kernels (ms/iteration) {top}  [{card}]",
+          flush=True)
 
-    sources = {
-        "gram_cache": ("gmrm_tpu_torch/csrc/gram_cache.cu",
-                       "gmrm_tpu/ops/sweep_kernel.py:1158"),
-        "block_cdot": ("gmrm_tpu_torch/csrc/block_cdot.cu",
-                       "gmrm_tpu/ops/pallas_kernels.py:275"),
-        "wave_scan": ("gmrm_tpu_torch/csrc/wave_scan.cu",
-                      "gmrm_tpu/ops/scan_kernel_wave.py:57"),
-        "eps_update": ("gmrm_tpu_torch/csrc/eps_update.cu",
-                       "gmrm_tpu/ops/pallas_kernels.py:352"),
-        "block_gram": ("gmrm_tpu_torch/csrc/block_gram.cu",
-                       "gmrm_tpu/ops/pallas_kernels.py:135"),
-        "serial_scan": ("gmrm_tpu_torch/csrc/serial_scan.cu",
-                        "gmrm_tpu/ops/scan_kernel.py:61"),
-    }
-    # Launches: the training runs of the kernel's path (eps_update is on
-    # both paths).
+    # Launches: each path's run, its counts set to 0 just before it (the
+    # whole-sweep and W=1 training runs and the composed iterations).
+    # library_ms: no single PyTorch call computes any of these functions
+    # (each fuses the 2-bit decode with a product, or is a serial scan).
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": sum(r[1][name] for r in runs.values()),
+             "launches": (sum(r[1][name] for r in runs.values())
+                          + composed_launches[name]),
              "max_abs_err": kernels[name][0],
-             "ms": kernels[name][1][0], "plain_ms": kernels[name][2][0]}
-            for name, (src, rep) in sources.items()]
+             "ms": kernels[name][1][0], "plain_ms": kernels[name][2][0],
+             "bound_ms": kernels[name][4][0], "bound_by": kernels[name][4][1],
+             "library_ms": None,
+             **({"also_replaces": ALSO_REPLACES[name]}
+                if name in ALSO_REPLACES else {})}
+            for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

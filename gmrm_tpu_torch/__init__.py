@@ -8,15 +8,16 @@ bound with ``ctypes`` (``ops/_build.py``).  On CPU tensors each kernel
 wrapper runs the kernel's plain PyTorch version instead, which is what the
 CPU tests hold against the JAX package.
 
-This package imports ``torch`` and never ``jax`` or ``flax``.  It reuses the
-NumPy-only modules of ``gmrm_tpu``: the I/O readers and writers, the
-simulator, ``Options`` and the CLI parser.
+This package imports ``torch`` and never ``jax``, ``flax`` or anything of
+``gmrm_tpu``: it has its own copies of the NumPy-only modules it needs (the
+I/O readers and writers, the simulator, ``Options`` and the CLI parser).
 
-The slice covered so far is single-device training: wave mode (W > 1) on
-the cached-Gram composite sweep, and the exact serial sweep (W = 1); see
-ROADMAP.md for what is still to be ported.
+The slice covered so far is single-device training: wave mode (W > 1)
+through the whole-sweep kernel, one launch per iteration (the composed
+per-block path stays behind ``megakernel=False``), and the exact serial
+sweep (W = 1); see ROADMAP.md for what is still to be ported.
 """
 
 __version__ = "0.1.0"
 
-from gmrm_tpu.config import Options  # noqa: F401  (NumPy-only)
+from gmrm_tpu_torch.config import Options  # noqa: F401

@@ -20,12 +20,14 @@
 // in int32 registers (the 64x64 tiling of gram_cache.cu) and adds its
 // partial tile into an int32 scratch with atomicAdd.  Every raw entry is
 // an exact count below 2^24, so the result is exact in any order.  The
-// epilogue scales with _rn intrinsics in the plain expression's order, so
-// gs is bit-equal to the plain PyTorch version on the card.
+// epilogue scales with _rn intrinsics in the plain expression's order
+// (sweep_math.cuh), so gs is bit-equal to the plain PyTorch version on the
+// card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "decode.cuh"
+#include "sweep_math.cuh"
 
 extern "C" int gmrm_block_cdot(const void* bed, const void* rows,
                                const void* eps, const void* mave,
@@ -138,9 +140,7 @@ __global__ void block_gram_scale_kernel(const int* __restrict__ raw,
   const float g3 = (float)g[(size_t)(B + j) * B2 + B + i];
   const float mr = mave[t * B + i], mc = mave[t * B + j];
   const float sr = msig[t * B + i], sc = msig[t * B + j];
-  float graw = __fsub_rn(__fsub_rn(g1, __fmul_rn(mr, g2t)), __fmul_rn(mc, g2));
-  graw = __fadd_rn(graw, __fmul_rn(__fmul_rn(mc, mr), g3));
-  gs[x] = __fmul_rn(__fmul_rn(sc, sr), graw);
+  gs[x] = gmrm_scale_gram(g1, g2, g2t, g3, mr, mc, sr, sc);
 }
 
 }  // namespace

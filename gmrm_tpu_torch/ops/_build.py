@@ -54,13 +54,22 @@ SIGNATURES = {
     # base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
     # zerob, i2se, dbeta, beta_new, comp_new, acum_new, T, B, K, stream
     "gmrm_serial_scan": [_P] * 17 + [_I, _I, _I, _P],
+    # bed, blkidx, win, gram, eps, na, mave, msig, beta_old, comp_old,
+    # acum_old, grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, beta_new,
+    # comp_new, acum_new, part, red, gsbuf, dbuf, nblocks, T, B, mb, nt, K,
+    # W, G, m_local, stream (a cooperative launch inside the entry point)
+    "gmrm_sweep_blocks": [_P] * 27 + [_I] * 9 + [_P],
+    # T, B, mb, nt, K, W, out (6 ints): no launch, the grid and the shared
+    # memory residency the sweep kernel will use at these shapes
+    "gmrm_sweep_blocks_plan": [_I] * 6 + [_P],
 }
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper
 # adds one where it launches its kernel and nowhere else, so a run can
 # show that its main path went through the kernels.
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
-             "eps_update": 0, "block_gram": 0, "serial_scan": 0}
+             "eps_update": 0, "block_gram": 0, "serial_scan": 0,
+             "sweep_blocks": 0}
 
 
 def launch_counts() -> dict:
@@ -146,6 +155,10 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def error_string(err: int) -> str:
+    return library().gmrm_error_string(err).decode()
+
+
 def launch(kernel: str, *args) -> None:
     """Call ``gmrm_<kernel>`` on the current stream, count the launch and
     raise on a launch error.  Tensors pass as their data pointers."""
@@ -155,7 +168,7 @@ def launch(kernel: str, *args) -> None:
     err = getattr(lib, f"gmrm_{kernel}")(*conv, stream)
     if err != 0:
         raise RuntimeError(f"gmrm_{kernel} launch failed: "
-                           f"{lib.gmrm_error_string(err).decode()}")
+                           f"{error_string(err)}")
     _LAUNCHES[kernel] += 1
 
 

@@ -2,9 +2,11 @@
 
 Loads the inputs, builds the static inputs (marker statistics, and the
 Gram cache in wave mode), runs the Gibbs chain and writes the reference's
-``.csv`` / ``.bet`` / ``.cpn`` artifacts.  Iterations are queued back to
-back; the host waits on the device only at thin boundaries and at the end
-of the chain.
+``.csv`` / ``.bet`` / ``.cpn`` artifacts.  In wave mode (W > 1) an
+iteration's sweep is one launch of the whole-sweep kernel
+(ops/sweep_kernel.sweep_blocks); at W = 1 it is the per-block exact serial
+path.  Iterations are queued back to back; the host waits on the device
+only at thin boundaries and at the end of the chain.
 """
 
 from __future__ import annotations
@@ -17,14 +19,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from gmrm_tpu.config import Options
-from gmrm_tpu.io.bed import bed_bytes_per_marker, read_bed
-from gmrm_tpu.io.grouping import read_dim, read_group_index
-from gmrm_tpu.io.phen import Phenotype, read_phen
-from gmrm_tpu.io.writers import (
+from gmrm_tpu_torch.config import Options, resolve_plan
+from gmrm_tpu_torch.io.bed import bed_bytes_per_marker, read_bed
+from gmrm_tpu_torch.io.grouping import read_dim, read_group_index
+from gmrm_tpu_torch.io.phen import Phenotype, read_phen
+from gmrm_tpu_torch.io.writers import (
     HistoryWriter, format_csv_record, write_csv_record,
 )
-from gmrm_tpu_torch.config import resolve_plan
 from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.blockops import marker_stats
 from gmrm_tpu_torch.ops.decode import to_phase_planes

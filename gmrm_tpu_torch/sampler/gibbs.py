@@ -6,13 +6,17 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
 2. the shuffle (gibbs.py:489-511): in wave mode (W > 1) block-preserving,
    a random block order and a random row order within each block; at
    W = 1 a uniform shuffle of the real markers with pad slots last,
-3. the marker sweep over Gram blocks (gibbs.py:353-400).  Per block:
-   - W > 1, the cached-Gram composite path (``use_cache``): the c-dot
-     kernel, then the cached Gram gathered to processing order and scaled
-     in plain PyTorch, then the wave-scan kernel;
-   - W = 1, the exact serial path: the block-Gram kernel (c and the
-     scaled Gram), then the serial-scan kernel;
-   then the residual-update kernel,
+3. the marker sweep over Gram blocks:
+   - W > 1, the default (gibbs.py:184-239): the whole sweep in one launch
+     of the sweep kernel (ops/sweep_kernel.sweep_blocks), from
+     natural-order operands and group-level tables;
+   - W > 1 with ``megakernel=False``, the composed path
+     (gibbs.py:353-400, ``use_cache``), per block: the c-dot kernel, the
+     cached Gram gathered to processing order and scaled in plain
+     PyTorch, the wave-scan kernel, the residual-update kernel;
+   - W = 1, the exact serial path, per block: the block-Gram kernel (c
+     and the scaled Gram), the serial-scan kernel, the residual-update
+     kernel,
 4. the hyperparameter block (gibbs.py:529-568).
 
 Nothing here waits on the device: the processing order reaches the kernels
@@ -26,12 +30,12 @@ from typing import NamedTuple
 
 import torch
 
-from gmrm_tpu.config import V0E, S02E, V0G, S02G
+from gmrm_tpu_torch.config import V0E, S02E, V0G, S02G
 from gmrm_tpu_torch.ops.block_gram import block_gram_scaled, scale_gram
 from gmrm_tpu_torch.ops.block_kernels import block_cdot, block_eps_update_
 from gmrm_tpu_torch.ops.scan_kernel import serial_scan
 from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks, wave_scan
-from gmrm_tpu_torch.ops.sweep_kernel import build_sweep_tables
+from gmrm_tpu_torch.ops.sweep_kernel import build_sweep_tables, sweep_blocks
 from gmrm_tpu_torch.sampler.dists import (
     RngPlan, dirichlet_from_counts, inv_scaled_chisq,
 )
@@ -71,7 +75,8 @@ def cached_gram_scaled(gram_cache, blk, win2, mave_blk, msig_blk):
 
 
 def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
-                 static: StaticInputs, blocks, u_all, z_all, *, wave):
+                 static: StaticInputs, blocks, u_all, z_all, *, wave,
+                 megakernel=None):
     """The full marker sweep with all randomness injected.
 
     blocks (nblocks, B) the processing order, as in the JAX package: slot
@@ -81,6 +86,12 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
     permutation goes.  u_all/z_all (nblocks, T, B) uniforms and standard
     normals.  ``eps`` is updated IN PLACE (the residual-update kernel adds
     each block's delta into it).  Returns (eps, betas, comp, acum, cass).
+
+    ``megakernel``, as in the JAX package (gibbs.py:73, :184-200): None
+    takes the whole-sweep kernel whenever wave > 1 and there is a Gram
+    cache, which is every wave-mode run of the port; False takes the
+    composed per-block path; True raises where the whole-sweep kernel
+    cannot run.
     """
     nblocks, B = blocks.shape
     T, m_pad = betas.shape
@@ -88,10 +99,36 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
     f32, i32 = torch.float32, torch.int32
     nonas = static.nonas
 
+    mega = (megakernel is not False and wave > 1 and B % wave == 0
+            and static.gram_cache is not None)
+    if megakernel and not mega:
+        raise ValueError(
+            "megakernel=True requires wave_size>1 dividing block_size, a "
+            "block-preserving shuffle and static.gram_cache "
+            f"(got wave={wave}, B={B}, gram_cache="
+            f"{'set' if static.gram_cache is not None else None})")
+
     lc_t, rd_t, sqb_t = build_sweep_tables(
         sigmag, sigmae, pi_est, static.cva, static.cvai, nonas,
         static.n_total)
     i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
+
+    if mega:
+        # Natural-order operands and group tables go to the kernel as they
+        # are; the block and row order never touch the host.
+        blk_idx = blocks[:, 0] // B
+        win = blocks - blk_idx[:, None] * B
+        nt = static.gram_cache.shape[1]
+        eps, betas, comp, acum = sweep_blocks(
+            static.bed, blk_idx.to(i32), win.to(i32).contiguous(),
+            static.m_local, static.gram_cache, eps,
+            (static.na[:1] if nt == 1 else static.na).contiguous(),
+            static.mave, static.msig, betas, comp.to(i32), acum,
+            static.group_of, u_all, z_all, sigmag.to(f32), lc_t, rd_t,
+            sqb_t, i2se, nonas.to(f32), wave=wave)
+        cass = _natural_cass(comp, static.group_of, sigmag, static.m_local,
+                             K)
+        return eps, betas, comp, acum, cass
 
     # Processing order: every per-marker operand is gathered once and split
     # into contiguous (nblocks, ..., B) blocks.
@@ -223,9 +260,10 @@ def block_order(rng: RngPlan, it: int, nblocks: int, B: int, *,
 
 def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
                     rng: RngPlan, *, block_size: int, wave: int,
-                    shuffle: bool = True):
+                    shuffle: bool = True, megakernel=None):
     """One iteration; ``it`` is 1-based (runner.py:517).  The residual
-    buffer of ``state`` is updated in place and carried into the result."""
+    buffer of ``state`` is updated in place and carried into the result.
+    ``megakernel`` as in :func:`marker_sweep`."""
     T = state.eps.shape[0]
     m_pad = state.betas.shape[1]
     B = block_size
@@ -259,7 +297,8 @@ def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
     # --- 3. marker sweep --------------------------------------------------
     eps, betas, comp, acum, cass = marker_sweep(
         eps, state.betas, state.comp, state.acum, state.sigmag, sigmae,
-        state.pi_est, static, blocks, u_all, z_all, wave=wave)
+        state.pi_est, static, blocks, u_all, z_all, wave=wave,
+        megakernel=megakernel)
 
     # --- 4. hyperparameter block ----------------------------------------
     sigmag, sigmae_new, pi_est, m0, e_sqn = hyper_block(

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gmrm_tpu.io.bed import MISSING_BYTE
+from gmrm_tpu_torch.io.bed import MISSING_BYTE
 
 
 @dataclass

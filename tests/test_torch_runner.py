@@ -62,25 +62,29 @@ def test_run_training_cpu_chain(sim_medium, tmp_path):
 
 
 def test_import_and_train_without_jax(sim_tiny, tmp_path):
-    """gmrm_tpu_torch never imports jax or flax: a meta-path hook makes the
-    import raise, and a CPU training run still goes through."""
+    """gmrm_tpu_torch never imports jax, flax or anything of gmrm_tpu: a
+    meta-path hook makes each of those imports raise, and the port still
+    imports, parses a command line and trains on the CPU."""
     code = f"""
 import sys
+BLOCKED = ('jax', 'jaxlib', 'flax', 'gmrm_tpu')
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib', 'flax'):
+        if name.split('.')[0] in BLOCKED:
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
-import gmrm_tpu_torch, gmrm_tpu_torch.cli
-from gmrm_tpu.config import Options
+import gmrm_tpu_torch, gmrm_tpu_torch.cli, gmrm_tpu_torch.io.sim
+from gmrm_tpu_torch.cli import build_parser, options_from_args
 from gmrm_tpu_torch.runner import run_training
-opt = Options(bed_file={sim_tiny.bed!r}, dim_file={sim_tiny.dim!r},
-              phen_files={sim_tiny.phens!r},
-              group_index_file={sim_tiny.gri!r},
-              group_mixture_file={sim_tiny.grm!r}, iterations=2, seed=1,
-              out_dir={str(tmp_path)!r}, block_size=8, wave_size=8)
+opt = options_from_args(build_parser().parse_args([
+    '--bed-file', {sim_tiny.bed!r}, '--dim-file', {sim_tiny.dim!r},
+    '--phen-files', {",".join(sim_tiny.phens)!r},
+    '--group-index-file', {sim_tiny.gri!r},
+    '--group-mixture-file', {sim_tiny.grm!r}, '--iterations', '2',
+    '--seed', '1', '--out-dir', {str(tmp_path)!r}, '--block-size', '8',
+    '--wave-size', '8']))
 res = run_training(opt, device='cpu', verbose=False)
-assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules)
+assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)
 print('OK', res.iters_run)
 """
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")

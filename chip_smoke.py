@@ -15,7 +15,9 @@ Phases, each of which must pass (any failure exits non-zero):
    anchor's 157 blocks (an adaV group, a partly padded last block) against
    its plain version and against the composed chain of kernels 2, 3 and 4;
    one launch is a whole sweep, so it is timed with CUDA events around
-   eager launches;
+   eager launches.  The fused per-block kernel of the sharded sweep runs
+   blocks of the same operands against its plain version (comp exact, every
+   element of the delta written), timed per launch;
 3. the wave path's (W=32) one-sweep agreement gate at the anchor: the
    default marker_sweep, so the whole-sweep kernel, on the card against the
    same sweep from the plain versions (on the host CPU), with the same
@@ -26,6 +28,13 @@ Phases, each of which must pass (any failure exits non-zero):
 3c. the large-N regime (N=100,000 x Mt=4,096 x 4 traits with phenotype NAs,
    mb_pad=25,088, explicit W=32): one sweep through the whole-sweep kernel
    against the composed kernels on the card, same order and draws;
+3d. one marker-sharded sweep at the anchor, 4 shards on the one card: the
+   fused per-block kernel against the composed kernels 2, 3 and 4 run at
+   the same cadence (per block step every shard against the one residual,
+   then the sum of the deltas), same order and draws;
+3e. one sharded sweep on the small panel, 2 shards of 16 blocks, where the
+   auto plan resolves to W=1: kernels 5, 6 and 4 adding into a delta
+   against their plain versions on the host CPU;
 4. the training entry point, gmrm_tpu_torch.runner.run_training, on the
    reference anchor (N=10,000 x Mt=20,000 x 4 traits, bench.py:50-57) in
    wave mode for 20 iterations with thinned output: the whole-sweep kernel
@@ -35,14 +44,33 @@ Phases, each of which must pass (any failure exits non-zero):
    launch counts of the exact serial path;
 4c. the composed wave path (megakernel=False) for 5 iterations of
    gibbs_iteration at the anchor, checking its launch counts;
-5. a torch.profiler window over 5 whole-sweep iterations at the anchor:
-   device-busy and wall time per iteration, idle share, launches.
+4d. the sharded entry point, gmrm_tpu_torch.parallel.runner
+   .run_training_sharded, at the anchor: 2 shards on the auto plan (79
+   blocks per shard, so W=32 and the fused per-block kernel) for 10
+   iterations, and 4 shards at an explicit W=32 for 5, all shards on the one
+   card; launch counts, the chain and the artifacts are checked;
+4e. the 2-shard run again inside a one-rank NCCL process group, so that
+   every sum of the path goes through NCCL on CUDA tensors; its artifacts
+   must equal phase 4d's byte for byte;
+5. a torch.profiler window over 5 whole-sweep iterations at the anchor, and
+   one over 5 sharded iterations (2 shards): device-busy and wall time per
+   iteration, idle share, launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 rest of the repository beside it, the script fails before printing any
 result.
+
+To compare two trees on the single-device training paths inside one call
+on one card (parent, change, change, parent):
+
+    python3 chip_smoke.py --training-only 3 [--repo OTHER_TREE]
+
+builds the kernels of the tree at --repo (default: this one), runs phases 4
+and 4b three times and prints each run's ms/iteration, nothing else.
 """
+
+import argparse
 
 import dataclasses
 import json
@@ -64,6 +92,7 @@ N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
 MEGA_KERNELS = ("gram_cache", "sweep_blocks")
 COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
 SERIAL_KERNELS = ("block_gram", "serial_scan", "eps_update")
+SHARDED_RUNS = ((2, None, 10), (4, W, 5))   # shards, --wave-size, iterations
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
 # memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
@@ -488,6 +517,142 @@ def sweep_kernel_phase(dev, gen):
     return (err, ms, plain_ms, composed_ms, bound), plan
 
 
+def block_sweep_phase(dev, gen):
+    """Phase 2, the fused per-block kernel (kernel 9): blocks of the
+    anchor's operands (an adaV group; the last block has 96 pad slots)
+    against its plain version on the card, NT = 1 and NT = T, from the
+    shard's whole arrays in place and from the block's own slices; every
+    element of the delta must be written.  Timed per launch by graph replay
+    and per eager call, beside the plain version."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+
+    i32 = torch.int32
+    err, ms, plain_ms, eager_ms, bound = 0.0, [], [], [], None
+    for shared in (True, False):
+        static, st, blk, win, (u, z) = sweep_operands(dev, gen, shared)
+        nt = static.gram_cache.shape[1]
+        nblocks = blk.numel()
+        tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
+                                       static.cva, static.cvai, static.nonas,
+                                       static.n_total)
+        win = win.to(i32).contiguous()
+        grp = static.group_of.to(i32)
+        m_loc = torch.tensor([MT], dtype=i32, device=dev)
+        i2se = 1.0 / (2.0 * st["sigmae"])
+        tail = (st["sigmag"], *tables, i2se, static.nonas)
+        name = f"block_sweep (NT={nt})"
+
+        def whole(fn, b, state):
+            return fn(torch.tensor([b], dtype=i32, device=dev), m_loc,
+                      static.bed, win[b], static.gram_cache, st["eps"],
+                      static.na, static.mave, static.msig, *state, grp,
+                      u[b], z[b], *tail, wave=W)
+
+        def state0():
+            return (st["betas"].clone(), st["comp"].clone(),
+                    st["acum"].clone())
+
+        # The last block (pad slots), the first and one in the middle.
+        drawn = set()
+        for b in (nblocks - 1, 0, nblocks // 2):
+            got_state, want_state = state0(), state0()
+            # Poison the allocator's free block of the delta's size, so an
+            # element the kernel leaves unwritten shows as NaN.
+            del_me = torch.full_like(st["eps"], float("nan"))
+            del del_me
+            got = whole(sk.block_sweep, b, got_state)
+            torch.cuda.synchronize()
+            want = whole(sk.block_sweep_plain, b, want_state)
+            if not torch.equal(got[2], want[2]):
+                fail(f"{name}, block {b}: comp differs from the plain "
+                     f"version in {int((got[2] != want[2]).sum())} entries")
+            if not torch.isfinite(got[0]).all():
+                fail(f"{name}, block {b}: the delta has unwritten or "
+                     f"non-finite elements")
+            d_eps, d_beta = max_err(got[0], want[0]), max_err(got[1],
+                                                              want[1])
+            if d_eps > 1e-4 or d_beta > 1e-4:
+                fail(f"{name}, block {b}: max|deps| {d_eps:.3e}, max|dbeta| "
+                     f"{d_beta:.3e} exceed 1e-4")
+            close(f"{name} acum", got[3], want[3], 1e-5, 1e-5)
+            if got[0][:, :, MB - 60:].abs().max() != 0:
+                fail(f"{name}, block {b}: pad columns of the delta are not 0")
+            err = max(err, d_eps, d_beta)
+            rows = slice(b * B, (b + 1) * B)
+            drawn |= set(want[2][:, rows].reshape(-1).tolist())
+            # The same block from copies of its own slices.
+            sl = sk.block_sweep(
+                b, MT, static.bed[rows], win[b], static.gram_cache[b:b + 1],
+                st["eps"], static.na, static.mave[:, rows].contiguous(),
+                static.msig[:, rows].contiguous(),
+                st["betas"][:, rows].contiguous(),
+                st["comp"][:, rows].contiguous(),
+                st["acum"][:, rows].contiguous(), grp[rows].contiguous(),
+                u[b], z[b], *tail, wave=W)
+            if not (torch.equal(sl[0], got[0])
+                    and torch.equal(sl[1], got[1][:, rows])
+                    and torch.equal(sl[2], got[2][:, rows])
+                    and torch.equal(sl[3], got[3][:, rows])):
+                fail(f"{name}, block {b}: the block's slices and the whole "
+                     f"arrays give different results")
+        if len(drawn) < 2:
+            fail(f"{name}: the parity cases drew a single component")
+        # An all-pad block contributes an all-zero delta.
+        pad = sk.block_sweep(0, 0, static.bed[:B], win[0],
+                             static.gram_cache[:1], st["eps"], static.na,
+                             static.mave[:, :B].contiguous() * 0,
+                             static.msig[:, :B].contiguous() * 0,
+                             st["betas"][:, :B].contiguous(),
+                             st["comp"][:, :B].contiguous(),
+                             st["acum"][:, :B].contiguous(),
+                             grp[:B].contiguous(), u[0], z[0], *tail, wave=W)
+        if pad[0].abs().max() != 0 or not torch.equal(
+                pad[1], st["betas"][:, :B]):
+            fail(f"{name}: an all-pad block moved the state or the delta")
+
+        b = nblocks // 2
+        state = state0()
+        blk_t = torch.tensor([b], dtype=i32, device=dev)
+
+        def run(fn):
+            return fn(blk_t, m_loc, static.bed, win[b], static.gram_cache,
+                      st["eps"], static.na, static.mave, static.msig, *state,
+                      grp, u[b], z[b], *tail, wave=W)
+
+        eager_ms.append(call_ms(lambda: run(sk.block_sweep), 200))
+        plain_ms.append(cuda_ms(lambda: run(sk.block_sweep_plain), 5))
+        # A cooperative launch is not captured into a CUDA graph, and the
+        # wrapper's checks cost the host more than the kernel costs the
+        # device.  Device time per launch: the wrapper's own launch call,
+        # recorded once and repeated back to back with the same operands,
+        # so that launches queue up, between CUDA events.
+        recorded = []
+        real_launch = _build.launch
+        _build.launch = lambda *a: recorded.append(a) or real_launch(*a)
+        try:
+            run(sk.block_sweep)
+        finally:
+            _build.launch = real_launch
+        ms.append(call_ms(lambda: real_launch(*recorded[0]), 2000))
+        if bound is None:
+            got = whole(sk.block_sweep, b, state0())
+            rows = slice(b * B, (b + 1) * B)
+            dbeta = (st["betas"][:, rows] - got[1][:, rows])[:, win[b].long()]
+            moved = int((dbeta.reshape(T, B // W, W) != 0).any(dim=2)
+                        .any(dim=0)[:-1].sum())
+            f4 = 4
+            nbytes = (B * MB + nt * (2 * B) ** 2 * f4 + 2 * T * 4 * MB * f4
+                      + nt * 4 * MB * f4 + 11 * T * B * f4 + 2 * B * f4)
+            flops = (2 * 4 * T * B * 4 * MB
+                     + 9 * T * (B * B - B * W) // 2 + T * B * K * 12
+                     + moved * 2 * T * W * B)
+            bound = bound_of(nbytes, (flops, F32_OPS))
+    plan = sk.block_sweep_plan(T, B, MB, 1, K, W)
+    return (err, ms, plain_ms, eager_ms, bound), plan
+
+
 def anchor_dataset(tmp):
     """The reference anchor of bench.py:50-57 (N=10k, Mt=20k, 4 traits)."""
     import numpy as np
@@ -664,6 +829,178 @@ def training_phase(sim, dev, tmp, wave, iterations):
     return res, launches, steady, sg / (sg + se)
 
 
+def sharded_setup(sim, dev, n_shards, wave=W):
+    """The per-shard static inputs, start states and RNG plans of ``sim``,
+    as run_training_sharded builds them, every shard on ``dev``; ``wave``
+    None is the auto plan."""
+    from gmrm_tpu_torch.config import resolve_plan
+    from gmrm_tpu_torch.parallel import runner as prunner
+    from gmrm_tpu_torch.sampler.dists import RngPlan
+
+    opt = anchor_options(sim, "", wave)
+    resolve_plan(opt, "cuda", sim.m // n_shards, sharded=True)
+    data = prunner.load_data_process(opt, n_shards,
+                                     interleave=opt.wave_size > 1)
+    return (opt, data, prunner.build_static_sharded(data, opt, dev),
+            prunner.init_states_sharded(data, opt, dev),
+            [RngPlan(opt.seed, dev, shard=i) for i in range(n_shards)])
+
+
+def sharded_gate(sim, dev, card, n_shards, wave, name):
+    """Phases 3d and 3e: one sharded sweep on the card, with the same
+    injected order and draws per shard on both sides.  At W > 1 the fused
+    per-block kernel against the composed kernels 2, 3 and 4 at the same
+    cadence, both on the card; with ``wave`` None (the auto plan, which
+    must resolve to W=1) kernels 5, 6 and 4 adding into a delta against
+    their plain versions on the host CPU."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.parallel.distributed import Communicator
+    from gmrm_tpu_torch.sampler.gibbs import marker_sweep_sharded
+
+    opt, data, statics, states, _ = sharded_setup(sim, dev, n_shards, wave)
+    if (opt.wave_size > 1) != (wave is not None):
+        fail(f"{name}: the plan resolved to W={opt.wave_size}")
+    mps = data.layout.m_pad_shard
+    nblocks = mps // B
+    rng = np.random.default_rng(11)
+    if opt.wave_size > 1:
+        orders = [rng.permutation(nblocks)[:, None] * B
+                  + np.argsort(rng.uniform(size=(nblocks, B)), axis=1)
+                  for _ in range(n_shards)]
+    else:
+        orders = [np.concatenate([rng.permutation(ln), np.arange(ln, mps)])
+                  .reshape(nblocks, B) for ln in data.m_local]
+    u = [rng.uniform(size=(nblocks, T, B)).astype(np.float32)
+         for _ in range(n_shards)]
+    z = [rng.normal(size=(nblocks, T, B)).astype(np.float32)
+         for _ in range(n_shards)]
+    first = states[0]
+    sigmae = 0.5 * (first.eps * first.eps).sum(dim=(1, 2)) / statics[0].nonas
+    n_launch = n_shards * nblocks
+    if opt.wave_size > 1:
+        sides = (("fused", dev, None, {"block_sweep": n_launch}),
+                 ("composed", dev, False,
+                  dict.fromkeys(COMPOSED_KERNELS, n_launch)))
+    else:
+        sides = (("kernels", dev, None,
+                  dict.fromkeys(SERIAL_KERNELS, n_launch)),
+                 ("plain", torch.device("cpu"), None, {}))
+    res, ms = [], []
+    for key, d, mega, want in sides:
+        eps0 = first.eps.to(d)
+        marker = [(st.betas.to(d), st.comp.to(d), st.acum.to(d))
+                  for st in states]
+        sta = [to_device(x, d) for x in statics]
+        inj = [[torch.from_numpy(a).to(d) for a in arrs]
+               for arrs in (orders, u, z)]
+
+        def sweep():
+            return marker_sweep_sharded(
+                eps0.clone(), marker, first.sigmag.to(d), sigmae.to(d),
+                first.pi_est.to(d), sta, *inj, wave=opt.wave_size,
+                comm=Communicator(d), megakernel=mega)
+        _build.reset_launch_counts()
+        out = sweep()
+        counts = {k: v for k, v in _build.launch_counts().items() if v}
+        if counts != want:
+            fail(f"{name}, {key}: launches {counts}, expected {want}")
+        res.append((out[0].cpu(), [[x.cpu() for x in ms_] for ms_ in out[1]],
+                    out[2].cpu()))
+        ms.append(call_ms(sweep, 2) if d.type == "cuda" else None)
+    (ae, a_st, acass), (be, b_st, bcass) = res
+    n_diff = sum(int((a[1] != b[1]).sum()) for a, b in zip(a_st, b_st))
+    db = max(max_err(a[0], b[0]) for a, b in zip(a_st, b_st))
+    de = max_err(ae, be)
+    moved = sum(int((a[1] != 0).sum()) for a in a_st)
+    timing = "; ".join(f"{t:.3f} ms per sharded sweep {side[0]}"
+                       for side, t in zip(sides, ms) if t is not None)
+    print(f"# {name} (S={n_shards}, W={opt.wave_size}, {nblocks} blocks per "
+          f"shard, shards of {data.m_local} markers, mb_pad={data.mb_pad}): "
+          f"{sides[0][0]} against {sides[1][0]} at the same cadence: comp "
+          f"mismatches {n_diff} of {n_shards * T * mps}, cass equal "
+          f"{torch.equal(acass, bcass)}, max|dbeta| {db:.3e}, max|deps| "
+          f"{de:.3e}; {timing} (CUDA events around eager calls)  [{card}]",
+          flush=True)
+    if (n_diff or not torch.equal(acass, bcass) or db > 1e-4 or de > 1e-4
+            or not moved):
+        fail(f"{name}: the two sides disagree")
+
+
+def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
+                           nccl=False):
+    """Phases 4d and 4e: run_training_sharded through the entry point, all
+    shards on the one card; with ``nccl`` inside a one-rank NCCL process
+    group.  The Gram cache launches once per shard, the fused per-block
+    kernel once per shard, block step and iteration, nothing else."""
+    import numpy as np
+    import torch.distributed as dist
+    from gmrm_tpu_torch.io.writers import read_history
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.parallel.distributed import init_distributed
+    from gmrm_tpu_torch.parallel.runner import run_training_sharded
+
+    out_dir = os.path.join(tmp, f"out_s{n_shards}{'_nccl' if nccl else ''}")
+    opt = anchor_options(sim, out_dir, wave, iterations)
+    if nccl:
+        init_distributed(f"file://{tmp}/rendezvous_s{n_shards}", 1, 0,
+                         backend="nccl", timeout_seconds=120)
+    try:
+        _build.reset_launch_counts()
+        res = run_training_sharded(opt, n_devices=n_shards, device=dev,
+                                   verbose=False)
+        launches = _build.launch_counts()
+    finally:
+        if nccl:
+            dist.destroy_process_group()
+    if opt.wave_size != W:
+        fail(f"S={n_shards} training: the plan resolved to W={opt.wave_size}")
+    nblocks = -(-(-(-MT // n_shards)) // B)     # ceil(ceil(MT / S) / B)
+    want = {"gram_cache": n_shards,
+            "block_sweep": n_shards * nblocks * iterations}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"S={n_shards} training: kernel {name} launched {n} times, "
+                 f"expected {want.get(name, 0)}")
+    for ph in sim.phens:
+        base = os.path.join(out_dir, os.path.splitext(
+            os.path.basename(ph))[0])
+        its, bet = read_history(base + ".bet", "f8")
+        _, cpn = read_history(base + ".cpn", "i4")
+        if (bet.shape != (iterations // THIN, MT) or cpn.shape != bet.shape
+                or list(its) != list(range(THIN, iterations + 1, THIN))
+                or not np.isfinite(bet).all()
+                or cpn.min() < 0 or cpn.max() >= K or not (cpn != 0).any()):
+            fail(f"{base}.bet/.cpn do not read back as expected")
+    # Thin boundaries sync the device: iterations THIN+1 .. the last span
+    # sync to sync; a chain of THIN iterations is timed whole.
+    if iterations > THIN:
+        steady = sum(res.iter_seconds[THIN:]) / (iterations - THIN)
+        span = f"iterations {THIN + 1}-{iterations}"
+    else:
+        steady = res.chain_seconds / iterations
+        span = f"the whole chain of {iterations}"
+    sg = res.state[0].sigmag.sum(dim=1).cpu().numpy()
+    se = res.state[0].sigmae.cpu().numpy()
+    h2 = sg / (sg + se)
+    if not (np.isfinite(h2).all() and (h2 > 0.05).all() and (h2 < 0.95).all()):
+        fail(f"S={n_shards} training: h2 {h2}")
+    return res, launches, steady, span, h2, out_dir
+
+
+def same_artifacts(sim, dir_a, dir_b):
+    """Whether two runs wrote the same .bet/.cpn/.csv bytes."""
+    for ph in sim.phens:
+        base = os.path.splitext(os.path.basename(ph))[0]
+        for suffix in (".bet", ".cpn", ".csv"):
+            with open(os.path.join(dir_a, base + suffix), "rb") as fa, \
+                    open(os.path.join(dir_b, base + suffix), "rb") as fb:
+                if fa.read() != fb.read():
+                    return False
+    return True
+
+
 def chain_setup(sim, dev):
     """The anchor's data, static inputs, start state and RNG plan, as
     run_training builds them."""
@@ -708,26 +1045,41 @@ def composed_phase(sim, dev):
     return launches, sum(seconds[1:]) / (ITERS_COMPOSED - 1)
 
 
-def profile_phase(sim, dev):
-    """Phase 5: torch.profiler over 5 whole-sweep iterations at the anchor
-    after 2 of warm-up.  Returns the device-busy and wall milliseconds per
-    iteration, launches per iteration and the busiest device kernels."""
+def profile_phase(sim, dev, n_shards=0):
+    """Phase 5: torch.profiler over 5 iterations at the anchor after 2 of
+    warm-up, on the whole-sweep path or, with ``n_shards``, on the sharded
+    path.  Returns the device-busy and wall milliseconds per iteration,
+    launches per iteration and the busiest device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
+    from gmrm_tpu_torch.parallel.distributed import Communicator
+    from gmrm_tpu_torch.sampler.gibbs import (
+        gibbs_iteration, gibbs_iteration_sharded,
+    )
 
-    opt, static, state, rng = chain_setup(sim, dev)
+    if n_shards:
+        opt, _, static, state, rng = sharded_setup(sim, dev, n_shards)
+        comm = Communicator(dev)
+
+        def step(state, it):
+            return gibbs_iteration_sharded(
+                state, static, it, rng, block_size=B, wave=opt.wave_size,
+                comm=comm)[0]
+    else:
+        opt, static, state, rng = chain_setup(sim, dev)
+
+        def step(state, it):
+            return gibbs_iteration(state, static, it, rng, block_size=B,
+                                   wave=opt.wave_size)[0]
     for it in (1, 2):
-        state, _ = gibbs_iteration(state, static, it, rng, block_size=B,
-                                   wave=opt.wave_size)
+        state = step(state, it)
     torch.cuda.synchronize()
     n = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for it in range(3, 3 + n):
-            state, _ = gibbs_iteration(state, static, it, rng, block_size=B,
-                                       wave=opt.wave_size)
+            state = step(state, it)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
@@ -763,16 +1115,38 @@ SOURCES = {
                     "gmrm_tpu/ops/scan_kernel.py:61"),
     "sweep_blocks": ("gmrm_tpu_torch/csrc/sweep_blocks.cu",
                      "gmrm_tpu/ops/sweep_kernel.py:371"),
+    "block_sweep": ("gmrm_tpu_torch/csrc/block_sweep.cu",
+                    "gmrm_tpu/ops/sweep_kernel.py:961"),
 }
 # The whole-sweep kernel also stands for the N-tiled TPU kernel.
 ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576"}
 
 
+def training_only(dev, reps, card, repo):
+    """Phases 4 and 4b ``reps`` times on one simulated anchor: the steady
+    ms/iteration of every run, for comparing two trees inside one call."""
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = anchor_dataset(os.path.join(tmp, "data"))
+        for rep in range(reps):
+            for wave, iters in ((W, ITERS), (1, ITERS_SERIAL)):
+                run_dir = os.path.join(tmp, f"run{rep}_w{wave}")
+                os.makedirs(run_dir)
+                steady = training_phase(sim, dev, run_dir, wave, iters)[2]
+                print(f"# {repo}: training W={wave}, run {rep + 1}: "
+                      f"{steady * 1e3:.2f} ms/iteration  [{card}]",
+                      flush=True)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--training-only", type=int, default=0,
+                        metavar="REPS")
+    parser.add_argument("--repo", default=REPO)
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.repo))
     from gmrm_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -785,6 +1159,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if args.training_only:
+        _build.library()
+        training_only(dev, args.training_only, card, args.repo)
+        return
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -818,6 +1196,20 @@ def main():
           f"bytes per CTA, resident in shared memory: "
           f"{', '.join(plan['resident'])}  [{card}]", flush=True)
 
+    (err, t_k, t_p, t_call, bound), bplan = block_sweep_phase(dev, gen)
+    kernels["block_sweep"] = (err, t_k, t_p, t_call, bound)
+    print(f"# block_sweep, blocks of the same operands at NT=1 and NT={T}, "
+          f"from the shard's whole arrays in place and from the block's own "
+          f"slices, and an all-pad block: comp equal to the plain version, "
+          f"every element of the delta written, max abs err of the delta "
+          f"and beta {err:.3e}; kernel ms per launch {t_k} (CUDA events "
+          f"around 2,000 queued launches; a cooperative launch), plain ms "
+          f"{t_p} (CUDA graph replay), ms per eager call of the wrapper "
+          f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}; grid "
+          f"{bplan['grid']} CTAs x {bplan['cols']} byte columns, "
+          f"{bplan['smem_bytes']} bytes of shared memory, resident: "
+          f"{', '.join(bplan['resident'])}  [{card}]", flush=True)
+
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         sim = anchor_dataset(os.path.join(tmp, "data"))
@@ -833,6 +1225,18 @@ def main():
                 for w, iters in ((W, ITERS), (1, ITERS_SERIAL))}
         composed_launches, composed_s = composed_phase(sim, dev)
         busy_ms, wall_ms, n_launch, top = profile_phase(sim, dev)
+        sharded_gate(sim, dev, card, 4, W, "sharded sweep gate")
+        sharded_gate(small, dev, card, 2, None, "sharded W=1 sweep gate")
+        sharded = {(s, False): sharded_training_phase(sim, dev, tmp, s, w, n)
+                   for s, w, n in SHARDED_RUNS}
+        s0, w0, n0 = SHARDED_RUNS[0]
+        sharded[(s0, True)] = sharded_training_phase(sim, dev, tmp, s0, w0,
+                                                     n0, nccl=True)
+        if not same_artifacts(sim, sharded[(s0, False)][5],
+                              sharded[(s0, True)][5]):
+            fail("the run inside a one-rank NCCL group wrote other bytes "
+                 "than the run without a group")
+        sh_prof = profile_phase(sim, dev, n_shards=s0)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2) in runs.items():
         startup = ("load + stats + Gram cache of "
@@ -855,13 +1259,33 @@ def main():
           f"per iteration; busiest kernels (ms/iteration) {top}  [{card}]",
           flush=True)
 
+    for (n_sh, nccl), (res, launches, steady, span, h2, _) in sharded.items():
+        how = ("inside a one-rank NCCL process group, artifacts byte-equal "
+               "to the run without a group" if nccl
+               else "no process group")
+        print(f"# sharded training S={n_sh} (all shards on the one card, "
+              f"{how}), W={W}: startup {res.startup_seconds:.2f} s (load + "
+              f"stats + {n_sh} Gram caches); {steady * 1e3:.2f} ms/iteration "
+              f"= {MT / steady:.0f} markers/s over {span}; h2 "
+              f"{[round(float(x), 3) for x in h2]}; launches {launches}  "
+              f"[{card}]", flush=True)
+    busy_s, wall_s, launch_s, top_s = sh_prof
+    print(f"# profiler, sharded path S={SHARDED_RUNS[0][0]}, 5 iterations: "
+          f"device busy {busy_s:.3f} ms/iteration, wall {wall_s:.3f} "
+          f"ms/iteration, idle share {1 - busy_s / wall_s:.3f}, "
+          f"{launch_s:.1f} launches per iteration; busiest kernels "
+          f"(ms/iteration) {top_s}  [{card}]", flush=True)
+
     # Launches: each path's run, its counts set to 0 just before it (the
-    # whole-sweep and W=1 training runs and the composed iterations).
+    # whole-sweep and W=1 training runs, the composed iterations and the
+    # sharded training runs without a process group).
     # library_ms: no single PyTorch call computes any of these functions
     # (each fuses the 2-bit decode with a product, or is a serial scan).
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": (sum(r[1][name] for r in runs.values())
-                          + composed_launches[name]),
+                          + composed_launches[name]
+                          + sum(r[1][name] for (_, nccl), r
+                                in sharded.items() if not nccl)),
              "max_abs_err": kernels[name][0],
              "ms": kernels[name][1][0], "plain_ms": kernels[name][2][0],
              "bound_ms": kernels[name][4][0], "bound_by": kernels[name][4][1],

@@ -1,12 +1,17 @@
 """Command line of the port: its own copy of the reference flag surface
 (gmrm_tpu/cli.py, reference ``src/options.cpp:26-151``), dispatched to the
-port's training runner.  ``--S`` is accepted and ignored, like the
-reference.  Options the ported slice does not cover raise
+port's training runners.  ``--S`` is accepted and ignored, like the
+reference.  ``--devices S`` with S > 1 trains marker-sharded over S shards
+(gmrm_tpu_torch/parallel/runner.py), all on this process's one device
+unless a process group spreads them: under a launcher that sets ``RANK``
+and ``WORLD_SIZE`` (``torchrun``, one process per card) the processes join
+one group first.  Options the ported slices do not cover raise
 ``SliceNotCovered`` (an ``OptionsError``) naming the ROADMAP.md item."""
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from gmrm_tpu_torch.config import Options, OptionsError, check_slice
@@ -50,7 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--devices", type=int, default=0,
-                   help="number of devices for the marker mesh (0 = all)")
+                   help="number of marker shards (0 = one per process); "
+                        "more than one trains marker-sharded, every "
+                        "shard of a process on its one device")
     p.add_argument("--use-pallas", type=int, default=-1,
                    help="-1 auto, 0 off, 1 on")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -96,17 +103,30 @@ def options_from_args(args) -> Options:
 
 
 def main(argv=None, device=None) -> int:
-    """Run training; ``device`` None means CUDA, which must be present."""
+    """Run training; ``device`` None means CUDA, which must be present.
+    Dispatch as gmrm_tpu/cli.py:129-136, with "devices" read as shards:
+    more than one shard, or a process group, goes to the sharded runner."""
+    from gmrm_tpu_torch.parallel import distributed
     from gmrm_tpu_torch.runner import resolve_device, run_training
 
     opt = options_from_args(build_parser().parse_args(argv))
     dev = resolve_device(device)
-    check_slice(opt, dev.type)
+    if (int(os.environ.get("WORLD_SIZE", "1")) > 1
+            and not distributed.is_initialized()):
+        distributed.init_distributed(
+            backend="nccl" if dev.type == "cuda" else "gloo")
+    sharded = opt.n_devices > 1 or distributed.is_initialized()
+    check_slice(opt, dev.type, sharded)
     try:
         opt.validate()
         if opt.group_mixture_file:
             opt.load_group_mixtures()
-        run_training(opt, device=dev, verbose=opt.verbosity >= 0)
+        if sharded:
+            from gmrm_tpu_torch.parallel.runner import run_training_sharded
+            run_training_sharded(opt, n_devices=opt.n_devices, device=dev,
+                                 verbose=opt.verbosity >= 0)
+        else:
+            run_training(opt, device=dev, verbose=opt.verbosity >= 0)
     except OptionsError as e:
         print(f"FATAL  : {e}", file=sys.stderr)
         return 1

@@ -13,7 +13,11 @@ as the card, with each kernel's plain PyTorch version: the auto wave is 32
 (else 16, else 8) dividing the block size, and 1 (the exact serial sweep)
 when none divides it, when the panel has fewer than 64 blocks, or with
 ``--use-pallas 0``.  Wave mode (W > 1) sweeps through the whole-sweep
-kernel, one launch per iteration (ops/sweep_kernel.sweep_blocks).
+kernel, one launch per iteration (ops/sweep_kernel.sweep_blocks); a
+marker-sharded run (``--devices S`` with S > 1, or a process group) sweeps
+block by block through the fused per-block kernel
+(ops/sweep_kernel.block_sweep), and its plan guards the wave on the
+markers of one shard.
 """
 
 from __future__ import annotations
@@ -237,38 +241,48 @@ def planned_wave(opt: Options) -> int:
     return w if opt.block_size % w == 0 else 1
 
 
-def check_slice(opt: Options, device_type: str) -> None:
-    """Raise SliceNotCovered for every option the ported slice lacks."""
+def check_slice(opt: Options, device_type: str,
+                sharded: bool = False) -> None:
+    """Raise SliceNotCovered for every option the ported slices lack.
+    ``sharded``: the run is marker-sharded (more than one shard, or a
+    process group), whose checkpoints and startup cache have formats of
+    their own."""
+    ckpt = "ROADMAP §1 item 'checkpoint/resume and --cache-dir'"
+    if sharded:
+        ckpt += (": topology-portable v2 sharded checkpoints and the "
+                 "per-process startup cache")
     gaps = [
         (opt.predict, "--predict", "ROADMAP §1 item 'predict'"),
-        (opt.resume, "--resume", "ROADMAP §1 item 'checkpoint/resume'"),
-        (opt.checkpoint_every, "--checkpoint-every",
-         "ROADMAP §1 item 'checkpoint/resume'"),
-        (opt.cache_dir, "--cache-dir",
-         "ROADMAP §1 item 'checkpoint/resume and --cache-dir'"),
-        (opt.n_devices > 1, "--devices > 1", "ROADMAP §1 item 'sharded'"),
+        (opt.resume, "--resume", ckpt),
+        (opt.checkpoint_every, "--checkpoint-every", ckpt),
+        (opt.cache_dir, "--cache-dir", ckpt),
         (opt.dtype == "float64", "--dtype float64",
          "ROADMAP §1 item 'float64'"),
-        (opt.use_pallas is False and device_type == "cuda",
-         "--use-pallas 0 on CUDA",
-         "the CUDA path always runs its kernels (ROADMAP §1)"),
     ]
+    where = " on a marker-sharded run" if sharded else ""
     for bad, flag, item in gaps:
         if bad:
             raise SliceNotCovered(
-                f"{flag} is not ported to gmrm_tpu_torch yet ({item}); "
-                f"use gmrm_tpu for it.")
+                f"{flag}{where} is not ported to gmrm_tpu_torch yet "
+                f"({item}); use gmrm_tpu for it.")
+    if opt.use_pallas is False and device_type == "cuda":
+        raise SliceNotCovered(
+            "--use-pallas 0 on CUDA: the CUDA path always runs its kernels "
+            "(ROADMAP §1); pass --wave-size 1 for the exact serial sweep, "
+            "or run on the CPU.")
 
 
 def resolve_plan(opt: Options, device_type: str, m_local: int,
-                 verbose: bool = False) -> int:
+                 verbose: bool = False, sharded: bool = False) -> int:
     """Resolve the wave in place on ``opt`` and return the block count.
+    ``m_local`` is the marker count the guard looks at: all markers on one
+    device, ``m_total // n_shards`` on a sharded run.
 
     Keeps ``Options.guard_wave_blocks`` semantics: an auto-selected wave
     drops to 1 (the exact serial sweep) below 64 blocks, and an explicit
     wave is kept with a warning.
     """
-    check_slice(opt, device_type)
+    check_slice(opt, device_type, sharded)
     opt.wave_auto = opt.wave_size is None
     opt.wave_size = planned_wave(opt)
     return opt.guard_wave_blocks(m_local, verbose=verbose)

@@ -62,6 +62,14 @@ SIGNATURES = {
     # T, B, mb, nt, K, W, out (6 ints): no launch, the grid and the shared
     # memory residency the sweep kernel will use at these shapes
     "gmrm_sweep_blocks_plan": [_I] * 6 + [_P],
+    # blk_b, m_local, bed, win, gram, eps, na, mave, msig, beta, comp, acum
+    # (updated in place), grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, deps,
+    # scratch, nb, T, B, mb, nt, K, W, G, stream (a cooperative launch
+    # inside the entry point)
+    "gmrm_block_sweep": [_P] * 23 + [_I] * 8 + [_P],
+    # T, B, mb, nt, K, W, out (4 ints): no launch, the grid and the shared
+    # memory the per-block sweep kernel will use at these shapes
+    "gmrm_block_sweep_plan": [_I] * 6 + [_P],
 }
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper
@@ -69,7 +77,7 @@ SIGNATURES = {
 # show that its main path went through the kernels.
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "eps_update": 0, "block_gram": 0, "serial_scan": 0,
-             "sweep_blocks": 0}
+             "sweep_blocks": 0, "block_sweep": 0}
 
 
 def launch_counts() -> dict:

@@ -1,4 +1,5 @@
-"""End-to-end single-device training (port of gmrm_tpu/runner.py).
+"""End-to-end single-device training (port of gmrm_tpu/runner.py); the
+marker-sharded runner, gmrm_tpu_torch/parallel/runner.py, builds on it.
 
 Loads the inputs, builds the static inputs (marker statistics, and the
 Gram cache in wave mode), runs the Gibbs chain and writes the reference's
@@ -152,49 +153,73 @@ def shared_na_of(data: LoadedData) -> bool:
     return all(ph.nas == 0 for ph in data.phens)
 
 
+def replicated_inputs(na, nonas, mtotgrp, n: int, opt: Options,
+                      device) -> dict:
+    """The static inputs that are the same for every marker, and on a
+    sharded run for every shard, as tensors on ``device``."""
+    f32 = torch.float32
+    return dict(
+        na=torch.as_tensor(na, dtype=f32, device=device).contiguous(),
+        nonas=torch.as_tensor(nonas, dtype=f32, device=device),
+        mtotgrp=torch.as_tensor(mtotgrp, dtype=torch.int64, device=device),
+        cva=torch.as_tensor(opt.cva, dtype=f32, device=device),
+        cvai=torch.as_tensor(opt.cvai, dtype=f32, device=device),
+        n_total=float(n))
+
+
+def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
+                       rep: dict, opt: Options, shared_na: bool,
+                       device) -> StaticInputs:
+    """The static inputs of one device's, or one shard's, markers: bed
+    (m_pad, mb_pad) with ``m_local`` real rows, their statistics and, in
+    wave mode, their Gram cache; ``rep`` from :func:`replicated_inputs`."""
+    bed = torch.as_tensor(bed, device=device)
+    mave, msig = marker_stats(bed, rep["na"], rep["nonas"])
+    # Zero the stats of pad rows (all-missing decode gives 0/0).
+    valid = (torch.arange(bed.shape[0], device=device) < m_local)[None]
+    mave = torch.where(valid, mave, 0.0).contiguous()
+    msig = torch.where(valid, msig, 0.0).contiguous()
+    gram_cache = None
+    if opt.wave_size > 1:
+        gram_cache = build_gram_cache(bed, rep["na"],
+                                      block_size=opt.block_size,
+                                      shared_na=shared_na)
+    return StaticInputs(
+        bed=bed, mave=mave, msig=msig,
+        group_of=torch.as_tensor(group_of, dtype=torch.int64, device=device),
+        m_local=int(m_local), gram_cache=gram_cache, shared_na=shared_na,
+        **rep)
+
+
 def build_static(data: LoadedData, opt: Options, device) -> StaticInputs:
     """Marker statistics, and in wave mode the one-time Gram cache (no
     --cache-dir); W = 1 recomputes each block's Gram in the sweep
     (gmrm_tpu/runner.py:223-225)."""
-    f32 = torch.float32
-    bed = torch.as_tensor(data.bed, device=device)
-    na = torch.as_tensor(data.na, dtype=f32, device=device).contiguous()
-    nonas = torch.as_tensor(data.nonas, dtype=f32, device=device)
-    mave, msig = marker_stats(bed, na, nonas)
-    # Zero the stats of pad rows (all-missing decode gives 0/0).
-    valid = (torch.arange(data.m_pad, device=device) < data.m_local)[None]
-    mave = torch.where(valid, mave, 0.0).contiguous()
-    msig = torch.where(valid, msig, 0.0).contiguous()
-    shared_na = shared_na_of(data)
-    gram_cache = None
-    if opt.wave_size > 1:
-        gram_cache = build_gram_cache(bed, na, block_size=opt.block_size,
-                                      shared_na=shared_na)
-    return StaticInputs(
-        bed=bed, na=na, mave=mave, msig=msig,
-        group_of=torch.as_tensor(data.group_of, dtype=torch.int64,
-                                 device=device),
-        mtotgrp=torch.as_tensor(data.mtotgrp, dtype=torch.int64,
-                                device=device),
-        nonas=nonas,
-        cva=torch.as_tensor(opt.cva, dtype=f32, device=device),
-        cvai=torch.as_tensor(opt.cvai, dtype=f32, device=device),
-        n_total=float(data.n), m_local=int(data.m_local),
-        gram_cache=gram_cache, shared_na=shared_na,
-    )
+    rep = replicated_inputs(data.na, data.nonas, data.mtotgrp, data.n, opt,
+                            device)
+    return static_for_markers(data.bed, data.group_of, data.m_local, rep,
+                              opt, shared_na_of(data), device)
+
+
+def initial_sigmag(opt: Options, n_traits: int, mtotgrp) -> np.ndarray:
+    """sigmaG ~ Beta(1,1) per group, 0 for empty groups (bayes.cpp:327);
+    drawn on the CPU so the start does not depend on the device, nor, on a
+    sharded run, on the process."""
+    g = opt.cva.shape[0]
+    sigmag0 = beta_11(RngPlan(opt.seed, "cpu").gen(0, "init"),
+                      (n_traits, g)).numpy()
+    return np.where(np.asarray(mtotgrp)[None, :] == 0, 0.0, sigmag0)
 
 
 def init_sampler_state(data: LoadedData, opt: Options,
                        device) -> SamplerState:
-    """sigmaG ~ Beta(1,1) per group, 0 for empty groups (bayes.cpp:327);
-    drawn on the CPU so the start does not depend on the device."""
+    """The start of the chain: zero effects, the prior mixture
+    probabilities and :func:`initial_sigmag`."""
     t = len(data.phens)
     g, k = opt.cva.shape
-    sigmag0 = beta_11(RngPlan(opt.seed, "cpu").gen(0, "init"), (t, g)).numpy()
-    sigmag0 = np.where(data.mtotgrp[None, :] == 0, 0.0, sigmag0)
     return init_state(t, data.m_pad, g, k, data.eps0,
-                      pi_prior_from_cva(np.asarray(opt.cva)), sigmag0,
-                      device)
+                      pi_prior_from_cva(np.asarray(opt.cva)),
+                      initial_sigmag(opt, t, data.mtotgrp), device)
 
 
 @dataclass

@@ -6,6 +6,14 @@ The JAX package splits one key per iteration into per-purpose keys
 iteration, purpose) instead, so a draw does not depend on what ran before
 it.  torch and ``jax.random`` give different numbers for one seed: the
 equivalence target is the law, tested against scipy.
+
+On a marker-sharded run every shard has its own plan, keyed by its global
+shard id.  The shuffle and the sweep's draws (``SHARD_KEYED``) depend on
+it, as the JAX package folds the device index into ``k_perm``, ``k_u`` and
+``k_z`` and nothing else (gibbs.py:448-452); the other draws do not, so the
+hyperparameters come out the same on every shard and process (the
+reference's rank-0 broadcast).  A draw depends on seed, iteration, purpose
+and global shard id, never on how shards are spread over processes.
 """
 
 from __future__ import annotations
@@ -22,17 +30,25 @@ PURPOSES = ("init", "mu", "block_order", "row_order", "u", "z", "sigmag",
 # never waits on the device to test for acceptance.
 ROUNDS = 32
 
+# The draws that differ from shard to shard.
+SHARD_KEYED = ("block_order", "row_order", "marker_order", "u", "z")
+
 
 class RngPlan:
-    """Generators keyed by (seed, iteration, purpose) on one device."""
+    """Generators keyed by (seed, iteration, purpose) on one device and,
+    for the ``SHARD_KEYED`` purposes of a sharded run, by the global shard
+    id ``shard``."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, shard=None):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.shard = None if shard is None else int(shard)
 
     def gen(self, it: int, purpose: str) -> torch.Generator:
-        ss = np.random.SeedSequence(
-            [self.seed, int(it), PURPOSES.index(purpose)])
+        key = [self.seed, int(it), PURPOSES.index(purpose)]
+        if self.shard is not None and purpose in SHARD_KEYED:
+            key.append(self.shard + 1)
+        ss = np.random.SeedSequence(key)
         g = torch.Generator(device=self.device)
         g.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
         return g

@@ -4,6 +4,14 @@ gmrm_tpu/sampler/state.py, which uses ``flax.struct``).
 ``state_from_numpy`` / ``static_from_numpy`` take the JAX package's
 ``SamplerState`` / ``StaticInputs`` leaves as NumPy arrays (the PRNG key
 dropped), so that the two packages can be run from the same state.
+
+A marker-sharded run holds one ``StaticInputs`` and one ``SamplerState``
+per local shard.  The per-shard leaves are the marker-indexed ones
+(``SHARDED_STATIC``, ``SHARDED_STATE`` and ``m_local``); the replicated
+leaves are the same tensor objects in every shard's copy, so the process
+has one residual buffer.  With ``n_shards`` the two functions split the
+JAX package's global sharded arrays (marker axis = n_shards * m_pad_shard,
+gmrm_tpu/parallel/runner.py:59-75) into such lists.
 """
 
 from __future__ import annotations
@@ -121,17 +129,49 @@ def _tensor(name, x, device):
     return torch.tensor(np.asarray(x), device=device).to(dtype).contiguous()
 
 
-def state_from_numpy(d: dict, device) -> SamplerState:
-    """The JAX package's SamplerState leaves (NumPy, ``key`` ignored)."""
-    return SamplerState(**{f.name: _tensor(f.name, d[f.name], device)
+# Marker-indexed leaves and their marker axis: one slice per shard.
+SHARDED_STATE = {"betas": 1, "comp": 1, "acum": 1}
+SHARDED_STATIC = {"bed": 0, "mave": 1, "msig": 1, "group_of": 0,
+                  "gram_cache": 0}
+
+
+def _split_shards(full, axes, n_shards, extra=None):
+    """Per-shard copies of ``full``: the leaves in ``axes`` cut into
+    n_shards equal parts along their marker axis, the others shared."""
+    out = []
+    for i in range(n_shards):
+        kw = {name: getattr(full, name).chunk(n_shards, dim=axis)[i]
+              .contiguous()
+              for name, axis in axes.items()
+              if getattr(full, name) is not None}
+        if extra is not None:
+            kw.update(extra(i))
+        out.append(dataclasses.replace(full, **kw))
+    return out
+
+
+def state_from_numpy(d: dict, device, n_shards=None):
+    """The JAX package's SamplerState leaves (NumPy, ``key`` ignored).
+    With ``n_shards``, a list of per-shard states from the global sharded
+    arrays, sharing the replicated leaves."""
+    full = SamplerState(**{f.name: _tensor(f.name, d[f.name], device)
                            for f in dataclasses.fields(SamplerState)})
+    if n_shards is None:
+        return full
+    return _split_shards(full, SHARDED_STATE, n_shards)
 
 
-def static_from_numpy(d: dict, device) -> StaticInputs:
+def static_from_numpy(d: dict, device, n_shards=None):
     """The JAX package's StaticInputs leaves as NumPy arrays.  Its
     ``gram_cache`` is None on a W = 1 run; ``shared_na``, which the JAX
     package passes to its sweep as an argument, keeps its default unless
-    ``d`` has it."""
+    ``d`` has it.  With ``n_shards``, a list of per-shard inputs from the
+    global sharded arrays (``m_local`` then holds one count per shard)."""
+    if n_shards is not None:
+        m_local = np.asarray(d["m_local"]).reshape(n_shards)
+        full = static_from_numpy({**d, "m_local": 0}, device)
+        return _split_shards(full, SHARDED_STATIC, n_shards,
+                             lambda i: {"m_local": int(m_local[i])})
     kw = {}
     for f in dataclasses.fields(StaticInputs):
         if f.name not in d:

@@ -1,6 +1,7 @@
 """The port's training path end to end on the CPU: run_training and the
 CLI, artifacts, chain quality, the JAX-free import, the exact serial (W=1)
-runs and the options the ported slice refuses."""
+runs, a marker-sharded run through the CLI and the options the ported
+slices refuse."""
 
 import os
 import subprocess
@@ -64,7 +65,8 @@ def test_run_training_cpu_chain(sim_medium, tmp_path):
 def test_import_and_train_without_jax(sim_tiny, tmp_path):
     """gmrm_tpu_torch never imports jax, flax or anything of gmrm_tpu: a
     meta-path hook makes each of those imports raise, and the port still
-    imports, parses a command line and trains on the CPU."""
+    imports, parses a command line and trains on the CPU, on one device
+    and marker-sharded over two shards."""
     code = f"""
 import sys
 BLOCKED = ('jax', 'jaxlib', 'flax', 'gmrm_tpu')
@@ -84,14 +86,17 @@ opt = options_from_args(build_parser().parse_args([
     '--seed', '1', '--out-dir', {str(tmp_path)!r}, '--block-size', '8',
     '--wave-size', '8']))
 res = run_training(opt, device='cpu', verbose=False)
+from gmrm_tpu_torch.parallel.runner import run_training_sharded
+sharded = run_training_sharded(opt, n_devices=2, device='cpu', verbose=False)
+assert len(sharded.state) == 2
 assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)
-print('OK', res.iters_run)
+print('OK', res.iters_run, sharded.iters_run)
 """
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "OK 2" in proc.stdout
+    assert "OK 2 2" in proc.stdout
 
 
 @pytest.mark.parametrize("flags", [
@@ -99,7 +104,6 @@ print('OK', res.iters_run)
     ["--resume"],
     ["--checkpoint-every", "5"],
     ["--cache-dir", "cache"],
-    ["--devices", "2"],
     ["--dtype", "float64"],
 ], ids=lambda f: f[0])
 def test_cli_refuses_uncovered_options(sim_tiny, flags):
@@ -126,6 +130,23 @@ def test_cli_trains_and_refuses_missing_cuda(sim_tiny, tmp_path):
     # Too few blocks for the auto wave: the plan falls back to W=1.
     i = argv.index("--wave-size")
     assert cli.main(argv[:i] + argv[i + 2:], device="cpu") == 0
+
+
+def test_cli_trains_sharded(sim_tiny, tmp_path):
+    """--devices 2 goes to the sharded runner, both shards on the one
+    device, and writes the chain in the original marker order."""
+    argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
+            "--phen-files", ",".join(sim_tiny.phens),
+            "--group-index-file", sim_tiny.gri,
+            "--group-mixture-file", sim_tiny.grm, "--iterations", "3",
+            "--block-size", "4", "--wave-size", "4", "--devices", "2",
+            "--out-dir", str(tmp_path), "--verbosity", "-1"]
+    assert cli.main(argv, device="cpu") == 0
+    its, bet = read_history(str(tmp_path / "test1.bet"), "f8")
+    _, cpn = read_history(str(tmp_path / "test1.cpn"), "i4")
+    assert list(its) == [1, 2, 3] and bet.shape == (3, sim_tiny.m)
+    assert np.isfinite(bet).all() and cpn.shape == bet.shape
+    assert len(open(tmp_path / "test1.csv").read().splitlines()) == 3
 
 
 @pytest.mark.parametrize("flags", [

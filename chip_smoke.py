@@ -6,12 +6,18 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build the CUDA kernels of gmrm_tpu_torch/csrc with nvcc (sm_90a), one
-   nvcc per source, all started together;
+   nvcc per source, all started together; meanwhile worker processes
+   simulate the datasets of phases 3 to 5;
 2. each kernel against its plain PyTorch version on the card, at the
    training paths' shapes (T=4 traits, B=128, W=32, K=4, mb_pad=2560),
    with shared (NT=1) and per-trait (NT=4) NA masks, timed beside the
    plain version by replaying a CUDA graph of many calls (device time),
-   and per eager call.  The whole-sweep kernel runs one sweep of the
+   and per eager call.  The block Gram (kernel 5) builds a run of blocks
+   per launch (all 157 at NT=1, a run under its byte budget at NT=4) and
+   one block alone; the serial scan (kernel 6) runs on the sweep's arrays
+   with a block index and on one block's tensors; the c-dot and the update
+   (kernels 2 and 4) also as the W=1 sweep launches them, on the sweep's
+   arrays with a block index.  The whole-sweep kernel runs one sweep of the
    anchor's 157 blocks (an adaV group, a partly padded last block) against
    its plain version and against the composed chain of kernels 2, 3 and 4;
    one launch is a whole sweep, so it is timed with CUDA events around
@@ -33,7 +39,7 @@ Phases, each of which must pass (any failure exits non-zero):
    the same cadence (per block step every shard against the one residual,
    then the sum of the deltas), same order and draws;
 3e. one sharded sweep on the small panel, 2 shards of 16 blocks, where the
-   auto plan resolves to W=1: kernels 5, 6 and 4 adding into a delta
+   auto plan resolves to W=1: kernels 5, 2, 6 and 4 adding into a delta
    against their plain versions on the host CPU;
 4. the training entry point, gmrm_tpu_torch.runner.run_training, on the
    reference anchor (N=10,000 x Mt=20,000 x 4 traits, bench.py:50-57) in
@@ -52,9 +58,9 @@ Phases, each of which must pass (any failure exits non-zero):
 4e. the 2-shard run again inside a one-rank NCCL process group, so that
    every sum of the path goes through NCCL on CUDA tensors; its artifacts
    must equal phase 4d's byte for byte;
-5. a torch.profiler window over 5 whole-sweep iterations at the anchor, and
-   one over 5 sharded iterations (2 shards): device-busy and wall time per
-   iteration, idle share, launches.
+5. a torch.profiler window over 5 whole-sweep iterations at the anchor, one
+   over 5 W=1 iterations and one over 5 sharded iterations (2 shards):
+   device-busy and wall time per iteration, idle share, launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -71,9 +77,10 @@ and 4b three times and prints each run's ms/iteration, nothing else.
 """
 
 import argparse
-
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -89,9 +96,8 @@ MT_SMALL = 4_096        # the W=1 gate's panel: 32 blocks of B
 ITERS_SERIAL = 10
 ITERS_COMPOSED = 5
 N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
-MEGA_KERNELS = ("gram_cache", "sweep_blocks")
 COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
-SERIAL_KERNELS = ("block_gram", "serial_scan", "eps_update")
+SERIAL_KERNELS = ("block_cdot", "serial_scan", "eps_update")  # per block
 SHARDED_RUNS = ((2, None, 10), (4, W, 5))   # shards, --wave-size, iterations
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
@@ -107,6 +113,16 @@ def bound_of(nbytes, *ops_and_rates):
     t_ops = sum(ops / rate for ops, rate in ops_and_rates)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def serial_counts(nblocks, nt, sweeps=1, shards=1):
+    """Launches of ``sweeps`` W=1 sweeps of ``shards`` shards of ``nblocks``
+    blocks: kernels 2, 6 and 4 once per block, kernel 5 once per run of
+    blocks under the Gram byte budget."""
+    from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
+    runs = -(-nblocks // gram_run_blocks(T, B, nt, nblocks))
+    return {**dict.fromkeys(SERIAL_KERNELS, nblocks * sweeps * shards),
+            "block_gram": runs * sweeps * shards}
 
 
 def fail(msg):
@@ -196,18 +212,19 @@ def kernel_phase(dev, gen):
     na_trait = na_shared * (torch.rand((T, 4, MB), generator=gen,
                                        device=dev) > 0.03)
     rows_of = torch.randperm(m_pad, generator=gen, device=dev)
-    out, times, bounds = {}, {}, {}
+    out, times, bounds, notes = {}, {}, {}, {}
     f4 = 4                                   # bytes per float32 / int32
     tb, plane = T * B * f4, T * 4 * MB * f4  # a (T, B) and a (T, 4, mb) array
     block_ops = 4 * T * B * 4 * MB           # flops of A.eps and B.eps
 
-    def timed(name, kernel, plain, reps, plain_reps):
+    def timed(name, kernel, plain, reps, plain_reps, per=1):
         """Graph-replay ms of the kernel and its plain version, and the
-        kernel's eager ms per call."""
+        kernel's eager ms per call, each over ``per`` (the blocks of a
+        batched call)."""
         t = times.setdefault(name, ([], [], []))
-        t[0].append(cuda_ms(kernel, reps))
-        t[1].append(cuda_ms(plain, plain_reps))
-        t[2].append(call_ms(kernel, reps))
+        t[0].append(cuda_ms(kernel, reps) / per)
+        t[1].append(cuda_ms(plain, plain_reps) / per)
+        t[2].append(call_ms(kernel, reps) / per)
 
     # Kernel 1: the Gram cache, bit-equal, NT = 1 and NT = T.
     for shared, na in ((True, na_shared), (False, na_trait)):
@@ -312,50 +329,236 @@ def kernel_phase(dev, gen):
         scan_bytes + moved * T * W * B * f4,
         (moved * 2 * T * W * B + T * B * K * 12, F32_OPS))
 
-    # Kernel 5: the W=1 block's c and scaled Gram, gs bit-equal.
-    err = 0.0
+    # Kernel 5: the scaled Grams of a run of blocks from one launch, gs
+    # bit-equal: all 157 blocks at NT=1 (pad rows last, so the last block
+    # has pad slots), a run under the byte budget at NT=4; then one block
+    # with its c (the public counterpart, nb = 1).
+    order = torch.cat([torch.randperm(MT, generator=gen, device=dev),
+                       torch.arange(MT, m_pad, device=dev)])
+    rows_all = order.to(torch.int32).reshape(nblocks, B).contiguous()
+    real = (order < MT).reshape(nblocks, 1, B)
+    mave_p = (torch.rand((nblocks, T, B), generator=gen, device=dev) * 1.6
+              + 0.2) * real
+    msig_p = (torch.rand((nblocks, T, B), generator=gen, device=dev) * 1.5
+              + 0.5) * real
+    # The int8 operations one block and mask needs: g1 and g3 are symmetric
+    # (B (B + 1) / 2 products each), g2t is not (B B), over the individuals
+    # that are not padding.
+    gram_ops = 2 * (2 * (B * (B + 1) // 2) + B * B) * 4 * (MB - 60)
+    err, extra = 0.0, {}
+    for na_in in (na_shared[:1].contiguous(), na_trait):
+        nt = na_in.shape[0]
+        nb = bg.gram_run_blocks(T, B, nt, nblocks)
+        if nb != (nblocks if nt == 1 else 128):
+            fail(f"block_gram: a run of {nb} blocks at NT={nt}")
+        run = (rows_all[-nb:], na_in, mave_p[-nb:].contiguous(),
+               msig_p[-nb:].contiguous())
+        got = bg.blocks_gram_scaled(bed, *run)
+        want = bg.blocks_gram_scaled_plain(bed, *run)
+        if not torch.equal(got, want):
+            fail(f"block_gram (NT={nt}, {nb} blocks): gs is not bit-equal "
+                 f"to its plain version (max abs err {max_err(got, want)})")
+        if not (got[-1].abs().sum() > 0 and (got[-1][:, -1] == 0).all()):
+            fail(f"block_gram (NT={nt}): the last block's pad slots")
+        del got, want
+        timed("block_gram", lambda: bg.blocks_gram_scaled(bed, *run),
+              lambda: bg.blocks_gram_scaled_plain(bed, *run), 5, 1, per=nb)
+        ms = times["block_gram"][0][-1]
+        extra[f"NT={nt}"] = (
+            f"{nb} blocks per launch, {ms * nb:.4f} ms per launch, "
+            f"{gram_ops * nt / (ms * 1e-3) / 1e12:.1f} int8 TOP/s of the "
+            f"products the function needs")
     for na_in in (na_shared[:1].contiguous(), na_trait):
         got = bg.block_gram_scaled(bed, rows, eps, na_in, mave, msig)
         want = bg.block_gram_scaled_plain(bed, rows, eps, na_in, mave, msig)
         if not torch.equal(got[1], want[1]):
-            fail(f"block_gram (NT={na_in.shape[0]}): gs is not bit-equal to "
-                 f"its plain version (max abs err {max_err(got[1], want[1])})")
+            fail(f"block_gram (NT={na_in.shape[0]}, one block): gs is not "
+                 f"bit-equal to its plain version (max abs err "
+                 f"{max_err(got[1], want[1])})")
         err = max(err, close("block_gram c", got[0], want[0], 1e-5, 1e-5))
         timed("block_gram", lambda: bg.block_gram_scaled(
             bed, rows, eps, na_in, mave, msig),
             lambda: bg.block_gram_scaled_plain(
                 bed, rows, eps, na_in, mave, msig), 100, 20)
+    # The yardstick that leaves the decode out: torch.matmul on one block's
+    # pre-decoded float32 operands, the body of raw_gram_plain.
+    from gmrm_tpu_torch.ops.decode import decode_planes
+    pa, pb = decode_planes(bed[rows.long()])
+    ab = torch.cat([pa, pb], dim=0).reshape(2 * B, -1)
+    abn = ab * na_shared[0].reshape(1, -1)
+    extra["matmul"] = (f"torch.matmul (2B x 4mb) @ (4mb x 2B) on pre-decoded "
+                       f"float32 operands {cuda_ms(lambda: abn @ ab.T, 50):.4f}"
+                       f" ms per block")
+    del pa, pb, ab, abn
     out["block_gram"] = err
+    notes["block_gram"] = (
+        "times in order: per block of the NT=1 run, per block of the NT=4 "
+        "run, one block with its c-dot at NT=1, at NT=4; "
+        + "; ".join(f"{k}: {v}" for k, v in extra.items()))
+    # Per block of the NT=1 run: its bed rows and statistics in, gs out.
     bounds["block_gram"] = bound_of(
-        B * MB + 4 * MB * f4 + plane + 3 * tb + B * f4 + T * B * B * f4,
-        (2 * (2 * B) ** 2 * 4 * MB, INT8_OPS),
-        (block_ops + 9 * T * B * B, F32_OPS))
+        B * MB + 4 * MB * f4 / nblocks + 2 * tb + B * f4 + T * B * B * f4,
+        (gram_ops, INT8_OPS), (9 * T * B * B, F32_OPS))
 
-    # Kernel 6: the serial scan on the inputs of kernel 3 (adaV group, pad
-    # markers), then with |base| of order 1e3 so the 700 guards fire.
+    # Kernels 2 and 4 as the W=1 sweep launches them: the anchor's whole
+    # (157, T, B) arrays and a block index, for a middle block and the last
+    # one (pad slots), against the plain versions on that block's slices.
+    d_all = (torch.randn((nblocks, T, B), generator=gen, device=dev) * 0.01
+             * real).contiguous()
+    for na in (na_shared, na_trait):
+        passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
+        for b in (nblocks // 2, nblocks - 1):
+            passes.cdot(b, eps)
+            want = bk.block_cdot_plain(bed, rows_all[b], eps, mave_p[b],
+                                       msig_p[b])
+            out["block_cdot"] = max(out["block_cdot"], close(
+                f"block_cdot (block {b} of the sweep's arrays)",
+                passes.c[b], want, 1e-5, 1e-5))
+            got = torch.zeros((T, 4, MB), device=dev)
+            passes.update_(b, d_all, got)
+            want = bk.block_eps_update_plain_(
+                bed, rows_all[b], d_all[b], mave_p[b], na,
+                torch.zeros((T, 4, MB), device=dev))
+            out["eps_update"] = max(out["eps_update"], close(
+                f"eps_update (block {b} of the sweep's arrays)", got, want,
+                1e-5, 1e-5))
+            if not got.abs().sum() > 0:
+                fail(f"eps_update (block {b} of the sweep's arrays) is zero")
+
+    # Kernel 6: the serial scan.  First the sweep's interface: whole
+    # (nb, ..., B) arrays and a block index (three blocks, an adaV group,
+    # the last block with 96 pad slots), the kernel forming base and
+    # d = msig * dbeta itself; then one block's tensors (the inputs of
+    # kernel 3).  Both with |base| of order 30 and of order 1e3, where the
+    # 700 guards fire.
+    nb_s = 3
+    grp_s = torch.randint(0, G, (nb_s, B), generator=gen, device=dev)
+    valid_s = torch.ones((nb_s, B), dtype=torch.bool, device=dev)
+    valid_s[-1, B - 96:] = False
+    masks = [sw.scan_masks(grp_s[n], valid_s[n], sigmag) for n in range(nb_s)]
+    live_s = torch.stack([m[0] for m in masks])
+    zerob_s = torch.stack([m[1] for m in masks])
+
+    def per_block(tab):                       # (K, T, G) -> (nb, K, T, B)
+        return tab[:, :, grp_s].movedim(2, 0).contiguous()
+
+    xs = torch.randn((nb_s, B, 600), generator=gen, device=dev)
+    gs_s = (xs @ xs.transpose(1, 2))[:, None].expand(
+        nb_s, T, B, B).contiguous()
+    c_s = torch.randn((nb_s, T, B), generator=gen, device=dev) * 30.0
+    beta_s = torch.randn((nb_s, T, B), generator=gen, device=dev) * 0.05
+    msig_s = torch.rand((nb_s, T, B), generator=gen, device=dev) + 0.5
+    nm1 = nonas - 1.0
+    i2se = args[12]
+    sweep = sk6.SerialScanSweep(
+        nm1, per_block(lc_t), per_block(rd_t), per_block(sqb_t), beta_s,
+        torch.randint(0, K, (nb_s, T, B), generator=gen, device=dev,
+                      dtype=torch.int32),
+        torch.rand((nb_s, T, B), generator=gen, device=dev),
+        torch.rand((nb_s, T, B), generator=gen, device=dev),
+        torch.randn((nb_s, T, B), generator=gen, device=dev), live_s,
+        zerob_s, msig_s, i2se)
     err, drawn = 0.0, set()
+
+    def held(name, got, want):
+        nonlocal err, drawn
+        if not torch.equal(got[2], want[2]):
+            fail(f"serial_scan ({name}): comp differs from the plain "
+                 f"version in {int((got[2] != want[2]).sum())} entries")
+        err = max([err] + [close(f"serial_scan {name} {part}", g, w, 1e-5,
+                                 1e-5)
+                           for part, g, w in zip(
+                               ("dbeta", "beta", "acum"),
+                               (got[0], got[1], got[3]),
+                               (want[0], want[1], want[3]))])
+
+    for scale in (1.0, 40.0):
+        for n in range(nb_s):
+            c_n = (c_s[n] * scale).contiguous()
+            sweep.step(n, c_n[None], gs_s, n)
+            torch.cuda.synchronize()
+            lc_n, rd_n, sqb_n = (x[n] for x in sweep.tables)
+            want = sk6.serial_scan_plain(
+                c_n + beta_s[n] * nm1[:, None], lc_n, rd_n, sqb_n, gs_s[n],
+                *(x[n] for x in sweep.state), i2se)
+            held(f"sweep arrays, block {n}, c x{scale}",
+                 (sweep.dbeta[n], sweep.beta_new[n], sweep.comp_new[n],
+                  sweep.acum_new[n]), want)
+            if not torch.equal(sweep.d[n], msig_s[n] * sweep.dbeta[n]):
+                fail("serial_scan: d is not msig * dbeta bit for bit")
+            drawn |= set(want[2][live_s[n] != 0].tolist())
+        if not torch.equal(sweep.beta_new[-1][:, B - 96:],
+                           beta_s[-1][:, B - 96:]):
+            fail("serial_scan: the last block's pad slots moved")
+        c_1 = (c_s[1] * scale).contiguous()
+        base_1 = c_1 + beta_s[1] * nm1[:, None]
+        plain_1 = (base_1, *(x[1] for x in sweep.tables), gs_s[1],
+                   *(x[1] for x in sweep.state), i2se)
+        c_1n = c_1[None]
+        timed("serial_scan", lambda: sweep.step(1, c_1n, gs_s, 1),
+              lambda: sk6.serial_scan_plain(*plain_1), 200, 3)
     for scale in (1.0, 40.0):
         sargs = (args[0] * scale,) + args[1:]
         got = sk6.serial_scan(*sargs)
         want = sk6.serial_scan_plain(*sargs)
-        if not torch.equal(got[2], want[2]):
-            fail(f"serial_scan (base x{scale}): comp differs from the plain "
-                 f"version in {int((got[2] != want[2]).sum())} entries")
+        held(f"one block, base x{scale}", got, want)
         drawn |= set(want[2][live != 0].tolist())
-        err = max([err] + [close(f"serial_scan {name}", g, w, 1e-5, 1e-5)
-                           for name, g, w in zip(
-                               ("dbeta", "beta", "acum"),
-                               (got[0], got[1], got[3]),
-                               (want[0], want[1], want[3]))])
         timed("serial_scan", lambda: sk6.serial_scan(*sargs),
               lambda: sk6.serial_scan_plain(*sargs), 200, 3)
     if len(drawn) < 2:
         fail("serial_scan parity cases drew a single component")
+    # The kernel's other branches, each against the plain version: more
+    # traits than one pass over the lanes holds, 8 and 16 lanes a trait,
+    # K below the lane count, tables or state left in global memory (plan
+    # modes 1 and 0), and a B that rules out the bulk copies.
+    for Tv, Bv, Kv, mode in ((8, 128, 8, 2), (8, 128, 16, 1), (8, 256, 8, 0),
+                             (3, 30, 3, 2), (2, 64, 2, 2)):
+        if sk6.scan_plan(Tv, Bv, Kv)[0] != mode:
+            fail(f"serial_scan: plan {sk6.scan_plan(Tv, Bv, Kv)} at "
+                 f"T={Tv}, B={Bv}, K={Kv}")
+        cva_v = torch.cat([torch.zeros((G, 1), device=dev), torch.logspace(
+            -4, -1.3, Kv - 1, device=dev).expand(G, Kv - 1)], dim=1)
+        cvai_v = torch.zeros_like(cva_v)
+        cvai_v[:, 1:] = 1.0 / cva_v[:, 1:]
+        sg_v = torch.rand((Tv, G), generator=gen, device=dev) * 0.4 + 0.1
+        sg_v[0, 1] = 0.0
+        se_v = torch.rand((Tv,), generator=gen, device=dev) * 0.4 + 0.5
+        pi_v = torch.rand((Tv, G, Kv), generator=gen, device=dev) + 0.1
+        tabs = sk.build_sweep_tables(
+            sg_v, se_v, pi_v / pi_v.sum(-1, keepdim=True), cva_v, cvai_v,
+            torch.full((Tv,), 490.0, device=dev), 500.0)
+        grp_v = torch.randint(0, G, (Bv,), generator=gen, device=dev)
+        live_v, zerob_v = sw.scan_masks(
+            grp_v, torch.arange(Bv, device=dev) < Bv - 3, sg_v)
+        xv = torch.randn((Bv, 600), generator=gen, device=dev)
+        vargs = (torch.randn((Tv, Bv), generator=gen, device=dev) * 30.0,
+                 *(t[:, :, grp_v].contiguous() for t in tabs),
+                 (xv @ xv.T).expand(Tv, Bv, Bv).contiguous(),
+                 torch.randn((Tv, Bv), generator=gen, device=dev) * 0.05,
+                 torch.randint(0, Kv, (Tv, Bv), generator=gen, device=dev,
+                               dtype=torch.int32),
+                 torch.rand((Tv, Bv), generator=gen, device=dev),
+                 torch.rand((Tv, Bv), generator=gen, device=dev),
+                 torch.randn((Tv, Bv), generator=gen, device=dev), live_v,
+                 zerob_v, (1.0 / (2.0 * se_v)).contiguous())
+        held(f"T={Tv}, B={Bv}, K={Kv}", sk6.serial_scan(*vargs),
+             sk6.serial_scan_plain(*vargs))
     out["serial_scan"] = err
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    notes["serial_scan"] = (
+        "times in order: the sweep's arrays with |base| ~30 and ~1e3, one "
+        "block's tensors likewise; shared memory plan (mode, rows per "
+        f"group, groups) {sk6.scan_plan(T, B, K)}; "
+        f"{times['serial_scan'][0][0] * 1e-3 * clk * 1e6 / B:.0f} cycles per "
+        f"step at the SM clock of {clk:.0f} MHz read after the run")
+    # Of the Gram only the entries i > j are read, and updated with.
     bounds["serial_scan"] = bound_of(
-        scan_bytes + T * B * B * f4,
-        (2 * T * B * B + T * B * K * K * 4, F32_OPS))
-    return {name: (err, *times[name], bounds[name])
+        scan_bytes + 2 * tb + T * B * (B - 1) // 2 * f4,
+        (T * B * (B - 1) + T * B * K * K * 4, F32_OPS))
+    return {name: (err, *times[name], bounds[name], notes.get(name, ""))
             for name, err in out.items()}
 
 
@@ -683,6 +886,12 @@ def big_dataset(tmp):
                     mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
 
 
+def one_thread():
+    """A dataset worker's set-up, before it imports numpy."""
+    os.environ.update(dict.fromkeys(
+        ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"), "1"))
+
+
 def anchor_options(sim, out_dir, wave=W, iterations=ITERS):
     """``wave`` None lets the plan pick the wave, as a user's run does."""
     from gmrm_tpu_torch.config import Options
@@ -697,7 +906,7 @@ def anchor_options(sim, out_dir, wave=W, iterations=ITERS):
 
 def sweep_gate(sim, dev, wave, name, card, against="plain"):
     """Phases 3, 3b and 3c: one sweep through the default marker_sweep on
-    the card (the whole-sweep kernel at W>1, kernels 5, 6 and 4 at W=1)
+    the card (the whole-sweep kernel at W>1, kernels 5, 2, 6, 4 at W=1)
     against the plain versions on the host CPU or, with ``against``
     "composed", against the composed kernels 2, 3, 4 on the card.
     ``wave`` None is the auto plan, which must resolve to W=1."""
@@ -744,8 +953,9 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
             wave=opt.wave_size, megakernel=mega)
         res[key] = [x.cpu() for x in out]
         counts[key] = {k: v for k, v in _build.launch_counts().items() if v}
+    nt = 1 if static.shared_na else T
     want_counts = ({"sweep_blocks": 1} if opt.wave_size > 1
-                   else dict.fromkeys(SERIAL_KERNELS, nblocks))
+                   else serial_counts(nblocks, nt))
     if counts["kernels"] != want_counts or (
             against == "composed"
             and counts[against] != dict.fromkeys(COMPOSED_KERNELS, nblocks)):
@@ -755,7 +965,6 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
     n_diff = int((kc != pc).sum())
     db = float((kb - pb).abs().max())
     de = float((ke - pe).abs().max())
-    nt = 1 if static.shared_na else T
     print(f"# {name} (W={opt.wave_size}, NT={nt}, {nblocks} blocks, "
           f"mb_pad={data.mb_pad}) against the {against} sweep: comp "
           f"mismatches {n_diff} of {kc.numel()}, cass equal "
@@ -785,11 +994,13 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
     return 0 if static.gram_cache is None else static.gram_cache.numel() * 4
 
 
-def training_phase(sim, dev, tmp, wave, iterations):
+def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     """Phases 4 and 4b: run_training through the entry point.  In wave mode
     the Gram cache launches once per run and the whole-sweep kernel once per
-    iteration; at W=1 the path's kernels each launch once per block and
-    iteration.  The other paths' kernels launch not at all."""
+    iteration; at W=1 kernels 2, 6 and 4 launch once per block and
+    iteration and kernel 5 once per run of blocks.  The other paths'
+    kernels launch not at all.  ``check_launches`` False skips that check,
+    for a tree of another cadence."""
     import numpy as np
     from gmrm_tpu_torch.io.writers import read_history
     from gmrm_tpu_torch.ops import _build
@@ -801,11 +1012,12 @@ def training_phase(sim, dev, tmp, wave, iterations):
     res = run_training(opt, device=dev, verbose=False)
     launches = _build.launch_counts()
     nblocks = -(-MT // B)
-    per_run = {"gram_cache": 1, "sweep_blocks": iterations}
-    path = MEGA_KERNELS if wave > 1 else SERIAL_KERNELS
+    # The anchor has no phenotype NAs: NT = 1.
+    path = (launches if not check_launches
+            else {"gram_cache": 1, "sweep_blocks": iterations} if wave > 1
+            else serial_counts(nblocks, 1, sweeps=iterations))
     for name, n in launches.items():
-        want = (0 if name not in path
-                else per_run.get(name, nblocks * iterations))
+        want = path.get(name, 0)
         if n != want:
             fail(f"W={wave} training: kernel {name} launched {n} times, "
                  f"expected {want}")
@@ -851,7 +1063,7 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
     injected order and draws per shard on both sides.  At W > 1 the fused
     per-block kernel against the composed kernels 2, 3 and 4 at the same
     cadence, both on the card; with ``wave`` None (the auto plan, which
-    must resolve to W=1) kernels 5, 6 and 4 adding into a delta against
+    must resolve to W=1) kernels 5, 2, 6 and 4 adding into a delta against
     their plain versions on the host CPU."""
     import numpy as np
     import torch
@@ -884,8 +1096,9 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
                  ("composed", dev, False,
                   dict.fromkeys(COMPOSED_KERNELS, n_launch)))
     else:
+        nt = 1 if statics[0].shared_na else T
         sides = (("kernels", dev, None,
-                  dict.fromkeys(SERIAL_KERNELS, n_launch)),
+                  serial_counts(nblocks, nt, shards=n_shards)),
                  ("plain", torch.device("cpu"), None, {}))
     res, ms = [], []
     for key, d, mega, want in sides:
@@ -1001,14 +1214,14 @@ def same_artifacts(sim, dir_a, dir_b):
     return True
 
 
-def chain_setup(sim, dev):
+def chain_setup(sim, dev, wave=W):
     """The anchor's data, static inputs, start state and RNG plan, as
     run_training builds them."""
     from gmrm_tpu_torch import runner
     from gmrm_tpu_torch.config import resolve_plan
     from gmrm_tpu_torch.sampler.dists import RngPlan
 
-    opt = anchor_options(sim, "")
+    opt = anchor_options(sim, "", wave)
     resolve_plan(opt, "cuda", sim.m)
     data = runner.load_data(opt)
     return (opt, runner.build_static(data, opt, dev),
@@ -1045,9 +1258,10 @@ def composed_phase(sim, dev):
     return launches, sum(seconds[1:]) / (ITERS_COMPOSED - 1)
 
 
-def profile_phase(sim, dev, n_shards=0):
+def profile_phase(sim, dev, n_shards=0, wave=W):
     """Phase 5: torch.profiler over 5 iterations at the anchor after 2 of
-    warm-up, on the whole-sweep path or, with ``n_shards``, on the sharded
+    warm-up, on the single-device path of ``wave`` (the whole-sweep kernel,
+    or the exact serial path at 1) or, with ``n_shards``, on the sharded
     path.  Returns the device-busy and wall milliseconds per iteration,
     launches per iteration and the busiest device kernels."""
     import torch
@@ -1066,7 +1280,7 @@ def profile_phase(sim, dev, n_shards=0):
                 state, static, it, rng, block_size=B, wave=opt.wave_size,
                 comm=comm)[0]
     else:
-        opt, static, state, rng = chain_setup(sim, dev)
+        opt, static, state, rng = chain_setup(sim, dev, wave)
 
         def step(state, it):
             return gibbs_iteration(state, static, it, rng, block_size=B,
@@ -1124,14 +1338,17 @@ ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576"}
 
 def training_only(dev, reps, card, repo):
     """Phases 4 and 4b ``reps`` times on one simulated anchor: the steady
-    ms/iteration of every run, for comparing two trees inside one call."""
+    ms/iteration of every run, for comparing two trees inside one call.
+    The launch counts are checked only for this script's own tree."""
+    own = os.path.abspath(repo) == REPO
     with tempfile.TemporaryDirectory() as tmp:
         sim = anchor_dataset(os.path.join(tmp, "data"))
         for rep in range(reps):
             for wave, iters in ((W, ITERS), (1, ITERS_SERIAL)):
                 run_dir = os.path.join(tmp, f"run{rep}_w{wave}")
                 os.makedirs(run_dir)
-                steady = training_phase(sim, dev, run_dir, wave, iters)[2]
+                steady = training_phase(sim, dev, run_dir, wave, iters,
+                                        check_launches=own)[2]
                 print(f"# {repo}: training W={wave}, run {rep + 1}: "
                       f"{steady * 1e3:.2f} ms/iteration  [{card}]",
                       flush=True)
@@ -1143,6 +1360,7 @@ def main():
                         metavar="REPS")
     parser.add_argument("--repo", default=REPO)
     args = parser.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1164,59 +1382,68 @@ def main():
         training_only(dev, args.training_only, card, args.repo)
         return
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    print(f"# build: {lib.name} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"# ptxas {line.strip()}")
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(20261016)
-    kernels = kernel_phase(dev, gen)
-    for name, (err, t_k, t_p, t_call, bound) in kernels.items():
-        print(f"# {name}: max abs err {err:.3e}; kernel ms {t_k}, plain ms "
-              f"{t_p} (CUDA graph replay); kernel ms per eager call "
-              f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}  [{card}]",
-              flush=True)
-    (err, t_k, t_p, t_c, bound), plan = sweep_kernel_phase(dev, gen)
-    kernels["sweep_blocks"] = (err, t_k, t_p, None, bound)
-    chain = 157 * sum(kernels[k][1][0] for k in COMPOSED_KERNELS)
-    print(f"# sweep_blocks, one sweep of {-(-MT // B)} blocks at NT=1 and "
-          f"NT={T}: comp and cass equal to the plain version, max abs err of "
-          f"beta and eps {err:.3e}; kernel ms per sweep {t_k}, plain ms "
-          f"{t_p}, composed chain (kernels 2+3+4 and their torch glue) ms "
-          f"{t_c}, all by CUDA events around eager calls (a cooperative "
-          f"launch; one launch is a whole sweep); the three composed kernels "
-          f"alone by graph replay: {chain:.3f} ms per sweep; bound "
-          f"{bound[0]:.5f} ms by {bound[1]}; grid {plan['grid']} CTAs x "
-          f"{plan['cols']} byte columns, eps {plan['eps_bytes_per_cta']} "
-          f"bytes per CTA, resident in shared memory: "
-          f"{', '.join(plan['resident'])}  [{card}]", flush=True)
-
-    (err, t_k, t_p, t_call, bound), bplan = block_sweep_phase(dev, gen)
-    kernels["block_sweep"] = (err, t_k, t_p, t_call, bound)
-    print(f"# block_sweep, blocks of the same operands at NT=1 and NT={T}, "
-          f"from the shard's whole arrays in place and from the block's own "
-          f"slices, and an all-pad block: comp equal to the plain version, "
-          f"every element of the delta written, max abs err of the delta "
-          f"and beta {err:.3e}; kernel ms per launch {t_k} (CUDA events "
-          f"around 2,000 queued launches; a cooperative launch), plain ms "
-          f"{t_p} (CUDA graph replay), ms per eager call of the wrapper "
-          f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}; grid "
-          f"{bplan['grid']} CTAs x {bplan['cols']} byte columns, "
-          f"{bplan['smem_bytes']} bytes of shared memory, resident: "
-          f"{', '.join(bplan['resident'])}  [{card}]", flush=True)
-
-    with tempfile.TemporaryDirectory() as tmp:
+    # The three datasets are simulated by worker processes, one thread each,
+    # while the kernels build and phase 2 runs.
+    datasets = (("data", anchor_dataset), ("small", small_dataset),
+                ("big", big_dataset))
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ProcessPoolExecutor(
+                len(datasets),
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=one_thread) as pool:
+        sims = [pool.submit(make, os.path.join(tmp, name))
+                for name, make in datasets]
         t0 = time.perf_counter()
-        sim = anchor_dataset(os.path.join(tmp, "data"))
-        small = small_dataset(os.path.join(tmp, "small"))
-        big = big_dataset(os.path.join(tmp, "big"))
-        print(f"# anchor, small and large-N datasets simulated in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        lib = _build.build()
+        _build.library()
+        print(f"# build: {lib.name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"# ptxas {line.strip()}")
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20261016)
+        kernels = kernel_phase(dev, gen)
+        for name, (err, t_k, t_p, t_call, bound, note) in kernels.items():
+            print(f"# {name}: max abs err {err:.3e}; kernel ms {t_k}, plain ms "
+                  f"{t_p} (CUDA graph replay); kernel ms per eager call "
+                  f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}"
+                  f"{'; ' + note if note else ''}  [{card}]", flush=True)
+        (err, t_k, t_p, t_c, bound), plan = sweep_kernel_phase(dev, gen)
+        kernels["sweep_blocks"] = (err, t_k, t_p, None, bound)
+        chain = 157 * sum(kernels[k][1][0] for k in COMPOSED_KERNELS)
+        print(f"# sweep_blocks, one sweep of {-(-MT // B)} blocks at NT=1 and "
+              f"NT={T}: comp and cass equal to the plain version, max abs err of "
+              f"beta and eps {err:.3e}; kernel ms per sweep {t_k}, plain ms "
+              f"{t_p}, composed chain (kernels 2+3+4 and their torch glue) ms "
+              f"{t_c}, all by CUDA events around eager calls (a cooperative "
+              f"launch; one launch is a whole sweep); the three composed kernels "
+              f"alone by graph replay: {chain:.3f} ms per sweep; bound "
+              f"{bound[0]:.5f} ms by {bound[1]}; grid {plan['grid']} CTAs x "
+              f"{plan['cols']} byte columns, eps {plan['eps_bytes_per_cta']} "
+              f"bytes per CTA, resident in shared memory: "
+              f"{', '.join(plan['resident'])}  [{card}]", flush=True)
+
+        (err, t_k, t_p, t_call, bound), bplan = block_sweep_phase(dev, gen)
+        kernels["block_sweep"] = (err, t_k, t_p, t_call, bound)
+        print(f"# block_sweep, blocks of the same operands at NT=1 and NT={T}, "
+              f"from the shard's whole arrays in place and from the block's own "
+              f"slices, and an all-pad block: comp equal to the plain version, "
+              f"every element of the delta written, max abs err of the delta "
+              f"and beta {err:.3e}; kernel ms per launch {t_k} (CUDA events "
+              f"around 2,000 queued launches; a cooperative launch), plain ms "
+              f"{t_p} (CUDA graph replay), ms per eager call of the wrapper "
+              f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}; grid "
+              f"{bplan['grid']} CTAs x {bplan['cols']} byte columns, "
+              f"{bplan['smem_bytes']} bytes of shared memory, resident: "
+              f"{', '.join(bplan['resident'])}  [{card}]", flush=True)
+
+        t0 = time.perf_counter()
+        sim, small, big = (f.result() for f in sims)
+        print(f"# anchor, small and large-N datasets: waited "
+              f"{time.perf_counter() - t0:.1f} s more for the worker "
+              f"processes", flush=True)
         cache_bytes = sweep_gate(sim, dev, W, "sweep gate", card)
         sweep_gate(small, dev, None, "W=1 sweep gate", card)
         sweep_gate(big, dev, W, "large-N sweep gate", card,
@@ -1225,6 +1452,7 @@ def main():
                 for w, iters in ((W, ITERS), (1, ITERS_SERIAL))}
         composed_launches, composed_s = composed_phase(sim, dev)
         busy_ms, wall_ms, n_launch, top = profile_phase(sim, dev)
+        w1_prof = profile_phase(sim, dev, wave=1)
         sharded_gate(sim, dev, card, 4, W, "sharded sweep gate")
         sharded_gate(small, dev, card, 2, None, "sharded W=1 sweep gate")
         sharded = {(s, False): sharded_training_phase(sim, dev, tmp, s, w, n)
@@ -1258,6 +1486,12 @@ def main():
           f"idle share {1 - busy_ms / wall_ms:.3f}, {n_launch:.1f} launches "
           f"per iteration; busiest kernels (ms/iteration) {top}  [{card}]",
           flush=True)
+
+    busy_1, wall_1, launch_1, top_1 = w1_prof
+    print(f"# profiler, W=1 path, 5 iterations: device busy {busy_1:.3f} "
+          f"ms/iteration, wall {wall_1:.3f} ms/iteration, idle share "
+          f"{1 - busy_1 / wall_1:.3f}, {launch_1:.1f} launches per iteration; "
+          f"busiest kernels (ms/iteration) {top_1}  [{card}]", flush=True)
 
     for (n_sh, nccl), (res, launches, steady, span, h2, _) in sharded.items():
         how = ("inside a one-rank NCCL process group, artifacts byte-equal "
@@ -1293,6 +1527,7 @@ def main():
              **({"also_replaces": ALSO_REPLACES[name]}
                 if name in ALSO_REPLACES else {})}
             for name, (src, rep) in SOURCES.items()]
+    print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

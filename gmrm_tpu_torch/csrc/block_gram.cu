@@ -1,176 +1,153 @@
-// Residual dot products and scaled Gram of one block of the exact-serial
-// (W=1) sweep, whose uniform shuffle changes block membership every
-// iteration, so the Gram cannot be cached:
-//   raw[nt, r, c] = sum_i na_nt[i] * ab[r, i] * ab[c, i]   (ab = [A; B] of
-//                   the block's marker rows rows[0..B-1], 2B x 4mb)
-//   c[t, i]       = msig[t, i] * (A_i . eps_t - mave[t, i] * B_i . eps_t)
-//   gs[t, j, i]   = (msig_j msig_i) * (g1 - m_i g2t - m_j g2 + (m_j m_i) g3)
-// with the quadrants g1 = raw[j, i], g2 = raw[B+j, i], g2t = raw[j, B+i],
-// g3 = raw[B+j, B+i] of mask nt (0 when NT = 1, else t).
+// Scaled Grams of a run of blocks of the exact-serial (W=1) sweep, whose
+// uniform shuffle changes block membership every iteration, so the Gram
+// cannot be cached.  For block n of the run, with ab = [A; B] of its
+// marker rows rows[n, 0..B-1] (2B x 4mb) and mask nt (0 when NT = 1, else
+// the trait t):
+//   g1[j, i]  = sum_n na a_j a_i,  g2t[j, i] = sum_n na a_j b_i,
+//   g3[j, i]  = sum_n na b_j b_i,  g2[j, i]  = g2t[i, j],
+//   gs[n, t, j, i] = (msig_j msig_i) * (g1 - m_i g2t - m_j g2 + (m_j m_i) g3)
 //
-// Replaces _gram_kernel (gmrm_tpu/ops/pallas_kernels.py:135, built by
-// _build_gram_call :205, wrapper block_gram_scaled_pallas :238).  The TPU
-// kernel splits eps into bf16 hi/lo for the MXU; here c is the full float32
-// sum of the c-dot kernel (block_cdot.cu), launched from this entry point.
+// Replaces the Gram half of _gram_kernel (gmrm_tpu/ops/pallas_kernels.py:135,
+// built by _build_gram_call :205, wrapper block_gram_scaled_pallas :238);
+// the residual dot products c of that kernel are the c-dot kernel
+// (block_cdot.cu).  The Gram does not depend on the residual, so the sweep
+// builds the Grams of all its blocks (or of a run of them, under a byte
+// budget) before the serial block loop: one launch of the raw kernel and
+// one of the scaling pass per run.
 //
-// Bound on the H100: integer multiply-adds, (2B)^2 * 4mb per block and
-// mask (6.7e8 at B=128, mb=2560).  One block gives only (2B/64)^2 * NT
-// output tiles (16 at B=128, NT=1), so the reduction over the 4mb
-// individuals is split across CTAs as well: each CTA sums its byte range
-// in int32 registers (the 64x64 tiling of gram_cache.cu) and adds its
-// partial tile into an int32 scratch with atomicAdd.  Every raw entry is
-// an exact count below 2^24, so the result is exact in any order.  The
-// epilogue scales with _rn intrinsics in the plain expression's order
-// (sweep_math.cuh), so gs is bit-equal to the plain PyTorch version on the
-// card.
+// Bound on the H100: integer multiply-adds, 3 B^2 * 4mb per block and mask
+// (only the three quadrants the scaling reads; g2 is g2t transposed).
+// Design: the raw quadrants come from the int8 tensor cores
+// (mma.sync.m16n8k32.s8, the tile of gram_mma.cuh), one CTA per 128 x 128
+// tile of a quadrant, block and mask, each over all individuals: with a
+// run of blocks the grid fills the card without splitting the reduction,
+// so there are no atomics and no memset, and the int32 sums stay in
+// registers until the tile is written once.  Per-trait masks (NT = T) are
+// taken as further grid entries (the whole product again per mask, on the
+// tensor cores); subtracting a Gram over the few missing individuals from
+// one unmasked Gram would need a data-dependent compaction first.
+// Every raw entry is an exact count below 2^24, and the scaling pass uses
+// the _rn intrinsics in the plain expression's order (sweep_math.cuh), so
+// gs is bit-equal to the plain PyTorch version on the card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode.cuh"
+#include "gram_mma.cuh"
 #include "sweep_math.cuh"
-
-extern "C" int gmrm_block_cdot(const void* bed, const void* rows,
-                               const void* eps, const void* mave,
-                               const void* msig, void* c, int T, int B,
-                               int mb, void* stream);
 
 namespace {
 
-constexpr int TILE = 64;         // output tile edge
-constexpr int NBY = 16;          // packed bytes per stage
-constexpr int KC = 4 * NBY;      // individuals per stage
-constexpr int THREADS = 256;     // 16 x 16 threads, 4 x 4 outputs each
-constexpr int TARGET_CTAS = 264; // two per SM of the H100's 132
+// raw: (nb, nt, 3, B, B) int32, quadrants g1, g2t, g3.
+__global__ void __launch_bounds__(GMMA_THREADS, 2)
+blocks_gram_raw_kernel(const uint8_t* __restrict__ bed,
+                       const int* __restrict__ rows_all,
+                       const float* __restrict__ na, int* __restrict__ raw,
+                       int B, int mb, int vec) {
+  __shared__ __align__(16) uint32_t tiles[2 * GMMA_TILE_WORDS];
+  __shared__ __align__(16) uint8_t keep[GMMA_KEEP_SEG];
+  const int ntile = (B + GMMA_TILE - 1) / GMMA_TILE;
+  const int q = blockIdx.x / (ntile * ntile);        // quadrant
+  const int r0 = (blockIdx.x / ntile % ntile) * GMMA_TILE;
+  const int c0 = (blockIdx.x % ntile) * GMMA_TILE;
+  const int m = blockIdx.y, nt = gridDim.y, n = blockIdx.z;
+  const int* rows = rows_all + (size_t)n * B;
+  const bool row_b = q == 2, col_b = q >= 1;
+  const bool same = q != 1 && r0 == c0;
 
-__global__ void __launch_bounds__(THREADS)
-block_gram_raw_kernel(const uint8_t* __restrict__ bed,
-                      const int* __restrict__ rows,
-                      const float* __restrict__ na, int* __restrict__ raw,
-                      int B, int mb, int chunk) {
-  __shared__ int rs[KC][TILE];   // row side, masked by na
-  __shared__ int cs[KC][TILE];   // column side
-  const int B2 = 2 * B;
-  const int ntile = (B2 + TILE - 1) / TILE;
-  const int r0 = (blockIdx.x / ntile) * TILE;
-  const int c0 = (blockIdx.x % ntile) * TILE;
-  const int j_lo = blockIdx.y * chunk;
-  const int j_hi = min(mb, j_lo + chunk);
-  const int nt = blockIdx.z;
-  const float* na_nt = na + (size_t)nt * 4 * mb;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int sr = threadIdx.x / 2;                    // staging tile row
+  const uint8_t* rrow =
+      r0 + sr < B ? bed + (size_t)rows[r0 + sr] * mb : nullptr;
+  const uint8_t* crow =
+      c0 + sr < B ? bed + (size_t)rows[c0 + sr] * mb : nullptr;
 
-  // Staging role: thread -> tile row/column sr, bytes sj0 .. sj0+3.
-  const int sr = threadIdx.x / 4;
-  const int sj0 = (threadIdx.x % 4) * 4;
-  const int R = r0 + sr;
-  const int C = c0 + sr;
-  const uint8_t* rrow = R < B2 ? bed + (size_t)rows[R % B] * mb : nullptr;
-  const uint8_t* crow = C < B2 ? bed + (size_t)rows[C % B] * mb : nullptr;
+  int acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
 
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  gmma_gram_tile(rrow, crow, row_b, col_b, same, na + (size_t)m * 4 * mb, mb,
+                 vec != 0, tiles, keep, acc);
 
-  for (int j0 = j_lo; j0 < j_hi; j0 += NBY) {
+  int* o = raw + (((size_t)n * nt + m) * 3 + q) * B * B;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int jb = sj0 + q;
-      const int j = j0 + jb;
-      const bool in = j < j_hi;
-      const uint32_t rb = (in && rrow) ? rrow[j] : 0x55u;  // 0x55 decodes to 0
-      const uint32_t cb = (in && crow) ? crow[j] : 0x55u;
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int nav = in ? (na_nt[(size_t)k * mb + j] != 0.0f) : 0;
-        int a, b;
-        gmrm_decode(rb, k, a, b);
-        rs[jb * 4 + k][sr] = (R < B ? a : b) * nav;
-        gmrm_decode(cb, k, a, b);
-        cs[jb * 4 + k][sr] = (C < B ? a : b);
+    for (int nn = 0; nn < 8; ++nn) {
+      const int c = c0 + (warp % 2) * 64 + nn * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + (warp / 2) * 32 + mt * 16 + g + 8 * h;
+        if (r < B) {
+          if (c < B) o[(size_t)r * B + c] = acc[mt][nn][2 * h];
+          if (c + 1 < B) o[(size_t)r * B + c + 1] = acc[mt][nn][2 * h + 1];
+        }
       }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      int rv[4], cv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        rv[i] = rs[kk][ty + 16 * i];
-        cv[i] = cs[kk][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += rv[i] * cv[j];
-    }
-    __syncthreads();
-  }
-
-  int* o = raw + (size_t)nt * B2 * B2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (r < B2 && c < B2 && acc[i][j] != 0)
-        atomicAdd(&o[(size_t)r * B2 + c], acc[i][j]);
     }
   }
 }
 
-__global__ void block_gram_scale_kernel(const int* __restrict__ raw,
-                                        const float* __restrict__ mave,
-                                        const float* __restrict__ msig,
-                                        float* __restrict__ gs, int T, int B,
-                                        int nt) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= T * B * B) return;
-  const int t = x / (B * B);
-  const int j = (x / B) % B;
-  const int i = x % B;
-  const int B2 = 2 * B;
-  const int* g = raw + (size_t)(nt == 1 ? 0 : t) * B2 * B2;
-  const float g1 = (float)g[(size_t)j * B2 + i];
-  const float g2 = (float)g[(size_t)(B + j) * B2 + i];
-  const float g2t = (float)g[(size_t)j * B2 + B + i];
-  const float g3 = (float)g[(size_t)(B + j) * B2 + B + i];
-  const float mr = mave[t * B + i], mc = mave[t * B + j];
-  const float sr = msig[t * B + i], sc = msig[t * B + j];
-  gs[x] = gmrm_scale_gram(g1, g2, g2t, g3, mr, mc, sr, sc);
+// gs[n, t, j, i] from the raw quadrants; one CTA per 32 x 32 tile (j, i),
+// the transposed g2t tile through shared memory.
+__global__ void __launch_bounds__(256)
+blocks_gram_scale_kernel(const int* __restrict__ raw,
+                         const float* __restrict__ mave,
+                         const float* __restrict__ msig,
+                         float* __restrict__ gs, int T, int B, int nt) {
+  __shared__ int tr[32][33];
+  const int nti = (B + 31) / 32;
+  const int j0 = (blockIdx.x / nti) * 32, i0 = (blockIdx.x % nti) * 32;
+  const int t = blockIdx.y, n = blockIdx.z;
+  const int* g = raw + ((size_t)n * nt + (nt == 1 ? 0 : t)) * 3 * B * B;
+  const int* g1 = g;
+  const int* g2t = g + (size_t)B * B;
+  const int* g3 = g + (size_t)2 * B * B;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  // tr[a][b] = g2t[i0 + a, j0 + b]
+  for (int a = ty; a < 32; a += 8)
+    tr[a][tx] = (i0 + a < B && j0 + tx < B)
+                    ? g2t[(size_t)(i0 + a) * B + j0 + tx] : 0;
+  __syncthreads();
+  const float* mv = mave + ((size_t)n * T + t) * B;
+  const float* ms = msig + ((size_t)n * T + t) * B;
+  float* out = gs + ((size_t)n * T + t) * B * B;
+  const int i = i0 + tx;
+  if (i >= B) return;
+  const float mr = mv[i], sr = ms[i];
+  for (int a = ty; a < 32; a += 8) {
+    const int j = j0 + a;
+    if (j >= B) break;
+    const size_t x = (size_t)j * B + i;
+    out[x] = gmrm_scale_gram((float)g1[x], (float)tr[tx][a], (float)g2t[x],
+                             (float)g3[x], mr, mv[j], sr, ms[j]);
+  }
 }
 
 }  // namespace
 
+// bed (m_pad, mb) uint8; rows (nb, B) int32; na (nt, 4, mb) float32 0/1;
+// mave/msig (nb, T, B) float32; raw (nb, nt, 3, B, B) int32 scratch;
+// gs (nb, T, B, B) float32.
 extern "C" int gmrm_block_gram(const void* bed, const void* rows,
-                               const void* eps, const void* na,
-                               const void* mave, const void* msig, void* raw,
-                               void* c, void* gs, int T, int B, int mb,
-                               int nt, void* stream) {
+                               const void* na, const void* mave,
+                               const void* msig, void* raw, void* gs, int nb,
+                               int T, int B, int mb, int nt, void* stream) {
+  if (nb < 1 || nb > 65535 || nt < 1 || nt > 65535 || T < 1 || T > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int B2 = 2 * B;
-  cudaError_t err =
-      cudaMemsetAsync(raw, 0, (size_t)nt * B2 * B2 * sizeof(int), s);
+  const int ntile = (B + GMMA_TILE - 1) / GMMA_TILE;
+  const int vec = (mb % 16 == 0) && ((uintptr_t)bed % 16 == 0);
+  blocks_gram_raw_kernel<<<dim3(3 * ntile * ntile, nt, nb), GMMA_THREADS, 0,
+                           s>>>((const uint8_t*)bed, (const int*)rows,
+                                (const float*)na, (int*)raw, B, mb, vec);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int ntile = (B2 + TILE - 1) / TILE;
-  const int tiles = ntile * ntile * nt;
-  const int nstage = (mb + NBY - 1) / NBY;
-  const int want = max(1, (TARGET_CTAS + tiles - 1) / tiles);
-  const int chunk = ((nstage + want - 1) / want) * NBY;   // bytes per CTA
-  dim3 grid(ntile * ntile, (mb + chunk - 1) / chunk, nt);
-  block_gram_raw_kernel<<<grid, THREADS, 0, s>>>(
-      (const uint8_t*)bed, (const int*)rows, (const float*)na, (int*)raw, B,
-      mb, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ec = gmrm_block_cdot(bed, rows, eps, mave, msig, c, T, B, mb,
-                                 stream);
-  if (ec != 0) return ec;
-  const int n = T * B * B;
-  block_gram_scale_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+  const int nti = (B + 31) / 32;
+  blocks_gram_scale_kernel<<<dim3(nti * nti, T, nb), 256, 0, s>>>(
       (const int*)raw, (const float*)mave, (const float*)msig, (float*)gs, T,
       B, nt);
   return (int)cudaGetLastError();

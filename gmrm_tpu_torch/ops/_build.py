@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -49,11 +50,12 @@ SIGNATURES = {
     "gmrm_wave_scan": [_P] * 17 + [_I, _I, _I, _I, _P],
     # bed, rows, d, mave, na, eps, T, B, mb, stream
     "gmrm_eps_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # bed, rows, eps, na, mave, msig, raw, c, gs, T, B, mb, nt, stream
-    "gmrm_block_gram": [_P] * 9 + [_I, _I, _I, _I, _P],
-    # base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
-    # zerob, i2se, dbeta, beta_new, comp_new, acum_new, T, B, K, stream
-    "gmrm_serial_scan": [_P] * 17 + [_I, _I, _I, _P],
+    # bed, rows, na, mave, msig, raw, gs, nb, T, B, mb, nt, stream
+    "gmrm_block_gram": [_P] * 7 + [_I] * 5 + [_P],
+    # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
+    # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, b, bc, bg,
+    # T, B, K, mode, GR, NG, stream
+    "gmrm_serial_scan": [_P] * 20 + [_I] * 9 + [_P],
     # bed, blkidx, win, gram, eps, na, mave, msig, beta_old, comp_old,
     # acum_old, grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, beta_new,
     # comp_new, acum_new, part, red, gsbuf, dbuf, nblocks, T, B, mb, nt, K,
@@ -191,3 +193,15 @@ def check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_once(seen: dict, x: torch.Tensor, name: str, dtype, shape,
+               device) -> int:
+    """``check`` unless ``x`` is the tensor last checked under ``name``
+    (``seen`` holds it weakly); returns its address.  For an operand that a
+    sweep passes again at every block step."""
+    ref = seen.get(name)
+    if ref is None or ref() is not x:
+        check(x, name, dtype, shape, device)
+        seen[name] = weakref.ref(x)
+    return x.data_ptr()

@@ -5,9 +5,33 @@ the block's B markers are drawn one after the other, each against the
 residual as left by every earlier marker of the block, through the
 running correction ``corr[t, i] += gs[t, j, i] * dbeta[t, j]``.  This is
 the reference's exact recursion (bayes.cpp:391-492), the W=1 case of the
-sweep.  ``serial_scan`` launches csrc/serial_scan.cu on CUDA tensors and
-runs ``serial_scan_plain`` on CPU tensors; the per-marker prep is in
-``gmrm_tpu_torch.sampler.scan.block_scan``.
+sweep.
+
+Two interfaces, one kernel (csrc/serial_scan.cu):
+
+- ``serial_scan(base, ...)`` on one block's tensors, the public
+  counterpart of the TPU kernel; the per-marker prep is in
+  ``gmrm_tpu_torch.sampler.scan.block_scan``;
+- ``SerialScanSweep``: the sweep's whole processing-order arrays
+  ``(nb, ..., B)``, checked once, and a block index per step.  The kernel
+  forms ``base = c + beta_old * (nonas - 1)`` itself, writes the block's
+  results in place into ``(nb, T, B)`` arrays that the sweep scatters once,
+  and also writes ``d = msig * dbeta``, the operand of the residual update.
+
+CUDA tensors launch the kernel; CPU tensors run ``serial_scan_plain``.
+
+Limits on CUDA tensors: K <= 16 mixture components (4, 8 or 16 lanes a
+trait), T <= 32 traits; 32 // lanes traits are drawn at once and more take
+further passes over the warp.  ``scan_plan`` fits the block into the
+227 KB of shared memory: the running correction (T B floats), the steps'
+raw results (4 T B), the packed inputs of eight steps (8 KB), a ring of
+Gram rows (a power of two of groups of 8, 4, 2 or 1 rows), and, while they
+fit beside a ring of 16 rows, the block's state (9 T B words) and tables
+(3 K T B); larger blocks leave the tables, or tables and state, in global
+memory (the large-block branch, slower).  A block whose correction,
+results and a few Gram rows exceed shared memory (about T B > 6,000)
+raises ``ValueError``, as does any operand of the wrong device, dtype,
+shape or layout.
 """
 
 from __future__ import annotations
@@ -16,15 +40,62 @@ import torch
 
 from gmrm_tpu_torch.ops import _build
 
-MAX_K = 16     # mixture components the kernel keeps in registers
+MAX_K = 16     # mixture components (lanes of a trait)
 MAX_T = 32     # traits (csrc MAX_T)
+MAX_NG = 32    # ring groups (csrc MAX_NG)
+NSTATE = 9     # staged (T, B) arrays (csrc NSTATE)
+REC_SLOTS = 8  # steps of packed inputs in flight (csrc REC_SLOTS)
+SMEM_BYTES = 232448   # dynamic shared memory of one CTA on the H100
 
 
-def _fits(T: int, B: int) -> bool:
-    """One CTA of at most 16 warps holds every (trait, marker) slot: each
-    warp holds ceil(B / 16) markers of T traits in at most 8 slots of 32
-    lanes (csrc serial_scan.cu)."""
-    return T <= MAX_T and -(-B // 16) * T <= 8 * 32
+def _al4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _layout_words(T, B, K, mode, GR, NG) -> int:
+    """Shared memory words of csrc/serial_scan.cu make_layout."""
+    o = ((8 * (2 + 2 * MAX_NG) + 15) // 16 * 4 + 4 * MAX_T
+         + REC_SLOTS * 32 * 8 + T * _al4(B) + 4 * T * B)
+    if mode >= 1:
+        o += NSTATE * _al4(T * B)
+    if mode >= 2:
+        o += 3 * _al4(K * T * B)
+    return o + NG * GR * T * _al4(B)
+
+
+def scan_plan(T: int, B: int, K: int):
+    """(mode, GR, NG) of the kernel's shared memory, or None when the block
+    does not fit.  mode 2 stages state and tables, 1 the state, 0 neither;
+    the Gram streams through a ring of NG groups of GR rows, both powers of
+    two.  Staging is taken while a ring of at least 16 rows (or all B - 1)
+    fits beside it."""
+    rows = max(B - 1, 1)
+    for mode in (2, 1, 0):
+        for GR in (8, 4, 2, 1):
+            rest = SMEM_BYTES // 4 - _layout_words(T, B, K, mode, GR, 0)
+            fit = min(MAX_NG, rest // (GR * T * _al4(B)))
+            if fit < 1:
+                continue
+            need = 1 << (-(-rows // GR) - 1).bit_length()   # holds all rows
+            NG = need if need <= fit else 1 << (fit.bit_length() - 1)
+            held = NG * GR
+            # The scan holds rows j-2 .. j while the next group loads.
+            if held >= rows or (NG >= (2 if GR > 1 else 4)
+                                and (mode == 0 or held >= 16)):
+                return mode, GR, NG
+    return None
+
+
+def _plan_or_raise(T, B, K):
+    if K > MAX_K:
+        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
+    if T > MAX_T:
+        raise ValueError(f"T={T} traits exceed MAX_T={MAX_T}")
+    plan = scan_plan(T, B, K)
+    if plan is None:
+        raise ValueError(f"T={T}, B={B} exceed the serial scan's shared "
+                         f"memory (about T*B <= 6,000)")
+    return plan
 
 
 def serial_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
@@ -97,11 +168,7 @@ def serial_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
                                  acum_old, u, z, live, zerob, i2se)
     T, B = base.shape
     K = lc.shape[0]
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
-    if not _fits(T, B):
-        raise ValueError(f"T={T}, B={B} exceed the serial scan's one CTA "
-                         f"(T <= {MAX_T}, about T*B <= 4096)")
+    plan = _plan_or_raise(T, B, K)
     dev = base.device
     f32, i32 = torch.float32, torch.int32
     for name, x in (("base", base), ("beta_old", beta_old),
@@ -118,7 +185,89 @@ def serial_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
     beta_new = torch.empty_like(dbeta)
     acum_new = torch.empty_like(dbeta)
     comp_new = torch.empty((T, B), dtype=i32, device=dev)
-    _build.launch("serial_scan", base, lc, rd, sqb, gs, beta_old, comp_old,
-                  acum_old, u, z, live, zerob, i2se, dbeta, beta_new,
-                  comp_new, acum_new, T, B, K)
+    _build.launch("serial_scan", base, None, lc, rd, sqb, gs, beta_old,
+                  comp_old, acum_old, u, z, live, zerob, None, i2se, dbeta,
+                  None, beta_new, comp_new, acum_new, 0, 0, 0, T, B, K,
+                  *plan)
     return dbeta, beta_new, comp_new, acum_new
+
+
+class SerialScanSweep:
+    """Kernel 6 over a sweep's blocks: the processing-order operands of all
+    ``nb`` blocks, checked once, then one launch per block step.
+
+    nm1 (T,) = nonas - 1; lc_p/rd_p/sqb_p (nb, K, T, B) per-marker tables;
+    beta_p/acum_p/u_all/z_all/msig_p (nb, T, B) float32; comp_p/live_p/
+    zerob_p (nb, T, B) int32; i2se (T,) = 1/(2 sigmaE).  The results of
+    block ``b`` land in ``dbeta[b]``, ``d[b]`` (= msig * dbeta),
+    ``beta_new[b]``, ``comp_new[b]`` and ``acum_new[b]``.
+    """
+
+    def __init__(self, nm1, lc_p, rd_p, sqb_p, beta_p, comp_p, acum_p,
+                 u_all, z_all, live_p, zerob_p, msig_p, i2se):
+        nb, K, T, B = lc_p.shape
+        dev = beta_p.device
+        f32, i32 = torch.float32, torch.int32
+        self.shape = (nb, T, B, K)
+        self.cuda = dev.type != "cpu"
+        if self.cuda:
+            self.plan = _plan_or_raise(T, B, K)
+            for name, x in (("beta_p", beta_p), ("acum_p", acum_p),
+                            ("u_all", u_all), ("z_all", z_all),
+                            ("msig_p", msig_p)):
+                _build.check(x, name, f32, (nb, T, B), dev)
+            for name, x in (("lc_p", lc_p), ("rd_p", rd_p),
+                            ("sqb_p", sqb_p)):
+                _build.check(x, name, f32, (nb, K, T, B), dev)
+            for name, x in (("comp_p", comp_p), ("live_p", live_p),
+                            ("zerob_p", zerob_p)):
+                _build.check(x, name, i32, (nb, T, B), dev)
+            _build.check(nm1, "nm1", f32, (T,), dev)
+            _build.check(i2se, "i2se", f32, (T,), dev)
+        self.nm1, self.i2se = nm1, i2se
+        self.tables = (lc_p, rd_p, sqb_p)
+        self.state = (beta_p, comp_p, acum_p, u_all, z_all, live_p, zerob_p)
+        self.msig_p = msig_p
+        self.dbeta = torch.empty((nb, T, B), dtype=f32, device=dev)
+        self.d = torch.empty_like(self.dbeta)
+        self.beta_new = torch.empty_like(self.dbeta)
+        self.acum_new = torch.empty_like(self.dbeta)
+        self.comp_new = torch.empty((nb, T, B), dtype=i32, device=dev)
+        if self.cuda:
+            # The launch's arguments but c (first) and gs (sixth), as
+            # addresses: a block step does no tensor work on the host.
+            self.head = [x.data_ptr() for x in (nm1, lc_p, rd_p, sqb_p)]
+            self.tail = [x.data_ptr() for x in (
+                beta_p, comp_p, acum_p, u_all, z_all, live_p, zerob_p,
+                msig_p, i2se, self.dbeta, self.d, self.beta_new,
+                self.comp_new, self.acum_new)]
+            self.seen = {}
+
+    def step(self, b, c, gs, bg, bc=0):
+        """Scan block ``b`` with the residual dot products ``c[bc]`` (``c``
+        is (nc, T, B)) against Gram ``bg`` of the run ``gs``
+        (nr, T, B, B)."""
+        nb, T, B, K = self.shape
+        lc_p, rd_p, sqb_p = self.tables
+        beta_p, comp_p, acum_p, u_all, z_all, live_p, zerob_p = self.state
+        if not self.cuda:
+            base = c[bc] + beta_p[b] * self.nm1[:, None]
+            out = serial_scan_plain(
+                base, lc_p[b], rd_p[b], sqb_p[b], gs[bg], beta_p[b],
+                comp_p[b], acum_p[b], u_all[b], z_all[b], live_p[b],
+                zerob_p[b], self.i2se)
+            self.dbeta[b], self.beta_new[b] = out[0], out[1]
+            self.comp_new[b], self.acum_new[b] = out[2], out[3]
+            self.d[b] = self.msig_p[b] * out[0]
+            return
+        if not (0 <= b < nb and 0 <= bg < gs.shape[0]
+                and 0 <= bc < c.shape[0]):
+            raise ValueError(f"block {b} of {nb}, Gram {bg} of "
+                             f"{gs.shape[0]}, c {bc} of {c.shape[0]}")
+        dev, f32 = self.dbeta.device, torch.float32
+        pc = _build.check_once(self.seen, c, "c", f32, (c.shape[0], T, B),
+                               dev)
+        pgs = _build.check_once(self.seen, gs, "gs", f32,
+                                (gs.shape[0], T, B, B), dev)
+        _build.launch("serial_scan", pc, *self.head, pgs, *self.tail, b, bc,
+                      bg, T, B, K, *self.plan)

@@ -14,9 +14,11 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
      (gibbs.py:353-400, ``use_cache``), per block: the c-dot kernel, the
      cached Gram gathered to processing order and scaled in plain
      PyTorch, the wave-scan kernel, the residual-update kernel;
-   - W = 1, the exact serial path, per block: the block-Gram kernel (c
-     and the scaled Gram), the serial-scan kernel, the residual-update
-     kernel;
+   - W = 1, the exact serial path: the scaled Grams of the sweep's blocks
+     first (the block-Gram kernel, one launch per run of blocks; they do
+     not depend on the residual), then per block the c-dot kernel, the
+     serial-scan kernel on the sweep's arrays and a block index, and the
+     residual-update kernel;
    - marker-sharded (gibbs.py:295-351, ``marker_sweep_sharded``): every
      shard sweeps its own markers against the one residual, and per block
      step the shards' residual deltas are summed, over the process's local
@@ -42,9 +44,13 @@ from typing import NamedTuple
 import torch
 
 from gmrm_tpu_torch.config import V0E, S02E, V0G, S02G
-from gmrm_tpu_torch.ops.block_gram import block_gram_scaled, scale_gram
-from gmrm_tpu_torch.ops.block_kernels import block_cdot, block_eps_update_
-from gmrm_tpu_torch.ops.scan_kernel import serial_scan
+from gmrm_tpu_torch.ops.block_gram import (
+    blocks_gram_scaled, gram_run_blocks, scale_gram,
+)
+from gmrm_tpu_torch.ops.block_kernels import (
+    BlockPasses, block_cdot, block_eps_update_,
+)
+from gmrm_tpu_torch.ops.scan_kernel import SerialScanSweep
 from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks, wave_scan
 from gmrm_tpu_torch.ops.sweep_kernel import (
     block_sweep, build_sweep_tables, sweep_blocks,
@@ -154,7 +160,10 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
 class _ComposedSweep:
     """One sweep of one shard on the composed per-block path, a block step
     at a time: kernels 2, 3 and 4 at wave > 1 (the Gram gathered from the
-    cache), kernels 5, 6 and 4 at wave = 1.
+    cache), kernels 2, 6 and 4 at wave = 1, where the blocks' scaled Grams
+    (kernel 5) are built ahead of the block loop, a run of
+    ``gram_run_blocks`` blocks per launch: the first run here, a further
+    one when a step leaves the run it has.
 
     Every per-marker operand is gathered to processing order once and
     split into contiguous (nblocks, ..., B) blocks.
@@ -176,10 +185,6 @@ class _ComposedSweep:
             win = perm.reshape(nblocks, B) - self.blk_idx * B
             self.win2 = torch.cat([win, win + B], dim=1)    # (nblocks, 2B)
             self.scan = functools.partial(wave_scan, wave=wave)
-        else:
-            self.na_gram = (static.na[:1] if static.shared_na
-                            else static.na).contiguous()
-            self.scan = serial_scan
 
         def split(y):    # (..., m_pad) processing order -> (nb, ..., B)
             y = y.reshape(*y.shape[:-1], nblocks, B)
@@ -200,25 +205,51 @@ class _ComposedSweep:
         live, zerob = scan_masks(grp_p, perm < static.m_local, sigmag)
         self.live_p = split(live)
         self.zerob_p = split(zerob)
-        self.nm1 = static.nonas.to(f32)[:, None] - 1.0
+        self.nm1 = static.nonas.to(f32) - 1.0               # (T,)
         self.outs = []
+        if wave == 1:
+            self.na_gram = (static.na[:1] if static.shared_na
+                            else static.na).contiguous()
+            self.passes = BlockPasses(static.bed, self.rows, self.mave_p,
+                                      self.msig_p, static.na)
+            self.serial = SerialScanSweep(
+                self.nm1, self.lc_p, self.rd_p, self.sqb_p, self.beta_p,
+                self.comp_p, self.acum_p, u_all, z_all, self.live_p,
+                self.zerob_p, self.msig_p, i2se)
+            self.gram_run = gram_run_blocks(
+                betas.shape[0], B, self.na_gram.shape[0], nblocks)
+            self.gs, self.gs_start = None, 0
+            self._build_grams(0)
+
+    def _build_grams(self, start):
+        """The scaled Grams of blocks start .. start + gram_run - 1."""
+        self.gs = None                    # free the last run first
+        stop = start + self.gram_run
+        self.gs = blocks_gram_scaled(
+            self.static.bed, self.rows[start:stop], self.na_gram,
+            self.mave_p[start:stop], self.msig_p[start:stop])
+        self.gs_start = start
 
     def step(self, b, eps, target):
         """Block step ``b`` against the residual ``eps``; the block's
         residual update is added into ``target``: ``eps`` itself on one
         device, a zeroed delta on a sharded run."""
+        if self.wave == 1:
+            if not 0 <= b - self.gs_start < self.gs.shape[0]:
+                self._build_grams(b - b % self.gram_run)
+            self.passes.cdot(b, eps)
+            self.serial.step(b, self.passes.c, self.gs, b - self.gs_start,
+                             bc=b)
+            self.passes.update_(b, self.serial.d, target)
+            return
         static = self.static
         mave_b, msig_b = self.mave_p[b], self.msig_p[b]
-        if self.wave > 1:
-            c = block_cdot(static.bed, self.rows[b], eps, mave_b, msig_b)
-            gs = cached_gram_scaled(static.gram_cache, self.blk_idx[b],
-                                    self.win2[b], mave_b, msig_b)
-        else:
-            c, gs = block_gram_scaled(static.bed, self.rows[b], eps,
-                                      self.na_gram, mave_b, msig_b)
+        c = block_cdot(static.bed, self.rows[b], eps, mave_b, msig_b)
+        gs = cached_gram_scaled(static.gram_cache, self.blk_idx[b],
+                                self.win2[b], mave_b, msig_b)
         dbeta, beta_new, comp_new, acum_new = self.scan(
-            c + self.beta_p[b] * self.nm1, self.lc_p[b], self.rd_p[b],
-            self.sqb_p[b], gs, self.beta_p[b], self.comp_p[b],
+            c + self.beta_p[b] * self.nm1[:, None], self.lc_p[b],
+            self.rd_p[b], self.sqb_p[b], gs, self.beta_p[b], self.comp_p[b],
             self.acum_p[b], self.u_all[b], self.z_all[b], self.live_p[b],
             self.zerob_p[b], self.i2se)
         block_eps_update_(static.bed, self.rows[b], msig_b * dbeta, mave_b,
@@ -227,10 +258,15 @@ class _ComposedSweep:
 
     def finish(self):
         """The new marker state (betas, comp, acum) in natural order."""
+        if self.wave == 1:
+            new = (self.serial.beta_new, self.serial.comp_new,
+                   self.serial.acum_new)
+        else:
+            new = [torch.stack([o[k] for o in self.outs]) for k in range(3)]
+
         def natural(k):                   # (nb, T, B) -> (T, m_pad)
             like = self.like[k]
-            y = torch.stack([o[k] for o in self.outs], dim=1).reshape(
-                like.shape)
+            y = new[k].movedim(0, 1).reshape(like.shape)
             out = torch.empty_like(like)
             out[:, self.perm] = y
             return out

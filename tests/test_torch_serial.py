@@ -30,9 +30,17 @@ from gmrm_tpu.runner import load_data as jax_load_data
 from gmrm_tpu.sampler import gibbs as jgibbs
 from gmrm_tpu.sampler.scan import block_scan as jax_block_scan
 from gmrm_tpu_torch import runner
-from gmrm_tpu_torch.ops.block_gram import block_gram_scaled
+from gmrm_tpu_torch.ops import scan_kernel as tscan
+from gmrm_tpu_torch.ops.block_gram import (
+    block_gram_scaled, block_gram_scaled_plain, blocks_gram_scaled,
+    gram_run_blocks,
+)
 from gmrm_tpu_torch.ops.decode import decode_planes
-from gmrm_tpu_torch.ops.sweep_kernel import gram_cache_plain
+from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks
+from gmrm_tpu_torch.ops.sweep_kernel import (
+    build_sweep_tables, gram_cache_plain,
+)
+from gmrm_tpu_torch.sampler import gibbs as tgibbs
 from gmrm_tpu_torch.sampler.dists import RngPlan
 from gmrm_tpu_torch.sampler.gibbs import block_order, marker_sweep
 from gmrm_tpu_torch.sampler.scan import block_scan
@@ -121,6 +129,57 @@ def test_block_gram_raw_part_bit_equal(nt):
                                   np.asarray(want)[1, :, :B, :B])
 
 
+@pytest.mark.parametrize("nt", [1, 3], ids=["shared_na", "per_trait_na"])
+def test_blocks_gram_matches_pallas_and_plain(nt):
+    """Kernel 5 over a run of blocks (plain version): three blocks of a
+    shuffled bed whose pad rows come last, so the last block has pad slots.
+    Block by block bit-equal to block_gram_scaled_plain, and against
+    block_gram_scaled_pallas to the tolerance of
+    test_block_gram_matches_pallas."""
+    rng = np.random.default_rng(70 + nt)
+    T, B, mb, nb = 3, 32, 300, 3
+    m_real = nb * B - 5
+    bed = rng.integers(0, 256, size=(nb * B, mb), dtype=np.uint8)
+    bed[m_real:] = 0x55                                    # pad rows
+    bed[:, mb - 7:] = 0x55                                 # pad columns
+    na = np.ones((nt, 4, mb), np.float32)
+    na[:, :, mb - 7:] = 0
+    if nt > 1:
+        na *= rng.uniform(size=(nt, 4, mb)) > 0.03
+    eps = rng.normal(size=(T, 4, mb)).astype(np.float32)
+    rows = np.concatenate([rng.permutation(m_real),
+                           np.arange(m_real, nb * B)]).astype(np.int32)
+    rows = rows.reshape(nb, B)
+    real = (rows < m_real)[:, None, :]
+    mave = (rng.uniform(0.2, 1.8, size=(nb, T, B)) * real).astype(np.float32)
+    msig = (rng.uniform(0.5, 2.0, size=(nb, T, B)) * real).astype(np.float32)
+    gs = blocks_gram_scaled(_t(bed), _t(rows), _t(na), _t(mave), _t(msig))
+    assert gs.shape == (nb, T, B, B) and gs.dtype == torch.float32
+    assert (gs[-1][:, -5:] == 0).all() and (gs[-1][:, :, -5:] == 0).all()
+    na_full = np.broadcast_to(na, (T, 4, mb))
+    for n in range(nb):
+        _, want = block_gram_scaled_plain(_t(bed), _t(rows[n]), _t(eps),
+                                          _t(na), _t(mave[n]), _t(msig[n]))
+        assert torch.equal(gs[n], want), n
+        _, gj = block_gram_scaled_pallas(
+            jnp.asarray(bed[rows[n]]), jnp.asarray(eps),
+            jnp.asarray(na_full), jnp.asarray(mave[n]), jnp.asarray(msig[n]),
+            shared_na=nt == 1, interpret=True)
+        np.testing.assert_allclose(gs[n].numpy(), np.asarray(gj), rtol=2e-5,
+                                   atol=2e-3)
+
+
+def test_gram_runs_stay_under_the_byte_budget(monkeypatch):
+    """A run's scaled Grams and raw scratch fit the budget; never less
+    than one block, never more than the sweep has."""
+    import gmrm_tpu_torch.ops.block_gram as bgm
+    assert gram_run_blocks(4, 128, 1, 157) == 157
+    assert gram_run_blocks(4, 128, 4, 157) == 128
+    assert gram_run_blocks(4, 128, 4, 7813) == 128
+    monkeypatch.setattr(bgm, "GRAM_RUN_BYTES", 1)
+    assert gram_run_blocks(4, 128, 4, 157) == 1
+
+
 @pytest.mark.parametrize("case", ["plain", "adav", "overflow"])
 def test_block_scan_matches_both_jax_scans(case):
     """The port's W=1 block scan against block_scan_pallas (interpret) and
@@ -147,6 +206,116 @@ def test_block_scan_matches_both_jax_scans(case):
         np.testing.assert_allclose(got.acum_new.numpy(),
                                    np.asarray(want.acum_new), rtol=1e-4,
                                    atol=1e-6)
+
+
+def _sweep_arrays(args, K):
+    """The sweep's (nb = 2, ..., B) operands of kernel 6 from one
+    block_scan case: block 1 is the case, block 0 the same markers in
+    reverse order.  Returns (scan, per-block block_scan arguments, c)."""
+    (c, gs, beta_old, comp_old, acum_old, grp, valid, u, z, sigmag, sigmae,
+     pi_est, cva, cvai, nonas, n_total) = [np.array(a) for a in args]
+    rev = slice(None, None, -1)
+    blocks = [
+        (c[:, rev], gs[:, rev, rev], beta_old[:, rev], comp_old[:, rev],
+         acum_old[:, rev], grp[rev], valid[rev], u[:, rev], z[:, rev]),
+        (c, gs, beta_old, comp_old, acum_old, grp, valid, u, z)]
+    blocks = [tuple(np.ascontiguousarray(x) for x in blk) for blk in blocks]
+    hyper = (sigmag, sigmae, pi_est, cva, cvai, nonas, n_total)
+    lc_t, rd_t, sqb_t = build_sweep_tables(
+        _t(sigmag), _t(sigmae), _t(pi_est), _t(cva), _t(cvai), _t(nonas),
+        float(n_total))
+
+    def stack(k):
+        return torch.stack([_t(blk[k]) for blk in blocks])
+
+    grp_p = stack(5).long()                                # (nb, B)
+    masks = [scan_masks(grp_p[n], _t(blk[6]), _t(sigmag))
+             for n, blk in enumerate(blocks)]
+
+    def per_block(tab):                       # (K, T, G) -> (nb, K, T, B)
+        return tab[:, :, grp_p].movedim(2, 0).contiguous()
+
+    rng = np.random.default_rng(5)
+    msig_p = _t(rng.uniform(0.5, 2.0, size=stack(0).shape).astype(np.float32))
+    scan = tscan.SerialScanSweep(
+        _t(nonas) - 1.0, per_block(lc_t), per_block(rd_t), per_block(sqb_t),
+        stack(2), stack(3), stack(4), stack(7), stack(8),
+        torch.stack([m[0] for m in masks]),
+        torch.stack([m[1] for m in masks]), msig_p,
+        (1.0 / (2.0 * _t(sigmae))).contiguous())
+    return scan, [blk + hyper for blk in blocks], stack(0), stack(1)
+
+
+@pytest.mark.parametrize("case", ["plain", "adav", "overflow", "k8"])
+def test_scan_sweep_arrays_match_one_block_and_jax(case):
+    """Kernel 6 through the sweep's arrays and a block index: equal in
+    every output to the one-block serial_scan_plain on the torch
+    expression of base, d bit-equal to msig * dbeta, and against
+    block_scan_pallas (interpret) and the XLA block_scan to the tolerances
+    of test_block_scan_matches_both_jax_scans; also at K = 8."""
+    seed = {"plain": 0, "adav": 1, "overflow": 2, "k8": 3}[case]
+    rng = np.random.default_rng(seed)
+    T, B, G, K = 3, 32, 2, 8 if case == "k8" else 4
+    args = _random_case(rng, T, B, G, K,
+                        adav_group=0 if case == "adav" else None,
+                        overflow=case == "overflow")
+    scan, jax_args, c_p, gs_p = _sweep_arrays(args, K)
+    beta_p, comp_p, acum_p, u_all, z_all, live_p, zerob_p = scan.state
+    for n in (1, 0):
+        scan.step(n, c_p, gs_p, n, bc=n)
+        base = c_p[n] + beta_p[n] * scan.nm1[:, None]
+        want = tscan.serial_scan(
+            base, *(x[n] for x in scan.tables), gs_p[n], beta_p[n],
+            comp_p[n], acum_p[n], u_all[n], z_all[n], live_p[n], zerob_p[n],
+            scan.i2se)
+        got = (scan.dbeta[n], scan.beta_new[n], scan.comp_new[n],
+               scan.acum_new[n])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.equal(scan.d[n], scan.msig_p[n] * scan.dbeta[n])
+        assert len(np.unique(got[2].numpy()[live_p[n].numpy() != 0])) > 1
+        jargs = [jnp.asarray(a) for a in jax_args[n]]
+        for ref in (block_scan_pallas(*jargs, interpret=True),
+                    jax_block_scan(*jargs)):
+            np.testing.assert_array_equal(got[2].numpy(),
+                                          np.asarray(ref.comp_new))
+            np.testing.assert_allclose(got[0].numpy(),
+                                       np.asarray(ref.dbeta_eff), rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(got[1].numpy(),
+                                       np.asarray(ref.beta_new), rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(got[3].numpy(),
+                                       np.asarray(ref.acum_new), rtol=1e-4,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("T,B,K,mode", [
+    (4, 128, 4, 2), (4, 128, 8, 2), (4, 128, 16, 2), (8, 128, 8, 2),
+    (8, 128, 16, 1), (8, 256, 8, 0), (8, 512, 4, 0), (16, 256, 8, 0),
+    (1, 1, 2, 2)])
+def test_scan_plan_fits_shared_memory(T, B, K, mode):
+    """The kernel's shared memory plan: state and tables staged while a
+    ring of 16 Gram rows fits beside them, else the large-block branch
+    (mode 1: tables in global memory; mode 0: state too); always within
+    one CTA's shared memory with at least two ring groups or every row."""
+    plan = tscan.scan_plan(T, B, K)
+    assert plan is not None and plan[0] == mode
+    _, GR, NG = plan
+    assert 4 * tscan._layout_words(T, B, K, *plan) <= tscan.SMEM_BYTES
+    assert 1 <= NG <= tscan.MAX_NG
+    assert GR in (1, 2, 4, 8) and NG & (NG - 1) == 0
+    assert NG * GR >= B - 1 or NG >= (2 if GR > 1 else 4)
+
+
+def test_scan_plan_refuses_what_cannot_fit():
+    assert tscan.scan_plan(8, 1024, 4) is None
+    with pytest.raises(ValueError, match="shared memory"):
+        tscan._plan_or_raise(8, 1024, 4)
+    with pytest.raises(ValueError, match="MAX_K"):
+        tscan._plan_or_raise(4, 128, 17)
+    with pytest.raises(ValueError, match="MAX_T"):
+        tscan._plan_or_raise(33, 8, 4)
 
 
 @pytest.fixture(scope="module", params=[0.02, 0.0], ids=["na", "no_na"])
@@ -316,6 +485,65 @@ def test_run_training_cpu_serial_auto(sim_medium, tmp_path):
     data = runner.load_data(opt)
     np.testing.assert_array_equal(data.inv_order, np.arange(m))
     assert runner.build_static(data, opt, "cpu").gram_cache is None
+
+
+def _serial_sweep_args(sim, block_size, seed):
+    """One W=1 sweep's arguments on ``sim`` from the port's own loaders:
+    a uniform shuffle with pad slots last, injected draws, a non-zero beta
+    and an adaV group."""
+    opt = Options(bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
+                  group_index_file=sim.gri, group_mixture_file=sim.grm,
+                  iterations=1, seed=3, block_size=block_size, wave_size=1)
+    opt.validate()
+    opt.load_group_mixtures()
+    data = runner.load_data(opt)
+    static = runner.build_static(data, opt, "cpu")
+    state = runner.init_sampler_state(data, opt, "cpu")
+    T, m_pad = state.betas.shape
+    nblocks = m_pad // block_size
+    rng = np.random.default_rng(seed)
+    perm = np.concatenate([rng.permutation(data.m_local),
+                           np.arange(data.m_local, m_pad)])
+    sigmag = state.sigmag.clone()
+    sigmag[0, 0] = 0.0
+    sigmae = 0.5 * (state.eps * state.eps).sum(dim=(1, 2)) / static.nonas
+    betas = _t((rng.normal(size=(T, m_pad)) * 0.02).astype(np.float32))
+    return (state.eps, betas, state.comp, state.acum, sigmag, sigmae,
+            state.pi_est, static, _t(perm.reshape(nblocks, block_size)),
+            _t(rng.uniform(size=(nblocks, T, block_size)).astype(np.float32)),
+            _t(rng.normal(size=(nblocks, T, block_size)).astype(np.float32)))
+
+
+def _gram_per_block_in_loop(bed, rows_all, na_in, mave_p, msig_p):
+    """The cadence before the Grams were built ahead: each block's Gram
+    from block_gram_scaled_plain on its own."""
+    eps0 = torch.zeros((mave_p.shape[1], 4, bed.shape[1]))
+    return torch.stack([
+        block_gram_scaled_plain(bed, rows_all[n], eps0, na_in, mave_p[n],
+                                msig_p[n])[1]
+        for n in range(rows_all.shape[0])])
+
+
+@pytest.mark.parametrize("run", [1, 3, 8])
+def test_gram_regrouping_cannot_move_a_chain(sim_medium, monkeypatch, run):
+    """One W=1 sweep on sim_medium (8 blocks of 32) with the Grams built
+    ahead in runs of 1, 3 and all blocks: eps, betas, comp, acum and cass
+    bit-equal to the same sweep with every block's Gram built on its own
+    inside the loop."""
+    args = _serial_sweep_args(sim_medium, 32, 99)
+    assert args[8].shape[0] == 8
+
+    def sweep():
+        return marker_sweep(args[0].clone(), *args[1:], wave=1)
+
+    monkeypatch.setattr(tgibbs, "gram_run_blocks", lambda *a: run)
+    got = sweep()
+    monkeypatch.setattr(tgibbs, "gram_run_blocks", lambda *a: 1)
+    monkeypatch.setattr(tgibbs, "blocks_gram_scaled", _gram_per_block_in_loop)
+    want = sweep()
+    assert (got[2] != 0).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_divergence_message_names_the_ports_serial_path():

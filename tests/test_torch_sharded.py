@@ -486,6 +486,46 @@ def test_sharded_serial_sweep_matches_replay_oracle(shard_sim, D,
                                rtol=5e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("run", [1, 3, 7])
+def test_sharded_gram_regrouping_cannot_move_a_chain(shard_sim, monkeypatch,
+                                                     run):
+    """One 2-shard W = 1 sweep (7 blocks of 8 per shard, the last with pad
+    slots) with the Grams built ahead in runs of 1, 3 and all blocks:
+    eps, betas, comp, acum and cass bit-equal to the same sweep with every
+    block's Gram built on its own inside the loop."""
+    from gmrm_tpu_torch.ops.block_gram import block_gram_scaled_plain
+    from gmrm_tpu_torch.sampler import gibbs as tgibbs
+
+    D, B = 2, 8
+    g = _global_inputs(shard_sim, D, B)
+    nblocks = g["mps"] // B
+    assert nblocks == 7
+    rng = np.random.default_rng(31)
+    blocks = np.stack([
+        np.concatenate([rng.permutation(ln), np.arange(ln, g["mps"])])
+        .reshape(nblocks, B) for _, ln in g["blocks_glob"]])
+    u = rng.uniform(size=(D, nblocks, 1, B)).astype(np.float32)
+    z = rng.normal(size=(D, nblocks, 1, B)).astype(np.float32)
+    sigmag0 = rng.uniform(0.05, 0.5, size=g["cva"].shape[0])
+    leaves = dict(g["leaves"], gram_cache=None)
+
+    def per_block_in_loop(bed, rows_all, na_in, mave_p, msig_p):
+        eps0 = torch.zeros((mave_p.shape[1], 4, bed.shape[1]))
+        return torch.stack([
+            block_gram_scaled_plain(bed, rows_all[n], eps0, na_in, mave_p[n],
+                                    msig_p[n])[1]
+            for n in range(rows_all.shape[0])])
+
+    monkeypatch.setattr(tgibbs, "gram_run_blocks", lambda *a: run)
+    got = _port_sharded_sweep(g, D, leaves, blocks, u, z, sigmag0, 1)
+    monkeypatch.setattr(tgibbs, "gram_run_blocks", lambda *a: 1)
+    monkeypatch.setattr(tgibbs, "blocks_gram_scaled", per_block_in_loop)
+    want = _port_sharded_sweep(g, D, leaves, blocks, u, z, sigmag0, 1)
+    assert (got[2] != 0).any()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
 # --------------------------------------------------------------------------
 # The partition, the shard-keyed draws and the shard -> process map
 # --------------------------------------------------------------------------

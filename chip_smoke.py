@@ -21,9 +21,11 @@ Phases, each of which must pass (any failure exits non-zero):
    anchor's 157 blocks (an adaV group, a partly padded last block) against
    its plain version and against the composed chain of kernels 2, 3 and 4;
    one launch is a whole sweep, so it is timed with CUDA events around
-   eager launches.  The fused per-block kernel of the sharded sweep runs
-   blocks of the same operands against its plain version (comp exact, every
-   element of the delta written), timed per launch;
+   eager launches, and one more launch records the kernel's %globaltimer
+   stamps, which split a block's time into its phases.  The fused
+   per-block kernel of the sharded sweep runs blocks of the same operands
+   against its plain version (comp exact, every element of the delta
+   written), timed per launch;
 3. the wave path's (W=32) one-sweep agreement gate at the anchor: the
    default marker_sweep, so the whole-sweep kernel, on the card against the
    same sweep from the plain versions (on the host CPU), with the same
@@ -44,8 +46,11 @@ Phases, each of which must pass (any failure exits non-zero):
 4. the training entry point, gmrm_tpu_torch.runner.run_training, on the
    reference anchor (N=10,000 x Mt=20,000 x 4 traits, bench.py:50-57) in
    wave mode for 20 iterations with thinned output: the whole-sweep kernel
-   launches once per iteration and kernels 2-6 not at all; the chain and
-   the written artifacts are checked;
+   launches once per iteration, between the two CUDA graphs of the host's
+   arithmetic, and kernels 2-6 not at all; the chain and the written
+   artifacts are checked, the run's peak device memory is printed, and its
+   state after 20 iterations must equal, bit for bit, that of 20 eager
+   gibbs_iteration calls from the same start and seed;
 4b. the same at W=1 (--wave-size 1) for 10 iterations, checking the
    launch counts of the exact serial path;
 4c. the composed wave path (megakernel=False) for 5 iterations of
@@ -58,9 +63,10 @@ Phases, each of which must pass (any failure exits non-zero):
 4e. the 2-shard run again inside a one-rank NCCL process group, so that
    every sum of the path goes through NCCL on CUDA tensors; its artifacts
    must equal phase 4d's byte for byte;
-5. a torch.profiler window over 5 whole-sweep iterations at the anchor, one
-   over 5 W=1 iterations and one over 5 sharded iterations (2 shards):
-   device-busy and wall time per iteration, idle share, launches.
+5. a torch.profiler window over 5 whole-sweep iterations at the anchor (as
+   run_training runs them), one over 5 W=1 iterations and one over 5
+   sharded iterations (2 shards): device-busy and wall time per iteration,
+   idle share, host-issued launches and graph replays per iteration.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -73,7 +79,11 @@ on one card (parent, change, change, parent):
     python3 chip_smoke.py --training-only 3 [--repo OTHER_TREE]
 
 builds the kernels of the tree at --repo (default: this one), runs phases 4
-and 4b three times and prints each run's ms/iteration, nothing else.
+and 4b and phase 5's W=32 profiler window three times and prints each
+run's ms/iteration, idle share and host-issued calls, nothing else.
+``--sweep-only REPS [--repo TREE]`` does the same for phase 2's whole-sweep
+kernel: its gate against the plain version, its ms per sweep and, where
+the tree's kernel records them, its stamps.
 """
 
 import argparse
@@ -99,6 +109,9 @@ N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
 COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
 SERIAL_KERNELS = ("block_cdot", "serial_scan", "eps_update")  # per block
 SHARDED_RUNS = ((2, None, 10), (4, W, 5))   # shards, --wave-size, iterations
+# The whole-sweep kernel's earlier design (three grid syncs a block), ms per
+# sweep at NT=1 and NT=4 (PERF.md section 6, row 7).
+EARLIER_SWEEP_MS = (2.673, 2.663)
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
 # memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
@@ -620,16 +633,53 @@ def sweep_operands(dev, gen, shared):
     return static, state, blk, win, draws
 
 
-def sweep_kernel_phase(dev, gen):
+def stamp_split(sk, run, nblocks):
+    """Where a sweep's time goes: one launch with a stamp buffer, each CTA
+    recording the global timer at the events of ``sk.SWEEP_STAMPS``; the
+    mean microseconds between consecutive events over the inner blocks,
+    for CTA 0 and averaged over the column CTAs."""
+    import torch
+    grid = sk.sweep_plan(T, B, MB, 1, K, W)["grid"]
+    stamps = torch.zeros((grid, nblocks + 1, sk.NST), dtype=torch.int64,
+                         device="cuda")
+    run(stamps)
+    torch.cuda.synchronize()
+    full = stamps.cpu().double()
+    s = full[:, 2:nblocks, :]                     # blocks 1 .. nblocks - 2
+    period = float((s[0, 1:, 0] - s[0, :-1, 0]).mean()) / 1e3
+    parts = [f"{period:.2f} us per block"]
+    for role, rows in (("CTA 0", s[:1]), ("column CTAs", s[1:])):
+        names = sk.SWEEP_STAMPS["scan" if role == "CTA 0" else "column"]
+        d = (rows[:, :, 1:len(names) + 1] - rows[:, :, :len(names)])
+        parts.append(f"{role}: " + ", ".join(
+            f"{n} {float(x) / 1e3:.2f}"
+            for n, x in zip(names, d.mean(dim=(0, 1)))))
+    if hasattr(sk, "SWEEP_CHAIN"):
+        # The critical chain: each checkpoint's time over blocks 1 ..
+        # nblocks - 3, a column event at the last column CTA to reach it.
+        def at(role, off, e):
+            rows = full[0:1] if role == "scan" else full[1:]
+            return rows[:, 2 + off:nblocks - 1 + off, e].max(dim=0).values
+        times = [at(r, o, e) for r, o, e, _ in sk.SWEEP_CHAIN]
+        parts.append("chain: " + ", ".join(
+            f"{what} +{float((b - a).mean()) / 1e3:.2f}"
+            for a, b, (_, _, _, what) in zip(times, times[1:],
+                                              sk.SWEEP_CHAIN[1:])))
+    return "; ".join(parts) + " (us)"
+
+
+def sweep_kernel_phase(dev, gen, full=True):
     """Phase 2, the whole-sweep kernel: one sweep at the anchor's shapes
-    against its plain version on the card, NT = 1 and NT = T, and timed
-    beside the plain version and the composed chain of kernels 2, 3, 4."""
+    against its plain version on the card, NT = 1 and NT = T, timed, its
+    time split by the kernel's own stamps and, with ``full``, timed beside
+    the plain version and the composed chain of kernels 2, 3, 4."""
     import torch
     from gmrm_tpu_torch.ops import sweep_kernel as sk
     from gmrm_tpu_torch.sampler.gibbs import _natural_cass, marker_sweep
 
     i32 = torch.int32
     err, ms, plain_ms, composed_ms, bound = 0.0, [], [], [], None
+    splits = []
     for shared in (True, False):
         static, st, blk, win, (u, z) = sweep_operands(dev, gen, shared)
         nt = static.gram_cache.shape[1]
@@ -644,8 +694,8 @@ def sweep_kernel_phase(dev, gen):
                st["sigmag"], *tables, 1.0 / (2.0 * st["sigmae"]),
                static.nonas)
 
-        def run(fn, eps):
-            return fn(*ops[:5], eps, *ops[6:], wave=W)
+        def run(fn, eps, **kw):
+            return fn(*ops[:5], eps, *ops[6:], wave=W, **kw)
 
         got = run(sk.sweep_blocks, st["eps"].clone())
         torch.cuda.synchronize()
@@ -697,6 +747,12 @@ def sweep_kernel_phase(dev, gen):
                                 blocks, u, z, wave=W, megakernel=False)
 
         ms.append(call_ms(lambda: sweep(sk.sweep_blocks), 10))
+        if hasattr(sk, "SWEEP_STAMPS"):
+            splits.append(f"NT={nt}: " + stamp_split(
+                sk, lambda stamps: run(sk.sweep_blocks, eps_t, stamps=stamps),
+                nblocks))
+        if not full:
+            continue
         plain_ms.append(call_ms(lambda: sweep(sk.sweep_blocks_plain), 1))
         composed_ms.append(call_ms(composed, 2))
         if bound is None:
@@ -717,7 +773,7 @@ def sweep_kernel_phase(dev, gen):
                      + moved * 2 * T * W * B)
             bound = bound_of(nbytes, (flops, F32_OPS))
     plan = sk.sweep_plan(T, B, MB, 1, K, W)
-    return (err, ms, plain_ms, composed_ms, bound), plan
+    return (err, ms, plain_ms, composed_ms, bound), plan, splits
 
 
 def block_sweep_phase(dev, gen):
@@ -1000,17 +1056,22 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     iteration; at W=1 kernels 2, 6 and 4 launch once per block and
     iteration and kernel 5 once per run of blocks.  The other paths'
     kernels launch not at all.  ``check_launches`` False skips that check,
-    for a tree of another cadence."""
+    for a tree of another cadence.  Also returns the run's peak device
+    memory (torch.cuda.max_memory_allocated)."""
     import numpy as np
     from gmrm_tpu_torch.io.writers import read_history
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.runner import check_finite_chain, run_training
 
+    import torch
     out_dir = os.path.join(tmp, f"out_w{wave}")
     opt = anchor_options(sim, out_dir, wave, iterations)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     res = run_training(opt, device=dev, verbose=False)
     launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     nblocks = -(-MT // B)
     # The anchor has no phenotype NAs: NT = 1.
     path = (launches if not check_launches
@@ -1038,7 +1099,7 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     steady = sum(res.iter_seconds[THIN:]) / (iterations - THIN)
     sg = res.state.sigmag.sum(dim=1).cpu().numpy()
     se = res.state.sigmae.cpu().numpy()
-    return res, launches, steady, sg / (sg + se)
+    return res, launches, steady, sg / (sg + se), peak
 
 
 def sharded_setup(sim, dev, n_shards, wave=W):
@@ -1228,6 +1289,29 @@ def chain_setup(sim, dev, wave=W):
             runner.init_sampler_state(data, opt, dev), RngPlan(opt.seed, dev))
 
 
+def eager_gate(sim, dev, res, iterations=ITERS):
+    """Phase 4's gate: the state run_training reached at W=32 (the
+    whole-sweep iteration, its host work in CUDA graphs) equals, bit for
+    bit, the state of the same number of eager gibbs_iteration calls from
+    the same start and seed on this tree."""
+    import torch
+    from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
+
+    opt, static, state, rng = chain_setup(sim, dev)
+    for it in range(1, iterations + 1):
+        state, _ = gibbs_iteration(state, static, it, rng, block_size=B,
+                                   wave=opt.wave_size)
+    torch.cuda.synchronize()
+    names = ("eps", "betas", "comp", "acum", "cass", "sigmag", "sigmae",
+             "pi_est", "mu")
+    differ = [n for n in names
+              if not torch.equal(getattr(res.state, n), getattr(state, n))]
+    if differ:
+        fail(f"W={W} training: after {iterations} iterations the state "
+             f"differs from the eager gibbs_iteration chain in {differ}")
+    return names
+
+
 def composed_phase(sim, dev):
     """Phase 4c: the composed wave path (kernels 2, 3 and 4 per block) for
     a few iterations of gibbs_iteration, so the earlier path stays driven."""
@@ -1262,8 +1346,9 @@ def profile_phase(sim, dev, n_shards=0, wave=W):
     """Phase 5: torch.profiler over 5 iterations at the anchor after 2 of
     warm-up, on the single-device path of ``wave`` (the whole-sweep kernel,
     or the exact serial path at 1) or, with ``n_shards``, on the sharded
-    path.  Returns the device-busy and wall milliseconds per iteration,
-    launches per iteration and the busiest device kernels."""
+    path, as run_training runs it.  Returns the device-busy and wall
+    milliseconds per iteration, host-issued launches (kernels and graph
+    replays) per iteration and the busiest device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gmrm_tpu_torch.parallel.distributed import Communicator
@@ -1280,11 +1365,18 @@ def profile_phase(sim, dev, n_shards=0, wave=W):
                 state, static, it, rng, block_size=B, wave=opt.wave_size,
                 comm=comm)[0]
     else:
+        from gmrm_tpu_torch import runner
         opt, static, state, rng = chain_setup(sim, dev, wave)
+        if hasattr(runner, "iteration_step"):     # what run_training runs
+            one = runner.iteration_step(state, static, rng, opt)
 
-        def step(state, it):
-            return gibbs_iteration(state, static, it, rng, block_size=B,
-                                   wave=opt.wave_size)[0]
+            def step(state, it):
+                return one(it)[0]
+        else:
+
+            def step(state, it):
+                return gibbs_iteration(state, static, it, rng, block_size=B,
+                                       wave=opt.wave_size)[0]
     for it in (1, 2):
         state = step(state, it)
     torch.cuda.synchronize()
@@ -1305,7 +1397,10 @@ def profile_phase(sim, dev, n_shards=0, wave=W):
     busy_us = sum(device_us(e) for e in kernels)
     if busy_us <= 0:
         fail("torch.profiler recorded no device time")
-    launches = sum(1 for e in events if e.name.startswith("cudaLaunch"))
+    # Host-issued calls that start device work: kernel launches and graph
+    # replays.
+    launches = sum(1 for e in events
+                   if e.name.startswith(("cudaLaunch", "cudaGraphLaunch")))
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + device_us(e)
@@ -1338,7 +1433,8 @@ ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576"}
 
 def training_only(dev, reps, card, repo):
     """Phases 4 and 4b ``reps`` times on one simulated anchor: the steady
-    ms/iteration of every run, for comparing two trees inside one call.
+    ms/iteration of every run and a phase 5 profiler window on the W=32
+    path, for comparing two trees inside one call.
     The launch counts are checked only for this script's own tree."""
     own = os.path.abspath(repo) == REPO
     with tempfile.TemporaryDirectory() as tmp:
@@ -1352,11 +1448,19 @@ def training_only(dev, reps, card, repo):
                 print(f"# {repo}: training W={wave}, run {rep + 1}: "
                       f"{steady * 1e3:.2f} ms/iteration  [{card}]",
                       flush=True)
+            busy, wall, calls, top = profile_phase(sim, dev)
+            print(f"# {repo}: profiler W={W}, run {rep + 1}: device busy "
+                  f"{busy:.3f} of {wall:.3f} ms/iteration, idle share "
+                  f"{1 - busy / wall:.3f}, {calls:.1f} host-issued launches "
+                  f"and graph replays per iteration; {top}  [{card}]",
+                  flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--training-only", type=int, default=0,
+                        metavar="REPS")
+    parser.add_argument("--sweep-only", type=int, default=0,
                         metavar="REPS")
     parser.add_argument("--repo", default=REPO)
     args = parser.parse_args()
@@ -1380,6 +1484,20 @@ def main():
     if args.training_only:
         _build.library()
         training_only(dev, args.training_only, card, args.repo)
+        return
+    if args.sweep_only:
+        _build.library()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20261016)
+        for rep in range(args.sweep_only):
+            (err, t_k, _, _, _), _, splits = sweep_kernel_phase(
+                dev, gen, full=False)
+            print(f"# {args.repo}: sweep_blocks run {rep + 1}: ms per sweep "
+                  f"{t_k} (NT=1, NT={T}), max abs err {err:.3e}  [{card}]",
+                  flush=True)
+            for split in splits:
+                print(f"# {args.repo}: sweep_blocks stamps, {split}  "
+                      f"[{card}]", flush=True)
         return
 
     # The three datasets are simulated by worker processes, one thread each,
@@ -1410,7 +1528,8 @@ def main():
                   f"{t_p} (CUDA graph replay); kernel ms per eager call "
                   f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}"
                   f"{'; ' + note if note else ''}  [{card}]", flush=True)
-        (err, t_k, t_p, t_c, bound), plan = sweep_kernel_phase(dev, gen)
+        (err, t_k, t_p, t_c, bound), plan, splits = sweep_kernel_phase(
+            dev, gen)
         kernels["sweep_blocks"] = (err, t_k, t_p, None, bound)
         chain = 157 * sum(kernels[k][1][0] for k in COMPOSED_KERNELS)
         print(f"# sweep_blocks, one sweep of {-(-MT // B)} blocks at NT=1 and "
@@ -1424,6 +1543,14 @@ def main():
               f"{plan['cols']} byte columns, eps {plan['eps_bytes_per_cta']} "
               f"bytes per CTA, resident in shared memory: "
               f"{', '.join(plan['resident'])}  [{card}]", flush=True)
+        for split in splits:
+            print(f"# sweep_blocks stamps, {split}  [{card}]", flush=True)
+        print(f"# sweep_blocks beside its earlier design (three grid syncs "
+              f"a block): {EARLIER_SWEEP_MS} ms per sweep at "
+              f"NT=1, NT={T} as recorded in PERF.md on an NVIDIA H100 80GB "
+              f"HBM3 at 700 W; this run {[round(x, 3) for x in t_k]}.  To "
+              f"time both in one call: --sweep-only N --repo PARENT_TREE",
+              flush=True)
 
         (err, t_k, t_p, t_call, bound), bplan = block_sweep_phase(dev, gen)
         kernels["block_sweep"] = (err, t_k, t_p, t_call, bound)
@@ -1450,6 +1577,7 @@ def main():
                    against="composed")
         runs = {w: training_phase(sim, dev, tmp, w, iters)
                 for w, iters in ((W, ITERS), (1, ITERS_SERIAL))}
+        gated = eager_gate(sim, dev, runs[W][0])
         composed_launches, composed_s = composed_phase(sim, dev)
         busy_ms, wall_ms, n_launch, top = profile_phase(sim, dev)
         w1_prof = profile_phase(sim, dev, wave=1)
@@ -1466,7 +1594,7 @@ def main():
                  "than the run without a group")
         sh_prof = profile_phase(sim, dev, n_shards=s0)
     torch.cuda.synchronize()
-    for w, (res, launches, steady, h2) in runs.items():
+    for w, (res, launches, steady, h2, peak) in runs.items():
         startup = ("load + stats + Gram cache of "
                    f"{cache_bytes / 2**20:.1f} MiB" if w > 1
                    else "load + stats")
@@ -1475,17 +1603,23 @@ def main():
               f"{MT / steady:.0f} markers/s over iterations {THIN + 1}-"
               f"{res.iters_run}; chain {res.chain_seconds:.2f} s for "
               f"{res.iters_run} iterations; h2 "
-              f"{[round(float(x), 3) for x in h2]}; launches {launches}  "
-              f"[{card}]", flush=True)
+              f"{[round(float(x), 3) for x in h2]}; launches {launches}; "
+              f"peak device memory {peak / 2**20:.1f} MiB  [{card}]",
+              flush=True)
+    print(f"# training W={W}: the state after {ITERS} iterations ("
+          f"{', '.join(gated)}) is bit-equal to {ITERS} eager "
+          f"gibbs_iteration calls from the same start and seed  [{card}]",
+          flush=True)
     print(f"# composed wave path (megakernel=False), W={W}: "
           f"{composed_s * 1e3:.2f} ms/iteration = {MT / composed_s:.0f} "
           f"markers/s over iterations 2-{ITERS_COMPOSED}, each ended by a "
           f"synchronize; launches {composed_launches}  [{card}]", flush=True)
-    print(f"# profiler, whole-sweep path, 5 iterations: device busy "
+    print(f"# profiler, whole-sweep path (as run_training runs it: two CUDA "
+          f"graphs around the eager sweep launch), 5 iterations: device busy "
           f"{busy_ms:.3f} ms/iteration, wall {wall_ms:.3f} ms/iteration, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, {n_launch:.1f} launches "
-          f"per iteration; busiest kernels (ms/iteration) {top}  [{card}]",
-          flush=True)
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {n_launch:.1f} "
+          f"host-issued launches and graph replays per iteration; busiest "
+          f"kernels (ms/iteration) {top}  [{card}]", flush=True)
 
     busy_1, wall_1, launch_1, top_1 = w1_prof
     print(f"# profiler, W=1 path, 5 iterations: device busy {busy_1:.3f} "

@@ -22,8 +22,9 @@
 // Bound on the H100: latency.  A sweep moves little (the bed once, 51 MB
 // at N=10,000 x Mt=20,000, and the Gram cache once, 41 MB) but is a chain
 // of nblocks dependent steps, each with an N-wide reduction, a scan that
-// only one CTA can run, and an N-wide update.  So the design keeps
-// everything that does not depend on the previous block off that chain:
+// only one CTA can run, and an N-wide update.  The arithmetic of a step is
+// a fraction of a microsecond spread over 131 SMs; what a step costs is its
+// hand-offs between CTAs and the latency of each CTA's passes.  So:
 //   - a persistent cooperative grid, one CTA per SM.  CTA 0 runs the scans;
 //     column CTA g owns byte columns [g*S, (g+1)*S) for the whole sweep.
 //     Its slice of eps (T x 4 x S) and of na stay in shared memory from the
@@ -32,26 +33,39 @@
 //     (plan_sweep) keeps CTA 0's tables and scaled Gram, then eps, then na,
 //     then the bed slice resident as far as the SM's shared memory reaches;
 //     what does not fit is read from global memory instead;
-//   - phase A, column CTAs: partial sums of (1) over the CTA's columns (a
-//     thread per marker row and column part, summed in a fixed order) to a
-//     scratch; grid sync; each column CTA sums its share of the 2TB sums
-//     over all CTAs' partials in a fixed order (no float atomics, so a chain
-//     is reproducible from its seed); grid sync;
-//   - phase B, CTA 0: c and base from the sums, then (3) and (5) with every
-//     per-marker operand, table and Gram entry in shared memory, and dbeta
-//     published.  Meanwhile the column CTAs stage the next block's row
-//     order, statistics and bed bytes into a second buffer and build its
-//     scaled Gram (2), which does not depend on eps.  Only entries (j, i)
-//     with i in a later wave than j are ever read by the fold, so only those
-//     are built, packed wave by wave;
-//   - grid sync; phase C, column CTAs: (4) on the CTA's eps slice, a thread
-//     per byte column and row part.  Meanwhile CTA 0 loads the next block's
-//     marker state, draws, per-marker tables and scaled Gram.
+//   - no grid-wide barrier inside the block loop: grid.sync() runs once,
+//     after CTA 0 has zeroed the counters.  The CTAs hand data over through
+//     counters in global memory, released at GPU scope by the writer and
+//     acquired by the reader, so only the real dependencies wait;
+//   - dbeta is handed over wave by wave: CTA 0 publishes each wave's dbeta
+//     under an epoch flag as soon as it is drawn, and a column CTA applies
+//     (4) for that wave's rows while CTA 0 draws the next wave.  Only the
+//     last wave's update is left between the scan and (1) of the next
+//     block, which the column CTA runs right after it on its own eps slice;
+//   - the partial sums of (1) go up a two-level tree in a fixed order,
+//     without float atomics, so a chain is reproducible from its seed: each
+//     column CTA publishes its partials and bumps its group's counter; the
+//     CTA that arrives last in its group of GROUP column CTAs sums the
+//     group's partials in CTA order and bumps the top counter; CTA 0 waits
+//     on that and sums the groups' partials in group order;
+//   - meanwhile the column CTAs stage the next block's row order,
+//     statistics and bed bytes into a second buffer and build its scaled
+//     Gram (2), which does not depend on eps, and bump a third counter.  Only
+//     entries (j, i) with i in a later wave than j are ever read by the
+//     fold, so only those are built, packed wave by wave.  CTA 0 loads the
+//     next block's marker state, draws, per-marker tables and scaled Gram
+//     while the column CTAs run (4) and (1);
+//   - the scan: a thread per marker and trait draws the wave; the last warp
+//     publishes it while the others fold the wave's rank-W correction into
+//     the next wave's corr (each W-long dot split over up to 8 lanes, a
+//     fixed shuffle tree), and the fold into the waves after that runs on
+//     the warps that do not draw, during the next wave's draw.  Every corr
+//     still receives the folds in wave order.
 // What a CTA runs once per block is paced by instruction fetch as much as by
 // data (the kernel's code is larger than the instruction cache), so each
 // piece of code has one call site and plain copy loops are not unrolled.
-// Buffers written inside the launch (part, red, gsbuf, dbuf) are read with
-// __ldcg, never through the non-coherent path.
+// Buffers written inside the launch (partials, dbeta, the scaled Gram) are
+// read with __ldcg, never through the non-coherent path.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +82,14 @@ namespace {
 constexpr int MAX_T = 8;
 constexpr int THREADS = 512;
 constexpr int MAX_ROW_PARTS = 16;
+constexpr int GROUP = 12;       // column CTAs per group of the partials' tree
+constexpr int NST = 8;          // %globaltimer stamps per CTA and block
+constexpr int LINE = 32;        // 32-bit words per counter (own 128 B line)
 enum { EPS_SMEM = 1, NA_SMEM = 2, BED_SMEM = 4, TAB_SMEM = 8, GS_SMEM = 16 };
+// The counters, each on its own line of the scratch's sync words: groups
+// summed, column CTAs' scaled Grams built, waves of dbeta published, and
+// one arrival counter per group.
+enum { SYNC_TOP = 0, SYNC_GRAM = 1, SYNC_DBETA = 2, SYNC_GROUPS = 3 };
 
 struct SweepArgs {
   const uint8_t* bed;     // (nblocks*B, mb) natural order
@@ -91,31 +112,92 @@ struct SweepArgs {
   const float* sqb;
   const float* i2se;      // (T,)
   const float* nonas;     // (T,)
-  float* beta_new;        // (T, m_pad) natural order
-  int* comp_new;
-  float* acum_new;
-  float* part;            // (column CTAs, 2T, B) scratch
-  float* red;             // (2T, B) scratch: the partials summed
-  float* gsbuf;           // (2, T, gs_tot) scratch: packed scaled Gram of
-                          //   the block in work and of the next one
-  float* dbuf;            // (T, B) scratch
+  float* beta_new;        // (T, m_pad) natural order; may be beta_old, as
+  int* comp_new;          //   comp_new may be comp_old and acum_new
+  float* acum_new;        //   acum_old: a slot is read before it is written
+  // Scratch, carved by scratch_layout: the column CTAs' partials
+  // (ncta, T, B), the groups' partials (ngroups, T, B), the packed scaled
+  // Gram of the block in work and of the next one (2, T, gs_tot), dbeta
+  // (T, B) and the counters.
+  float* part;
+  float* gpart;
+  float* gsbuf;
+  float* dbuf;
+  unsigned* sync;
+  unsigned long long* stamps;  // (grid, nblocks + 1, NST) or null
   int nblocks, T, B, mb, nt, K, W, G, m_local, S, flags;
 };
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Thread 0 records the global timer as event e of block b (row b + 1; row 0
+// is left for a prologue) in the instantiation for a stamp buffer, ST; the
+// training instantiation has no trace of it.
+template <bool ST>
+__device__ __forceinline__ void stamp(const SweepArgs& a, int b, int e) {
+  if (ST && threadIdx.x == 0 && b < a.nblocks)
+    a.stamps[((size_t)blockIdx.x * (a.nblocks + 1) + (b + 1)) * NST + e] =
+        global_ns();
+}
+
+// The hand-offs, as CUTLASS's generic barrier makes them: the CTA's threads
+// write, __syncthreads(), then thread 0 releases at GPU scope; a waiting
+// CTA's thread 0 spins on an acquire load, then __syncthreads().
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
+                                                     unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// Every thread of the CTA returns once *p >= target.  A whole sweep takes
+// milliseconds, so a hand-off that has not come in 4 s means a broken
+// protocol: the kernel traps, and the launch fails, rather than hang.
+__device__ __forceinline__ void wait_geq(const unsigned* p, unsigned target) {
+  if (threadIdx.x == 0 && ld_acquire(p) < target) {
+    const unsigned long long t0 = global_ns();
+    while (ld_acquire(p) < target)
+      if (global_ns() - t0 > 4000000000ull) __trap();
+  }
+  __syncthreads();
+}
 
 // Shared memory offsets in bytes.  CTA 0 (the scan) and the column CTAs lay
 // out the same allocation differently; total is the larger of the two.
 struct Layout {
-  // column CTAs; [2]: the block in work and the next one being staged
+  // column CTAs; [2]: buffers of alternate blocks
   size_t win[2], row[2], mave[2], msig[2], bed[2];
-  size_t sd, smd, red, eps, na;
+  size_t sd, smd, red, eps, na, last;
   // CTA 0
   size_t s_row, s_grp, s_comp, s_flag, s_mave, s_msig, s_beta, s_acum, s_u,
-      s_z, s_base, s_corr, s_db, s_wdb, s_red, s_lc, s_rd, s_sqb, s_gs;
+      s_z, s_base, s_corr, s_wdb, s_lc, s_rd, s_sqb, s_gs;
   size_t total;
   int gs_tot;  // packed scaled-Gram floats per trait
   int SP;   // bed row stride in shared memory
   int P;    // column parts per marker row in phase A
-  int R;    // row parts per byte column in phase C
+  int R;    // row parts of a wave per byte column in phase C
 };
 
 // The fold of wave w reads gs[t, j, i] only for j in wave w and i in a later
@@ -141,7 +223,7 @@ __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
   L.P = B <= THREADS ? THREADS / B : 1;
   L.R = S <= THREADS ? THREADS / S : 1;
   if (L.R > MAX_ROW_PARTS) L.R = MAX_ROW_PARTS;
-  if (L.R > B) L.R = B;
+  if (L.R > W) L.R = W;
   for (int q = 0; q < 2; ++q) {
     L.win[q] = take((size_t)B * 4);
     L.row[q] = take((size_t)B * 4);
@@ -156,6 +238,7 @@ __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
   L.red = take(red_a > red_c ? red_a : red_c);
   L.eps = take((flags & EPS_SMEM) ? (size_t)T * 4 * S * 4 : 0);
   L.na = take((flags & NA_SMEM) ? (size_t)nt * 4 * S * 4 : 0);
+  L.last = take(4);
   const size_t col_total = off;
   off = 0;
   L.s_row = take((size_t)B * 4);
@@ -170,9 +253,7 @@ __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
   L.s_z = take(tb);
   L.s_base = take(tb);
   L.s_corr = take(tb);
-  L.s_db = take(tb);
-  L.s_wdb = take((size_t)T * W * 4);
-  L.s_red = take(2 * tb);
+  L.s_wdb = take((size_t)2 * T * W * 4);
   const size_t tab = (flags & TAB_SMEM) ? (size_t)K * tb : 0;
   L.s_lc = take(tab);
   L.s_rd = take(tab);
@@ -183,16 +264,46 @@ __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
   return L;
 }
 
-// ---- the column CTAs: phases A and C on byte columns [col0, col0 + ncol) --
-template <int MT>
+// Scratch offsets in 4-byte words, each piece starting on its own line.
+struct Scratch {
+  size_t part, gpart, gsbuf, dbuf, sync, total;
+};
+
+__host__ __device__ inline Scratch scratch_layout(int ncta, int T, int B,
+                                                  int gs_tot) {
+  Scratch s;
+  size_t off = 0;
+  auto take = [&off](size_t words) {
+    const size_t o = off;
+    off += (words + LINE - 1) / LINE * LINE;
+    return o;
+  };
+  const int ngroups = (ncta + GROUP - 1) / GROUP;
+  const size_t tb = (size_t)T * B;
+  s.part = take((size_t)ncta * tb);
+  s.gpart = take((size_t)ngroups * tb);
+  s.gsbuf = take(2 * (size_t)T * (gs_tot > 0 ? gs_tot : 1));
+  s.dbuf = take(tb);
+  s.sync = take((size_t)(SYNC_GROUPS + ngroups) * LINE);
+  s.total = off;
+  return s;
+}
+
+// ---- the column CTAs: phases C and A on byte columns [col0, col0 + ncol) --
+// RES: eps, na and the bed slice all in shared memory (every panel up to
+// about N = 1.5M at T = 4).  The pointers are then known to be shared at
+// compile time, so the passes use shared-memory loads rather than generic
+// ones; the other residencies take the generic instantiation.
+template <int MT, bool RES, bool ST>
 __device__ void column_cta(const SweepArgs& a, const Layout& L,
-                           cg::grid_group& grid, unsigned char* sm) {
+                           unsigned char* sm) {
   const int T = a.T, B = a.B, W = a.W, S = a.S, mb = a.mb, SP = L.SP;
   const int TB = T * B;
+  const int nw = B / W;
   const size_t m_pad = (size_t)a.nblocks * B;
-  const bool eps_s = a.flags & EPS_SMEM;
-  const bool na_s = a.flags & NA_SMEM;
-  const bool bed_s = a.flags & BED_SMEM;
+  const bool eps_s = RES || (a.flags & EPS_SMEM);
+  const bool na_s = RES || (a.flags & NA_SMEM);
+  const bool bed_s = RES || (a.flags & BED_SMEM);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -200,6 +311,11 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
   const int ncta = gridDim.x - 1;
   const int col0 = cta * S;
   const int ncol = min(S, mb - col0);
+  const int group = cta / GROUP;
+  const int gsize = min(GROUP, ncta - group * GROUP);
+  unsigned* gcount = a.sync + (SYNC_GROUPS + group) * LINE;
+  // Whether this CTA arrived last in its group, for the whole CTA.
+  int& last_of_group = *(int*)(sm + L.last);
 
   float* sd = (float*)(sm + L.sd);       // msig * dbeta
   float* smd = (float*)(sm + L.smd);     // mave * msig * dbeta
@@ -209,9 +325,9 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
 
   // The CTA's view of eps and na: plane p = t*4 + k starts at p * stride.
   float* ep = eps_s ? seps : a.eps + col0;
-  const size_t es = eps_s ? (size_t)S : (size_t)mb;
+  const int es = eps_s ? S : mb;
   const float* nap = na_s ? sna : a.na + col0;
-  const size_t ns = na_s ? (size_t)S : (size_t)mb;
+  const int ns = na_s ? S : mb;
   if (eps_s) {
     for (int p = warp; p < T * 4; p += THREADS / 32)
       for (int c = lane; c < ncol; c += 32)
@@ -303,20 +419,119 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
     }
   };
 
-  // Step -1 only stages block 0, so that each piece of code has one call
-  // site: the per-block loop is long, and what a CTA runs once per block is
-  // paced by instruction fetch.
-  for (int b = -1; b < a.nblocks; ++b) {
-    const int q = b & 1;
+  // (4) for wave w of the block in buffer q: eps += na X_w (msig dbeta_w),
+  // once CTA 0 has published the wave (flag value `epoch`).  Thread (c, r):
+  // byte column c, part r of the wave's rows.
+  auto update = [&](int w, int q, unsigned epoch) {
     const int* srow = (const int*)(sm + L.row[q]);
     const float* smave = (const float*)(sm + L.mave[q]);
     const float* smsig = (const float*)(sm + L.msig[q]);
     const uint8_t* sbed = sm + L.bed[q];
+    wait_geq(a.sync + SYNC_DBETA * LINE, epoch);
+    const int w0 = w * W;
+#pragma unroll 1
+    for (int x = tid; x < T * W; x += THREADS) {
+      const int o = (x / W) * B + w0 + x % W;
+      const float dv = smsig[o] * __ldcg(a.dbuf + o);
+      sd[o] = dv;
+      smd[o] = smave[o] * dv;
+    }
     __syncthreads();
+    const int R = L.R;
+    const int rw = (W + R - 1) / R;
+#pragma unroll 1
+    for (int x = tid; x < ncol * R; x += THREADS) {
+      const int c = x % ncol, r = x / ncol;
+      const int i1 = w0 + min(W, (r + 1) * rw);
+      float acc[MT][4];
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[t][k] = 0.0f;
+#pragma unroll 2
+      for (int i = w0 + r * rw; i < i1; ++i) {
+        const uint8_t* rp = bed_s ? sbed + (size_t)i * SP
+                                  : a.bed + (size_t)srow[i] * mb + col0;
+        const uint32_t byte = rp[c];
+        float af[4], bf[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          int ga, gb;
+          gmrm_decode(byte, k, ga, gb);
+          af[k] = (float)ga;
+          bf[k] = (float)gb;
+        }
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          if (t < T) {
+            const float dv = sd[t * B + i], mdv = smd[t * B + i];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[t][k] += dv * af[k] - mdv * bf[k];
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        if (t < T) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int p = t * 4 + k;
+            if (R == 1) {
+              const float nav =
+                  nap[((a.nt == 1 ? 0 : t) * 4 + k) * ns + c];
+              ep[p * es + c] += nav * acc[t][k];
+            } else {
+              sred[((size_t)r * T * 4 + p) * ncol + c] = acc[t][k];
+            }
+          }
+        }
+      }
+    }
+    if (R > 1) {
+      __syncthreads();
+      for (int p = warp; p < T * 4; p += THREADS / 32) {
+        const int t = p / 4, k = p % 4;
+        for (int c = lane; c < ncol; c += 32) {
+          float s = sred[(size_t)p * ncol + c];
+          for (int r = 1; r < R; ++r)
+            s += sred[((size_t)r * T * 4 + p) * ncol + c];
+          const float nav =
+              nap[((a.nt == 1 ? 0 : t) * 4 + k) * ns + c];
+          ep[p * es + c] += nav * s;
+        }
+      }
+    }
+    __syncthreads();
+  };
 
-    // ---- phase A1: partial sums of A_i . eps_t and B_i . eps_t -----------
+  // Block 0 and its scaled Gram before the loop.
+  stage(0, 0);
+  __syncthreads();
+  gram(0, 0);
+  __syncthreads();
+  if (tid == 0) red_release(a.sync + SYNC_GRAM * LINE, 1);
+
+  // Step b: (4) of block b-1 wave by wave, (1) of block b, its partials
+  // published, then block b+1 staged.  Step nblocks runs (4) of the last
+  // block only.
+  for (int b = 0; b <= a.nblocks; ++b) {
+    const int q = b & 1;
+    stamp<ST>(a, b, 0);
+    if (b > 0) {
+      for (int w = 0; w < nw; ++w) {
+        if (w == nw - 1) stamp<ST>(a, b, 1);
+        update(w, q ^ 1, (unsigned)((b - 1) * nw + w + 1));
+      }
+    }
+    stamp<ST>(a, b, 2);
+    if (b == a.nblocks) break;
+
+    // ---- phase A: partial sums of A_i . eps_t - mave B_i . eps_t ----------
     // Thread (i, h): marker row i, part h of the CTA's columns.
-    if (b >= 0) {
+    {
+      const int* srow = (const int*)(sm + L.row[q]);
+      const float* smave = (const float*)(sm + L.mave[q]);
+      const uint8_t* sbed = sm + L.bed[q];
       const int P = L.P;
       const int cw = (ncol + P - 1) / P;
 #pragma unroll 1
@@ -331,7 +546,7 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
           sa[t] = 0.0f;
           sb[t] = 0.0f;
         }
-#pragma unroll 4
+#pragma unroll 2
         for (int c = h * cw; c < c1; ++c) {
           const uint32_t byte = rp[c];
 #pragma unroll
@@ -342,7 +557,7 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
 #pragma unroll
             for (int t = 0; t < MT; ++t) {
               if (t < T) {
-                const float e = ep[(size_t)(t * 4 + k) * es + c];
+                const float e = ep[(t * 4 + k) * es + c];
                 sa[t] += af * e;
                 sb[t] += bf * e;
               }
@@ -358,121 +573,50 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
         }
       }
       __syncthreads();
-      float* out = a.part + (size_t)cta * 2 * TB;
+      stamp<ST>(a, b, 3);
+      float* out = a.part + (size_t)cta * TB;
 #pragma unroll 1
-      for (int o = tid; o < 2 * TB; o += THREADS) {
-        float s = sred[o];
-        for (int h = 1; h < P; ++h) s += sred[(size_t)h * 2 * TB + o];
-        out[o] = s;
-      }
-      grid.sync();
-
-      // ---- the partials summed in CTA order, each CTA its share of the 2TB
-      // sums: a warp per sum, a lane per 32nd of the partials, then a
-      // fixed-order shuffle tree.  No float atomics, so a chain is
-      // reproducible from its seed.
-      const int n2 = 2 * TB;
-      const int per = (n2 + ncta - 1) / ncta;
-      for (int w = warp; w < per; w += THREADS / 32) {
-        const int o = cta * per + w;
-        if (o < n2) {
-          float v = 0.0f;
-#pragma unroll 4
-          for (int g = lane; g < ncta; g += 32)
-            v += __ldcg(a.part + (size_t)g * n2 + o);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (lane == 0) a.red[o] = v;
+      for (int o = tid; o < TB; o += THREADS) {
+        const int t = o / B, i = o % B;
+        float s_a = sred[(2 * t) * B + i], s_b = sred[(2 * t + 1) * B + i];
+        for (int h = 1; h < P; ++h) {
+          s_a += sred[((size_t)h * 2 * T + 2 * t) * B + i];
+          s_b += sred[((size_t)h * 2 * T + 2 * t + 1) * B + i];
         }
+        out[o] = __fsub_rn(s_a, __fmul_rn(smave[o], s_b));
       }
-      grid.sync();
+      __syncthreads();
+      if (tid == 0)
+        last_of_group = atom_add_acq_rel(gcount, 1) ==
+                        (unsigned)((b + 1) * gsize - 1);
+      __syncthreads();
     }
+    stamp<ST>(a, b, 4);
 
-    // While CTA 0 scans: stage the next block and build its scaled Gram.
+    // ---- the last CTA of the group sums the group's partials --------------
+    if (last_of_group) {
+      const float* src = a.part + (size_t)group * GROUP * TB;
+      float* dst = a.gpart + (size_t)group * TB;
+#pragma unroll 1
+      for (int o = tid; o < TB; o += THREADS) {
+        float s = __ldcg(src + o);
+        for (int m = 1; m < gsize; ++m) s += __ldcg(src + (size_t)m * TB + o);
+        dst[o] = s;
+      }
+      __syncthreads();
+      if (tid == 0) red_release(a.sync + SYNC_TOP * LINE, 1);
+    }
+    stamp<ST>(a, b, 5);
+
+    // ---- while CTA 0 scans: stage block b+1 and build its scaled Gram -----
     if (b + 1 < a.nblocks) {
       stage(b + 1, q ^ 1);
       __syncthreads();
       gram(b + 1, q ^ 1);
+      __syncthreads();
+      if (tid == 0) red_release(a.sync + SYNC_GRAM * LINE, 1);
     }
-    grid.sync();
-    if (b < 0) continue;
-
-    // ---- phase C: the residual update of the CTA's columns ----------------
-#pragma unroll 1
-    for (int x = tid; x < TB; x += THREADS) {
-      const float dv = smsig[x] * __ldcg(a.dbuf + x);
-      sd[x] = dv;
-      smd[x] = smave[x] * dv;
-    }
-    __syncthreads();
-    // Thread (c, r): byte column c, part r of the block's rows.
-    {
-      const int R = L.R;
-      const int rw = (B + R - 1) / R;
-#pragma unroll 1
-      for (int x = tid; x < ncol * R; x += THREADS) {
-        const int c = x % ncol, r = x / ncol;
-        const int i1 = min(B, (r + 1) * rw);
-        float acc[MT][4];
-#pragma unroll
-        for (int t = 0; t < MT; ++t)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[t][k] = 0.0f;
-#pragma unroll 4
-        for (int i = r * rw; i < i1; ++i) {
-          const uint8_t* rp = bed_s ? sbed + (size_t)i * SP
-                                    : a.bed + (size_t)srow[i] * mb + col0;
-          const uint32_t byte = rp[c];
-          float af[4], bf[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            int ga, gb;
-            gmrm_decode(byte, k, ga, gb);
-            af[k] = (float)ga;
-            bf[k] = (float)gb;
-          }
-#pragma unroll
-          for (int t = 0; t < MT; ++t) {
-            if (t < T) {
-              const float dv = sd[t * B + i], mdv = smd[t * B + i];
-#pragma unroll
-              for (int k = 0; k < 4; ++k) acc[t][k] += dv * af[k] - mdv * bf[k];
-            }
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < MT; ++t) {
-          if (t < T) {
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int p = t * 4 + k;
-              if (R == 1) {
-                const float nav =
-                    nap[(size_t)((a.nt == 1 ? 0 : t) * 4 + k) * ns + c];
-                ep[(size_t)p * es + c] += nav * acc[t][k];
-              } else {
-                sred[((size_t)r * T * 4 + p) * ncol + c] = acc[t][k];
-              }
-            }
-          }
-        }
-      }
-      if (R > 1) {
-        __syncthreads();
-        for (int p = warp; p < T * 4; p += THREADS / 32) {
-          const int t = p / 4, k = p % 4;
-          for (int c = lane; c < ncol; c += 32) {
-            float s = sred[(size_t)p * ncol + c];
-            for (int r = 1; r < R; ++r)
-              s += sred[((size_t)r * T * 4 + p) * ncol + c];
-            const float nav =
-                nap[(size_t)((a.nt == 1 ? 0 : t) * 4 + k) * ns + c];
-            ep[(size_t)p * es + c] += nav * s;
-          }
-        }
-      }
-    }
+    stamp<ST>(a, b, 6);
   }
 
   if (eps_s) {
@@ -484,13 +628,18 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
 }
 
 // ---- CTA 0: phase B, the scan of every block --------------------------------
-template <int MK>
+template <int MK, bool ST>
 __device__ void scan_cta(const SweepArgs& a, const Layout& L,
-                         cg::grid_group& grid, unsigned char* sm) {
+                         unsigned char* sm) {
   const int T = a.T, B = a.B, W = a.W, K = a.K, G = a.G;
   const int TB = T * B;
+  const int nw = B / W;
   const size_t m_pad = (size_t)a.nblocks * B;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ncta = gridDim.x - 1;
+  const int ngroups = (ncta + GROUP - 1) / GROUP;
   int* srow = (int*)(sm + L.s_row);
   int* sgrp = (int*)(sm + L.s_grp);
   int* scomp = (int*)(sm + L.s_comp);
@@ -503,9 +652,8 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
   float* sz = (float*)(sm + L.s_z);
   float* sbase = (float*)(sm + L.s_base);
   float* scorr = (float*)(sm + L.s_corr);
-  float* sdb = (float*)(sm + L.s_db);
-  float* swdb = (float*)(sm + L.s_wdb);  // (T, W) this wave's dbeta
-  float* sred = (float*)(sm + L.s_red);  // (2T, B)
+  float* swdb = (float*)(sm + L.s_wdb);  // (2, T, W) two waves' dbeta
+  int b_cur = 0;                         // the block in work
   // (K, T, B) per-marker copies of the group tables, when they fit.
   const bool tab_s = a.flags & TAB_SMEM;
   float* slc = (float*)(sm + L.s_lc);
@@ -571,9 +719,10 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
     }
   };
 
-  // Block b's packed scaled Gram, built by the column CTAs before the last
-  // grid sync, from L2 into shared memory.
+  // Block b's packed scaled Gram, once the column CTAs have built it, from
+  // L2 into shared memory.
   auto fetch_gs = [&](int b) {
+    wait_geq(a.sync + SYNC_GRAM * LINE, (unsigned)((b + 1) * ncta));
     if (!gs_s) return;
     const float* src = a.gsbuf + (size_t)(b & 1) * gs_n;
     if (gs_n % 4 == 0) {
@@ -585,27 +734,81 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
   };
 
   // Phase B of block b.
-  auto scan_block = [&](int b) {
-    grid.sync();
-    grid.sync();
+  // Whether the last warp draws nothing and can publish each wave, and
+  // whether warps are left between the drawing warps and it to fold in the
+  // background.
+  constexpr int NWARPS = THREADS / 32;
+  const int draw_warps = (T * W + 31) / 32;
+  const bool pub_warp = draw_warps < NWARPS;
+  const bool bg_fold = draw_warps < NWARPS - 1;
+  const int folders = pub_warp ? THREADS - 32 : THREADS;
+  int any_prev = 0;
+
+  // Fold wave w's rank-W correction (its dbeta in swdb half w & 1) into
+  // corr of the later waves' markers i in [i0, i1) (counted from the first
+  // marker after wave w), on `nthr` threads from warp `warp0` on.  `split`
+  // neighbouring lanes share an output, each a fixed slice of the W terms
+  // summed in order, then a shuffle tree; split is the largest power of two
+  // up to 8 that keeps the fold to one pass.  Whole warps run the loop, so
+  // every shuffle has all its lanes.  Only the Gram entries (j, i) with i in
+  // a later wave are read.
+  auto fold = [&](int w, int i0, int i1, int warp0, int nthr) {
+    const int rest = B - (w + 1) * W;
+    const int cols = i1 - i0;
+    const int off = gs_wave_offset(B, W, w);
+    const float* sw = swdb + (w & 1) * T * W;
+    int split = 1;
+    while (split < 8 && T * cols * split * 2 <= nthr) split *= 2;
+    const int jw = (W + split - 1) / split;
+    const int n = T * cols * split;
 #pragma unroll 1
-    for (int o = tid; o < 2 * TB; o += THREADS) sred[o] = __ldcg(a.red + o);
-    __syncthreads();
+    for (int x0 = (warp - warp0) * 32; x0 < n; x0 += nthr) {
+      const int x = x0 + lane;
+      const int o = x / split, h = x % split;
+      const int t = o / cols, i = i0 + o % cols;
+      float s = 0.0f;
+      if (x < n) {
+        const int j0 = h * jw, j1 = min(W, j0 + jw);
+        const int go = t * L.gs_tot + off + i;
+        const float* dw = sw + t * W;
+        if (gs_s) {
+          const float* g = sgs + go;
+#pragma unroll 4
+          for (int j = j0; j < j1; ++j) s += dw[j] * g[j * rest];
+        } else {
+          const float* g = a.gsbuf + (size_t)(b_cur & 1) * gs_n + go;
+#pragma unroll 4
+          for (int j = j0; j < j1; ++j) s += dw[j] * __ldcg(g + j * rest);
+        }
+      }
+      for (int d = 1; d < split; d <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, d);
+      if (x < n && h == 0) scorr[t * B + (w + 1) * W + i] += s;
+    }
+  };
+
+  auto scan_block = [&](int b) {
+    b_cur = b;
+    wait_geq(a.sync + SYNC_TOP * LINE, (unsigned)((b + 1) * ngroups));
+    stamp<ST>(a, b, 1);
 #pragma unroll 1
     for (int x = tid; x < TB; x += THREADS) {
-      const int t = x / B, i = x % B;
-      const float sa = sred[(2 * t) * B + i];
-      const float sb = sred[(2 * t + 1) * B + i];
-      const float c =
-          __fmul_rn(smsig[x], __fsub_rn(sa, __fmul_rn(smave[x], sb)));
+      const int t = x / B;
+      float s = __ldcg(a.gpart + x);
+      for (int g = 1; g < ngroups; ++g)
+        s += __ldcg(a.gpart + (size_t)g * TB + x);
+      const float c = __fmul_rn(smsig[x], s);
       sbase[x] = __fadd_rn(
           c, __fmul_rn(sbeta[x], __fsub_rn(a.nonas[t], 1.0f)));
       scorr[x] = 0.0f;
     }
     __syncthreads();
+    stamp<ST>(a, b, 2);
 
 #pragma unroll 1
-    for (int w0 = 0; w0 < B; w0 += W) {
+    for (int w = 0; w < nw; ++w) {
+      const int w0 = w * W;
+      float* sw = swdb + (w & 1) * T * W;  // this wave's dbeta, (T, W)
       int moved = 0;
 #pragma unroll 1
       for (int x = tid; x < T * W; x += THREADS) {
@@ -628,65 +831,83 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
         a.beta_new[nat] = lv ? dr.samp : (zb ? 0.0f : bo);
         a.comp_new[nat] = lv ? dr.comp : scomp[o];
         a.acum_new[nat] = lv ? dr.acum : (zb ? 1.0f : sacum[o]);
-        sdb[o] = db;
-        swdb[x] = db;
+        a.dbuf[o] = db;
+        sw[x] = db;
         moved |= (db != 0.0f);
       }
-      // Fold the wave's rank-W correction into the later waves' corr,
-      // skipped when nothing moved.
+      // Meanwhile the warps that draw nothing fold the wave before into
+      // the waves after this one.
+      if (bg_fold && warp >= draw_warps && warp < NWARPS - 1 && w >= 1 &&
+          any_prev && w + 1 < nw)
+        fold(w - 1, W, B - w0, draw_warps, THREADS - 32 * (draw_warps + 1));
+      // The wave's dbeta is written: publish it to the column CTAs, which
+      // update eps with it while the later waves are drawn.  A release
+      // waits until the CTA's writes have reached L2, so when the draw
+      // leaves the last warp free, that warp publishes while the others
+      // fold, off the scan's chain.
       const bool any = __syncthreads_or(moved);
-      const int rest = B - (w0 + W);
-      if (any && rest > 0) {
-        const int off = gs_wave_offset(B, W, w0 / W);
-#pragma unroll 1
-        for (int x = tid; x < T * rest; x += THREADS) {
-          const int t = x / rest;
-          const int i = x % rest;
-          const int go = t * L.gs_tot + off + i;
-          const float* dw = swdb + t * W;
-          float s = 0.0f;
-          if (gs_s) {
-            const float* g = sgs + go;
-#pragma unroll 4
-            for (int j = 0; j < W; ++j) s += dw[j] * g[j * rest];
-          } else {
-            const float* g = a.gsbuf + (size_t)(b & 1) * gs_n + go;
-#pragma unroll 4
-            for (int j = 0; j < W; ++j) s += dw[j] * __ldcg(g + j * rest);
-          }
-          scorr[t * B + w0 + W + i] += s;
-        }
+      if (w == 0) stamp<ST>(a, b, 3);
+      const unsigned epoch = (unsigned)(b * nw + w + 1);
+      if (pub_warp && warp == NWARPS - 1) {
+        if (lane == 0) st_release(a.sync + SYNC_DBETA * LINE, epoch);
+        continue;
       }
-      __syncthreads();
+      if (!pub_warp && tid == 0)
+        st_release(a.sync + SYNC_DBETA * LINE, epoch);
+      // The fold the next wave's draw waits for: this wave into the next
+      // one (into every later one when no warp is free to fold in the
+      // background).
+      if (any && w + 1 < nw)
+        fold(w, 0, bg_fold ? W : B - w0 - W, 0, folders);
+      // The folding threads only: the publishing warp may still wait on
+      // its release, and draws nothing.
+      if (pub_warp)
+        asm volatile("bar.sync 1, %0;" ::"r"(THREADS - 32) : "memory");
+      else
+        __syncthreads();
+      any_prev = any;
+      if (w == 0) stamp<ST>(a, b, 4);
     }
-#pragma unroll 1
-    for (int x = tid; x < TB; x += THREADS) a.dbuf[x] = sdb[x];
+    stamp<ST>(a, b, 5);
   };
 
-  // Step -1 only loads block 0, so that each piece of code has one call
-  // site (see column_cta).  While the column CTAs update eps, CTA 0 loads
-  // the next block's operands.
-  for (int b = -1; b < a.nblocks; ++b) {
-    if (b >= 0) scan_block(b);
-    grid.sync();
+  // While the column CTAs run (4) and (1), load the next block's operands.
+  load(0);
+  fetch_gs(0);
+  __syncthreads();
+  for (int b = 0; b < a.nblocks; ++b) {
+    stamp<ST>(a, b, 0);
+    scan_block(b);
     if (b + 1 < a.nblocks) {
       load(b + 1);
       fetch_gs(b + 1);
     }
     __syncthreads();
+    stamp<ST>(a, b, 6);
   }
 }
 
-template <int MT, int MK>
+template <int MT, int MK, bool ST>
 __global__ void __launch_bounds__(THREADS)
 sweep_blocks_kernel(const SweepArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char sm[];
   const Layout L = make_layout(a.T, a.B, a.W, a.K, a.nt, a.S, a.flags);
+  // The counters start at 0 in every launch: the one grid-wide barrier.
+  if (blockIdx.x == 0) {
+    const int ngroups = (gridDim.x - 1 + GROUP - 1) / GROUP;
+    for (int x = threadIdx.x; x < (SYNC_GROUPS + ngroups) * LINE;
+         x += THREADS)
+      a.sync[x] = 0;
+  }
+  grid.sync();
+  constexpr int RESIDENT = EPS_SMEM | NA_SMEM | BED_SMEM;
   if (blockIdx.x == 0)
-    scan_cta<MK>(a, L, grid, sm);
+    scan_cta<MK, ST>(a, L, sm);
+  else if ((a.flags & RESIDENT) == RESIDENT)
+    column_cta<MT, true, ST>(a, L, sm);
   else
-    column_cta<MT>(a, L, grid, sm);
+    column_cta<MT, false, ST>(a, L, sm);
 }
 
 struct Plan {
@@ -701,20 +922,26 @@ struct Plan {
 // 1)) byte columns each; CTA 0's per-marker tables and packed scaled Gram,
 // then eps, then na, then the two bed-slice buffers stay in shared memory
 // while they fit.
-cudaError_t plan_sweep(int T, int B, int mb, int nt, int K, int W, Plan* p) {
-  if (T < 1 || T > MAX_T || K < 1 || K > GMRM_MAX_K || W < 1 || B % W != 0 ||
-      B < 1 || mb < 1 || (nt != 1 && nt != T))
-    return cudaErrorInvalidValue;
+template <bool ST>
+const void* pick_kernel(int T, int K) {
   // Register arrays sized for T <= 4 or 8 traits and K <= 4, 8 or 16
   // mixture components.
   const void* kernels[2][3] = {
-      {(const void*)sweep_blocks_kernel<4, 4>,
-       (const void*)sweep_blocks_kernel<4, 8>,
-       (const void*)sweep_blocks_kernel<4, GMRM_MAX_K>},
-      {(const void*)sweep_blocks_kernel<MAX_T, 4>,
-       (const void*)sweep_blocks_kernel<MAX_T, 8>,
-       (const void*)sweep_blocks_kernel<MAX_T, GMRM_MAX_K>}};
-  p->kernel = kernels[T <= 4 ? 0 : 1][K <= 4 ? 0 : K <= 8 ? 1 : 2];
+      {(const void*)sweep_blocks_kernel<4, 4, ST>,
+       (const void*)sweep_blocks_kernel<4, 8, ST>,
+       (const void*)sweep_blocks_kernel<4, GMRM_MAX_K, ST>},
+      {(const void*)sweep_blocks_kernel<MAX_T, 4, ST>,
+       (const void*)sweep_blocks_kernel<MAX_T, 8, ST>,
+       (const void*)sweep_blocks_kernel<MAX_T, GMRM_MAX_K, ST>}};
+  return kernels[T <= 4 ? 0 : 1][K <= 4 ? 0 : K <= 8 ? 1 : 2];
+}
+
+cudaError_t plan_sweep(int T, int B, int mb, int nt, int K, int W,
+                       bool stamped, Plan* p) {
+  if (T < 1 || T > MAX_T || K < 1 || K > GMRM_MAX_K || W < 1 || B % W != 0 ||
+      B < 1 || mb < 1 || (nt != 1 && nt != T))
+    return cudaErrorInvalidValue;
+  p->kernel = stamped ? pick_kernel<true>(T, K) : pick_kernel<false>(T, K);
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -739,7 +966,8 @@ cudaError_t plan_sweep(int T, int B, int mb, int nt, int K, int W, Plan* p) {
   err = cudaFuncSetAttribute(
       p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem);
   if (err != cudaSuccess) return err;
-  // grid.sync() needs every CTA resident at once.
+  // The hand-offs spin-wait on other CTAs: every CTA must be resident at
+  // once, which the cooperative launch guarantees or refuses.
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, p->kernel, THREADS, (size_t)p->smem);
@@ -753,18 +981,20 @@ cudaError_t plan_sweep(int T, int B, int mb, int nt, int K, int W, Plan* p) {
 
 // out: grid, S, flags (1 eps, 2 na, 4 bed slice, 8 scan tables, 16 scaled
 // Gram in shared memory), dynamic shared memory bytes, eps bytes per column
-// CTA, packed scaled-Gram floats per trait.
+// CTA, packed scaled-Gram floats per trait, scratch bytes.
 extern "C" int gmrm_sweep_blocks_plan(int T, int B, int mb, int nt, int K,
                                       int W, int* out) {
   Plan p;
-  const cudaError_t err = plan_sweep(T, B, mb, nt, K, W, &p);
+  const cudaError_t err = plan_sweep(T, B, mb, nt, K, W, false, &p);
   if (err != cudaSuccess) return (int)err;
+  const int gs_tot = make_layout(T, B, W, K, nt, p.S, p.flags).gs_tot;
   out[0] = p.grid;
   out[1] = p.S;
   out[2] = p.flags;
   out[3] = p.smem;
   out[4] = T * 4 * p.S * 4;
-  out[5] = make_layout(T, B, W, K, nt, p.S, p.flags).gs_tot;
+  out[5] = gs_tot;
+  out[6] = (int)(4 * scratch_layout(p.grid - 1, T, B, gs_tot).total);
   return 0;
 }
 
@@ -775,11 +1005,10 @@ extern "C" int gmrm_sweep_blocks(
     const void* grp, const void* u, const void* z, const void* sigmag,
     const void* lc, const void* rd, const void* sqb, const void* i2se,
     const void* nonas, void* beta_new, void* comp_new, void* acum_new,
-    void* part, void* red, void* gsbuf, void* dbuf, int nblocks, int T, int B,
-    int mb,
-    int nt, int K, int W, int G, int m_local, void* stream) {
+    void* scratch, void* stamps, int nblocks, int T, int B, int mb, int nt,
+    int K, int W, int G, int m_local, void* stream) {
   Plan p;
-  cudaError_t err = plan_sweep(T, B, mb, nt, K, W, &p);
+  cudaError_t err = plan_sweep(T, B, mb, nt, K, W, stamps != nullptr, &p);
   if (err != cudaSuccess) return (int)err;
   SweepArgs a;
   a.bed = (const uint8_t*)bed;
@@ -805,10 +1034,15 @@ extern "C" int gmrm_sweep_blocks(
   a.beta_new = (float*)beta_new;
   a.comp_new = (int*)comp_new;
   a.acum_new = (float*)acum_new;
-  a.part = (float*)part;
-  a.red = (float*)red;
-  a.gsbuf = (float*)gsbuf;
-  a.dbuf = (float*)dbuf;
+  const Scratch s = scratch_layout(
+      p.grid - 1, T, B, make_layout(T, B, W, K, nt, p.S, p.flags).gs_tot);
+  float* f = (float*)scratch;
+  a.part = f + s.part;
+  a.gpart = f + s.gpart;
+  a.gsbuf = f + s.gsbuf;
+  a.dbuf = f + s.dbuf;
+  a.sync = (unsigned*)(f + s.sync);
+  a.stamps = (unsigned long long*)stamps;
   a.nblocks = nblocks;
   a.T = T;
   a.B = B;

@@ -58,11 +58,11 @@ SIGNATURES = {
     "gmrm_serial_scan": [_P] * 20 + [_I] * 9 + [_P],
     # bed, blkidx, win, gram, eps, na, mave, msig, beta_old, comp_old,
     # acum_old, grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, beta_new,
-    # comp_new, acum_new, part, red, gsbuf, dbuf, nblocks, T, B, mb, nt, K,
-    # W, G, m_local, stream (a cooperative launch inside the entry point)
-    "gmrm_sweep_blocks": [_P] * 27 + [_I] * 9 + [_P],
-    # T, B, mb, nt, K, W, out (6 ints): no launch, the grid and the shared
-    # memory residency the sweep kernel will use at these shapes
+    # comp_new, acum_new, scratch, stamps (or null), nblocks, T, B, mb, nt,
+    # K, W, G, m_local, stream (a cooperative launch inside the entry point)
+    "gmrm_sweep_blocks": [_P] * 25 + [_I] * 9 + [_P],
+    # T, B, mb, nt, K, W, out (7 ints): no launch, the grid, the shared
+    # memory residency and the scratch the sweep kernel will use
     "gmrm_sweep_blocks_plan": [_I] * 6 + [_P],
     # blk_b, m_local, bed, win, gram, eps, na, mave, msig, beta, comp, acum
     # (updated in place), grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, deps,

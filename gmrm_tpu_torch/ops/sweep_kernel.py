@@ -177,30 +177,148 @@ def sweep_blocks_plain(bed, blkidx, win_p, m_local, gram_cache, eps, na,
 
 @functools.lru_cache(maxsize=None)
 def sweep_plan(T: int, B: int, mb: int, nt: int, K: int, wave: int) -> dict:
-    """The grid and shared-memory residency the sweep kernel uses at these
-    shapes on the current card (csrc/sweep_blocks.cu ``plan_sweep``): one
-    CTA per SM, the first for the scans and the others with ``cols`` byte
-    columns each; the scan's per-marker tables and scaled Gram, then eps,
-    then na, then the bed slice stay in shared memory while they fit.
-    Launches nothing."""
-    out = (ctypes.c_int * 6)()
+    """The grid, shared-memory residency and scratch the sweep kernel uses
+    at these shapes on the current card (csrc/sweep_blocks.cu
+    ``plan_sweep``): one CTA per SM, the first for the scans and the others
+    with ``cols`` byte columns each; the scan's per-marker tables and scaled
+    Gram, then eps, then na, then the bed slice stay in shared memory while
+    they fit.  Launches nothing."""
+    out = (ctypes.c_int * 7)()
     err = _build.library().gmrm_sweep_blocks_plan(
         T, B, mb, nt, K, wave, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(
             f"the sweep kernel cannot run at T={T}, B={B}, mb={mb}, NT={nt}, "
             f"K={K}, W={wave}: {_build.error_string(err)}")
-    grid, cols, flags, smem, eps_bytes, gs_floats = out
+    grid, cols, flags, smem, eps_bytes, gs_floats, scratch = out
     return {"grid": grid, "cols": cols, "smem_bytes": smem,
             "eps_bytes_per_cta": eps_bytes, "gs_floats": gs_floats,
+            "scratch_bytes": scratch,
             "resident": [name for bit, name in (
                 (8, "scan tables"), (16, "scaled Gram"), (1, "eps"),
                 (2, "na"), (4, "bed slice")) if flags & bit]}
 
 
+# The %globaltimer events the sweep kernel records per CTA and block when
+# it is given a stamp buffer, as the names of the intervals between them:
+# CTA 0 (the scans) and the column CTAs.
+SWEEP_STAMPS = {
+    "scan": ("wait for the partials", "sum of the groups' partials, c and "
+             "base", "wave 1: draw", "wave 1: fold", "the later waves",
+             "next block's operands"),
+    "column": ("update of the block before, all waves but the last "
+               "(overlaps the scan)", "update of its last wave, wait "
+               "included", "A: partial sums", "A: partials combined and "
+               "published", "group sum (the last CTA of its group)",
+               "stage and Gram of the next block"),
+}
+# The chain from one scan to the next as events of SWEEP_STAMPS: (role,
+# block offset, event, what has happened by then); a column event is taken
+# at the last column CTA to reach it.  A column CTA's step b + 1 updates
+# eps with block b and publishes the partials of block b + 1.
+SWEEP_CHAIN = (("scan", 0, 5, "CTA 0 has published the last wave"),
+               ("column", 1, 2, "every column CTA has updated eps"),
+               ("column", 1, 4, "every column CTA has published partials"),
+               ("column", 1, 5, "every group's sum is published"),
+               ("scan", 1, 1, "CTA 0 has seen them all"),
+               ("scan", 1, 2, "c and base"),
+               ("scan", 1, 5, "CTA 0 has published the next last wave"))
+NST = 8
+
+
+class SweepBlocks:
+    """Kernels 7 and 8 as a callable with the arguments of
+    :func:`sweep_blocks`, for a caller that sweeps again and again with the
+    same tensors: each operand is checked when it is first seen under its
+    name (``_build.check_once``) and the kernel's scratch is kept, so that
+    a call costs the host one launch.  CPU tensors take the plain
+    version."""
+
+    def __init__(self):
+        self.seen = {}
+        self.scratch = None
+
+    def __call__(self, bed, blkidx, win_p, m_local, gram_cache, eps, na,
+                 mave, msig, beta_old, comp_old, acum_old, grp, u_p, z_p,
+                 sigmag, lc, rd, sqb, i2se, nonas, *, wave, out=None,
+                 stamps=None):
+        nblocks, B = win_p.shape
+        T, m_pad = beta_old.shape
+        nt = gram_cache.shape[1]
+        if wave < 2 or B % wave:
+            raise ValueError(f"wave {wave} must be > 1 and divide B={B}")
+        if nt not in (1, T) or na.shape[0] != nt:
+            raise ValueError(f"gram_cache has {nt} masks and na "
+                             f"{na.shape[0]}; expected both 1 or both T={T}")
+        if bed.device.type == "cpu":
+            res = sweep_blocks_plain(
+                bed, blkidx, win_p, m_local, gram_cache, eps, na, mave, msig,
+                beta_old, comp_old, acum_old, grp, u_p, z_p, sigmag, lc, rd,
+                sqb, i2se, nonas, wave=wave)
+            if out is None:
+                return res
+            for o, x in zip(out, res[1:]):
+                o.copy_(x)
+            return (res[0], *out)
+        dev = bed.device
+        mb = bed.shape[1]
+        K, _, G = lc.shape
+        if T > MAX_T or K > MAX_K:
+            raise ValueError(f"T={T}, K={K} exceed the kernel's "
+                             f"MAX_T={MAX_T}, MAX_K={MAX_K}")
+        if m_pad >= 2 ** 31:
+            raise ValueError(f"{m_pad} marker slots exceed the kernel's "
+                             f"int32 row index")
+        f32, i32 = torch.float32, torch.int32
+        if out is None:
+            out = (torch.empty_like(beta_old), torch.empty_like(comp_old),
+                   torch.empty_like(acum_old))
+        tb = (T, m_pad)
+        seen = self.seen
+        grp = grp.to(i32)          # kept alive until the launch is queued
+
+        def ptr(x, name, dtype, shape):
+            return _build.check_once(seen, x, name, dtype, shape, dev)
+
+        ptrs = [
+            ptr(bed, "bed", torch.uint8, (nblocks * B, mb)),
+            ptr(blkidx, "blkidx", i32, (nblocks,)),
+            ptr(win_p, "win_p", i32, (nblocks, B)),
+            ptr(gram_cache, "gram_cache", f32, (nblocks, nt, 2 * B, 2 * B)),
+            ptr(eps, "eps", f32, (T, 4, mb)),
+            ptr(na, "na", f32, (nt, 4, mb)),
+            ptr(mave, "mave", f32, tb), ptr(msig, "msig", f32, tb),
+            ptr(beta_old, "beta_old", f32, tb),
+            ptr(comp_old, "comp_old", i32, tb),
+            ptr(acum_old, "acum_old", f32, tb),
+            ptr(grp, "grp", i32, (m_pad,)),
+            ptr(u_p, "u_p", f32, (nblocks, T, B)),
+            ptr(z_p, "z_p", f32, (nblocks, T, B)),
+            ptr(sigmag, "sigmag", f32, (T, G)),
+            ptr(lc, "lc", f32, (K, T, G)), ptr(rd, "rd", f32, (K, T, G)),
+            ptr(sqb, "sqb", f32, (K, T, G)),
+            ptr(i2se, "i2se", f32, (T,)), ptr(nonas, "nonas", f32, (T,)),
+            ptr(out[0], "beta_new", f32, tb),
+            ptr(out[1], "comp_new", i32, tb),
+            ptr(out[2], "acum_new", f32, tb)]
+        plan = sweep_plan(T, B, mb, nt, K, wave)
+        words = plan["scratch_bytes"] // 4
+        if (self.scratch is None or self.scratch.device != dev
+                or self.scratch.numel() < words):
+            self.scratch = torch.empty((words,), dtype=f32, device=dev)
+        if stamps is not None:
+            _build.check(stamps, "stamps", torch.int64,
+                         (plan["grid"], nblocks + 1, NST), dev)
+        _build.launch("sweep_blocks", *ptrs, self.scratch,
+                      0 if stamps is None else stamps, nblocks, T, B, mb, nt,
+                      K, wave, G, int(m_local))
+        return (eps, *out)
+
+
 def sweep_blocks(bed, blkidx, win_p, m_local, gram_cache, eps, na,
                  mave, msig, beta_old, comp_old, acum_old, grp,
-                 u_p, z_p, sigmag, lc, rd, sqb, i2se, nonas, *, wave):
+                 u_p, z_p, sigmag, lc, rd, sqb, i2se, nonas, *, wave,
+                 out=None, stamps=None):
     """Kernels 7 and 8: the whole wave-mode sweep in one launch.
 
     bed (nblocks*B, mb) uint8 in natural (storage) order; blkidx (nblocks,)
@@ -214,67 +332,19 @@ def sweep_blocks(bed, blkidx, win_p, m_local, gram_cache, eps, na,
     (nblocks, T, B) float32 in processing order; sigmag (T, G); lc/rd/sqb
     (K, T, G) from ``build_sweep_tables``; i2se = 1/(2 sigmaE) and nonas
     (T,).  Returns (eps, beta_new, comp_new, acum_new), the marker state
-    (T, m_pad) in natural order.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel.
+    (T, m_pad) in natural order, new tensors or, with ``out``, the three
+    tensors of ``out``, which may be beta_old, comp_old and acum_old
+    themselves.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel.
+
+    ``stamps``, for measurement only: an int64 tensor (grid, nblocks + 1,
+    NST) into which every CTA records the global timer (ns) at the events
+    of ``SWEEP_STAMPS``, row b + 1 for block b.
     """
-    nblocks, B = win_p.shape
-    T, m_pad = beta_old.shape
-    nt = gram_cache.shape[1]
-    if wave < 2 or B % wave:
-        raise ValueError(f"wave {wave} must be > 1 and divide B={B}")
-    if nt not in (1, T) or na.shape[0] != nt:
-        raise ValueError(f"gram_cache has {nt} masks and na {na.shape[0]}; "
-                         f"expected both 1 or both T={T}")
-    if bed.device.type == "cpu":
-        return sweep_blocks_plain(
-            bed, blkidx, win_p, m_local, gram_cache, eps, na, mave, msig,
-            beta_old, comp_old, acum_old, grp, u_p, z_p, sigmag, lc, rd,
-            sqb, i2se, nonas, wave=wave)
-    dev = bed.device
-    mb = bed.shape[1]
-    K, _, G = lc.shape
-    if T > MAX_T or K > MAX_K:
-        raise ValueError(f"T={T}, K={K} exceed the kernel's MAX_T={MAX_T}, "
-                         f"MAX_K={MAX_K}")
-    if m_pad >= 2 ** 31:
-        raise ValueError(f"{m_pad} marker slots exceed the kernel's int32 "
-                         f"row index")
-    f32, i32 = torch.float32, torch.int32
-    grp = grp.to(i32)
-    _build.check(bed, "bed", torch.uint8, (nblocks * B, mb), dev)
-    _build.check(blkidx, "blkidx", i32, (nblocks,), dev)
-    _build.check(win_p, "win_p", i32, (nblocks, B), dev)
-    _build.check(gram_cache, "gram_cache", f32, (nblocks, nt, 2 * B, 2 * B),
-                 dev)
-    _build.check(eps, "eps", f32, (T, 4, mb), dev)
-    _build.check(na, "na", f32, (nt, 4, mb), dev)
-    for name, x in (("mave", mave), ("msig", msig), ("beta_old", beta_old),
-                    ("acum_old", acum_old)):
-        _build.check(x, name, f32, (T, m_pad), dev)
-    _build.check(comp_old, "comp_old", i32, (T, m_pad), dev)
-    _build.check(grp, "grp", i32, (m_pad,), dev)
-    for name, x in (("u_p", u_p), ("z_p", z_p)):
-        _build.check(x, name, f32, (nblocks, T, B), dev)
-    _build.check(sigmag, "sigmag", f32, (T, G), dev)
-    for name, x in (("lc", lc), ("rd", rd), ("sqb", sqb)):
-        _build.check(x, name, f32, (K, T, G), dev)
-    _build.check(i2se, "i2se", f32, (T,), dev)
-    _build.check(nonas, "nonas", f32, (T,), dev)
-    plan = sweep_plan(T, B, mb, nt, K, wave)
-    beta_new = torch.empty_like(beta_old)
-    comp_new = torch.empty_like(comp_old)
-    acum_new = torch.empty_like(acum_old)
-    part = torch.empty((plan["grid"] - 1, 2 * T, B), dtype=f32, device=dev)
-    red = torch.empty((2 * T, B), dtype=f32, device=dev)
-    gsbuf = torch.empty((2, T, max(plan["gs_floats"], 1)), dtype=f32,
-                        device=dev)
-    dbuf = torch.empty((T, B), dtype=f32, device=dev)
-    _build.launch("sweep_blocks", bed, blkidx, win_p, gram_cache, eps, na,
-                  mave, msig, beta_old, comp_old, acum_old, grp, u_p, z_p,
-                  sigmag, lc, rd, sqb, i2se, nonas, beta_new, comp_new,
-                  acum_new, part, red, gsbuf, dbuf, nblocks, T, B, mb, nt, K,
-                  wave, G, int(m_local))
-    return eps, beta_new, comp_new, acum_new
+    return SweepBlocks()(bed, blkidx, win_p, m_local, gram_cache, eps, na,
+                         mave, msig, beta_old, comp_old, acum_old, grp, u_p,
+                         z_p, sigmag, lc, rd, sqb, i2se, nonas, wave=wave,
+                         out=out, stamps=stamps)
 
 
 def _block_scalar(x, device):

@@ -5,9 +5,10 @@ Loads the inputs, builds the static inputs (marker statistics, and the
 Gram cache in wave mode), runs the Gibbs chain and writes the reference's
 ``.csv`` / ``.bet`` / ``.cpn`` artifacts.  In wave mode (W > 1) an
 iteration's sweep is one launch of the whole-sweep kernel
-(ops/sweep_kernel.sweep_blocks); at W = 1 it is the per-block exact serial
-path.  Iterations are queued back to back; the host waits on the device
-only at thin boundaries and at the end of the chain.
+(ops/sweep_kernel.sweep_blocks) between two CUDA graphs of the host's
+arithmetic (sampler/whole_sweep.py); at W = 1 it is the per-block exact
+serial path.  Iterations are queued back to back; the host waits on the
+device only at thin boundaries and at the end of the chain.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
 from gmrm_tpu_torch.sampler.state import (
     SamplerState, StaticInputs, init_state, pad_bed, pi_prior_from_cva,
 )
+from gmrm_tpu_torch.sampler.whole_sweep import WholeSweepIteration
 
 
 def round_up(x: int, m: int) -> int:
@@ -297,6 +299,28 @@ def _host_record(state: SamplerState, data: LoadedData) -> dict:
     return host
 
 
+def iteration_step(state: SamplerState, static: StaticInputs, rng: RngPlan,
+                   opt: Options):
+    """One iteration of the chain as ``step(it) -> (state, aux)``: in wave
+    mode the whole-sweep iteration with its host work in two CUDA graphs
+    (sampler/whole_sweep.py; eager on the CPU), which updates ``state`` in
+    place; at W = 1 ``gibbs_iteration``."""
+    if opt.wave_size > 1:
+        return WholeSweepIteration(state, static, rng,
+                                   block_size=opt.block_size,
+                                   wave=opt.wave_size,
+                                   shuffle=opt.shuffle_markers)
+
+    def step(it):
+        nonlocal state
+        state, aux = gibbs_iteration(state, static, it, rng,
+                                     block_size=opt.block_size,
+                                     wave=opt.wave_size,
+                                     shuffle=opt.shuffle_markers)
+        return state, aux
+    return step
+
+
 def run_training(opt: Options, device=None, verbose: bool = True
                  ) -> RunResult:
     """The --process path on one device (None means CUDA)."""
@@ -318,6 +342,12 @@ def run_training(opt: Options, device=None, verbose: bool = True
     if verbose:
         print(f"INFO   : time to load genotype + phenotype data = "
               f"{time.perf_counter() - t_start:.2f} seconds.")
+        # Per-phenotype NA detail at --verbosity 2, as the reference
+        # (phenotype.cpp:610-627) and gmrm_tpu print it.
+        if opt.verbosity_level(2):
+            for ph in data.phens:
+                print(f"INFO   : {ph.filepath} has {ph.nas} NAs and "
+                      f"{ph.nonas} non-NAs.")
     t0 = time.perf_counter()
     static = build_static(data, opt, dev)
     state = init_sampler_state(data, opt, dev)
@@ -334,12 +364,11 @@ def run_training(opt: Options, device=None, verbose: bool = True
     beta_acc = np.zeros((len(data.phens), data.m_local))
     n_rec = 0
 
+    step = iteration_step(state, static, rng, opt)
     t_chain = time.perf_counter()
     for it in range(1, opt.iterations + 1):
         t0 = time.perf_counter()
-        state, aux = gibbs_iteration(
-            state, static, it, rng, block_size=opt.block_size,
-            wave=opt.wave_size, shuffle=opt.shuffle_markers)
+        state, aux = step(it)
         if it % opt.output_thin_rate == 0:
             host = _host_record(state, data)
             check_finite_chain(host["sigmag"], host["sigmae"], it)

@@ -56,7 +56,8 @@ from gmrm_tpu_torch.ops.sweep_kernel import (
     block_sweep, build_sweep_tables, sweep_blocks,
 )
 from gmrm_tpu_torch.sampler.dists import (
-    RngPlan, dirichlet_from_counts, inv_scaled_chisq,
+    RngPlan, dirichlet_from_counts, dirichlet_from_draws, gamma_draws,
+    inv_scaled_chisq, inv_scaled_chisq_from_draws,
 )
 from gmrm_tpu_torch.sampler.state import SamplerState, StaticInputs
 
@@ -387,6 +388,21 @@ def group_beta_sqn(betas, group_of, n_groups):
     return (betas * betas) @ onehot.to(torch.float32)
 
 
+def hyper_shapes(T, G, K):
+    """The gamma variates of the hyperparameter block, by purpose."""
+    return {"sigmag": (T, G), "pi": (T, G, K), "sigmae": (T,)}
+
+
+def hyper_draws(gen, T, G, K, device, out=None):
+    """The hyperparameter block's random numbers: for each purpose the
+    :func:`dists.gamma_draws` of its variates (:func:`hyper_shapes`) from
+    generator ``gen(name)``.  ``out``, a dict of
+    :func:`dists.gamma_buffers`, receives them in place."""
+    return {name: gamma_draws(gen(name), shape, device,
+                              None if out is None else out[name])
+            for name, shape in hyper_shapes(T, G, K).items()}
+
+
 def hyper_block(betas, cass, eps, sigmag, pi_est, static: StaticInputs,
                 gen, beta_sqn=None):
     """Hyperparameters after the sweep (gibbs.py:529-568).
@@ -396,6 +412,26 @@ def hyper_block(betas, cass, eps, sigmag, pi_est, static: StaticInputs,
     already summed over shards and processes, and no ``betas``.
     Returns (sigmag, sigmae, pi_est, m0, e_sqn).
     """
+    return _hyper(betas, cass, eps, sigmag, pi_est, static, beta_sqn,
+                  lambda name, a, b: inv_scaled_chisq(gen(name), a, b),
+                  lambda alpha: dirichlet_from_counts(gen("pi"), alpha))
+
+
+def hyper_block_from_draws(betas, cass, eps, sigmag, pi_est,
+                           static: StaticInputs, draws, beta_sqn=None):
+    """:func:`hyper_block` on the draws of :func:`hyper_draws` instead of
+    generators: the same numbers, with no draw and no wait on the device."""
+    return _hyper(
+        betas, cass, eps, sigmag, pi_est, static, beta_sqn,
+        lambda name, a, b: inv_scaled_chisq_from_draws(a, b, draws[name]),
+        lambda alpha: dirichlet_from_draws(alpha, draws["pi"]))
+
+
+def _hyper(betas, cass, eps, sigmag, pi_est, static, beta_sqn, chisq,
+           dirichlet):
+    """The hyperparameter block's arithmetic; ``chisq(name, a, b)`` and
+    ``dirichlet(alpha)`` give its scaled inverse chi-squared and Dirichlet
+    variates."""
     f32 = torch.float32
     if beta_sqn is None:
         beta_sqn = group_beta_sqn(betas, static.group_of,
@@ -408,18 +444,17 @@ def hyper_block(betas, cass, eps, sigmag, pi_est, static: StaticInputs,
 
     a_g = V0G + m0f
     b_g = (beta_sqn * m0f + V0G * S02G) / torch.clamp(a_g, min=1e-30)
-    sg_draw = inv_scaled_chisq(gen("sigmag"), a_g,
-                               torch.clamp(b_g, min=1e-30))
+    sg_draw = chisq("sigmag", a_g, torch.clamp(b_g, min=1e-30))
     sigmag_new = torch.where(
         mtot[None, :] > 0,
         torch.where(active, sg_draw, torch.zeros_like(sg_draw)), sigmag)
 
-    pi_draw = dirichlet_from_counts(gen("pi"), cass.to(f32) + 1.0)
+    pi_draw = dirichlet(cass.to(f32) + 1.0)
     pi_new = torch.where(active[:, :, None], pi_draw, pi_est)
 
     e_sqn = (eps * eps).sum(dim=(1, 2))
-    sigmae_new = inv_scaled_chisq(
-        gen("sigmae"), torch.full_like(e_sqn, V0E + static.n_total),
+    sigmae_new = chisq(
+        "sigmae", torch.full_like(e_sqn, V0E + static.n_total),
         (e_sqn + V0E * S02E) / (V0E + static.n_total))
     return sigmag_new, sigmae_new, pi_new, m0, e_sqn
 

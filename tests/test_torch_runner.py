@@ -166,3 +166,28 @@ def test_cli_trains_exact_serial(sim_tiny, tmp_path, flags):
     its, bet = read_history(str(tmp_path / "test1.bet"), "f8")
     assert list(its) == [1, 2, 3] and bet.shape == (3, sim_tiny.m)
     assert np.isfinite(bet).all()
+
+
+def test_verbosity_2_prints_the_phenotype_na_lines(sim_small, tmp_path,
+                                                   capsys):
+    """At --verbosity 2 the port prints one 'has <nas> NAs and <nonas>
+    non-NAs.' line per phenotype after the load time, the same lines as
+    gmrm_tpu's run_training, on a fixture with phenotype NAs."""
+    from gmrm_tpu.runner import run_training as jax_run_training
+
+    def na_lines(run, **kw):
+        opt = _opt(sim_small, "", iterations=1, wave_size=1, verbosity=2)
+        run(opt, verbose=True, **kw)
+        lines = capsys.readouterr().out.splitlines()
+        load = next(i for i, s in enumerate(lines)
+                    if s.startswith("INFO   : time to load"))
+        got = [s for s in lines if " NAs and " in s]
+        assert lines[load + 1:load + 1 + len(got)] == got
+        return got
+
+    port = na_lines(run_training, device="cpu")
+    assert len(port) == len(sim_small.phens)
+    assert all(s.startswith("INFO   : ") and s.endswith(" non-NAs.")
+               for s in port)
+    assert port == na_lines(jax_run_training)
+    assert any(" 0 NAs" not in s for s in port)

@@ -178,3 +178,87 @@ def test_rng_plan_streams_are_independent_of_order():
     other = torch.rand(4, generator=plan.gen(4, "u"))
     assert torch.equal(first, again)
     assert not torch.equal(first, other)
+
+
+def _gamma_unsplit(gen, shape):
+    """dists.gamma as one function, its draws inline (the form before it
+    was split into a draw half and an arithmetic half)."""
+    f64 = torch.float64
+    a = shape.to(f64)
+    small = a < 1.0
+    ab = torch.where(small, a + 1.0, a)
+    d = ab - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    x = torch.randn((dists.ROUNDS,) + a.shape, generator=gen, dtype=f64)
+    uu = torch.rand((dists.ROUNDS,) + a.shape, generator=gen, dtype=f64)
+    v = (1.0 + c * x) ** 3
+    ok = (v > 0) & (torch.log(uu) < 0.5 * x * x + d - d * v
+                    + d * torch.log(torch.where(v > 0, v, 1.0)))
+    first = ok.to(torch.int32).argmax(0, keepdim=True)
+    g = (d * v).gather(0, first)[0]
+    boost = torch.rand(a.shape, generator=gen, dtype=f64)
+    return torch.where(small, g * boost ** (1.0 / a), g).to(torch.float32)
+
+
+@pytest.mark.parametrize("shapes", [
+    [0.05, 0.3, 0.5, 0.999], [0.99, 1.0, 1.0001, 1.2], [4999.5, 5000.0,
+                                                        5012.25]],
+    ids=["below_1", "near_1", "near_5e3"])
+def test_gamma_draw_and_arithmetic_halves_are_gamma(shapes):
+    """The draw half (gamma_draws, into buffers) and the arithmetic half
+    (gamma_from_draws) together give dists.gamma's numbers bit for bit, on
+    the same generator, as does dists.gamma itself."""
+    shape = torch.tensor(shapes).repeat(3, 1)
+    plan = dists.RngPlan(23, "cpu")
+    want = _gamma_unsplit(plan.gen(2, "pi"), shape)
+    bufs = dists.gamma_draws(plan.gen(2, "pi"), shape.shape, "cpu")
+    again = dists.gamma_draws(plan.gen(2, "pi"), shape.shape, "cpu",
+                              out=tuple(torch.zeros_like(b) for b in bufs))
+    for got in (dists.gamma_from_draws(shape, bufs),
+                dists.gamma_from_draws(shape, again),
+                dists.gamma(plan.gen(2, "pi"), shape)):
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want)
+    assert (want > 0).all()
+
+
+@pytest.mark.parametrize("block, wave", [(32, 8), (64, 32)],
+                         ids=["W8", "W32"])
+def test_whole_sweep_iteration_is_gibbs_iteration(sim_medium, block, wave):
+    """The restructured default iteration (draws into buffers, the
+    arithmetic before and after the sweep split out, the state updated in
+    place) gives gibbs_iteration's state and IterAux bit for bit over three
+    iterations, the first with its sigmaE from the residual."""
+    from gmrm_tpu_torch.config import Options as PortOptions
+    from gmrm_tpu_torch.runner import (
+        build_static as port_static, init_sampler_state as port_state,
+        load_data as port_load,
+    )
+    from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration
+    from gmrm_tpu_torch.sampler.whole_sweep import WholeSweepIteration
+
+    opt = PortOptions(bed_file=sim_medium.bed, dim_file=sim_medium.dim,
+                      phen_files=sim_medium.phens,
+                      group_index_file=sim_medium.gri,
+                      group_mixture_file=sim_medium.grm, iterations=3,
+                      seed=5, block_size=block, wave_size=wave)
+    opt.validate()
+    opt.load_group_mixtures()
+    data = port_load(opt)
+    static = port_static(data, opt, "cpu")
+    eager = port_state(data, opt, "cpu")
+    step = WholeSweepIteration(port_state(data, opt, "cpu"), static,
+                               dists.RngPlan(opt.seed, "cpu"),
+                               block_size=block, wave=wave)
+    rng = dists.RngPlan(opt.seed, "cpu")
+    for it in (1, 2, 3):
+        eager, want = gibbs_iteration(eager, static, it, rng,
+                                      block_size=block, wave=wave)
+        got_state, got = step(it)
+        for name in ("eps", "betas", "comp", "acum", "cass", "sigmag",
+                     "sigmae", "pi_est", "mu", "epssum"):
+            assert torch.equal(getattr(got_state, name),
+                               getattr(eager, name)), (it, name)
+        assert torch.equal(got.m0, want.m0) and torch.equal(got.e_sqn,
+                                                            want.e_sqn)
+    assert (eager.comp != 0).any()

@@ -16,8 +16,12 @@ Phases, each of which must pass (any failure exits non-zero):
    per launch (all 157 at NT=1, a run under its byte budget at NT=4) and
    one block alone; the serial scan (kernel 6) runs on the sweep's arrays
    with a block index and on one block's tensors; the c-dot and the update
-   (kernels 2 and 4) also as the W=1 sweep launches them, on the sweep's
-   arrays with a block index.  The whole-sweep kernel runs one sweep of the
+   (kernels 2 and 4) and the two fused into one launch run on one block
+   (also at mb 200 and 203: a one-level tree, byte copies), launched twice
+   on the same inputs (bit-equal), then as the W=1 sweep launches them, on
+   the sweep's arrays with a block index, where they are timed, beside
+   torch.matmul on pre-decoded operands, and once more at mb_pad=25,088.
+   The whole-sweep kernel runs one sweep of the
    anchor's 157 blocks (an adaV group, a partly padded last block) against
    its plain version and against the composed chain of kernels 2, 3 and 4;
    one launch is a whole sweep, so it is timed with CUDA events around
@@ -52,7 +56,10 @@ Phases, each of which must pass (any failure exits non-zero):
    state after 20 iterations must equal, bit for bit, that of 20 eager
    gibbs_iteration calls from the same start and seed;
 4b. the same at W=1 (--wave-size 1) for 10 iterations, checking the
-   launch counts of the exact serial path;
+   launch counts of the exact serial path: per sweep one block-Gram launch
+   per run of blocks, the c-dot of block 0, the serial scan per block,
+   the fused update and next c-dot for every block but the last, whose
+   update runs alone;
 4c. the composed wave path (megakernel=False) for 5 iterations of
    gibbs_iteration at the anchor, checking its launch counts;
 4d. the sharded entry point, gmrm_tpu_torch.parallel.runner
@@ -79,8 +86,8 @@ on one card (parent, change, change, parent):
     python3 chip_smoke.py --training-only 3 [--repo OTHER_TREE]
 
 builds the kernels of the tree at --repo (default: this one), runs phases 4
-and 4b and phase 5's W=32 profiler window three times and prints each
-run's ms/iteration, idle share and host-issued calls, nothing else.
+and 4b and phase 5's W=32 and W=1 profiler windows three times and prints
+each run's ms/iteration, idle share and host-issued calls, nothing else.
 ``--sweep-only REPS [--repo TREE]`` does the same for phase 2's whole-sweep
 kernel: its gate against the plain version, its ms per sweep and, where
 the tree's kernel records them, its stamps.
@@ -107,11 +114,16 @@ ITERS_SERIAL = 10
 ITERS_COMPOSED = 5
 N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
 COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
-SERIAL_KERNELS = ("block_cdot", "serial_scan", "eps_update")  # per block
+# Per block of a sharded W=1 sweep; one device fuses kernels 4 and 2.
+SERIAL_KERNELS = ("block_cdot", "serial_scan", "eps_update")
 SHARDED_RUNS = ((2, None, 10), (4, W, 5))   # shards, --wave-size, iterations
 # The whole-sweep kernel's earlier design (three grid syncs a block), ms per
 # sweep at NT=1 and NT=4 (PERF.md section 6, row 7).
 EARLIER_SWEEP_MS = (2.673, 2.663)
+# Kernels 2 and 4 in their earlier design (a CTA per marker row; a thread
+# per phase plane and byte column), ms per launch at NT=1 (and NT=4)
+# (PERF.md section 6, rows 2 and 4).
+EARLIER_PASSES_MS = {"block_cdot": (0.0294,), "eps_update": (0.0424, 0.0423)}
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
 # memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
@@ -128,14 +140,20 @@ def bound_of(nbytes, *ops_and_rates):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def serial_counts(nblocks, nt, sweeps=1, shards=1):
+def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
     """Launches of ``sweeps`` W=1 sweeps of ``shards`` shards of ``nblocks``
-    blocks: kernels 2, 6 and 4 once per block, kernel 5 once per run of
-    blocks under the Gram byte budget."""
+    blocks: kernel 6 once per block and kernel 5 once per run of blocks
+    under the Gram byte budget; on one device (``fused``) kernel 2 once
+    for the first block, the fused pass once for each block but the last
+    and kernel 4 once for the last, on a sharded run kernels 2 and 4 once
+    per block."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
     runs = -(-nblocks // gram_run_blocks(T, B, nt, nblocks))
-    return {**dict.fromkeys(SERIAL_KERNELS, nblocks * sweeps * shards),
-            "block_gram": runs * sweeps * shards}
+    per_sweep = ({"block_cdot": 1, "serial_scan": nblocks,
+                  "update_cdot": nblocks - 1, "eps_update": 1} if fused
+                 else dict.fromkeys(SERIAL_KERNELS, nblocks))
+    per_sweep["block_gram"] = runs
+    return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
 def fail(msg):
@@ -205,6 +223,191 @@ def to_device(obj, dev):
         if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
+PASSES = ("block_cdot", "eps_update", "update_cdot")
+
+
+def mask_name(na):
+    return "NT=1" if bool((na == na[:1]).all()) else f"NT={na.shape[0]}"
+
+
+def bit_equal_twice(name, fn):
+    """``fn`` twice on the same inputs; each returns a tuple of tensors
+    that must be equal bit for bit.  Returns the first run's."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        fail(f"{name}: two launches on the same inputs wrote different bits")
+    return first
+
+
+def passes_one_block(bk, bed, rows, rows2, eps, mave, msig, mave2, msig2, d,
+                     na, errs, tag=""):
+    """Phase 2: kernels 2 and 4 and the fused pass through the one-block
+    wrappers against their plain versions (rtol 1e-5, atol 1e-5 of
+    max|want|: the kernels sum in another order), each launched twice on
+    the same inputs, bit-equal.  The update and the fused pass start from a
+    zero residual (the compared values are the update itself) and the fused
+    pass also from ``eps``.  Returns the largest errors so far."""
+    import torch
+    errs = dict(errs)
+    where = f"{mask_name(na)}{tag}, one block"
+    got = bit_equal_twice(f"block_cdot ({where})", lambda: (
+        bk.block_cdot(bed, rows, eps, mave, msig),))[0]
+    want = bk.block_cdot_plain(bed, rows, eps, mave, msig)
+    errs["block_cdot"] = max(errs["block_cdot"], close(
+        f"block_cdot ({where})", got, want, 1e-5, 1e-5))
+    got = bit_equal_twice(f"eps_update ({where})", lambda: (
+        bk.block_eps_update_(bed, rows, d, mave, na,
+                             torch.zeros_like(eps)),))[0]
+    want = bk.block_eps_update_plain_(bed, rows, d, mave, na,
+                                      torch.zeros_like(eps))
+    errs["eps_update"] = max(errs["eps_update"], close(
+        f"eps_update ({where})", got, want, 1e-5, 1e-5))
+    if not got.abs().sum() > 0:
+        fail(f"eps_update ({where}) is zero")
+    for start, what in ((torch.zeros_like(eps), "zero"), (eps, "random")):
+        def run(fn):
+            e = start.clone()
+            return e, fn(bed, rows, d, mave, na, e, rows2, mave2, msig2)
+        got = bit_equal_twice(f"update_cdot ({where})",
+                              lambda: run(bk.block_update_cdot_))
+        want = run(bk.block_update_cdot_plain_)
+        for part, g, w in zip(("eps", "c"), got, want):
+            errs["update_cdot"] = max(errs["update_cdot"], close(
+                f"update_cdot ({where}, {what} residual) {part}", g, w,
+                1e-5, 1e-5))
+    return errs
+
+
+def passes_sweep_arrays(bk, passes, bed, rows_all, mave_p, msig_p, na, eps,
+                        d_all, errs):
+    """Phase 2: kernels 2 and 4 and the fused pass through ``BlockPasses``
+    (the sweep's whole arrays and a block index) at a middle block and the
+    last one, against the plain versions on those blocks' slices; the fused
+    pass updates with the block before and dots the block.  Each launched
+    twice, bit-equal.  Returns the largest errors so far."""
+    import torch
+    errs = dict(errs)
+    eps = eps * na
+    nb = rows_all.shape[0]
+    for b in (nb // 2, nb - 1):
+        where = f"{mask_name(na)}, block {b} of the sweep's arrays"
+
+        def cdot():
+            passes.cdot(b, eps)
+            return (passes.c[b].clone(),)
+        got = bit_equal_twice(f"block_cdot ({where})", cdot)[0]
+        want = bk.block_cdot_plain(bed, rows_all[b], eps, mave_p[b],
+                                   msig_p[b])
+        errs["block_cdot"] = max(errs["block_cdot"], close(
+            f"block_cdot ({where})", got, want, 1e-5, 1e-5))
+
+        def update():
+            e = torch.zeros_like(eps)
+            passes.update_(b, d_all, e)
+            return (e,)
+        got = bit_equal_twice(f"eps_update ({where})", update)[0]
+        want = bk.block_eps_update_plain_(bed, rows_all[b], d_all[b],
+                                          mave_p[b], na,
+                                          torch.zeros_like(eps))
+        errs["eps_update"] = max(errs["eps_update"], close(
+            f"eps_update ({where})", got, want, 1e-5, 1e-5))
+        if not got.abs().sum() > 0:
+            fail(f"eps_update ({where}) is zero")
+        for start, what in ((torch.zeros_like(eps), "zero"), (eps, "random")):
+            def fused():
+                e = start.clone()
+                passes.update_cdot_(b - 1, d_all, e)
+                return e, passes.c[b].clone()
+            got = bit_equal_twice(f"update_cdot ({where})", fused)
+            e = start.clone()
+            want = (e, bk.block_update_cdot_plain_(
+                bed, rows_all[b - 1], d_all[b - 1], mave_p[b - 1], na, e,
+                rows_all[b], mave_p[b], msig_p[b]))
+            for part, g, w in zip(("eps", "c"), got, want):
+                errs["update_cdot"] = max(errs["update_cdot"], close(
+                    f"update_cdot ({where}, {what} residual) {part}", g, w,
+                    1e-5, 1e-5))
+    return errs
+
+
+def passes_big(bk, dev, gen):
+    """Phase 2: kernels 2 and 4 and the fused pass at the large-N panel's
+    width (mb = 25,088) on a bed of 32 blocks with a per-trait mask:
+    checked as ``passes_sweep_arrays`` does, then timed at a middle block
+    by CUDA-graph replay beside their bounds."""
+    import torch
+    nb, mb = MT_BIG // B, N_BIG // 4 + 88        # 32 blocks, mb_pad 25,088
+    bed = torch.randint(0, 256, (nb * B, mb), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    bed[:, mb - 88:] = 0x55
+    na = torch.ones((T, 4, mb), device=dev)
+    na[:, :, mb - 88:] = 0
+    na = na * (torch.rand((T, 4, mb), generator=gen, device=dev) > 0.03)
+    rows_all = torch.randperm(nb * B, generator=gen, device=dev).to(
+        torch.int32).reshape(nb, B).contiguous()
+    mave_p = torch.rand((nb, T, B), generator=gen, device=dev) * 1.6 + 0.2
+    msig_p = torch.rand((nb, T, B), generator=gen, device=dev) * 1.5 + 0.5
+    d_all = torch.randn((nb, T, B), generator=gen, device=dev) * 0.01
+    eps = torch.randn((T, 4, mb), generator=gen, device=dev) * na
+    passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
+    res = {"errs": passes_sweep_arrays(
+        bk, passes, bed, rows_all, mave_p, msig_p, na, eps, d_all,
+        dict.fromkeys(PASSES, 0.0))}
+    b, e1 = nb // 2, eps.clone()
+    f4 = 4
+    plane, tb, blk = T * 4 * mb * f4, T * B * f4, B * mb + B * f4
+    ops = 4 * T * B * 4 * mb
+    plan = bk.pass_plan(T, B, mb)
+    for name, fn, nbytes, flops in (
+            ("block_cdot", lambda: passes.cdot(b, eps), blk + plane + 3 * tb,
+             ops),
+            ("eps_update", lambda: passes.update_(b, d_all, e1),
+             blk + 3 * plane + 2 * tb, ops),
+            ("update_cdot", lambda: passes.update_cdot_(b, d_all, e1),
+             2 * blk + 3 * plane + 5 * tb, 2 * ops)):
+        ms = cuda_ms(fn, 100)
+        bound = bound_of(nbytes, (flops, F32_OPS))
+        res[name] = (f"{ms:.4f} ms (NT={T}), bound {bound[0]:.5f} ms by "
+                     f"{bound[1]}, {plan.grid} CTAs x {plan.S} byte columns, "
+                     f"{plan.groups} groups")
+    if not torch.isfinite(e1).all():
+        fail("the timed updates at mb=25,088 left a non-finite residual")
+    return res
+
+
+def passes_stamp_split(bk, passes, b, eps, d_all):
+    """Where a launch of each pass goes: one launch at block ``b`` (after
+    two unstamped ones) with a stamp buffer, thread 0 of every CTA
+    recording the global timer at the events of ``bk.PASS_STAMPS``; each
+    event's mean and latest time over the CTAs that record it, from the
+    first CTA's start, in microseconds."""
+    import torch
+    runs = {"block_cdot": lambda st: passes.cdot(b, eps, st),
+            "eps_update": lambda st: passes.update_(b, d_all, eps.clone(), st),
+            "update_cdot": lambda st: passes.update_cdot_(b, d_all,
+                                                          eps.clone(), st)}
+    split = {}
+    for name, run in runs.items():
+        stamps = torch.zeros((passes.plan.grid, bk.NST), dtype=torch.int64,
+                             device=eps.device)
+        run(None)
+        run(None)
+        run(stamps)
+        torch.cuda.synchronize()
+        s = stamps.cpu().double()
+        t0 = s[:, 0].min()
+        parts = []
+        for e, event in enumerate(bk.PASS_STAMPS):
+            col = s[:, e][s[:, e] > 0] - t0
+            if col.numel():
+                parts.append(f"{event} {float(col.mean()) / 1e3:.2f}/"
+                             f"{float(col.max()) / 1e3:.2f}")
+        split[name] = ", ".join(parts)
+    return split
+
+
 def kernel_phase(dev, gen):
     """Phase 2: every kernel against its plain version on the card."""
     import torch
@@ -213,6 +416,7 @@ def kernel_phase(dev, gen):
     from gmrm_tpu_torch.ops import scan_kernel as sk6
     from gmrm_tpu_torch.ops import scan_kernel_wave as sw
     from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.ops.decode import decode_planes
 
     nblocks = -(-MT // B)
     m_pad = nblocks * B
@@ -257,39 +461,41 @@ def kernel_phase(dev, gen):
         bed.numel() + 4 * MB * f4 + nblocks * (2 * B) ** 2 * f4,
         (2 * nblocks * (2 * B) ** 2 * 4 * MB, INT8_OPS))
 
-    # Kernel 2: the c-dot of one block in processing order.
+    # Kernels 2 and 4 and the fused pass, one block each through the
+    # one-block wrappers, with the shared (NT=1) and the per-trait (NT=4)
+    # mask, against their plain versions; the update and the fused pass
+    # also from a zero residual, so that the compared values are the update
+    # itself.  Two launches on the same inputs must write the same bits:
+    # the c-dot's partials are summed in a fixed order, without float
+    # atomics.  Timed below, as the W=1 sweep launches them.
     eps = torch.randn((T, 4, MB), generator=gen, device=dev) * na_trait
     mave = torch.rand((T, B), generator=gen, device=dev) * 1.6 + 0.2
     msig = torch.rand((T, B), generator=gen, device=dev) * 1.5 + 0.5
     rows = rows_of[:B].to(torch.int32).contiguous()
-    got = bk.block_cdot(bed, rows, eps, mave, msig)
-    want = bk.block_cdot_plain(bed, rows, eps, mave, msig)
-    out["block_cdot"] = close("block_cdot", got, want, 1e-5, 1e-5)
-    timed("block_cdot", lambda: bk.block_cdot(bed, rows, eps, mave, msig),
-          lambda: bk.block_cdot_plain(bed, rows, eps, mave, msig), 200, 200)
-    bounds["block_cdot"] = bound_of(B * MB + plane + 3 * tb + B * f4,
-                                    (block_ops, F32_OPS))
-
-    # Kernel 4: the residual update, from a zero residual so the compared
-    # values are the update itself.
+    rows2 = rows_of[B:2 * B].to(torch.int32).contiguous()
+    mave2 = torch.rand((T, B), generator=gen, device=dev) * 1.6 + 0.2
+    msig2 = torch.rand((T, B), generator=gen, device=dev) * 1.5 + 0.5
     d = (torch.randn((T, B), generator=gen, device=dev)
          * (torch.rand((T, B), generator=gen, device=dev) > 0.5)) * 0.01
-    err = 0.0
+    out.update(dict.fromkeys(PASSES, 0.0))
     for na in (na_shared, na_trait):
-        got = bk.block_eps_update_(bed, rows, d, mave, na,
-                                   torch.zeros((T, 4, MB), device=dev))
-        want = bk.block_eps_update_plain_(bed, rows, d, mave, na,
-                                          torch.zeros((T, 4, MB),
-                                                      device=dev))
-        err = max(err, close("eps_update", got, want, 1e-5, 1e-5))
-        e1 = torch.zeros((T, 4, MB), device=dev)
-        timed("eps_update",
-              lambda: bk.block_eps_update_(bed, rows, d, mave, na, e1),
-              lambda: bk.block_eps_update_plain_(bed, rows, d, mave, na, e1),
-              200, 200)
-    out["eps_update"] = err
-    bounds["eps_update"] = bound_of(B * MB + 3 * plane + 2 * tb + B * f4,
+        out.update(passes_one_block(bk, bed, rows, rows2, eps * na, mave,
+                                    msig, mave2, msig2, d, na, out))
+    # The other branches of the launch: one group of slices (mb = 200, a
+    # one-level tree) and an mb that is no multiple of 4 (byte copies).
+    for mb_x in (200, 203):
+        bed_x = bed[:, :mb_x].contiguous()
+        na_x = na_trait[:, :, :mb_x].contiguous()
+        out.update(passes_one_block(
+            bk, bed_x, rows, rows2, (eps[:, :, :mb_x] * na_x).contiguous(),
+            mave, msig, mave2, msig2, d, na_x, out, f" (mb={mb_x})"))
+    blk_bytes = B * MB + B * f4                       # a block's bed rows
+    bounds["block_cdot"] = bound_of(blk_bytes + plane + 3 * tb,
                                     (block_ops, F32_OPS))
+    bounds["eps_update"] = bound_of(blk_bytes + 3 * plane + 2 * tb,
+                                    (block_ops, F32_OPS))
+    bounds["update_cdot"] = bound_of(2 * blk_bytes + 3 * plane + 5 * tb,
+                                     (2 * block_ops, F32_OPS))
 
     # Kernel 3: the wave scan on identical inputs, with an adaV group and
     # pad markers.
@@ -395,7 +601,6 @@ def kernel_phase(dev, gen):
                 bed, rows, eps, na_in, mave, msig), 100, 20)
     # The yardstick that leaves the decode out: torch.matmul on one block's
     # pre-decoded float32 operands, the body of raw_gram_plain.
-    from gmrm_tpu_torch.ops.decode import decode_planes
     pa, pb = decode_planes(bed[rows.long()])
     ab = torch.cat([pa, pb], dim=0).reshape(2 * B, -1)
     abn = ab * na_shared[0].reshape(1, -1)
@@ -413,30 +618,63 @@ def kernel_phase(dev, gen):
         B * MB + 4 * MB * f4 / nblocks + 2 * tb + B * f4 + T * B * B * f4,
         (gram_ops, INT8_OPS), (9 * T * B * B, F32_OPS))
 
-    # Kernels 2 and 4 as the W=1 sweep launches them: the anchor's whole
-    # (157, T, B) arrays and a block index, for a middle block and the last
-    # one (pad slots), against the plain versions on that block's slices.
+    # Kernels 2 and 4 and the fused pass as the W=1 sweep launches them:
+    # the anchor's whole (157, T, B) arrays and a block index, for a middle
+    # block and the last one (pad slots; the fused pass dots it from the
+    # block before), against the plain versions on those blocks' slices,
+    # and two launches bit-equal.  Then timed this way, NT=1 first.
     d_all = (torch.randn((nblocks, T, B), generator=gen, device=dev) * 0.01
              * real).contiguous()
     for na in (na_shared, na_trait):
         passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
-        for b in (nblocks // 2, nblocks - 1):
-            passes.cdot(b, eps)
-            want = bk.block_cdot_plain(bed, rows_all[b], eps, mave_p[b],
-                                       msig_p[b])
-            out["block_cdot"] = max(out["block_cdot"], close(
-                f"block_cdot (block {b} of the sweep's arrays)",
-                passes.c[b], want, 1e-5, 1e-5))
-            got = torch.zeros((T, 4, MB), device=dev)
-            passes.update_(b, d_all, got)
-            want = bk.block_eps_update_plain_(
-                bed, rows_all[b], d_all[b], mave_p[b], na,
-                torch.zeros((T, 4, MB), device=dev))
-            out["eps_update"] = max(out["eps_update"], close(
-                f"eps_update (block {b} of the sweep's arrays)", got, want,
-                1e-5, 1e-5))
-            if not got.abs().sum() > 0:
-                fail(f"eps_update (block {b} of the sweep's arrays) is zero")
+        out.update(passes_sweep_arrays(bk, passes, bed, rows_all, mave_p,
+                                       msig_p, na, eps, d_all, out))
+    bm = nblocks // 2
+    for na in (na_shared, na_trait):
+        passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
+        eps_n, e1 = eps * na, eps * na
+        plain_args = (bed, rows_all[bm], d_all[bm], mave_p[bm], na)
+        timed("block_cdot", lambda: passes.cdot(bm, eps_n),
+              lambda: bk.block_cdot_plain(bed, rows_all[bm], eps_n,
+                                          mave_p[bm], msig_p[bm]), 200, 200)
+        timed("eps_update", lambda: passes.update_(bm, d_all, e1),
+              lambda: bk.block_eps_update_plain_(*plain_args, e1), 200, 200)
+        timed("update_cdot", lambda: passes.update_cdot_(bm, d_all, e1),
+              lambda: bk.block_update_cdot_plain_(
+                  *plain_args, e1, rows_all[bm + 1], mave_p[bm + 1],
+                  msig_p[bm + 1]), 200, 200)
+        if not torch.isfinite(e1).all():
+            fail("the timed updates left a non-finite residual")
+    # Where a launch's time goes, by the kernels' own stamps (NT=1).
+    split = passes_stamp_split(
+        bk, bk.BlockPasses(bed, rows_all, mave_p, msig_p, na_shared), bm,
+        eps * na_shared, d_all)
+    # The yardsticks that leave the decode out: torch.matmul on one block's
+    # pre-decoded float32 operands, (T, 4mb) @ (4mb, 2B) for the c-dot and
+    # (T, 2B) @ (2B, 4mb) for the update.
+    pa, pb = decode_planes(bed[rows_all[bm].long()])
+    ab = torch.cat([pa, pb], dim=0).reshape(2 * B, -1)
+    e2 = eps.reshape(T, -1)
+    dd = torch.cat([d_all[bm], -mave_p[bm] * d_all[bm]], dim=1)
+    matmul = {"block_cdot": cuda_ms(lambda: e2 @ ab.T, 50),
+              "eps_update": cuda_ms(lambda: dd @ ab, 50)}
+    del pa, pb, ab
+    # Once more at the large-N panel's width (mb = 25,088: 392 slices of 64
+    # bytes, 25 groups), a bed of 32 blocks, checked and timed at NT=4.
+    big = passes_big(bk, dev, gen)
+    plan = bk.pass_plan(T, B, MB)
+    for k in PASSES:
+        notes[k] = (
+            "times in order: the sweep's arrays at NT=1, NT=4 (a middle "
+            f"block); launch: {plan.grid} CTAs x {plan.S} byte columns, "
+            f"{plan.smem} bytes of shared memory (fused pass), {plan.groups} "
+            f"groups in the c-dot's tree; stamps at NT=1, event mean/latest "
+            f"us from the first CTA's start: {split[k]}; at mb=25,088: "
+            f"{big[k]}"
+            + (f"; torch.matmul on the block's pre-decoded float32 operands "
+               f"{matmul[k]:.4f} ms" if k in matmul else ""))
+    for k, v in big["errs"].items():
+        out[k] = max(out[k], v)
 
     # Kernel 6: the serial scan.  First the sweep's interface: whole
     # (nb, ..., B) arrays and a block index (three blocks, an adaV group,
@@ -962,8 +1200,9 @@ def anchor_options(sim, out_dir, wave=W, iterations=ITERS):
 
 def sweep_gate(sim, dev, wave, name, card, against="plain"):
     """Phases 3, 3b and 3c: one sweep through the default marker_sweep on
-    the card (the whole-sweep kernel at W>1, kernels 5, 2, 6, 4 at W=1)
-    against the plain versions on the host CPU or, with ``against``
+    the card (the whole-sweep kernel at W>1; at W=1 kernels 5, 2, 6, the
+    fused pass and 4) against the plain versions on the host CPU or, with
+    ``against``
     "composed", against the composed kernels 2, 3, 4 on the card.
     ``wave`` None is the auto plan, which must resolve to W=1."""
     import numpy as np
@@ -1053,8 +1292,9 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
 def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     """Phases 4 and 4b: run_training through the entry point.  In wave mode
     the Gram cache launches once per run and the whole-sweep kernel once per
-    iteration; at W=1 kernels 2, 6 and 4 launch once per block and
-    iteration and kernel 5 once per run of blocks.  The other paths'
+    iteration; at W=1 (``serial_counts``) kernel 6 once per block, the
+    fused update and c-dot once per block but the last, kernels 2 and 4
+    once each, and kernel 5 once per run of blocks.  The other paths'
     kernels launch not at all.  ``check_launches`` False skips that check,
     for a tree of another cadence.  Also returns the run's peak device
     memory (torch.cuda.max_memory_allocated)."""
@@ -1159,7 +1399,8 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
     else:
         nt = 1 if statics[0].shared_na else T
         sides = (("kernels", dev, None,
-                  serial_counts(nblocks, nt, shards=n_shards)),
+                  serial_counts(nblocks, nt, shards=n_shards,
+                                fused=False)),
                  ("plain", torch.device("cpu"), None, {}))
     res, ms = [], []
     for key, d, mega, want in sides:
@@ -1426,15 +1667,19 @@ SOURCES = {
                      "gmrm_tpu/ops/sweep_kernel.py:371"),
     "block_sweep": ("gmrm_tpu_torch/csrc/block_sweep.cu",
                     "gmrm_tpu/ops/sweep_kernel.py:961"),
+    "update_cdot": ("gmrm_tpu_torch/csrc/update_cdot.cu",
+                    "gmrm_tpu/ops/pallas_kernels.py:352"),
 }
-# The whole-sweep kernel also stands for the N-tiled TPU kernel.
-ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576"}
+# The whole-sweep kernel also stands for the N-tiled TPU kernel; the fused
+# pass for kernel 4 followed by kernel 2.
+ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576",
+                 "update_cdot": "gmrm_tpu/ops/pallas_kernels.py:275"}
 
 
 def training_only(dev, reps, card, repo):
     """Phases 4 and 4b ``reps`` times on one simulated anchor: the steady
-    ms/iteration of every run and a phase 5 profiler window on the W=32
-    path, for comparing two trees inside one call.
+    ms/iteration of every run and phase 5's profiler windows on the W=32
+    and W=1 paths, for comparing two trees inside one call.
     The launch counts are checked only for this script's own tree."""
     own = os.path.abspath(repo) == REPO
     with tempfile.TemporaryDirectory() as tmp:
@@ -1448,12 +1693,13 @@ def training_only(dev, reps, card, repo):
                 print(f"# {repo}: training W={wave}, run {rep + 1}: "
                       f"{steady * 1e3:.2f} ms/iteration  [{card}]",
                       flush=True)
-            busy, wall, calls, top = profile_phase(sim, dev)
-            print(f"# {repo}: profiler W={W}, run {rep + 1}: device busy "
-                  f"{busy:.3f} of {wall:.3f} ms/iteration, idle share "
-                  f"{1 - busy / wall:.3f}, {calls:.1f} host-issued launches "
-                  f"and graph replays per iteration; {top}  [{card}]",
-                  flush=True)
+            for wave in (W, 1):
+                busy, wall, calls, top = profile_phase(sim, dev, wave=wave)
+                print(f"# {repo}: profiler W={wave}, run {rep + 1}: device "
+                      f"busy {busy:.3f} of {wall:.3f} ms/iteration, idle "
+                      f"share {1 - busy / wall:.3f}, {calls:.1f} host-issued "
+                      f"launches and graph replays per iteration; {top}  "
+                      f"[{card}]", flush=True)
 
 
 def main():
@@ -1528,6 +1774,12 @@ def main():
                   f"{t_p} (CUDA graph replay); kernel ms per eager call "
                   f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}"
                   f"{'; ' + note if note else ''}  [{card}]", flush=True)
+        print(f"# block_cdot, eps_update beside their earlier design (a CTA "
+              f"per marker row; a thread per plane and byte column): "
+              f"{EARLIER_PASSES_MS} ms per launch as recorded in PERF.md on "
+              f"an NVIDIA H100 80GB HBM3 at 700 W; this run "
+              f"{ {k: [round(x, 4) for x in kernels[k][1]] for k in PASSES} }"
+              f" (update_cdot: one launch for both)", flush=True)
         (err, t_k, t_p, t_c, bound), plan, splits = sweep_kernel_phase(
             dev, gen)
         kernels["sweep_blocks"] = (err, t_k, t_p, None, bound)

@@ -43,13 +43,17 @@ _I = ctypes.c_int
 SIGNATURES = {
     # bed, na, out, nblocks, B, mb, nt, stream
     "gmrm_gram_cache": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # bed, rows, eps, mave, msig, c, T, B, mb, stream
-    "gmrm_block_cdot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # bed, rows, eps, mave, msig, c, scratch, T, B, mb, S, stamps (or
+    # null), stream
+    "gmrm_block_cdot": [_P] * 7 + [_I] * 4 + [_P, _P],
     # base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
     # zerob, i2se, dbeta, beta_new, comp_new, acum_new, T, B, K, W, stream
     "gmrm_wave_scan": [_P] * 17 + [_I, _I, _I, _I, _P],
-    # bed, rows, d, mave, na, eps, T, B, mb, stream
-    "gmrm_eps_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # bed, rows, d, mave, na, eps, T, B, mb, S, stamps (or null), stream
+    "gmrm_eps_update": [_P] * 6 + [_I] * 4 + [_P, _P],
+    # bed, rows, rows_next, d, mave, mave_next, msig_next, na, eps, c_next,
+    # scratch, T, B, mb, S, stamps (or null), stream
+    "gmrm_update_cdot": [_P] * 11 + [_I] * 4 + [_P, _P],
     # bed, rows, na, mave, msig, raw, gs, nb, T, B, mb, nt, stream
     "gmrm_block_gram": [_P] * 7 + [_I] * 5 + [_P],
     # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
@@ -79,7 +83,7 @@ SIGNATURES = {
 # show that its main path went through the kernels.
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "eps_update": 0, "block_gram": 0, "serial_scan": 0,
-             "sweep_blocks": 0, "block_sweep": 0}
+             "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0}
 
 
 def launch_counts() -> dict:

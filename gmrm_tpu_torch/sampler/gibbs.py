@@ -16,9 +16,10 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
      PyTorch, the wave-scan kernel, the residual-update kernel;
    - W = 1, the exact serial path: the scaled Grams of the sweep's blocks
      first (the block-Gram kernel, one launch per run of blocks; they do
-     not depend on the residual), then per block the c-dot kernel, the
-     serial-scan kernel on the sweep's arrays and a block index, and the
-     residual-update kernel;
+     not depend on the residual), then the c-dot kernel of block 0 and per
+     block the serial-scan kernel on the sweep's arrays and a block index
+     and one launch of the residual update fused with the next block's
+     c-dot (the update alone after the last block);
    - marker-sharded (gibbs.py:295-351, ``marker_sweep_sharded``): every
      shard sweeps its own markers against the one residual, and per block
      step the shards' residual deltas are summed, over the process's local
@@ -234,14 +235,26 @@ class _ComposedSweep:
     def step(self, b, eps, target):
         """Block step ``b`` against the residual ``eps``; the block's
         residual update is added into ``target``: ``eps`` itself on one
-        device, a zeroed delta on a sharded run."""
+        device, a zeroed delta on a sharded run.
+
+        At wave 1 with ``target is eps`` (one device, block steps 0, 1, ...
+        in order) block b's update and block b+1's c-dot are one launch
+        (``BlockPasses.update_cdot_``): step 0 starts with the c-dot of
+        block 0 and the last step ends with the update alone.  On a sharded
+        run the next c-dot waits for the sum of the shards' deltas, so each
+        step is c-dot, scan, update."""
         if self.wave == 1:
             if not 0 <= b - self.gs_start < self.gs.shape[0]:
                 self._build_grams(b - b % self.gram_run)
-            self.passes.cdot(b, eps)
+            fused = target is eps
+            if b == 0 or not fused:
+                self.passes.cdot(b, eps)
             self.serial.step(b, self.passes.c, self.gs, b - self.gs_start,
                              bc=b)
-            self.passes.update_(b, self.serial.d, target)
+            if fused and b + 1 < self.rows.shape[0]:
+                self.passes.update_cdot_(b, self.serial.d, eps)
+            else:
+                self.passes.update_(b, self.serial.d, target)
             return
         static = self.static
         mave_b, msig_b = self.mave_p[b], self.msig_p[b]

@@ -26,10 +26,18 @@ Phases, each of which must pass (any failure exits non-zero):
    its plain version and against the composed chain of kernels 2, 3 and 4;
    one launch is a whole sweep, so it is timed with CUDA events around
    eager launches, and one more launch records the kernel's %globaltimer
-   stamps, which split a block's time into its phases.  The fused
-   per-block kernel of the sharded sweep runs blocks of the same operands
-   against its plain version (comp exact, every element of the delta
-   written), timed per launch;
+   stamps, which split a block's time into its phases.  The sharded
+   sweep's block-step kernel (kernel 9) runs one block step of 1, 2 and 4
+   shards of the same operands (the last block's pad slots, a block of pad
+   slots only, shards of different real marker counts) against its plain
+   version (comp exact, every element of the out-mode sum written), twice
+   (bit-equal), in place against out mode plus the add (bit-equal), as
+   one launch per shard against one launch (bit-equal) and, for one
+   shard, from a block's own slices against the whole arrays (bit-equal);
+   the same again on four blocks of two wide panels, mb_pad=25,088 (NT=4)
+   and 60,000 (NT=1), where a column CTA takes its columns in tiles; timed
+   per launch by graph replay, per eager step and by the host's clock,
+   beside a torch.matmul yardstick, with one stamped launch each;
 3. the wave path's (W=32) one-sweep agreement gate at the anchor: the
    default marker_sweep, so the whole-sweep kernel, on the card against the
    same sweep from the plain versions (on the host CPU), with the same
@@ -41,9 +49,10 @@ Phases, each of which must pass (any failure exits non-zero):
    mb_pad=25,088, explicit W=32): one sweep through the whole-sweep kernel
    against the composed kernels on the card, same order and draws;
 3d. one marker-sharded sweep at the anchor, 4 shards on the one card: the
-   fused per-block kernel against the composed kernels 2, 3 and 4 run at
-   the same cadence (per block step every shard against the one residual,
-   then the sum of the deltas), same order and draws;
+   block-step kernel (one launch per block step for all 4 shards, the sum
+   added into the residual in place) against the composed kernels 2, 3
+   and 4 run at the same cadence (per block step every shard against the
+   one residual, then the sum of the deltas), same order and draws;
 3e. one sharded sweep on the small panel, 2 shards of 16 blocks, where the
    auto plan resolves to W=1: kernels 5, 2, 6 and 4 adding into a delta
    against their plain versions on the host CPU;
@@ -64,12 +73,14 @@ Phases, each of which must pass (any failure exits non-zero):
    gibbs_iteration at the anchor, checking its launch counts;
 4d. the sharded entry point, gmrm_tpu_torch.parallel.runner
    .run_training_sharded, at the anchor: 2 shards on the auto plan (79
-   blocks per shard, so W=32 and the fused per-block kernel) for 10
+   blocks per shard, so W=32 and the block-step kernel) for 10
    iterations, and 4 shards at an explicit W=32 for 5, all shards on the one
-   card; launch counts, the chain and the artifacts are checked;
+   card; launch counts (the block-step kernel once per block step and
+   iteration), the chain and the artifacts are checked;
 4e. the 2-shard run again inside a one-rank NCCL process group, so that
-   every sum of the path goes through NCCL on CUDA tensors; its artifacts
-   must equal phase 4d's byte for byte;
+   every sum of the path goes through NCCL on CUDA tensors (the kernel in
+   out mode, then the all-reduce and the add); its artifacts must equal
+   phase 4d's (in place) byte for byte;
 5. a torch.profiler window over 5 whole-sweep iterations at the anchor (as
    run_training runs them), one over 5 W=1 iterations and one over 5
    sharded iterations (2 shards): device-busy and wall time per iteration,
@@ -90,7 +101,12 @@ and 4b and phase 5's W=32 and W=1 profiler windows three times and prints
 each run's ms/iteration, idle share and host-issued calls, nothing else.
 ``--sweep-only REPS [--repo TREE]`` does the same for phase 2's whole-sweep
 kernel: its gate against the plain version, its ms per sweep and, where
-the tree's kernel records them, its stamps.
+the tree's kernel records them, its stamps.  ``--sharded-only REPS [--repo
+TREE]`` runs phase 4d (2 and 4 shards) and the sharded profiler windows
+(1, 2 and 4 shards) with the host's microseconds per block step of a
+sharded sweep, and kernel 9's device time per block step of 1, 2 and 4
+shards on phase 2's wide panels (a tree of the earlier design launches
+once per shard); with ``--training-only`` in the same process.
 """
 
 import argparse
@@ -113,6 +129,7 @@ MT_SMALL = 4_096        # the W=1 gate's panel: 32 blocks of B
 ITERS_SERIAL = 10
 ITERS_COMPOSED = 5
 N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
+MB_BIG = 25_088
 COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
 # Per block of a sharded W=1 sweep; one device fuses kernels 4 and 2.
 SERIAL_KERNELS = ("block_cdot", "serial_scan", "eps_update")
@@ -124,6 +141,11 @@ EARLIER_SWEEP_MS = (2.673, 2.663)
 # per phase plane and byte column), ms per launch at NT=1 (and NT=4)
 # (PERF.md section 6, rows 2 and 4).
 EARLIER_PASSES_MS = {"block_cdot": (0.0294,), "eps_update": (0.0424, 0.0423)}
+# Kernel 9 in its earlier design (one cooperative launch per shard and block
+# step, three grid syncs), ms per launch of one shard's block at NT=1 and
+# NT=4, and ms per eager call of its wrapper (PERF.md section 6, row 9).
+EARLIER_BLOCK_SWEEP_MS = {"launch": (0.0297, 0.0282), "call": (0.077, 0.095)}
+SHARDS_PHASE2 = (1, 2, 4)     # local shards of kernel 9's launches in phase 2
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
 # memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
@@ -813,32 +835,33 @@ def kernel_phase(dev, gen):
             for name, err in out.items()}
 
 
-def sweep_operands(dev, gen, shared):
-    """One sweep's operands at the anchor's shapes: 157 blocks of B=128
-    (the last with 96 pad slots), G=3 groups, one of them adaV for trait 0,
-    a standardized residual and the statistics of a random bed."""
+def sweep_operands(dev, gen, shared, mb=MB, mt=MT):
+    """One sweep's operands at the anchor's shapes (or ``mb`` byte columns
+    and ``mt`` markers): 157 blocks of B=128 (the last with 96 pad slots),
+    G=3 groups, one of them adaV for trait 0, a standardized residual and
+    the statistics of a random bed whose last 60 byte columns are pad."""
     import torch
     from gmrm_tpu_torch.ops import sweep_kernel as sk
     from gmrm_tpu_torch.ops.blockops import marker_stats
     from gmrm_tpu_torch.sampler.state import StaticInputs
 
-    nblocks = -(-MT // B)
+    nblocks = -(-mt // B)
     m_pad = nblocks * B
     G = 3
-    bed = torch.randint(0, 256, (m_pad, MB), generator=gen, device=dev,
+    bed = torch.randint(0, 256, (m_pad, mb), generator=gen, device=dev,
                         dtype=torch.uint8)
-    bed[MT:] = 0x55
-    bed[:, MB - 60:] = 0x55
-    na = torch.ones((T, 4, MB), device=dev)
-    na[:, :, MB - 60:] = 0
+    bed[mt:] = 0x55
+    bed[:, mb - 60:] = 0x55
+    na = torch.ones((T, 4, mb), device=dev)
+    na[:, :, mb - 60:] = 0
     if not shared:
-        na = na * (torch.rand((T, 4, MB), generator=gen, device=dev) > 0.03)
+        na = na * (torch.rand((T, 4, mb), generator=gen, device=dev) > 0.03)
     nonas = na.sum(dim=(1, 2))
     mave, msig = marker_stats(bed, na, nonas)
-    valid = (torch.arange(m_pad, device=dev) < MT)[None]
+    valid = (torch.arange(m_pad, device=dev) < mt)[None]
     mave = torch.where(valid, mave, 0.0).contiguous()
     msig = torch.where(valid, msig, 0.0).contiguous()
-    eps = torch.randn((T, 4, MB), generator=gen, device=dev) * na
+    eps = torch.randn((T, 4, mb), generator=gen, device=dev) * na
     eps = (eps * torch.sqrt((nonas - 1) / (eps * eps).sum(dim=(1, 2)))
            [:, None, None]).contiguous()
     cva = torch.tensor([[0.0, 1e-4, 1e-3, 1e-2]] * G, device=dev)
@@ -847,8 +870,8 @@ def sweep_operands(dev, gen, shared):
     group_of = torch.randint(0, G, (m_pad,), generator=gen, device=dev)
     static = StaticInputs(
         bed=bed, na=na.contiguous(), mave=mave, msig=msig, group_of=group_of,
-        mtotgrp=torch.bincount(group_of[:MT], minlength=G), nonas=nonas,
-        cva=cva, cvai=cvai, n_total=float(4 * MB - 240), m_local=MT,
+        mtotgrp=torch.bincount(group_of[:mt], minlength=G), nonas=nonas,
+        cva=cva, cvai=cvai, n_total=float(4 * mb - 240), m_local=mt,
         gram_cache=sk.build_gram_cache(bed, na, block_size=B,
                                        shared_na=shared),
         shared_na=shared)
@@ -1014,140 +1037,330 @@ def sweep_kernel_phase(dev, gen, full=True):
     return (err, ms, plain_ms, composed_ms, bound), plan, splits
 
 
-def block_sweep_phase(dev, gen):
-    """Phase 2, the fused per-block kernel (kernel 9): blocks of the
-    anchor's operands (an adaV group; the last block has 96 pad slots)
-    against its plain version on the card, NT = 1 and NT = T, from the
-    shard's whole arrays in place and from the block's own slices; every
-    element of the delta must be written.  Timed per launch by graph replay
-    and per eager call, beside the plain version."""
+def shard_operands(dev, gen, static, st, n_shards):
+    """``n_shards`` shards of kernel 9 over the operands of
+    ``sweep_operands`` (one bed, Gram cache and set of statistics, which
+    the shards share): each shard its own block order (step 0 of shard 0
+    is the last block, with its 96 pad slots), row order, draws and marker
+    state, and its own real marker count; at step 0 the fourth shard sweeps
+    a block of pad slots only."""
+    import collections
+    import torch
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    # A tree of the earlier design has no ShardOperands: the same fields.
+    ops = getattr(sk, "ShardOperands", None) or collections.namedtuple(
+        "ShardOperands", "blk win m_local bed gram mave msig beta comp acum "
+        "grp u z")
+    nblocks = static.bed.shape[0] // B
+    m_pad = nblocks * B
+    i32 = torch.int32
+    mt = static.m_local
+    m_locals = (mt, mt - mt // 20, mt - mt // 4, nblocks // 2 * B)
+    shards = []
+    for q in range(n_shards):
+        blk = torch.randperm(nblocks, generator=gen, device=dev)
+        first = {0: nblocks - 1, 3: nblocks - 2}.get(q)
+        if first is not None:
+            blk = torch.cat([blk.new_tensor([first]), blk[blk != first]])
+        comp = torch.randint(0, K, (T, m_pad), generator=gen, device=dev,
+                             dtype=i32)
+        valid = (torch.arange(m_pad, device=dev) < m_locals[q])[None]
+        shards.append(ops(
+            blk.to(i32), torch.argsort(torch.rand(
+                (nblocks, B), generator=gen, device=dev), dim=1).to(i32),
+            m_locals[q], static.bed, static.gram_cache, static.mave,
+            static.msig,
+            (torch.randn((T, m_pad), generator=gen, device=dev) * 0.01
+             * (comp > 0) * valid).contiguous(), comp,
+            torch.rand((T, m_pad), generator=gen, device=dev),
+            static.group_of.to(i32),
+            torch.rand((nblocks, T, B), generator=gen, device=dev),
+            torch.randn((nblocks, T, B), generator=gen, device=dev)))
+    return shards
+
+
+def copied(shards):
+    """The shards with fresh copies of their marker state."""
+    return [s._replace(beta=s.beta.clone(), comp=s.comp.clone(),
+                       acum=s.acum.clone()) for s in shards]
+
+
+def block_step_stamps(sk, sweep, b, grid, n_shards):
+    """Where one launch's time goes: each CTA records the global timer at
+    the events of ``sk.BLOCK_STEP_STAMPS``; mean microseconds between
+    consecutive events over the scan CTAs and over the column CTAs, and
+    the launch's span from the first CTA's start to the last CTA's end."""
+    import torch
+    stamps = torch.zeros((grid, sk.BS_NST), dtype=torch.int64, device="cuda")
+    total = torch.empty_like(sweep.eps)
+    sweep.step(b, out=total, stamps=stamps)
+    torch.cuda.synchronize()
+    s = stamps[:grid].cpu().double()
+    parts = [f"span {float(s[:, -1].max() - s[:, 0].min()) / 1e3:.2f}"]
+    for role, rows in (("scan CTAs", s[:n_shards]),
+                       ("column CTAs", s[n_shards:])):
+        names = sk.BLOCK_STEP_STAMPS["scan" if role == "scan CTAs"
+                                     else "column"]
+        d = (rows[:, 1:] - rows[:, :-1]).mean(dim=0)
+        parts.append(f"{role}: " + ", ".join(
+            f"{n} {float(x) / 1e3:.2f}" for n, x in zip(names, d)))
+    t0 = float(s[:, 0].min())
+    parts.append(
+        "from the first CTA's start: groups' sums seen "
+        f"{(float(s[:n_shards, 2].max()) - t0) / 1e3:.2f}, last wave "
+        f"published {(float(s[:n_shards, 5].max()) - t0) / 1e3:.2f}, sum "
+        f"written {(float(s[n_shards:, 5].max()) - t0) / 1e3:.2f}")
+    return "; ".join(parts) + " (us)"
+
+
+def block_sweep_phase(dev, gen, mb=MB, mt=MT, masks=(True, False)):
+    """Phase 2, kernel 9: one block step of S_loc = 1, 2 and 4 shards of
+    ``sweep_operands``'s operands at ``mb`` byte columns (an adaV group;
+    the last block's 96 pad slots; a block of pad slots only; shards of
+    different real marker counts), at the NA masks of ``masks`` (True:
+    NT = 1), against its plain version on the card: comp exact, beta and
+    the delta within 1e-4, acum within rtol 1e-5 and 1e-5 of its largest
+    value, every element of the out-mode sum written, more than one
+    component drawn; two launches bit-equal, out mode plus the add
+    bit-equal to the in-place mode, launches of one shard each bit-equal to
+    one launch, and the one-shard wrapper ``block_sweep`` equal to the
+    one-shard launch, from the shard's whole arrays and from copies of the
+    block's own slices.  Timed per launch by CUDA-graph replay, per eager
+    step, by the host's clock per step, beside the plain version and a
+    torch.matmul yardstick; one stamped launch per S_loc where the step is
+    one launch."""
+    import torch
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.ops.decode import decode_planes
+
+    err, res, moved = 0.0, {}, {}
+    for shared in masks:
+        static, st, _, _, _ = sweep_operands(dev, gen, shared, mb, mt)
+        nt = static.gram_cache.shape[1]
+        nblocks = static.bed.shape[0] // B
+        tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
+                                       static.cva, static.cvai, static.nonas,
+                                       static.n_total)
+        common = (static.na[:nt].contiguous(), st["sigmag"], *tables,
+                  (1.0 / (2.0 * st["sigmae"])).contiguous(), static.nonas)
+        eps = st["eps"]
+        all_shards = shard_operands(dev, gen, static, st, max(SHARDS_PHASE2))
+        drawn = set()
+        for n_sh in SHARDS_PHASE2:
+            shards = all_shards[:n_sh]
+            name = f"block_sweep (S_loc={n_sh}, NT={nt}, mb={mb})"
+
+            def kernel(sh, out=None, e=eps, b=0):
+                sweep = sk.ShardedBlockSweep().sweep(sh, e, *common, wave=W)
+                got = sweep.step(b, out=out)
+                sweep.finish()
+                return got
+
+            for b in (0, nblocks // 2):
+                got_sh, want_sh = copied(shards), copied(shards)
+                # Poison the allocator's free block of the sum's size, so
+                # an element the kernel leaves unwritten shows as NaN.
+                del_me = torch.full_like(eps, float("nan"))
+                del del_me
+                got = kernel(got_sh, torch.empty_like(eps), b=b)
+                torch.cuda.synchronize()
+                want = sk.block_sweep_shards_plain(
+                    b, want_sh, eps, *common, wave=W,
+                    out=torch.empty_like(eps))
+                if not torch.isfinite(got).all():
+                    fail(f"{name}, step {b}: the sum has unwritten or "
+                         f"non-finite elements")
+                for q, (g, w) in enumerate(zip(got_sh, want_sh)):
+                    if not torch.equal(g.comp, w.comp):
+                        fail(f"{name}, step {b}, shard {q}: comp differs "
+                             f"from the plain version in "
+                             f"{int((g.comp != w.comp).sum())} entries")
+                    d_beta = max_err(g.beta, w.beta)
+                    if d_beta > 1e-4:
+                        fail(f"{name}, step {b}, shard {q}: max|dbeta| "
+                             f"{d_beta:.3e} exceeds 1e-4")
+                    close(f"{name}, step {b}, shard {q}: acum", g.acum,
+                          w.acum, 1e-5, 1e-5)
+                    err = max(err, d_beta)
+                    if q == 3 and b == 0 and not torch.equal(g.beta,
+                                                             shards[3].beta):
+                        fail(f"{name}: the block of pad slots moved beta")
+                    blk = int(shards[q].blk[b])
+                    drawn |= set(w.comp[:, blk * B:(blk + 1) * B]
+                                 .reshape(-1).tolist())
+                if b == nblocks // 2:
+                    # The waves that moved a marker in this step: their
+                    # folds are work the data asks for.
+                    moved[n_sh] = sum(
+                        int((g.beta[:, s.win[b].long() + int(s.blk[b]) * B]
+                             != s.beta[:, s.win[b].long() + int(s.blk[b]) * B])
+                            .reshape(T, B // W, W).any(dim=2).any(dim=0)[:-1]
+                            .sum()) for g, s in zip(got_sh, shards))
+                d_eps = max_err(got, want)
+                if d_eps > 1e-4:
+                    fail(f"{name}, step {b}: max|dsum| {d_eps:.3e} exceeds "
+                         f"1e-4")
+                if got[:, :, mb - 60:].abs().max() != 0:
+                    fail(f"{name}, step {b}: pad columns of the sum are "
+                         f"not 0")
+                err = max(err, d_eps)
+            # Two launches on the same inputs; out mode + add against the
+            # in-place mode; one shard a launch against one launch.
+            outs = bit_equal_twice(name, lambda: (
+                kernel(copied(shards), torch.empty_like(eps)),))
+            e_in = kernel(copied(shards), None, eps.clone())
+            if not torch.equal(e_in, eps + outs[0]):
+                fail(f"{name}: the in-place mode and out mode + add differ")
+            if n_sh > 1:
+                cap = sk.MAX_SHARDS
+                sk.MAX_SHARDS = 1
+                try:
+                    split = kernel(copied(shards), torch.empty_like(eps))
+                finally:
+                    sk.MAX_SHARDS = cap
+                if not torch.equal(split, outs[0]):
+                    fail(f"{name}: launches of one shard each differ from "
+                         f"one launch")
+            if n_sh == 1:
+                s0, s1 = copied(shards)[0], copied(shards)[0]
+                one = sk.block_sweep(
+                    s0.blk[:1], s0.m_local, s0.bed, s0.win[0], s0.gram, eps,
+                    static.na, s0.mave, s0.msig, s0.beta, s0.comp, s0.acum,
+                    s0.grp, s0.u[0], s0.z[0], *common[1:], wave=W)
+                if not torch.equal(one[0], outs[0]):
+                    fail(f"{name}: block_sweep differs from the launch")
+                # The same block from copies of its own slices (nb = 1).
+                blk = int(s1.blk[0])
+                rows = slice(blk * B, (blk + 1) * B)
+                sl = sk.block_sweep(
+                    blk, s1.m_local, s1.bed[rows].contiguous(), s1.win[0],
+                    s1.gram[blk:blk + 1].contiguous(), eps, static.na,
+                    s1.mave[:, rows].contiguous(),
+                    s1.msig[:, rows].contiguous(),
+                    s1.beta[:, rows].contiguous(),
+                    s1.comp[:, rows].contiguous(),
+                    s1.acum[:, rows].contiguous(), s1.grp[rows].contiguous(),
+                    s1.u[0], s1.z[0], *common[1:], wave=W)
+                if not (torch.equal(sl[0], one[0])
+                        and all(torch.equal(x, y[:, rows])
+                                for x, y in zip(sl[1:], one[1:]))):
+                    fail(f"{name}: the block's slices and the whole arrays "
+                         f"give different results")
+
+            # Timing at a middle step, from the same state each time (the
+            # timed launches rewrite their blocks' state in place).
+            b = nblocks // 2
+            sh = copied(shards)
+            total = torch.empty_like(eps)
+            sweep = sk.ShardedBlockSweep().sweep(sh, eps, *common, wave=W)
+            plan = sk.block_sweep_plan(T, B, mb, nt, K, W, n_sh)
+            graph_ms = cuda_ms(lambda: sweep.step(b, out=total), 200)
+            eager_ms = call_ms(lambda: sweep.step(b, out=total), 500)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                sweep.step(b, out=total)
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            split = (block_step_stamps(sk, sweep, b, plan["grid"], n_sh)
+                     if plan["cap"] >= n_sh else "not taken: the step is "
+                     f"{-(-n_sh // plan['cap'])} launches")
+            sweep.finish()
+            # The plain version's device time by graph replay: its real
+            # marker counts as tensors on the card, so that nothing is
+            # copied from the host inside the graph.
+            p_sh = [s._replace(m_local=torch.tensor(
+                [s.m_local], dtype=torch.int32, device=dev))
+                for s in copied(shards)]
+            p_out = torch.empty_like(eps)
+            plain_ms = cuda_ms(lambda: sk.block_sweep_shards_plain(
+                b, p_sh, eps, *common, wave=W, out=p_out), 5)
+            # Bound: per shard the bytes moved once (its bed rows, raw
+            # Gram, eps and the sum, na, marker state) and the operations
+            # (A.eps, B.eps, the update, the Gram entries a later wave
+            # reads, the draws, the fold of each wave that moved).
+            nbytes, flops = 0, 0
+            f4 = 4
+            for _ in shards:
+                nbytes += (B * mb + nt * (2 * B) ** 2 * f4
+                           + nt * 4 * mb * f4 + 11 * T * B * f4 + 2 * B * f4)
+                flops += (2 * 4 * T * B * 4 * mb
+                          + 9 * T * (B * B - B * W) // 2 + T * B * K * 12)
+            nbytes += 2 * T * 4 * mb * f4
+            flops += moved[n_sh] * 2 * T * W * B
+            bound = bound_of(nbytes, (flops, F32_OPS))
+            # The yardstick that leaves the decode out: per shard,
+            # torch.matmul of the c-dot (T, 4mb) @ (4mb, 2B) and the delta
+            # (T, 2B) @ (2B, 4mb) on one block's pre-decoded operands.
+            pa, pb = decode_planes(static.bed[
+                (shards[0].win[b].long() + int(shards[0].blk[b]) * B)])
+            ab = torch.cat([pa, pb], dim=0).reshape(2 * B, -1)
+            e2 = eps.reshape(T, -1)
+            dd = torch.randn((T, 2 * B), generator=gen, device=dev)
+            yard = n_sh * cuda_ms(lambda: (e2 @ ab.T, dd @ ab), 50)
+            del pa, pb, ab
+            res[(n_sh, nt)] = dict(ms=graph_ms, eager_ms=eager_ms,
+                                   host_us=host_us, plain_ms=plain_ms,
+                                   bound=bound, matmul_ms=yard, plan=plan,
+                                   split=split)
+        if len(drawn) < 2:
+            fail(f"block_sweep (NT={nt}, mb={mb}): the parity cases drew a "
+                 f"single component")
+    return err, res
+
+
+# Kernel 9 on panels wider than the anchor's: the large-N panel's width
+# (N=100,000) at NT=4, and N=240,000 at NT=1, four blocks each, the last
+# with 96 pad slots.
+WIDE_BLOCK_STEPS = ((MB_BIG, False), (60_000, True))
+STEP_MT = 4 * B - 96
+
+
+def wide_step_ms(dev, gen, mb, shared, n_sh):
+    """Device ms per block step of ``n_sh`` shards at ``mb`` byte columns,
+    for comparing two trees inside one call: the tree's own launches of
+    one step (one launch for all shards, or the earlier design's launch per
+    shard through ``block_sweep``), recorded once and repeated back to back
+    between CUDA events.  Returns (ms, launches per step)."""
     import torch
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.ops import sweep_kernel as sk
 
-    i32 = torch.int32
-    err, ms, plain_ms, eager_ms, bound = 0.0, [], [], [], None
-    for shared in (True, False):
-        static, st, blk, win, (u, z) = sweep_operands(dev, gen, shared)
-        nt = static.gram_cache.shape[1]
-        nblocks = blk.numel()
-        tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
-                                       static.cva, static.cvai, static.nonas,
-                                       static.n_total)
-        win = win.to(i32).contiguous()
-        grp = static.group_of.to(i32)
-        m_loc = torch.tensor([MT], dtype=i32, device=dev)
-        i2se = 1.0 / (2.0 * st["sigmae"])
-        tail = (st["sigmag"], *tables, i2se, static.nonas)
-        name = f"block_sweep (NT={nt})"
+    static, st, _, _, _ = sweep_operands(dev, gen, shared, mb, STEP_MT)
+    nt = static.gram_cache.shape[1]
+    tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
+                                   static.cva, static.cvai, static.nonas,
+                                   static.n_total)
+    tail = (st["sigmag"], *tables, (1.0 / (2.0 * st["sigmae"])).contiguous(),
+            static.nonas)
+    eps = st["eps"]
+    shards = shard_operands(dev, gen, static, st, n_sh)
+    b = 1
+    recorded, keep = [], []
+    real_launch = _build.launch
+    _build.launch = lambda *a: recorded.append(a) or real_launch(*a)
+    try:
+        if hasattr(sk, "ShardedBlockSweep"):
+            sweep = sk.ShardedBlockSweep().sweep(
+                shards, eps, static.na[:nt].contiguous(), *tail, wave=W)
+            keep += [sweep, sweep.step(b, out=torch.empty_like(eps))]
+        else:
+            for s in shards:
+                keep.append(sk.block_sweep(
+                    s.blk[b:b + 1], s.m_local, s.bed, s.win[b], s.gram, eps,
+                    static.na, s.mave, s.msig, s.beta, s.comp, s.acum, s.grp,
+                    s.u[b], s.z[b], *tail, wave=W))
+    finally:
+        _build.launch = real_launch
+    torch.cuda.synchronize()
 
-        def whole(fn, b, state):
-            return fn(torch.tensor([b], dtype=i32, device=dev), m_loc,
-                      static.bed, win[b], static.gram_cache, st["eps"],
-                      static.na, static.mave, static.msig, *state, grp,
-                      u[b], z[b], *tail, wave=W)
+    def step():
+        for a in recorded:
+            real_launch(*a)
 
-        def state0():
-            return (st["betas"].clone(), st["comp"].clone(),
-                    st["acum"].clone())
-
-        # The last block (pad slots), the first and one in the middle.
-        drawn = set()
-        for b in (nblocks - 1, 0, nblocks // 2):
-            got_state, want_state = state0(), state0()
-            # Poison the allocator's free block of the delta's size, so an
-            # element the kernel leaves unwritten shows as NaN.
-            del_me = torch.full_like(st["eps"], float("nan"))
-            del del_me
-            got = whole(sk.block_sweep, b, got_state)
-            torch.cuda.synchronize()
-            want = whole(sk.block_sweep_plain, b, want_state)
-            if not torch.equal(got[2], want[2]):
-                fail(f"{name}, block {b}: comp differs from the plain "
-                     f"version in {int((got[2] != want[2]).sum())} entries")
-            if not torch.isfinite(got[0]).all():
-                fail(f"{name}, block {b}: the delta has unwritten or "
-                     f"non-finite elements")
-            d_eps, d_beta = max_err(got[0], want[0]), max_err(got[1],
-                                                              want[1])
-            if d_eps > 1e-4 or d_beta > 1e-4:
-                fail(f"{name}, block {b}: max|deps| {d_eps:.3e}, max|dbeta| "
-                     f"{d_beta:.3e} exceed 1e-4")
-            close(f"{name} acum", got[3], want[3], 1e-5, 1e-5)
-            if got[0][:, :, MB - 60:].abs().max() != 0:
-                fail(f"{name}, block {b}: pad columns of the delta are not 0")
-            err = max(err, d_eps, d_beta)
-            rows = slice(b * B, (b + 1) * B)
-            drawn |= set(want[2][:, rows].reshape(-1).tolist())
-            # The same block from copies of its own slices.
-            sl = sk.block_sweep(
-                b, MT, static.bed[rows], win[b], static.gram_cache[b:b + 1],
-                st["eps"], static.na, static.mave[:, rows].contiguous(),
-                static.msig[:, rows].contiguous(),
-                st["betas"][:, rows].contiguous(),
-                st["comp"][:, rows].contiguous(),
-                st["acum"][:, rows].contiguous(), grp[rows].contiguous(),
-                u[b], z[b], *tail, wave=W)
-            if not (torch.equal(sl[0], got[0])
-                    and torch.equal(sl[1], got[1][:, rows])
-                    and torch.equal(sl[2], got[2][:, rows])
-                    and torch.equal(sl[3], got[3][:, rows])):
-                fail(f"{name}, block {b}: the block's slices and the whole "
-                     f"arrays give different results")
-        if len(drawn) < 2:
-            fail(f"{name}: the parity cases drew a single component")
-        # An all-pad block contributes an all-zero delta.
-        pad = sk.block_sweep(0, 0, static.bed[:B], win[0],
-                             static.gram_cache[:1], st["eps"], static.na,
-                             static.mave[:, :B].contiguous() * 0,
-                             static.msig[:, :B].contiguous() * 0,
-                             st["betas"][:, :B].contiguous(),
-                             st["comp"][:, :B].contiguous(),
-                             st["acum"][:, :B].contiguous(),
-                             grp[:B].contiguous(), u[0], z[0], *tail, wave=W)
-        if pad[0].abs().max() != 0 or not torch.equal(
-                pad[1], st["betas"][:, :B]):
-            fail(f"{name}: an all-pad block moved the state or the delta")
-
-        b = nblocks // 2
-        state = state0()
-        blk_t = torch.tensor([b], dtype=i32, device=dev)
-
-        def run(fn):
-            return fn(blk_t, m_loc, static.bed, win[b], static.gram_cache,
-                      st["eps"], static.na, static.mave, static.msig, *state,
-                      grp, u[b], z[b], *tail, wave=W)
-
-        eager_ms.append(call_ms(lambda: run(sk.block_sweep), 200))
-        plain_ms.append(cuda_ms(lambda: run(sk.block_sweep_plain), 5))
-        # A cooperative launch is not captured into a CUDA graph, and the
-        # wrapper's checks cost the host more than the kernel costs the
-        # device.  Device time per launch: the wrapper's own launch call,
-        # recorded once and repeated back to back with the same operands,
-        # so that launches queue up, between CUDA events.
-        recorded = []
-        real_launch = _build.launch
-        _build.launch = lambda *a: recorded.append(a) or real_launch(*a)
-        try:
-            run(sk.block_sweep)
-        finally:
-            _build.launch = real_launch
-        ms.append(call_ms(lambda: real_launch(*recorded[0]), 2000))
-        if bound is None:
-            got = whole(sk.block_sweep, b, state0())
-            rows = slice(b * B, (b + 1) * B)
-            dbeta = (st["betas"][:, rows] - got[1][:, rows])[:, win[b].long()]
-            moved = int((dbeta.reshape(T, B // W, W) != 0).any(dim=2)
-                        .any(dim=0)[:-1].sum())
-            f4 = 4
-            nbytes = (B * MB + nt * (2 * B) ** 2 * f4 + 2 * T * 4 * MB * f4
-                      + nt * 4 * MB * f4 + 11 * T * B * f4 + 2 * B * f4)
-            flops = (2 * 4 * T * B * 4 * MB
-                     + 9 * T * (B * B - B * W) // 2 + T * B * K * 12
-                     + moved * 2 * T * W * B)
-            bound = bound_of(nbytes, (flops, F32_OPS))
-    plan = sk.block_sweep_plan(T, B, MB, 1, K, W)
-    return (err, ms, plain_ms, eager_ms, bound), plan
+    ms = call_ms(step, 300)
+    del keep
+    return ms, len(recorded)
 
 
 def anchor_dataset(tmp):
@@ -1393,7 +1606,8 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
     sigmae = 0.5 * (first.eps * first.eps).sum(dim=(1, 2)) / statics[0].nonas
     n_launch = n_shards * nblocks
     if opt.wave_size > 1:
-        sides = (("fused", dev, None, {"block_sweep": n_launch}),
+        # One launch per block step for all shards.
+        sides = (("fused", dev, None, {"block_sweep": nblocks}),
                  ("composed", dev, False,
                   dict.fromkeys(COMPOSED_KERNELS, n_launch)))
     else:
@@ -1444,11 +1658,13 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
 
 
 def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
-                           nccl=False):
+                           nccl=False, check_launches=True):
     """Phases 4d and 4e: run_training_sharded through the entry point, all
     shards on the one card; with ``nccl`` inside a one-rank NCCL process
-    group.  The Gram cache launches once per shard, the fused per-block
-    kernel once per shard, block step and iteration, nothing else."""
+    group.  The Gram cache launches once per shard, kernel 9 once per block
+    step and iteration (all shards in one launch), nothing else;
+    ``check_launches`` False skips that check, for a tree of another
+    cadence."""
     import numpy as np
     import torch.distributed as dist
     from gmrm_tpu_torch.io.writers import read_history
@@ -1472,10 +1688,9 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     if opt.wave_size != W:
         fail(f"S={n_shards} training: the plan resolved to W={opt.wave_size}")
     nblocks = -(-(-(-MT // n_shards)) // B)     # ceil(ceil(MT / S) / B)
-    want = {"gram_cache": n_shards,
-            "block_sweep": n_shards * nblocks * iterations}
+    want = {"gram_cache": n_shards, "block_sweep": nblocks * iterations}
     for name, n in launches.items():
-        if n != want.get(name, 0):
+        if check_launches and n != want.get(name, 0):
             fail(f"S={n_shards} training: kernel {name} launched {n} times, "
                  f"expected {want.get(name, 0)}")
     for ph in sim.phens:
@@ -1642,12 +1857,14 @@ def profile_phase(sim, dev, n_shards=0, wave=W):
     # replays.
     launches = sum(1 for e in events
                    if e.name.startswith(("cudaLaunch", "cudaGraphLaunch")))
-    by_name = {}
+    by_name, count = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + device_us(e)
+        count[e.name] = count.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    # (name, device ms per iteration, launches per iteration)
     return (busy_us / 1e3 / n, wall * 1e3 / n, launches / n,
-            [(k[:48], round(v / 1e3 / n, 3)) for k, v in top])
+            [(k[:48], round(v / 1e3 / n, 3), count[k] / n) for k, v in top])
 
 
 SOURCES = {
@@ -1674,6 +1891,81 @@ SOURCES = {
 # pass for kernel 4 followed by kernel 2.
 ALSO_REPLACES = {"sweep_blocks": "gmrm_tpu/ops/sweep_kernel.py:576",
                  "update_cdot": "gmrm_tpu/ops/pallas_kernels.py:275"}
+
+
+def sharded_host_us(sim, dev, n_shards, reps=3):
+    """Host microseconds per block step of one sharded sweep at the anchor,
+    all shards on the card: the time marker_sweep_sharded takes to return
+    (the device still working), the sweep's set-up included, over its
+    block steps; the least of ``reps`` sweeps."""
+    import torch
+    from gmrm_tpu_torch.parallel.distributed import Communicator
+    from gmrm_tpu_torch.sampler.gibbs import _sweep_draws, marker_sweep_sharded
+
+    opt, data, statics, states, rngs = sharded_setup(sim, dev, n_shards)
+    first = states[0]
+    sigmae = 0.5 * (first.eps * first.eps).sum(dim=(1, 2)) / statics[0].nonas
+    draws = [_sweep_draws(st, sta, 1, rng, B, opt.wave_size, True)
+             for st, sta, rng in zip(states, statics, rngs)]
+    nblocks = draws[0][0].shape[0]
+    comm = Communicator(dev)
+    best = float("inf")
+    for _ in range(reps):
+        eps = first.eps.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marker_sweep_sharded(
+            eps, [(st.betas, st.comp, st.acum) for st in states],
+            first.sigmag, sigmae, first.pi_est, statics,
+            [d[0] for d in draws], [d[1] for d in draws],
+            [d[2] for d in draws], wave=opt.wave_size, comm=comm)
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / nblocks * 1e6
+
+
+def sharded_only(dev, reps, card, repo):
+    """Phase 4d (S=2 and S=4) and the sharded profiler windows (S=1, 2, 4)
+    ``reps`` times on one simulated anchor, with the host microseconds per
+    block step of a sharded sweep, and kernel 9's device time per block
+    step of 1, 2 and 4 shards at the anchor's width and on the wide panels
+    of phase 2, for comparing two trees inside one call.  The launch counts are checked only for this
+    script's own tree."""
+    import torch
+    own = os.path.abspath(repo) == REPO
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = anchor_dataset(os.path.join(tmp, "data"))
+        for rep in range(reps):
+            for mb, shared in ((MB, True),) + WIDE_BLOCK_STEPS:
+                for n_sh in SHARDS_PHASE2:
+                    ms, n_launch = wide_step_ms(dev, gen, mb, shared, n_sh)
+                    print(f"# {repo}: block_sweep at mb_pad={mb}, "
+                          f"NT={1 if shared else T}, S_loc={n_sh}, run "
+                          f"{rep + 1}: {ms:.5f} ms per block step, "
+                          f"{n_launch} launch(es), back to back  [{card}]",
+                          flush=True)
+            for n_sh, wave, iters in SHARDED_RUNS:
+                run_dir = os.path.join(tmp, f"run{rep}_s{n_sh}")
+                os.makedirs(run_dir)
+                _, launches, steady, span, _, _ = sharded_training_phase(
+                    sim, dev, run_dir, n_sh, wave, iters,
+                    check_launches=own)
+                print(f"# {repo}: sharded training S={n_sh}, run {rep + 1}: "
+                      f"{steady * 1e3:.2f} ms/iteration over {span}; "
+                      f"launches {launches}  [{card}]", flush=True)
+            for n_sh in (1, 2, 4):
+                busy, wall, calls, top = profile_phase(sim, dev,
+                                                       n_shards=n_sh)
+                host = sharded_host_us(sim, dev, n_sh)
+                print(f"# {repo}: profiler sharded S={n_sh}, run {rep + 1}: "
+                      f"device busy {busy:.3f} of {wall:.3f} ms/iteration, "
+                      f"idle share {1 - busy / wall:.3f}, {calls:.1f} "
+                      f"host-issued launches per iteration; busiest kernels "
+                      f"(name, ms and launches per iteration) {top}; host "
+                      f"{host:.1f} us per block step of a sweep  [{card}]",
+                      flush=True)
 
 
 def training_only(dev, reps, card, repo):
@@ -1708,6 +2000,8 @@ def main():
                         metavar="REPS")
     parser.add_argument("--sweep-only", type=int, default=0,
                         metavar="REPS")
+    parser.add_argument("--sharded-only", type=int, default=0,
+                        metavar="REPS")
     parser.add_argument("--repo", default=REPO)
     args = parser.parse_args()
     t_start = time.perf_counter()
@@ -1727,9 +2021,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    if args.training_only:
+    if args.training_only or args.sharded_only:
         _build.library()
-        training_only(dev, args.training_only, card, args.repo)
+        if args.training_only:
+            training_only(dev, args.training_only, card, args.repo)
+        if args.sharded_only:
+            sharded_only(dev, args.sharded_only, card, args.repo)
         return
     if args.sweep_only:
         _build.library()
@@ -1804,19 +2101,47 @@ def main():
               f"time both in one call: --sweep-only N --repo PARENT_TREE",
               flush=True)
 
-        (err, t_k, t_p, t_call, bound), bplan = block_sweep_phase(dev, gen)
-        kernels["block_sweep"] = (err, t_k, t_p, t_call, bound)
-        print(f"# block_sweep, blocks of the same operands at NT=1 and NT={T}, "
-              f"from the shard's whole arrays in place and from the block's own "
-              f"slices, and an all-pad block: comp equal to the plain version, "
-              f"every element of the delta written, max abs err of the delta "
-              f"and beta {err:.3e}; kernel ms per launch {t_k} (CUDA events "
-              f"around 2,000 queued launches; a cooperative launch), plain ms "
-              f"{t_p} (CUDA graph replay), ms per eager call of the wrapper "
-              f"{t_call}; bound {bound[0]:.5f} ms by {bound[1]}; grid "
-              f"{bplan['grid']} CTAs x {bplan['cols']} byte columns, "
-              f"{bplan['smem_bytes']} bytes of shared memory, resident: "
-              f"{', '.join(bplan['resident'])}  [{card}]", flush=True)
+        err, bs = block_sweep_phase(dev, gen)
+        wide = {mb: block_sweep_phase(dev, gen, mb, STEP_MT, (shared,))
+                for mb, shared in WIDE_BLOCK_STEPS}
+        rows9 = [(MB, k, r) for k, r in bs.items()]
+        rows9 += [(mb, k, r) for mb, (_, res) in wide.items()
+                  for k, r in res.items()]
+        for mb, (n_sh, nt), r in sorted(rows9, key=lambda x: x[:2]):
+            plan = r["plan"]
+            print(f"# block_sweep, one block step of S_loc={n_sh} shards, "
+                  f"NT={nt}, mb_pad={mb}: kernel ms per step "
+                  f"{r['ms']:.5f} (CUDA graph replay), {r['eager_ms']:.5f} "
+                  f"per eager step, host {r['host_us']:.1f} us per step; "
+                  f"plain ms {r['plain_ms']:.4f}; torch.matmul yardstick "
+                  f"(c-dot and delta of {n_sh} block(s), pre-decoded f32) "
+                  f"{r['matmul_ms']:.5f} ms; bound {r['bound'][0]:.5f} ms "
+                  f"by {r['bound'][1]}; {plan['cap']} shard(s) a launch, "
+                  f"grid {plan['column_ctas'] + min(n_sh, plan['cap'])} "
+                  f"CTAs ({plan['column_ctas']} column CTAs of "
+                  f"{plan['span']} byte columns in {plan['tiles']} tile(s) "
+                  f"of {plan['cols']}), {plan['smem_bytes']} bytes of "
+                  f"shared memory, resident: "
+                  f"{', '.join(plan['resident']) or 'nothing extra'}  "
+                  f"[{card}]", flush=True)
+            print(f"# block_sweep stamps, S_loc={n_sh}, NT={nt}, mb_pad={mb}"
+                  f": {r['split']}  [{card}]", flush=True)
+        err = max([err] + [e for e, _ in wide.values()])
+        print(f"# block_sweep: comp equal to the plain version, every "
+              f"element of the sum written, max abs err of the sum and beta "
+              f"{err:.3e}; two launches, out mode + add against in place, "
+              f"one shard a launch against one launch, the block's slices "
+              f"against the whole arrays: bit-equal.  Beside its earlier "
+              f"design (one launch per shard and step): "
+              f"{EARLIER_BLOCK_SWEEP_MS} ms per launch of one shard's block "
+              f"(NT=1, NT={T}) and per eager wrapper call, as recorded in "
+              f"PERF.md on an NVIDIA H100 80GB HBM3 at 700 W.  To time both "
+              f"in one call, the wide panels too: --sharded-only N --repo "
+              f"PARENT_TREE", flush=True)
+        # The row: two local shards at NT=1, the cadence of phase 4d's S=2.
+        r = bs[(2, 1)]
+        kernels["block_sweep"] = (err, [r["ms"]], [r["plain_ms"]],
+                                  [r["eager_ms"]], r["bound"])
 
         t0 = time.perf_counter()
         sim, small, big = (f.result() for f in sims)

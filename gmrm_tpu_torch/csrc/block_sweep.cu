@@ -1,116 +1,175 @@
-// One Gram block of the wave-mode sweep (W > 1) in one launch, with the
-// residual as a read-only input and the block's residual DELTA as an output:
-// the unit of work of the marker-sharded sweep, whose caller sums the deltas
-// of all shards before any of them touches the residual.
+// One block step of the marker-sharded wave-mode sweep (W > 1) for all of a
+// process's local shards in one launch.  Every shard sweeps its own natural
+// block against the one residual eps; the launch sums the shards' residual
+// deltas in shard order and either writes that local sum (out mode: the
+// caller sums it over processes and adds it into eps) or adds it into eps
+// itself (in-place mode: no process group, so the sum over processes is the
+// identity).
 //
-// For natural block blk = *blk_b of the shard's operands, marker rows
-// blk*B + win[i], i the processing position:
+// For local shard s, natural block blk = blk_s[step], marker rows
+// blk*B + win_s[step, i], i the processing position:
 //   (1) c[t, i] = msig (A_i . eps_t - mave B_i . eps_t) over all individuals,
 //       base = c + beta_old (nonas - 1);
 //   (2) the block's cached raw Gram quadrants gathered through win and scaled
 //       (sweep_math.cuh);
 //   (3) B/W waves of the mixture scan with the rank-W fold of corr;
-//   (4) deps[t, k, n] = na[t, k, n] sum_i dbeta msig (a_i - mave b_i), every
-//       element written (pad columns and all-pad blocks give zeros): deps is
-//       the operand of a sum across processes;
+//   (4) d_s[t, k, n] = na[t, k, n] sum_i dbeta msig (a_i - mave b_i);
 //   (5) beta, comp, acum of the block updated in place, in their natural
 //       slots.
+// Then sum = ((d_0 + d_1) + d_2) + ..., onto the previous launch's sum when
+// one step of many shards is split into several launches, and
+// out = sum (every element written) or eps = eps + sum.
 //
 // Replaces _block_sweep_kernel (gmrm_tpu/ops/sweep_kernel.py:961, call :1082,
-// wrapper block_sweep_pallas :1104).  Not carried over: the one-hot matrix
-// permute of the bed rows (here the row order is an index load), the bf16
-// hi/lo splits of eps and of the update's left operand, the lane tiling and
-// the B <= 512 / G <= 256 ceilings.  blk_b and m_local are read on the device,
-// so the host never waits on them inside its block loop.
+// wrapper block_sweep_pallas :1104), which runs one shard's block per call;
+// the shards of one device there are the devices of a mesh.  Not carried
+// over: the one-hot matrix permute of the bed rows (here an index load), the
+// bf16 hi/lo splits, the lane tiling and the B <= 512 / G <= 256 ceilings.
 //
-// Bound on the H100: latency.  One block moves ~1 MB (the bed rows once, the
-// raw Gram, eps in and deps out) and does ~42 Mflop, under a microsecond of
-// either; the time goes to the launch, three grid-wide barriers and the scan, which only
-// one CTA can run.  The design is one block of csrc/sweep_blocks.cu with
-// nothing to overlap across blocks:
-//   - a cooperative grid, one CTA per SM at most, CTA g owning byte columns
-//     [g*S, (g+1)*S).  Every CTA stages the row order, the block's marker
-//     statistics and its bed bytes in shared memory, where (1) and (4) read
-//     them; CTA 0 also loads the block's marker state, which does not depend
-//     on eps, before the first barrier;
-//   - all CTAs build the scaled Gram entries (j, i) that a fold reads (i in a
-//     later wave than j) into a scratch, then their partial sums of (1) (a
-//     thread per marker row and column part, summed in a fixed order); grid
-//     sync; each CTA sums its share of the 2TB sums over all CTAs' partials in
-//     CTA order; grid sync;
-//   - CTA 0 runs (3) and (5) and publishes dbeta; grid sync;
-//   - all CTAs write (4) for their columns, a thread per byte column and row
-//     part.
-// No float atomics and every sum in a fixed order, so a delta, and with it a
-// chain, is reproducible bit for bit; _rn intrinsics and IEEE expf in the draw
-// and the Gram scaling, so comp equals the plain version's.
-//
-// The code is a copy of the matching pieces of sweep_blocks.cu, not shared
-// with it: moving the draw into a shared header once changed the schedule of
-// wave_scan.cu and nearly doubled its time (see sweep_math.cuh), so the
-// whole-sweep kernel's source stays as it is.
-#include <cooperative_groups.h>
+// Bound on the H100: latency.  One shard's block moves ~1 MB (the bed rows,
+// the raw Gram, eps and the delta) and does ~42 Mflop, under a microsecond
+// of either; what a step costs is its chain of hand-offs: the c-dot's
+// reduction over N, a scan that one CTA runs, and the update.  So, one CTA
+// of 512 threads an SM, as csrc/sweep_blocks.cu has it:
+//   - column CTAs: CTA g owns byte columns [g*span, (g+1)*span) of the
+//     residual for every local shard, span the fewest bytes, a multiple of
+//     4, that spread the residual over the SMs left beside the scan CTAs
+//     (20 at the anchor: 128 CTAs).  It takes them in tiles of C columns,
+//     C the widest that leaves every shard's slices of a tile in shared
+//     memory (one tile, C = span, unless the panel is wide).  For each tile
+//     it stages every shard's B bed rows, their statistics and the slices
+//     of eps and na in one round of cp.async copies and adds each shard's
+//     centred c-dot partial of the tile to its sums; then it sends the
+//     partials of all shards up a fixed-order two-level tree of int tickets
+//     at once (block_passes.cuh: the last CTA of a group of GROUP sums the
+//     group in CTA order; the last group tells the scan), and builds its
+//     share of every shard's scaled Gram, the entries (j, i) that the fold
+//     reads (i in a later wave than j), which do not depend on eps;
+//   - scan CTAs, one per local shard, on other SMs at the same time.  While
+//     the column CTAs work, a scan CTA loads its shard's marker state, draws
+//     and per-marker tables; then it waits for its shard's groups, sums them
+//     in group order into c and base, and draws the waves as sweep_blocks.cu
+//     does, publishing each wave's dbeta under a flag as soon as it is
+//     drawn.  The scaled Gram is first read by the fold of the first wave:
+//     only there does the scan CTA wait for it, and copy it into shared
+//     memory where it fits;
+//   - each column CTA applies each wave of every shard as it arrives into a
+//     per-shard accumulator of its last tile, the one left staged, so that
+//     after the last wave only that wave's update is left, then sums the
+//     shards in shard order and writes the sum or adds it into eps.  Its
+//     other tiles, on a wide panel, are staged again (from L2) once every
+//     wave is in and take the same passes.  A column CTA is the only reader
+//     and writer of its eps columns within the launch, and the next block
+//     step is the next launch.
+// No grid-wide barrier, and nothing for the host to reset: each ticket's
+// last arrival zeroes it, and the last CTA to finish zeroes the flags, so
+// the next launch, or a replay of a captured one, finds the scratch as the
+// first launch found it.  The readers spin, so every CTA must be resident: a
+// cooperative launch on a grid checked against occupancy; a hand-off that
+// has not come in 4 s traps instead of hanging.  No float atomics and every
+// sum in a fixed order: a step, and with it a chain, is reproducible bit for
+// bit, and a step split over several launches gives the bits of one launch.
+// _rn intrinsics and IEEE expf in the draw and the Gram scaling, so comp
+// equals the plain version's.  The scan is a copy of csrc/sweep_blocks.cu's,
+// not shared with it: moving the draw into a shared header once changed the
+// schedule of wave_scan.cu and nearly doubled its time (see sweep_math.cuh).
+// With a stamp buffer, thread 0 of every CTA records %globaltimer at the
+// events of BLOCK_STEP_STAMPS (ops/sweep_kernel.py), in a separate
+// instantiation.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
 #include <mutex>
 
-#include "decode.cuh"
+#include "block_passes.cuh"
 #include "sweep_math.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAX_T = 8;
-constexpr int THREADS = 512;
-constexpr int MAX_ROW_PARTS = 16;
-enum { BED_SMEM = 1, TAB_SMEM = 2 };
+constexpr int MAX_SHARDS = 16;  // shards of one launch (kernel parameters)
+constexpr int BS_THREADS = 512;
+constexpr int NWARPS = BS_THREADS / 32;
+constexpr int BS_NST = 6;       // %globaltimer stamps per CTA
+// What the scan CTAs keep in shared memory: the scaled Gram, the per-marker
+// copies of the group tables.
+enum { GS_SMEM = 1, TAB_SMEM = 2 };
+enum { ACCUMULATE = 1, IN_PLACE = 2 };  // mode bits of a launch
+// Sync words of a shard's slot of the scratch, each on its own line: the
+// top ticket, the c flag (the groups' sums are in), the dbeta flag (the
+// waves published); in slot 0 only, the exit ticket and the count of
+// column CTAs that have built their share of the scaled Grams; then one
+// ticket per group.
+enum { SYNC_TOP = 0, SYNC_C = 1, SYNC_DBETA = 2, SYNC_DONE = 3, SYNC_GS = 4,
+       SYNC_GROUPS = 5 };
 
-struct BlockArgs {
-  const int* blk_b;       // (1,) natural block id, on the device
-  const int* m_local;     // (1,) real marker count of the shard, on the device
-  const uint8_t* bed;     // (nb*B, mb) natural order
-  const int* win;         // (B,)
-  const float* gram;      // (nb, nt, 2B, 2B)
-  const float* eps;       // (T, 4, mb), read only
-  const float* na;        // (nt, 4, mb)
-  const float* mave;      // (T, nb*B) natural order, as msig, beta, comp,
-  const float* msig;      //   acum and grp (nb*B,)
-  float* beta;            // the block's slots are updated in place
+// One shard's operands, as the host's table holds them.
+struct ShardOps {
+  const int* blk;       // (nblocks,) natural block of each step
+  const int* win;       // (nblocks, B) row order of each step
+  const uint8_t* bed;   // (nb*B, mb) natural order
+  const float* gram;    // (nb, nt, 2B, 2B)
+  const float* mave;    // (T, nb*B) natural order, as msig, beta, comp,
+  const float* msig;    //   acum and grp (nb*B,)
+  float* beta;          // the block's slots are updated in place
   int* comp;
   float* acum;
   const int* grp;
-  const float* u;         // (T, B) processing order
+  const float* u;       // (nblocks, T, B) processing order
   const float* z;
-  const float* sigmag;    // (T, G)
-  const float* lc;        // (K, T, G)
+  const int* m_loc;     // (1,) real marker count on the device, or null
+  int nb;               // natural blocks in the operands
+  int m_local;          // the real marker count when m_loc is null
+};
+
+struct StepArgs {
+  ShardOps sh[MAX_SHARDS];
+  float* eps;           // (T, 4, mb): read; written in IN_PLACE mode
+  const float* na;      // (nt, 4, mb)
+  float* out;           // (T, 4, mb) the local sum: written unless
+                        //   IN_PLACE, read with ACCUMULATE
+  const float* sigmag;  // (T, G)
+  const float* lc;      // (K, T, G)
   const float* rd;
   const float* sqb;
-  const float* i2se;      // (T,)
-  const float* nonas;     // (T,)
-  float* deps;            // (T, 4, mb), every element written
-  float* part;            // (CTAs, 2T, B) scratch
-  float* red;             // (2T, B) scratch: the partials summed
-  float* gs;              // (T, B, B) scratch: scaled Gram, later waves only
-  float* dbuf;            // (T, B) scratch: dbeta
-  int nb, T, B, mb, nt, K, W, G, S, flags;
+  const float* i2se;    // (T,)
+  const float* nonas;   // (T,)
+  unsigned* scratch;    // one slot per shard of the launch
+  unsigned long long* stamps;  // (grid, BS_NST) or null
+  size_t slot_words;
+  int step, ns, mode;
+  int T, B, mb, nt, K, W, G, C, span, cap, vec, flags, ncol, ngroups,
+      gs_tot;
 };
 
-// Shared memory offsets in bytes; the same layout in every CTA.  Only CTA 0
-// uses the scan's part.
+// The packed scaled Gram, as csrc/sweep_blocks.cu keeps it: per trait, wave
+// after wave, W rows of B - (w+1)W floats (the markers after the wave).
+__host__ __device__ inline int gs_wave_offset(int B, int W, int w) {
+  return W * (w * B - W * (w * (w + 1) / 2));
+}
+
+// Shared memory offsets in bytes.  Scan CTAs and column CTAs lay out the
+// same allocation differently; total is the larger of the two.
 struct Layout {
-  size_t win, row, grp, mave, msig, x0, x1, red, bed;
-  size_t s_comp, s_flag, s_beta, s_acum, s_db, s_wdb, s_lc, s_rd, s_sqb;
+  // column CTAs; per shard of the launch: row, win, mave, msig, bed, acc
+  size_t row, win, mave, msig, bed, eps, na, red, acc, dm, last;
+  // scan CTAs
+  size_t s_row, s_grp, s_beta, s_acum, s_comp, s_flag, s_u, s_z, s_x0,
+      s_x1, s_wdb, s_lc, s_rd, s_sqb, s_gs;
   size_t total;
-  int SP;   // bed row stride in shared memory
-  int P;    // column parts per marker row in step (1)
-  int R;    // row parts per byte column in step (4)
+  int SP;  // bed row stride in bytes: an odd number of words
+  int P;   // column parts of the c-dot (threads per marker row)
+  int WP;  // words of a part
+  int RP;  // row parts of a wave in the update (accumulators per shard)
 };
 
+// ns shards in a launch of a plan that takes `cap`: the parts P and RP
+// depend on the plan only, so that every launch of a step sums in the same
+// order; each is as small as keeps the CTA's threads busy at `cap`
+// shards, which keeps the partials and the accumulators small.
 __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
-                                              int S, int flags) {
+                                              int nt, int C, int ns,
+                                              int flags, int cap) {
   Layout L;
   size_t off = 0;
   auto take = [&off](size_t bytes) {
@@ -119,456 +178,835 @@ __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
     return o;
   };
   const size_t tb = (size_t)T * B * 4;
-  // An odd word stride keeps rows that 32 threads read at once in 32 banks.
-  L.SP = ((S + 3) / 4) * 4;
-  if ((L.SP / 4) % 2 == 0) L.SP += 4;
-  L.P = B <= THREADS ? THREADS / B : 1;
-  L.R = S <= THREADS ? THREADS / S : 1;
-  if (L.R > MAX_ROW_PARTS) L.R = MAX_ROW_PARTS;
-  if (L.R > B) L.R = B;
-  L.win = take((size_t)B * 4);
-  L.row = take((size_t)B * 4);
-  L.grp = take((size_t)B * 4);
-  L.mave = take(tb);
-  L.msig = take(tb);
-  L.x0 = take(tb);   // base in the scan, msig * dbeta in step (4)
-  L.x1 = take(tb);   // corr in the scan, mave * msig * dbeta in step (4)
-  const size_t red_a = (size_t)L.P * 2 * tb;
-  const size_t red_c = L.R > 1 ? (size_t)L.R * T * 4 * S * 4 : 0;
-  L.red = take(red_a > red_c ? red_a : red_c);
-  L.bed = take((flags & BED_SMEM) ? (size_t)B * L.SP : 0);
-  L.s_comp = take(tb);
-  L.s_flag = take(tb);
+  const size_t plane = (size_t)T * 4 * C * 4;
+  L.SP = ((C / 4) % 2 == 0) ? C + 4 : C;
+  const int p_busy = (BS_THREADS + cap * B - 1) / (cap * B);
+  L.P = C / 4 < 8 ? C / 4 : 8;
+  if (p_busy < L.P) L.P = p_busy;
+  L.WP = (C / 4 + L.P - 1) / L.P;
+  // The update: a thread per shard, row part, plane and word (4 columns),
+  // at most one round of the CTA's threads where the columns allow.
+  const int r_fit = BS_THREADS / (cap * C);
+  L.RP = r_fit < 1 ? 1 : (r_fit < 8 ? r_fit : 8);
+  if (L.RP > W) L.RP = W;
+  L.row = take((size_t)ns * B * 4);
+  L.win = take((size_t)ns * B * 4);
+  L.mave = take(ns * tb);
+  L.msig = take(ns * tb);
+  L.bed = take((size_t)ns * B * L.SP);
+  L.eps = take(plane);
+  L.na = take((size_t)nt * 4 * C * 4);
+  L.red = take((size_t)ns * L.P * 2 * tb);
+  L.acc = take((size_t)ns * L.RP * plane);
+  L.dm = take((size_t)ns * T * W * 8);
+  L.last = take((size_t)ns * 4);
+  const size_t col_total = off;
+  off = 0;
+  L.s_row = take((size_t)B * 4);
+  L.s_grp = take((size_t)B * 4);
   L.s_beta = take(tb);
   L.s_acum = take(tb);
-  L.s_db = take(tb);
-  L.s_wdb = take((size_t)T * W * 4);
+  L.s_comp = take(tb);
+  L.s_flag = take(tb);
+  L.s_u = take(tb);
+  L.s_z = take(tb);
+  L.s_x0 = take(tb);  // msig, then base
+  L.s_x1 = take(tb);  // corr
+  L.s_wdb = take((size_t)2 * T * W * 4);
   const size_t tab = (flags & TAB_SMEM) ? (size_t)K * tb : 0;
   L.s_lc = take(tab);
   L.s_rd = take(tab);
   L.s_sqb = take(tab);
-  L.total = off;
+  L.s_gs = take((flags & GS_SMEM)
+                    ? (size_t)T * gs_wave_offset(B, W, B / W - 1) * 4
+                    : 0);
+  L.total = off > col_total ? off : col_total;
   return L;
 }
 
-template <int MT, int MK>
-__global__ void __launch_bounds__(THREADS)
-block_sweep_kernel(const BlockArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int T = a.T, B = a.B, W = a.W, K = a.K, G = a.G, S = a.S, mb = a.mb;
-  const int TB = T * B;
-  const Layout L = make_layout(T, B, W, K, S, a.flags);
-  const int SP = L.SP;
-  const bool bed_s = a.flags & BED_SMEM;
-  const bool tab_s = a.flags & TAB_SMEM;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int cta = blockIdx.x;
-  const int ncta = gridDim.x;
-  const int col0 = cta * S;
-  const int ncol = min(S, mb - col0);
+// A shard's slot of the scratch in 32-bit words, each piece on its own
+// line: the sync words, the column CTAs' partials (ncol, T, B), the groups'
+// sums (ngroups, T, B), dbeta (T, B) and the packed scaled Gram (T, gs_tot),
+// which the scan CTA copies into shared memory where it fits.
+struct Slot {
+  size_t part, gpart, dbuf, gs, total;
+};
 
-  const int blk = *a.blk_b;
-  const int m_local = *a.m_local;
+__host__ __device__ inline Slot slot_layout(int ncol, int ngroups, int T,
+                                            int B, int gs_tot) {
+  Slot s;
+  size_t off = (size_t)(SYNC_GROUPS + ngroups) * LINE;
+  auto take = [&off](size_t words) {
+    const size_t o = off;
+    off += (words + LINE - 1) / LINE * LINE;
+    return o;
+  };
+  const size_t tb = (size_t)T * B;
+  s.part = take((size_t)ncol * tb);
+  s.gpart = take((size_t)ngroups * tb);
+  s.dbuf = take(tb);
+  s.gs = take((size_t)T * gs_tot);
+  s.total = off;
+  return s;
+}
+
+// The hand-offs, as CUTLASS's generic barrier makes them: the CTA's threads
+// write, __syncthreads(), then thread 0 releases at GPU scope; a waiting
+// CTA's thread 0 spins on an acquire load, then __syncthreads().
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The calling thread returns once *p >= target (a launch takes tens of
+// microseconds: 4 s means a lost hand-off, and the kernel traps).
+__device__ __forceinline__ void spin_geq(const unsigned* p, unsigned target) {
+  if (ld_acquire(p) < target) {
+    const unsigned long long t0 = global_ns();
+    while (ld_acquire(p) < target)
+      if (global_ns() - t0 > 4000000000ull) __trap();
+  }
+}
+
+// Every thread of the CTA returns once *p >= target.
+__device__ __forceinline__ void wait_geq(const unsigned* p, unsigned target) {
+  if (threadIdx.x == 0) spin_geq(p, target);
+  __syncthreads();
+}
+
+template <bool ST>
+__device__ __forceinline__ void stamp(const StepArgs& a, int e) {
+  if (ST && threadIdx.x == 0)
+    a.stamps[(size_t)blockIdx.x * BS_NST + e] = global_ns();
+}
+
+// The natural block of a shard's step and its offset in the operands.
+__device__ __forceinline__ int shard_block(const ShardOps& s, int step) {
+  const int blk = s.blk[step];
   // A block outside the operands would read and write out of bounds.
-  if (a.nb > 1 && (blk < 0 || blk >= a.nb)) __trap();
-  const int off = a.nb > 1 ? blk * B : 0;        // the block in the operands
-  const size_t m_in = (size_t)a.nb * B;
+  if (s.nb > 1 && (blk < 0 || blk >= s.nb)) __trap();
+  return blk;
+}
 
-  int* swin = (int*)(sm + L.win);
-  int* srow = (int*)(sm + L.row);
-  int* sgrp = (int*)(sm + L.grp);
-  float* smave = (float*)(sm + L.mave);
+// ---- the column CTAs -------------------------------------------------------
+template <int MT, bool ST>
+__device__ __forceinline__ void column_cta(const StepArgs& a, const Layout& L,
+                                           unsigned char* sm) {
+  const int T = a.T, B = a.B, W = a.W, C = a.C, mb = a.mb, ns = a.ns;
+  const int TB = T * B, T4C = T * 4 * C;
+  const int nw = B / W;
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x - ns;
+  // The CTA's columns [own0, own1), in tiles of C: the last tile's bed
+  // rows stay in shared memory for the waves, the others are streamed.
+  const int own0 = g * a.span;
+  const int own1 = min(own0 + a.span, mb);
+  const int ntile = (own1 - own0 + C - 1) / C;
+  const int C4 = C / 4;
+  const int group = g / GROUP;
+  const int gsize = min(GROUP, a.ncol - group * GROUP);
+  const Slot so = slot_layout(a.ncol, a.ngroups, T, B, a.gs_tot);
+  int* srow = (int*)(sm + L.row);           // (ns, B) rows in the operands
+  int* swin = (int*)(sm + L.win);           // (ns, B) rows in the block
+  float* smave = (float*)(sm + L.mave);     // (ns, T, B) processing order
   float* smsig = (float*)(sm + L.msig);
-  float* sx0 = (float*)(sm + L.x0);
-  float* sx1 = (float*)(sm + L.x1);
-  float* sred = (float*)(sm + L.red);
-  uint8_t* sbed = sm + L.bed;
-  int* scomp = (int*)(sm + L.s_comp);
-  int* sflag = (int*)(sm + L.s_flag);      // bit 0 live, bit 1 zerob
-  float* sbeta = (float*)(sm + L.s_beta);
-  float* sacum = (float*)(sm + L.s_acum);
-  float* sdb = (float*)(sm + L.s_db);
-  float* swdb = (float*)(sm + L.s_wdb);    // (T, W) this wave's dbeta
-  float* slc = (float*)(sm + L.s_lc);      // (K, T, B) per-marker tables
-  float* srd = (float*)(sm + L.s_rd);
-  float* ssqb = (float*)(sm + L.s_sqb);
+  uint8_t* sbed = sm + L.bed;               // (ns, B, SP)
+  float* seps = (float*)(sm + L.eps);       // (T*4, C)
+  float* sna = (float*)(sm + L.na);         // (nt*4, C)
+  float* sred = (float*)(sm + L.red);       // (P, 2T, B)
+  float* sacc = (float*)(sm + L.acc);       // (ns, T*4, C)
+  float2* sdm = (float2*)(sm + L.dm);       // (T, W): d, mave * d
+  int* slast = (int*)(sm + L.last);         // (ns,) last of its group/top
+  auto slot = [&](int q) { return a.scratch + (size_t)q * a.slot_words; };
+  stamp<ST>(a, 0);
 
-  // ---- stage the row order, the statistics and the CTA's bed bytes --------
+  // The slices of eps and na and every shard's B bed rows of the tile at
+  // col0 (zeros, and the pad byte 0x55 with a = b = 0, past the CTA's
+  // columns), in one round of cp.async copies; with `stats`, also every
+  // shard's statistics in processing order.
+  auto stage = [&](int col0, bool stats) {
 #pragma unroll 1
-  for (int i = tid; i < B; i += THREADS) {
-    const int w = a.win[i];
-    swin[i] = w;
-    srow[i] = off + w;
-    sgrp[i] = a.grp[off + w];
-  }
-  __syncthreads();
-#pragma unroll 1
-  for (int x = tid; x < TB; x += THREADS) {
-    const size_t o = (size_t)(x / B) * m_in + srow[x % B];
-    const float va = a.mave[o], vs = a.msig[o];
-    smave[x] = va;
-    smsig[x] = vs;
-  }
-  if (bed_s) {
-    // Eight rows' loads in flight per warp before the first store.
-    constexpr int NW = THREADS / 32, RB = 8;
-    for (int i0 = warp; i0 < B; i0 += NW * RB) {
-      for (int c = lane; c < ncol; c += 32) {
-        uint8_t v[RB];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int i = i0 + r * NW;
-          v[r] = i < B ? a.bed[(size_t)srow[i] * mb + col0 + c] : 0;
+    for (int pl = 0; pl < 2; ++pl) {
+      const float* src = pl == 0 ? a.eps : a.na;
+      float* dst = pl == 0 ? seps : sna;
+      const int np = (pl == 0 ? T : a.nt) * 4;
+      if (a.vec) {
+        for (int y = tid; y < np * C4; y += BS_THREADS) {
+          const int p = y / C4, c = 4 * (y % C4);
+          float* d = dst + p * C + c;
+          if (col0 + c < own1)
+            cp_async16(d, src + (size_t)p * mb + col0 + c);
+          else
+            *(float4*)d = make_float4(0.f, 0.f, 0.f, 0.f);
         }
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int i = i0 + r * NW;
-          if (i < B) sbed[(size_t)i * SP + c] = v[r];
+      } else {
+        for (int y = tid; y < np * C; y += BS_THREADS) {
+          const int p = y / C, c = y % C;
+          dst[y] = col0 + c < own1 ? src[(size_t)p * mb + col0 + c] : 0.f;
         }
       }
     }
-  }
-  // CTA 0: the block's marker state in processing order, and valid, live and
-  // zerob from m_local, grp and sigmag
-  // (gmrm_tpu/ops/sweep_kernel.py:201-213).  None of it depends on eps.
-  if (cta == 0) {
 #pragma unroll 1
-    for (int x = tid; x < TB; x += THREADS) {
-      const int t = x / B, i = x % B;
-      const size_t o = (size_t)t * m_in + srow[i];
-      const int tg = t * G + sgrp[i];
-      const float v_beta = a.beta[o], v_acum = a.acum[o];
-      const int v_comp = a.comp[o];
-      const bool adav = a.sigmag[tg] == 0.0f;
-      float tl[MK], tr[MK], ts[MK];
-#pragma unroll
-      for (int k = 0; k < MK; ++k) {
-        if (tab_s && k < K) {
-          const size_t s = (size_t)k * T * G + tg;
-          tl[k] = a.lc[s];
-          tr[k] = a.rd[s];
-          ts[k] = a.sqb[s];
+    for (int q = 0; q < ns; ++q) {
+      const ShardOps& s = a.sh[q];
+      const int* rq = srow + q * B;
+      uint8_t* bq = sbed + (size_t)q * B * L.SP;
+      if (a.vec) {
+        for (int x = tid; x < B * C4; x += BS_THREADS) {
+          const int i = x / C4, c = 4 * (x % C4);
+          uint8_t* d = bq + (size_t)i * L.SP + c;
+          if (col0 + c < own1)
+            cp_async4(d, s.bed + (size_t)rq[i] * mb + col0 + c);
+          else
+            *(uint32_t*)d = 0x55555555u;
+        }
+      } else {
+        for (int x = tid; x < B * C; x += BS_THREADS) {
+          const int i = x / C, c = x % C;
+          bq[(size_t)i * L.SP + c] =
+              col0 + c < own1 ? s.bed[(size_t)rq[i] * mb + col0 + c] : 0x55;
         }
       }
-      const bool valid = blk * B + swin[i] < m_local;
-      sbeta[x] = v_beta;
-      sacum[x] = v_acum;
-      scomp[x] = v_comp;
-      sflag[x] = (valid && !adav ? 1 : 0) | (valid && adav ? 2 : 0);
-#pragma unroll
-      for (int k = 0; k < MK; ++k) {
-        if (tab_s && k < K) {
-          slc[k * TB + x] = tl[k];
-          srd[k * TB + x] = tr[k];
-          ssqb[k * TB + x] = ts[k];
+      if (stats) {
+        const size_t m_in = (size_t)s.nb * B;
+        for (int x = tid; x < TB; x += BS_THREADS) {
+          const size_t o = (size_t)(x / B) * m_in + rq[x % B];
+          cp_async4(smave + q * TB + x, s.mave + o);
+          cp_async4(smsig + q * TB + x, s.msig + o);
         }
       }
     }
+    cp_async_wait_all();
+    __syncthreads();
+  };
+
+  // ---- staging: the rows first, then the tiles ----------------------------
+#pragma unroll 1
+  for (int x = tid; x < ns * B; x += BS_THREADS) {
+    const ShardOps& s = a.sh[x / B];
+    const int blk = shard_block(s, a.step);
+    const int w = s.win[(size_t)a.step * B + x % B];
+    swin[x] = w;
+    srow[x] = (s.nb > 1 ? blk * B : 0) + w;
   }
   __syncthreads();
 
-  // ---- (2) the scaled Gram entries a fold reads: i in a later wave than j --
-  {
-    const int B2 = 2 * B;
-    const size_t quad = (size_t)B2 * B2;
-    const float* g0 = a.gram + (size_t)(a.nb > 1 ? blk : 0) * a.nt * quad;
-    const int n = T * B * B;
+  // ---- (1) every shard's centred partial of the CTA's columns -------------
+  // Tile by tile, the last one left staged.  Thread (q, i, h): shard q,
+  // marker row i, part h of the tile's columns, its sums kept in sred
+  // from tile to tile.
+  const int P = L.P;
+  const int cw = 4 * L.WP;                     // columns a part
 #pragma unroll 1
-    for (int e = cta * THREADS + tid; e < n; e += ncta * THREADS) {
-      const int t = e / (B * B);
-      const int j = (e / B) % B;
-      const int i = e % B;
-      if (i / W > j / W) {
-        const float* g = g0 + (a.nt == 1 ? 0 : t) * quad;
-        const int wj = swin[j], wi = swin[i];
-        a.gs[e] = gmrm_scale_gram(
-            g[(size_t)wj * B2 + wi], g[(size_t)(B + wj) * B2 + wi],
-            g[(size_t)wj * B2 + B + wi], g[(size_t)(B + wj) * B2 + B + wi],
-            smave[t * B + i], smave[t * B + j], smsig[t * B + i],
-            smsig[t * B + j]);
-      }
-    }
-  }
-
-  // ---- (1) partial sums of A_i . eps_t and B_i . eps_t over the CTA's
-  // columns.  Thread (i, h): marker row i, part h of the columns.
-  {
-    const int P = L.P;
-    const int cw = (ncol + P - 1) / P;
+  for (int tile = 0; tile < ntile; ++tile) {
+    if (tile > 0) __syncthreads();             // the last tile's reads done
+    stage(own0 + tile * C, tile == 0);
+    if (tile == 0) stamp<ST>(a, 1);
 #pragma unroll 1
-    for (int x = tid; x < B * P; x += THREADS) {
-      const int i = x % B, h = x / B;
-      const int c1 = min(ncol, (h + 1) * cw);
-      const uint8_t* rp =
-          bed_s ? sbed + (size_t)i * SP : a.bed + (size_t)srow[i] * mb + col0;
+    for (int x = tid; x < ns * B * P; x += BS_THREADS) {
+      const int q = x / (B * P), i = x % B, h = (x / B) % P;
+      const uint8_t* rp = sbed + ((size_t)q * B + i) * L.SP;
+      const int c1 = min(C, (h + 1) * cw);
       float sa[MT], sb[MT];
 #pragma unroll
       for (int t = 0; t < MT; ++t) {
         sa[t] = 0.0f;
         sb[t] = 0.0f;
       }
-#pragma unroll 4
-      for (int c = h * cw; c < c1; ++c) {
-        const uint32_t byte = rp[c];
+#pragma unroll 1
+      for (int c = h * cw; c < c1; c += 4) {
+        const uint32_t word = *(const uint32_t*)(rp + c);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          int ga, gb;
-          gmrm_decode(byte, k, ga, gb);
-          const float af = (float)ga, bf = (float)gb;
+          float af[4], bf[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            decode_f(word >> (8 * r), k, af[r], bf[r]);
 #pragma unroll
           for (int t = 0; t < MT; ++t) {
             if (t < T) {
-              const float e = a.eps[(size_t)(t * 4 + k) * mb + col0 + c];
-              sa[t] += af * e;
-              sb[t] += bf * e;
+              const float4 e = *(const float4*)(seps + (t * 4 + k) * C + c);
+              sa[t] = fmaf(af[3], e.w, fmaf(af[2], e.z, fmaf(af[1], e.y,
+                           fmaf(af[0], e.x, sa[t]))));
+              sb[t] = fmaf(bf[3], e.w, fmaf(bf[2], e.z, fmaf(bf[1], e.y,
+                           fmaf(bf[0], e.x, sb[t]))));
             }
           }
         }
       }
+      float* red = sred + ((size_t)q * P + h) * 2 * TB;
 #pragma unroll
       for (int t = 0; t < MT; ++t) {
         if (t < T) {
-          sred[((size_t)h * 2 * T + 2 * t) * B + i] = sa[t];
-          sred[((size_t)h * 2 * T + 2 * t + 1) * B + i] = sb[t];
+          float* ra = red + (2 * t) * B + i;
+          float* rb = red + (2 * t + 1) * B + i;
+          *ra = tile == 0 ? sa[t] : __fadd_rn(*ra, sa[t]);
+          *rb = tile == 0 ? sb[t] : __fadd_rn(*rb, sb[t]);
         }
       }
     }
-    __syncthreads();
-    float* out = a.part + (size_t)cta * 2 * TB;
-#pragma unroll 1
-    for (int o = tid; o < 2 * TB; o += THREADS) {
-      float s = sred[o];
-      for (int h = 1; h < P; ++h) s += sred[(size_t)h * 2 * TB + o];
-      out[o] = s;
-    }
   }
-  grid.sync();
-
-  // The partials summed in CTA order, each CTA its share of the 2TB sums: a
-  // warp per sum, a lane per 32nd of the partials, then a fixed-order shuffle
-  // tree.
-  {
-    const int n2 = 2 * TB;
-    const int per = (n2 + ncta - 1) / ncta;
-    for (int w = warp; w < per; w += THREADS / 32) {
-      const int o = cta * per + w;
-      if (o < n2) {
-        float v = 0.0f;
-#pragma unroll 4
-        for (int g = lane; g < ncta; g += 32)
-          v += __ldcg(a.part + (size_t)g * n2 + o);
-#pragma unroll
-        for (int sh = 16; sh > 0; sh >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, sh);
-        if (lane == 0) a.red[o] = v;
-      }
+#pragma unroll 1
+  for (int x = tid; x < ns * L.RP * T4C; x += BS_THREADS)
+    sacc[x] = 0.0f;
+  __syncthreads();
+#pragma unroll 1
+  for (int x = tid; x < ns * TB; x += BS_THREADS) {
+    const int q = x / TB, o = x % TB;
+    const int t = o / B, i = o % B;
+    const float* red = sred + (size_t)q * P * 2 * TB;
+    float s_a = red[(2 * t) * B + i], s_b = red[(2 * t + 1) * B + i];
+#pragma unroll 1
+    for (int h = 1; h < P; ++h) {
+      s_a += red[((size_t)h * 2 * T + 2 * t) * B + i];
+      s_b += red[((size_t)h * 2 * T + 2 * t + 1) * B + i];
     }
-  }
-  grid.sync();
-
-  // ---- (3), (5): the scan, CTA 0 ------------------------------------------
-  if (cta == 0) {
-    float* sbase = sx0;
-    float* scorr = sx1;
-#pragma unroll 1
-    for (int o = tid; o < 2 * TB; o += THREADS) sred[o] = __ldcg(a.red + o);
-    __syncthreads();
-#pragma unroll 1
-    for (int x = tid; x < TB; x += THREADS) {
-      const int t = x / B, i = x % B;
-      const float sa = sred[(2 * t) * B + i];
-      const float sb = sred[(2 * t + 1) * B + i];
-      const float c =
-          __fmul_rn(smsig[x], __fsub_rn(sa, __fmul_rn(smave[x], sb)));
-      sbase[x] =
-          __fadd_rn(c, __fmul_rn(sbeta[x], __fsub_rn(a.nonas[t], 1.0f)));
-      scorr[x] = 0.0f;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int w0 = 0; w0 < B; w0 += W) {
-      int moved = 0;
-#pragma unroll 1
-      for (int x = tid; x < T * W; x += THREADS) {
-        const int t = x / W;
-        const int i = w0 + x % W;
-        const int o = t * B + i;
-        const float uu = a.u[o], zz = a.z[o];
-        const float num = __fadd_rn(sbase[o], scorr[o]);
-        const int tg = t * G + sgrp[i];
-        const GmrmDraw dr =
-            tab_s ? gmrm_wave_draw<MK>(num, a.i2se[t], slc + o, srd + o,
-                                       ssqb + o, (size_t)TB, K, uu, zz)
-                  : gmrm_wave_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
-                                       a.sqb + tg, (size_t)T * G, K, uu, zz);
-        const bool lv = sflag[o] & 1;
-        const bool zb = sflag[o] & 2;
-        const float bo = sbeta[o];
-        const float db = lv ? __fsub_rn(bo, dr.samp) : 0.0f;
-        const size_t nat = (size_t)t * m_in + srow[i];
-        a.beta[nat] = lv ? dr.samp : (zb ? 0.0f : bo);
-        a.comp[nat] = lv ? dr.comp : scomp[o];
-        a.acum[nat] = lv ? dr.acum : (zb ? 1.0f : sacum[o]);
-        sdb[o] = db;
-        swdb[x] = db;
-        moved |= (db != 0.0f);
-      }
-      // Fold the wave's rank-W correction into the later waves' corr,
-      // skipped when nothing moved.
-      const bool any = __syncthreads_or(moved);
-      const int rest = B - (w0 + W);
-      if (any && rest > 0) {
-#pragma unroll 1
-        for (int x = tid; x < T * rest; x += THREADS) {
-          const int t = x / rest;
-          const int i = w0 + W + x % rest;
-          const float* dw = swdb + t * W;
-          const float* g = a.gs + ((size_t)t * B + w0) * B + i;
-          float s = 0.0f;
-#pragma unroll 4
-          for (int j = 0; j < W; ++j) s += dw[j] * __ldcg(g + (size_t)j * B);
-          scorr[t * B + i] += s;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll 1
-    for (int x = tid; x < TB; x += THREADS) a.dbuf[x] = sdb[x];
-  }
-  grid.sync();
-
-  // ---- (4) the residual delta of the CTA's columns -------------------------
-  float* sd = sx0;     // msig * dbeta
-  float* smd = sx1;    // mave * msig * dbeta
-#pragma unroll 1
-  for (int x = tid; x < TB; x += THREADS) {
-    const float dv = smsig[x] * __ldcg(a.dbuf + x);
-    sd[x] = dv;
-    smd[x] = smave[x] * dv;
+    float* mine = (float*)slot(q) + so.part + (size_t)g * TB;
+    mine[o] = __fsub_rn(s_a, __fmul_rn(smave[x], s_b));
   }
   __syncthreads();
-  // Thread (c, r): byte column c, part r of the block's rows.
-  const int R = L.R;
-  const int rw = (B + R - 1) / R;
+
+  // ---- the tree, every shard's tickets at once (thread q: shard q) --------
+  if (tid < ns) {
+    unsigned* gcount = slot(tid) + (size_t)(SYNC_GROUPS + group) * LINE;
+    const bool is_last = atom_add_acq_rel(gcount, 1) == (unsigned)gsize - 1;
+    if (is_last) *gcount = 0;
+    slast[tid] = is_last;
+  }
+  __syncthreads();
+  bool any_last = false;
 #pragma unroll 1
-  for (int x = tid; x < ncol * R; x += THREADS) {
-    const int c = x % ncol, r = x / ncol;
-    const int i1 = min(B, (r + 1) * rw);
-    float acc[MT][4];
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[t][k] = 0.0f;
-#pragma unroll 4
-    for (int i = r * rw; i < i1; ++i) {
-      const uint8_t* rp =
-          bed_s ? sbed + (size_t)i * SP : a.bed + (size_t)srow[i] * mb + col0;
-      const uint32_t byte = rp[c];
-      float af[4], bf[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        int ga, gb;
-        gmrm_decode(byte, k, ga, gb);
-        af[k] = (float)ga;
-        bf[k] = (float)gb;
-      }
-#pragma unroll
-      for (int t = 0; t < MT; ++t) {
-        if (t < T) {
-          const float dv = sd[t * B + i], mdv = smd[t * B + i];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[t][k] += dv * af[k] - mdv * bf[k];
-        }
+  for (int q = 0; q < ns; ++q) {
+    if (!slast[q]) continue;
+    any_last = true;
+    // The group's partials in CTA order.
+    const float* src =
+        (const float*)slot(q) + so.part + (size_t)group * GROUP * TB;
+    float* gpart = (float*)slot(q) + so.gpart;
+#pragma unroll 1
+    for (int o = tid; o < TB; o += BS_THREADS)
+      gpart[(size_t)group * TB + o] = sum_in_order(src + o, gsize, TB);
+  }
+  if (any_last) {
+    __syncthreads();
+    // The last group to arrive tells the shard's scan CTA.
+    if (tid < ns && slast[tid]) {
+      unsigned* top = slot(tid) + SYNC_TOP * LINE;
+      if (atom_add_acq_rel(top, 1) == (unsigned)a.ngroups - 1) {
+        *top = 0;
+        st_release(slot(tid) + SYNC_C * LINE, 1u);
       }
     }
+  }
+  stamp<ST>(a, 2);
+
+  // ---- (2) the CTA's share of every shard's scaled Gram, packed ------------
+  // The entries are dealt to the threads of all column CTAs, each thread's
+  // four gathered loads made once.
+  {
+    const int B2 = 2 * B;
+    const size_t quad = (size_t)B2 * B2;
+    const int per = T * a.gs_tot;
+#pragma unroll 1
+    for (int e = g * BS_THREADS + tid; e < ns * per;
+         e += a.ncol * BS_THREADS) {
+      const int q = e / per;
+      const int t = (e % per) / a.gs_tot;
+      int rem = e % a.gs_tot;
+      int w = 0;
+      while (rem >= W * (B - (w + 1) * W)) {
+        rem -= W * (B - (w + 1) * W);
+        ++w;
+      }
+      const int len = B - (w + 1) * W;
+      const int j = w * W + rem / len;
+      const int i = (w + 1) * W + rem % len;
+      const ShardOps& s = a.sh[q];
+      const int blk = s.nb > 1 ? s.blk[a.step] : 0;
+      const float* gq =
+          s.gram + ((size_t)blk * a.nt + (a.nt == 1 ? 0 : t)) * quad;
+      const int wj = swin[q * B + j], wi = swin[q * B + i];
+      const float* mq = smave + q * TB + t * B;
+      const float* sq = smsig + q * TB + t * B;
+      float* out = (float*)slot(q) + so.gs;
+      out[e % per] = gmrm_scale_gram(
+          __ldg(gq + (size_t)wj * B2 + wi),
+          __ldg(gq + (size_t)(B + wj) * B2 + wi),
+          __ldg(gq + (size_t)wj * B2 + B + wi),
+          __ldg(gq + (size_t)(B + wj) * B2 + B + wi), mq[i], mq[j], sq[i],
+          sq[j]);
+    }
+    __syncthreads();
+    if (tid == 0) red_release(a.scratch + SYNC_GS * LINE, 1);
+  }
+
+  // ---- (4) wave w of every shard into the shards' accumulators of the
+  // staged tile.  Thread (q, r, k, v): shard q, part r of the wave's rows,
+  // phase plane k and the four byte columns of word v of the tile, every
+  // trait.  Wave -1 applies zeros (+0 stays +0).
+  auto apply_wave = [&](int w) {
+    const int wr = w < 0 ? 0 : w;
+#pragma unroll 1
+    for (int x = tid; x < ns * T * W; x += BS_THREADS) {
+      const int q = x / (T * W), r = x % (T * W);
+      const int o = q * TB + (r / W) * B + wr * W + r % W;
+      const float* dbuf = (const float*)slot(q) + so.dbuf;
+      const float dv =
+          w < 0 ? 0.0f : __fmul_rn(smsig[o], __ldcg(dbuf + o - q * TB));
+      sdm[x] = make_float2(dv, __fmul_rn(smave[o], dv));
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int x = tid; x < ns * L.RP * C; x += BS_THREADS) {
+      const int q = x / (L.RP * C);
+      const int r = (x / C) % L.RP;
+      const int k = (x / C4) % 4, v = x % C4;
+      const int j0 = r * W / L.RP, j1 = (r + 1) * W / L.RP;
+      const uint8_t* bq = sbed + ((size_t)q * B + wr * W) * L.SP + 4 * v;
+      const float2* dm = sdm + (size_t)q * T * W;
+      float s[MT][4];
 #pragma unroll
-    for (int t = 0; t < MT; ++t) {
-      if (t < T) {
+      for (int t = 0; t < MT; ++t)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int p = t * 4 + k;
-          if (R == 1) {
-            const float nav =
-                a.na[(size_t)((a.nt == 1 ? 0 : t) * 4 + k) * mb + col0 + c];
-            a.deps[(size_t)p * mb + col0 + c] = nav * acc[t][k];
-          } else {
-            sred[((size_t)r * T * 4 + p) * ncol + c] = acc[t][k];
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.0f;
+#pragma unroll 2
+      for (int j = j0; j < j1; ++j) {
+        const uint32_t word = *(const uint32_t*)(bq + (size_t)j * L.SP);
+        float af[4], bf[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) decode_f(word >> (8 * e), k, af[e], bf[e]);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          if (t < T) {
+            const float2 d = dm[t * W + j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[t][e] = fmaf(-d.y, bf[e], fmaf(d.x, af[e], s[t][e]));
           }
         }
       }
+      // The part's accumulator, plane t*4 + k of shard q, four columns.
+      float* acc = sacc + ((size_t)q * L.RP + r) * T4C + k * C + 4 * v;
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        if (t < T) {
+          float4* a4 = (float4*)(acc + t * 4 * C);
+          float4 o = *a4;
+          o.x += s[t][0];
+          o.y += s[t][1];
+          o.z += s[t][2];
+          o.w += s[t][3];
+          *a4 = o;
+        }
+      }
+    }
+    __syncthreads();
+  };
+
+  // The shards' deltas of the staged tile at col0 summed in shard order,
+  // then written or added into eps.
+  const bool acc_in = a.mode & ACCUMULATE;
+  const bool in_place = a.mode & IN_PLACE;
+  auto write_tile = [&](int col0) {
+    const int n = min(C, own1 - col0);
+#pragma unroll 1
+    for (int y = tid; y < T4C; y += BS_THREADS) {
+      const int p = y / C, c = y % C;
+      if (c >= n) continue;
+      const float nav = sna[((a.nt == 1 ? 0 : p >> 2) * 4 + (p & 3)) * C + c];
+      const size_t o = (size_t)p * mb + col0 + c;
+      float tot = acc_in ? a.out[o] : 0.0f;
+#pragma unroll 1
+      for (int q = 0; q < ns; ++q) {
+        // Shard q's delta: its row parts in order, masked.
+        const float* acc = sacc + (size_t)q * L.RP * T4C + y;
+        float d = acc[0];
+#pragma unroll 1
+        for (int r = 1; r < L.RP; ++r) d += acc[(size_t)r * T4C];
+        d = __fmul_rn(nav, d);
+        tot = (q == 0 && !acc_in) ? d : __fadd_rn(tot, d);
+      }
+      if (in_place)
+        a.eps[o] = __fadd_rn(seps[y], tot);
+      else
+        a.out[o] = tot;
+    }
+  };
+
+  // The staged tile takes every wave of every shard as it arrives: a dry
+  // pass first (it runs the pass's code once while the first wave is
+  // drawn, so that the instructions are cached when the waves come).
+#pragma unroll 1
+  for (int w = -1; w < nw; ++w) {
+    // Thread q waits for shard q's wave: one round trip for all shards.
+    if (w >= 0 && tid < ns)
+      spin_geq(slot(tid) + SYNC_DBETA * LINE, (unsigned)(w + 1));
+    __syncthreads();
+    apply_wave(w);
+    if (w == 0) stamp<ST>(a, 3);
+  }
+  stamp<ST>(a, 4);
+  write_tile(own0 + (ntile - 1) * C);
+  // The streamed tiles, once every wave is in: staged again (from L2),
+  // every wave applied, written.
+#pragma unroll 1
+  for (int tile = 0; tile + 1 < ntile; ++tile) {
+    __syncthreads();
+    stage(own0 + tile * C, false);
+#pragma unroll 1
+    for (int x = tid; x < ns * L.RP * T4C; x += BS_THREADS)
+      sacc[x] = 0.0f;
+    __syncthreads();
+#pragma unroll 1
+    for (int w = 0; w < nw; ++w) apply_wave(w);
+    write_tile(own0 + tile * C);
+  }
+  stamp<ST>(a, 5);
+}
+
+// ---- the scan CTAs: one per shard of the launch ----------------------------
+template <int MK, bool ST>
+__device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
+                                         unsigned char* sm) {
+  const int T = a.T, B = a.B, W = a.W, K = a.K, G = a.G;
+  const int TB = T * B;
+  const int nw = B / W;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q = blockIdx.x;
+  const ShardOps& s = a.sh[q];
+  unsigned* sync = a.scratch + (size_t)q * a.slot_words;
+  const Slot so = slot_layout(a.ncol, a.ngroups, T, B, a.gs_tot);
+  const float* gpart = (const float*)sync + so.gpart;
+  float* dbuf = (float*)sync + so.dbuf;
+  const float* ggs = (const float*)sync + so.gs;
+  const bool gs_s = a.flags & GS_SMEM;
+  const bool tab_s = a.flags & TAB_SMEM;
+  int* srow = (int*)(sm + L.s_row);
+  int* sgrp = (int*)(sm + L.s_grp);
+  float* sbeta = (float*)(sm + L.s_beta);
+  float* sacum = (float*)(sm + L.s_acum);
+  int* scomp = (int*)(sm + L.s_comp);
+  int* sflag = (int*)(sm + L.s_flag);    // bit 0 live, bit 1 zerob
+  float* su = (float*)(sm + L.s_u);
+  float* sz = (float*)(sm + L.s_z);
+  float* smsig = (float*)(sm + L.s_x0);  // msig, then base
+  float* sbase = (float*)(sm + L.s_x0);
+  float* scorr = (float*)(sm + L.s_x1);
+  float* swdb = (float*)(sm + L.s_wdb);  // (2, T, W) two waves' dbeta
+  float* slc = (float*)(sm + L.s_lc);    // (K, T, B) per-marker tables
+  float* srd = (float*)(sm + L.s_rd);
+  float* ssqb = (float*)(sm + L.s_sqb);
+  float* sgs = (float*)(sm + L.s_gs);
+  stamp<ST>(a, 0);
+
+  // ---- the block's marker state, draws and flags: none depends on eps ------
+  const int blk = shard_block(s, a.step);
+  const int off = s.nb > 1 ? blk * B : 0;
+  const size_t m_in = (size_t)s.nb * B;
+  const int m_local = s.m_loc != nullptr ? *s.m_loc : s.m_local;
+#pragma unroll 1
+  for (int i = tid; i < B; i += BS_THREADS) {
+    const int w = s.win[(size_t)a.step * B + i];
+    if (w < 0 || w >= B) __trap();   // not a row of the block
+    srow[i] = off + w;
+    sgrp[i] = s.grp[off + w];
+  }
+  __syncthreads();
+  // Every load of an element before its first store (sweep_blocks.cu).
+#pragma unroll 1
+  for (int x = tid; x < TB; x += BS_THREADS) {
+    const int t = x / B, i = x % B;
+    const size_t o = (size_t)t * m_in + srow[i];
+    const size_t d = (size_t)a.step * TB + x;
+    const int tg = t * G + sgrp[i];
+    const float v_msig = s.msig[o];
+    const float v_beta = s.beta[o], v_acum = s.acum[o];
+    const int v_comp = s.comp[o];
+    const float v_u = s.u[d], v_z = s.z[d];
+    const bool adav = a.sigmag[tg] == 0.0f;
+    float tl[MK], tr[MK], ts[MK];
+#pragma unroll
+    for (int k = 0; k < MK; ++k) {
+      if (tab_s && k < K) {
+        const size_t e = (size_t)k * T * G + tg;
+        tl[k] = a.lc[e];
+        tr[k] = a.rd[e];
+        ts[k] = a.sqb[e];
+      }
+    }
+    const bool valid = blk * B + (srow[i] - off) < m_local;
+    smsig[x] = v_msig;
+    sbeta[x] = v_beta;
+    sacum[x] = v_acum;
+    scomp[x] = v_comp;
+    su[x] = v_u;
+    sz[x] = v_z;
+    sflag[x] = (valid && !adav ? 1 : 0) | (valid && adav ? 2 : 0);
+#pragma unroll
+    for (int k = 0; k < MK; ++k) {
+      if (tab_s && k < K) {
+        slc[k * TB + x] = tl[k];
+        srd[k * TB + x] = tr[k];
+        ssqb[k * TB + x] = ts[k];
+      }
     }
   }
-  if (R > 1) {
-    __syncthreads();
-    for (int p = warp; p < T * 4; p += THREADS / 32) {
-      const int t = p / 4, k = p % 4;
-      for (int c = lane; c < ncol; c += 32) {
-        float s = sred[(size_t)p * ncol + c];
-        for (int r = 1; r < R; ++r)
-          s += sred[((size_t)r * T * 4 + p) * ncol + c];
-        const float nav =
-            a.na[(size_t)((a.nt == 1 ? 0 : t) * 4 + k) * mb + col0 + c];
-        a.deps[(size_t)p * mb + col0 + c] = nav * s;
+  __syncthreads();
+  stamp<ST>(a, 1);
+
+  // ---- (3), (5): the waves -------------------------------------------------
+  // Whether the last warp draws nothing and can publish each wave, and
+  // whether warps are left between the drawing warps and it to fold in the
+  // background (sweep_blocks.cu).
+  const int draw_warps = (T * W + 31) / 32;
+  const bool pub_warp = draw_warps < NWARPS;
+  const bool bg_fold = draw_warps < NWARPS - 1;
+  const int folders = pub_warp ? BS_THREADS - 32 : BS_THREADS;
+  int any_prev = 0;
+  // A barrier of the threads that fold: the publishing warp may still wait
+  // on its release, and draws nothing.
+  auto folders_sync = [&]() {
+    if (pub_warp)
+      asm volatile("bar.sync 1, %0;" ::"r"(BS_THREADS - 32) : "memory");
+    else
+      __syncthreads();
+  };
+
+  // Fold wave w's rank-W correction (its dbeta in swdb half w & 1) into
+  // corr of the later waves' markers i in [i0, i1) (counted from the first
+  // marker after wave w), on `nthr` threads from warp `warp0` on; `split`
+  // neighbouring lanes share an output, each a fixed slice of the W terms
+  // summed in order, then a shuffle tree.
+  auto fold = [&](int w, int i0, int i1, int warp0, int nthr) {
+    const int rest = B - (w + 1) * W;
+    const int cols = i1 - i0;
+    const int goff = gs_wave_offset(B, W, w);
+    const float* sw = swdb + (w & 1) * T * W;
+    int split = 1;
+    while (split < 8 && T * cols * split * 2 <= nthr) split *= 2;
+    const int jw = (W + split - 1) / split;
+    const int n = T * cols * split;
+#pragma unroll 1
+    for (int x0 = (warp - warp0) * 32; x0 < n; x0 += nthr) {
+      const int x = x0 + lane;
+      const int o = x / split, h = x % split;
+      const int t = o / cols, i = i0 + o % cols;
+      float sum = 0.0f;
+      if (x < n) {
+        const int j0 = h * jw, j1 = min(W, j0 + jw);
+        const int go = t * a.gs_tot + goff + i;
+        const float* dw = sw + t * W;
+        if (gs_s) {
+          const float* gp = sgs + go;
+#pragma unroll 4
+          for (int j = j0; j < j1; ++j) sum += dw[j] * gp[j * rest];
+        } else {
+          const float* gp = ggs + go;
+#pragma unroll 4
+          for (int j = j0; j < j1; ++j) sum += dw[j] * __ldcg(gp + j * rest);
+        }
+      }
+      for (int d = 1; d < split; d <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, d);
+      if (x < n && h == 0) scorr[t * B + (w + 1) * W + i] += sum;
+    }
+  };
+
+  // Wave -1 is a dry run of the first wave's draw and fold on made-up
+  // numbers while the column CTAs compute c: it writes nothing that
+  // outlives it (corr is zeroed below), and it brings the code of the
+  // draw and the fold into the instruction cache before the chain needs
+  // it.
+#pragma unroll 1
+  for (int w = -1; w < nw; ++w) {
+    const bool dry = w < 0;
+    if (w == 0) {
+      // ---- c and base, once the groups' sums are in -----------------------
+      wait_geq(sync + SYNC_C * LINE, 1u);
+      stamp<ST>(a, 2);
+#pragma unroll 1
+      for (int x = tid; x < TB; x += BS_THREADS) {
+        const int t = x / B;
+        const float v = sum_in_order(gpart + x, a.ngroups, TB);
+        const float c = __fmul_rn(smsig[x], v);
+        sbase[x] =
+            __fadd_rn(c, __fmul_rn(sbeta[x], __fsub_rn(a.nonas[t], 1.0f)));
+        scorr[x] = 0.0f;
+      }
+      __syncthreads();
+      stamp<ST>(a, 3);
+    }
+    const int w0 = dry ? 0 : w * W;
+    float* sw = swdb + (w & 1) * T * W;  // this wave's dbeta, (T, W)
+    int moved = 0;
+#pragma unroll 1
+    for (int x = tid; x < T * W; x += BS_THREADS) {
+      const int t = x / W;
+      const int i = w0 + x % W;
+      const int o = t * B + i;
+      const float num = dry ? 0.0f : __fadd_rn(sbase[o], scorr[o]);
+      const int tg = t * G + sgrp[i];
+      const GmrmDraw dr =
+          tab_s ? gmrm_wave_draw<MK>(num, a.i2se[t], slc + o, srd + o,
+                                     ssqb + o, (size_t)TB, K, su[o], sz[o])
+                : gmrm_wave_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
+                                     a.sqb + tg, (size_t)T * G, K, su[o],
+                                     sz[o]);
+      const bool lv = sflag[o] & 1;
+      const bool zb = sflag[o] & 2;
+      const float bo = sbeta[o];
+      const float db = lv ? __fsub_rn(bo, dr.samp) : 0.0f;
+      const size_t nat = (size_t)t * m_in + srow[i];
+      if (!dry) {
+        s.beta[nat] = lv ? dr.samp : (zb ? 0.0f : bo);
+        s.comp[nat] = lv ? dr.comp : scomp[o];
+        s.acum[nat] = lv ? dr.acum : (zb ? 1.0f : sacum[o]);
+        dbuf[o] = db;
+      }
+      sw[x] = db;
+      moved |= (db != 0.0f);
+    }
+    // Meanwhile the warps that draw nothing fold the wave before into the
+    // waves after this one.
+    if (bg_fold && warp >= draw_warps && warp < NWARPS - 1 && w >= 1 &&
+        any_prev && w + 1 < nw)
+      fold(w - 1, W, B - w0, draw_warps, BS_THREADS - 32 * (draw_warps + 1));
+    const bool any = __syncthreads_or(moved) && !dry;
+    if (w == 0) stamp<ST>(a, 4);
+    // Publish the wave to the column CTAs, which apply it while the later
+    // waves are drawn: the last warp when it draws nothing, off the chain.
+    const unsigned epoch = (unsigned)(w + 1);
+    if (pub_warp && warp == NWARPS - 1) {
+      if (lane == 0 && !dry) st_release(sync + SYNC_DBETA * LINE, epoch);
+      continue;
+    }
+    if (!pub_warp && tid == 0 && !dry)
+      st_release(sync + SYNC_DBETA * LINE, epoch);
+    if (w == 0) {
+      // The scaled Gram, once every column CTA has built its share: the
+      // first fold is its first reader.
+      if (tid == 0) spin_geq(a.scratch + SYNC_GS * LINE, (unsigned)a.ncol);
+      folders_sync();
+      const int gs_n = T * a.gs_tot;
+      if (gs_s && gs_n % 4 == 0) {
+        for (int x = tid; x < gs_n / 4; x += folders)
+          ((float4*)sgs)[x] = __ldcg((const float4*)ggs + x);
+      } else if (gs_s) {
+        for (int x = tid; x < gs_n; x += folders) sgs[x] = __ldcg(ggs + x);
+      }
+      folders_sync();
+    }
+    if ((any || dry) && w0 + W < B)
+      fold(w < 0 ? 0 : w, 0, bg_fold ? W : B - w0 - W, 0, folders);
+    folders_sync();
+    any_prev = any;
+  }
+  stamp<ST>(a, 5);
+}
+
+template <int MT, int MK, bool ST>
+__global__ void __launch_bounds__(BS_THREADS, 1)
+block_sweep_kernel(const __grid_constant__ StepArgs a) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout L =
+      make_layout(a.T, a.B, a.W, a.K, a.nt, a.C, a.ns, a.flags, a.cap);
+  if ((int)blockIdx.x < a.ns)
+    scan_cta<MK, ST>(a, L, sm);
+  else
+    column_cta<MT, ST>(a, L, sm);
+  // The last CTA to finish zeroes the flags: every CTA is past its last
+  // wait (and every scan CTA past its last release) when it arrives.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* done = a.scratch + SYNC_DONE * LINE;
+    if (atom_add_acq_rel(done, 1) == gridDim.x - 1) {
+      *done = 0;
+      a.scratch[SYNC_GS * LINE] = 0;
+      for (int q = 0; q < a.ns; ++q) {
+        unsigned* sync = a.scratch + (size_t)q * a.slot_words;
+        sync[SYNC_C * LINE] = 0;
+        sync[SYNC_DBETA * LINE] = 0;
       }
     }
   }
 }
 
 struct Plan {
-  int grid;     // CTAs, each with S byte columns
-  int S;
-  int flags;    // what stays in shared memory
-  int smem;     // dynamic shared memory bytes
-  const void* kernel;
+  int cap;      // shards a launch takes at most
+  int C;        // byte columns of a tile (a column CTA's staged columns)
+  int span;     // byte columns a column CTA owns, in tiles of C
+  int ncol;     // column CTAs
+  int flags;
+  int smem;     // dynamic shared memory bytes (for `cap` shards)
+  int ngroups;
+  int gs_tot;
+  size_t slot_words;
+  const void* kernels[2];  // plain, stamped
 };
 
-// One CTA per SM at most, S = ceil(mb / SMs) byte columns each; the scan's
-// per-marker tables, then the bed slice stay in shared memory while they fit.
-cudaError_t plan_block_uncached(int T, int B, int mb, int nt, int K, int W,
-                                Plan* p);
+template <bool ST>
+const void* pick_kernel(int T, int K) {
+  // Register arrays sized for T <= 4 or 8 traits and K <= 4, 8 or 16
+  // mixture components.
+  const void* kernels[2][3] = {
+      {(const void*)block_sweep_kernel<4, 4, ST>,
+       (const void*)block_sweep_kernel<4, 8, ST>,
+       (const void*)block_sweep_kernel<4, GMRM_MAX_K, ST>},
+      {(const void*)block_sweep_kernel<MAX_T, 4, ST>,
+       (const void*)block_sweep_kernel<MAX_T, 8, ST>,
+       (const void*)block_sweep_kernel<MAX_T, GMRM_MAX_K, ST>}};
+  return kernels[T <= 4 ? 0 : 1][K <= 4 ? 0 : K <= 8 ? 1 : 2];
+}
 
-// A sharded sweep launches the same shapes once per shard and block step, so
-// the last plan is kept: planning asks the runtime half a dozen questions.
-cudaError_t plan_block(int T, int B, int mb, int nt, int K, int W, Plan* p) {
-  static std::mutex lock;
-  static int key[7] = {-1, -1, -1, -1, -1, -1, -1};
-  static Plan last;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const int want[7] = {T, B, mb, nt, K, W, dev};
-  std::lock_guard<std::mutex> guard(lock);
-  bool hit = true;
-  for (int i = 0; i < 7; ++i) hit = hit && key[i] == want[i];
-  if (!hit) {
-    err = plan_block_uncached(T, B, mb, nt, K, W, &last);
-    if (err != cudaSuccess) {
-      key[0] = -1;
-      return err;
-    }
-    for (int i = 0; i < 7; ++i) key[i] = want[i];
+// Whether a grid of ncol + ns CTAs with `smem` bytes each is resident at
+// once in both instantiations (the readers spin on other CTAs).
+cudaError_t fits(const Plan& p, int ns, int smem, int sms, int optin,
+                 bool* ok) {
+  *ok = false;
+  if (smem > optin) return cudaSuccess;
+  for (const void* k : p.kernels) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, BS_THREADS,
+                                                        (size_t)smem);
+    if (err != cudaSuccess) return err;
+    if ((long long)per_sm * sms < p.ncol + ns) return cudaSuccess;
   }
-  *p = last;
+  *ok = true;
   return cudaSuccess;
 }
 
-cudaError_t plan_block_uncached(int T, int B, int mb, int nt, int K, int W,
-                                Plan* p) {
-  if (T < 1 || T > MAX_T || K < 1 || K > GMRM_MAX_K || W < 1 || B % W != 0 ||
-      B < 1 || mb < 1 || (nt != 1 && nt != T))
+// span: the fewest byte columns, a multiple of 4, that spread the residual
+// over the SMs left beside the scan CTAs of `want` shards (one CTA an SM).
+// Then, keeping as much in the scan CTAs' shared memory as fits, the most
+// shards, up to `want` and MAX_SHARDS, that a resident grid takes with a
+// tile of at least min(span, MIN_TILE) columns, and for them the fewest
+// tiles a span: so a panel of any width takes at least one shard.
+constexpr int MIN_TILE = 64;
+
+cudaError_t plan_uncached(int T, int B, int mb, int nt, int K, int W,
+                          int want, Plan* p) {
+  if (T < 1 || T > MAX_T || K < 1 || K > GMRM_MAX_K || W < 2 || B < W ||
+      B % W != 0 || mb < 1 || (nt != 1 && nt != T) || want < 1)
     return cudaErrorInvalidValue;
-  const void* kernels[2][3] = {
-      {(const void*)block_sweep_kernel<4, 4>,
-       (const void*)block_sweep_kernel<4, 8>,
-       (const void*)block_sweep_kernel<4, GMRM_MAX_K>},
-      {(const void*)block_sweep_kernel<MAX_T, 4>,
-       (const void*)block_sweep_kernel<MAX_T, 8>,
-       (const void*)block_sweep_kernel<MAX_T, GMRM_MAX_K>}};
-  p->kernel = kernels[T <= 4 ? 0 : 1][K <= 4 ? 0 : K <= 8 ? 1 : 2];
+  p->kernels[0] = pick_kernel<false>(T, K);
+  p->kernels[1] = pick_kernel<true>(T, K);
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -577,89 +1015,164 @@ cudaError_t plan_block_uncached(int T, int B, int mb, int nt, int K, int W,
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return err;
-  if (sms < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int want = sms < mb ? sms : mb;
-  p->S = (mb + want - 1) / want;
-  p->grid = (mb + p->S - 1) / p->S;
-  p->flags = 0;
-  for (int bit : {TAB_SMEM, BED_SMEM}) {
-    if (make_layout(T, B, W, K, p->S, p->flags | bit).total <= (size_t)optin)
-      p->flags |= bit;
+  p->gs_tot = gs_wave_offset(B, W, B / W - 1);
+  if (want > MAX_SHARDS) want = MAX_SHARDS;
+  if (want >= sms) return cudaErrorCooperativeLaunchTooLarge;
+  const int span = 4 * ((mb + 4 * (sms - want) - 1) / (4 * (sms - want)));
+  p->span = span;
+  p->ncol = (mb + span - 1) / span;
+  p->ngroups = (p->ncol + GROUP - 1) / GROUP;
+  const int min_tile = span < MIN_TILE ? span : MIN_TILE;
+  for (int flags : {GS_SMEM | TAB_SMEM, (int)GS_SMEM, (int)TAB_SMEM, 0}) {
+    for (int ns = want; ns >= 1; --ns) {
+      auto smem_of = [&](int C) {
+        return make_layout(T, B, W, K, nt, C, ns, flags, ns).total;
+      };
+      // The widest tile that fits, then the fewest tiles of even width.
+      int C = span;
+      while (C > min_tile && smem_of(C) > (size_t)optin) C -= 4;
+      if (C < min_tile || smem_of(C) > (size_t)optin) continue;
+      const int ntile = (span + C - 1) / C;
+      C = 4 * ((span + 4 * ntile - 1) / (4 * ntile));
+      const int smem = (int)smem_of(C);
+      bool ok = false;
+      err = fits(*p, ns, smem, sms, optin, &ok);
+      if (err != cudaSuccess) return err;
+      if (!ok) continue;
+      p->cap = ns;
+      p->C = C;
+      p->flags = flags;
+      p->smem = smem;
+      p->slot_words =
+          slot_layout(p->ncol, p->ngroups, T, B, p->gs_tot).total;
+      // Both instantiations take the plan's shared memory size.
+      for (const void* k : p->kernels) {
+        err = cudaFuncSetAttribute(
+            k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+      }
+      return cudaSuccess;
+    }
   }
-  const size_t total = make_layout(T, B, W, K, p->S, p->flags).total;
-  if (total > (size_t)optin) return cudaErrorInvalidValue;
-  p->smem = (int)total;
-  err = cudaFuncSetAttribute(
-      p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem);
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
+// A sweep launches the same shapes at every block step, so plans are kept,
+// a few shapes at once: planning asks the runtime a dozen questions.  Plans
+// of different shapes may share an instantiation, so each plan handed out
+// sets its kernels' shared memory size where the last plan left another.
+cudaError_t plan_step(int T, int B, int mb, int nt, int K, int W, int want,
+                      Plan* p) {
+  constexpr int NKEEP = 8;
+  static std::mutex lock;
+  static int keys[NKEEP][8];
+  static Plan kept[NKEEP];
+  static int used = 0, next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  // grid.sync() needs every CTA resident at once.
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, p->kernel, THREADS, (size_t)p->smem);
-  if (err != cudaSuccess) return err;
-  if ((long long)per_sm * sms < p->grid)
-    return cudaErrorCooperativeLaunchTooLarge;
+  const int k[8] = {T, B, mb, nt, K, W, want, dev};
+  static const void* set_for[NKEEP] = {};  // the plan last set, per
+  static int set_smem[NKEEP] = {};         //   instantiation seen
+  std::lock_guard<std::mutex> guard(lock);
+  int e = 0;
+  while (e < used) {
+    bool hit = true;
+    for (int i = 0; i < 8; ++i) hit = hit && keys[e][i] == k[i];
+    if (hit) break;
+    ++e;
+  }
+  if (e == used) {
+    Plan fresh;
+    err = plan_uncached(T, B, mb, nt, K, W, want, &fresh);
+    if (err != cudaSuccess) return err;
+    e = next;
+    for (int i = 0; i < 8; ++i) keys[e][i] = k[i];
+    kept[e] = fresh;
+    next = (next + 1) % NKEEP;
+    if (used < NKEEP) ++used;
+  }
+  *p = kept[e];
+  for (const void* kern : p->kernels) {
+    int slot = 0;
+    while (slot < NKEEP && set_for[slot] != nullptr && set_for[slot] != kern)
+      ++slot;
+    if (slot == NKEEP) slot = 0;
+    if (set_for[slot] == kern && set_smem[slot] == p->smem) continue;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem);
+    if (err != cudaSuccess) return err;
+    set_for[slot] = kern;
+    set_smem[slot] = p->smem;
+  }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// out: grid, S, flags (1 bed slice, 2 scan tables in shared memory), dynamic
-// shared memory bytes.  No launch.
+// out: shards a launch takes (0 when not even one shard's grid is resident
+// at these shapes), C, column CTAs, flags (1 the scaled Gram, 2 the scan
+// tables in shared memory), dynamic shared memory bytes, groups of the
+// tree, packed scaled-Gram floats per trait, scratch words per shard.  No
+// launch.
 extern "C" int gmrm_block_sweep_plan(int T, int B, int mb, int nt, int K,
-                                     int W, int* out) {
+                                     int W, int want, int* out) {
   Plan p;
-  const cudaError_t err = plan_block(T, B, mb, nt, K, W, &p);
+  const cudaError_t err = plan_step(T, B, mb, nt, K, W, want, &p);
+  if (err == cudaErrorCooperativeLaunchTooLarge) {
+    for (int i = 0; i < 9; ++i) out[i] = 0;
+    return 0;
+  }
   if (err != cudaSuccess) return (int)err;
-  out[0] = p.grid;
-  out[1] = p.S;
-  out[2] = p.flags;
-  out[3] = p.smem;
+  out[0] = p.cap;
+  out[1] = p.C;
+  out[2] = p.ncol;
+  out[3] = p.flags;
+  out[4] = p.smem;
+  out[5] = p.ngroups;
+  out[6] = p.gs_tot;
+  out[7] = (int)p.slot_words;
+  out[8] = p.span;
   return 0;
 }
 
-// scratch: (grid*2*T*B + 2*T*B + T*B*B + T*B) floats.
+// One launch: shards s0 .. s0 + ns - 1 of the host table `table` (ShardOps
+// records), block step `step`.  mode: 1 add onto `out` (a previous launch's
+// sum), 2 add the sum into eps instead of writing `out`.  want: the shards
+// of the whole step, which fix the plan, and with it the columns every
+// partial sums over, for all of the step's launches.  The scratch holds
+// the plan's slots, zeroed before its first launch; every launch leaves it
+// so.
 extern "C" int gmrm_block_sweep(
-    const void* blk_b, const void* m_local, const void* bed, const void* win,
-    const void* gram, const void* eps, const void* na, const void* mave,
-    const void* msig, void* beta, void* comp, void* acum, const void* grp,
-    const void* u, const void* z, const void* sigmag, const void* lc,
+    const void* table, int s0, int ns, int step, int mode,
+    void* eps, const void* na, void* out, const void* sigmag, const void* lc,
     const void* rd, const void* sqb, const void* i2se, const void* nonas,
-    void* deps, void* scratch, int nb, int T, int B, int mb, int nt, int K,
-    int W, int G, void* stream) {
+    void* scratch, void* stamps, int T, int B, int mb, int nt, int K, int W,
+    int G, int want, void* stream) {
   Plan p;
-  cudaError_t err = plan_block(T, B, mb, nt, K, W, &p);
+  cudaError_t err = plan_step(T, B, mb, nt, K, W, want, &p);
   if (err != cudaSuccess) return (int)err;
-  if (nb < 1) return (int)cudaErrorInvalidValue;
-  BlockArgs a;
-  a.blk_b = (const int*)blk_b;
-  a.m_local = (const int*)m_local;
-  a.bed = (const uint8_t*)bed;
-  a.win = (const int*)win;
-  a.gram = (const float*)gram;
-  a.eps = (const float*)eps;
+  if (ns < 1 || ns > p.cap || s0 < 0 || step < 0 ||
+      (mode & ~(ACCUMULATE | IN_PLACE)) != 0)
+    return (int)cudaErrorInvalidValue;
+  StepArgs a;
+  const ShardOps* tab = (const ShardOps*)table;
+  for (int q = 0; q < ns; ++q) a.sh[q] = tab[s0 + q];
+  a.eps = (float*)eps;
   a.na = (const float*)na;
-  a.mave = (const float*)mave;
-  a.msig = (const float*)msig;
-  a.beta = (float*)beta;
-  a.comp = (int*)comp;
-  a.acum = (float*)acum;
-  a.grp = (const int*)grp;
-  a.u = (const float*)u;
-  a.z = (const float*)z;
+  a.out = (float*)out;
   a.sigmag = (const float*)sigmag;
   a.lc = (const float*)lc;
   a.rd = (const float*)rd;
   a.sqb = (const float*)sqb;
   a.i2se = (const float*)i2se;
   a.nonas = (const float*)nonas;
-  a.deps = (float*)deps;
-  const size_t tb = (size_t)T * B;
-  a.part = (float*)scratch;
-  a.red = a.part + (size_t)p.grid * 2 * tb;
-  a.gs = a.red + 2 * tb;
-  a.dbuf = a.gs + tb * B;
-  a.nb = nb;
+  a.scratch = (unsigned*)scratch;
+  a.stamps = (unsigned long long*)stamps;
+  a.slot_words = p.slot_words;
+  a.step = step;
+  a.ns = ns;
+  a.mode = mode;
   a.T = T;
   a.B = B;
   a.mb = mb;
@@ -667,12 +1180,21 @@ extern "C" int gmrm_block_sweep(
   a.K = K;
   a.W = W;
   a.G = G;
-  a.S = p.S;
+  a.C = p.C;
+  a.span = p.span;
+  a.cap = p.cap;
+  const uintptr_t al16 = (uintptr_t)eps | (uintptr_t)na;
+  a.vec = mb % 4 == 0 && al16 % 16 == 0;
+  for (int q = 0; q < ns; ++q)
+    a.vec = a.vec && (uintptr_t)a.sh[q].bed % 4 == 0;
   a.flags = p.flags;
+  a.ncol = p.ncol;
+  a.ngroups = p.ngroups;
+  a.gs_tot = p.gs_tot;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(THREADS),
-                                    args, (size_t)p.smem,
-                                    (cudaStream_t)stream);
+  err = cudaLaunchCooperativeKernel(p.kernels[stamps != nullptr ? 1 : 0],
+                                    dim3(p.ncol + ns), dim3(BS_THREADS), args,
+                                    (size_t)p.smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

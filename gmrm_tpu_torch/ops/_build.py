@@ -68,14 +68,15 @@ SIGNATURES = {
     # T, B, mb, nt, K, W, out (7 ints): no launch, the grid, the shared
     # memory residency and the scratch the sweep kernel will use
     "gmrm_sweep_blocks_plan": [_I] * 6 + [_P],
-    # blk_b, m_local, bed, win, gram, eps, na, mave, msig, beta, comp, acum
-    # (updated in place), grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, deps,
-    # scratch, nb, T, B, mb, nt, K, W, G, stream (a cooperative launch
+    # table (host array of per-shard operand records), s0, ns, step, mode,
+    # eps, na, out, sigmag, lc, rd, sqb, i2se, nonas, scratch, stamps (or
+    # null), T, B, mb, nt, K, W, G, want, stream (a cooperative launch
     # inside the entry point)
-    "gmrm_block_sweep": [_P] * 23 + [_I] * 8 + [_P],
-    # T, B, mb, nt, K, W, out (4 ints): no launch, the grid and the shared
-    # memory the per-block sweep kernel will use at these shapes
-    "gmrm_block_sweep_plan": [_I] * 6 + [_P],
+    "gmrm_block_sweep": [_P] + [_I] * 4 + [_P] * 11 + [_I] * 8 + [_P],
+    # T, B, mb, nt, K, W, want, out (8 ints): no launch, the shards a launch
+    # takes, the columns, grid, shared memory and scratch the sharded
+    # block-step kernel will use at these shapes
+    "gmrm_block_sweep_plan": [_I] * 7 + [_P],
 }
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper

@@ -1,5 +1,5 @@
 """The one-time Gram cache (kernel 1), the group-level scan tables, the
-whole-sweep kernel of wave mode (kernels 7 and 8) and the fused per-block
+whole-sweep kernel of wave mode (kernels 7 and 8) and the block-step
 kernel of the marker-sharded sweep (kernel 9).
 
 Port of ``build_gram_cache`` (gmrm_tpu/ops/sweep_kernel.py:1259),
@@ -11,16 +11,21 @@ under the block-preserving shuffle, so the sweep only gathers and scales
 it.  ``sweep_blocks`` runs one whole sweep per launch
 (csrc/sweep_blocks.cu); one kernel serves both of the JAX package's
 regimes, the resident ``_sweep_kernel`` and the N-tiled
-``_sweep_kernel_tiled``.  ``block_sweep`` runs one block of the same sweep
-per launch (csrc/block_sweep.cu) with the residual read-only and its delta
-as an output, which the sharded sweep sums over shards.
+``_sweep_kernel_tiled``.  ``ShardedBlockSweep`` runs one block step of all
+of a process's shards per launch (csrc/block_sweep.cu), every shard against
+the one residual, and sums their deltas in shard order: into the residual
+itself, or into an output that the caller sums over processes;
+``block_sweep`` is its one-shard, one-block case with the delta as the
+output.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gmrm_tpu_torch.ops import _build
@@ -400,33 +405,264 @@ def block_sweep_plain(blk_b, m_local, bed_blk, win_blk, gfull_blk, eps, na,
     return deps, beta_blk, comp_blk, acum_blk
 
 
+class ShardOperands(NamedTuple):
+    """One shard's operands of kernel 9 for a whole sweep.  The per-marker
+    arrays are in natural order over the nb*B marker slots of the operands
+    (nb >= 1; with nb = 1 they are one block's own slices and the kernel
+    takes block 0 of them, with nb > 1 block ``blk[b]``)."""
+    blk: torch.Tensor       # (nblocks,) int32 natural block of each step
+    win: torch.Tensor       # (nblocks, B) int32 row order of each step
+    m_local: object         # the real marker count: an int, or a (1,)
+                            # int32 tensor read on the device
+    bed: torch.Tensor       # (nb*B, mb) uint8
+    gram: torch.Tensor      # (nb, NT, 2B, 2B) float32
+    mave: torch.Tensor      # (T, nb*B) float32, as msig
+    msig: torch.Tensor
+    beta: torch.Tensor      # (T, nb*B) float32, updated IN PLACE, as comp
+    comp: torch.Tensor      # (int32) and acum
+    acum: torch.Tensor
+    grp: torch.Tensor       # (nb*B,) int32
+    u: torch.Tensor         # (nblocks, T, B) float32 processing order
+    z: torch.Tensor
+
+
+def block_sweep_shards_plain(b, shards, eps, na, sigmag, lc_tab, rd_tab,
+                             sqb_tab, i2se, nonas, *, wave, prev=None,
+                             out=None):
+    """Plain PyTorch version of one launch of kernel 9: block step ``b`` of
+    every shard of ``shards`` (:class:`ShardOperands`) against ``eps``,
+    each by :func:`block_sweep_plain`, the shards' deltas summed in shard
+    order, onto ``prev`` when it is given (the sum of the shards before
+    them).  ``out`` None adds the sum into ``eps`` IN PLACE and returns
+    eps; otherwise the sum is written into ``out``, which is returned."""
+    total = prev
+    for s in shards:
+        d = block_sweep_plain(
+            s.blk[b:b + 1], s.m_local, s.bed, s.win[b], s.gram, eps, na,
+            s.mave, s.msig, s.beta, s.comp, s.acum, s.grp, s.u[b], s.z[b],
+            sigmag, lc_tab, rd_tab, sqb_tab, i2se, nonas, wave=wave)[0]
+        total = d if total is None else total + d
+    if out is None:
+        eps += total
+        return eps
+    out.copy_(total)
+    return out
+
+
+MAX_SHARDS = 16   # shards one launch takes at most (csrc MAX_SHARDS)
+ACCUMULATE, IN_PLACE = 1, 2   # launch modes (csrc)
+
+
 @functools.lru_cache(maxsize=None)
-def block_sweep_plan(T: int, B: int, mb: int, nt: int, K: int,
-                     wave: int) -> dict:
-    """The grid and shared memory the per-block kernel uses at these shapes
-    on the current card (csrc/block_sweep.cu ``plan_block``).  Launches
-    nothing."""
-    out = (ctypes.c_int * 4)()
+def block_sweep_plan(T: int, B: int, mb: int, nt: int, K: int, wave: int,
+                     shards: int = 1) -> dict:
+    """How kernel 9 runs a block step of ``shards`` shards at these shapes
+    on the current card (csrc/block_sweep.cu ``plan_step``): the shards a
+    launch takes (``cap``, at least 1 at any width), the byte columns a
+    column CTA owns (``span``) and stages at a time (``cols``; ``tiles``
+    of them make a span, more than one only on a wide panel), the grid of
+    a full launch (one scan CTA per shard and the column CTAs), its shared
+    memory and the scratch words per shard.  Launches nothing."""
+    out = (ctypes.c_int * 9)()
     err = _build.library().gmrm_block_sweep_plan(
-        T, B, mb, nt, K, wave, ctypes.addressof(out))
+        T, B, mb, nt, K, wave, shards, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(
-            f"the per-block sweep kernel cannot run at T={T}, B={B}, "
-            f"mb={mb}, NT={nt}, K={K}, W={wave}: {_build.error_string(err)}")
-    grid, cols, flags, smem = out
-    return {"grid": grid, "cols": cols, "smem_bytes": smem,
-            "resident": [name for bit, name in (
-                (2, "scan tables"), (1, "bed slice")) if flags & bit]}
+            f"the sharded block-step kernel cannot run at T={T}, B={B}, "
+            f"mb={mb}, NT={nt}, K={K}, W={wave}: "
+            f"{_build.error_string(err)}")
+    cap, cols, ncol, flags, smem, groups, gs_tot, slot, span = out
+    if cap == 0:
+        raise RuntimeError(
+            f"the sharded block-step kernel finds no resident grid for "
+            f"{shards} shards at T={T}, B={B}, mb={mb}, NT={nt}, K={K}, "
+            f"W={wave}")
+    return {"cap": cap, "cols": cols, "span": span,
+            "tiles": -(-span // cols), "column_ctas": ncol,
+            "grid": ncol + cap, "smem_bytes": smem, "groups": groups,
+            "gs_tot": gs_tot, "slot_words": slot,
+            "resident": [name for bit, name in ((1, "scaled Gram"),
+                                                (2, "scan tables"))
+                         if flags & bit]}
+
+
+# The %globaltimer events kernel 9 records per CTA when it is given a stamp
+# buffer, as the names of the intervals between them: the scan CTAs (one
+# per shard, the first CTAs of the grid) and the column CTAs.
+BLOCK_STEP_STAMPS = {
+    "scan": ("marker state and draws",
+             "a dry run of a wave, then the wait for the groups' sums",
+             "c and base", "wave 1 drawn",
+             "the later waves, the wait for the scaled Gram and its copy "
+             "included"),
+    "column": ("staged", "c-dot partials and tickets",
+               "share of the scaled Grams, a dry pass, then the first wave "
+               "of every shard, waits included",
+               "the later waves, waits included",
+               "the shards summed and written"),
+}
+BS_NST = 6
+
+
+class ShardedBlockSweep:
+    """Kernel 9 over a process's local shards: :meth:`sweep` takes the
+    shards' operands once per sweep, checks each (``_build.check_once``:
+    the operands that stay from sweep to sweep are checked once) and builds
+    the table of their addresses; :meth:`step` runs one block step of all
+    of them, one launch when the shards fit one grid (``MAX_SHARDS`` and
+    ``block_sweep_plan``'s ``cap``), else launches of consecutive shards,
+    each after the first adding onto the sum of those before.  The scratch
+    (counters and the tree's partials, zeroed once; every launch leaves it
+    zeroed) is kept from sweep to sweep of one object.  CPU tensors take
+    the plain version, launch for launch."""
+
+    def __init__(self):
+        self.seen = {}
+        self.scratch = None
+        self.key = None
+        self.shards = None
+
+    def sweep(self, shards, eps, na, sigmag, lc_tab, rd_tab, sqb_tab, i2se,
+              nonas, *, wave):
+        """The sweep's operands: ``shards`` a list of
+        :class:`ShardOperands`, one per local shard in shard order, every
+        shard with the same nblocks; eps (T, 4, mb) float32; na (NT, 4, mb)
+        with NT the Gram cache's masks; sigmag (T, G); lc/rd/sqb_tab
+        (K, T, G) from ``build_sweep_tables``; i2se and nonas (T,).
+        Returns self."""
+        T, _, mb = eps.shape
+        nblocks, B = shards[0].win.shape
+        nt = shards[0].gram.shape[1]
+        if wave < 2 or B % wave:
+            raise ValueError(f"wave {wave} must be > 1 and divide B={B}")
+        if nt not in (1, T) or na.shape[0] != nt:
+            raise ValueError(f"the Gram cache has {nt} masks and na "
+                             f"{na.shape[0]}; expected both 1 or both T={T}")
+        self.shards, self.eps, self.wave = list(shards), eps, wave
+        self.common = (na, sigmag, lc_tab, rd_tab, sqb_tab, i2se, nonas)
+        cap = MAX_SHARDS
+        if eps.device.type == "cuda":
+            K, _, G = lc_tab.shape
+            if T > MAX_T or K > MAX_K:
+                raise ValueError(f"T={T}, K={K} exceed the kernel's "
+                                 f"MAX_T={MAX_T}, MAX_K={MAX_K}")
+            # The plan, and with it the columns each CTA sums over, is the
+            # one of all the step's shards, however many launches take
+            # them: a split step gives the bits of one launch.
+            want = len(shards)
+            plan = block_sweep_plan(T, B, mb, nt, K, wave, want)
+            cap = min(plan["cap"], MAX_SHARDS)
+            self._set_up(plan, (T, B, mb, nt, K, wave, want, G), nblocks)
+        n = len(self.shards)
+        self.groups = [(s0, min(cap, n - s0)) for s0 in range(0, n, cap)]
+        self.partial = (torch.empty_like(eps) if len(self.groups) > 1
+                        else None)
+        return self
+
+    def _set_up(self, plan, key, nblocks):
+        """The checks, the table of addresses and the scratch of a sweep on
+        the card."""
+        T, B, mb, nt, K, wave, want, G = key
+        dev = self.eps.device
+        f32, i32 = torch.float32, torch.int32
+
+        def ptr(x, name, dtype, shape):
+            return _build.check_once(self.seen, x, name, dtype, shape, dev)
+
+        rows = []
+        for q, s in enumerate(self.shards):
+            m_in = s.bed.shape[0]
+            if m_in % B or m_in >= 2 ** 31:
+                raise ValueError(f"shard {q}: bed has {m_in} rows, not a "
+                                 f"multiple of B={B} below 2^31")
+            tb = (T, m_in)
+            if isinstance(s.m_local, torch.Tensor) and s.m_local.is_cuda:
+                m_ptr, m_int = ptr(s.m_local, f"m_local{q}", i32, (1,)), 0
+            else:
+                m_ptr, m_int = 0, int(s.m_local)
+            nb = m_in // B
+            rows.append([
+                ptr(s.blk, f"blk{q}", i32, (nblocks,)),
+                ptr(s.win, f"win{q}", i32, (nblocks, B)),
+                ptr(s.bed, f"bed{q}", torch.uint8, (m_in, mb)),
+                ptr(s.gram, f"gram{q}", f32, (nb, nt, 2 * B, 2 * B)),
+                ptr(s.mave, f"mave{q}", f32, tb),
+                ptr(s.msig, f"msig{q}", f32, tb),
+                ptr(s.beta, f"beta{q}", f32, tb),
+                ptr(s.comp, f"comp{q}", i32, tb),
+                ptr(s.acum, f"acum{q}", f32, tb),
+                ptr(s.grp, f"grp{q}", i32, (m_in,)),
+                ptr(s.u, f"u{q}", f32, (nblocks, T, B)),
+                ptr(s.z, f"z{q}", f32, (nblocks, T, B)),
+                m_ptr, nb | (m_int << 32)])
+        # ShardOps records (csrc/block_sweep.cu): 13 addresses, nb, m_local.
+        self.table = np.array(rows, dtype=np.uint64)
+        eps = self.eps
+        na, sigmag, lc, rd, sqb, i2se, nonas = self.common
+        common = [ptr(eps, "eps", f32, (T, 4, mb)),
+                  ptr(na, "na", f32, (nt, 4, mb))]
+        tail = [ptr(sigmag, "sigmag", f32, (T, G))]
+        tail += [ptr(x, name, f32, (K, T, G))
+                 for x, name in ((lc, "lc"), (rd, "rd"), (sqb, "sqb"))]
+        tail += [ptr(i2se, "i2se", f32, (T,)), ptr(nonas, "nonas", f32, (T,))]
+        if (self.key != key or self.scratch is None
+                or self.scratch.device != dev):
+            self.scratch = torch.zeros(
+                (plan["cap"] * plan["slot_words"],), dtype=i32, device=dev)
+            self.key = key
+        self.args = (common, tail, (T, B, mb, nt, K, wave, G, want))
+
+    def step(self, b: int, out=None, stamps=None):
+        """Block step ``b`` of every shard: the sum of the shards' residual
+        deltas is added into eps IN PLACE (``out`` None) or written into
+        ``out`` (T, 4, mb) float32, every element.  Each shard's marker
+        state is updated in place at the block's slots.  ``stamps``, for
+        measurement only: an int64 tensor (grid, BS_NST) of one launch."""
+        n_groups = len(self.groups)
+        buf = out if out is not None else self.partial
+        if self.eps.device.type == "cpu":
+            for i, (s0, n) in enumerate(self.groups):
+                final = i == n_groups - 1
+                block_sweep_shards_plain(
+                    b, self.shards[s0:s0 + n], self.eps, *self.common,
+                    wave=self.wave, prev=buf if i else None,
+                    out=None if final and out is None else buf)
+            return self.eps if out is None else out
+        common, tail, shapes = self.args
+        if out is not None:
+            _build.check_once(self.seen, out, "out", torch.float32,
+                              tuple(self.eps.shape), self.eps.device)
+        if stamps is not None and n_groups > 1:
+            raise ValueError("stamps record one launch")
+        table = self.table.ctypes.data
+        for i, (s0, n) in enumerate(self.groups):
+            final = i == n_groups - 1
+            mode = (ACCUMULATE if i else 0) | (
+                IN_PLACE if final and out is None else 0)
+            _build.launch("block_sweep", table, s0, n, b, mode,
+                          *common, 0 if buf is None else buf.data_ptr(),
+                          *tail, self.scratch.data_ptr(),
+                          0 if stamps is None else stamps.data_ptr(),
+                          *shapes)
+        return self.eps if out is None else out
+
+    def finish(self):
+        """Each shard's (beta, comp, acum), in shard order; the sweep's
+        operands are let go."""
+        states = [(s.beta, s.comp, s.acum) for s in self.shards]
+        self.shards = self.eps = self.common = self.partial = None
+        self.args = self.table = None
+        return states
 
 
 def block_sweep(blk_b, m_local, bed_blk, win_blk, gfull_blk, eps, na,
                 mave_blk, msig_blk, beta_blk, comp_blk, acum_blk, grp_blk,
                 u_blk, z_blk, sigmag, lc_tab, rd_tab, sqb_tab, i2se, nonas,
                 *, wave):
-    """Kernel 9: one block of the wave-mode sweep in one launch, the
-    residual read-only and the block's residual delta returned, for the
-    sharded sweep's sum over shards (arguments in the order of
-    ``block_sweep_pallas``).
+    """Kernel 9 for one shard and one block, the residual read-only and
+    the block's residual delta returned (arguments in the order of
+    ``block_sweep_pallas``): the one-shard case of :class:`ShardedBlockSweep`
+    in out mode.
 
     blk_b the natural block id and m_local the shard's real marker count,
     ints or one-element tensors (read on the device, never waited for);
@@ -466,46 +702,19 @@ def block_sweep(blk_b, m_local, bed_blk, win_blk, gfull_blk, eps, na,
             msig_blk, beta_blk, comp_blk, acum_blk, grp_blk, u_blk, z_blk,
             sigmag, lc_tab, rd_tab, sqb_tab, i2se, nonas, wave=wave)
     dev = bed_blk.device
-    nb = bed_blk.shape[0] // B
-    m_in = nb * B
-    K, _, G = lc_tab.shape
-    if T > MAX_T or K > MAX_K:
-        raise ValueError(f"T={T}, K={K} exceed the kernel's MAX_T={MAX_T}, "
-                         f"MAX_K={MAX_K}")
-    f32, i32 = torch.float32, torch.int32
-    blk_b = _block_scalar(blk_b, dev)
-    m_local = _block_scalar(m_local, dev)
-    win_blk = win_blk.reshape(B)
-    na_in = na[:nt]
-    grp_blk = grp_blk.to(i32)
-    u_blk, z_blk = u_blk.reshape(T, B), z_blk.reshape(T, B)
-    i2se, nonas = i2se.reshape(T), nonas.reshape(T)
-    _build.check(bed_blk, "bed_blk", torch.uint8, (m_in, mb), dev)
-    _build.check(win_blk, "win_blk", i32, (B,), dev)
-    _build.check(gfull_blk, "gfull_blk", f32, (nb, nt, 2 * B, 2 * B), dev)
-    _build.check(eps, "eps", f32, (T, 4, mb), dev)
-    _build.check(na_in, "na", f32, (nt, 4, mb), dev)
-    for name, x in (("mave_blk", mave_blk), ("msig_blk", msig_blk),
-                    ("beta_blk", beta_blk), ("acum_blk", acum_blk)):
-        _build.check(x, name, f32, (T, m_in), dev)
-    _build.check(comp_blk, "comp_blk", i32, (T, m_in), dev)
-    _build.check(grp_blk, "grp_blk", i32, (m_in,), dev)
-    for name, x in (("u_blk", u_blk), ("z_blk", z_blk)):
-        _build.check(x, name, f32, (T, B), dev)
-    _build.check(sigmag, "sigmag", f32, (T, G), dev)
-    for name, x in (("lc_tab", lc_tab), ("rd_tab", rd_tab),
-                    ("sqb_tab", sqb_tab)):
-        _build.check(x, name, f32, (K, T, G), dev)
-    _build.check(i2se, "i2se", f32, (T,), dev)
-    _build.check(nonas, "nonas", f32, (T,), dev)
-    plan = block_sweep_plan(T, B, mb, nt, K, wave)
-    deps = torch.empty((T, 4, mb), dtype=f32, device=dev)
-    # part (grid, 2T, B), red (2T, B), the scaled Gram (T, B, B), dbeta (T, B)
-    scratch = torch.empty(((2 * plan["grid"] + 3 + B) * T * B,), dtype=f32,
-                          device=dev)
-    _build.launch("block_sweep", blk_b, m_local, bed_blk, win_blk, gfull_blk,
-                  eps, na_in, mave_blk, msig_blk, beta_blk, comp_blk,
-                  acum_blk, grp_blk, u_blk, z_blk, sigmag, lc_tab, rd_tab,
-                  sqb_tab, i2se, nonas, deps, scratch, nb, T, B, mb, nt, K,
-                  wave, G)
+    if isinstance(m_local, torch.Tensor) and m_local.is_cuda:
+        m_local = m_local.reshape(1).to(torch.int32)
+    else:
+        m_local = int(m_local)
+    shard = ShardOperands(
+        _block_scalar(blk_b, dev), win_blk.reshape(1, B), m_local, bed_blk,
+        gfull_blk, mave_blk, msig_blk, beta_blk, comp_blk, acum_blk,
+        grp_blk.to(torch.int32), u_blk.reshape(1, T, B),
+        z_blk.reshape(1, T, B))
+    deps = torch.empty((T, 4, mb), dtype=torch.float32, device=dev)
+    sweep = ShardedBlockSweep().sweep(
+        [shard], eps, na[:nt], sigmag, lc_tab, rd_tab, sqb_tab,
+        i2se.reshape(T), nonas.reshape(T), wave=wave)
+    sweep.step(0, out=deps)
+    sweep.finish()
     return deps, beta_blk, comp_blk, acum_blk

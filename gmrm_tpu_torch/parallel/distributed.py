@@ -106,8 +106,13 @@ class Communicator:
                     f"{self.device} need {want}; call init_distributed("
                     f"backend={want!r})")
 
+    def sums(self) -> bool:
+        """Whether :meth:`all_reduce_sum` sums anything: a process group
+        exists and the sums are not skipped."""
+        return is_initialized() and self.enabled
+
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        if is_initialized() and self.enabled:
+        if self.sums():
             dist.all_reduce(x, op=dist.ReduceOp.SUM)
         return x
 

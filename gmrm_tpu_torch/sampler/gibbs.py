@@ -24,10 +24,12 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
      shard sweeps its own markers against the one residual, and per block
      step the shards' residual deltas are summed, over the process's local
      shards and then over processes, before the residual moves.  At W > 1
-     a shard's block step is one launch of the fused per-block kernel
-     (ops/sweep_kernel.block_sweep); at W = 1, or with
-     ``megakernel=False``, it is the composed kernels with the update
-     added into a zeroed delta instead of into the residual,
+     a block step of all local shards is one launch of the sharded
+     block-step kernel (ops/sweep_kernel.ShardedBlockSweep), which sums
+     the shards' deltas itself and, with no process group, adds the sum
+     into the residual; at W = 1, or with ``megakernel=False``, each shard
+     runs the composed kernels with the update added into a zeroed delta
+     instead of into the residual,
 4. the hyperparameter block (gibbs.py:529-568); on a sharded run the
    per-group sums of beta^2 and the component counts are summed over
    shards and processes first, and the draws are the same on every shard.
@@ -54,7 +56,7 @@ from gmrm_tpu_torch.ops.block_kernels import (
 from gmrm_tpu_torch.ops.scan_kernel import SerialScanSweep
 from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks, wave_scan
 from gmrm_tpu_torch.ops.sweep_kernel import (
-    block_sweep, build_sweep_tables, sweep_blocks,
+    ShardOperands, ShardedBlockSweep, build_sweep_tables, sweep_blocks,
 )
 from gmrm_tpu_torch.sampler.dists import (
     RngPlan, dirichlet_from_counts, dirichlet_from_draws, gamma_draws,
@@ -287,45 +289,19 @@ class _ComposedSweep:
         return natural(0), natural(1), natural(2)
 
 
-class _FusedSweep:
-    """One sweep of one shard through the fused per-block kernel (kernel 9),
-    a block step at a time.  The kernel takes block ``blk_idx[b]`` of the
-    shard's natural-order arrays itself and updates copies of
-    betas/comp/acum in place, so a step is one launch and nothing is sliced
-    by a value that lives on the device."""
-
-    def __init__(self, betas, comp, acum, sigmag, static, blocks, u_all,
-                 z_all, tables, i2se, wave):
-        B = blocks.shape[1]
-        i32 = torch.int32
-        self.static, self.wave, self.i2se = static, wave, i2se
-        self.tables, self.sigmag = tables, sigmag.to(torch.float32)
-        self.u_all, self.z_all = u_all, z_all
-        blk_idx = blocks[:, 0] // B
-        self.blk_idx = blk_idx.to(i32)
-        self.win = (blocks - blk_idx[:, None] * B).to(i32).contiguous()
-        self.m_local = torch.tensor([static.m_local], dtype=i32,
-                                    device=betas.device)
-        nt = static.gram_cache.shape[1]
-        self.na_in = (static.na[:1] if nt == 1 else static.na).contiguous()
-        self.grp = static.group_of.to(i32)
-        self.nonas = static.nonas.to(torch.float32)
-        self.state = (betas.clone(), comp.to(i32).clone(), acum.clone())
-
-    def step(self, b, eps):
-        """The residual delta (T, 4, mb) of block step ``b`` against
-        ``eps``, which is not modified."""
-        static = self.static
-        betas, comp, acum = self.state
-        return block_sweep(
-            self.blk_idx[b:b + 1], self.m_local, static.bed, self.win[b],
-            static.gram_cache, eps, self.na_in, static.mave, static.msig,
-            betas, comp, acum, self.grp, self.u_all[b], self.z_all[b],
-            self.sigmag, *self.tables, self.i2se, self.nonas,
-            wave=self.wave)[0]
-
-    def finish(self):
-        return self.state
+def _fused_operands(betas, comp, acum, static, blocks, u_all, z_all):
+    """One shard's :class:`ShardOperands` of kernel 9 for a sweep: the
+    block order and row order as int32, copies of its marker state, which
+    the kernel updates in place, and its natural-order arrays as they
+    are."""
+    B = blocks.shape[1]
+    i32 = torch.int32
+    blk_idx = blocks[:, 0] // B
+    return ShardOperands(
+        blk_idx.to(i32), (blocks - blk_idx[:, None] * B).to(i32).contiguous(),
+        static.m_local, static.bed, static.gram_cache, static.mave,
+        static.msig, betas.clone(), comp.to(i32).clone(), acum.clone(),
+        static.group_of.to(i32), u_all, z_all)
 
 
 def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
@@ -345,8 +321,13 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
     zeros), and only then added into ``eps``, IN PLACE: the reference's
     per-marker MPI_Allgatherv (bayes.cpp:500-553) at block cadence.
 
-    wave > 1 takes the fused per-block kernel (``block_sweep``, one launch
-    per shard and block step); wave = 1, and ``megakernel=False`` at any
+    wave > 1 takes kernel 9 (``ShardedBlockSweep``): one launch per block
+    step for all local shards, which also sums their deltas in shard
+    order.  With no sum across processes to make (``comm.sums()`` False)
+    the launch adds that sum into ``eps`` itself, and the host issues
+    nothing else per block step; otherwise it writes the local sum, which
+    ``comm.all_reduce_sum`` sums over processes before ``eps += sum``.
+    Both give the same bits.  wave = 1, and ``megakernel=False`` at any
     wave, take the composed kernels with the update added into a zeroed
     delta.  ``megakernel=True`` raises: the whole-sweep kernel holds the
     residual for a whole sweep and cannot merge deltas per block.
@@ -369,23 +350,37 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
                                 statics[0].cvai, statics[0].nonas,
                                 statics[0].n_total)
     i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
-    make = _FusedSweep if fused else _ComposedSweep
-    sweeps = [make(b, c, a, sigmag, st, blk, u, z, tables, i2se, wave)
-              for (b, c, a), st, blk, u, z in zip(marker_states, statics,
-                                                  blocks, u_all, z_all)]
-    deltas = None if fused else [torch.empty_like(eps) for _ in sweeps]
-    for k in range(nblocks):
-        total = None
-        for i, sweep in enumerate(sweeps):
-            if fused:
-                d = sweep.step(k, eps)
+    if fused:
+        nt = statics[0].gram_cache.shape[1]
+        na = statics[0].na
+        sweep = ShardedBlockSweep().sweep(
+            [_fused_operands(b, c, a, st, blk, u, z)
+             for (b, c, a), st, blk, u, z in zip(marker_states, statics,
+                                                 blocks, u_all, z_all)],
+            eps, (na[:1] if nt == 1 else na).contiguous(), sigmag.to(f32),
+            *tables, i2se, statics[0].nonas.to(f32), wave=wave)
+        total = torch.empty_like(eps) if comm.sums() else None
+        for k in range(nblocks):
+            if total is None:
+                sweep.step(k)
             else:
-                d = deltas[i].zero_()
-                sweep.step(k, eps, d)
-            total = d if total is None else total.add_(d)
-        comm.all_reduce_sum(total)
-        eps += total
-    new_states = [sweep.finish() for sweep in sweeps]
+                comm.all_reduce_sum(sweep.step(k, out=total))
+                eps += total
+        new_states = sweep.finish()
+    else:
+        sweeps = [_ComposedSweep(b, c, a, sigmag, st, blk, u, z, tables,
+                                 i2se, wave)
+                  for (b, c, a), st, blk, u, z in zip(
+                      marker_states, statics, blocks, u_all, z_all)]
+        deltas = [torch.empty_like(eps) for _ in sweeps]
+        for k in range(nblocks):
+            total = None
+            for d, sweep in zip(deltas, sweeps):
+                sweep.step(k, eps, d.zero_())
+                total = d if total is None else total.add_(d)
+            comm.all_reduce_sum(total)
+            eps += total
+        new_states = [sweep.finish() for sweep in sweeps]
     cass = sum(_natural_cass(c, st.group_of, sigmag, st.m_local, K)
                for (_, c, _), st in zip(new_states, statics))
     return eps, new_states, cass

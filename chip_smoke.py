@@ -12,7 +12,13 @@ Phases, each of which must pass (any failure exits non-zero):
    training paths' shapes (T=4 traits, B=128, W=32, K=4, mb_pad=2560),
    with shared (NT=1) and per-trait (NT=4) NA masks, timed beside the
    plain version by replaying a CUDA graph of many calls (device time),
-   and per eager call.  The block Gram (kernel 5) builds a run of blocks
+   and per eager call.  The Gram cache (kernel 1) is held bit-equal at the
+   anchor, at B=192, at mb=203 and at mb_pad=25,088 (157 blocks), beside
+   torch.bmm on pre-decoded operands; the wave scan (kernel 3) runs on the
+   anchor's (157, ..., B) arrays with a block index (a middle and the last
+   block, twice, bit-equal), on one block's tensors, and on shapes that
+   reach its other branches, with one stamped launch.  The block Gram
+   (kernel 5) builds a run of blocks
    per launch (all 157 at NT=1, a run under its byte budget at NT=4) and
    one block alone; the serial scan (kernel 6) runs on the sweep's arrays
    with a block index and on one block's tensors; the c-dot and the update
@@ -70,7 +76,9 @@ Phases, each of which must pass (any failure exits non-zero):
    the fused update and next c-dot for every block but the last, whose
    update runs alone;
 4c. the composed wave path (megakernel=False) for 5 iterations of
-   gibbs_iteration at the anchor, checking its launch counts;
+   gibbs_iteration at the anchor, checking its launch counts: per sweep the
+   c-dot of block 0, the wave scan per block, the fused update and next
+   c-dot for every block but the last and the last block's update alone;
 4d. the sharded entry point, gmrm_tpu_torch.parallel.runner
    .run_training_sharded, at the anchor: 2 shards on the auto plan (79
    blocks per shard, so W=32 and the block-step kernel) for 10
@@ -82,9 +90,10 @@ Phases, each of which must pass (any failure exits non-zero):
    out mode, then the all-reduce and the add); its artifacts must equal
    phase 4d's (in place) byte for byte;
 5. a torch.profiler window over 5 whole-sweep iterations at the anchor (as
-   run_training runs them), one over 5 W=1 iterations and one over 5
-   sharded iterations (2 shards): device-busy and wall time per iteration,
-   idle share, host-issued launches and graph replays per iteration.
+   run_training runs them), one over 5 W=1 iterations, one over 5 composed
+   iterations and one over 5 sharded iterations (2 shards): device-busy
+   and wall time per iteration, idle share, host-issued launches and graph
+   replays per iteration.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -96,9 +105,10 @@ on one card (parent, change, change, parent):
 
     python3 chip_smoke.py --training-only 3 [--repo OTHER_TREE]
 
-builds the kernels of the tree at --repo (default: this one), runs phases 4
-and 4b and phase 5's W=32 and W=1 profiler windows three times and prints
-each run's ms/iteration, idle share and host-issued calls, nothing else.
+builds the kernels of the tree at --repo (default: this one), runs phases
+4, 4b and 4c and phase 5's W=32, W=1 and composed profiler windows three
+times and prints each run's ms/iteration, idle share and host-issued
+calls, nothing else.
 ``--sweep-only REPS [--repo TREE]`` does the same for phase 2's whole-sweep
 kernel: its gate against the plain version, its ms per sweep and, where
 the tree's kernel records them, its stamps.  ``--sharded-only REPS [--repo
@@ -112,6 +122,7 @@ once per shard); with ``--training-only`` in the same process.
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import multiprocessing
 import os
@@ -130,6 +141,8 @@ ITERS_SERIAL = 10
 ITERS_COMPOSED = 5
 N_BIG, MT_BIG = 100_000, 4_096   # the large-N gate's panel: mb_pad 25,088
 MB_BIG = 25_088
+# Per block of a sharded composed W>1 sweep (the update into a delta); one
+# device fuses kernels 4 and 2 (composed_counts).
 COMPOSED_KERNELS = ("block_cdot", "wave_scan", "eps_update")
 # Per block of a sharded W=1 sweep; one device fuses kernels 4 and 2.
 SERIAL_KERNELS = ("block_cdot", "serial_scan", "eps_update")
@@ -146,6 +159,12 @@ EARLIER_PASSES_MS = {"block_cdot": (0.0294,), "eps_update": (0.0424, 0.0423)}
 # NT=4, and ms per eager call of its wrapper (PERF.md section 6, row 9).
 EARLIER_BLOCK_SWEEP_MS = {"launch": (0.0297, 0.0282), "call": (0.077, 0.095)}
 SHARDS_PHASE2 = (1, 2, 4)     # local shards of kernel 9's launches in phase 2
+# Kernels 1 and 3 in their earlier designs (scalar int32 4x4 register tiles,
+# all four quadrants; one CTA of 256 threads reading every operand from
+# global memory), ms per launch at NT=1 and NT=4, and per block (PERF.md
+# section 6, rows 1 and 3).
+EARLIER_GRAM_CACHE_MS = (10.12, 38.49)
+EARLIER_WAVE_SCAN_MS = (0.0267,)
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
 # memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
@@ -176,6 +195,14 @@ def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
                  else dict.fromkeys(SERIAL_KERNELS, nblocks))
     per_sweep["block_gram"] = runs
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
+
+
+def composed_counts(nblocks, sweeps=1):
+    """Launches of ``sweeps`` composed W>1 sweeps on one device: per sweep
+    kernel 2 for the first block, kernel 3 per block, the fused update and
+    next c-dot for every block but the last and kernel 4 for the last."""
+    return {"block_cdot": sweeps, "wave_scan": nblocks * sweeps,
+            "update_cdot": (nblocks - 1) * sweeps, "eps_update": sweeps}
 
 
 def fail(msg):
@@ -430,6 +457,40 @@ def passes_stamp_split(bk, passes, b, eps, d_all):
     return split
 
 
+def scan_case(dev, gen, Tv, Bv, Kv, G=3):
+    """One block's scan inputs at (T, B, K) = (Tv, Bv, Kv), as the one-block
+    scan wrappers take them: an adaV group, three pad markers, a Gram of
+    600 random columns.  Returns the arguments and the live mask."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    cva_v = torch.cat([torch.zeros((G, 1), device=dev), torch.logspace(
+        -4, -1.3, Kv - 1, device=dev).expand(G, Kv - 1)], dim=1)
+    cvai_v = torch.zeros_like(cva_v)
+    cvai_v[:, 1:] = 1.0 / cva_v[:, 1:]
+    sg_v = torch.rand((Tv, G), generator=gen, device=dev) * 0.4 + 0.1
+    sg_v[0, 1] = 0.0
+    se_v = torch.rand((Tv,), generator=gen, device=dev) * 0.4 + 0.5
+    pi_v = torch.rand((Tv, G, Kv), generator=gen, device=dev) + 0.1
+    tabs = sk.build_sweep_tables(
+        sg_v, se_v, pi_v / pi_v.sum(-1, keepdim=True), cva_v, cvai_v,
+        torch.full((Tv,), 490.0, device=dev), 500.0)
+    grp_v = torch.randint(0, G, (Bv,), generator=gen, device=dev)
+    live_v, zerob_v = sw.scan_masks(
+        grp_v, torch.arange(Bv, device=dev) < Bv - 3, sg_v)
+    xv = torch.randn((Bv, 600), generator=gen, device=dev)
+    return ((torch.randn((Tv, Bv), generator=gen, device=dev) * 30.0,
+             *(t[:, :, grp_v].contiguous() for t in tabs),
+             (xv @ xv.T).expand(Tv, Bv, Bv).contiguous(),
+             torch.randn((Tv, Bv), generator=gen, device=dev) * 0.05,
+             torch.randint(0, Kv, (Tv, Bv), generator=gen, device=dev,
+                           dtype=torch.int32),
+             torch.rand((Tv, Bv), generator=gen, device=dev),
+             torch.rand((Tv, Bv), generator=gen, device=dev),
+             torch.randn((Tv, Bv), generator=gen, device=dev), live_v,
+             zerob_v, (1.0 / (2.0 * se_v)).contiguous()), live_v)
+
+
 def kernel_phase(dev, gen):
     """Phase 2: every kernel against its plain version on the card."""
     import torch
@@ -465,23 +526,77 @@ def kernel_phase(dev, gen):
         t[1].append(cuda_ms(plain, plain_reps) / per)
         t[2].append(call_ms(kernel, reps) / per)
 
-    # Kernel 1: the Gram cache, bit-equal, NT = 1 and NT = T.
-    for shared, na in ((True, na_shared), (False, na_trait)):
-        na_in = (na[:1] if shared else na).contiguous()
-        got = sk.build_gram_cache(bed, na, block_size=B, shared_na=shared)
-        want = sk.gram_cache_plain(bed, na_in, B)
-        if not torch.equal(got, want):
-            fail(f"gram_cache (NT={na_in.shape[0]}) is not bit-equal to "
-                 f"its plain version (max abs err {max_err(got, want)})")
-        timed("gram_cache", lambda: sk.build_gram_cache(
-            bed, na, block_size=B, shared_na=shared),
-            lambda: sk.gram_cache_plain(bed, na_in, B), 3, 3)
+    # Kernel 1: the Gram cache, bit-equal to its plain version: the anchor
+    # at NT = 1 and NT = T (timed beside the plain version), then B = 192
+    # (partial 128-tiles), mb = 203 (the byte path) and the large-N
+    # panel's mb_pad = 25,088 (157 blocks, 504 MB of bed), timed alone.
+    # The int8 operations one block and mask needs: g1 and g3 are symmetric
+    # (B (B + 1) / 2 products each), g2t is not (B B), over the individuals
+    # that are not padding.
+    gram_ops = 2 * (2 * (B * (B + 1) // 2) + B * B) * 4 * (MB - 60)
+    cases = [("anchor", bed, na_shared, na_trait, B)]
+    b192 = MT - MT % 192
+    cases.append(("B=192", bed[:b192], na_shared, na_trait, 192))
+    cases.append(("mb=203", bed[:, :203].contiguous(),
+                  na_shared[:, :, :203].contiguous(),
+                  na_trait[:, :, :203].contiguous(), B))
+    bed_w = torch.randint(0, 256, (m_pad, MB_BIG), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    bed_w[MT:] = 0x55
+    na_w = torch.ones((T, 4, MB_BIG), device=dev)
+    na_w[:, :, MB_BIG - 60:] = 0
+    cases.append(("mb_pad=25,088", bed_w, na_w,
+                  na_w * (torch.rand((T, 4, MB_BIG), generator=gen,
+                                     device=dev) > 0.03), B))
+    gram_notes = []
+    for label, bed_c, na_s, na_t, bsz in cases:
+        for shared, na in ((True, na_s), (False, na_t)):
+            na_in = (na[:1] if shared else na).contiguous()
+            nt = na_in.shape[0]
+            got = sk.build_gram_cache(bed_c, na, block_size=bsz,
+                                      shared_na=shared)
+            want = sk.gram_cache_plain(bed_c, na_in, bsz)
+            if not torch.equal(got, want):
+                fail(f"gram_cache ({label}, NT={nt}) is not bit-equal to "
+                     f"its plain version (max abs err "
+                     f"{max_err(got, want)})")
+            del got, want
+
+            def kern(bed_c=bed_c, na=na, bsz=bsz, shared=shared):
+                return sk.build_gram_cache(bed_c, na, block_size=bsz,
+                                           shared_na=shared)
+            if label == "anchor":
+                timed("gram_cache", kern,
+                      lambda: sk.gram_cache_plain(bed_c, na_in, bsz), 3, 3)
+            else:
+                gram_notes.append(f"{label} NT={nt} {cuda_ms(kern, 3):.4f}")
+    del cases, kern, bed_w, na_w
+    # The yardstick that leaves the decode out: torch.bmm on every block's
+    # pre-decoded float32 operands (NT = 1, TF32 off), the body of
+    # raw_gram_plain for all blocks at once.
+    pa, pb = decode_planes(bed)
+    ab = torch.cat([pa.reshape(nblocks, B, -1), pb.reshape(nblocks, B, -1)],
+                   dim=1)                            # (nblocks, 2B, 4mb)
+    del pa, pb
+    abn = ab * na_shared[0].reshape(1, 1, -1)
+    gram_mm = cuda_ms(lambda: torch.bmm(abn, ab.transpose(1, 2)), 3)
+    del ab, abn
     out["gram_cache"] = 0.0
+    grid = sk.gram_cache_grid(B, nblocks, 1)
+    tops = gram_ops * nblocks / (times["gram_cache"][0][0] * 1e-3) / 1e12
+    notes["gram_cache"] = (
+        f"times in order: the anchor at NT=1, NT={T}; grid {grid} CTAs "
+        f"(quadrant tiles, masks, blocks); {tops:.1f} int8 TOP/s of the "
+        f"products the function needs at NT=1; other "
+        f"shapes, ms by graph replay: {'; '.join(gram_notes)}; torch.bmm "
+        f"on all blocks' pre-decoded float32 operands (NT=1) "
+        f"{gram_mm:.4f} ms; earlier design {EARLIER_GRAM_CACHE_MS} ms "
+        f"(NT=1, NT={T}) as recorded in PERF.md")
     # NT = 1, as the first timing: bed and mask in, the cache out; the
-    # Gram's multiply-adds are on integers below 256.
+    # products that the three quadrants need.
     bounds["gram_cache"] = bound_of(
         bed.numel() + 4 * MB * f4 + nblocks * (2 * B) ** 2 * f4,
-        (2 * nblocks * (2 * B) ** 2 * 4 * MB, INT8_OPS))
+        (nblocks * gram_ops, INT8_OPS))
 
     # Kernels 2 and 4 and the fused pass, one block each through the
     # one-block wrappers, with the shared (NT=1) and the per-trait (NT=4)
@@ -548,27 +663,133 @@ def kernel_phase(dev, gen):
             torch.rand((T, B), generator=gen, device=dev),
             torch.randn((T, B), generator=gen, device=dev), live, zerob,
             (1.0 / (2.0 * sigmae)).contiguous())
-    got = sw.wave_scan(*args, wave=W)
-    want = sw.wave_scan_plain(*args, W)
-    if not torch.equal(got[2], want[2]):
-        fail("wave_scan: comp differs from the plain version")
-    if len(torch.unique(want[2][live != 0])) < 2:
-        fail("wave_scan parity case drew a single component")
-    out["wave_scan"] = max(
-        close(f"wave_scan {name}", g, w, 1e-5, 1e-5)
-        for name, g, w in zip(("dbeta", "beta", "acum"),
-                              (got[0], got[1], got[3]),
-                              (want[0], want[1], want[3])))
-    timed("wave_scan", lambda: sw.wave_scan(*args, wave=W),
-          lambda: sw.wave_scan_plain(*args, W), 200, 20)
-    # The fold reads the Gram rows of a wave only when one of its markers
-    # moved: count the waves of this case that did.
-    moved = int((want[0].reshape(T, B // W, W) != 0).any(dim=2).any(dim=0)
-                .sum())
     scan_bytes = 3 * K * tb + 12 * tb + T * f4
+    wave_err, wave_drawn = 0.0, set()
+
+    def wave_held(name, got, want, live_b):
+        nonlocal wave_err
+        if not torch.equal(got[2], want[2]):
+            fail(f"wave_scan ({name}): comp differs from the plain version "
+                 f"in {int((got[2] != want[2]).sum())} entries")
+        wave_err = max([wave_err] + [
+            close(f"wave_scan {name} {part}", g, w, 1e-5, 1e-5)
+            for part, g, w in zip(("dbeta", "beta", "acum"),
+                                  (got[0], got[1], got[3]),
+                                  (want[0], want[1], want[3]))])
+        wave_drawn.update(want[2][live_b != 0].tolist())
+
+    # Kernel 3 as the composed sweep launches it: the anchor's 157 blocks of
+    # (nb, ..., B) arrays (the last with 96 pad slots) and a run of scaled
+    # Grams, a middle and the last block by index, the kernel forming base
+    # and d = msig * dbeta itself, launched twice (bit-equal); then the
+    # one-block wrapper (base given) on the middle block's slices, which
+    # must give the sweep's bits, and on one block's tensors.
+    grp_n = torch.randint(0, G, (nblocks, B), generator=gen, device=dev)
+    valid_n = torch.ones((nblocks, B), dtype=torch.bool, device=dev)
+    valid_n[-1, B - 96:] = False
+    live_n, zerob_n = (x.movedim(0, 1).contiguous()
+                       for x in sw.scan_masks(grp_n, valid_n, sigmag))
+
+    def blocks_of(tab):                       # (K, T, G) -> (nb, K, T, B)
+        return tab[:, :, grp_n].movedim(2, 0).contiguous()
+
+    xg = torch.randn((nblocks, B, 600), generator=gen, device=dev)
+    gs_n = torch.bmm(xg, xg.transpose(1, 2))[:, None].expand(
+        nblocks, T, B, B).contiguous()
+    del xg
+    c_n = torch.randn((nblocks, T, B), generator=gen, device=dev) * 30.0
+    nm1 = nonas - 1.0
+    i2se = args[12]
+    wops = (nm1, blocks_of(lc_t), blocks_of(rd_t), blocks_of(sqb_t),
+            torch.randn((nblocks, T, B), generator=gen, device=dev) * 0.05,
+            torch.randint(0, K, (nblocks, T, B), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.rand((nblocks, T, B), generator=gen, device=dev),
+            torch.rand((nblocks, T, B), generator=gen, device=dev),
+            torch.randn((nblocks, T, B), generator=gen, device=dev), live_n,
+            zerob_n, torch.rand((nblocks, T, B), generator=gen, device=dev)
+            + 0.5, i2se)
+    wsweep = sw.WaveScanSweep(*wops, wave=W)
+    bm = nblocks // 2
+
+    def plain_block(b):
+        base_b = (c_n[b] + wops[4][b] * nm1[:, None]).contiguous()
+        return (base_b, *(x[b] for x in wops[1:4]), gs_n[b],
+                *(x[b] for x in wops[4:11]), i2se)
+
+    for b in (bm, nblocks - 1):
+        def step(b=b):
+            wsweep.step(b, c_n, gs_n, b, bc=b)
+            return tuple(x[b].clone() for x in (
+                wsweep.dbeta, wsweep.beta_new, wsweep.comp_new,
+                wsweep.acum_new, wsweep.d))
+        got = bit_equal_twice(f"wave_scan (sweep arrays, block {b})", step)
+        wave_held(f"sweep arrays, block {b}", got,
+                  sw.wave_scan_plain(*plain_block(b), W), live_n[b])
+        if not torch.equal(got[4], wops[11][b] * got[0]):
+            fail("wave_scan: d is not msig * dbeta bit for bit")
+        if b == bm:
+            mid = got
+    if not torch.equal(wsweep.beta_new[-1][:, B - 96:],
+                       wops[4][-1][:, B - 96:]):
+        fail("wave_scan: the last block's pad slots moved")
+    one = sw.wave_scan(*plain_block(bm), wave=W)
+    if not all(torch.equal(x, y) for x, y in zip(one, mid)):
+        fail("wave_scan: the one-block wrapper and the sweep interface "
+             "wrote different bits for the same block")
+    wave_held("one block's tensors", sw.wave_scan(*args, wave=W),
+              sw.wave_scan_plain(*args, W), live)
+    plain_m = plain_block(bm)
+    timed("wave_scan", lambda: wsweep.step(bm, c_n, gs_n, bm, bc=bm),
+          lambda: sw.wave_scan_plain(*plain_m, W), 200, 20)
+    timed("wave_scan", lambda: sw.wave_scan(*plain_m, wave=W),
+          lambda: sw.wave_scan_plain(*plain_m, W), 200, 20)
+    nw = B // W
+    wstamps = torch.zeros(2 + 2 * nw, dtype=torch.int64, device=dev)
+    wsweep.step(bm, c_n, gs_n, bm, bc=bm, stamps=wstamps)
+    torch.cuda.synchronize()
+    wsplit = ", ".join(
+        f"{name} {float(t) / 1e3:.2f}" for name, t in zip(
+            sw.wave_stamp_names(nw), (wstamps - wstamps[0]).cpu()))
+    # The kernel's other branches against the plain version: W=8 and W=4
+    # (more waves), a block whose tables and Gram rows stay in global
+    # memory, one with the Gram rows of its first wave staged and the
+    # others' in global memory, 4-byte copies (B and W no multiple of 4),
+    # one wave (W = B), and T W above the CTA's 512 threads (no warp left
+    # to fold in the background).
+    for Tv, Bv, Kv, Wv, plan in ((4, 128, 4, 8, (1, 15)),
+                                 (3, 64, 3, 4, (1, 15)),
+                                 (8, 256, 16, 32, (0, 0)),
+                                 (4, 256, 4, 32, (1, 1)),
+                                 (4, 130, 4, 13, (1, 9)),
+                                 (2, 64, 2, 64, (1, 0)),
+                                 (8, 256, 4, 128, (1, 0))):
+        if sw.wave_plan(Tv, Bv, Kv, Wv) != plan:
+            fail(f"wave_scan: plan {sw.wave_plan(Tv, Bv, Kv, Wv)} at T={Tv},"
+                 f" B={Bv}, K={Kv}, W={Wv}")
+        vargs, live_v = scan_case(dev, gen, Tv, Bv, Kv)
+        wave_held(f"T={Tv}, B={Bv}, K={Kv}, W={Wv}",
+                  sw.wave_scan(*vargs, wave=Wv),
+                  sw.wave_scan_plain(*vargs, Wv), live_v)
+    if len(wave_drawn) < 2:
+        fail("wave_scan parity cases drew a single component")
+    out["wave_scan"] = wave_err
+    notes["wave_scan"] = (
+        "times in order: the sweep's arrays (a middle block), the one-block "
+        f"wrapper on its slices; plan (tables staged, waves of Gram rows "
+        f"staged) {sw.wave_plan(T, B, K, W)}; stamps of one launch, us "
+        f"from its start: {wsplit}; earlier design {EARLIER_WAVE_SCAN_MS} "
+        f"ms per block as recorded in PERF.md; no PyTorch call computes a "
+        f"scan")
+    # Bytes: the block's operands and outputs once and the Gram rows that
+    # a fold reads, of the waves that moved a marker; operations: those
+    # folds and the draws.
+    moved = [w for w in range(nw - 1)
+             if (mid[0][:, w * W:(w + 1) * W] != 0).any()]
+    fold_floats = sum(T * W * (B - (w + 1) * W) for w in moved)
     bounds["wave_scan"] = bound_of(
-        scan_bytes + moved * T * W * B * f4,
-        (moved * 2 * T * W * B + T * B * K * 12, F32_OPS))
+        3 * K * tb + 14 * tb + 2 * T * f4 + fold_floats * f4,
+        (2 * fold_floats + T * B * K * 12, F32_OPS))
 
     # Kernel 5: the scaled Grams of a run of blocks from one launch, gs
     # bit-equal: all 157 blocks at NT=1 (pad rows last, so the last block
@@ -582,10 +803,6 @@ def kernel_phase(dev, gen):
               + 0.2) * real
     msig_p = (torch.rand((nblocks, T, B), generator=gen, device=dev) * 1.5
               + 0.5) * real
-    # The int8 operations one block and mask needs: g1 and g3 are symmetric
-    # (B (B + 1) / 2 products each), g2t is not (B B), over the individuals
-    # that are not padding.
-    gram_ops = 2 * (2 * (B * (B + 1) // 2) + B * B) * 4 * (MB - 60)
     err, extra = 0.0, {}
     for na_in in (na_shared[:1].contiguous(), na_trait):
         nt = na_in.shape[0]
@@ -789,31 +1006,7 @@ def kernel_phase(dev, gen):
         if sk6.scan_plan(Tv, Bv, Kv)[0] != mode:
             fail(f"serial_scan: plan {sk6.scan_plan(Tv, Bv, Kv)} at "
                  f"T={Tv}, B={Bv}, K={Kv}")
-        cva_v = torch.cat([torch.zeros((G, 1), device=dev), torch.logspace(
-            -4, -1.3, Kv - 1, device=dev).expand(G, Kv - 1)], dim=1)
-        cvai_v = torch.zeros_like(cva_v)
-        cvai_v[:, 1:] = 1.0 / cva_v[:, 1:]
-        sg_v = torch.rand((Tv, G), generator=gen, device=dev) * 0.4 + 0.1
-        sg_v[0, 1] = 0.0
-        se_v = torch.rand((Tv,), generator=gen, device=dev) * 0.4 + 0.5
-        pi_v = torch.rand((Tv, G, Kv), generator=gen, device=dev) + 0.1
-        tabs = sk.build_sweep_tables(
-            sg_v, se_v, pi_v / pi_v.sum(-1, keepdim=True), cva_v, cvai_v,
-            torch.full((Tv,), 490.0, device=dev), 500.0)
-        grp_v = torch.randint(0, G, (Bv,), generator=gen, device=dev)
-        live_v, zerob_v = sw.scan_masks(
-            grp_v, torch.arange(Bv, device=dev) < Bv - 3, sg_v)
-        xv = torch.randn((Bv, 600), generator=gen, device=dev)
-        vargs = (torch.randn((Tv, Bv), generator=gen, device=dev) * 30.0,
-                 *(t[:, :, grp_v].contiguous() for t in tabs),
-                 (xv @ xv.T).expand(Tv, Bv, Bv).contiguous(),
-                 torch.randn((Tv, Bv), generator=gen, device=dev) * 0.05,
-                 torch.randint(0, Kv, (Tv, Bv), generator=gen, device=dev,
-                               dtype=torch.int32),
-                 torch.rand((Tv, Bv), generator=gen, device=dev),
-                 torch.rand((Tv, Bv), generator=gen, device=dev),
-                 torch.randn((Tv, Bv), generator=gen, device=dev), live_v,
-                 zerob_v, (1.0 / (2.0 * se_v)).contiguous())
+        vargs, _ = scan_case(dev, gen, Tv, Bv, Kv)
         held(f"T={Tv}, B={Bv}, K={Kv}", sk6.serial_scan(*vargs),
              sk6.serial_scan_plain(*vargs))
     out["serial_scan"] = err
@@ -1466,7 +1659,7 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
                    else serial_counts(nblocks, nt))
     if counts["kernels"] != want_counts or (
             against == "composed"
-            and counts[against] != dict.fromkeys(COMPOSED_KERNELS, nblocks)):
+            and counts[against] != composed_counts(nblocks)):
         fail(f"{name}: launches {counts}")
     (ke, kb, kc, _, kcass), (pe, pb, pc, _, pcass) = (res["kernels"],
                                                       res[against])
@@ -1519,7 +1712,10 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     import torch
     out_dir = os.path.join(tmp, f"out_w{wave}")
     opt = anchor_options(sim, out_dir, wave, iterations)
+    # The peak is the run's own: earlier phases' garbage is freed first.
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     res = run_training(opt, device=dev, verbose=False)
@@ -1768,9 +1964,13 @@ def eager_gate(sim, dev, res, iterations=ITERS):
     return names
 
 
-def composed_phase(sim, dev):
-    """Phase 4c: the composed wave path (kernels 2, 3 and 4 per block) for
-    a few iterations of gibbs_iteration, so the earlier path stays driven."""
+def composed_phase(sim, dev, check_launches=True):
+    """Phase 4c: the composed wave path (megakernel=False) for a few
+    iterations of gibbs_iteration, so the earlier path stays driven; per
+    sweep the c-dot of block 0, the wave scan per block, the fused update
+    and next c-dot for every block but the last and the last block's
+    update (``composed_counts``).  ``check_launches`` False skips that
+    check, for a tree of another cadence."""
     import torch
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.runner import check_finite_chain
@@ -1787,23 +1987,23 @@ def composed_phase(sim, dev):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = _build.launch_counts()
-    nblocks = -(-MT // B)
+    want = composed_counts(-(-MT // B), ITERS_COMPOSED)
     for name, n in launches.items():
-        want = nblocks * ITERS_COMPOSED if name in COMPOSED_KERNELS else 0
-        if n != want:
+        if check_launches and n != want.get(name, 0):
             fail(f"composed path: kernel {name} launched {n} times, "
-                 f"expected {want}")
+                 f"expected {want.get(name, 0)}")
     check_finite_chain(state.sigmag.cpu().numpy(),
                        state.sigmae.cpu().numpy(), ITERS_COMPOSED)
     return launches, sum(seconds[1:]) / (ITERS_COMPOSED - 1)
 
 
-def profile_phase(sim, dev, n_shards=0, wave=W):
+def profile_phase(sim, dev, n_shards=0, wave=W, composed=False):
     """Phase 5: torch.profiler over 5 iterations at the anchor after 2 of
     warm-up, on the single-device path of ``wave`` (the whole-sweep kernel,
-    or the exact serial path at 1) or, with ``n_shards``, on the sharded
-    path, as run_training runs it.  Returns the device-busy and wall
-    milliseconds per iteration, host-issued launches (kernels and graph
+    or the exact serial path at 1), with ``composed`` on the composed path
+    (eager gibbs_iteration with megakernel=False), or, with ``n_shards``, on
+    the sharded path, as run_training runs it.  Returns the device-busy and
+    wall milliseconds per iteration, host-issued launches (kernels and graph
     replays) per iteration and the busiest device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1823,7 +2023,13 @@ def profile_phase(sim, dev, n_shards=0, wave=W):
     else:
         from gmrm_tpu_torch import runner
         opt, static, state, rng = chain_setup(sim, dev, wave)
-        if hasattr(runner, "iteration_step"):     # what run_training runs
+        if composed:
+
+            def step(state, it):
+                return gibbs_iteration(state, static, it, rng, block_size=B,
+                                       wave=opt.wave_size,
+                                       megakernel=False)[0]
+        elif hasattr(runner, "iteration_step"):   # what run_training runs
             one = runner.iteration_step(state, static, rng, opt)
 
             def step(state, it):
@@ -1969,9 +2175,9 @@ def sharded_only(dev, reps, card, repo):
 
 
 def training_only(dev, reps, card, repo):
-    """Phases 4 and 4b ``reps`` times on one simulated anchor: the steady
-    ms/iteration of every run and phase 5's profiler windows on the W=32
-    and W=1 paths, for comparing two trees inside one call.
+    """Phases 4, 4b and 4c ``reps`` times on one simulated anchor: the
+    steady ms/iteration of every run and phase 5's profiler windows on the
+    W=32, W=1 and composed paths, for comparing two trees inside one call.
     The launch counts are checked only for this script's own tree."""
     own = os.path.abspath(repo) == REPO
     with tempfile.TemporaryDirectory() as tmp:
@@ -1980,14 +2186,22 @@ def training_only(dev, reps, card, repo):
             for wave, iters in ((W, ITERS), (1, ITERS_SERIAL)):
                 run_dir = os.path.join(tmp, f"run{rep}_w{wave}")
                 os.makedirs(run_dir)
-                steady = training_phase(sim, dev, run_dir, wave, iters,
-                                        check_launches=own)[2]
+                res, _, steady, _, _ = training_phase(
+                    sim, dev, run_dir, wave, iters, check_launches=own)
                 print(f"# {repo}: training W={wave}, run {rep + 1}: "
-                      f"{steady * 1e3:.2f} ms/iteration  [{card}]",
-                      flush=True)
-            for wave in (W, 1):
-                busy, wall, calls, top = profile_phase(sim, dev, wave=wave)
-                print(f"# {repo}: profiler W={wave}, run {rep + 1}: device "
+                      f"{steady * 1e3:.2f} ms/iteration, startup "
+                      f"{res.startup_seconds:.3f} s  [{card}]", flush=True)
+            launches, composed_s = composed_phase(sim, dev,
+                                                  check_launches=own)
+            print(f"# {repo}: composed W={W}, run {rep + 1}: "
+                  f"{composed_s * 1e3:.2f} ms/iteration; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }  [{card}]",
+                  flush=True)
+            for wave, comp in ((W, False), (1, False), (W, True)):
+                busy, wall, calls, top = profile_phase(sim, dev, wave=wave,
+                                                       composed=comp)
+                print(f"# {repo}: profiler {'composed ' if comp else ''}"
+                      f"W={wave}, run {rep + 1}: device "
                       f"busy {busy:.3f} of {wall:.3f} ms/iteration, idle "
                       f"share {1 - busy / wall:.3f}, {calls:.1f} host-issued "
                       f"launches and graph replays per iteration; {top}  "
@@ -2080,14 +2294,19 @@ def main():
         (err, t_k, t_p, t_c, bound), plan, splits = sweep_kernel_phase(
             dev, gen)
         kernels["sweep_blocks"] = (err, t_k, t_p, None, bound)
-        chain = 157 * sum(kernels[k][1][0] for k in COMPOSED_KERNELS)
+        nbl = -(-MT // B)
+        chain = (nbl * kernels["wave_scan"][1][0]
+                 + (nbl - 1) * kernels["update_cdot"][1][0]
+                 + kernels["block_cdot"][1][0] + kernels["eps_update"][1][0])
         print(f"# sweep_blocks, one sweep of {-(-MT // B)} blocks at NT=1 and "
               f"NT={T}: comp and cass equal to the plain version, max abs err of "
               f"beta and eps {err:.3e}; kernel ms per sweep {t_k}, plain ms "
               f"{t_p}, composed chain (kernels 2+3+4 and their torch glue) ms "
               f"{t_c}, all by CUDA events around eager calls (a cooperative "
-              f"launch; one launch is a whole sweep); the three composed kernels "
-              f"alone by graph replay: {chain:.3f} ms per sweep; bound "
+              f"launch; one launch is a whole sweep); the composed kernels "
+              f"alone by graph replay (c-dot, {nbl} wave scans, {nbl - 1} "
+              f"fused updates and c-dots, update): {chain:.3f} ms per "
+              f"sweep; bound "
               f"{bound[0]:.5f} ms by {bound[1]}; grid {plan['grid']} CTAs x "
               f"{plan['cols']} byte columns, eps {plan['eps_bytes_per_cta']} "
               f"bytes per CTA, resident in shared memory: "
@@ -2158,6 +2377,7 @@ def main():
         composed_launches, composed_s = composed_phase(sim, dev)
         busy_ms, wall_ms, n_launch, top = profile_phase(sim, dev)
         w1_prof = profile_phase(sim, dev, wave=1)
+        composed_prof = profile_phase(sim, dev, composed=True)
         sharded_gate(sim, dev, card, 4, W, "sharded sweep gate")
         sharded_gate(small, dev, card, 2, None, "sharded W=1 sweep gate")
         sharded = {(s, False): sharded_training_phase(sim, dev, tmp, s, w, n)
@@ -2203,6 +2423,13 @@ def main():
           f"ms/iteration, wall {wall_1:.3f} ms/iteration, idle share "
           f"{1 - busy_1 / wall_1:.3f}, {launch_1:.1f} launches per iteration; "
           f"busiest kernels (ms/iteration) {top_1}  [{card}]", flush=True)
+
+    busy_c, wall_c, launch_c, top_c = composed_prof
+    print(f"# profiler, composed path (megakernel=False), W={W}, 5 "
+          f"iterations: device busy {busy_c:.3f} ms/iteration, wall "
+          f"{wall_c:.3f} ms/iteration, idle share {1 - busy_c / wall_c:.3f}, "
+          f"{launch_c:.1f} launches per iteration; busiest kernels "
+          f"(ms/iteration) {top_c}  [{card}]", flush=True)
 
     for (n_sh, nccl), (res, launches, steady, span, h2, _) in sharded.items():
         how = ("inside a one-rank NCCL process group, artifacts byte-equal "

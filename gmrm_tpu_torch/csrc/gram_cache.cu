@@ -8,113 +8,105 @@
 // Replaces _gram_cache_kernel (gmrm_tpu/ops/sweep_kernel.py:1158, built by
 // _build_gram_cache_call :1205 and driven by build_gram_cache :1259).
 //
-// Bound on the H100: integer multiply-adds, 2B * 2B * 4N per block and
-// mask (about 1e11 at the anchor, N=10k, Mt=20k, B=128, NT=1); the bed
-// bytes (B * mb per block) are small beside that.  Design: one CTA per
-// 64x64 output tile, block and mask; each stage decodes 16 packed bytes of
-// the tile's 64 row markers and 64 column markers (64 individuals) into
-// shared memory, and each of 256 threads accumulates a 4x4 register tile
-// in int32.  Every entry is an exact count below 2^24, so the float32
-// store is bit-equal to the TPU builder whatever the summation order.
+// Bound on the H100: integer multiply-adds, 3 B^2 * 4mb per block and mask
+// (the (b, a) quadrant is the transpose of (a, b)); the bed bytes (B * mb
+// per block) and the float32 cache (4 (2B)^2 per block and mask) are small
+// beside that.  Design: the int8 tensor-core tile of gram_mma.cuh
+// (mma.sync.m16n8k32.s8 on the packed decode, the mask applied to the
+// packed byte), as the block Gram of the W=1 sweep (block_gram.cu) uses
+// it.  One CTA per 128 x 128 tile of one of three quadrants, block and
+// mask, each over all individuals: g1 = a.a, g2t = a.b, g3 = b.b.  A
+// diagonal tile of g1 or g3 is staged once; the tiles below the diagonal
+// of g1 and g3 (B > 128 only) are made like the others, not mirrored.  The
+// (b, a) quadrant is written from g2t's accumulators, transposed, so no
+// fourth product is made.  A block's rows are its own (blk*B + r), so no
+// row table is read.  The int32 sums are stored as float32 straight into
+// the (nblocks, NT, 2B, 2B) layout of the JAX builder: every entry is an
+// exact count below 2^24, so the cache is bit-equal to it whatever the
+// summation order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode.cuh"
+#include "gram_mma.cuh"
 
 namespace {
 
-constexpr int TILE = 64;        // output tile edge
-constexpr int NBY = 16;         // packed bytes per stage
-constexpr int KC = 4 * NBY;     // individuals per stage
-constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GMMA_THREADS, 2)
 gram_cache_kernel(const uint8_t* __restrict__ bed,
                   const float* __restrict__ na, float* __restrict__ out,
-                  int B, int mb) {
-  __shared__ int rs[KC][TILE];   // row side, masked by na
-  __shared__ int cs[KC][TILE];   // column side
-  const int B2 = 2 * B;
-  const int ntile = (B2 + TILE - 1) / TILE;
-  const int r0 = (blockIdx.x / ntile) * TILE;
-  const int c0 = (blockIdx.x % ntile) * TILE;
-  const int blk = blockIdx.y;
-  const int nt = blockIdx.z;
+                  int B, int mb, int vec) {
+  __shared__ __align__(16) uint32_t tiles[2 * GMMA_TILE_WORDS];
+  __shared__ __align__(16) uint8_t keep[GMMA_KEEP_SEG];
+  const int ntile = (B + GMMA_TILE - 1) / GMMA_TILE;
+  const int q = blockIdx.x / (ntile * ntile);        // 0 g1, 1 g2t, 2 g3
+  const int r0 = (blockIdx.x / ntile % ntile) * GMMA_TILE;
+  const int c0 = (blockIdx.x % ntile) * GMMA_TILE;
+  const int m = blockIdx.y, nt = gridDim.y, blk = blockIdx.z;
+  const bool row_b = q == 2, col_b = q >= 1;
+  const bool same = q != 1 && r0 == c0;
+
   const uint8_t* bed_blk = bed + (size_t)blk * B * mb;
-  const float* na_nt = na + (size_t)nt * 4 * mb;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int sr = threadIdx.x / 2;                    // staging tile row
+  const uint8_t* rrow = r0 + sr < B ? bed_blk + (size_t)(r0 + sr) * mb
+                                    : nullptr;
+  const uint8_t* crow = c0 + sr < B ? bed_blk + (size_t)(c0 + sr) * mb
+                                    : nullptr;
 
-  // Staging role: thread -> tile row/column sr, bytes sj0 .. sj0+3.
-  const int sr = threadIdx.x / 4;
-  const int sj0 = (threadIdx.x % 4) * 4;
-  const int R = r0 + sr;
-  const int C = c0 + sr;
+  int acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
 
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  gmma_gram_tile(rrow, crow, row_b, col_b, same, na + (size_t)m * 4 * mb, mb,
+                 vec != 0, tiles, keep, acc);
 
-  for (int j0 = 0; j0 < mb; j0 += NBY) {
+  // Quadrant q's entry (r, c) is out[ro + r, co + c]; g2t's also lands
+  // transposed at out[B + c, r].
+  const int B2 = 2 * B;
+  float* o = out + ((size_t)blk * nt + m) * B2 * B2;
+  const int ro = q == 2 ? B : 0, co = q == 0 ? 0 : B;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int jb = sj0 + q;
-      const int j = j0 + jb;
-      uint32_t rb = 0x55u, cb = 0x55u;   // all missing: decodes to 0
-      if (j < mb) {
-        if (R < B2) rb = bed_blk[(size_t)(R % B) * mb + j];
-        if (C < B2) cb = bed_blk[(size_t)(C % B) * mb + j];
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn) {
+      const int c = c0 + (warp % 2) * 64 + nn * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + (warp / 2) * 32 + mt * 16 + g + 8 * h;
+        if (r >= B) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c + e >= B) continue;
+          const float v = (float)acc[mt][nn][2 * h + e];
+          o[(size_t)(ro + r) * B2 + co + c + e] = v;
+          // Eight neighbouring r of four rows a warp: whole 32-byte sectors.
+          if (q == 1) o[(size_t)(B + c + e) * B2 + r] = v;
+        }
       }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int nav = (j < mb) ? (na_nt[(size_t)k * mb + j] != 0.0f) : 0;
-        int a, b;
-        gmrm_decode(rb, k, a, b);
-        rs[jb * 4 + k][sr] = (R < B ? a : b) * nav;
-        gmrm_decode(cb, k, a, b);
-        cs[jb * 4 + k][sr] = (C < B ? a : b);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      int rv[4], cv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        rv[i] = rs[kk][ty + 16 * i];
-        cv[i] = cs[kk][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += rv[i] * cv[j];
-    }
-    __syncthreads();
-  }
-
-  float* o = out + ((size_t)blk * gridDim.z + nt) * B2 * B2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (r < B2 && c < B2) o[(size_t)r * B2 + c] = (float)acc[i][j];
     }
   }
 }
 
 }  // namespace
 
+// bed (nblocks * B, mb) uint8 in natural order; na (nt, 4, mb) float32 0/1;
+// out (nblocks, nt, 2B, 2B) float32, every entry written.
 extern "C" int gmrm_gram_cache(const void* bed, const void* na, void* out,
                                int nblocks, int B, int mb, int nt,
                                void* stream) {
-  const int ntile = (2 * B + TILE - 1) / TILE;
-  dim3 grid(ntile * ntile, nblocks, nt);
-  gram_cache_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bed, (const float*)na, (float*)out, B, mb);
+  if (nblocks < 1 || nblocks > 65535 || nt < 1 || nt > 65535 || B < 1 ||
+      mb < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ntile = (B + GMMA_TILE - 1) / GMMA_TILE;
+  const int vec = (mb % 16 == 0) && ((uintptr_t)bed % 16 == 0);
+  gram_cache_kernel<<<dim3(3 * ntile * ntile, nt, nblocks), GMMA_THREADS, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint8_t*)bed, (const float*)na, (float*)out, B, mb, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,164 +1,550 @@
 // Within-block Gibbs scan in waves of W markers (the W co-scheduled
 // shards relaxation, gmrm_tpu/ops/scan_kernel_wave.py).
 //
-// Per wave, for every trait t and marker j of the wave:
+// With base = c + beta_old (nonas - 1), per wave, for every trait t and
+// marker j of the wave:
 //   num = base + corr,  q = num^2 / (2 sigmaE),  L_k = lc_k + q rd_k,
 //   cdf_i = sum_{k<=i} E_k / S with E_k = exp(L_k - Lmax), S = sum_k E_k,
 //   a term zeroed when |L_k - L_i| > 700 for some k >= i (suffix max/min),
 //   comp = the smallest i with u <= cdf_i (else K-1),
 //   beta = comp ? num rd_comp + sqb_comp z : 0, under the live/zerob masks;
-// then the wave's rank-W fold corr[t, :] += sum_j dbeta[t, j] gs[t, j, :].
+// then the wave's rank-W fold corr[t, i] += sum_j dbeta[t, j] gs[t, j, i]
+// into the markers i of the later waves (only those are read again).
+// Outputs dbeta, d = msig dbeta, beta_new, comp_new and acum_new.
 //
 // Replaces _wave_kernel (gmrm_tpu/ops/scan_kernel_wave.py:57, built by
 // _build_call :176, wrapper make_block_scan_wave :196).  The TPU kernel
 // takes the Gram wave-stacked to (T*B, B) for its lane layout and folds
-// with one block-diagonal MXU dot; here gs keeps its (T, B, B) layout and
-// the fold is a plain loop.
+// with one block-diagonal MXU dot into all B columns; here gs keeps its
+// (T, B, B) layout and each wave folds into the later waves' columns.
 //
 // Bound on the H100: latency.  The B/W waves are a serial chain of small
-// steps (T*W candidates, then a T*B fold), so one CTA runs the block and
-// the time is the chain of dependent steps and barriers.  corr and the
-// wave's dbeta live in shared memory.  The scaled Gram (256 KB at T=4,
-// B=128) is larger than a CTA's 227 KB of shared memory, so it is read from
-// global memory, where it stays in L2.  K is a runtime argument up to
-// MAX_K, so the per-candidate arrays stay in registers.  Adds and products
-// of the candidate math use the _rn intrinsics so nvcc does not contract
-// them into FMAs: the plain PyTorch version rounds each one separately,
-// and comp must agree with it exactly.
+// steps (T*W draws, then a T*W-by-W fold), so one CTA of 512 threads runs
+// the block and its time is the chain of dependent steps and barriers.
+// The design follows the scan CTA of the whole-sweep kernel
+// (sweep_blocks.cu):
+//   - every per-marker operand of the block (c, the marker state, the
+//     draws, the masks and, while they fit, the per-marker tables) is
+//     staged into shared memory at entry, a bulk copy (the tensor memory
+//     accelerator) per array, so no global load sits on a wave's chain;
+//     the kernel forms base itself, in the draw;
+//   - the scaled Gram is staged the same way, packed wave by wave: wave
+//     w's W rows by the columns of the later waves only, T W (B - (w+1) W)
+//     floats (96 KB of the 256 KB Gram at T=4, B=128, W=32), a bulk copy
+//     per row issued at entry by the warps that draw nothing.  Wave 0's
+//     rows complete one mbarrier, waited for before the first fold, the
+//     others a second, waited for before the second.  A packed row's
+//     stride is padded to 8 words past a multiple of 32, so the fold's
+//     lanes hit at most two to a bank.  The waves that do not fit beside
+//     the operands (large T B) are read from global memory, where the Gram
+//     stays in L2 (wave_plan in ops/scan_kernel_wave.py).  Where an address
+//     is not on 16 bytes (B or W not a multiple of 4, or an unaligned
+//     view) 4-byte cp.async copies take the bulk copies' place;
+//   - the fold of wave w into wave w + 1's columns runs on the chain, on
+//     every thread; its fold into the waves after that runs on the warps
+//     that draw nothing while wave w + 1 draws.  Each corr still receives
+//     its folds in wave order;
+//   - each fold term's W-long sum is split over up to 8 neighbouring lanes,
+//     lane h taking the terms h, h + split, ... in order, then a fixed
+//     shuffle tree, so two launches on the same inputs write the same bits.
+// The draw is sweep_math.cuh's gmrm_wave_draw: every add and product uses
+// the _rn intrinsics, so comp agrees exactly with the plain PyTorch
+// version; the tables' K is a template bound (4, 8 or 16) so the
+// per-candidate arrays stay in registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep_math.cuh"
+
 namespace {
 
-constexpr int MAX_K = 16;
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
+constexpr int SMEM_CAP = 232448;   // dynamic shared memory of one CTA
+constexpr int NSTATE = 10;         // staged (T, B) arrays
 
+struct WaveArgs {
+  const float* c;         // (T, B); base itself when nm1 is null
+  const float* nm1;       // (T,) nonas - 1, or null
+  const float* lc;        // (K, T, B) per-marker tables
+  const float* rd;
+  const float* sqb;
+  const float* gs;        // (T, B, B) scaled Gram in processing order
+  const float* beta_old;  // (T, B), as acum_old, u, z, msig
+  const int* comp_old;    // (T, B), as live, zerob
+  const float* acum_old;
+  const float* u;
+  const float* z;
+  const int* live;
+  const int* zerob;
+  const float* msig;      // or null (then d is null too)
+  const float* i2se;      // (T,)
+  float* dbeta;           // (T, B) outputs
+  float* d;
+  float* beta_new;
+  int* comp_new;
+  float* acum_new;
+  unsigned long long* stamps;  // (2 + 2 nw,) or null
+  int T, B, K, W, tab, gsw, vec;
+};
+
+__host__ __device__ inline int al4(int x) { return (x + 3) & ~3; }
+
+// Per trait, the packed offset of wave w's rows: W rows of B - (w'+1) W
+// floats for every earlier wave w'.
+__host__ __device__ inline int gs_wave_offset(int B, int W, int w) {
+  return W * (w * B - W * (w * (w + 1) / 2));
+}
+
+// The stride of a packed row of `rest` floats in shared memory: padded to 8
+// words past a multiple of 32, so that the lanes of a fold, which read rows
+// 1 .. 7 apart at neighbouring columns, hit at most two to a bank.
+__host__ __device__ inline int row_stride(int rest) {
+  return rest + (40 - rest % 32) % 32;
+}
+
+// Per trait, the shared-memory offset of wave w's packed rows.
+__host__ __device__ inline int gs_smem_offset(int B, int W, int w) {
+  int o = 0;
+  for (int v = 0; v < w; ++v) o += W * row_stride(B - (v + 1) * W);
+  return o;
+}
+
+constexpr int NBAR = 3;  // mbarriers: operands, wave 0's rows, the rest
+
+// Shared memory offsets in 4-byte words; the mbarriers (8 bytes each) come
+// first.
+struct Layout {
+  int c, corr, beta, acum, u, z, msig, comp, live, zerob, i2se, nm1, wdb;
+  int goff, lc, rd, sqb, gs, words;
+};
+
+__host__ __device__ inline Layout make_layout(int T, int B, int K, int W,
+                                              int tab, int gsw) {
+  Layout L;
+  const int tb = al4(T * B);
+  int o = al4(2 * NBAR);
+  int* state[NSTATE] = {&L.c, &L.corr, &L.beta, &L.acum, &L.u,
+                        &L.z,    &L.msig, &L.comp, &L.live, &L.zerob};
+  for (int k = 0; k < NSTATE; ++k) {
+    *state[k] = o;
+    o += tb;
+  }
+  L.i2se = o;
+  o += al4(T);
+  L.nm1 = o;
+  o += al4(T);
+  L.wdb = o;                       // two waves' dbeta, (2, T, W)
+  o += al4(2 * T * W);
+  L.goff = o;                      // gs_smem_offset of every wave
+  o += al4(B / W + 1);
+  const int ktb = tab ? al4(K * T * B) : 0;
+  L.lc = o;
+  L.rd = o + ktb;
+  L.sqb = o + 2 * ktb;
+  o += 3 * ktb;
+  L.gs = o;
+  o += al4(T * gs_smem_offset(B, W, gsw));
+  L.words = o;
+  return L;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_u32(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar) {
+  uint32_t ok = 0;
+  while (!ok)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(smem_u32(bar)) : "memory");
+}
+
+// nbytes (a multiple of 16) from global to shared memory, both on 16 bytes,
+// by the tensor memory accelerator; completion is counted on the barrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t nbytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(nbytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+// Copy k of a list: n words from src to dst.  With vec (every address on
+// 16 bytes, n a multiple of 4) one bulk copy, issued by the lane `by` of
+// warp `by / 32` and counted on bar; else 4-byte cp.async copies by every
+// thread of [tid0, THREADS), in the current copy group.
+__device__ __forceinline__ void copy_words(void* dst, const void* src, int n,
+                                           bool vec, uint64_t* bar, int by,
+                                           int tid0) {
+  if (vec) {
+    if ((int)threadIdx.x == by) bulk_copy(dst, src, 4u * n, bar);
+    return;
+  }
+  if ((int)threadIdx.x < tid0) return;
+  for (int x = threadIdx.x - tid0; x < n; x += THREADS - tid0)
+    cp_async4((uint32_t*)dst + x, (const uint32_t*)src + x);
+}
+
+// Wave w's packed Gram rows in 4-byte cp.async copies by the threads
+// tid0 .. THREADS - 1: for each trait t and row j of the wave, the columns
+// of the later waves, into dst[(t W + j) row_stride + i].
+__device__ __forceinline__ void stage_gs_wave(float* dst, const float* gs,
+                                              int T, int B, int W, int w,
+                                              int tid0) {
+  const int rest = B - (w + 1) * W, rs = row_stride(rest);
+  const int n = T * W * rest;
+  for (int x = threadIdx.x - tid0; x < n; x += THREADS - tid0) {
+    const int row = x / rest, col = x % rest;
+    const int t = row / W, j = row % W;
+    cp_async4(dst + row * rs + col,
+              gs + ((size_t)t * B + w * W + j) * B + (w + 1) * W + col);
+  }
+}
+
+template <int MK, bool TAB, bool ST>
 __global__ void __launch_bounds__(THREADS)
-wave_scan_kernel(const float* __restrict__ base,
-                 const float* __restrict__ lc,     // (K, T, B)
-                 const float* __restrict__ rd,     // (K, T, B)
-                 const float* __restrict__ sqb,    // (K, T, B)
-                 const float* __restrict__ gs,     // (T, B, B)
-                 const float* __restrict__ beta_old,
-                 const int* __restrict__ comp_old,
-                 const float* __restrict__ acum_old,
-                 const float* __restrict__ u, const float* __restrict__ z,
-                 const int* __restrict__ live, const int* __restrict__ zerob,
-                 const float* __restrict__ i2se,   // (T,)
-                 float* __restrict__ dbeta_out, float* __restrict__ beta_new,
-                 int* __restrict__ comp_new, float* __restrict__ acum_new,
-                 int T, int B, int K, int W) {
-  extern __shared__ float sm[];
-  float* corr = sm;            // (T, B)
-  float* wdb = sm + T * B;     // (T, W) this wave's dbeta
-  const int TB = T * B;
-  const int TW = T * W;
-  for (int x = threadIdx.x; x < TB; x += THREADS) corr[x] = 0.0f;
+wave_scan_kernel(const WaveArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = a.T, B = a.B, K = a.K, W = a.W;
+  const int TB = T * B, TW = T * W;
+  const int nw = B / W;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool vec = a.vec != 0;
+  const Layout L = make_layout(T, B, K, W, TAB ? 1 : 0, a.gsw);
+  float* sc = sm + L.c;
+  float* scorr = sm + L.corr;
+  float* sbeta = sm + L.beta;
+  float* sacum = sm + L.acum;
+  float* su = sm + L.u;
+  float* sz = sm + L.z;
+  float* smsig = sm + L.msig;
+  int* scomp = (int*)(sm + L.comp);
+  int* slive = (int*)(sm + L.live);
+  int* szerob = (int*)(sm + L.zerob);
+  float* si2se = sm + L.i2se;
+  float* snm1 = sm + L.nm1;
+  int* goff = (int*)(sm + L.goff);
+  float* swdb = sm + L.wdb;
+  float* sgs = sm + L.gs;
+  const float* lcp = TAB ? sm + L.lc : a.lc;
+  const float* rdp = TAB ? sm + L.rd : a.rd;
+  const float* sqbp = TAB ? sm + L.sqb : a.sqb;
+  int ev = 0;
+  auto stamp = [&]() {
+    if (ST && tid == 0) a.stamps[ev] = global_ns();
+    ++ev;
+  };
+  stamp();
+
+  // The per-marker operands first, alone, so that they arrive at the
+  // memory system's full rate: a bulk copy of each array (one lane each),
+  // or 4-byte cp.async copies where an address is not on 16 bytes.
+  uint64_t* bars = (uint64_t*)sm;
+  if (tid == 0) {
+    for (int q = 0; q < NBAR; ++q) bar_init(bars + q);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    goff[0] = 0;
+    for (int w = 0; w < nw; ++w)
+      goff[w + 1] = goff[w] + T * W * row_stride(B - (w + 1) * W);
+  }
   __syncthreads();
-
-  for (int w0 = 0; w0 < B; w0 += W) {
-    int moved = 0;
-    for (int x = threadIdx.x; x < TW; x += THREADS) {
-      const int t = x / W;
-      const int o = t * B + w0 + x % W;
-      const float num = __fadd_rn(base[o], corr[o]);
-      const float q = __fmul_rn(__fmul_rn(num, num), i2se[t]);
-      float L[MAX_K], e[MAX_K], cdf[MAX_K];
-      float lmax = 0.0f;
+  struct Piece {
+    void* dst;
+    const void* src;
+    int n;
+  };
+  const Piece ops[] = {
+      {sc, a.c, TB},           {sbeta, a.beta_old, TB},
+      {sacum, a.acum_old, TB}, {su, a.u, TB},
+      {sz, a.z, TB},           {scomp, a.comp_old, TB},
+      {slive, a.live, TB},     {szerob, a.zerob, TB},
+      {smsig, a.msig, a.msig ? TB : 0},
+      {sm + L.lc, a.lc, TAB ? K * TB : 0},
+      {sm + L.rd, a.rd, TAB ? K * TB : 0},
+      {sm + L.sqb, a.sqb, TAB ? K * TB : 0}};
+  constexpr int NOPS = sizeof(ops) / sizeof(ops[0]);
+  if (vec && tid == 0) {
+    uint32_t bytes = 0;
 #pragma unroll
-      for (int k = 0; k < MAX_K; ++k) {
-        if (k < K) {
-          L[k] = __fadd_rn(lc[(size_t)k * TB + o],
-                           __fmul_rn(q, rd[(size_t)k * TB + o]));
-          lmax = (k == 0) ? L[0] : fmaxf(lmax, L[k]);
-        }
-      }
-      float ssum = 0.0f;
+    for (int k = 0; k < NOPS; ++k) bytes += 4u * ops[k].n;
+    bar_arrive_tx(bars, bytes);
+  }
 #pragma unroll
-      for (int k = 0; k < MAX_K; ++k) {
-        if (k < K) {
-          e[k] = expf(__fsub_rn(L[k], lmax));
-          ssum = (k == 0) ? e[0] : __fadd_rn(ssum, e[k]);
-        }
-      }
-      const float inv_s = __fdiv_rn(1.0f, ssum);
-      // Walk i downwards keeping the suffix max/min of L over k >= i.
-      float smax = 0.0f, smin = 0.0f;
-#pragma unroll
-      for (int i = MAX_K - 1; i >= 0; --i) {
-        if (i < K) {
-          smax = (i == K - 1) ? L[i] : fmaxf(L[i], smax);
-          smin = (i == K - 1) ? L[i] : fminf(L[i], smin);
-          const bool over = (__fsub_rn(smax, L[i]) > 700.0f) ||
-                            (__fsub_rn(L[i], smin) > 700.0f);
-          cdf[i] = over ? 0.0f : __fmul_rn(e[i], inv_s);
-        }
-      }
-#pragma unroll
-      for (int i = 1; i < MAX_K; ++i)
-        if (i < K) cdf[i] = __fadd_rn(cdf[i - 1], cdf[i]);
-
-      const float uu = u[o];
-      int comp = K - 1;
-#pragma unroll
-      for (int i = MAX_K - 1; i >= 0; --i)
-        if (i < K && uu <= cdf[i]) comp = i;
-      float acum_sel = 0.0f, rd_sel = 0.0f, sqb_sel = 0.0f;
-#pragma unroll
-      for (int i = 0; i < MAX_K; ++i) {
-        if (i == comp) {
-          acum_sel = cdf[i];
-          rd_sel = rd[(size_t)i * TB + o];
-          sqb_sel = sqb[(size_t)i * TB + o];
-        }
-      }
-      const float muk = __fmul_rn(num, rd_sel);
-      const float samp =
-          comp == 0 ? 0.0f : __fadd_rn(muk, __fmul_rn(sqb_sel, z[o]));
-      const bool lv = live[o] != 0;
-      const bool zb = zerob[o] != 0;
-      const float bo = beta_old[o];
-      const float db = lv ? __fsub_rn(bo, samp) : 0.0f;
-      dbeta_out[o] = db;
-      beta_new[o] = lv ? samp : (zb ? 0.0f : bo);
-      comp_new[o] = lv ? comp : comp_old[o];
-      acum_new[o] = lv ? acum_sel : (zb ? 1.0f : acum_old[o]);
-      wdb[x] = db;
-      moved |= (db != 0.0f);
-    }
-    // Fold the wave's rank-W correction, skipped when nothing moved.
-    if (__syncthreads_or(moved)) {
-      for (int x = threadIdx.x; x < TB; x += THREADS) {
-        const int t = x / B;
-        const int i = x % B;
-        const float* g = gs + ((size_t)t * B + w0) * B + i;
-        const float* dw = wdb + t * W;
-        float s = 0.0f;
-        for (int j = 0; j < W; ++j) s += dw[j] * g[(size_t)j * B];
-        corr[x] += s;
-      }
-      __syncthreads();
+  for (int k = 0; k < NOPS; ++k)
+    if (ops[k].n)
+      copy_words(ops[k].dst, ops[k].src, ops[k].n, vec, bars, k, 0);
+  // The packed Gram rows of the staged waves, issued at entry beside the
+  // operands by the warps that draw nothing (by all when every warp draws),
+  // a bulk copy per row and trait (one lane each): wave 0's rows count on
+  // barrier 1, waited for before the first fold, the other waves' on
+  // barrier 2, waited for before the second.  Where an address is not on
+  // 16 bytes: 4-byte cp.async copies once the operands are in, copy group
+  // 0 for wave 0, 1 for the rest.
+  const int draw_warps = (TW + 31) / 32;
+  const bool bg_fold = draw_warps < NWARPS;
+  const int tid0 = bg_fold ? 32 * draw_warps : 0;
+  if (vec && tid == tid0 && a.gsw > 0) {
+    bar_arrive_tx(bars + 1, 4u * TW * (B - W));
+    if (a.gsw > 1)
+      bar_arrive_tx(bars + 2,
+                    4u * T * (gs_wave_offset(B, W, a.gsw) - W * (B - W)));
+  }
+  if (vec && tid >= tid0) {
+    // Row r = t W + j of wave w.
+    for (int x = tid - tid0; x < TW * a.gsw; x += THREADS - tid0) {
+      const int w = x / TW, r = x % TW;
+      const int t = r / W, j = r % W, rest = B - (w + 1) * W;
+      bulk_copy(sgs + goff[w] + r * row_stride(rest),
+                a.gs + ((size_t)t * B + w * W + j) * B + (w + 1) * W,
+                4u * rest, bars + (w == 0 ? 1 : 2));
     }
   }
+  for (int t = tid; t < T; t += THREADS) {
+    si2se[t] = a.i2se[t];
+    snm1[t] = a.nm1 != nullptr ? a.nm1[t] : 0.0f;
+  }
+  for (int x = tid; x < TB; x += THREADS) scorr[x] = 0.0f;
+  if (vec)
+    bar_wait(bars);
+  else
+    cp_async_wait<0>();
+  __syncthreads();
+  stamp();
+  if (!vec && tid >= tid0) {
+    for (int w = 0; w < a.gsw; ++w) {
+      stage_gs_wave(sgs + goff[w], a.gs, T, B, W, w, tid0);
+      if (w == 0) cp_async_commit();
+    }
+    cp_async_commit();
+  }
+
+  // Fold wave w's rank-W correction (its dbeta in swdb half w & 1) into
+  // corr of the later waves' markers i in [i0, i1) (counted from the first
+  // marker after wave w), on `nthr` threads from warp `warp0` on.  `split`
+  // neighbouring lanes share an output, lane h summing the terms h,
+  // h + split, ... in order, then a shuffle tree; split is the largest
+  // power of two up to 8 that keeps the fold to one pass.  Whole warps run
+  // the loop, so every shuffle has all its lanes.
+  auto fold = [&](int w, int i0, int i1, int warp0, int nthr) {
+    const int rs = row_stride(B - (w + 1) * W);
+    const int cols = i1 - i0;
+    const float* sw = swdb + (w & 1) * TW;
+    const bool staged = w < a.gsw;
+    const float* gw = sgs + goff[w];
+    int ls = 0;                                 // split = 1 << ls
+    while (ls < 3 && T * cols * (2 << ls) <= nthr) ++ls;
+    const int split = 1 << ls;
+    const int n = T * cols * split;
+#pragma unroll 1
+    for (int x0 = (warp - warp0) * 32; x0 < n; x0 += nthr) {
+      const int x = x0 + lane;
+      const int o = x >> ls, h = x & (split - 1);
+      const int t = o / cols, i = i0 + o - t * cols;
+      float s = 0.0f;
+      if (x < n) {
+        // Lane h of an output takes the terms j = h, h + split, ...
+        const float* dw = sw + t * W;
+        if (staged) {
+          const float* g = gw + (size_t)t * W * rs + i;
+#pragma unroll 4
+          for (int j = h; j < W; j += split) s += dw[j] * g[j * rs];
+        } else {
+          const float* g =
+              a.gs + ((size_t)t * B + w * W) * B + (w + 1) * W + i;
+#pragma unroll 4
+          for (int j = h; j < W; j += split)
+            s += dw[j] * __ldg(g + (size_t)j * B);
+        }
+      }
+      for (int dd = 1; dd < split; dd <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, dd);
+      if (x < n && h == 0) scorr[t * B + (w + 1) * W + i] += s;
+    }
+  };
+
+  const bool has_nm1 = a.nm1 != nullptr;
+  int any_prev = 0;
+#pragma unroll 1
+  for (int w = 0; w < nw; ++w) {
+    const int w0 = w * W;
+    float* sw = swdb + (w & 1) * TW;     // this wave's dbeta, (T, W)
+    int moved = 0;
+#pragma unroll 1
+    for (int x = tid; x < TW; x += THREADS) {
+      const int t = x / W;
+      const int o = t * B + w0 + x % W;
+      // base = c + beta_old * (nonas - 1), rounded as the plain expression.
+      const float base =
+          has_nm1 ? __fadd_rn(sc[o], __fmul_rn(sbeta[o], snm1[t]))
+                  : sc[o];
+      const float num = __fadd_rn(base, scorr[o]);
+      const GmrmDraw dr = gmrm_wave_draw<MK>(num, si2se[t], lcp + o, rdp + o,
+                                             sqbp + o, (size_t)TB, K, su[o],
+                                             sz[o]);
+      const bool lv = slive[o] != 0;
+      const bool zb = szerob[o] != 0;
+      const float bo = sbeta[o];
+      const float db = lv ? __fsub_rn(bo, dr.samp) : 0.0f;
+      a.dbeta[o] = db;
+      if (a.d != nullptr) a.d[o] = __fmul_rn(smsig[o], db);
+      a.beta_new[o] = lv ? dr.samp : (zb ? 0.0f : bo);
+      a.comp_new[o] = lv ? dr.comp : scomp[o];
+      a.acum_new[o] = lv ? dr.acum : (zb ? 1.0f : sacum[o]);
+      sw[x] = db;
+      moved |= (db != 0.0f);
+    }
+    // Meanwhile the warps that draw nothing fold the wave before into the
+    // waves after this one.
+    if (bg_fold && warp >= draw_warps && w >= 1 && any_prev && w + 1 < nw)
+      fold(w - 1, W, B - w0, draw_warps, THREADS - 32 * draw_warps);
+    // The Gram rows the next fold reads.
+    if (w == 0 && a.gsw > 0) {
+      if (vec)
+        bar_wait(bars + 1);
+      else
+        cp_async_wait<1>();
+    } else if (w == 1 && a.gsw > 1) {
+      if (vec)
+        bar_wait(bars + 2);
+      else
+        cp_async_wait<0>();
+    }
+    const int any = __syncthreads_or(moved);
+    stamp();
+    // The fold the next wave's draw waits for: this wave into the next
+    // one (into every later one when no warp is free to fold in the
+    // background).
+    if (any && w + 1 < nw) fold(w, 0, bg_fold ? W : B - w0 - W, 0, THREADS);
+    __syncthreads();
+    stamp();
+    any_prev = any;
+  }
+  cp_async_wait<0>();
+}
+
+template <int MK, bool TAB, bool ST>
+int launch_kernel(const WaveArgs& a, size_t smem, cudaStream_t s) {
+  // The attribute is set once per device, to the most a CTA can have.
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64 || !raised[dev]) {
+    err = cudaFuncSetAttribute(wave_scan_kernel<MK, TAB, ST>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_CAP);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 0 && dev < 64) raised[dev] = true;
+  }
+  wave_scan_kernel<MK, TAB, ST><<<1, THREADS, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int MK>
+int launch(const WaveArgs& a, size_t smem, cudaStream_t s) {
+  const bool st = a.stamps != nullptr;
+  if (a.tab)
+    return st ? launch_kernel<MK, true, true>(a, smem, s)
+              : launch_kernel<MK, true, false>(a, smem, s);
+  return st ? launch_kernel<MK, false, true>(a, smem, s)
+            : launch_kernel<MK, false, false>(a, smem, s);
 }
 
 }  // namespace
 
+// The sweep's arrays: beta_old, acum_old, u, z, msig, dbeta, d, beta_new,
+// acum_new (nb, T, B) float32; comp_old, live, zerob, comp_new (nb, T, B)
+// int32; lc, rd, sqb (nb, K, T, B); block b of them is scanned.  c (nc, T,
+// B), row bc; gs (nr, T, B, B), Gram bg.  nm1, msig and d null: c is base
+// itself and d is not written (the one-block interface).  tab, gsw: the
+// plan of ops/scan_kernel_wave.wave_plan (tables staged; the waves whose
+// Gram rows are staged).  stamps: (2 + 2 nw) int64 or null, %globaltimer
+// at ops/scan_kernel_wave.wave_stamp_names' events, by thread 0.
 extern "C" int gmrm_wave_scan(
-    const void* base, const void* lc, const void* rd, const void* sqb,
-    const void* gs, const void* beta_old, const void* comp_old,
-    const void* acum_old, const void* u, const void* z, const void* live,
-    const void* zerob, const void* i2se, void* dbeta, void* beta_new,
-    void* comp_new, void* acum_new, int T, int B, int K, int W,
-    void* stream) {
-  if (K < 1 || K > MAX_K || W < 1 || B % W != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)T * B + (size_t)T * W) * sizeof(float);
-  wave_scan_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)base, (const float*)lc, (const float*)rd,
-      (const float*)sqb, (const float*)gs, (const float*)beta_old,
-      (const int*)comp_old, (const float*)acum_old, (const float*)u,
-      (const float*)z, (const int*)live, (const int*)zerob,
-      (const float*)i2se, (float*)dbeta, (float*)beta_new, (int*)comp_new,
-      (float*)acum_new, T, B, K, W);
-  return (int)cudaGetLastError();
+    const void* c, const void* nm1, const void* lc, const void* rd,
+    const void* sqb, const void* gs, const void* beta_old,
+    const void* comp_old, const void* acum_old, const void* u, const void* z,
+    const void* live, const void* zerob, const void* msig, const void* i2se,
+    void* dbeta, void* d, void* beta_new, void* comp_new, void* acum_new,
+    void* stamps, int b, int bc, int bg, int T, int B, int K, int W, int tab,
+    int gsw, void* stream) {
+  if (K < 1 || K > GMRM_MAX_K || T < 1 || B < 1 || W < 1 || B % W != 0 ||
+      b < 0 || bc < 0 || bg < 0 || tab < 0 || tab > 1 || gsw < 0 ||
+      gsw > B / W || (msig == nullptr) != (d == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t tb = (size_t)b * T * B, ktb = (size_t)b * K * T * B;
+  WaveArgs a;
+  a.c = (const float*)c + (size_t)bc * T * B;
+  a.nm1 = (const float*)nm1;
+  a.lc = (const float*)lc + ktb;
+  a.rd = (const float*)rd + ktb;
+  a.sqb = (const float*)sqb + ktb;
+  a.gs = (const float*)gs + (size_t)bg * T * B * B;
+  a.beta_old = (const float*)beta_old + tb;
+  a.comp_old = (const int*)comp_old + tb;
+  a.acum_old = (const float*)acum_old + tb;
+  a.u = (const float*)u + tb;
+  a.z = (const float*)z + tb;
+  a.live = (const int*)live + tb;
+  a.zerob = (const int*)zerob + tb;
+  a.msig = msig ? (const float*)msig + tb : nullptr;
+  a.i2se = (const float*)i2se;
+  a.dbeta = (float*)dbeta + tb;
+  a.d = d ? (float*)d + tb : nullptr;
+  a.beta_new = (float*)beta_new + tb;
+  a.comp_new = (int*)comp_new + tb;
+  a.acum_new = (float*)acum_new + tb;
+  a.stamps = (unsigned long long*)stamps;
+  a.T = T;
+  a.B = B;
+  a.K = K;
+  a.W = W;
+  a.tab = tab;
+  a.gsw = gsw;
+  const void* ptrs[] = {a.c,    a.lc,       a.rd,       a.sqb, a.gs,
+                        a.beta_old, a.comp_old, a.acum_old, a.u, a.z,
+                        a.live, a.zerob,    a.msig};
+  int vec = B % 4 == 0 && W % 4 == 0;
+  for (const void* p : ptrs) vec &= ((uintptr_t)p % 16 == 0);
+  a.vec = vec;
+  const size_t smem = 4 * (size_t)make_layout(T, B, K, W, tab, gsw).words;
+  if (smem > (size_t)SMEM_CAP) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K <= 4) return launch<4>(a, smem, s);
+  if (K <= 8) return launch<8>(a, smem, s);
+  return launch<16>(a, smem, s);
 }

@@ -46,9 +46,10 @@ SIGNATURES = {
     # bed, rows, eps, mave, msig, c, scratch, T, B, mb, S, stamps (or
     # null), stream
     "gmrm_block_cdot": [_P] * 7 + [_I] * 4 + [_P, _P],
-    # base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
-    # zerob, i2se, dbeta, beta_new, comp_new, acum_new, T, B, K, W, stream
-    "gmrm_wave_scan": [_P] * 17 + [_I, _I, _I, _I, _P],
+    # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
+    # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, stamps (or
+    # null), b, bc, bg, T, B, K, W, tab, gsw, stream
+    "gmrm_wave_scan": [_P] * 21 + [_I] * 9 + [_P],
     # bed, rows, d, mave, na, eps, T, B, mb, S, stamps (or null), stream
     "gmrm_eps_update": [_P] * 6 + [_I] * 4 + [_P, _P],
     # bed, rows, rows_next, d, mave, mave_next, msig_next, na, eps, c_next,

@@ -43,22 +43,24 @@ def gram_run_blocks(T: int, B: int, nt: int, nblocks: int) -> int:
 
 
 def scale_gram(gf, mave, msig):
-    """The scaled Gram (T, B, B) from raw quadrants gf (NT, 2B, 2B) of
-    ``[A; B]`` in processing order; NT = 1 broadcasts over traits.
+    """The scaled Gram (..., T, B, B) from raw quadrants gf (..., NT, 2B, 2B)
+    of ``[A; B]`` in processing order, mave/msig (..., T, B); NT = 1
+    broadcasts over traits, and leading dimensions (a run of blocks) are
+    taken element by element.
 
     The scaling expression of gmrm_tpu/sampler/gibbs.py:279-293 and of the
     TPU Gram kernel, rounded in the same order, so kernel and plain
     version agree bit for bit.
     """
-    B = mave.shape[1]
-    g1 = gf[:, :B, :B]
-    g2 = gf[:, B:, :B]
-    g2t = gf[:, :B, B:]
-    g3 = gf[:, B:, B:]
-    mr = mave[:, None, :]                                  # (T, 1, B)
-    mc = mave[:, :, None]                                  # (T, B, 1)
-    sr = msig[:, None, :]
-    sc = msig[:, :, None]
+    B = mave.shape[-1]
+    g1 = gf[..., :B, :B]
+    g2 = gf[..., B:, :B]
+    g2t = gf[..., :B, B:]
+    g3 = gf[..., B:, B:]
+    mr = mave[..., None, :]                                # (..., T, 1, B)
+    mc = mave[..., :, None]                                # (..., T, B, 1)
+    sr = msig[..., None, :]
+    sc = msig[..., :, None]
     graw = g1 - mr * g2t - mc * g2 + (mc * mr) * g3
     return ((sc * sr) * graw).contiguous()
 

@@ -192,15 +192,17 @@ def serial_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
     return dbeta, beta_new, comp_new, acum_new
 
 
-class SerialScanSweep:
-    """Kernel 6 over a sweep's blocks: the processing-order operands of all
-    ``nb`` blocks, checked once, then one launch per block step.
+class ScanSweep:
+    """A scan kernel over a sweep's blocks: the processing-order operands of
+    all ``nb`` blocks, checked once, then one launch per block step.
 
     nm1 (T,) = nonas - 1; lc_p/rd_p/sqb_p (nb, K, T, B) per-marker tables;
     beta_p/acum_p/u_all/z_all/msig_p (nb, T, B) float32; comp_p/live_p/
     zerob_p (nb, T, B) int32; i2se (T,) = 1/(2 sigmaE).  The results of
     block ``b`` land in ``dbeta[b]``, ``d[b]`` (= msig * dbeta),
-    ``beta_new[b]``, ``comp_new[b]`` and ``acum_new[b]``.
+    ``beta_new[b]``, ``comp_new[b]`` and ``acum_new[b]``.  A subclass names
+    its kernel's plan (``_plan``), plain version (``_plain``) and launch
+    (``_launch``).
     """
 
     def __init__(self, nm1, lc_p, rd_p, sqb_p, beta_p, comp_p, acum_p,
@@ -211,7 +213,7 @@ class SerialScanSweep:
         self.shape = (nb, T, B, K)
         self.cuda = dev.type != "cpu"
         if self.cuda:
-            self.plan = _plan_or_raise(T, B, K)
+            self.plan = self._plan(T, B, K)
             for name, x in (("beta_p", beta_p), ("acum_p", acum_p),
                             ("u_all", u_all), ("z_all", z_all),
                             ("msig_p", msig_p)):
@@ -243,19 +245,17 @@ class SerialScanSweep:
                 self.comp_new, self.acum_new)]
             self.seen = {}
 
-    def step(self, b, c, gs, bg, bc=0):
+    def step(self, b, c, gs, bg, bc=0, **launch_kw):
         """Scan block ``b`` with the residual dot products ``c[bc]`` (``c``
         is (nc, T, B)) against Gram ``bg`` of the run ``gs``
         (nr, T, B, B)."""
         nb, T, B, K = self.shape
-        lc_p, rd_p, sqb_p = self.tables
-        beta_p, comp_p, acum_p, u_all, z_all, live_p, zerob_p = self.state
+        beta_p = self.state[0]
         if not self.cuda:
             base = c[bc] + beta_p[b] * self.nm1[:, None]
-            out = serial_scan_plain(
-                base, lc_p[b], rd_p[b], sqb_p[b], gs[bg], beta_p[b],
-                comp_p[b], acum_p[b], u_all[b], z_all[b], live_p[b],
-                zerob_p[b], self.i2se)
+            out = self._plain(
+                base, *(x[b] for x in self.tables), gs[bg],
+                *(x[b] for x in self.state), self.i2se)
             self.dbeta[b], self.beta_new[b] = out[0], out[1]
             self.comp_new[b], self.acum_new[b] = out[2], out[3]
             self.d[b] = self.msig_p[b] * out[0]
@@ -269,5 +269,21 @@ class SerialScanSweep:
                                dev)
         pgs = _build.check_once(self.seen, gs, "gs", f32,
                                 (gs.shape[0], T, B, B), dev)
+        self._launch(pc, pgs, b, bc, bg, **launch_kw)
+
+
+class SerialScanSweep(ScanSweep):
+    """Kernel 6 over a sweep's blocks (``ScanSweep``)."""
+
+    @staticmethod
+    def _plan(T, B, K):
+        return _plan_or_raise(T, B, K)
+
+    @staticmethod
+    def _plain(*args):
+        return serial_scan_plain(*args)
+
+    def _launch(self, pc, pgs, b, bc, bg):
+        nb, T, B, K = self.shape
         _build.launch("serial_scan", pc, *self.head, pgs, *self.tail, b, bc,
                       bg, T, B, K, *self.plan)

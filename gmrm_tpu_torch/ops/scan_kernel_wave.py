@@ -6,10 +6,22 @@ draw against the residual as of the wave start, and the wave's rank-W
 Gram correction is folded before the next wave.  This is the relaxation
 the reference makes across W co-scheduled MPI ranks (bayes.cpp:375-553).
 
-``wave_scan`` takes the per-marker tables and launches csrc/wave_scan.cu
-(or runs ``wave_scan_plain`` on CPU tensors); the per-marker prep of
-scan_kernel_wave.py:204-239 is in
-``gmrm_tpu_torch.sampler.scan.block_scan_wave``.
+Two interfaces, one kernel (csrc/wave_scan.cu), as kernel 6 has:
+
+- ``wave_scan(base, ...)`` on one block's tensors, the public counterpart
+  of the TPU kernel; the per-marker prep of scan_kernel_wave.py:204-239 is
+  in ``gmrm_tpu_torch.sampler.scan.block_scan_wave``;
+- ``WaveScanSweep``: the sweep's whole processing-order arrays
+  ``(nb, ..., B)``, checked once, and a block index per step; the kernel
+  forms ``base = c + beta_old * (nonas - 1)`` itself and also writes
+  ``d = msig * dbeta``, the operand of the residual update (the composed
+  W > 1 sweep, sampler/gibbs.py).
+
+CUDA tensors launch the kernel; CPU tensors run ``wave_scan_plain``.
+Limits on CUDA tensors: K <= 16, W dividing B, and the block's state
+(10 T B words) in shared memory (``wave_plan``: about T B <= 5,700); any
+T W.  Anything else of the wrong device, dtype, shape or layout raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -17,8 +29,67 @@ from __future__ import annotations
 import torch
 
 from gmrm_tpu_torch.ops import _build
+from gmrm_tpu_torch.ops.scan_kernel import ScanSweep
 
 MAX_K = 16     # mixture components the kernel keeps in registers
+NSTATE = 10    # staged (T, B) arrays (csrc NSTATE)
+NBAR = 3       # mbarriers (csrc NBAR)
+SMEM_BYTES = 232448   # dynamic shared memory of one CTA on the H100
+
+
+def _al4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def row_stride(rest: int) -> int:
+    """A packed Gram row's stride in shared memory (csrc): ``rest`` floats
+    padded to 8 words past a multiple of 32."""
+    return rest + (40 - rest % 32) % 32
+
+
+def _layout_words(T, B, K, W, tab, gsw) -> int:
+    """Shared memory words of csrc/wave_scan.cu make_layout: the mbarriers,
+    the state, i2se and nm1, two waves' dbeta, the waves' offsets, the
+    tables, the packed rows."""
+    rows = sum(W * row_stride(B - (v + 1) * W) for v in range(gsw))
+    return (_al4(2 * NBAR) + NSTATE * _al4(T * B) + 2 * _al4(T)
+            + _al4(2 * T * W) + _al4(B // W + 1) + 3 * tab * _al4(K * T * B)
+            + _al4(T * rows))
+
+
+def wave_plan(T: int, B: int, K: int, W: int):
+    """(tab, gsw) of the kernel's shared memory, or None when the block's
+    state does not fit: tab 1 stages the per-marker tables, and the packed
+    Gram rows of waves 0 .. gsw - 1 are staged (in wave order, as many as
+    fit beside the rest); the later waves' rows are read from global
+    memory.  The last wave has no rows to fold."""
+    if B % W:
+        raise ValueError(f"wave {W} must divide B={B}")
+    cap = SMEM_BYTES // 4
+    if _layout_words(T, B, K, W, 0, 0) > cap:
+        return None
+    tab = int(_layout_words(T, B, K, W, 1, 0) <= cap)
+    gsw = 0
+    while (gsw < B // W - 1
+           and _layout_words(T, B, K, W, tab, gsw + 1) <= cap):
+        gsw += 1
+    return tab, gsw
+
+
+def wave_stamp_names(nw: int) -> tuple:
+    """The events of a launch's stamp buffer (``stamps=``), in order."""
+    waves = [f"wave {w} {e}" for w in range(nw) for e in ("drawn", "folded")]
+    return ("start", "operands staged", *waves)
+
+
+def _plan_or_raise(T, B, K, W):
+    if K > MAX_K:
+        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
+    plan = wave_plan(T, B, K, W)
+    if plan is None:
+        raise ValueError(f"T={T}, B={B} exceed the wave scan's shared "
+                         f"memory (about T*B <= 5,700)")
+    return plan
 
 
 def wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
@@ -87,7 +158,8 @@ def wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
 
 def wave_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
               live, zerob, i2se, *, wave):
-    """Kernel 3 on one block.
+    """Kernel 3 on one block (the sweep interface's nb = 1 case, with base
+    given and no d).
 
     base/beta_old/acum_old/u/z (T, B) float32; lc/rd/sqb (K, T, B) float32
     per-marker tables; gs (T, B, B) float32 scaled Gram in processing
@@ -99,10 +171,7 @@ def wave_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
                                acum_old, u, z, live, zerob, i2se, wave)
     T, B = base.shape
     K = lc.shape[0]
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
-    if B % wave or T * wave > 256:
-        raise ValueError(f"wave {wave} must divide B={B} with T*W <= 256")
+    plan = _plan_or_raise(T, B, K, wave)
     dev = base.device
     f32, i32 = torch.float32, torch.int32
     for name, x in (("base", base), ("beta_old", beta_old),
@@ -119,10 +188,33 @@ def wave_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
     beta_new = torch.empty_like(dbeta)
     acum_new = torch.empty_like(dbeta)
     comp_new = torch.empty((T, B), dtype=i32, device=dev)
-    _build.launch("wave_scan", base, lc, rd, sqb, gs, beta_old, comp_old,
-                  acum_old, u, z, live, zerob, i2se, dbeta, beta_new,
-                  comp_new, acum_new, T, B, K, wave)
+    _build.launch("wave_scan", base, None, lc, rd, sqb, gs, beta_old,
+                  comp_old, acum_old, u, z, live, zerob, None, i2se, dbeta,
+                  None, beta_new, comp_new, acum_new, None, 0, 0, 0, T, B, K,
+                  wave, *plan)
     return dbeta, beta_new, comp_new, acum_new
+
+
+class WaveScanSweep(ScanSweep):
+    """Kernel 3 over a sweep's blocks (``ScanSweep``): the operands as for
+    ``SerialScanSweep``, and the wave width.  On CUDA tensors ``step``
+    takes an optional stamp buffer (2 + 2 B/W,) int64 that the launch
+    fills (``wave_stamp_names``)."""
+
+    def __init__(self, *operands, wave):
+        self.wave = wave
+        super().__init__(*operands)
+
+    def _plan(self, T, B, K):
+        return _plan_or_raise(T, B, K, self.wave)
+
+    def _plain(self, *args):
+        return wave_scan_plain(*args, self.wave)
+
+    def _launch(self, pc, pgs, b, bc, bg, stamps=None):
+        nb, T, B, K = self.shape
+        _build.launch("wave_scan", pc, *self.head, pgs, *self.tail, stamps, b,
+                      bc, bg, T, B, K, self.wave, *self.plan)
 
 
 def scan_masks(grp, valid, sigmag):

@@ -64,6 +64,21 @@ def gram_cache_plain(bed: torch.Tensor, na_in: torch.Tensor,
     return out
 
 
+GMMA_TILE = 128   # markers per side of a tensor-core Gram tile (csrc)
+GRID_MAX = 65535  # grid.y and grid.z of a launch
+
+
+def gram_cache_grid(B: int, nblocks: int, nt: int) -> tuple:
+    """The launch grid of kernel 1: one CTA per 128 x 128 tile of each of
+    the three quadrants g1, g2t, g3, per mask and per block.  Raises
+    ``ValueError`` past the grid's 65535 blocks or masks."""
+    if nblocks > GRID_MAX or nt > GRID_MAX:
+        raise ValueError(f"{nblocks} blocks or {nt} masks exceed the "
+                         f"kernel's grid limit of {GRID_MAX}")
+    ntile = -(-B // GMMA_TILE)
+    return (3 * ntile * ntile, nt, nblocks)
+
+
 def build_gram_cache(bed: torch.Tensor, na: torch.Tensor, *,
                      block_size: int, shared_na: bool) -> torch.Tensor:
     """Raw Gram quadrants of every natural block.
@@ -71,7 +86,9 @@ def build_gram_cache(bed: torch.Tensor, na: torch.Tensor, *,
     bed (m_pad, mb_pad) uint8 in natural (storage) order; na (T, 4, mb_pad)
     0/1 float32.  NT = 1 when no phenotype has NAs (``shared_na``), else T.
     Returns (nblocks, NT, 2B, 2B) float32, bit-equal to the JAX builder.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/gram_cache.cu: the int8 tensor cores, three quadrants a block
+    and mask, ``gram_cache_grid``).
     """
     m_pad, mb = bed.shape
     B = block_size
@@ -82,9 +99,7 @@ def build_gram_cache(bed: torch.Tensor, na: torch.Tensor, *,
     if bed.device.type == "cpu":
         return gram_cache_plain(bed, na_in, B)
     nblocks = m_pad // B
-    if nblocks > 65535:
-        raise ValueError(f"{nblocks} blocks exceed the kernel's grid "
-                         f"limit of 65535")
+    gram_cache_grid(B, nblocks, nt)
     _build.check(bed, "bed", torch.uint8, (m_pad, mb), bed.device)
     _build.check(na_in, "na", torch.float32, (nt, 4, mb), bed.device)
     out = torch.empty((nblocks, nt, 2 * B, 2 * B), dtype=torch.float32,

@@ -11,15 +11,15 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
      of the sweep kernel (ops/sweep_kernel.sweep_blocks), from
      natural-order operands and group-level tables;
    - W > 1 with ``megakernel=False``, the composed path
-     (gibbs.py:353-400, ``use_cache``), per block: the c-dot kernel, the
-     cached Gram gathered to processing order and scaled in plain
-     PyTorch, the wave-scan kernel, the residual-update kernel;
-   - W = 1, the exact serial path: the scaled Grams of the sweep's blocks
-     first (the block-Gram kernel, one launch per run of blocks; they do
-     not depend on the residual), then the c-dot kernel of block 0 and per
-     block the serial-scan kernel on the sweep's arrays and a block index
-     and one launch of the residual update fused with the next block's
-     c-dot (the update alone after the last block);
+     (gibbs.py:353-400, ``use_cache``) and W = 1, the exact serial path,
+     at one cadence: the scaled Grams of a run of blocks first (they do
+     not depend on the residual; at W > 1 the cached raw Grams gathered to
+     processing order and scaled in plain PyTorch, at W = 1 the
+     block-Gram kernel, one launch per run), then the c-dot kernel of
+     block 0 and per block the scan kernel (wave scan or serial scan) on
+     the sweep's arrays and a block index and one launch of the residual
+     update fused with the next block's c-dot (the update alone after the
+     last block);
    - marker-sharded (gibbs.py:295-351, ``marker_sweep_sharded``): every
      shard sweeps its own markers against the one residual, and per block
      step the shards' residual deltas are summed, over the process's local
@@ -41,7 +41,6 @@ host sync.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -50,11 +49,9 @@ from gmrm_tpu_torch.config import V0E, S02E, V0G, S02G
 from gmrm_tpu_torch.ops.block_gram import (
     blocks_gram_scaled, gram_run_blocks, scale_gram,
 )
-from gmrm_tpu_torch.ops.block_kernels import (
-    BlockPasses, block_cdot, block_eps_update_,
-)
+from gmrm_tpu_torch.ops.block_kernels import BlockPasses
 from gmrm_tpu_torch.ops.scan_kernel import SerialScanSweep
-from gmrm_tpu_torch.ops.scan_kernel_wave import scan_masks, wave_scan
+from gmrm_tpu_torch.ops.scan_kernel_wave import WaveScanSweep, scan_masks
 from gmrm_tpu_torch.ops.sweep_kernel import (
     ShardOperands, ShardedBlockSweep, build_sweep_tables, sweep_blocks,
 )
@@ -85,16 +82,20 @@ def _natural_cass(comp, group_of, sigmag, m_local, K):
     return cass.reshape(T, G, K)
 
 
-def cached_gram_scaled(gram_cache, blk, win2, mave_blk, msig_blk):
-    """The block's scaled Gram (T, B, B) in processing order.
+def cached_grams_scaled(gram_cache, blk, win2, mave_p, msig_p):
+    """The scaled Grams (nr, T, B, B) of a run of nr blocks in processing
+    order (gibbs.py:268-293, batched).
 
-    ``blk`` (1,) is the natural block and ``win2`` (2B,) = [win, win + B];
-    one exact row and column gather of the cached raw quadrants, then the
-    scaling of ops/block_gram.scale_gram (gibbs.py:279-293).
+    ``blk`` (nr,) are the natural blocks and ``win2`` (nr, 2B) =
+    [win, win + B] their row orders; exact gathers of the cached raw
+    quadrants (the blocks, then each block's rows and columns), then the
+    scaling of ops/block_gram.scale_gram element by element, so every
+    block's Gram has the bits of a gather and scaling of that block alone.
     """
-    gf = gram_cache.index_select(0, blk)[0]                # (NT, 2B, 2B)
-    gf = gf.index_select(1, win2).index_select(2, win2)
-    return scale_gram(gf, mave_blk, msig_blk)
+    gf = gram_cache.index_select(0, blk)                   # (nr, NT, 2B, 2B)
+    idx = win2[:, None, :, None].expand(gf.shape)
+    gf = gf.gather(2, idx).gather(3, idx.transpose(2, 3))
+    return scale_gram(gf, mave_p, msig_p)
 
 
 def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
@@ -163,14 +164,19 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
 
 class _ComposedSweep:
     """One sweep of one shard on the composed per-block path, a block step
-    at a time: kernels 2, 3 and 4 at wave > 1 (the Gram gathered from the
-    cache), kernels 2, 6 and 4 at wave = 1, where the blocks' scaled Grams
-    (kernel 5) are built ahead of the block loop, a run of
-    ``gram_run_blocks`` blocks per launch: the first run here, a further
-    one when a step leaves the run it has.
+    at a time: the c-dot and residual-update kernels (2 and 4, fused per
+    step on one device, ``BlockPasses``) around the wave-scan kernel (3,
+    ``WaveScanSweep``) at wave > 1 or the serial-scan kernel (6,
+    ``SerialScanSweep``) at wave = 1.  The blocks' scaled Grams are made
+    ahead of the block loop, a run of ``gram_run_blocks`` blocks at a
+    time: at wave > 1 gathered from the cache and scaled in plain PyTorch
+    (``cached_grams_scaled``), at wave = 1 by kernel 5 (one launch per
+    run); the first run here, a further one when a step leaves the run it
+    has.
 
     Every per-marker operand is gathered to processing order once and
-    split into contiguous (nblocks, ..., B) blocks.
+    split into contiguous (nblocks, ..., B) blocks; the scan writes the
+    new marker state into per-sweep arrays that ``finish`` scatters once.
     """
 
     def __init__(self, betas, comp, acum, sigmag, static, blocks, u_all,
@@ -178,17 +184,10 @@ class _ComposedSweep:
         nblocks, B = blocks.shape
         f32, i32 = torch.float32, torch.int32
         lc_t, rd_t, sqb_t = tables
-        self.static, self.wave, self.i2se = static, wave, i2se
-        self.u_all, self.z_all = u_all, z_all
         self.like = (betas, comp.to(i32), acum)
         perm = blocks.reshape(-1).long()                    # (m_pad,)
         self.perm = perm
         self.rows = perm.to(i32).reshape(nblocks, B)
-        if wave > 1:
-            self.blk_idx = perm.reshape(nblocks, B)[:, :1] // B
-            win = perm.reshape(nblocks, B) - self.blk_idx * B
-            self.win2 = torch.cat([win, win + B], dim=1)    # (nblocks, 2B)
-            self.scan = functools.partial(wave_scan, wave=wave)
 
         def split(y):    # (..., m_pad) processing order -> (nb, ..., B)
             y = y.reshape(*y.shape[:-1], nblocks, B)
@@ -198,40 +197,49 @@ class _ComposedSweep:
             return split(x[..., perm])
 
         grp_p = static.group_of[perm]
-        self.mave_p = gathered(static.mave)
-        self.msig_p = gathered(static.msig)
-        self.beta_p = gathered(betas)
-        self.comp_p = gathered(comp.to(i32))
-        self.acum_p = gathered(acum)
-        self.lc_p = split(lc_t[:, :, grp_p])                # (nb, K, T, B)
-        self.rd_p = split(rd_t[:, :, grp_p])
-        self.sqb_p = split(sqb_t[:, :, grp_p])
+        rows = self.rows
+        mave_p = self.mave_p = gathered(static.mave)
+        msig_p = self.msig_p = gathered(static.msig)
         live, zerob = scan_masks(grp_p, perm < static.m_local, sigmag)
-        self.live_p = split(live)
-        self.zerob_p = split(zerob)
-        self.nm1 = static.nonas.to(f32) - 1.0               # (T,)
-        self.outs = []
-        if wave == 1:
-            self.na_gram = (static.na[:1] if static.shared_na
-                            else static.na).contiguous()
-            self.passes = BlockPasses(static.bed, self.rows, self.mave_p,
-                                      self.msig_p, static.na)
-            self.serial = SerialScanSweep(
-                self.nm1, self.lc_p, self.rd_p, self.sqb_p, self.beta_p,
-                self.comp_p, self.acum_p, u_all, z_all, self.live_p,
-                self.zerob_p, self.msig_p, i2se)
-            self.gram_run = gram_run_blocks(
-                betas.shape[0], B, self.na_gram.shape[0], nblocks)
-            self.gs, self.gs_start = None, 0
-            self._build_grams(0)
+        operands = (static.nonas.to(f32) - 1.0,
+                    split(lc_t[:, :, grp_p]), split(rd_t[:, :, grp_p]),
+                    split(sqb_t[:, :, grp_p]), gathered(betas),
+                    gathered(comp.to(i32)), gathered(acum), u_all, z_all,
+                    split(live), split(zerob), msig_p, i2se)
+        self.passes = BlockPasses(static.bed, rows, mave_p, msig_p,
+                                  static.na)
+        # The Gram builders close over tensors only, not over self, so a
+        # finished sweep is freed at once and not by the cycle collector.
+        if wave > 1:
+            self.scan = WaveScanSweep(*operands, wave=wave)
+            blk = perm.reshape(nblocks, B)[:, 0] // B
+            win = perm.reshape(nblocks, B) - blk[:, None] * B
+            win2 = torch.cat([win, win + B], dim=1)         # (nblocks, 2B)
+            cache = static.gram_cache
+            nt = cache.shape[1]
+
+            def grams(s):
+                return cached_grams_scaled(cache, blk[s], win2[s], mave_p[s],
+                                           msig_p[s])
+        else:
+            self.scan = SerialScanSweep(*operands)
+            bed = static.bed
+            na_gram = (static.na[:1] if static.shared_na
+                       else static.na).contiguous()
+            nt = na_gram.shape[0]
+
+            def grams(s):
+                return blocks_gram_scaled(bed, rows[s], na_gram, mave_p[s],
+                                          msig_p[s])
+        self.grams = grams
+        self.gram_run = gram_run_blocks(betas.shape[0], B, nt, nblocks)
+        self.gs, self.gs_start = None, 0
+        self._build_grams(0)
 
     def _build_grams(self, start):
         """The scaled Grams of blocks start .. start + gram_run - 1."""
         self.gs = None                    # free the last run first
-        stop = start + self.gram_run
-        self.gs = blocks_gram_scaled(
-            self.static.bed, self.rows[start:stop], self.na_gram,
-            self.mave_p[start:stop], self.msig_p[start:stop])
+        self.gs = self.grams(slice(start, start + self.gram_run))
         self.gs_start = start
 
     def step(self, b, eps, target):
@@ -239,46 +247,26 @@ class _ComposedSweep:
         residual update is added into ``target``: ``eps`` itself on one
         device, a zeroed delta on a sharded run.
 
-        At wave 1 with ``target is eps`` (one device, block steps 0, 1, ...
-        in order) block b's update and block b+1's c-dot are one launch
+        With ``target is eps`` (one device, block steps 0, 1, ... in order)
+        block b's update and block b+1's c-dot are one launch
         (``BlockPasses.update_cdot_``): step 0 starts with the c-dot of
         block 0 and the last step ends with the update alone.  On a sharded
         run the next c-dot waits for the sum of the shards' deltas, so each
         step is c-dot, scan, update."""
-        if self.wave == 1:
-            if not 0 <= b - self.gs_start < self.gs.shape[0]:
-                self._build_grams(b - b % self.gram_run)
-            fused = target is eps
-            if b == 0 or not fused:
-                self.passes.cdot(b, eps)
-            self.serial.step(b, self.passes.c, self.gs, b - self.gs_start,
-                             bc=b)
-            if fused and b + 1 < self.rows.shape[0]:
-                self.passes.update_cdot_(b, self.serial.d, eps)
-            else:
-                self.passes.update_(b, self.serial.d, target)
-            return
-        static = self.static
-        mave_b, msig_b = self.mave_p[b], self.msig_p[b]
-        c = block_cdot(static.bed, self.rows[b], eps, mave_b, msig_b)
-        gs = cached_gram_scaled(static.gram_cache, self.blk_idx[b],
-                                self.win2[b], mave_b, msig_b)
-        dbeta, beta_new, comp_new, acum_new = self.scan(
-            c + self.beta_p[b] * self.nm1[:, None], self.lc_p[b],
-            self.rd_p[b], self.sqb_p[b], gs, self.beta_p[b], self.comp_p[b],
-            self.acum_p[b], self.u_all[b], self.z_all[b], self.live_p[b],
-            self.zerob_p[b], self.i2se)
-        block_eps_update_(static.bed, self.rows[b], msig_b * dbeta, mave_b,
-                          static.na, target)
-        self.outs.append((beta_new, comp_new, acum_new))
+        if not 0 <= b - self.gs_start < self.gs.shape[0]:
+            self._build_grams(b - b % self.gram_run)
+        fused = target is eps
+        if b == 0 or not fused:
+            self.passes.cdot(b, eps)
+        self.scan.step(b, self.passes.c, self.gs, b - self.gs_start, bc=b)
+        if fused and b + 1 < self.rows.shape[0]:
+            self.passes.update_cdot_(b, self.scan.d, eps)
+        else:
+            self.passes.update_(b, self.scan.d, target)
 
     def finish(self):
         """The new marker state (betas, comp, acum) in natural order."""
-        if self.wave == 1:
-            new = (self.serial.beta_new, self.serial.comp_new,
-                   self.serial.acum_new)
-        else:
-            new = [torch.stack([o[k] for o in self.outs]) for k in range(3)]
+        new = (self.scan.beta_new, self.scan.comp_new, self.scan.acum_new)
 
         def natural(k):                   # (nb, T, B) -> (T, m_pad)
             like = self.like[k]

@@ -93,7 +93,18 @@ Phases, each of which must pass (any failure exits non-zero):
    run_training runs them), one over 5 W=1 iterations, one over 5 composed
    iterations and one over 5 sharded iterations (2 shards): device-busy
    and wall time per iteration, idle share, host-issued launches and graph
-   replays per iteration.
+   replays per iteration;
+6. predict (run after phase 4): its kernel (csrc/predict_sums.cu) against
+   its plain version at the anchor's bed (the NA-free trait, and a 2% NA
+   mask) and on the large-N panel's bed (xtx bit-equal, xty within
+   1e-5 sum|val*y| + 1e-6, two launches bit-equal), timed by graph replay
+   beside torch.mv on pre-decoded operands; then the entry point,
+   gmrm_tpu_torch.predict.run_predict, on phase 4's W=32 .bet files: on the
+   card (one kernel launch per trait), again through the command line
+   (python -m gmrm_tpu_torch --predict: the same .mlma bytes) and on the
+   CPU (equal ids and layout, fields within the xty bound), with the wall
+   time of each run_predict call split into read, upload, sums, OLS and
+   write.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -1964,6 +1975,190 @@ def eager_gate(sim, dev, res, iterations=ITERS):
     return names
 
 
+# Predict's sums: float32 sums that the kernel and the plain version take in
+# other orders, so xty is held to PREDICT_RTOL * sum|val*y| + PREDICT_ATOL
+# per marker; xtx, a sum of integers below 2^24, bit for bit.
+PREDICT_RTOL, PREDICT_ATOL = 1e-5, 1e-6
+
+
+def predict_planes(ph, dev, pitch):
+    """One trait's na and y planes as run_predict makes them (float32 from
+    the float64 host vectors, padded to the kernel's row pitch)."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch.ops.decode import to_phase_planes
+    from gmrm_tpu_torch.ops.predict_sums import pad_columns
+    return [torch.from_numpy(pad_columns(
+        to_phase_planes(v).astype(np.float32), pitch, 0.0)).to(dev)
+        for v in (ph.na_vector_padded(), ph.epsilon_padded())]
+
+
+def predict_case(name, bed_d, na_d, y_d, n, card, reps=40):
+    """Phase 6a: the predict kernel on one trait's planes against its plain
+    version on the card: xtx bit-equal, xty within the bound, two launches
+    bit-equal; kernel and plain ms by graph replay, beside torch.mv on the
+    pre-decoded float32 val (M, 4L) and y, the xty half (a yardstick: no
+    PyTorch call decodes and reduces).  Returns the row's numbers."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.decode import decode_planes
+    from gmrm_tpu_torch.ops.predict_sums import (
+        predict_sums, predict_sums_plain,
+    )
+    m, pitch = bed_d.shape
+    mb = (n + 3) // 4
+    got = [torch.stack(predict_sums(bed_d, na_d, y_d)) for _ in range(2)]
+    want = torch.stack(predict_sums_plain(bed_d, na_d, y_d))
+    # sum|val*y| = sum val*|y|, since val = a*na >= 0.
+    scale = predict_sums_plain(bed_d, na_d, y_d.abs())[1].double()
+    dxty = (got[0][1].double() - want[1].double()).abs()
+    if not torch.equal(got[0], got[1]):
+        fail(f"predict_sums {name}: two launches differ")
+    if not torch.equal(got[0][0], want[0]):
+        fail(f"predict_sums {name}: xtx differs from the plain version")
+    if (dxty > PREDICT_RTOL * scale + PREDICT_ATOL).any():
+        fail(f"predict_sums {name}: xty off by {float(dxty.max()):.3e}")
+    ms = cuda_ms(lambda: predict_sums(bed_d, na_d, y_d), reps)
+    plain_ms = cuda_ms(lambda: predict_sums_plain(bed_d, na_d, y_d), 2)
+    val = torch.empty((m, 4 * pitch), device=bed_d.device)
+    for s in range(0, m, 512):
+        a, _ = decode_planes(bed_d[s:s + 512])
+        val[s:s + 512] = (a * na_d).reshape(a.shape[0], -1)
+    y_flat = y_d.reshape(-1)
+    mv_ms = cuda_ms(lambda: torch.mv(val, y_flat), reps)
+    del val
+    # The bed once, na and y once, the sums once; a multiply-add for each
+    # of xtx and xty per individual.
+    bound = bound_of(m * mb + 2 * 4 * mb * 4 + 2 * m * 4,
+                     (4 * m * n, F32_OPS))
+    team = _build.library().gmrm_predict_sums_team(pitch)
+    print(f"# predict_sums, {name} (M={m}, mb={mb}, row pitch {pitch}, "
+          f"{team} warp(s) a group of 4 rows): xtx bit-equal to the plain "
+          f"version, max |dxty| {float(dxty.max()):.3e} (bound "
+          f"{PREDICT_RTOL:g} sum|val*y| + {PREDICT_ATOL:g}), two launches "
+          f"bit-equal; kernel ms {ms:.5f}, plain ms {plain_ms:.4f} (CUDA "
+          f"graph replay); torch.mv yardstick on pre-decoded f32 "
+          f"({m} x {4 * pitch}) {mv_ms:.4f} ms; bound {bound[0]:.5f} ms by "
+          f"{bound[1]}  [{card}]", flush=True)
+    return dict(err=float(dxty.max()), ms=ms, plain_ms=plain_ms,
+                mv_ms=mv_ms, bound=bound)
+
+
+def mlma_fields(path):
+    import numpy as np
+    rows = [ln.split() for ln in open(path).read().splitlines()]
+    return ([(r[0], int(r[1]), int(r[2])) for r in rows],
+            np.array([[float(v) for v in r[3:]] for r in rows]))
+
+
+def predict_phase(sim, big, dev, tmp, card):
+    """Phase 6: predict.  (a) The kernel alone (``predict_case``) at the
+    anchor's bed with its NA-free trait and with a 2% NA mask, and on the
+    large-N panel's bed (N=100,000, 4,096 markers) with its 2% NAs.  (b)
+    The path: run_predict on phase 4's W=32 .bet files (bim = ref bim), on
+    the card (one launch per trait: the anchor's bed is one chunk), again
+    on the card through the command line (``--predict``; the same bytes
+    and launches), and on the CPU (the plain version): ids,
+    mglo, rmglo and line count equal, beta, t, se and p within what the
+    xty bound allows each.  Returns the row and the path's numbers."""
+    import shutil
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch import cli
+    from gmrm_tpu_torch.config import Options
+    from gmrm_tpu_torch.io.bed import read_bed
+    from gmrm_tpu_torch.io.phen import read_phen
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.predict_sums import (
+        padded_chunk, pitch_of, predict_sums_plain,
+    )
+    from gmrm_tpu_torch.predict import run_predict
+
+    pitch = pitch_of((N + 3) // 4)
+    bed_d = padded_chunk(read_bed(sim.bed, N, MT), 0, MT, dev)
+    phens = [read_phen(p, N) for p in sim.phens]
+    na_d, y_d = predict_planes(phens[0], dev, pitch)
+    row = predict_case("anchor, NT=1", bed_d, na_d, y_d, N, card)
+    rng = np.random.default_rng(5)
+    keep = torch.from_numpy(
+        (rng.uniform(size=(4, pitch)) > 0.02).astype(np.float32)).to(dev)
+    cases = [row, predict_case("anchor, 2% NAs", bed_d, na_d * keep,
+                               y_d * keep, N, card)]
+    big_pitch = pitch_of((N_BIG + 3) // 4)
+    big_bed = padded_chunk(read_bed(big.bed, N_BIG, MT_BIG), 0, MT_BIG, dev)
+    cases.append(predict_case(
+        "large-N panel, 2% NAs", big_bed,
+        *predict_planes(read_phen(big.phens[0], N_BIG), dev, big_pitch),
+        N_BIG, card))
+    del big_bed
+    row = dict(row, err=max(c["err"] for c in cases))
+
+    train = os.path.join(tmp, f"out_w{W}")
+    runs = {}
+    for key, device in (("card", dev), ("cli", dev), ("cpu", "cpu")):
+        out = os.path.join(tmp, f"predict_{key}")
+        os.makedirs(out)
+        for p in sim.phens:
+            bet = os.path.splitext(os.path.basename(p))[0] + ".bet"
+            shutil.copy(os.path.join(train, bet), os.path.join(out, bet))
+        opt = Options(bed_file=sim.bed, dim_file=sim.dim,
+                      phen_files=sim.phens, bim_file=sim.bim,
+                      ref_bim_file=sim.bim, out_dir=out, predict=True)
+        argv = ["--predict", "--bed-file", sim.bed, "--dim-file", sim.dim,
+                "--phen-files", ",".join(sim.phens), "--bim-file", sim.bim,
+                "--ref-bim-file", sim.bim, "--out-dir", out,
+                "--verbosity", "-1"]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if key != "cli":
+            split = run_predict(opt, device=device, verbose=False)
+        elif cli.main(argv, device=device) == 0:     # the command line
+            split = {}
+        else:
+            fail("predict: python -m gmrm_tpu_torch --predict failed")
+        runs[key] = (out, time.perf_counter() - t0, split,
+                     _build.launch_counts())
+    for key in ("card", "cli"):
+        for name, n in runs[key][3].items():
+            if n != (T if name == "predict_sums" else 0):
+                fail(f"predict ({key}): kernel {name} launched {n} times, "
+                     f"expected {T if name == 'predict_sums' else 0}")
+    if any(runs["cpu"][3].values()):
+        fail(f"predict on the CPU launched {runs['cpu'][3]}")
+    worst = np.zeros(4)
+    for t, p in enumerate(sim.phens):
+        name = os.path.splitext(os.path.basename(p))[0] + ".mlma"
+        card_, again, cpu = (os.path.join(runs[k][0], name)
+                             for k in ("card", "cli", "cpu"))
+        if open(card_, "rb").read() != open(again, "rb").read():
+            fail(f"predict: two runs on the card wrote other bytes ({name})")
+        ids_k, f_k = mlma_fields(card_)
+        ids_c, f_c = mlma_fields(cpu)
+        if ids_k != ids_c or len(ids_k) != MT:
+            fail(f"predict: ids, mglo, rmglo or line count differ ({name})")
+        na_t, y_t = predict_planes(phens[t], dev, pitch)
+        xtx = predict_sums_plain(bed_d, na_t, y_t)[0].double().cpu().numpy()
+        d = (PREDICT_RTOL * predict_sums_plain(bed_d, na_t, y_t.abs())[1]
+             .double().cpu().numpy() + PREDICT_ATOL)
+        y = phens[t].epsilon_padded()
+        sigma = float(y @ y) / phens[t].nonas
+        # se = sqrt(sigma / xtx) does not depend on xty; |dp/dt| <=
+        # sqrt(2 / pi); the lines print 15 decimals.
+        with np.errstate(divide="ignore", invalid="ignore"):
+            dt = d / np.sqrt(sigma * xtx)
+            tol = np.stack([d / xtx, dt, np.full_like(d, 1e-12), 0.8 * dt],
+                           axis=1) + 2e-15
+        diff = np.abs(f_k - f_c)
+        live = ~np.isnan(f_c)
+        if (np.isnan(f_k) != np.isnan(f_c)).any() or (
+                diff[live] > tol[live]).any():
+            fail(f"predict: {name} on the card and on the CPU disagree "
+                 f"beyond the xty bound")
+        worst = np.maximum(worst, np.where(live, diff, 0).max(axis=0))
+    return row, runs, worst
+
+
 def composed_phase(sim, dev, check_launches=True):
     """Phase 4c: the composed wave path (megakernel=False) for a few
     iterations of gibbs_iteration, so the earlier path stays driven; per
@@ -2374,6 +2569,8 @@ def main():
         runs = {w: training_phase(sim, dev, tmp, w, iters)
                 for w, iters in ((W, ITERS), (1, ITERS_SERIAL))}
         gated = eager_gate(sim, dev, runs[W][0])
+        predict_row, predict_runs, predict_worst = predict_phase(
+            sim, big, dev, tmp, card)
         composed_launches, composed_s = composed_phase(sim, dev)
         busy_ms, wall_ms, n_launch, top = profile_phase(sim, dev)
         w1_prof = profile_phase(sim, dev, wave=1)
@@ -2406,6 +2603,21 @@ def main():
     print(f"# training W={W}: the state after {ITERS} iterations ("
           f"{', '.join(gated)}) is bit-equal to {ITERS} eager "
           f"gibbs_iteration calls from the same start and seed  [{card}]",
+          flush=True)
+    where = {"card": "the card (run_predict)",
+             "cli": "the card (python -m gmrm_tpu_torch --predict)",
+             "cpu": "the CPU (run_predict, plain version)"}
+    for key, (_, wall, split, launches) in predict_runs.items():
+        parts = " = " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        print(f"# predict at the anchor on {where[key]} ({T} traits on "
+              f"phase 4's W={W} .bet files): wall {wall:.3f} s"
+              f"{parts if split else ''}; {wall / T:.3f} s a trait; launches "
+              f"{ {k: v for k, v in launches.items() if v} }  [{card}]",
+              flush=True)
+    print(f"# predict: the card's .mlma bytes equal across the two runs; "
+          f"equal ids, mglo, rmglo and line count to the CPU's, and beta, "
+          f"t, se, p within the xty bound (max |d| "
+          f"{', '.join(f'{x:.3e}' for x in predict_worst)})  [{card}]",
           flush=True)
     print(f"# composed wave path (megakernel=False), W={W}: "
           f"{composed_s * 1e3:.2f} ms/iteration = {MT / composed_s:.0f} "
@@ -2465,6 +2677,18 @@ def main():
              **({"also_replaces": ALSO_REPLACES[name]}
                 if name in ALSO_REPLACES else {})}
             for name, (src, rep) in SOURCES.items()]
+    # Predict's sums (not a TPU kernel: gmrm_tpu/predict.py:43 is an XLA
+    # scan), launched by the predict path; library_ms is torch.mv on the
+    # pre-decoded operands, the xty half.
+    rows.append({"name": "predict_sums", "route": "cuda",
+                 "source": "gmrm_tpu_torch/csrc/predict_sums.cu",
+                 "replaces": "gmrm_tpu/predict.py:43",
+                 "launches": predict_runs["card"][3]["predict_sums"],
+                 "max_abs_err": predict_row["err"], "ms": predict_row["ms"],
+                 "plain_ms": predict_row["plain_ms"],
+                 "bound_ms": predict_row["bound"][0],
+                 "bound_by": predict_row["bound"][1],
+                 "library_ms": predict_row["mv_ms"]})
     print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

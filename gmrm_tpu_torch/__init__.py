@@ -16,8 +16,9 @@ The slices covered so far are training on one device: wave mode (W > 1)
 through the whole-sweep kernel, one launch per iteration (the composed
 per-block path stays behind ``megakernel=False``), and the exact serial
 sweep (W = 1); and marker-sharded training over ``torch.distributed``
-(``gmrm_tpu_torch.parallel``), through the fused per-block kernel.  See
-ROADMAP.md for what is still to be ported.
+(``gmrm_tpu_torch.parallel``), through the fused per-block kernel; and
+predict (``gmrm_tpu_torch.predict``), whose per-marker sums are one more
+hand-written kernel.  See ROADMAP.md for what is still to be ported.
 """
 
 __version__ = "0.1.0"

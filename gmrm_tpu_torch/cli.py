@@ -1,11 +1,13 @@
 """Command line of the port: its own copy of the reference flag surface
 (gmrm_tpu/cli.py, reference ``src/options.cpp:26-151``), dispatched to the
-port's training runners.  ``--S`` is accepted and ignored, like the
-reference.  ``--devices S`` with S > 1 trains marker-sharded over S shards
+port's predict mode (``--predict``, gmrm_tpu_torch/predict.py) or its
+training runners.  ``--S`` is accepted and ignored, like the reference.
+``--devices S`` with S > 1 trains marker-sharded over S shards
 (gmrm_tpu_torch/parallel/runner.py), all on this process's one device
 unless a process group spreads them: under a launcher that sets ``RANK``
 and ``WORLD_SIZE`` (``torchrun``, one process per card) the processes join
-one group first.  Options the ported slices do not cover raise
+one group first (in predict mode each process then writes its markers'
+lines of the one ``.mlma``).  Options the ported slices do not cover raise
 ``SliceNotCovered`` (an ``OptionsError``) naming the ROADMAP.md item."""
 
 from __future__ import annotations
@@ -103,9 +105,10 @@ def options_from_args(args) -> Options:
 
 
 def main(argv=None, device=None) -> int:
-    """Run training; ``device`` None means CUDA, which must be present.
-    Dispatch as gmrm_tpu/cli.py:129-136, with "devices" read as shards:
-    more than one shard, or a process group, goes to the sharded runner."""
+    """Run predict or training; ``device`` None means CUDA, which must be
+    present.  Dispatch as gmrm_tpu/cli.py:115-136: predict first, without
+    the group mixtures; then training, with "devices" read as shards: more
+    than one shard, or a process group, goes to the sharded runner."""
     from gmrm_tpu_torch.parallel import distributed
     from gmrm_tpu_torch.runner import resolve_device, run_training
 
@@ -119,6 +122,10 @@ def main(argv=None, device=None) -> int:
     check_slice(opt, dev.type, sharded)
     try:
         opt.validate()
+        if opt.predict:
+            from gmrm_tpu_torch.predict import run_predict
+            run_predict(opt, device=dev, verbose=opt.verbosity >= 0)
+            return 0
         if opt.group_mixture_file:
             opt.load_group_mixtures()
         if sharded:

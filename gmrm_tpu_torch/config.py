@@ -252,7 +252,6 @@ def check_slice(opt: Options, device_type: str,
         ckpt += (": topology-portable v2 sharded checkpoints and the "
                  "per-process startup cache")
     gaps = [
-        (opt.predict, "--predict", "ROADMAP §1 item 'predict'"),
         (opt.resume, "--resume", ckpt),
         (opt.checkpoint_every, "--checkpoint-every", ckpt),
         (opt.cache_dir, "--cache-dir", ckpt),

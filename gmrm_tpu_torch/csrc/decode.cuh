@@ -19,3 +19,14 @@ __device__ __forceinline__ void gmrm_decode(uint32_t byte, int k, int &a,
   b = (c != 1);
   a = ((4 - c) >> 1) * b;
 }
+
+// The same map on the sixteen codes of a 32-bit word (four bytes) at once,
+// for kernels that only need the dosage: a2 has bit 2j set where code j is
+// 00 (a = 2) and a1 where it is 10 (a = 1), each only where ``keep`` has
+// bit 2j set (keep is a subset of 0x55555555).  Codes 01 and 11 give a = 0.
+__device__ __forceinline__ void gmrm_decode_word(uint32_t w, uint32_t keep,
+                                                 uint32_t &a2, uint32_t &a1) {
+  const uint32_t lo = w & 0x55555555u, hi = (w >> 1) & 0x55555555u;
+  a2 = ~(lo | hi) & keep;
+  a1 = hi & ~lo & keep;
+}

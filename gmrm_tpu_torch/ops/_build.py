@@ -78,6 +78,10 @@ SIGNATURES = {
     # takes, the columns, grid, shared memory and scratch the sharded
     # block-step kernel will use at these shapes
     "gmrm_block_sweep_plan": [_I] * 7 + [_P],
+    # bed, na, y, keep (scratch), out, M, L, stream
+    "gmrm_predict_sums": [_P] * 5 + [_I] * 2 + [_P],
+    # L: no launch, the warps the predict kernel gives a group of rows
+    "gmrm_predict_sums_team": [_I],
 }
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper
@@ -85,7 +89,8 @@ SIGNATURES = {
 # show that its main path went through the kernels.
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "eps_update": 0, "block_gram": 0, "serial_scan": 0,
-             "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0}
+             "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0,
+             "predict_sums": 0}
 
 
 def launch_counts() -> dict:

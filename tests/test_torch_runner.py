@@ -65,8 +65,9 @@ def test_run_training_cpu_chain(sim_medium, tmp_path):
 def test_import_and_train_without_jax(sim_tiny, tmp_path):
     """gmrm_tpu_torch never imports jax, flax or anything of gmrm_tpu: a
     meta-path hook makes each of those imports raise, and the port still
-    imports, parses a command line and trains on the CPU, on one device
-    and marker-sharded over two shards."""
+    imports (its predict mode and tools script too), parses a command line
+    and trains on the CPU, on one device and marker-sharded over two
+    shards."""
     code = f"""
 import sys
 BLOCKED = ('jax', 'jaxlib', 'flax', 'gmrm_tpu')
@@ -76,6 +77,7 @@ class Block:
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
 import gmrm_tpu_torch, gmrm_tpu_torch.cli, gmrm_tpu_torch.io.sim
+import gmrm_tpu_torch.predict, gmrm_tpu_torch.tools
 from gmrm_tpu_torch.cli import build_parser, options_from_args
 from gmrm_tpu_torch.runner import run_training
 opt = options_from_args(build_parser().parse_args([
@@ -100,7 +102,9 @@ print('OK', res.iters_run, sharded.iters_run)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--predict", "--bim-file", "x.bim", "--ref-bim-file", "y.bim"],
+    # Predict is ported; float64 is not, in predict mode either.
+    ["--predict", "--bim-file", "x.bim", "--ref-bim-file", "y.bim",
+     "--dtype", "float64"],
     ["--resume"],
     ["--checkpoint-every", "5"],
     ["--cache-dir", "cache"],

@@ -89,6 +89,16 @@ Phases, each of which must pass (any failure exits non-zero):
    every sum of the path goes through NCCL on CUDA tensors (the kernel in
    out mode, then the all-reduce and the add); its artifacts must equal
    phase 4d's (in place) byte for byte;
+4f. resume and the startup cache on the card: at W=32, 12 iterations with
+   --checkpoint-every 7 and a fresh --cache-dir (cold: the Gram cache
+   kernel once, the whole-sweep kernel 12 times), then --resume to 20 from
+   the warm cache (the Gram cache kernel not at all, the sweep 13 times),
+   the warm mave, msig and Gram cache equal to a build without the cache;
+   at W=1 a checkpoint at 3, 5 iterations, the resume to 10; the 2-shard
+   run the same, with a cache entry per shard; the .csv/.bet/.cpn bytes of
+   each resumed chain equal phase 4's, 4b's and 4d's.  Prints the seconds
+   and bytes of one checkpoint save at the anchor, the cold and warm
+   startups and the cache key's digest;
 5. a torch.profiler window over 5 whole-sweep iterations at the anchor (as
    run_training runs them), one over 5 W=1 iterations, one over 5 composed
    iterations and one over 5 sharded iterations (2 shards): device-busy
@@ -1975,6 +1985,144 @@ def eager_gate(sim, dev, res, iterations=ITERS):
     return names
 
 
+def counted(run):
+    """``run()`` with the launch counts set to 0 just before it; returns
+    (its result, the counts it launched)."""
+    from gmrm_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    out = run()
+    return out, {k: v for k, v in _build.launch_counts().items() if v}
+
+
+def resume_phase(sim, dev, tmp, card):
+    """Phase 4f: resume and the startup cache on the card, against phase
+    4's, 4b's and 4d's uninterrupted runs.  W=32: 12 iterations with a
+    checkpoint at 7 (not a thin boundary: the record at 10 is written past
+    it) and a fresh --cache-dir (cold: kernel 1 once), then the resume to
+    20 from the warm cache (kernel 1 not at all); the warm statistics and
+    Gram cache equal to a build without the cache.  W=1: a checkpoint at 3,
+    the chain on to 5 (its record at 5 written past it), the resume to 10.
+    Sharded S=2 (auto plan): the same, with a cache per shard.  Each run's .csv/.bet/.cpn bytes equal
+    the uninterrupted run's.  Times one checkpoint save at the anchor, the
+    cold and warm startups and the cache key's digest.  Returns the
+    launches of its runs."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch import checkpoint, runner
+    from gmrm_tpu_torch.config import resolve_plan
+    from gmrm_tpu_torch.parallel.runner import run_training_sharded
+
+    t_phase = time.perf_counter()
+    nblocks = -(-MT // B)
+    total = {}
+
+    def run(name, opt, want, sharded=0):
+        res, launches = counted(
+            lambda: run_training_sharded(opt, n_devices=sharded, device=dev,
+                                         verbose=False) if sharded
+            else runner.run_training(opt, device=dev, verbose=False))
+        if launches != want:
+            fail(f"{name}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return res
+
+    def chain(name, wave, ref, iterations, every, stop, sharded=0,
+              cache=False, want_cold=None, want_warm=None):
+        out = os.path.join(tmp, f"resume_{name}")
+        cache_dir = os.path.join(tmp, f"cache_{name}") if cache else ""
+        opt = anchor_options(sim, out, wave, stop)
+        opt.checkpoint_every, opt.cache_dir = every, cache_dir
+        cold = run(f"{name} to {stop}", opt, want_cold, sharded)
+        opt = anchor_options(sim, out, wave, iterations)
+        opt.checkpoint_every, opt.cache_dir = every, cache_dir
+        opt.resume = True
+        warm = run(f"{name} resumed", opt, want_warm, sharded)
+        if warm.iters_run != iterations - every:
+            fail(f"{name}: the resume ran {warm.iters_run} iterations")
+        if not same_artifacts(sim, ref, out):
+            fail(f"{name}: the resumed chain wrote other bytes than the "
+                 f"uninterrupted run in {ref}")
+        if cache and not (all(c.warm for c in warm.caches)
+                          and not any(c.warm for c in cold.caches)):
+            fail(f"{name}: the startup cache was not cold, then warm")
+        return cold, warm
+
+    cold, warm = chain(
+        f"w{W}", W, os.path.join(tmp, f"out_w{W}"), ITERS, 7, 12, cache=True,
+        want_cold={"gram_cache": 1, "sweep_blocks": 12},
+        want_warm={"sweep_blocks": ITERS - 7})
+    chain("w1", 1, os.path.join(tmp, "out_w1"), ITERS_SERIAL, 3, 5,
+          want_cold=serial_counts(nblocks, 1, sweeps=5),
+          want_warm=serial_counts(nblocks, 1, sweeps=ITERS_SERIAL - 3))
+    s0, w0, n0 = SHARDED_RUNS[0]
+    nb_s = -(-(-(-MT // s0)) // B)
+    chain(f"s{s0}", w0, os.path.join(tmp, f"out_s{s0}"), n0, 3, 5,
+          sharded=s0, cache=True,
+          want_cold={"gram_cache": s0, "block_sweep": nb_s * 5},
+          want_warm={"block_sweep": nb_s * (n0 - 3)})
+
+    # The warm statistics and Gram cache against a build without the cache,
+    # each step of the startup timed alone.
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    opt = anchor_options(sim, "", W)
+    opt.cache_dir = os.path.join(tmp, f"cache_w{W}")
+    resolve_plan(opt, "cuda", sim.m)
+    data, load_s = timed(lambda: runner.load_data(opt))
+    built, build_s = timed(lambda: runner.build_static(data, opt, dev))
+    entry, digest_s = timed(lambda: runner.startup_cache(data, opt))
+    loaded, read_s = timed(lambda: runner.build_static(data, opt, dev,
+                                                       entry))
+    if not entry.warm:
+        fail("the startup cache entry of the W=32 run was not found")
+    for name in ("mave", "msig", "gram_cache"):
+        if not torch.equal(getattr(built, name), getattr(loaded, name)):
+            fail(f"the warm {name} differs from the cold one")
+
+    # One checkpoint save at the anchor: the resumed state on the card.
+    path = os.path.join(tmp, "checkpoint_timed.npz")
+    beta_acc = np.zeros((T, MT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, warm.state, ITERS, beta_acc,
+                               ITERS // THIN, 42,
+                               checkpoint.layout_of(opt, MT))
+    save_s = time.perf_counter() - t0
+    cache_bytes = os.path.getsize(cold.caches[0].path)
+    print(f"# resume and startup cache (phase 4f): W={W} 12 iterations with "
+          f"a checkpoint at 7 and a cold --cache-dir, resumed to {ITERS} "
+          f"warm; W=1 checkpoint at 3, 5 iterations, resumed to "
+          f"{ITERS_SERIAL}; S={s0} checkpoint at 3, 5 iterations, resumed "
+          f"to {n0} (a cache entry per shard): the bytes of phases 4, 4b and "
+          f"4d, the warm mave, msig and Gram cache equal to the cold ones; "
+          f"launches {total}  [{card}]", flush=True)
+    print(f"# checkpoint save at the anchor (W={W}, {T} traits, Mt={MT}): "
+          f"{save_s:.4f} s, {os.path.getsize(path)} bytes  [{card}]",
+          flush=True)
+    print(f"# startup at the anchor, W={W}: cold with --cache-dir "
+          f"{cold.startup_seconds:.4f} s (load, digest, statistics, Gram "
+          f"cache, the entry of {cache_bytes} bytes written); warm "
+          f"{warm.startup_seconds:.4f} s (load, digest, the entry read and "
+          f"uploaded)  [{card}]", flush=True)
+    print(f"# startup cache key at the anchor: blake2b digest of the "
+          f"{data.bed.nbytes} loaded bed bytes and the phen files "
+          f"{warm.caches[0].digest_seconds:.4f} s (cold run "
+          f"{cold.caches[0].digest_seconds:.4f} s)  [{card}]", flush=True)
+    print(f"# startup steps at the anchor, W={W}, each synchronized: "
+          f"load_data {load_s:.4f} s; build_static without the cache "
+          f"(statistics and Gram cache on the card) {build_s:.4f} s; the "
+          f"cache key {digest_s:.4f} s; build_static from the warm entry "
+          f"(read and upload) {read_s:.4f} s; phase 4f's wall "
+          f"{time.perf_counter() - t_phase:.1f} s  [{card}]", flush=True)
+    return total
+
+
 # Predict's sums: float32 sums that the kernel and the plain version take in
 # other orders, so xty is held to PREDICT_RTOL * sum|val*y| + PREDICT_ATOL
 # per marker; xtx, a sum of integers below 2^24, bit for bit.
@@ -2586,6 +2734,7 @@ def main():
                               sharded[(s0, True)][5]):
             fail("the run inside a one-rank NCCL group wrote other bytes "
                  "than the run without a group")
+        resume_launches = resume_phase(sim, dev, tmp, card)
         sh_prof = profile_phase(sim, dev, n_shards=s0)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2, peak) in runs.items():
@@ -2661,15 +2810,16 @@ def main():
           f"(ms/iteration) {top_s}  [{card}]", flush=True)
 
     # Launches: each path's run, its counts set to 0 just before it (the
-    # whole-sweep and W=1 training runs, the composed iterations and the
-    # sharded training runs without a process group).
+    # whole-sweep and W=1 training runs, the composed iterations, the
+    # sharded training runs without a process group and phase 4f's runs).
     # library_ms: no single PyTorch call computes any of these functions
     # (each fuses the 2-bit decode with a product, or is a serial scan).
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": (sum(r[1][name] for r in runs.values())
                           + composed_launches[name]
                           + sum(r[1][name] for (_, nccl), r
-                                in sharded.items() if not nccl)),
+                                in sharded.items() if not nccl)
+                          + resume_launches.get(name, 0)),
              "max_abs_err": kernels[name][0],
              "ms": kernels[name][1][0], "plain_ms": kernels[name][2][0],
              "bound_ms": kernels[name][4][0], "bound_by": kernels[name][4][1],

@@ -18,7 +18,9 @@ per-block path stays behind ``megakernel=False``), and the exact serial
 sweep (W = 1); and marker-sharded training over ``torch.distributed``
 (``gmrm_tpu_torch.parallel``), through the fused per-block kernel; and
 predict (``gmrm_tpu_torch.predict``), whose per-marker sums are one more
-hand-written kernel.  See ROADMAP.md for what is still to be ported.
+hand-written kernel; and chain checkpoints and the startup cache
+(``gmrm_tpu_torch.checkpoint``, ``gmrm_tpu_torch.startup_cache``), on one
+device and sharded.  See ROADMAP.md for what is still to be ported.
 """
 
 __version__ = "0.1.0"

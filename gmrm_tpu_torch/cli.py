@@ -7,8 +7,10 @@ training runners.  ``--S`` is accepted and ignored, like the reference.
 unless a process group spreads them: under a launcher that sets ``RANK``
 and ``WORLD_SIZE`` (``torchrun``, one process per card) the processes join
 one group first (in predict mode each process then writes its markers'
-lines of the one ``.mlma``).  Options the ported slices do not cover raise
-``SliceNotCovered`` (an ``OptionsError``) naming the ROADMAP.md item."""
+lines of the one ``.mlma``).  ``--checkpoint-every``, ``--resume`` and
+``--cache-dir`` work on one device and marker-sharded, and predict ignores
+them.  ``--dtype float64`` raises ``SliceNotCovered`` (an
+``OptionsError``) naming the ROADMAP.md item."""
 
 from __future__ import annotations
 
@@ -67,11 +69,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "iterations (0 = off; improvement over the "
                         "reference, which cannot resume)")
     p.add_argument("--resume", action="store_true",
-                   help="resume from <out-dir>/checkpoint.npz if present")
+                   help="resume from the checkpoint in <out-dir> if present "
+                        "(checkpoint.npz; a sharded run any layout of "
+                        "checkpoint*.npz, under any shard or process "
+                        "count); the same --seed")
     p.add_argument("--cache-dir", default="",
                    help="persist marker stats + Gram cache here, keyed "
-                        "by dataset content + geometry (warm startup "
-                        "across runs of the same dataset)")
+                        "by a digest of the .bed rows read, the phen files "
+                        "and the geometry (warm startup across runs of "
+                        "the same dataset)")
     return p
 
 
@@ -124,7 +130,8 @@ def main(argv=None, device=None) -> int:
         opt.validate()
         if opt.predict:
             from gmrm_tpu_torch.predict import run_predict
-            run_predict(opt, device=dev, verbose=opt.verbosity >= 0)
+            # Verbose whatever --verbosity says, as gmrm_tpu/cli.py runs it.
+            run_predict(opt, device=dev)
             return 0
         if opt.group_mixture_file:
             opt.load_group_mixtures()

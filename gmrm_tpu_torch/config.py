@@ -243,28 +243,18 @@ def planned_wave(opt: Options) -> int:
 
 def check_slice(opt: Options, device_type: str,
                 sharded: bool = False) -> None:
-    """Raise SliceNotCovered for every option the ported slices lack.
-    ``sharded``: the run is marker-sharded (more than one shard, or a
-    process group), whose checkpoints and startup cache have formats of
-    their own."""
-    ckpt = "ROADMAP §1 item 'checkpoint/resume and --cache-dir'"
-    if sharded:
-        ckpt += (": topology-portable v2 sharded checkpoints and the "
-                 "per-process startup cache")
-    gaps = [
-        (opt.resume, "--resume", ckpt),
-        (opt.checkpoint_every, "--checkpoint-every", ckpt),
-        (opt.cache_dir, "--cache-dir", ckpt),
-        (opt.dtype == "float64", "--dtype float64",
-         "ROADMAP §1 item 'float64'"),
-    ]
-    where = " on a marker-sharded run" if sharded else ""
-    for bad, flag, item in gaps:
-        if bad:
-            raise SliceNotCovered(
-                f"{flag}{where} is not ported to gmrm_tpu_torch yet "
-                f"({item}); use gmrm_tpu for it.")
-    if opt.use_pallas is False and device_type == "cuda":
+    """Raise SliceNotCovered for an option the ported slices lack:
+    ``--dtype float64`` in every mode, and in training ``--use-pallas 0``
+    on CUDA.  Predict ignores the training-only flags (``--resume``,
+    ``--checkpoint-every``, ``--cache-dir``, ``--use-pallas``), as
+    gmrm_tpu/predict.py does.  ``sharded``: the run is marker-sharded (more
+    than one shard, or a process group)."""
+    if opt.dtype == "float64":
+        where = " on a marker-sharded run" if sharded else ""
+        raise SliceNotCovered(
+            f"--dtype float64{where} is not ported to gmrm_tpu_torch yet "
+            f"(ROADMAP §1 item 'float64'); use gmrm_tpu for it.")
+    if opt.use_pallas is False and device_type == "cuda" and not opt.predict:
         raise SliceNotCovered(
             "--use-pallas 0 on CUDA: the CUDA path always runs its kernels "
             "(ROADMAP §1); pass --wave-size 1 for the exact serial sweep, "

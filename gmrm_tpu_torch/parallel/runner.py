@@ -25,8 +25,14 @@ writes only its own marker ranges of the thinned ``.bet``/``.cpn`` records
 ``.csv`` rows.  One shard per process on one card each is the production
 layout.
 
-``--resume``, ``--checkpoint-every`` and ``--cache-dir`` raise
-``SliceNotCovered`` here as on one device.
+Checkpoints are the topology-portable format v2 of the JAX package
+(gmrm_tpu_torch/checkpoint.py): one file per process, marker state in
+natural order with global ranges, so a chain saved under one shard or
+process count resumes under any other; at the same shard count the resumed
+chain is byte-equal to an uninterrupted one whenever the processes sum the
+shards' deltas in the same grouping (every split of two shards; one process
+against several at more shards sums in another order).  ``--cache-dir``
+keeps one startup entry per shard (gmrm_tpu_torch/startup_cache.py).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from gmrm_tpu_torch import checkpoint
 from gmrm_tpu_torch.config import Options, resolve_plan
 from gmrm_tpu_torch.io.bed import bed_bytes_per_marker, read_bed
 from gmrm_tpu_torch.io.grouping import read_dim, read_group_index
@@ -54,8 +61,9 @@ from gmrm_tpu_torch.parallel.distributed import (
 )
 from gmrm_tpu_torch.parallel.mesh import marker_blocks
 from gmrm_tpu_torch.runner import (
-    LANE_PAD, RunResult, check_finite_chain, initial_sigmag,
-    interleave_order, replicated_inputs, resolve_device, round_up,
+    LANE_PAD, RunResult, _guard_resume_without_checkpoint,
+    check_finite_chain, initial_sigmag, interleave_order, open_outputs,
+    replicated_inputs, resolve_device, resume_missing_bet, round_up,
     static_for_markers, stem,
 )
 from gmrm_tpu_torch.sampler.dists import RngPlan
@@ -63,6 +71,7 @@ from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration_sharded
 from gmrm_tpu_torch.sampler.state import (
     SamplerState, StaticInputs, init_state, pad_bed, pi_prior_from_cva,
 )
+from gmrm_tpu_torch.startup_cache import StartupCache
 
 
 class ShardLayout:
@@ -164,18 +173,41 @@ def load_data_process(opt: Options, n_shards: int,
     )
 
 
-def build_static_sharded(data: ProcessData, opt: Options,
-                         device) -> List[StaticInputs]:
+def shard_caches(data: ProcessData, opt: Options
+                 ) -> List[Optional[StartupCache]]:
+    """The ``--cache-dir`` entry of every local shard (Nones without the
+    flag), keyed by its loaded rows, the phen files, its global id and the
+    shard layout."""
+    if not opt.cache_dir:
+        return [None] * len(data.local_ids)
+    wave_mode = opt.wave_size > 1
+    shared_na = all(ph.nas == 0 for ph in data.phens)
+    lay = data.layout
+    return [StartupCache(opt.cache_dir, bed, opt.phen_files, dict(
+        runner="sharded", n=data.n, m_total=data.m_total,
+        n_shards=lay.n_shards, shard=i, marker_range=lay.blocks[i],
+        m_pad_shard=lay.m_pad_shard, mb_pad=data.mb_pad,
+        block_size=opt.block_size, interleave=wave_mode,
+        shared_na=shared_na, gram=wave_mode))
+        for i, bed in zip(data.local_ids, data.bed_local)]
+
+
+def build_static_sharded(data: ProcessData, opt: Options, device,
+                         caches: Optional[Sequence] = None
+                         ) -> List[StaticInputs]:
     """Per local shard: its bed rows, marker statistics (pad rows zeroed)
     and, in wave mode, its own Gram cache
-    (gmrm_tpu/parallel/runner.py:670-720).  The replicated inputs are one
-    set of tensors shared by every shard's copy."""
+    (gmrm_tpu/parallel/runner.py:670-720), from its ``caches`` entry
+    (:func:`shard_caches`) when that holds them.  The replicated inputs are
+    one set of tensors shared by every shard's copy."""
     rep = replicated_inputs(data.na, data.nonas, data.mtotgrp, data.n, opt,
                             device)
     shared_na = all(ph.nas == 0 for ph in data.phens)
-    return [static_for_markers(bed, grp, ln, rep, opt, shared_na, device)
-            for bed, grp, ln in zip(data.bed_local, data.group_local,
-                                    data.m_local)]
+    caches = caches or [None] * len(data.local_ids)
+    return [static_for_markers(bed, grp, ln, rep, opt, shared_na, device,
+                               cache)
+            for bed, grp, ln, cache in zip(data.bed_local, data.group_local,
+                                           data.m_local, caches)]
 
 
 def init_states_sharded(data: ProcessData, opt: Options,
@@ -201,23 +233,23 @@ class ShardedOutputSet:
     the files, every process writes its own marker ranges (the reference's
     per-rank positioned writes, xfiles.hpp:15-38).
 
-    Whatever may raise here raises on every process, before the barrier:
-    raising on process 0 alone would leave the others waiting in it.
+    ``n_rec`` None: a fresh run; else a resume, and process 0 cuts the
+    files back to the checkpoint's ``n_rec`` records
+    (gmrm_tpu/parallel/runner.py:336-392).  Whatever may raise here raises
+    on every process, before the barrier: raising on process 0 alone would
+    leave the others waiting in it.
     """
 
-    def __init__(self, opt: Options, data: ProcessData, comm: Communicator):
+    def __init__(self, opt: Options, data: ProcessData, comm: Communicator,
+                 n_rec: Optional[int] = None):
         self.enabled = bool(opt.out_dir)
         self.csv_paths, self.bet, self.cpn = [], [], []
         if not self.enabled:
             return
+        if n_rec is not None:
+            resume_missing_bet(opt, data, n_rec)
         if is_coordinator():
-            opt.ensure_out_dir()
-            for base in data.out_basenames:
-                b = os.path.join(opt.out_dir, base)
-                if os.path.exists(b + ".csv"):
-                    os.remove(b + ".csv")
-                HistoryWriter(b + ".bet", data.m_total, "f8")
-                HistoryWriter(b + ".cpn", data.m_total, "i4")
+            open_outputs(opt, data, n_rec)
         comm.barrier("outputs-create")
         for base in data.out_basenames:
             b = os.path.join(opt.out_dir, base)
@@ -333,6 +365,31 @@ def _host_slices(states, data: ProcessData):
     return out
 
 
+def _sharded_checkpoint_plan(opt: Options, data: ProcessData,
+                             comm: Communicator):
+    """(this process's checkpoint path or None, the checkpoint files to
+    resume from, empty for a fresh start), after the housekeeping of
+    gmrm_tpu/parallel/runner.py:838-862.  The barriers' conditions are the
+    same on every process (flags only), and every process reaches the same
+    verdict from the shared out-dir."""
+    ckpt = None
+    if opt.out_dir and (opt.checkpoint_every or opt.resume):
+        if is_coordinator():
+            opt.ensure_out_dir()
+        comm.barrier("ckpt-dir")
+        ckpt = checkpoint.sharded_checkpoint_path(
+            opt.out_dir, process_index(), process_count())
+    if not opt.resume and opt.out_dir:
+        if is_coordinator() and os.path.isdir(opt.out_dir):
+            checkpoint._clear_ckpt_files(opt.out_dir)
+        comm.barrier("ckpt-clear")
+    srcs = (checkpoint._ckpt_files(opt.out_dir)
+            if opt.resume and opt.out_dir else [])
+    if opt.resume and opt.out_dir and not srcs:
+        _guard_resume_without_checkpoint(opt, data)
+    return ckpt, srcs
+
+
 def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
                          verbose: bool = True) -> RunResult:
     """The --process path over marker shards (None means CUDA).
@@ -369,13 +426,29 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
         print(f"INFO   : time to load genotype + phenotype data = "
               f"{time.perf_counter() - t_start:.2f} seconds "
               f"({len(local_ids)} of {n_shards} shards on this process).")
-    statics = build_static_sharded(data, opt, dev)
-    states = init_states_sharded(data, opt, dev)
+    ckpt, srcs = _sharded_checkpoint_plan(opt, data, comm)
+    caches = shard_caches(data, opt)
+    statics = build_static_sharded(data, opt, dev, caches)
+    t = len(data.phens)
+    n_rec, start_it = 0, 1
+    if srcs:
+        states, last_it, beta_acc, n_rec = \
+            checkpoint.load_sharded_checkpoint(
+                srcs, data.layout, local_ids, data.inv_orders, dev, opt.seed)
+        start_it = last_it + 1
+        if chatty:
+            print(f"INFO   : resuming sharded run from iteration {last_it}")
+    else:
+        states = init_states_sharded(data, opt, dev)
+        beta_acc = np.zeros((t, data.m_total), np.float64)
+    if chatty and caches[0] is not None and all(c.warm for c in caches):
+        print(f"INFO   : warm sharded startup from {caches[0].path}")
     rngs = [RngPlan(opt.seed, dev, shard=i) for i in local_ids]
     _sync(dev)
     result = RunResult(state=states,
-                       startup_seconds=time.perf_counter() - t_start)
-    outputs = ShardedOutputSet(opt, data, comm)
+                       startup_seconds=time.perf_counter() - t_start,
+                       caches=[c for c in caches if c is not None])
+    outputs = ShardedOutputSet(opt, data, comm, n_rec if srcs else None)
 
     def step(states, it, sync=True):
         c = comm if sync else Communicator(dev, enabled=False)
@@ -388,7 +461,6 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
     # verbosity >= 2 the real step against the step without them.
     sync_est, sync_how = None, ""
     nblocks = data.layout.m_pad_shard // opt.block_size
-    t = len(data.phens)
     if verbose and opt.verbosity_level(2):
         sync_est, t_w, t_wo = measure_sync_seconds(step, states, dev)
         sync_how = "in-step differential"
@@ -406,10 +478,9 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
                   f"{sync_est * 1000:.3f} ms/iteration "
                   f"({nblocks} sums of {t}x4x{data.mb_pad} f32)")
 
-    beta_acc = np.zeros((t, data.m_total), np.float64)
-    n_rec = 0
+    ranges = [data.layout.blocks[i] for i in local_ids]
     t_chain = time.perf_counter()
-    for it in range(1, opt.iterations + 1):
+    for it in range(start_it, opt.iterations + 1):
         t0 = time.perf_counter()
         states, aux = gibbs_iteration_sharded(
             states, statics, it, rngs, block_size=opt.block_size,
@@ -438,11 +509,15 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
                       f"{time.perf_counter() - t0:7.3f} sec, with sync time "
                       f"= {sync_est:7.3f} sec (measured {sync_how})")
         result.iter_seconds.append(time.perf_counter() - t0)
+        if ckpt and opt.checkpoint_every and it % opt.checkpoint_every == 0:
+            checkpoint.save_sharded_checkpoint(
+                ckpt, states, it, ranges, data.inv_orders, beta_acc, n_rec,
+                opt.seed, checkpoint.layout_of(opt, data.m_total))
 
     check_finite_chain(states[0].sigmag.cpu().numpy(),
                        states[0].sigmae.cpu().numpy(), opt.iterations)
     result.chain_seconds = time.perf_counter() - t_chain
-    result.iters_run = opt.iterations
+    result.iters_run = max(0, opt.iterations - start_it + 1)
     result.state = states
     result.kernel_launches = {k: v - launches0[k]
                               for k, v in _build.launch_counts().items()}

@@ -8,7 +8,13 @@ iteration's sweep is one launch of the whole-sweep kernel
 (ops/sweep_kernel.sweep_blocks) between two CUDA graphs of the host's
 arithmetic (sampler/whole_sweep.py); at W = 1 it is the per-block exact
 serial path.  Iterations are queued back to back; the host waits on the
-device only at thin boundaries and at the end of the chain.
+device only at thin boundaries, at checkpoints and at the end of the chain.
+
+``--checkpoint-every N`` saves the chain every N iterations
+(gmrm_tpu_torch/checkpoint.py) and ``--resume`` continues it from the
+checkpoint in the out-dir, byte-equal to an uninterrupted chain;
+``--cache-dir`` keeps the startup's statistics and Gram cache between runs
+(gmrm_tpu_torch/startup_cache.py).
 """
 
 from __future__ import annotations
@@ -21,12 +27,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from gmrm_tpu_torch import checkpoint
 from gmrm_tpu_torch.config import Options, resolve_plan
 from gmrm_tpu_torch.io.bed import bed_bytes_per_marker, read_bed
 from gmrm_tpu_torch.io.grouping import read_dim, read_group_index
 from gmrm_tpu_torch.io.phen import Phenotype, read_phen
 from gmrm_tpu_torch.io.writers import (
-    HistoryWriter, format_csv_record, write_csv_record,
+    HistoryWriter, format_csv_record, truncate_csv_to, write_csv_record,
 )
 from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.blockops import marker_stats
@@ -38,6 +45,7 @@ from gmrm_tpu_torch.sampler.state import (
     SamplerState, StaticInputs, init_state, pad_bed, pi_prior_from_cva,
 )
 from gmrm_tpu_torch.sampler.whole_sweep import WholeSweepIteration
+from gmrm_tpu_torch.startup_cache import StartupCache
 
 
 def round_up(x: int, m: int) -> int:
@@ -171,21 +179,30 @@ def replicated_inputs(na, nonas, mtotgrp, n: int, opt: Options,
 
 def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
                        rep: dict, opt: Options, shared_na: bool,
-                       device) -> StaticInputs:
+                       device, cache: Optional[StartupCache] = None
+                       ) -> StaticInputs:
     """The static inputs of one device's, or one shard's, markers: bed
     (m_pad, mb_pad) with ``m_local`` real rows, their statistics and, in
-    wave mode, their Gram cache; ``rep`` from :func:`replicated_inputs`."""
+    wave mode, their Gram cache; ``rep`` from :func:`replicated_inputs`.
+    With ``cache``, the statistics and the Gram cache come from its entry
+    when it has one, and are saved to it when they are built."""
     bed = torch.as_tensor(bed, device=device)
-    mave, msig = marker_stats(bed, rep["na"], rep["nonas"])
-    # Zero the stats of pad rows (all-missing decode gives 0/0).
-    valid = (torch.arange(bed.shape[0], device=device) < m_local)[None]
-    mave = torch.where(valid, mave, 0.0).contiguous()
-    msig = torch.where(valid, msig, 0.0).contiguous()
-    gram_cache = None
-    if opt.wave_size > 1:
-        gram_cache = build_gram_cache(bed, rep["na"],
-                                      block_size=opt.block_size,
-                                      shared_na=shared_na)
+    warm = None if cache is None else cache.load(device)
+    if warm is not None:
+        mave, msig, gram_cache = warm
+    else:
+        mave, msig = marker_stats(bed, rep["na"], rep["nonas"])
+        # Zero the stats of pad rows (all-missing decode gives 0/0).
+        valid = (torch.arange(bed.shape[0], device=device) < m_local)[None]
+        mave = torch.where(valid, mave, 0.0).contiguous()
+        msig = torch.where(valid, msig, 0.0).contiguous()
+        gram_cache = None
+        if opt.wave_size > 1:
+            gram_cache = build_gram_cache(bed, rep["na"],
+                                          block_size=opt.block_size,
+                                          shared_na=shared_na)
+        if cache is not None:
+            cache.save(mave, msig, gram_cache)
     return StaticInputs(
         bed=bed, mave=mave, msig=msig,
         group_of=torch.as_tensor(group_of, dtype=torch.int64, device=device),
@@ -193,14 +210,28 @@ def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
         **rep)
 
 
-def build_static(data: LoadedData, opt: Options, device) -> StaticInputs:
-    """Marker statistics, and in wave mode the one-time Gram cache (no
-    --cache-dir); W = 1 recomputes each block's Gram in the sweep
-    (gmrm_tpu/runner.py:223-225)."""
+def startup_cache(data: LoadedData, opt: Options) -> Optional[StartupCache]:
+    """The ``--cache-dir`` entry of a single-device run (None without the
+    flag), keyed by the loaded rows, the phen files and the geometry."""
+    if not opt.cache_dir:
+        return None
+    wave_mode = opt.wave_size > 1
+    return StartupCache(opt.cache_dir, data.bed, opt.phen_files, dict(
+        runner="one device", n=data.n, m_total=data.m_total,
+        m_pad=data.m_pad, mb_pad=data.mb_pad, block_size=opt.block_size,
+        interleave=wave_mode, shared_na=shared_na_of(data),
+        gram=wave_mode))
+
+
+def build_static(data: LoadedData, opt: Options, device,
+                 cache: Optional[StartupCache] = None) -> StaticInputs:
+    """Marker statistics, and in wave mode the one-time Gram cache, from
+    ``cache`` (:func:`startup_cache`) when it holds them; W = 1 recomputes
+    each block's Gram in the sweep (gmrm_tpu/runner.py:223-225)."""
     rep = replicated_inputs(data.na, data.nonas, data.mtotgrp, data.n, opt,
                             device)
     return static_for_markers(data.bed, data.group_of, data.m_local, rep,
-                              opt, shared_na_of(data), device)
+                              opt, shared_na_of(data), device, cache)
 
 
 def initial_sigmag(opt: Options, n_traits: int, mtotgrp) -> np.ndarray:
@@ -231,27 +262,84 @@ class RunResult:
     beta_mean: Optional[np.ndarray] = None   # (T, M) posterior mean
     chain_seconds: float = 0.0               # wall-clock of the chain
     startup_seconds: float = 0.0             # load + stats (+ Gram cache)
-    iters_run: int = 0
+    iters_run: int = 0                       # iterations run by this call
     kernel_launches: dict = field(default_factory=dict)  # in this run
+    # The --cache-dir entries of the run (one, or one per local shard).
+    caches: List[StartupCache] = field(default_factory=list)
+
+
+def _guard_resume_without_checkpoint(opt: Options, data) -> None:
+    """--resume with no checkpoint: a fresh start is fine in an empty
+    out-dir, but would silently destroy a previous chain's outputs
+    (gmrm_tpu/runner.py:310-323)."""
+    existing = [b for b in data.out_basenames
+                if os.path.exists(os.path.join(opt.out_dir, b + ".bet"))]
+    if existing:
+        raise ValueError(
+            f"--resume requested but no checkpoint found in "
+            f"{opt.out_dir}, which already holds chain outputs "
+            f"({existing[0]}.bet ...).  A fresh run would destroy them: "
+            f"drop --resume to restart deliberately, or restore the "
+            f"checkpoint file.")
+
+
+def resume_missing_bet(opt: Options, data, n_rec: int) -> None:
+    """A checkpoint that counts ``n_rec`` thinned records whose ``.bet`` is
+    gone: refuse, rather than write a history whose first records are
+    zeros (gmrm_tpu/runner.py:360-369)."""
+    if not n_rec:
+        return
+    for base in data.out_basenames:
+        b = os.path.join(opt.out_dir, base)
+        if not os.path.exists(b + ".bet"):
+            raise IOError(
+                f"resume: checkpoint records {n_rec} thinned rows but "
+                f"{b}.bet is missing — restore the output files or restart "
+                f"the chain.")
+
+
+def open_outputs(opt: Options, data, n_rec: Optional[int]) -> None:
+    """Create each trait's .bet/.cpn, deleting its .csv (a fresh run,
+    ``n_rec`` None; the reference's delete-then-create,
+    phenotype.cpp:129-203), or keep them and cut them back to the
+    checkpoint's ``n_rec`` records (a resume: rows written after the
+    checkpoint are stale)."""
+    opt.ensure_out_dir()
+    for base in data.out_basenames:
+        b = os.path.join(opt.out_dir, base)
+        if n_rec is not None and os.path.exists(b + ".bet"):
+            for suffix, kind in ((".bet", "f8"), (".cpn", "i4")):
+                HistoryWriter.open_existing(b + suffix, data.m_total,
+                                            kind).truncate_to(n_rec)
+            truncate_csv_to(b + ".csv", n_rec)
+            continue
+        if n_rec is None and os.path.exists(b + ".csv"):
+            os.remove(b + ".csv")
+        HistoryWriter(b + ".bet", data.m_total, "f8")
+        HistoryWriter(b + ".cpn", data.m_total, "i4")
 
 
 class OutputSet:
-    """Per-trait .csv/.bet/.cpn writers for a fresh run (reference
-    phenotype.cpp:129-203)."""
+    """Per-trait .csv/.bet/.cpn writers (reference phenotype.cpp:129-203).
+    ``n_rec`` None: a fresh run; else a resume from a checkpoint that
+    counts ``n_rec`` records (:func:`open_outputs`)."""
 
-    def __init__(self, opt: Options, data: LoadedData):
+    def __init__(self, opt: Options, data: LoadedData,
+                 n_rec: Optional[int] = None):
         self.enabled = bool(opt.out_dir)
         self.csv_paths, self.bet, self.cpn = [], [], []
         if not self.enabled:
             return
-        opt.ensure_out_dir()
+        if n_rec is not None:
+            resume_missing_bet(opt, data, n_rec)
+        open_outputs(opt, data, n_rec)
         for base in data.out_basenames:
             b = os.path.join(opt.out_dir, base)
-            if os.path.exists(b + ".csv"):
-                os.remove(b + ".csv")
             self.csv_paths.append(b + ".csv")
-            self.bet.append(HistoryWriter(b + ".bet", data.m_total, "f8"))
-            self.cpn.append(HistoryWriter(b + ".cpn", data.m_total, "i4"))
+            self.bet.append(HistoryWriter.open_existing(
+                b + ".bet", data.m_total, "f8"))
+            self.cpn.append(HistoryWriter.open_existing(
+                b + ".cpn", data.m_total, "i4"))
 
     def write_thinned(self, rec: int, it: int, host: dict, m0: np.ndarray,
                       data: LoadedData):
@@ -321,6 +409,32 @@ def iteration_step(state: SamplerState, static: StaticInputs, rng: RngPlan,
     return step
 
 
+def _checkpoint_plan(opt: Options, data: LoadedData):
+    """(checkpoint path or None, whether to resume from it), after the
+    housekeeping of gmrm_tpu/runner.py:474-500: a fresh run clears stale
+    checkpoint files; --resume with no checkpoint refuses when sharded
+    checkpoints or a previous chain's outputs are there, and else starts
+    fresh."""
+    ckpt = None
+    if opt.out_dir and (opt.checkpoint_every or opt.resume):
+        opt.ensure_out_dir()
+        ckpt = checkpoint.checkpoint_path(opt.out_dir)
+    if not opt.resume and opt.out_dir and os.path.isdir(opt.out_dir):
+        checkpoint._clear_ckpt_files(opt.out_dir)
+    resuming = bool(opt.resume and ckpt and os.path.exists(ckpt))
+    if opt.resume and ckpt and not resuming:
+        others = checkpoint._ckpt_files(opt.out_dir)
+        if others:
+            raise ValueError(
+                f"--resume: no {ckpt}, but per-process sharded checkpoints "
+                f"exist ({[os.path.basename(f) for f in others]}) — resume "
+                f"with the sharded runner (which accepts any process "
+                f"layout) instead of the single-device runner; a fresh run "
+                f"here would overwrite that chain's outputs.")
+        _guard_resume_without_checkpoint(opt, data)
+    return ckpt, resuming
+
+
 def run_training(opt: Options, device=None, verbose: bool = True
                  ) -> RunResult:
     """The --process path on one device (None means CUDA)."""
@@ -348,25 +462,40 @@ def run_training(opt: Options, device=None, verbose: bool = True
             for ph in data.phens:
                 print(f"INFO   : {ph.filepath} has {ph.nas} NAs and "
                       f"{ph.nonas} non-NAs.")
+    ckpt, resuming = _checkpoint_plan(opt, data)
     t0 = time.perf_counter()
-    static = build_static(data, opt, dev)
-    state = init_sampler_state(data, opt, dev)
+    cache = startup_cache(data, opt)
+    static = build_static(data, opt, dev, cache)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     if verbose:
+        if cache is not None and cache.warm:
+            print(f"INFO   : warm startup from {cache.path}")
         what = " and the Gram cache" if static.gram_cache is not None else ""
         print(f"INFO   : time to compute the markers' statistics{what}: "
               f"{time.perf_counter() - t0:.2f} seconds.")
+    n_rec, start_it = 0, 1
+    if resuming:
+        state, last_it, beta_acc, n_rec = checkpoint.load_checkpoint(
+            ckpt, dev, opt.seed, checkpoint.layout_of(opt, data.m_total))
+        start_it = last_it + 1
+        if verbose:
+            print(f"INFO   : resuming from checkpoint at iteration {last_it}")
+    else:
+        state = init_sampler_state(data, opt, dev)
+        beta_acc = np.zeros((len(data.phens), data.m_local))
     result = RunResult(state=state,
-                       startup_seconds=time.perf_counter() - t_start)
-    outputs = OutputSet(opt, data)
+                       startup_seconds=time.perf_counter() - t_start,
+                       caches=[cache] if cache is not None else [])
+    outputs = OutputSet(opt, data, n_rec if resuming else None)
     rng = RngPlan(opt.seed, dev)
-    beta_acc = np.zeros((len(data.phens), data.m_local))
-    n_rec = 0
 
+    # Built from the loaded state on a resume: the W > 1 iteration owns it,
+    # and its first call runs eagerly with first = (it == 1), as an
+    # uninterrupted chain's does.
     step = iteration_step(state, static, rng, opt)
     t_chain = time.perf_counter()
-    for it in range(1, opt.iterations + 1):
+    for it in range(start_it, opt.iterations + 1):
         t0 = time.perf_counter()
         state, aux = step(it)
         if it % opt.output_thin_rate == 0:
@@ -388,11 +517,15 @@ def run_training(opt: Options, device=None, verbose: bool = True
             print(f"RESULT : It {it}  total proc time = "
                   f"{time.perf_counter() - t0:7.3f} sec")
         result.iter_seconds.append(time.perf_counter() - t0)
+        if ckpt and opt.checkpoint_every and it % opt.checkpoint_every == 0:
+            checkpoint.save_checkpoint(
+                ckpt, state, it, beta_acc, n_rec, opt.seed,
+                checkpoint.layout_of(opt, data.m_total))
 
     check_finite_chain(state.sigmag.cpu().numpy(),
                        state.sigmae.cpu().numpy(), opt.iterations)
     result.chain_seconds = time.perf_counter() - t_chain
-    result.iters_run = opt.iterations
+    result.iters_run = max(0, opt.iterations - start_it + 1)
     result.state = state
     result.kernel_launches = {k: v - launches0[k]
                               for k, v in _build.launch_counts().items()}

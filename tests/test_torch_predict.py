@@ -13,7 +13,9 @@ and its tools script against the JAX package, on the CPU.
   within the tolerance the xty bound gives each of them;
 - the port's own layouts: ``--devices 2``, a bed in chunks and two gloo
   processes give the bytes of one process;
-- the ``.bet`` checks, the command line and ``gmrm-tpu-torch-tools``.
+- the ``.bet`` checks, the command line (the training-only flags ignored,
+  its stdout at ``--verbosity -1`` equal to the JAX CLI's) and
+  ``gmrm-tpu-torch-tools``.
 
 The CUDA kernel is held against ``predict_sums_plain`` on the card by
 chip_smoke.py.
@@ -31,13 +33,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import gmrm_tpu.cli as jcli
 import gmrm_tpu.predict as jpredict
 import gmrm_tpu.tools as jtools
 from gmrm_tpu.config import Options as JaxOptions
 from gmrm_tpu_torch import cli
 from gmrm_tpu_torch import predict as tpredict
 from gmrm_tpu_torch import tools as ttools
-from gmrm_tpu_torch.config import Options, SliceNotCovered
+from gmrm_tpu_torch.config import Options, SliceNotCovered, check_slice
 from gmrm_tpu_torch.io.bed import MISSING_BYTE, read_bed
 from gmrm_tpu_torch.io.grouping import read_dim
 from gmrm_tpu_torch.io.phen import read_phen
@@ -324,6 +327,57 @@ def test_cli_predicts_without_group_mixtures(sim_small, tmp_path, capsys):
     with pytest.raises(SliceNotCovered, match="float64"):
         cli.main(argv + ["--dtype", "float64"], device="cpu")
     assert cli.main(argv[:3] + argv[5:], device="cpu") == 1   # no dim file
+
+
+def _predict_argv(sim, out):
+    return ["--predict", "--bed-file", sim.bed, "--dim-file", sim.dim,
+            "--phen-files", ",".join(sim.phens), "--bim-file", sim.bim,
+            "--ref-bim-file", sim.bim, "--out-dir", out]
+
+
+def test_predict_ignores_training_only_flags(sim_small, tmp_path, capsys):
+    """--resume, --checkpoint-every, --cache-dir and --use-pallas 0 do not
+    concern predict (gmrm_tpu/predict.py reads none of them): the command
+    line takes them, writes the .mlma bytes of a run without them and no
+    cache or checkpoint file; --use-pallas 0 is not refused on CUDA in
+    predict mode either."""
+    plain, flagged = str(tmp_path / "plain"), str(tmp_path / "flagged")
+    cache = str(tmp_path / "cache")
+    for out in (plain, flagged):
+        _setup(sim_small, out)
+    assert cli.main(_predict_argv(sim_small, plain), device="cpu") == 0
+    extra = ["--resume", "--checkpoint-every", "5", "--cache-dir", cache,
+             "--use-pallas", "0"]
+    assert cli.main(_predict_argv(sim_small, flagged) + extra,
+                    device="cpu") == 0
+    capsys.readouterr()
+    assert _mlmas(sim_small, flagged) == _mlmas(sim_small, plain)
+    assert not os.path.exists(cache)
+    assert not [f for f in os.listdir(flagged) if f.startswith("checkpoint")]
+    opt = cli.options_from_args(cli.build_parser().parse_args(
+        _predict_argv(sim_small, flagged) + extra))
+    check_slice(opt, "cuda")
+    opt.predict = False
+    with pytest.raises(SliceNotCovered, match="--use-pallas 0"):
+        check_slice(opt, "cuda")
+
+
+def test_cli_predict_stdout_at_verbosity_minus_one_as_jax(sim_small, tmp_path,
+                                                          capsys):
+    """At --verbosity -1 the port's predict prints what gmrm_tpu's CLI
+    prints (it runs run_predict verbose whatever the verbosity), paths
+    aside."""
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    for out in (out_t, out_j):
+        _setup(sim_small, out)
+    quiet = ["--verbosity", "-1"]
+    assert cli.main(_predict_argv(sim_small, out_t) + quiet,
+                    device="cpu") == 0
+    said_t = capsys.readouterr().out
+    assert jcli.main(_predict_argv(sim_small, out_j) + quiet) == 0
+    said_j = capsys.readouterr().out
+    assert said_t.count("INFO   :") == 2 * len(sim_small.phens)
+    assert said_t.replace(out_t, out_j) == said_j
 
 
 def test_tools_extract_nonzero_beta_as_jax(sim_small, tmp_path):

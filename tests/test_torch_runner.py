@@ -1,7 +1,7 @@
 """The port's training path end to end on the CPU: run_training and the
 CLI, artifacts, chain quality, the JAX-free import, the exact serial (W=1)
 runs, a marker-sharded run through the CLI and the options the ported
-slices refuse."""
+slices refuse or, since they were ported, take."""
 
 import os
 import subprocess
@@ -110,13 +110,32 @@ print('OK', res.iters_run, sharded.iters_run)
     ["--cache-dir", "cache"],
     ["--dtype", "float64"],
 ], ids=lambda f: f[0])
-def test_cli_refuses_uncovered_options(sim_tiny, flags):
+def test_cli_refuses_uncovered_options(sim_tiny, tmp_path, flags):
+    """--dtype float64 is refused in every mode, naming the ROADMAP item.
+    --resume, --checkpoint-every and --cache-dir are ported: the command
+    line takes each and the run writes its checkpoint or startup cache, or
+    resumes a chain from one."""
+    out = str(tmp_path / "out")
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),
             "--group-index-file", sim_tiny.gri,
-            "--group-mixture-file", sim_tiny.grm] + flags
-    with pytest.raises(SliceNotCovered, match="ROADMAP"):
-        cli.main(argv, device="cpu")
+            "--group-mixture-file", sim_tiny.grm, "--iterations", "5",
+            "--block-size", "8", "--out-dir", out, "--verbosity", "-1"]
+    flags = [str(tmp_path / f) if f == "cache" else f for f in flags]
+    if "float64" in flags:
+        with pytest.raises(SliceNotCovered, match="ROADMAP"):
+            cli.main(argv + flags, device="cpu")
+        return
+    if flags == ["--resume"]:
+        assert cli.main(argv + ["--iterations", "3", "--checkpoint-every",
+                                "3"], device="cpu") == 0
+    assert cli.main(argv + flags, device="cpu") == 0
+    its, _ = read_history(os.path.join(out, "test1.bet"), "f8")
+    assert list(its) == [1, 2, 3, 4, 5]
+    if flags[0] == "--cache-dir":
+        assert [f[:8] for f in os.listdir(flags[1])] == ["startup_"]
+    else:
+        assert os.path.exists(os.path.join(out, "checkpoint.npz"))
 
 
 def test_cli_trains_and_refuses_missing_cuda(sim_tiny, tmp_path):

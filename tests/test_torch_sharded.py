@@ -8,7 +8,7 @@
   replay oracle ``oracle.sweep_replay_sharded`` (W = 1), all with injected
   order and draws;
 - ``run_training_sharded`` end to end, two gloo processes against one, and
-  the options the sharded path refuses.
+  the options the sharded path refuses or takes.
 
 Tolerances: ``comp`` and ``cass`` exact; beta and acum rtol 1e-5 / atol
 1e-6 and the residual rtol 1e-4 / atol 1e-5 against the JAX sharded sweep
@@ -703,7 +703,8 @@ def test_two_processes_four_shards_match_one_process(mp_sim, tmp_path):
 
 
 # --------------------------------------------------------------------------
-# What the sharded path refuses
+# What the sharded path refuses, and the options it takes since they
+# were ported
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
@@ -713,13 +714,35 @@ def test_two_processes_four_shards_match_one_process(mp_sim, tmp_path):
      "--dtype", "float64"],
     ["--dtype", "float64"],
 ], ids=lambda f: f[0])
-def test_cli_sharded_refusals_name_the_roadmap_item(sim_tiny, flags):
+def test_cli_sharded_refusals_name_the_roadmap_item(sim_tiny, tmp_path,
+                                                    flags):
+    """--dtype float64 on a sharded run is refused, naming the ROADMAP
+    item.  --resume, --checkpoint-every and --cache-dir are ported: with
+    --devices 4 the run writes its v2 checkpoint or one startup entry per
+    shard, or resumes a chain from its checkpoint."""
+    out = str(tmp_path / "out")
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),
             "--group-index-file", sim_tiny.gri,
-            "--group-mixture-file", sim_tiny.grm, "--devices", "4"] + flags
-    with pytest.raises(SliceNotCovered, match="sharded run.*ROADMAP"):
-        cli.main(argv, device="cpu")
+            "--group-mixture-file", sim_tiny.grm, "--devices", "4",
+            "--iterations", "5", "--block-size", "8", "--out-dir", out,
+            "--verbosity", "-1"]
+    flags = [str(tmp_path / f) if f == "cache" else f for f in flags]
+    if "float64" in flags:
+        with pytest.raises(SliceNotCovered, match="sharded run.*ROADMAP"):
+            cli.main(argv + flags, device="cpu")
+        return
+    if flags == ["--resume"]:
+        assert cli.main(argv + ["--iterations", "3", "--checkpoint-every",
+                                "3"], device="cpu") == 0
+    assert cli.main(argv + flags, device="cpu") == 0
+    its, _ = read_history(os.path.join(out, "test1.bet"), "f8")
+    assert list(its) == [1, 2, 3, 4, 5]
+    if flags[0] == "--cache-dir":
+        assert len(os.listdir(flags[1])) == 4
+    else:
+        with np.load(os.path.join(out, "checkpoint.npz")) as z:
+            assert z["starts"].shape == (4, 2)
 
 
 def test_megakernel_with_shards_raises(sim_tiny, tmp_path):

@@ -114,7 +114,21 @@ Phases, each of which must pass (any failure exits non-zero):
    (python -m gmrm_tpu_torch --predict: the same .mlma bytes) and on the
    CPU (equal ids and layout, fields within the xty bound), with the wall
    time of each run_predict call split into read, upload, sums, OLS and
-   write.
+   write;
+7. float64 (``--dtype float64``: the exact serial W=1 path on kernels A-D,
+   csrc/block_gram.cu's float64 scaling, csrc/passes_f64.cu,
+   csrc/serial_scan_f64.cu, csrc/predict_sums.cu's float64 kernel): each
+   against its float64 plain version at the anchor's shapes (A bit-equal;
+   B, C within 1e-10 of the largest magnitude, C's comp exact; D's xtx
+   bit-equal, xty within 1e-11 sum|val*y| + 1e-12), timed by graph replay
+   beside float64 torch.matmul / torch.mv yardsticks; one float64 sweep on
+   the small panel against the plain float64 sweep on the host CPU;
+   run_training at the anchor (W=1, 10 iterations) twice from one seed,
+   byte-equal, with no float32 kernel launched, a profiler window over 5
+   float64 iterations, and the chain cut at 5 and resumed,
+   byte-equal; one S=2 sharded float64 sweep against the plain one;
+   run_training_sharded at S=2, and inside a one-rank NCCL group,
+   byte-equal; run_predict at float64 on the card and on the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -138,6 +152,10 @@ TREE]`` runs phase 4d (2 and 4 shards) and the sharded profiler windows
 sharded sweep, and kernel 9's device time per block step of 1, 2 and 4
 shards on phase 2's wide panels (a tree of the earlier design launches
 once per shard); with ``--training-only`` in the same process.
+``--same-bytes TREE`` runs phase 4's and 4b's float32 chains in TREE and
+in this tree (TREE, this, this, TREE; a process each) and requires equal
+``.bet/.cpn/.csv`` bytes, and equal bytes from the float32 block Gram and
+predict sums kernels on seeded inputs.
 """
 
 import argparse
@@ -188,8 +206,10 @@ EARLIER_GRAM_CACHE_MS = (10.12, 38.49)
 EARLIER_WAVE_SCAN_MS = (0.0267,)
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
-# memory bytes/s, float32 outside the tensor cores, int8 tensor cores.
-HBM_BPS, F32_OPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+# memory bytes/s, float32 outside the tensor cores, int8 tensor cores,
+# float64 outside the tensor cores (the float64 kernels use none).
+HBM_BPS, F32_OPS, INT8_OPS, F64_OPS = 3.35e12, 67e12, 1979e12, 33.5e12
+ITERS_F64 = 10          # the float64 anchor run (phase 7)
 
 
 def bound_of(nbytes, *ops_and_rates):
@@ -216,6 +236,18 @@ def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
                  else dict.fromkeys(SERIAL_KERNELS, nblocks))
     per_sweep["block_gram"] = runs
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
+
+
+def f64_counts(nblocks, nt, sweeps=1, shards=1):
+    """Launches of ``sweeps`` float64 W=1 sweeps of ``shards`` shards of
+    ``nblocks`` blocks: kernel C once per block, kernel B's c-dot and
+    update once per block each (there is no fused float64 pass), kernel A
+    once per run of blocks under the Gram byte budget (8-byte entries)."""
+    from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
+    runs = -(-nblocks // gram_run_blocks(T, B, nt, nblocks, 8))
+    per_sweep = {"block_gram_f64": runs, "block_cdot_f64": nblocks,
+                 "eps_update_f64": nblocks, "serial_scan_f64": nblocks}
+    return {k: v * sweeps * shards for k, v in per_sweep.items()}
 
 
 def composed_counts(nblocks, sweeps=1):
@@ -1613,25 +1645,28 @@ def one_thread():
         ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"), "1"))
 
 
-def anchor_options(sim, out_dir, wave=W, iterations=ITERS):
+def anchor_options(sim, out_dir, wave=W, iterations=ITERS, dtype="float32"):
     """``wave`` None lets the plan pick the wave, as a user's run does."""
     from gmrm_tpu_torch.config import Options
     opt = Options(bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
                   group_index_file=sim.gri, group_mixture_file=sim.grm,
                   iterations=iterations, seed=42, out_dir=out_dir,
-                  block_size=B, wave_size=wave, output_thin_rate=THIN)
+                  block_size=B, wave_size=wave, output_thin_rate=THIN,
+                  dtype=dtype)
     opt.validate()
     opt.load_group_mixtures()
     return opt
 
 
-def sweep_gate(sim, dev, wave, name, card, against="plain"):
-    """Phases 3, 3b and 3c: one sweep through the default marker_sweep on
-    the card (the whole-sweep kernel at W>1; at W=1 kernels 5, 2, 6, the
-    fused pass and 4) against the plain versions on the host CPU or, with
-    ``against``
-    "composed", against the composed kernels 2, 3, 4 on the card.
-    ``wave`` None is the auto plan, which must resolve to W=1."""
+def sweep_gate(sim, dev, wave, name, card, against="plain",
+               dtype="float32"):
+    """Phases 3, 3b, 3c and 7b: one sweep through the default marker_sweep
+    on the card (the whole-sweep kernel at W>1; at W=1 kernels 5, 2, 6,
+    the fused pass and 4, or at float64 kernels A, B and C) against the
+    plain versions on the host CPU or, with ``against`` "composed",
+    against the composed kernels 2, 3, 4 on the card.  ``wave`` None is
+    the auto plan, which must resolve to W=1.  At float64 the draws are
+    float64 and |dbeta|, |deps| are held to 1e-9 (1e-4 at float32)."""
     import numpy as np
     import torch
     from gmrm_tpu_torch import runner
@@ -1640,10 +1675,11 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
     from gmrm_tpu_torch.ops.sweep_kernel import sweep_plan
     from gmrm_tpu_torch.sampler.gibbs import marker_sweep
 
-    opt = anchor_options(sim, "", wave)
+    opt = anchor_options(sim, "", wave, dtype=dtype)
     resolve_plan(opt, "cuda", sim.m)
     if (opt.wave_size > 1) != (wave is not None):
         fail(f"{name}: the plan resolved to W={opt.wave_size}")
+    fdt = np.float64 if dtype == "float64" else np.float32
     data = runner.load_data(opt)
     static = runner.build_static(data, opt, dev)
     state = runner.init_sampler_state(data, opt, dev)
@@ -1657,8 +1693,8 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
                                  np.arange(data.m_local, data.m_pad)])
     inj = [torch.from_numpy(a) for a in (
         blocks.reshape(nblocks, B),
-        rng.uniform(size=(nblocks, T, B)).astype(np.float32),
-        rng.normal(size=(nblocks, T, B)).astype(np.float32))]
+        rng.uniform(size=(nblocks, T, B)).astype(fdt),
+        rng.normal(size=(nblocks, T, B)).astype(fdt))]
     sigmae = 0.5 * (state.eps * state.eps).sum(dim=(1, 2)) / static.nonas
     if against == "plain":
         other = (torch.device("cpu"), to_device(state, "cpu"),
@@ -1677,6 +1713,7 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
         counts[key] = {k: v for k, v in _build.launch_counts().items() if v}
     nt = 1 if static.shared_na else T
     want_counts = ({"sweep_blocks": 1} if opt.wave_size > 1
+                   else f64_counts(nblocks, nt) if dtype == "float64"
                    else serial_counts(nblocks, nt))
     if counts["kernels"] != want_counts or (
             against == "composed"
@@ -1687,12 +1724,13 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
     n_diff = int((kc != pc).sum())
     db = float((kb - pb).abs().max())
     de = float((ke - pe).abs().max())
+    tol = 1e-9 if dtype == "float64" else 1e-4
     print(f"# {name} (W={opt.wave_size}, NT={nt}, {nblocks} blocks, "
-          f"mb_pad={data.mb_pad}) against the {against} sweep: comp "
-          f"mismatches {n_diff} of {kc.numel()}, cass equal "
+          f"mb_pad={data.mb_pad}, {dtype}) against the {against} sweep: "
+          f"comp mismatches {n_diff} of {kc.numel()}, cass equal "
           f"{torch.equal(kcass, pcass)}, max|dbeta| {db:.3e}, max|deps| "
-          f"{de:.3e}", flush=True)
-    if n_diff or not torch.equal(kcass, pcass) or db > 1e-4 or de > 1e-4:
+          f"{de:.3e}; launches {counts['kernels']}", flush=True)
+    if n_diff or not torch.equal(kcass, pcass) or db > tol or de > tol:
         fail(f"{name}: the kernels disagree with the {against} sweep")
     if opt.wave_size > 1:
         plan = sweep_plan(T, B, data.mb_pad, nt, K, opt.wave_size)
@@ -1716,23 +1754,27 @@ def sweep_gate(sim, dev, wave, name, card, against="plain"):
     return 0 if static.gram_cache is None else static.gram_cache.numel() * 4
 
 
-def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
+def training_phase(sim, dev, tmp, wave, iterations, check_launches=True,
+                   dtype="float32", tag=""):
     """Phases 4 and 4b: run_training through the entry point.  In wave mode
     the Gram cache launches once per run and the whole-sweep kernel once per
     iteration; at W=1 (``serial_counts``) kernel 6 once per block, the
     fused update and c-dot once per block but the last, kernels 2 and 4
-    once each, and kernel 5 once per run of blocks.  The other paths'
-    kernels launch not at all.  ``check_launches`` False skips that check,
-    for a tree of another cadence.  Also returns the run's peak device
-    memory (torch.cuda.max_memory_allocated)."""
+    once each, and kernel 5 once per run of blocks; at float64 (phase 7c,
+    ``f64_counts``) kernels A, B and C.  The other paths' kernels launch
+    not at all.  ``check_launches`` False skips that check, for a tree of
+    another cadence.  ``tag`` names the out-dir of a repeated run.  Also
+    returns the run's peak device memory
+    (torch.cuda.max_memory_allocated)."""
     import numpy as np
     from gmrm_tpu_torch.io.writers import read_history
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.runner import check_finite_chain, run_training
 
     import torch
-    out_dir = os.path.join(tmp, f"out_w{wave}")
-    opt = anchor_options(sim, out_dir, wave, iterations)
+    f64 = dtype == "float64"
+    out_dir = os.path.join(tmp, f"out_w{wave}{'_f64' if f64 else ''}{tag}")
+    opt = anchor_options(sim, out_dir, wave, iterations, dtype)
     # The peak is the run's own: earlier phases' garbage is freed first.
     gc.collect()
     torch.cuda.synchronize()
@@ -1746,6 +1788,7 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     # The anchor has no phenotype NAs: NT = 1.
     path = (launches if not check_launches
             else {"gram_cache": 1, "sweep_blocks": iterations} if wave > 1
+            else f64_counts(nblocks, 1, sweeps=iterations) if f64
             else serial_counts(nblocks, 1, sweeps=iterations))
     for name, n in launches.items():
         want = path.get(name, 0)
@@ -1772,7 +1815,7 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True):
     return res, launches, steady, sg / (sg + se), peak
 
 
-def sharded_setup(sim, dev, n_shards, wave=W):
+def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32"):
     """The per-shard static inputs, start states and RNG plans of ``sim``,
     as run_training_sharded builds them, every shard on ``dev``; ``wave``
     None is the auto plan."""
@@ -1780,7 +1823,7 @@ def sharded_setup(sim, dev, n_shards, wave=W):
     from gmrm_tpu_torch.parallel import runner as prunner
     from gmrm_tpu_torch.sampler.dists import RngPlan
 
-    opt = anchor_options(sim, "", wave)
+    opt = anchor_options(sim, "", wave, dtype=dtype)
     resolve_plan(opt, "cuda", sim.m // n_shards, sharded=True)
     data = prunner.load_data_process(opt, n_shards,
                                      interleave=opt.wave_size > 1)
@@ -1789,22 +1832,24 @@ def sharded_setup(sim, dev, n_shards, wave=W):
             [RngPlan(opt.seed, dev, shard=i) for i in range(n_shards)])
 
 
-def sharded_gate(sim, dev, card, n_shards, wave, name):
-    """Phases 3d and 3e: one sharded sweep on the card, with the same
+def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32"):
+    """Phases 3d, 3e and 7e: one sharded sweep on the card, with the same
     injected order and draws per shard on both sides.  At W > 1 the fused
     per-block kernel against the composed kernels 2, 3 and 4 at the same
     cadence, both on the card; with ``wave`` None (the auto plan, which
-    must resolve to W=1) kernels 5, 2, 6 and 4 adding into a delta against
-    their plain versions on the host CPU."""
+    must resolve to W=1) kernels 5, 2, 6 and 4 (at float64 A, B and C)
+    adding into a delta against their plain versions on the host CPU."""
     import numpy as np
     import torch
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.parallel.distributed import Communicator
     from gmrm_tpu_torch.sampler.gibbs import marker_sweep_sharded
 
-    opt, data, statics, states, _ = sharded_setup(sim, dev, n_shards, wave)
+    opt, data, statics, states, _ = sharded_setup(sim, dev, n_shards, wave,
+                                                  dtype)
     if (opt.wave_size > 1) != (wave is not None):
         fail(f"{name}: the plan resolved to W={opt.wave_size}")
+    fdt = np.float64 if dtype == "float64" else np.float32
     mps = data.layout.m_pad_shard
     nblocks = mps // B
     rng = np.random.default_rng(11)
@@ -1815,9 +1860,9 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
     else:
         orders = [np.concatenate([rng.permutation(ln), np.arange(ln, mps)])
                   .reshape(nblocks, B) for ln in data.m_local]
-    u = [rng.uniform(size=(nblocks, T, B)).astype(np.float32)
+    u = [rng.uniform(size=(nblocks, T, B)).astype(fdt)
          for _ in range(n_shards)]
-    z = [rng.normal(size=(nblocks, T, B)).astype(np.float32)
+    z = [rng.normal(size=(nblocks, T, B)).astype(fdt)
          for _ in range(n_shards)]
     first = states[0]
     sigmae = 0.5 * (first.eps * first.eps).sum(dim=(1, 2)) / statics[0].nonas
@@ -1830,6 +1875,8 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
     else:
         nt = 1 if statics[0].shared_na else T
         sides = (("kernels", dev, None,
+                  f64_counts(nblocks, nt, shards=n_shards)
+                  if dtype == "float64" else
                   serial_counts(nblocks, nt, shards=n_shards,
                                 fused=False)),
                  ("plain", torch.device("cpu"), None, {}))
@@ -1862,26 +1909,30 @@ def sharded_gate(sim, dev, card, n_shards, wave, name):
     moved = sum(int((a[1] != 0).sum()) for a in a_st)
     timing = "; ".join(f"{t:.3f} ms per sharded sweep {side[0]}"
                        for side, t in zip(sides, ms) if t is not None)
-    print(f"# {name} (S={n_shards}, W={opt.wave_size}, {nblocks} blocks per "
-          f"shard, shards of {data.m_local} markers, mb_pad={data.mb_pad}): "
+    print(f"# {name} (S={n_shards}, W={opt.wave_size}, {dtype}, {nblocks} "
+          f"blocks per shard, shards of {data.m_local} markers, "
+          f"mb_pad={data.mb_pad}): "
           f"{sides[0][0]} against {sides[1][0]} at the same cadence: comp "
           f"mismatches {n_diff} of {n_shards * T * mps}, cass equal "
           f"{torch.equal(acass, bcass)}, max|dbeta| {db:.3e}, max|deps| "
           f"{de:.3e}; {timing} (CUDA events around eager calls)  [{card}]",
           flush=True)
-    if (n_diff or not torch.equal(acass, bcass) or db > 1e-4 or de > 1e-4
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    if (n_diff or not torch.equal(acass, bcass) or db > tol or de > tol
             or not moved):
         fail(f"{name}: the two sides disagree")
 
 
 def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
-                           nccl=False, check_launches=True):
+                           nccl=False, check_launches=True,
+                           dtype="float32"):
     """Phases 4d and 4e: run_training_sharded through the entry point, all
     shards on the one card; with ``nccl`` inside a one-rank NCCL process
     group.  The Gram cache launches once per shard, kernel 9 once per block
-    step and iteration (all shards in one launch), nothing else;
-    ``check_launches`` False skips that check, for a tree of another
-    cadence."""
+    step and iteration (all shards in one launch), nothing else; at
+    float64 (phase 7f, W=1) kernels A, B and C per shard and block step
+    (``f64_counts``).  ``check_launches`` False skips that check, for a
+    tree of another cadence."""
     import numpy as np
     import torch.distributed as dist
     from gmrm_tpu_torch.io.writers import read_history
@@ -1889,10 +1940,13 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     from gmrm_tpu_torch.parallel.distributed import init_distributed
     from gmrm_tpu_torch.parallel.runner import run_training_sharded
 
-    out_dir = os.path.join(tmp, f"out_s{n_shards}{'_nccl' if nccl else ''}")
-    opt = anchor_options(sim, out_dir, wave, iterations)
+    f64 = dtype == "float64"
+    out_dir = os.path.join(tmp, f"out_s{n_shards}{'_nccl' if nccl else ''}"
+                                f"{'_f64' if f64 else ''}")
+    opt = anchor_options(sim, out_dir, wave, iterations, dtype)
     if nccl:
-        init_distributed(f"file://{tmp}/rendezvous_s{n_shards}", 1, 0,
+        init_distributed(f"file://{tmp}/rendezvous_s{n_shards}"
+                         f"{'_f64' if f64 else ''}", 1, 0,
                          backend="nccl", timeout_seconds=120)
     try:
         _build.reset_launch_counts()
@@ -1902,10 +1956,11 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     finally:
         if nccl:
             dist.destroy_process_group()
-    if opt.wave_size != W:
+    if opt.wave_size != (1 if f64 else W):
         fail(f"S={n_shards} training: the plan resolved to W={opt.wave_size}")
     nblocks = -(-(-(-MT // n_shards)) // B)     # ceil(ceil(MT / S) / B)
-    want = {"gram_cache": n_shards, "block_sweep": nblocks * iterations}
+    want = (f64_counts(nblocks, 1, iterations, n_shards) if f64 else
+            {"gram_cache": n_shards, "block_sweep": nblocks * iterations})
     for name, n in launches.items():
         if check_launches and n != want.get(name, 0):
             fail(f"S={n_shards} training: kernel {name} launched {n} times, "
@@ -1948,14 +2003,14 @@ def same_artifacts(sim, dir_a, dir_b):
     return True
 
 
-def chain_setup(sim, dev, wave=W):
+def chain_setup(sim, dev, wave=W, dtype="float32"):
     """The anchor's data, static inputs, start state and RNG plan, as
     run_training builds them."""
     from gmrm_tpu_torch import runner
     from gmrm_tpu_torch.config import resolve_plan
     from gmrm_tpu_torch.sampler.dists import RngPlan
 
-    opt = anchor_options(sim, "", wave)
+    opt = anchor_options(sim, "", wave, dtype=dtype)
     resolve_plan(opt, "cuda", sim.m)
     data = runner.load_data(opt)
     return (opt, runner.build_static(data, opt, dev),
@@ -2129,15 +2184,20 @@ def resume_phase(sim, dev, tmp, card):
 PREDICT_RTOL, PREDICT_ATOL = 1e-5, 1e-6
 
 
-def predict_planes(ph, dev, pitch):
-    """One trait's na and y planes as run_predict makes them (float32 from
-    the float64 host vectors, padded to the kernel's row pitch)."""
-    import numpy as np
+# At float64 (kernel D): xty within PREDICT_F64_RTOL * sum|val*y| +
+# PREDICT_F64_ATOL, float64 sums in another order.
+PREDICT_F64_RTOL, PREDICT_F64_ATOL = 1e-11, 1e-12
+
+
+def predict_planes(ph, dev, pitch, dtype="float32"):
+    """One trait's na and y planes as run_predict makes them (float32, or
+    float64, from the float64 host vectors, padded to the kernel's row
+    pitch)."""
     import torch
     from gmrm_tpu_torch.ops.decode import to_phase_planes
     from gmrm_tpu_torch.ops.predict_sums import pad_columns
     return [torch.from_numpy(pad_columns(
-        to_phase_planes(v).astype(np.float32), pitch, 0.0)).to(dev)
+        to_phase_planes(v).astype(dtype), pitch, 0.0)).to(dev)
         for v in (ph.na_vector_padded(), ph.epsilon_padded())]
 
 
@@ -2164,30 +2224,36 @@ def predict_case(name, bed_d, na_d, y_d, n, card, reps=40):
         fail(f"predict_sums {name}: two launches differ")
     if not torch.equal(got[0][0], want[0]):
         fail(f"predict_sums {name}: xtx differs from the plain version")
-    if (dxty > PREDICT_RTOL * scale + PREDICT_ATOL).any():
+    f64 = y_d.dtype == torch.float64
+    rtol, atol = ((PREDICT_F64_RTOL, PREDICT_F64_ATOL) if f64
+                  else (PREDICT_RTOL, PREDICT_ATOL))
+    if (dxty > rtol * scale + atol).any():
         fail(f"predict_sums {name}: xty off by {float(dxty.max()):.3e}")
     ms = cuda_ms(lambda: predict_sums(bed_d, na_d, y_d), reps)
     plain_ms = cuda_ms(lambda: predict_sums_plain(bed_d, na_d, y_d), 2)
-    val = torch.empty((m, 4 * pitch), device=bed_d.device)
+    val = torch.empty((m, 4 * pitch), device=bed_d.device, dtype=y_d.dtype)
     for s in range(0, m, 512):
-        a, _ = decode_planes(bed_d[s:s + 512])
+        a, _ = decode_planes(bed_d[s:s + 512], y_d.dtype)
         val[s:s + 512] = (a * na_d).reshape(a.shape[0], -1)
     y_flat = y_d.reshape(-1)
     mv_ms = cuda_ms(lambda: torch.mv(val, y_flat), reps)
     del val
-    # The bed once, na and y once, the sums once; a multiply-add for each
-    # of xtx and xty per individual.
-    bound = bound_of(m * mb + 2 * 4 * mb * 4 + 2 * m * 4,
-                     (4 * m * n, F32_OPS))
+    # The bed once, na and y once, the sums once; xty's multiply-add per
+    # individual at the float rate of y's type.  xtx is integer popcounts,
+    # two a word of 16 individuals, and is not counted.
+    es = y_d.element_size()
+    bound = bound_of(m * mb + 2 * 4 * mb * es + 2 * m * es,
+                     (2 * m * n, F64_OPS if f64 else F32_OPS))
     team = _build.library().gmrm_predict_sums_team(pitch)
-    print(f"# predict_sums, {name} (M={m}, mb={mb}, row pitch {pitch}, "
+    print(f"# predict_sums{'_f64' if f64 else ''}, {name} (M={m}, mb={mb}, "
+          f"row pitch {pitch}, "
           f"{team} warp(s) a group of 4 rows): xtx bit-equal to the plain "
           f"version, max |dxty| {float(dxty.max()):.3e} (bound "
-          f"{PREDICT_RTOL:g} sum|val*y| + {PREDICT_ATOL:g}), two launches "
+          f"{rtol:g} sum|val*y| + {atol:g}), two launches "
           f"bit-equal; kernel ms {ms:.5f}, plain ms {plain_ms:.4f} (CUDA "
-          f"graph replay); torch.mv yardstick on pre-decoded f32 "
-          f"({m} x {4 * pitch}) {mv_ms:.4f} ms; bound {bound[0]:.5f} ms by "
-          f"{bound[1]}  [{card}]", flush=True)
+          f"graph replay); torch.mv yardstick on pre-decoded "
+          f"{'f64' if f64 else 'f32'} ({m} x {4 * pitch}) {mv_ms:.4f} ms; "
+          f"bound {bound[0]:.5f} ms by {bound[1]}  [{card}]", flush=True)
     return dict(err=float(dxty.max()), ms=ms, plain_ms=plain_ms,
                 mv_ms=mv_ms, bound=bound)
 
@@ -2340,10 +2406,12 @@ def composed_phase(sim, dev, check_launches=True):
     return launches, sum(seconds[1:]) / (ITERS_COMPOSED - 1)
 
 
-def profile_phase(sim, dev, n_shards=0, wave=W, composed=False):
+def profile_phase(sim, dev, n_shards=0, wave=W, composed=False,
+                  dtype="float32"):
     """Phase 5: torch.profiler over 5 iterations at the anchor after 2 of
     warm-up, on the single-device path of ``wave`` (the whole-sweep kernel,
-    or the exact serial path at 1), with ``composed`` on the composed path
+    or the exact serial path at 1, also at ``dtype`` float64 for phase 7),
+    with ``composed`` on the composed path
     (eager gibbs_iteration with megakernel=False), or, with ``n_shards``, on
     the sharded path, as run_training runs it.  Returns the device-busy and
     wall milliseconds per iteration, host-issued launches (kernels and graph
@@ -2365,7 +2433,7 @@ def profile_phase(sim, dev, n_shards=0, wave=W, composed=False):
                 comm=comm)[0]
     else:
         from gmrm_tpu_torch import runner
-        opt, static, state, rng = chain_setup(sim, dev, wave)
+        opt, static, state, rng = chain_setup(sim, dev, wave, dtype)
         if composed:
 
             def step(state, it):
@@ -2517,6 +2585,90 @@ def sharded_only(dev, reps, card, repo):
                       flush=True)
 
 
+def f32_chains(sim_pkl, out, card, repo):
+    """``--f32-chains SIM OUT``: phase 4's and 4b's float32 configurations
+    (W=32 for 20 iterations, W=1 for 10, thinned output) through
+    run_training of the tree at ``repo``, writing into OUT; prints each
+    run's ms/iteration."""
+    import pickle
+    import torch
+    from gmrm_tpu_torch.runner import run_training
+    with open(sim_pkl, "rb") as fh:
+        sim = pickle.load(fh)
+    for wave, iters in ((W, ITERS), (1, ITERS_SERIAL)):
+        opt = anchor_options(sim, os.path.join(out, f"w{wave}"), wave, iters)
+        res = run_training(opt, device=torch.device("cuda"), verbose=False)
+        steady = sum(res.iter_seconds[THIN:]) / (iters - THIN)
+        print(f"# {repo}: float32 W={wave} {steady * 1e3:.2f} ms/iteration "
+              f"over iterations {THIN + 1}-{iters}  [{card}]", flush=True)
+    f32_kernel_bytes(os.path.join(out, "kernels"))
+
+
+def f32_kernel_bytes(out):
+    """The float32 block Gram (kernel 5, a run of 16 blocks at NT=1 and
+    NT=4) and predict sums (a (4,096, 2,560) bed, one trait with NAs) on
+    inputs drawn from one seed on the card, their raw bytes written into
+    OUT: the kernels the float64 work instantiates from shared templates,
+    compared across two trees by ``same_bytes``."""
+    import torch
+    from gmrm_tpu_torch.ops.block_gram import blocks_gram_scaled
+    from gmrm_tpu_torch.ops.predict_sums import predict_sums
+    os.makedirs(out)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    nb = 16
+    bed = torch.randint(0, 256, (nb * B, MB), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    rows = torch.randperm(nb * B, generator=gen, device=dev).to(
+        torch.int32).reshape(nb, B).contiguous()
+    na = (torch.rand((T, 4, MB), generator=gen, device=dev) > 0.03).float()
+    mave = torch.rand((nb, T, B), generator=gen, device=dev) * 1.6 + 0.2
+    msig = torch.rand((nb, T, B), generator=gen, device=dev) + 0.5
+    y = torch.randn((4, MB), generator=gen, device=dev) * na[0]
+    outs = {f"block_gram_nt{nt}": blocks_gram_scaled(
+        bed, rows, na[:nt].contiguous(), mave, msig) for nt in (1, T)}
+    outs["predict_sums"] = torch.stack(predict_sums(
+        bed[:4096].contiguous(), na[0].contiguous(), y.contiguous()))
+    for name, x in outs.items():
+        with open(os.path.join(out, name + ".bin"), "wb") as fh:
+            fh.write(x.cpu().numpy().tobytes())
+
+
+def same_bytes(tree, card):
+    """``--same-bytes TREE``: phase 4's and 4b's float32 chains written by
+    the tree at TREE and by this one, each in its own process on the one
+    card, in the order TREE, this, this, TREE (``f32_chains``), with the
+    float32 kernel outputs of ``f32_kernel_bytes``; the files of the first
+    two runs must be equal byte for byte."""
+    import filecmp
+    import pickle
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = anchor_dataset(os.path.join(tmp, "data"))
+        pkl = os.path.join(tmp, "sim.pkl")
+        with open(pkl, "wb") as fh:
+            pickle.dump(sim, fh)
+        order = (("a", tree), ("b", REPO), ("b2", REPO), ("a2", tree))
+        for name, repo in order:
+            run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--f32-chains", pkl,
+                                  os.path.join(tmp, name), "--repo", repo])
+            if run.returncode:
+                fail(f"--f32-chains in {repo} failed")
+        for w in (f"w{W}", "w1", "kernels"):
+            a, b = os.path.join(tmp, "a", w), os.path.join(tmp, "b", w)
+            names = sorted(os.listdir(a))
+            _, differ, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+            if differ or errors or names != sorted(os.listdir(b)):
+                fail(f"float32 {w}: {tree} and {REPO} wrote other bytes "
+                     f"({differ or errors})")
+            what = ("kernel outputs'" if w == "kernels"
+                    else f"{w} chain's")
+            print(f"# same bytes: the float32 {what} {len(names)} "
+                  f"files of {tree} and {REPO} are equal  [{card}]",
+                  flush=True)
+
+
 def training_only(dev, reps, card, repo):
     """Phases 4, 4b and 4c ``reps`` times on one simulated anchor: the
     steady ms/iteration of every run and phase 5's profiler windows on the
@@ -2551,6 +2703,449 @@ def training_only(dev, reps, card, repo):
                       f"[{card}]", flush=True)
 
 
+def close64(name, got, want):
+    """Float64 kernels against their plain versions: within 1e-10 of
+    max|want| (a sum of at most 4 mb float64 terms in another order)."""
+    err = max_err(got, want)
+    if err > 1e-10 * float(want.abs().max()):
+        fail(f"{name}: kernel disagrees with its float64 plain version "
+             f"(max abs err {err:.3e}, max|want| "
+             f"{float(want.abs().max()):.3e})")
+    return err
+
+
+def float64_kernel_phase(dev, gen, card):
+    """Phase 7a: kernels A, B and C against their float64 plain versions
+    on the card, at the anchor's shapes (T=4, B=128, K=4, mb_pad=2560,
+    157 blocks, the last with 96 pad slots), with the shared (NT=1) and a
+    per-trait (NT=4) NA mask, an adaV group; each launched twice on the
+    same inputs (bit-equal) and timed beside its plain version by graph
+    replay, with a float64 torch.matmul yardstick on pre-decoded operands
+    for A and B.  Kernel A's gs bit-equal (the same roundings as the plain
+    version); B's c and eps and C's betas and acum within 1e-10 of their
+    largest magnitude, C's comp exact, with |c| of order 30 and of order
+    1e3 (where some live steps must take the |dlogl| > 700 guard).
+    Returns {name: (max abs err, kernel ms, plain ms, library ms or None,
+    bound)}."""
+    import torch
+    from gmrm_tpu_torch.ops import block_gram as bg
+    from gmrm_tpu_torch.ops import block_kernels as bk
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.ops.decode import decode_planes
+
+    f64 = torch.float64
+    nblocks = -(-MT // B)
+    m_pad = nblocks * B
+    bed = torch.randint(0, 256, (m_pad, MB), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    bed[MT:] = 0x55                                      # pad rows
+    bed[:, MB - 60:] = 0x55                              # pad columns
+    na_shared = torch.ones((T, 4, MB), device=dev, dtype=f64)
+    na_shared[:, :, MB - 60:] = 0
+    na_trait = na_shared * (torch.rand((T, 4, MB), generator=gen, device=dev,
+                                       dtype=f64) > 0.03)
+    # The W=1 order: the real markers shuffled, the pad rows last.
+    rows_all = torch.cat([torch.randperm(MT, generator=gen, device=dev),
+                          torch.arange(MT, m_pad, device=dev)]).to(
+        torch.int32).reshape(nblocks, B).contiguous()
+    real = (rows_all < MT)[:, None, :]
+    mave_p = ((torch.rand((nblocks, T, B), generator=gen, device=dev,
+                          dtype=f64) * 1.6 + 0.2) * real).contiguous()
+    msig_p = ((torch.rand((nblocks, T, B), generator=gen, device=dev,
+                          dtype=f64) * 1.5 + 0.5) * real).contiguous()
+    res = {}
+    ms_of = {}
+
+    # Kernel A: a run of blocks that ends with the last one, at NT=1 (all
+    # 157 blocks, one run) and NT=4 (the run the byte budget allows).
+    gram_ops = 2 * (2 * (B * (B + 1) // 2) + B * B) * 4 * (MB - 60)
+    err_a, a_ms = 0.0, []
+    for na in (na_shared, na_trait):
+        nt = 1 if na is na_shared else T
+        na_in = (na[:1] if nt == 1 else na).to(torch.float32).contiguous()
+        nb = bg.gram_run_blocks(T, B, nt, nblocks, 8)
+        s = slice(nblocks - nb, nblocks)
+        args = (bed, rows_all[s].contiguous(), na_in,
+                mave_p[s].contiguous(), msig_p[s].contiguous())
+        got = bit_equal_twice(f"block_gram_f64 (NT={nt})", lambda: (
+            bg.blocks_gram_scaled(*args),))[0]
+        want = bg.blocks_gram_scaled_plain(*args)
+        if got.dtype != f64 or not torch.equal(got, want):
+            fail(f"block_gram_f64 (NT={nt}): gs is not bit-equal to its "
+                 f"plain version (max abs err {max_err(got, want):.3e})")
+        del got, want
+        a_ms.append((nb, cuda_ms(lambda: bg.blocks_gram_scaled(*args), 5)
+                     / nb, cuda_ms(lambda: bg.blocks_gram_scaled_plain(
+                         *args), 1) / nb))
+    # One block's scaled Gram from pre-decoded float64 operands (NT=1).
+    pa, pb = decode_planes(bed[rows_all[0].long()], f64)
+    ab = torch.cat([pa, pb]).reshape(2 * B, -1)
+    abn = ab * na_shared[0].reshape(1, -1)
+    lib_a = cuda_ms(lambda: abn @ ab.T, 20)
+    del pa, pb, abn
+    res["block_gram_f64"] = (
+        err_a, a_ms[0][1], a_ms[0][2], lib_a,
+        bound_of(B * MB + T * B * B * 8 + 2 * T * B * 8,
+                 (gram_ops, INT8_OPS), (8 * T * B * B, F64_OPS)))
+    ms_of["block_gram_f64"] = ", ".join(
+        f"NT={nt}: {k:.5f} per block in a run of {nb} (plain {p:.4f})"
+        for (nb, k, p), nt in zip(a_ms, (1, T)))
+
+    # Kernel B: the c-dot and the update of one block through the one-block
+    # wrappers (the update from a zero residual: the compared values are
+    # the update itself), then through BlockPasses on the sweep's arrays
+    # and a block index, bit-equal to the wrappers, and timed there.
+    bm = nblocks // 2
+    rows = rows_all[bm].contiguous()
+    eps = torch.randn((T, 4, MB), generator=gen, device=dev, dtype=f64)
+    d_all = (torch.randn((nblocks, T, B), generator=gen, device=dev,
+                         dtype=f64) * 0.01).contiguous()
+    err_c = err_u = 0.0
+    for na in (na_shared, na_trait):
+        e = (eps * na).contiguous()
+        mave, msig, d = mave_p[bm], msig_p[bm], d_all[bm]
+        where = f"{mask_name(na)}, one block"
+        c = bit_equal_twice(f"block_cdot_f64 ({where})", lambda: (
+            bk.block_cdot(bed, rows, e, mave, msig),))[0]
+        err_c = max(err_c, close64(f"block_cdot_f64 ({where})", c,
+                                   bk.block_cdot_plain(bed, rows, e, mave,
+                                                       msig)))
+
+        def upd():
+            t = torch.zeros_like(e)
+            bk.block_eps_update_(bed, rows, d, mave, na, t)
+            return (t,)
+        u = bit_equal_twice(f"eps_update_f64 ({where})", upd)[0]
+        want = bk.block_eps_update_plain_(bed, rows, d, mave, na,
+                                          torch.zeros_like(e))
+        err_u = max(err_u, close64(f"eps_update_f64 ({where})", u, want))
+        if not u.abs().sum() > 0:
+            fail(f"eps_update_f64 ({where}) is zero")
+        passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
+        passes.cdot(bm, e)
+        target = torch.zeros_like(e)
+        passes.update_(bm, d_all, target)
+        if not (torch.equal(passes.c[bm], c) and torch.equal(target, u)):
+            fail(f"BlockPasses at float64 ({mask_name(na)}): the sweep "
+                 f"interface and the one-block wrappers differ")
+    e = (eps * na_shared).contiguous()
+    target = torch.zeros_like(e)
+    c_ms = cuda_ms(lambda: passes.cdot(bm, e), 200)
+    u_ms = cuda_ms(lambda: passes.update_(bm, d_all, target), 200)
+    c_plain = cuda_ms(lambda: bk.block_cdot_plain(
+        bed, rows, e, mave_p[bm], msig_p[bm]), 20)
+    u_plain = cuda_ms(lambda: bk.block_eps_update_plain_(
+        bed, rows, d_all[bm], mave_p[bm], na_shared, target), 20)
+    pa, pb = decode_planes(bed[rows.long()], f64)
+    ab = torch.cat([pa, pb]).reshape(2 * B, -1)
+    e2 = e.reshape(T, -1)
+    dd = torch.cat([d_all[bm], mave_p[bm] * d_all[bm]], dim=1)
+    lib_c = cuda_ms(lambda: e2 @ ab.T, 200)
+    lib_u = cuda_ms(lambda: dd @ ab, 200)
+    del pa, pb, ab
+    plane, tb = T * 4 * MB * 8, T * B * 8
+    blk = B * MB + B * 4
+    block_ops = 4 * T * B * 4 * MB
+    res["block_cdot_f64"] = (err_c, c_ms, c_plain, lib_c,
+                             bound_of(blk + plane + 3 * tb,
+                                      (block_ops, F64_OPS)))
+    res["eps_update_f64"] = (err_u, u_ms, u_plain, lib_u,
+                             bound_of(blk + 3 * plane + 2 * tb,
+                                      (block_ops, F64_OPS)))
+
+    # Kernel C on the sweep's (157, ..., B) float64 arrays and a block
+    # index: a middle block and the last (its 96 pad slots), twice
+    # (bit-equal), against serial_scan_plain on the card (a few blocks
+    # only: about 10 ms a block), the one-block wrapper bit-equal to the
+    # sweep interface.
+    G = 3
+    cva = torch.tensor([[0.0, 1e-3, 1e-2, 5e-2]] * G, device=dev, dtype=f64)
+    cvai = torch.zeros_like(cva)
+    cvai[:, 1:] = 1.0 / cva[:, 1:]
+    sigmag = torch.rand((T, G), generator=gen, device=dev, dtype=f64) * 0.4
+    sigmag += 0.1
+    sigmag[0, 1] = 0.0                                   # an adaV group
+    sigmae = torch.rand((T,), generator=gen, device=dev, dtype=f64) * 0.4
+    sigmae += 0.5
+    pi = torch.rand((T, G, K), generator=gen, device=dev, dtype=f64) + 0.1
+    pi = pi / pi.sum(-1, keepdim=True)
+    nonas = torch.full((T,), 490.0, device=dev, dtype=f64)
+    lc_t, rd_t, sqb_t = sk.build_sweep_tables(sigmag, sigmae, pi, cva, cvai,
+                                              nonas, 500.0, dtype=f64)
+    grp_n = torch.randint(0, G, (nblocks, B), generator=gen, device=dev)
+    valid_n = rows_all < MT
+    live_n, zerob_n = (x.movedim(0, 1).contiguous()
+                       for x in sw.scan_masks(grp_n, valid_n, sigmag))
+
+    def blocks_of(tab):                       # (K, T, G) -> (nb, K, T, B)
+        return tab[:, :, grp_n].movedim(2, 0).contiguous()
+
+    xg = torch.randn((nblocks, B, 600), generator=gen, device=dev, dtype=f64)
+    gs_n = torch.bmm(xg, xg.transpose(1, 2))[:, None].expand(
+        nblocks, T, B, B).contiguous()
+    del xg
+    c_n = torch.randn((nblocks, T, B), generator=gen, device=dev,
+                      dtype=f64) * 30.0
+    nm1 = nonas - 1.0
+    i2se = (1.0 / (2.0 * sigmae)).contiguous()
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f64)
+    ops = (nm1, blocks_of(lc_t), blocks_of(rd_t), blocks_of(sqb_t),
+           torch.randn((nblocks, T, B), generator=gen, device=dev,
+                       dtype=f64) * 0.05,
+           torch.randint(0, K, (nblocks, T, B), generator=gen, device=dev,
+                         dtype=torch.int32),
+           rnd(nblocks, T, B), rnd(nblocks, T, B),
+           torch.randn((nblocks, T, B), generator=gen, device=dev,
+                       dtype=f64), live_n, zerob_n,
+           rnd(nblocks, T, B) + 0.5, i2se)
+    sweep = sk6.SerialScanSweep(*ops)
+
+    def plain_block(b):
+        base = (c_n[b] + ops[4][b] * nm1[:, None]).contiguous()
+        return (base, *(x[b] for x in ops[1:4]), gs_n[b],
+                *(x[b] for x in ops[4:11]), i2se)
+
+    def guarded_steps(b, c, dbeta):
+        """Live steps of block b where some |L_k - L_i| > 700, the base of
+        each step rebuilt from the plain version's dbeta."""
+        base = c[b] + ops[4][b] * nm1[:, None]
+        num = base + (dbeta[:, :, None] * torch.triu(gs_n[b], 1)).sum(1)
+        logl = ops[1][b] + ops[2][b] * num * (num * i2se[:, None])
+        spread = logl.max(0).values - logl.min(0).values
+        return int(((spread > 700.0) & (live_n[b] != 0)).sum())
+
+    # |base| of order 30, then of order 1e3, where the 700 guards fire.
+    err_s, drawn, guarded = 0.0, set(), 0
+    c_big = c_n * 40.0
+    for c_in, b in ((c_n, bm), (c_n, nblocks - 1), (c_big, bm),
+                    (c_big, nblocks - 1)):
+        where = f"block {b}, |c| ~{'1e3' if c_in is c_big else '30'}"
+
+        def step(b=b, c_in=c_in):
+            sweep.step(b, c_in, gs_n, b, bc=b)
+            return tuple(x[b].clone() for x in (
+                sweep.dbeta, sweep.beta_new, sweep.comp_new, sweep.acum_new,
+                sweep.d))
+        got = bit_equal_twice(f"serial_scan_f64 ({where})", step)
+        base = (c_in[b] + ops[4][b] * nm1[:, None]).contiguous()
+        want = sk6.serial_scan_plain(base, *plain_block(b)[1:])
+        if not torch.equal(got[2], want[2]):
+            fail(f"serial_scan_f64 ({where}): comp differs from the plain "
+                 f"version in {int((got[2] != want[2]).sum())} entries")
+        for part, g, w in zip(("dbeta", "beta", "acum"),
+                              (got[0], got[1], got[3]),
+                              (want[0], want[1], want[3])):
+            err_s = max(err_s, close64(f"serial_scan_f64 ({where}) {part}",
+                                       g, w))
+        if not torch.equal(got[4], ops[11][b] * got[0]):
+            fail("serial_scan_f64: d is not msig * dbeta bit for bit")
+        drawn.update(want[2][live_n[b] != 0].tolist())
+        if c_in is c_big:
+            guarded += guarded_steps(b, c_in, want[0])
+        elif b == bm:
+            mid = got
+    if not guarded:
+        fail("serial_scan_f64: no step at |c| ~1e3 took the 700 guard")
+    ms_of["serial_scan_f64"] = (f"{guarded} live steps of the two blocks "
+                                f"at |c| ~1e3 took the 700 guard")
+    if len(drawn) < 2:
+        fail(f"serial_scan_f64: the blocks drew components {drawn} only")
+    if not torch.equal(sweep.beta_new[-1][:, B - 96:], ops[4][-1][:, B - 96:]):
+        fail("serial_scan_f64: the last block's pad slots moved")
+    one = sk6.serial_scan(*plain_block(bm))
+    if not all(torch.equal(x, y) for x, y in zip(one, mid)):
+        fail("serial_scan_f64: the one-block wrapper and the sweep "
+             "interface wrote different bits for the same block")
+    plain_m = plain_block(bm)
+    s_ms = cuda_ms(lambda: sweep.step(bm, c_n, gs_n, bm, bc=bm), 20)
+    s_plain = cuda_ms(lambda: sk6.serial_scan_plain(*plain_m), 1)
+    # The Gram entries i > j a block reads, its operands and results once.
+    res["serial_scan_f64"] = (err_s, s_ms, s_plain, None, bound_of(
+        T * B * (B - 1) // 2 * 8 + (3 * K + 10) * tb + T * 16, ))
+    for name, (err, k_ms, p_ms, lib, bound) in res.items():
+        print(f"# {name}: max abs err {err:.3e}; kernel ms {k_ms:.5f}, "
+              f"plain ms {p_ms:.4f} (CUDA graph replay"
+              f"{'; per block' if name == 'block_gram_f64' else ''}); "
+              f"float64 torch.matmul yardstick on pre-decoded operands "
+              f"{'n/a' if lib is None else f'{lib:.5f}'} ms; bound "
+              f"{bound[0]:.5f} ms by {bound[1]}"
+              f"{'; ' + ms_of[name] if name in ms_of else ''}  [{card}]",
+              flush=True)
+    return res
+
+
+def float64_phase(sim, small, dev, tmp, card, gen):
+    """Phase 7: --dtype float64 (the W=1 path on kernels A-D).  (a) the
+    kernels alone (``float64_kernel_phase``); (b) one float64 sweep on the
+    small panel (auto plan W=1) on the card against the plain float64
+    sweep on the host CPU, same order and draws; (c) run_training at the
+    anchor, twice from one seed (byte-equal), launches per ``f64_counts``
+    and no float32 kernel, h2 in (0.05, 0.95), peak memory, ms/iteration,
+    and a profiler window over 5 float64 iterations; (d) the chain cut at 5 (a checkpoint at 3) and resumed to the end,
+    byte-equal; (e) one S=2 sharded float64 sweep on the small panel
+    against the plain one on the host CPU; (f) run_training_sharded at
+    S=2, and the same inside a one-rank NCCL group, byte-equal; (g) the
+    predict kernel (kernel D) against its plain version at the anchor's
+    bed, and run_predict at float64 on (c)'s .bet files on the card and on
+    the CPU.  Returns (the kernels' rows, the main path's launches, the
+    phase's numbers)."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gmrm_tpu_torch.config import Options
+    from gmrm_tpu_torch.io.bed import read_bed
+    from gmrm_tpu_torch.io.phen import read_phen
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.predict_sums import (
+        padded_chunk, pitch_of, predict_sums_plain,
+    )
+    from gmrm_tpu_torch.predict import run_predict
+    from gmrm_tpu_torch.runner import run_training
+
+    t_phase = time.perf_counter()
+    rows = float64_kernel_phase(dev, gen, card)
+    sweep_gate(small, dev, None, "float64 W=1 sweep gate", card,
+               dtype="float64")
+    nblocks = -(-MT // B)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    runs = [training_phase(sim, dev, tmp, 1, ITERS_F64, dtype="float64",
+                           tag=tag) for tag in ("", "_again")]
+    res, counts, steady, h2, peak = runs[0]
+    add(counts)
+    add(runs[1][1])
+    f32_kernels = {k for k, v in counts.items()
+                   if v and not k.endswith("_f64")}
+    if f32_kernels:
+        fail(f"float64 training launched float32 kernels {f32_kernels}")
+    if res.state.eps.dtype != torch.float64 or not (
+            np.isfinite(h2).all() and (h2 > 0.05).all()
+            and (h2 < 0.95).all()):
+        fail(f"float64 training: dtype {res.state.eps.dtype}, h2 {h2}")
+    ref = os.path.join(tmp, "out_w1_f64")
+    if not same_artifacts(sim, ref, ref + "_again"):
+        fail("float64 training: two runs of one seed wrote other bytes")
+    prof = profile_phase(sim, dev, wave=1, dtype="float64")
+
+    # (d) cut at 5 with a checkpoint at 3, resumed to the end.
+    out = os.path.join(tmp, "resume_f64")
+    for stop, resume in ((5, False), (ITERS_F64, True)):
+        opt = anchor_options(sim, out, None, stop, "float64")
+        opt.checkpoint_every, opt.resume = 3, resume
+        _, c = counted(lambda: run_training(opt, device=dev, verbose=False))
+        want = f64_counts(nblocks, 1, sweeps=5 if not resume
+                          else ITERS_F64 - 3)
+        if c != want:
+            fail(f"float64 resume: launches {c}, expected {want}")
+        add(c)
+    if not same_artifacts(sim, ref, out):
+        fail("float64 resume: the resumed chain wrote other bytes than the "
+             "uninterrupted one")
+
+    # (e), (f): sharded.
+    sharded_gate(small, dev, card, 2, None, "float64 sharded W=1 sweep gate",
+                 dtype="float64")
+    sh = {}
+    for nccl in (False, True):
+        sh[nccl] = sharded_training_phase(sim, dev, tmp, 2, None, ITERS_F64,
+                                          nccl=nccl, dtype="float64")
+        if not nccl:
+            add(sh[nccl][1])
+    if not same_artifacts(sim, sh[False][5], sh[True][5]):
+        fail("float64 S=2: the run inside a one-rank NCCL group wrote other "
+             "bytes than the run without a group")
+
+    # (g) predict: kernel D alone, then the path on (c)'s .bet files.
+    pitch = pitch_of((N + 3) // 4)
+    bed_d = padded_chunk(read_bed(sim.bed, N, MT), 0, MT, dev)
+    phens = [read_phen(p, N) for p in sim.phens]
+    na_d, y_d = predict_planes(phens[0], dev, pitch, "float64")
+    prow = predict_case("anchor, NT=1, float64", bed_d, na_d, y_d, N, card)
+    keep = (torch.rand((4, pitch), generator=gen, device=dev,
+                       dtype=torch.float64) > 0.02).to(torch.float64)
+    p2 = predict_case("anchor, 2% NAs, float64", bed_d, na_d * keep,
+                      y_d * keep, N, card)
+    prow = dict(prow, err=max(prow["err"], p2["err"]))
+    pruns = {}
+    for key, device in (("card", dev), ("cpu", "cpu")):
+        pout = os.path.join(tmp, f"predict_f64_{key}")
+        os.makedirs(pout)
+        for p in sim.phens:
+            bet = os.path.splitext(os.path.basename(p))[0] + ".bet"
+            shutil.copy(os.path.join(ref, bet), os.path.join(pout, bet))
+        opt = Options(bed_file=sim.bed, dim_file=sim.dim,
+                      phen_files=sim.phens, bim_file=sim.bim,
+                      ref_bim_file=sim.bim, out_dir=pout, predict=True,
+                      dtype="float64")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split, c = counted(lambda: run_predict(opt, device=device,
+                                               verbose=False))
+        pruns[key] = (pout, time.perf_counter() - t0, split, c)
+    if pruns["card"][3] != {"predict_sums_f64": T} or pruns["cpu"][3]:
+        fail(f"float64 predict: launches {pruns['card'][3]} on the card, "
+             f"{pruns['cpu'][3]} on the CPU")
+    add(pruns["card"][3])
+    for t, p in enumerate(sim.phens):
+        name = os.path.splitext(os.path.basename(p))[0] + ".mlma"
+        ids_k, f_k = mlma_fields(os.path.join(pruns["card"][0], name))
+        ids_c, f_c = mlma_fields(os.path.join(pruns["cpu"][0], name))
+        if ids_k != ids_c or len(ids_k) != MT:
+            fail(f"float64 predict: ids or line count differ ({name})")
+        na_t, y_t = predict_planes(phens[t], dev, pitch, "float64")
+        xtx = predict_sums_plain(bed_d, na_t, y_t)[0].cpu().numpy()
+        d = (PREDICT_F64_RTOL * predict_sums_plain(bed_d, na_t, y_t.abs())[1]
+             .cpu().numpy() + PREDICT_F64_ATOL)
+        y = phens[t].epsilon_padded()
+        sigma = float(y @ y) / phens[t].nonas
+        with np.errstate(divide="ignore", invalid="ignore"):
+            dt = d / np.sqrt(sigma * xtx)
+            tol = np.stack([d / xtx, dt, np.full_like(d, 1e-12), 0.8 * dt],
+                           axis=1) + 2e-15
+        live = ~np.isnan(f_c)
+        if (np.isnan(f_k) != np.isnan(f_c)).any() or (
+                np.abs(f_k - f_c)[live] > tol[live]).any():
+            fail(f"float64 predict: {name} on the card and on the CPU "
+                 f"disagree beyond the xty bound")
+    del bed_d
+
+    numbers = dict(steady=steady, h2=h2, peak=peak, profile=prof,
+                   startup=res.startup_seconds, sharded=sh[False],
+                   predict=pruns, seconds=time.perf_counter() - t_phase)
+    rows["predict_sums_f64"] = (prow["err"], prow["ms"], prow["plain_ms"],
+                                prow["mv_ms"], prow["bound"])
+    return rows, launches, numbers
+
+
+# Kernels A-D: source, the TPU kernel whose float64 side each is, and the
+# JAX package's float64 route that it replaces.
+F64_SOURCES = {
+    "block_gram_f64": ("gmrm_tpu_torch/csrc/block_gram.cu",
+                       "gmrm_tpu/ops/pallas_kernels.py:135",
+                       "gmrm_tpu/ops/blockops.py:131"),
+    "block_cdot_f64": ("gmrm_tpu_torch/csrc/passes_f64.cu",
+                       "gmrm_tpu/ops/pallas_kernels.py:275",
+                       "gmrm_tpu/ops/blockops.py:131"),
+    "eps_update_f64": ("gmrm_tpu_torch/csrc/passes_f64.cu",
+                       "gmrm_tpu/ops/pallas_kernels.py:352",
+                       "gmrm_tpu/ops/blockops.py:141"),
+    "serial_scan_f64": ("gmrm_tpu_torch/csrc/serial_scan_f64.cu",
+                        "gmrm_tpu/ops/scan_kernel.py:61",
+                        "gmrm_tpu/sampler/scan.py:33"),
+    "predict_sums_f64": ("gmrm_tpu_torch/csrc/predict_sums.cu",
+                         "gmrm_tpu/predict.py:43", "gmrm_tpu/predict.py:43"),
+}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--training-only", type=int, default=0,
@@ -2559,6 +3154,8 @@ def main():
                         metavar="REPS")
     parser.add_argument("--sharded-only", type=int, default=0,
                         metavar="REPS")
+    parser.add_argument("--same-bytes", default="", metavar="TREE")
+    parser.add_argument("--f32-chains", nargs=2, metavar=("SIM", "OUT"))
     parser.add_argument("--repo", default=REPO)
     args = parser.parse_args()
     t_start = time.perf_counter()
@@ -2578,6 +3175,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if args.f32_chains:
+        f32_chains(*args.f32_chains, card, args.repo)
+        return
+    if args.same_bytes:
+        same_bytes(args.same_bytes, card)
+        if not (args.training_only or args.sharded_only):
+            return
     if args.training_only or args.sharded_only:
         _build.library()
         if args.training_only:
@@ -2736,6 +3340,8 @@ def main():
                  "than the run without a group")
         resume_launches = resume_phase(sim, dev, tmp, card)
         sh_prof = profile_phase(sim, dev, n_shards=s0)
+        f64_rows, f64_launches, f64 = float64_phase(sim, small, dev, tmp,
+                                                    card, gen)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2, peak) in runs.items():
         startup = ("load + stats + Gram cache of "
@@ -2839,6 +3445,42 @@ def main():
                  "bound_ms": predict_row["bound"][0],
                  "bound_by": predict_row["bound"][1],
                  "library_ms": predict_row["mv_ms"]})
+    # Phase 7: the float64 path; launches from its runs (training twice,
+    # the cut and resumed chain, S=2 without a group, predict on the card).
+    res_sh, launch_sh, steady_sh, span_sh, h2_sh, _ = f64["sharded"]
+    busy_f, wall_f, launch_f, top_f = f64["profile"]
+    print(f"# profiler, float64 W=1 path, 5 iterations: device busy "
+          f"{busy_f:.3f} ms/iteration, wall {wall_f:.3f} ms/iteration, idle "
+          f"share {1 - busy_f / wall_f:.3f}, {launch_f:.1f} launches per "
+          f"iteration; busiest kernels (ms/iteration) {top_f}  [{card}]",
+          flush=True)
+    print(f"# float64 training W=1 (auto plan) at the anchor: startup "
+          f"{f64['startup']:.2f} s; steady {f64['steady'] * 1e3:.2f} "
+          f"ms/iteration = {MT / f64['steady']:.0f} markers/s over iterations "
+          f"{THIN + 1}-{ITERS_F64}; h2 "
+          f"{[round(float(x), 3) for x in f64['h2']]}; peak device memory "
+          f"{f64['peak'] / 2**20:.1f} MiB; two runs of one seed and the "
+          f"chain cut at 5 and resumed byte-equal; no float32 kernel "
+          f"launched  [{card}]", flush=True)
+    print(f"# float64 sharded training S=2 (W=1, all shards on the one "
+          f"card): {steady_sh * 1e3:.2f} ms/iteration over {span_sh}; h2 "
+          f"{[round(float(x), 3) for x in h2_sh]}; launches {launch_sh}; "
+          f"byte-equal inside a one-rank NCCL group  [{card}]", flush=True)
+    for key, (_, wall, split, launches) in f64["predict"].items():
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        print(f"# float64 predict at the anchor on the {key} ({T} traits, "
+              f"the float64 run's .bet files): wall {wall:.3f} s = {parts}; "
+              f"launches {launches}  [{card}]", flush=True)
+    print(f"# phase 7 (float64) wall {f64['seconds']:.1f} s; launches "
+          f"{f64_launches}", flush=True)
+    for name, (src, rep, route) in F64_SOURCES.items():
+        err, k_ms, p_ms, lib, bound = f64_rows[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "float64_route": route,
+                     "launches": f64_launches.get(name, 0),
+                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": lib})
     print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -25,6 +25,9 @@ Two layouts, as in the JAX package, each refusing the other:
   current layout, so any shard or process count may resume.
 
 Every file is written to a temporary name and then moved into place.
+Float fields load in the run's dtype (gmrm_tpu/checkpoint.py:115, 134): a
+float64 chain resumes in float64, byte-equal, and a float32 checkpoint
+resumed with ``--dtype float64`` continues in float64.
 """
 
 from __future__ import annotations
@@ -142,8 +145,10 @@ def check_layout(path: str, z, expect: dict) -> None:
             f"({hint}).")
 
 
-def _tensor(name: str, arr, device) -> torch.Tensor:
-    dtype = torch.int32 if name in _INT32 else torch.float32
+def _tensor(name: str, arr, device, dtype=torch.float32) -> torch.Tensor:
+    """A field on ``device``: int32 for the int fields, ``dtype`` (the
+    run's) for the float ones."""
+    dtype = torch.int32 if name in _INT32 else dtype
     return torch.tensor(np.asarray(arr), dtype=dtype,
                         device=device).contiguous()
 
@@ -156,10 +161,11 @@ def save_checkpoint(path: str, state: SamplerState, it: int,
                          beta_acc))
 
 
-def load_checkpoint(path: str, device, seed: int, expect_layout: dict
+def load_checkpoint(path: str, device, seed: int, expect_layout: dict,
+                    dtype=torch.float32
                     ) -> Tuple[SamplerState, int, np.ndarray, int]:
-    """(state on ``device``, it, beta_acc, n_rec) of a single-device
-    checkpoint."""
+    """(state on ``device``, its float fields in ``dtype``, it, beta_acc,
+    n_rec) of a single-device checkpoint."""
     with np.load(path) as z:
         check_origin(path, z, seed)
         if "starts" in z.files:
@@ -169,7 +175,7 @@ def load_checkpoint(path: str, device, seed: int, expect_layout: dict
                 f"resume it with the sharded runner (any device/process "
                 f"count), not the single-device runner.")
         check_layout(path, z, expect_layout)
-        state = SamplerState(**{f: _tensor(f, z[f], device)
+        state = SamplerState(**{f: _tensor(f, z[f], device, dtype)
                                 for f in STATE_FIELDS})
         return state, int(z["it"]), z["beta_acc"], int(z["n_rec"])
 
@@ -192,13 +198,14 @@ def save_sharded_checkpoint(path: str, states: Sequence[SamplerState],
 
 
 def load_sharded_checkpoint(files: Sequence[str], layout, local_ids,
-                            inv_orders, device, seed: int):
+                            inv_orders, device, seed: int,
+                            dtype=torch.float32):
     """The newest complete save era of ``files`` re-sharded into the
     current ``layout`` (a ``parallel.runner.ShardLayout``) for the shards
     ``local_ids`` with their storage orders (``inv_orders``, as in
     ``save_sharded_checkpoint``).  Returns (states, it, beta_acc, n_rec):
     one state per local shard, all sharing one set of replicated tensors,
-    so the process keeps one residual buffer."""
+    so the process keeps one residual buffer.  Float fields in ``dtype``."""
     m_total = layout.m_total
     by_it = {}
     for fp in files:
@@ -248,7 +255,7 @@ def load_sharded_checkpoint(files: Sequence[str], layout, local_ids,
                     natural[f][:, s:s + ln] = d
                 beta_acc[:, s:s + ln] = z["beta_acc"][:, s:s + ln]
 
-    replicated = {f: _tensor(f, rep[f], device) for f in REPLICATED}
+    replicated = {f: _tensor(f, rep[f], device, dtype) for f in REPLICATED}
     states = []
     for i, inv in zip(local_ids, inv_orders):
         s, ln = layout.blocks[i]
@@ -259,7 +266,7 @@ def load_sharded_checkpoint(files: Sequence[str], layout, local_ids,
                 d = d[:, np.argsort(inv)]          # natural -> storage
             pad = np.zeros((d.shape[0], layout.m_pad_shard), d.dtype)
             pad[:, :ln] = d
-            marker[f] = _tensor(f, pad, device)
+            marker[f] = _tensor(f, pad, device, dtype)
         states.append(SamplerState(**replicated, **marker))
     assert all(st.eps is states[0].eps for st in states)
     return states, chosen, beta_acc, n_rec

@@ -11,8 +11,10 @@ place.
 The plan is the same on CPU and CUDA, so the CPU tests run the same sweep
 as the card, with each kernel's plain PyTorch version: the auto wave is 32
 (else 16, else 8) dividing the block size, and 1 (the exact serial sweep)
-when none divides it, when the panel has fewer than 64 blocks, or with
-``--use-pallas 0``.  Wave mode (W > 1) sweeps through the whole-sweep
+when none divides it, when the panel has fewer than 64 blocks, with
+``--use-pallas 0`` or with ``--dtype float64`` (the plan the JAX package's
+float64 run resolves to, gmrm_tpu/config.py:141-155: it computes no
+float64 chain at W > 1).  Wave mode (W > 1) sweeps through the whole-sweep
 kernel, one launch per iteration (ops/sweep_kernel.sweep_blocks); a
 marker-sharded run (``--devices S`` with S > 1, or a process group) sweeps
 block by block through the fused per-block kernel
@@ -233,8 +235,10 @@ def _auto_wave(block_size: int) -> int:
 def planned_wave(opt: Options) -> int:
     """The wave the options resolve to before the block-count guard:
     ``Options.resolve_compute_plan`` semantics, where ``--use-pallas 0``
-    is the exact serial path."""
+    is the exact serial path; the auto wave is 1 at float64."""
     if opt.use_pallas is False:
+        return 1
+    if opt.wave_size is None and opt.dtype == "float64":
         return 1
     w = opt.wave_size if opt.wave_size is not None else _auto_wave(
         opt.block_size)
@@ -243,17 +247,23 @@ def planned_wave(opt: Options) -> int:
 
 def check_slice(opt: Options, device_type: str,
                 sharded: bool = False) -> None:
-    """Raise SliceNotCovered for an option the ported slices lack:
-    ``--dtype float64`` in every mode, and in training ``--use-pallas 0``
-    on CUDA.  Predict ignores the training-only flags (``--resume``,
+    """Raise SliceNotCovered for an option the ported slices lack: in
+    training, ``--dtype float64`` with an explicit ``--wave-size`` that
+    plans W > 1, and ``--use-pallas 0`` on CUDA.  Predict ignores the
+    training-only flags (``--wave-size``, ``--resume``,
     ``--checkpoint-every``, ``--cache-dir``, ``--use-pallas``), as
     gmrm_tpu/predict.py does.  ``sharded``: the run is marker-sharded (more
     than one shard, or a process group)."""
-    if opt.dtype == "float64":
+    if (opt.dtype == "float64" and not opt.predict
+            and opt.wave_size is not None and planned_wave(opt) > 1):
         where = " on a marker-sharded run" if sharded else ""
         raise SliceNotCovered(
-            f"--dtype float64{where} is not ported to gmrm_tpu_torch yet "
-            f"(ROADMAP §1 item 'float64'); use gmrm_tpu for it.")
+            f"--dtype float64 with --wave-size {opt.wave_size}{where} is "
+            f"not ported (ROADMAP §1 item 'float64 at W>1'): the JAX "
+            f"package computes no float64 chain at W > 1 (its wave scan "
+            f"narrows to float32), so there is no reference to hold one "
+            f"against.  Float64 runs the exact serial sweep: drop "
+            f"--wave-size, or pass --wave-size 1.")
     if opt.use_pallas is False and device_type == "cuda" and not opt.predict:
         raise SliceNotCovered(
             "--use-pallas 0 on CUDA: the CUDA path always runs its kernels "

@@ -29,6 +29,15 @@
 // Every raw entry is an exact count below 2^24, and the scaling pass uses
 // the _rn intrinsics in the plain expression's order (sweep_math.cuh), so
 // gs is bit-equal to the plain PyTorch version on the card.
+//
+// Float64 (kernel A, gmrm_block_gram_f64): the same raw stage, then the
+// scaling pass instantiated at double (the same expression with the
+// float64 _rn intrinsics), so gs is bit-equal to the plain version at
+// float64 too.  It
+// replaces the float64 side of kernel 5: on a float64 run the JAX package
+// takes the XLA einsum of _block_gram_wide (gmrm_tpu/ops/blockops.py:131,
+// through pallas_kernels.py:251-254).  Bound: the float64 gs written once
+// (T B^2 8 bytes a block, 82 MB a sweep at the anchor) over 3.35 TB/s.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,13 +100,15 @@ blocks_gram_raw_kernel(const uint8_t* __restrict__ bed,
   }
 }
 
-// gs[n, t, j, i] from the raw quadrants; one CTA per 32 x 32 tile (j, i),
-// the transposed g2t tile through shared memory.
+// gs[n, t, j, i] in the value type V of mave, msig and gs (float32, or
+// float64 for kernel A) from the raw quadrants; one CTA per 32 x 32 tile
+// (j, i), the transposed g2t tile through shared memory.
+template <typename V>
 __global__ void __launch_bounds__(256)
 blocks_gram_scale_kernel(const int* __restrict__ raw,
-                         const float* __restrict__ mave,
-                         const float* __restrict__ msig,
-                         float* __restrict__ gs, int T, int B, int nt) {
+                         const V* __restrict__ mave,
+                         const V* __restrict__ msig,
+                         V* __restrict__ gs, int T, int B, int nt) {
   __shared__ int tr[32][33];
   const int nti = (B + 31) / 32;
   const int j0 = (blockIdx.x / nti) * 32, i0 = (blockIdx.x % nti) * 32;
@@ -112,33 +123,30 @@ blocks_gram_scale_kernel(const int* __restrict__ raw,
     tr[a][tx] = (i0 + a < B && j0 + tx < B)
                     ? g2t[(size_t)(i0 + a) * B + j0 + tx] : 0;
   __syncthreads();
-  const float* mv = mave + ((size_t)n * T + t) * B;
-  const float* ms = msig + ((size_t)n * T + t) * B;
-  float* out = gs + ((size_t)n * T + t) * B * B;
+  const V* mv = mave + ((size_t)n * T + t) * B;
+  const V* ms = msig + ((size_t)n * T + t) * B;
+  V* out = gs + ((size_t)n * T + t) * B * B;
   const int i = i0 + tx;
   if (i >= B) return;
-  const float mr = mv[i], sr = ms[i];
+  const V mr = mv[i], sr = ms[i];
   for (int a = ty; a < 32; a += 8) {
     const int j = j0 + a;
     if (j >= B) break;
     const size_t x = (size_t)j * B + i;
-    out[x] = gmrm_scale_gram((float)g1[x], (float)tr[tx][a], (float)g2t[x],
-                             (float)g3[x], mr, mv[j], sr, ms[j]);
+    out[x] = gmrm_scale_gram((V)g1[x], (V)tr[tx][a], (V)g2t[x], (V)g3[x],
+                             mr, mv[j], sr, ms[j]);
   }
 }
 
 }  // namespace
 
-// bed (m_pad, mb) uint8; rows (nb, B) int32; na (nt, 4, mb) float32 0/1;
-// mave/msig (nb, T, B) float32; raw (nb, nt, 3, B, B) int32 scratch;
-// gs (nb, T, B, B) float32.
-extern "C" int gmrm_block_gram(const void* bed, const void* rows,
-                               const void* na, const void* mave,
-                               const void* msig, void* raw, void* gs, int nb,
-                               int T, int B, int mb, int nt, void* stream) {
+template <typename V>
+static int launch_gram(const void* bed, const void* rows, const void* na,
+                       const void* mave, const void* msig, void* raw,
+                       void* gs, int nb, int T, int B, int mb, int nt,
+                       cudaStream_t s) {
   if (nb < 1 || nb > 65535 || nt < 1 || nt > 65535 || T < 1 || T > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const int ntile = (B + GMMA_TILE - 1) / GMMA_TILE;
   const int vec = (mb % 16 == 0) && ((uintptr_t)bed % 16 == 0);
   blocks_gram_raw_kernel<<<dim3(3 * ntile * ntile, nt, nb), GMMA_THREADS, 0,
@@ -147,8 +155,29 @@ extern "C" int gmrm_block_gram(const void* bed, const void* rows,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nti = (B + 31) / 32;
-  blocks_gram_scale_kernel<<<dim3(nti * nti, T, nb), 256, 0, s>>>(
-      (const int*)raw, (const float*)mave, (const float*)msig, (float*)gs, T,
-      B, nt);
+  blocks_gram_scale_kernel<V><<<dim3(nti * nti, T, nb), 256, 0, s>>>(
+      (const int*)raw, (const V*)mave, (const V*)msig, (V*)gs, T, B, nt);
   return (int)cudaGetLastError();
+}
+
+// bed (m_pad, mb) uint8; rows (nb, B) int32; na (nt, 4, mb) float32 0/1;
+// mave/msig (nb, T, B) float32; raw (nb, nt, 3, B, B) int32 scratch;
+// gs (nb, T, B, B) float32.
+extern "C" int gmrm_block_gram(const void* bed, const void* rows,
+                               const void* na, const void* mave,
+                               const void* msig, void* raw, void* gs, int nb,
+                               int T, int B, int mb, int nt, void* stream) {
+  return launch_gram<float>(bed, rows, na, mave, msig, raw, gs, nb, T, B, mb,
+                            nt, (cudaStream_t)stream);
+}
+
+// Kernel A: as gmrm_block_gram, with mave/msig (nb, T, B) and gs
+// (nb, T, B, B) float64 (na stays the float32 0/1 mask of the raw stage).
+extern "C" int gmrm_block_gram_f64(const void* bed, const void* rows,
+                                   const void* na, const void* mave,
+                                   const void* msig, void* raw, void* gs,
+                                   int nb, int T, int B, int mb, int nt,
+                                   void* stream) {
+  return launch_gram<double>(bed, rows, na, mave, msig, raw, gs, nb, T, B,
+                             mb, nt, (cudaStream_t)stream);
 }

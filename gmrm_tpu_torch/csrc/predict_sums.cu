@@ -39,6 +39,16 @@
 // each lane's partial over its vectors in order, a fixed __shfl_xor tree
 // over the warp, then the team's warps in order through shared memory.  No
 // atomics: two launches on the same inputs give the same bits.
+//
+// Float64 (kernel D, gmrm_predict_sums_f64, a --dtype float64 predict):
+// the same two kernels, templated on the value type V of na, y and out
+// (Sums<V> holds the loads, the conversion of a value and the
+// multiply-add).  xtx stays the int32 popcount sum (exact); each val
+// becomes a double by a conversion and xty is a double FMA a value, in the
+// order of the float32 kernel.  It replaces
+// _predict_sums_scan(dtype=float64) (gmrm_tpu/predict.py:43).  Bound: the
+// bed once, as in float32 (xty's FMAs at the float64 rate take less time);
+// y is twice as wide and stays in L1 and L2 as well.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,34 +65,76 @@ __device__ __forceinline__ uint32_t word_of(const uint4 &v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ float comp_of(const float4 &v, int b) {
-  return b == 0 ? v.x : b == 1 ? v.y : b == 2 ? v.z : v.w;
-}
+// What the value type V of na, y and the sums changes: the load of four
+// consecutive columns of a plane, the conversion of a 2-bit value, the
+// multiply-add, and how many CTAs an SM is asked to hold.
+template <typename V> struct Sums;
+
+template <> struct Sums<float> {
+  static constexpr int CTAS_PER_SM = 3;   // 85 registers a thread at most
+  struct Quad { float4 v; };
+  static __device__ __forceinline__ Quad load(const float* p) {
+    return {__ldg((const float4*)p)};
+  }
+  static __device__ __forceinline__ float at(const Quad &q, int b) {
+    return b == 0 ? q.v.x : b == 1 ? q.v.y : b == 2 ? q.v.z : q.v.w;
+  }
+  // Byte b of vk into 0x4B0000vv = 2^23 + val, minus 2^23.
+  static __device__ __forceinline__ float value(uint32_t vk, int b) {
+    return __uint_as_float(__byte_perm(vk, 0x4B000000u, 0x7650 + b)) -
+           8388608.f;
+  }
+  static __device__ __forceinline__ float madd(float a, float b, float c) {
+    return fmaf(a, b, c);
+  }
+};
+
+template <> struct Sums<double> {
+  static constexpr int CTAS_PER_SM = 2;
+  struct Quad { double2 lo, hi; };
+  static __device__ __forceinline__ Quad load(const double* p) {
+    return {__ldg((const double2*)p), __ldg((const double2*)(p + 2))};
+  }
+  static __device__ __forceinline__ double at(const Quad &q, int b) {
+    return b == 0 ? q.lo.x : b == 1 ? q.lo.y : b == 2 ? q.hi.x : q.hi.y;
+  }
+  static __device__ __forceinline__ double value(uint32_t vk, int b) {
+    return (double)((vk >> (8 * b)) & 0xffu);
+  }
+  static __device__ __forceinline__ double madd(double a, double b,
+                                                double c) {
+    return fma(a, b, c);
+  }
+};
 
 // keep[j] holds columns 4j..4j+3: bit 8b + 2k is set where the plane-k
 // individual of column 4j + b is observed.
-__global__ void keep_words_kernel(const float* __restrict__ na,
+template <typename V>
+__global__ void keep_words_kernel(const V* __restrict__ na,
                                   uint32_t* __restrict__ keep, int L) {
+  using S = Sums<V>;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= L / 4) return;
   uint32_t w = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float4 n = __ldg((const float4*)(na + (size_t)k * L + 4 * j));
-    w |= (uint32_t)(n.x != 0.f) << (2 * k) |
-         (uint32_t)(n.y != 0.f) << (8 + 2 * k) |
-         (uint32_t)(n.z != 0.f) << (16 + 2 * k) |
-         (uint32_t)(n.w != 0.f) << (24 + 2 * k);
+    const typename S::Quad n = S::load(na + (size_t)k * L + 4 * j);
+    w |= (uint32_t)(S::at(n, 0) != V(0)) << (2 * k) |
+         (uint32_t)(S::at(n, 1) != V(0)) << (8 + 2 * k) |
+         (uint32_t)(S::at(n, 2) != V(0)) << (16 + 2 * k) |
+         (uint32_t)(S::at(n, 3) != V(0)) << (24 + 2 * k);
   }
   keep[j] = w;
 }
 
-__global__ void __launch_bounds__(THREADS, 3)
+template <typename V>
+__global__ void __launch_bounds__(THREADS, Sums<V>::CTAS_PER_SM)
 predict_sums_kernel(const uint8_t* __restrict__ bed,
                     const uint32_t* __restrict__ keep,
-                    const float* __restrict__ y, float* __restrict__ out,
+                    const V* __restrict__ y, V* __restrict__ out,
                     int M, int L, int team) {
-  __shared__ float red_y[WARPS][G];
+  using S = Sums<V>;
+  __shared__ V red_y[WARPS][G];
   __shared__ int red_x[WARPS][G];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int groups = WARPS / team;
@@ -90,11 +142,11 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
       ((long long)blockIdx.x * groups + warp / team) * G;
   const int nv = L / 16;
 
-  float acc[G];
+  V acc[G];
   int cnt[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    acc[g] = 0.f;
+    acc[g] = V(0);
     cnt[g] = 0;
   }
   if (row0 < M) {
@@ -115,10 +167,10 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
       const int col = v * 16;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        float4 yk[4];
+        typename S::Quad yk[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          yk[k] = __ldg((const float4*)(y + (size_t)k * L + col + 4 * q));
+          yk[k] = S::load(y + (size_t)k * L + col + 4 * q);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           uint32_t a2, a1;
@@ -129,13 +181,8 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
           for (int k = 0; k < 4; ++k) {
             const uint32_t vk = (val >> (2 * k)) & 0x03030303u;
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              // Byte b of vk into 0x4B0000vv = 2^23 + val, minus 2^23.
-              const float f =
-                  __uint_as_float(__byte_perm(vk, 0x4B000000u, 0x7650 + b)) -
-                  8388608.f;
-              acc[g] = fmaf(f, comp_of(yk[k], b), acc[g]);
-            }
+            for (int b = 0; b < 4; ++b)
+              acc[g] = S::madd(S::value(vk, b), S::at(yk[k], b), acc[g]);
           }
         }
       }
@@ -158,13 +205,13 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
     const int grp = threadIdx.x / G, g = threadIdx.x % G;
     const long long row = ((long long)blockIdx.x * groups + grp) * G + g;
     if (row < M) {
-      float s = red_y[grp * team][g];
+      V s = red_y[grp * team][g];
       int c = red_x[grp * team][g];
       for (int t = 1; t < team; ++t) {
         s += red_y[grp * team + t][g];
         c += red_x[grp * team + t][g];
       }
-      out[row] = (float)c;
+      out[row] = (V)c;
       out[(size_t)M + row] = s;
     }
   }
@@ -181,12 +228,9 @@ extern "C" int gmrm_predict_sums_team(int L) {
   return team;
 }
 
-// bed (M, L) uint8, na and y (4, L) float32, keep (L/4) uint32 scratch,
-// out (2, M) float32: row 0 xtx, row 1 xty.  L a multiple of 16, every
-// pointer 16-byte aligned.
-extern "C" int gmrm_predict_sums(const void* bed, const void* na,
-                                 const void* y, void* keep, void* out, int M,
-                                 int L, void* stream) {
+template <typename V>
+static int launch_sums(const void* bed, const void* na, const void* y,
+                       void* keep, void* out, int M, int L, void* stream) {
   if (M < 1 || L < 16 || L % 16 || (uintptr_t)bed % 16 ||
       (uintptr_t)na % 16 || (uintptr_t)y % 16 || (uintptr_t)keep % 16)
     return (int)cudaErrorInvalidValue;
@@ -194,11 +238,29 @@ extern "C" int gmrm_predict_sums(const void* bed, const void* na,
   const int rows_per_cta = WARPS / team * G;
   const long long grid = ((long long)M + rows_per_cta - 1) / rows_per_cta;
   if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
-  keep_words_kernel<<<(L / 4 + THREADS - 1) / THREADS, THREADS, 0,
-                      (cudaStream_t)stream>>>((const float*)na,
-                                              (uint32_t*)keep, L);
-  predict_sums_kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bed, (const uint32_t*)keep, (const float*)y,
-      (float*)out, M, L, team);
+  keep_words_kernel<V><<<(L / 4 + THREADS - 1) / THREADS, THREADS, 0,
+                         (cudaStream_t)stream>>>((const V*)na,
+                                                 (uint32_t*)keep, L);
+  predict_sums_kernel<V><<<(unsigned)grid, THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      (const uint8_t*)bed, (const uint32_t*)keep, (const V*)y, (V*)out, M,
+      L, team);
   return (int)cudaGetLastError();
+}
+
+// bed (M, L) uint8, na and y (4, L) float32, keep (L/4) uint32 scratch,
+// out (2, M) float32: row 0 xtx, row 1 xty.  L a multiple of 16, every
+// pointer 16-byte aligned.
+extern "C" int gmrm_predict_sums(const void* bed, const void* na,
+                                 const void* y, void* keep, void* out, int M,
+                                 int L, void* stream) {
+  return launch_sums<float>(bed, na, y, keep, out, M, L, stream);
+}
+
+// Kernel D: as gmrm_predict_sums, with na and y (4, L) float64 and out
+// (2, M) float64.
+extern "C" int gmrm_predict_sums_f64(const void* bed, const void* na,
+                                     const void* y, void* keep, void* out,
+                                     int M, int L, void* stream) {
+  return launch_sums<double>(bed, na, y, keep, out, M, L, stream);
 }

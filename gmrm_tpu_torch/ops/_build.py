@@ -82,6 +82,19 @@ SIGNATURES = {
     "gmrm_predict_sums": [_P] * 5 + [_I] * 2 + [_P],
     # L: no launch, the warps the predict kernel gives a group of rows
     "gmrm_predict_sums_team": [_I],
+    # The float64 kernels of the exact serial path (A-D).
+    # bed, rows, na (float32), mave, msig, raw, gs, nb, T, B, mb, nt, stream
+    "gmrm_block_gram_f64": [_P] * 7 + [_I] * 5 + [_P],
+    # bed, rows, eps, mave, msig, c, T, B, mb, stream
+    "gmrm_block_cdot_f64": [_P] * 6 + [_I] * 3 + [_P],
+    # bed, rows, d, mave, na, target, T, B, mb, stream
+    "gmrm_eps_update_f64": [_P] * 6 + [_I] * 3 + [_P],
+    # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
+    # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, b, bc, bg,
+    # T, B, K, stream
+    "gmrm_serial_scan_f64": [_P] * 20 + [_I] * 6 + [_P],
+    # bed, na, y, keep (scratch), out, M, L, stream
+    "gmrm_predict_sums_f64": [_P] * 5 + [_I] * 2 + [_P],
 }
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper
@@ -90,7 +103,9 @@ SIGNATURES = {
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "eps_update": 0, "block_gram": 0, "serial_scan": 0,
              "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0,
-             "predict_sums": 0}
+             "predict_sums": 0, "block_gram_f64": 0, "block_cdot_f64": 0,
+             "eps_update_f64": 0, "serial_scan_f64": 0,
+             "predict_sums_f64": 0}
 
 
 def launch_counts() -> dict:

@@ -21,6 +21,13 @@ scratch is allocated once (its counters start at zero and every launch
 leaves them at zero), and a block step passes addresses, so the host does
 no tensor work per block.  The one-block wrappers and the class share the
 checks (``_check_blocks``) and each kernel's launch.
+
+Float64 (a ``--dtype float64`` run, kernel B): float64 eps, mave, msig and
+d take the float64 passes of csrc/passes_f64.cu instead (a c-dot CTA per
+marker row, an update CTA per 32 byte columns; T <= 8), the counterparts
+of the JAX package's float64 einsums (gmrm_tpu/ops/blockops.py:131,
+:141-148).  There is no fused float64 pass: ``update_cdot_`` launches the
+update and then the c-dot.  Any other dtype raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,11 +47,20 @@ SLICE_TARGET = 264   # slices that fill the H100's 132 SMs twice
 SLICE_MAX = 256      # byte columns a CTA at most
 SMEM_BYTES = 232448  # dynamic shared memory of one CTA on the H100
 UPDATE, CDOT = 1, 2  # pass bits (csrc UPDATE, CDOT); both: the fused pass
+F64_COLS = 32        # byte columns of a float64 update CTA (csrc COLS)
+F64_GROUPS = 8       # row groups of a float64 update CTA (csrc GROUPS)
+
+
+def f64_update_smem(T: int, B: int) -> int:
+    """Shared memory bytes of the float64 update (csrc
+    gmrm_update_f64_smem): d and mave*d, and the row groups' partials."""
+    return 8 * (2 * T * B + F64_GROUPS * T * 4 * F64_COLS)
 
 
 def block_cdot_plain(bed, rows, eps, mave, msig):
-    """c (T, B) = msig * (A_rows . eps - mave * (B_rows . eps))."""
-    a, b = decode_planes(bed[rows.long()])                 # (B, 4, mb)
+    """c (T, B) = msig * (A_rows . eps - mave * (B_rows . eps)), in the
+    dtype of eps."""
+    a, b = decode_planes(bed[rows.long()], eps.dtype)      # (B, 4, mb)
     B = a.shape[0]
     a = a.reshape(B, -1)
     b = b.reshape(B, -1)
@@ -53,8 +69,9 @@ def block_cdot_plain(bed, rows, eps, mave, msig):
 
 
 def block_eps_update_plain_(bed, rows, d, mave, na, eps):
-    """eps += na * (d . A_rows - (mave*d) . B_rows), in place."""
-    a, b = decode_planes(bed[rows.long()])                 # (B, 4, mb)
+    """eps += na * (d . A_rows - (mave*d) . B_rows), in place, in the
+    dtype of eps."""
+    a, b = decode_planes(bed[rows.long()], eps.dtype)      # (B, 4, mb)
     B = a.shape[0]
     T = eps.shape[0]
     a = a.reshape(B, -1)
@@ -132,22 +149,35 @@ def _check_blocks(bed, rows, mave, msig, na):
     """The limits and the operand checks of kernels 2 and 4, for one block
     (rows (B,), mave/msig (T, B)) or a sweep's blocks ((nb, B), (nb, T, B));
     ``msig`` is None for the update alone, ``na`` for the c-dot alone.
-    Returns the launch plan."""
+    Returns the launch plan of the float32 passes, None for the float64
+    ones (the dtype of ``mave``)."""
     T, B = mave.shape[-2:]
     lead = tuple(mave.shape[:-2])
     dev = bed.device
-    f32 = torch.float32
-    plan = pass_plan(T, B, bed.shape[1])
-    if plan is None:
-        raise ValueError(f"T={T}, B={B} exceed the passes' {SMEM_BYTES} "
-                         f"bytes of shared memory even at 16-byte slices")
+    dtype = mave.dtype
+    if dtype == torch.float32:
+        plan = pass_plan(T, B, bed.shape[1])
+        if plan is None:
+            raise ValueError(f"T={T}, B={B} exceed the passes' {SMEM_BYTES} "
+                             f"bytes of shared memory even at 16-byte "
+                             f"slices")
+    elif dtype == torch.float64:
+        plan = None
+        if T > MAX_T:
+            raise ValueError(f"{T} traits exceed the kernels' MAX_T={MAX_T}")
+        if f64_update_smem(T, B) > SMEM_BYTES:
+            raise ValueError(f"T={T}, B={B} exceed the float64 update's "
+                             f"{SMEM_BYTES} bytes of shared memory")
+    else:
+        raise ValueError(f"mave has dtype {dtype}: the passes take float32 "
+                         f"or float64")
     _build.check(bed, "bed", torch.uint8, tuple(bed.shape), dev)
     _build.check(rows, "rows", torch.int32, lead + (B,), dev)
-    _build.check(mave, "mave", f32, lead + (T, B), dev)
+    _build.check(mave, "mave", dtype, lead + (T, B), dev)
     if msig is not None:
-        _build.check(msig, "msig", f32, lead + (T, B), dev)
+        _build.check(msig, "msig", dtype, lead + (T, B), dev)
     if na is not None:
-        _build.check(na, "na", f32, (T, 4, bed.shape[1]), dev)
+        _build.check(na, "na", dtype, (T, 4, bed.shape[1]), dev)
     return plan
 
 
@@ -185,39 +215,56 @@ def _launch_update_cdot(bed, rows, rows_next, d, mave, mave_next, msig_next,
                   msig_next, na, eps, c_next, scratch, T, B, mb, S, stamps)
 
 
+def _launch_cdot_f64(bed, rows, eps, mave, msig, c, T, B, mb):
+    _build.launch("block_cdot_f64", bed, rows, eps, mave, msig, c, T, B, mb)
+
+
+def _launch_update_f64(bed, rows, d, mave, na, eps, T, B, mb):
+    _build.launch("eps_update_f64", bed, rows, d, mave, na, eps, T, B, mb)
+
+
 def block_cdot(bed, rows, eps, mave, msig):
-    """Kernel 2: the block's residual dot products in processing order.
+    """Kernel 2 (kernel B at float64): the block's residual dot products in
+    processing order.
 
     bed (m_pad, mb) uint8 (the whole bed); rows (B,) int32 bed rows of the
     block in processing order; eps (T, 4, mb) float32; mave/msig (T, B)
-    float32 in processing order.  Returns c (T, B) float32.
+    float32 in processing order (all float64 at float64).  Returns c (T, B)
+    in their dtype.
     """
     if bed.device.type == "cpu":
         return block_cdot_plain(bed, rows, eps, mave, msig)
     T, B = mave.shape
     mb = bed.shape[1]
     plan = _check_blocks(bed, rows, mave, msig, None)
-    _build.check(eps, "eps", torch.float32, (T, 4, mb), bed.device)
-    c = torch.empty((T, B), dtype=torch.float32, device=bed.device)
+    _build.check(eps, "eps", mave.dtype, (T, 4, mb), bed.device)
+    c = torch.empty((T, B), dtype=mave.dtype, device=bed.device)
+    if plan is None:
+        _launch_cdot_f64(bed, rows, eps, mave, msig, c, T, B, mb)
+        return c
     _launch_cdot(bed, rows, eps, mave, msig, c, _scratch(plan, bed.device),
                  T, B, mb, plan.S)
     return c
 
 
 def block_eps_update_(bed, rows, d, mave, na, eps):
-    """Kernel 4: ``eps += na * sum_i d_i (a_i - mave_i b_i)``, IN PLACE.
+    """Kernel 4 (kernel B at float64): ``eps += na * sum_i d_i (a_i -
+    mave_i b_i)``, IN PLACE.
 
     d (T, B) = msig * dbeta and mave (T, B), both in processing order;
-    na and eps (T, 4, mb) float32.  Returns eps.
+    na and eps (T, 4, mb) float32 (all float64 at float64).  Returns eps.
     """
     if bed.device.type == "cpu":
         return block_eps_update_plain_(bed, rows, d, mave, na, eps)
     T, B = mave.shape
     mb = bed.shape[1]
     plan = _check_blocks(bed, rows, mave, None, na)
-    _build.check(d, "d", torch.float32, (T, B), bed.device)
-    _build.check(eps, "eps", torch.float32, (T, 4, mb), bed.device)
-    _launch_update(bed, rows, d, mave, na, eps, T, B, mb, plan.S)
+    _build.check(d, "d", mave.dtype, (T, B), bed.device)
+    _build.check(eps, "eps", mave.dtype, (T, 4, mb), bed.device)
+    if plan is None:
+        _launch_update_f64(bed, rows, d, mave, na, eps, T, B, mb)
+    else:
+        _launch_update(bed, rows, d, mave, na, eps, T, B, mb, plan.S)
     return eps
 
 
@@ -230,6 +277,9 @@ def block_update_cdot_(bed, rows, d, mave, na, eps, rows_next, mave_next,
     if bed.device.type == "cpu":
         return block_update_cdot_plain_(bed, rows, d, mave, na, eps,
                                         rows_next, mave_next, msig_next)
+    if mave.dtype == torch.float64:
+        block_eps_update_(bed, rows, d, mave, na, eps)
+        return block_cdot(bed, rows_next, eps, mave_next, msig_next)
     T, B = mave.shape
     mb = bed.shape[1]
     dev = bed.device
@@ -248,7 +298,8 @@ class BlockPasses:
     arrays, checked once, then a block index per call.
 
     bed (m_pad, mb) uint8; rows_all (nb, B) int32 bed rows of every block;
-    mave_p/msig_p (nb, T, B) float32; na (T, 4, mb) float32.  ``cdot``
+    mave_p/msig_p (nb, T, B) float32; na (T, 4, mb) float32 (float64 for
+    the float64 passes, which take no stamps and no fused pass).  ``cdot``
     writes block ``b``'s residual dot products into ``c[b]`` (``c`` is
     (nb, T, B)); ``update_`` adds block ``b``'s residual update, from
     ``d_all[b]``, into ``target``; ``update_cdot_`` adds block ``b``'s
@@ -263,25 +314,36 @@ class BlockPasses:
         dev = bed.device
         self.dims = (nb, T, B, bed.shape[1])
         self.ops = (bed, rows_all, mave_p, msig_p, na)
-        self.c = torch.empty((nb, T, B), dtype=torch.float32, device=dev)
+        self.dtype = mave_p.dtype
+        self.es = mave_p.element_size()
+        self.c = torch.empty((nb, T, B), dtype=self.dtype, device=dev)
         self.cuda = dev.type != "cpu"
         if self.cuda:
             self.plan = _check_blocks(bed, rows_all, mave_p, msig_p, na)
-            self.scratch = _scratch(self.plan, dev)
-            self.ptr = [x.data_ptr()
+            self.scratch = (None if self.plan is None
+                            else _scratch(self.plan, dev))
+            self.ptr = [0 if x is None else x.data_ptr()
                         for x in (*self.ops, self.c, self.scratch)]
             self.seen = {}
 
     def _plane_ptr(self, x, name):
         """The address of a (T, 4, mb) residual-shaped operand."""
         _, T, _, mb = self.dims
-        return _build.check_once(self.seen, x, name, torch.float32,
+        return _build.check_once(self.seen, x, name, self.dtype,
                                  (T, 4, mb), self.ops[0].device)
 
     def _d_ptr(self, d_all):
         nb, T, B, _ = self.dims
-        return _build.check_once(self.seen, d_all, "d", torch.float32,
+        return _build.check_once(self.seen, d_all, "d", self.dtype,
                                  (nb, T, B), self.ops[0].device)
+
+    def _f64(self, stamps):
+        """Whether the float64 passes launch (they record no stamps)."""
+        if self.plan is not None:
+            return False
+        if stamps is not None:
+            raise ValueError("the float64 passes record no stamps")
+        return True
 
     def cdot(self, b, eps, stamps=None):
         bed, rows_all, mave_p, msig_p, _ = self.ops
@@ -291,7 +353,12 @@ class BlockPasses:
             return
         nb, T, B, mb = self.dims
         pbed, prow, pmave, pmsig, _, pc, pscr = self.ptr
-        tb = b * T * B * 4
+        tb = b * T * B * self.es
+        if self._f64(stamps):
+            _launch_cdot_f64(pbed, prow + b * B * 4,
+                             self._plane_ptr(eps, "eps"), pmave + tb,
+                             pmsig + tb, pc + tb, T, B, mb)
+            return
         _launch_cdot(pbed, prow + b * B * 4, self._plane_ptr(eps, "eps"),
                      pmave + tb, pmsig + tb, pc + tb, pscr, T, B, mb,
                      self.plan.S, stamps)
@@ -304,7 +371,12 @@ class BlockPasses:
             return
         nb, T, B, mb = self.dims
         pbed, prow, pmave, _, pna, _, _ = self.ptr
-        tb = b * T * B * 4
+        tb = b * T * B * self.es
+        if self._f64(stamps):
+            _launch_update_f64(pbed, prow + b * B * 4,
+                               self._d_ptr(d_all) + tb, pmave + tb, pna,
+                               self._plane_ptr(target, "target"), T, B, mb)
+            return
         _launch_update(pbed, prow + b * B * 4, self._d_ptr(d_all) + tb,
                        pmave + tb, pna, self._plane_ptr(target, "target"),
                        T, B, mb, self.plan.S, stamps)
@@ -315,7 +387,7 @@ class BlockPasses:
         if not 0 <= b < nb - 1:
             raise ValueError(f"update_cdot_ of block {b} of {nb}: the last "
                              f"block has no next block to dot")
-        if not self.cuda:
+        if not self.cuda or self._f64(stamps):
             self.update_(b, d_all, eps)
             self.cdot(b + 1, eps)
             return

@@ -20,6 +20,12 @@ Two interfaces, one kernel (csrc/serial_scan.cu):
 
 CUDA tensors launch the kernel; CPU tensors run ``serial_scan_plain``.
 
+Float64 (a ``--dtype float64`` run, kernel C): float64 operands launch
+csrc/serial_scan_f64.cu instead, through the same two interfaces (one warp
+per trait; K <= 16, B <= 512), the counterpart of the JAX package's XLA
+``block_scan`` (gmrm_tpu/sampler/scan.py:33).  ``serial_scan_plain`` is
+written for either dtype.
+
 Limits on CUDA tensors: K <= 16 mixture components (4, 8 or 16 lanes a
 trait), T <= 32 traits; 32 // lanes traits are drawn at once and more take
 further passes over the warp.  ``scan_plan`` fits the block into the
@@ -46,6 +52,7 @@ MAX_NG = 32    # ring groups (csrc MAX_NG)
 NSTATE = 9     # staged (T, B) arrays (csrc NSTATE)
 REC_SLOTS = 8  # steps of packed inputs in flight (csrc REC_SLOTS)
 SMEM_BYTES = 232448   # dynamic shared memory of one CTA on the H100
+F64_MAX_B = 512       # markers of a block in the float64 kernel (csrc)
 
 
 def _al4(x: int) -> int:
@@ -84,6 +91,16 @@ def scan_plan(T: int, B: int, K: int):
                                 and (mode == 0 or held >= 16)):
                 return mode, GR, NG
     return None
+
+
+def _plan_f64_or_raise(T, B, K):
+    """The float64 kernel has no shared memory plan: its limits only."""
+    if K > MAX_K:
+        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
+    if B > F64_MAX_B:
+        raise ValueError(f"B={B} exceeds the float64 serial scan's "
+                         f"{F64_MAX_B} markers a block")
+    return ()
 
 
 def _plan_or_raise(T, B, K):
@@ -156,39 +173,44 @@ def serial_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
 
 def serial_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
                 live, zerob, i2se):
-    """Kernel 6 on one block.
+    """Kernel 6 (kernel C at float64) on one block.
 
     base/beta_old/acum_old/u/z (T, B) float32; lc/rd/sqb (K, T, B) float32
     per-marker tables; gs (T, B, B) float32 scaled Gram in processing
     order; comp_old/live/zerob (T, B) int32; i2se (T,) = 1/(2 sigmaE).
-    Returns (dbeta, beta_new, comp_new, acum_new), each (T, B).
+    Every float operand float64 at float64.  Returns (dbeta, beta_new,
+    comp_new, acum_new), each (T, B).
     """
     if base.device.type == "cpu":
         return serial_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old,
                                  acum_old, u, z, live, zerob, i2se)
     T, B = base.shape
     K = lc.shape[0]
-    plan = _plan_or_raise(T, B, K)
+    dty, i32 = base.dtype, torch.int32
+    f64 = dty == torch.float64
+    if dty not in (torch.float32, torch.float64):
+        raise ValueError(f"base has dtype {dty}: the serial scan takes "
+                         f"float32 or float64")
+    plan = (_plan_f64_or_raise if f64 else _plan_or_raise)(T, B, K)
     dev = base.device
-    f32, i32 = torch.float32, torch.int32
     for name, x in (("base", base), ("beta_old", beta_old),
                     ("acum_old", acum_old), ("u", u), ("z", z)):
-        _build.check(x, name, f32, (T, B), dev)
+        _build.check(x, name, dty, (T, B), dev)
     for name, x in (("lc", lc), ("rd", rd), ("sqb", sqb)):
-        _build.check(x, name, f32, (K, T, B), dev)
+        _build.check(x, name, dty, (K, T, B), dev)
     for name, x in (("comp_old", comp_old), ("live", live),
                     ("zerob", zerob)):
         _build.check(x, name, i32, (T, B), dev)
-    _build.check(gs, "gs", f32, (T, B, B), dev)
-    _build.check(i2se, "i2se", f32, (T,), dev)
-    dbeta = torch.empty((T, B), dtype=f32, device=dev)
+    _build.check(gs, "gs", dty, (T, B, B), dev)
+    _build.check(i2se, "i2se", dty, (T,), dev)
+    dbeta = torch.empty((T, B), dtype=dty, device=dev)
     beta_new = torch.empty_like(dbeta)
     acum_new = torch.empty_like(dbeta)
     comp_new = torch.empty((T, B), dtype=i32, device=dev)
-    _build.launch("serial_scan", base, None, lc, rd, sqb, gs, beta_old,
-                  comp_old, acum_old, u, z, live, zerob, None, i2se, dbeta,
-                  None, beta_new, comp_new, acum_new, 0, 0, 0, T, B, K,
-                  *plan)
+    _build.launch("serial_scan_f64" if f64 else "serial_scan", base, None,
+                  lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
+                  zerob, None, i2se, dbeta, None, beta_new, comp_new,
+                  acum_new, 0, 0, 0, T, B, K, *plan)
     return dbeta, beta_new, comp_new, acum_new
 
 
@@ -198,7 +220,9 @@ class ScanSweep:
 
     nm1 (T,) = nonas - 1; lc_p/rd_p/sqb_p (nb, K, T, B) per-marker tables;
     beta_p/acum_p/u_all/z_all/msig_p (nb, T, B) float32; comp_p/live_p/
-    zerob_p (nb, T, B) int32; i2se (T,) = 1/(2 sigmaE).  The results of
+    zerob_p (nb, T, B) int32; i2se (T,) = 1/(2 sigmaE); every float
+    operand in the dtype of beta_p (float32, or float64 for the float64
+    kernel where the subclass has one).  The results of
     block ``b`` land in ``dbeta[b]``, ``d[b]`` (= msig * dbeta),
     ``beta_new[b]``, ``comp_new[b]`` and ``acum_new[b]``.  A subclass names
     its kernel's plan (``_plan``), plain version (``_plain``) and launch
@@ -209,7 +233,8 @@ class ScanSweep:
                  u_all, z_all, live_p, zerob_p, msig_p, i2se):
         nb, K, T, B = lc_p.shape
         dev = beta_p.device
-        f32, i32 = torch.float32, torch.int32
+        dty, i32 = beta_p.dtype, torch.int32
+        self.dtype = dty
         self.shape = (nb, T, B, K)
         self.cuda = dev.type != "cpu"
         if self.cuda:
@@ -217,20 +242,20 @@ class ScanSweep:
             for name, x in (("beta_p", beta_p), ("acum_p", acum_p),
                             ("u_all", u_all), ("z_all", z_all),
                             ("msig_p", msig_p)):
-                _build.check(x, name, f32, (nb, T, B), dev)
+                _build.check(x, name, dty, (nb, T, B), dev)
             for name, x in (("lc_p", lc_p), ("rd_p", rd_p),
                             ("sqb_p", sqb_p)):
-                _build.check(x, name, f32, (nb, K, T, B), dev)
+                _build.check(x, name, dty, (nb, K, T, B), dev)
             for name, x in (("comp_p", comp_p), ("live_p", live_p),
                             ("zerob_p", zerob_p)):
                 _build.check(x, name, i32, (nb, T, B), dev)
-            _build.check(nm1, "nm1", f32, (T,), dev)
-            _build.check(i2se, "i2se", f32, (T,), dev)
+            _build.check(nm1, "nm1", dty, (T,), dev)
+            _build.check(i2se, "i2se", dty, (T,), dev)
         self.nm1, self.i2se = nm1, i2se
         self.tables = (lc_p, rd_p, sqb_p)
         self.state = (beta_p, comp_p, acum_p, u_all, z_all, live_p, zerob_p)
         self.msig_p = msig_p
-        self.dbeta = torch.empty((nb, T, B), dtype=f32, device=dev)
+        self.dbeta = torch.empty((nb, T, B), dtype=dty, device=dev)
         self.d = torch.empty_like(self.dbeta)
         self.beta_new = torch.empty_like(self.dbeta)
         self.acum_new = torch.empty_like(self.dbeta)
@@ -264,19 +289,24 @@ class ScanSweep:
                 and 0 <= bc < c.shape[0]):
             raise ValueError(f"block {b} of {nb}, Gram {bg} of "
                              f"{gs.shape[0]}, c {bc} of {c.shape[0]}")
-        dev, f32 = self.dbeta.device, torch.float32
-        pc = _build.check_once(self.seen, c, "c", f32, (c.shape[0], T, B),
+        dev, dty = self.dbeta.device, self.dtype
+        pc = _build.check_once(self.seen, c, "c", dty, (c.shape[0], T, B),
                                dev)
-        pgs = _build.check_once(self.seen, gs, "gs", f32,
+        pgs = _build.check_once(self.seen, gs, "gs", dty,
                                 (gs.shape[0], T, B, B), dev)
         self._launch(pc, pgs, b, bc, bg, **launch_kw)
 
 
 class SerialScanSweep(ScanSweep):
-    """Kernel 6 over a sweep's blocks (``ScanSweep``)."""
+    """Kernel 6 over a sweep's blocks (``ScanSweep``); kernel C on float64
+    operands."""
 
-    @staticmethod
-    def _plan(T, B, K):
+    def _plan(self, T, B, K):
+        if self.dtype == torch.float64:
+            return _plan_f64_or_raise(T, B, K)
+        if self.dtype != torch.float32:
+            raise ValueError(f"beta_p has dtype {self.dtype}: the serial "
+                             f"scan takes float32 or float64")
         return _plan_or_raise(T, B, K)
 
     @staticmethod
@@ -285,5 +315,7 @@ class SerialScanSweep(ScanSweep):
 
     def _launch(self, pc, pgs, b, bc, bg):
         nb, T, B, K = self.shape
-        _build.launch("serial_scan", pc, *self.head, pgs, *self.tail, b, bc,
-                      bg, T, B, K, *self.plan)
+        kernel = ("serial_scan_f64" if self.dtype == torch.float64
+                  else "serial_scan")
+        _build.launch(kernel, pc, *self.head, pgs, *self.tail, b, bc, bg, T,
+                      B, K, *self.plan)

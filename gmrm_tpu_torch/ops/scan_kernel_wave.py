@@ -206,6 +206,9 @@ class WaveScanSweep(ScanSweep):
         super().__init__(*operands)
 
     def _plan(self, T, B, K):
+        if self.dtype != torch.float32:
+            raise ValueError(f"beta_p has dtype {self.dtype}: the wave scan "
+                             f"is float32 only (float64 runs at W=1)")
         return _plan_or_raise(T, B, K, self.wave)
 
     def _plain(self, *args):

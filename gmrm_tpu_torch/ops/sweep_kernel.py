@@ -108,36 +108,38 @@ def build_gram_cache(bed: torch.Tensor, na: torch.Tensor, *,
     return out
 
 
-def build_sweep_tables(sigmag, sigmae, pi_est, cva, cvai, nonas, n_total):
-    """Group-level scan tables (K, T, G): lc, rd, sqb.
+def build_sweep_tables(sigmag, sigmae, pi_est, cva, cvai, nonas, n_total,
+                       dtype=torch.float32):
+    """Group-level scan tables (K, T, G): lc, rd, sqb, in ``dtype``
+    (float64 on a float64 run's W = 1 sweep).
 
     The per-marker prep of scan_kernel_wave.py:204-239 depends on a marker
     only through its group, so it is computed per group once per sweep
     and gathered per block (exact copies).  ``logl_k = lc_k + q rd_k``
     with q = num^2/(2 sigmaE); ``sqb_k`` is the slab's posterior sd.
     """
-    f32 = torch.float32
+    dty = dtype
     T = sigmag.shape[0]
     G = cva.shape[0]
-    sigmae_f = sigmae.to(f32)[:, None]                      # (T, 1)
-    nonas_f = nonas.to(f32)[:, None]
-    n_total_f = torch.as_tensor(n_total, dtype=f32, device=sigmag.device)
+    sigmae_f = sigmae.to(dty)[:, None]                      # (T, 1)
+    nonas_f = nonas.to(dty)[:, None]
+    n_total_f = torch.as_tensor(n_total, dtype=dty, device=sigmag.device)
 
-    sg = sigmag.to(f32)                                     # (T, G)
+    sg = sigmag.to(dty)                                     # (T, G)
     adav = sg == 0.0
     sg_safe = torch.where(adav, torch.ones_like(sg), sg)
     sige_g = sigmae_f / sg_safe
     sigg_e = sg_safe / sigmae_f
 
-    cvai_b = cvai.to(f32)[:, 1:]                            # (G, K-1)
-    cva_b = cva.to(f32)[:, 1:]
+    cvai_b = cvai.to(dty)[:, 1:]                            # (G, K-1)
+    cva_b = cva.to(dty)[:, 1:]
     denom = (n_total_f - 1.0) + sige_g[:, :, None] * cvai_b[None]
-    zeros0 = torch.zeros((T, G, 1), dtype=f32, device=sigmag.device)
+    zeros0 = torch.zeros((T, G, 1), dtype=dty, device=sigmag.device)
     rd = torch.cat([zeros0, 1.0 / denom], dim=2)            # (T, G, K)
     sqb = torch.cat([zeros0, torch.sqrt(sigmae_f[:, :, None] / denom)],
                     dim=2)
 
-    lc = torch.log(pi_est.to(f32))                          # (T, G, K)
+    lc = torch.log(pi_est.to(dty))                          # (T, G, K)
     tail = -0.5 * torch.log(
         sigg_e[:, :, None] * (nonas_f[:, :, None] - 1.0) * cva_b[None]
         + 1.0)

@@ -63,7 +63,7 @@ from gmrm_tpu_torch.parallel.mesh import marker_blocks
 from gmrm_tpu_torch.runner import (
     LANE_PAD, RunResult, _guard_resume_without_checkpoint,
     check_finite_chain, initial_sigmag, interleave_order, open_outputs,
-    replicated_inputs, resolve_device, resume_missing_bet, round_up,
+    replicated_inputs, resolve_device, resume_missing_bet, round_up, run_dtype,
     static_for_markers, stem,
 )
 from gmrm_tpu_torch.sampler.dists import RngPlan
@@ -188,7 +188,7 @@ def shard_caches(data: ProcessData, opt: Options
         n_shards=lay.n_shards, shard=i, marker_range=lay.blocks[i],
         m_pad_shard=lay.m_pad_shard, mb_pad=data.mb_pad,
         block_size=opt.block_size, interleave=wave_mode,
-        shared_na=shared_na, gram=wave_mode))
+        shared_na=shared_na, gram=wave_mode, dtype=opt.dtype))
         for i, bed in zip(data.local_ids, data.bed_local)]
 
 
@@ -220,7 +220,8 @@ def init_states_sharded(data: ProcessData, opt: Options,
     g, k = opt.cva.shape
     first = init_state(t, data.layout.m_pad_shard, g, k, data.eps0,
                        pi_prior_from_cva(np.asarray(opt.cva)),
-                       initial_sigmag(opt, t, data.mtotgrp), device)
+                       initial_sigmag(opt, t, data.mtotgrp), device,
+                       run_dtype(opt))
     return [first] + [
         first.replace(betas=torch.zeros_like(first.betas),
                       comp=torch.zeros_like(first.comp),
@@ -285,7 +286,8 @@ def _sync(device) -> None:
 
 def estimate_sync_seconds(comm: Communicator, nblocks: int, t_traits: int,
                           mb_pad: int, n_groups: int, n_mix: int,
-                          timing_iters: int = 20) -> float:
+                          timing_iters: int = 20,
+                          dtype=torch.float32) -> float:
     """One iteration's collective (sync) cost, measured standalone.
 
     The sharded sweep's per-iteration communication is ``nblocks``
@@ -301,7 +303,8 @@ def estimate_sync_seconds(comm: Communicator, nblocks: int, t_traits: int,
     dev = comm.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    eps = torch.randn((t_traits, 4, mb_pad), generator=gen, device=dev)
+    eps = torch.randn((t_traits, 4, mb_pad), generator=gen, device=dev,
+                      dtype=dtype)
 
     def chain(eps):
         d = eps * (1.0 + 1e-9 * process_index())
@@ -434,7 +437,8 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
     if srcs:
         states, last_it, beta_acc, n_rec = \
             checkpoint.load_sharded_checkpoint(
-                srcs, data.layout, local_ids, data.inv_orders, dev, opt.seed)
+                srcs, data.layout, local_ids, data.inv_orders, dev, opt.seed,
+                run_dtype(opt))
         start_it = last_it + 1
         if chatty:
             print(f"INFO   : resuming sharded run from iteration {last_it}")
@@ -471,12 +475,14 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
                   f"{t_wo * 1000:.3f} elided)")
     elif verbose and opt.verbosity_level(1):
         g, k = opt.cva.shape
-        sync_est = estimate_sync_seconds(comm, nblocks, t, data.mb_pad, g, k)
+        sync_est = estimate_sync_seconds(comm, nblocks, t, data.mb_pad, g, k,
+                                         dtype=run_dtype(opt))
         sync_how = "standalone collective chain"
         if chatty:
             print(f"INFO   : measured collective sync cost = "
                   f"{sync_est * 1000:.3f} ms/iteration "
-                  f"({nblocks} sums of {t}x4x{data.mb_pad} f32)")
+                  f"({nblocks} sums of {t}x4x{data.mb_pad} "
+                  f"{'f64' if opt.dtype == 'float64' else 'f32'})")
 
     ranges = [data.layout.blocks[i] for i in local_ids]
     t_chain = time.perf_counter()

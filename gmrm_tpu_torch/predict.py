@@ -16,8 +16,9 @@ Per phenotype:
 
 The sums of step 3 are the only device work: ``ops/predict_sums`` (one
 launch of csrc/predict_sums.cu per trait and bed chunk on CUDA, its plain
-version on the CPU).  Everything else is float64 NumPy on the host, as in
-the JAX package, so given the same sums the two write the same bytes.
+version on the CPU), in float32 or, with ``--dtype float64``, float64.
+Everything else is float64 NumPy on the host, as in the JAX package, so
+given the same sums the two write the same bytes.
 """
 
 from __future__ import annotations
@@ -143,7 +144,7 @@ def run_predict(opt: Options, device=None, verbose: bool = True) -> dict:
             print(f"INFO   : Number of recorded iterations in .bet file: "
                   f"{niter}")
         y = ph.epsilon_padded()                         # centered+scaled
-        planes = [pad_columns(to_phase_planes(v).astype(np.float32), pitch,
+        planes = [pad_columns(to_phase_planes(v).astype(opt.dtype), pitch,
                               0.0) for v in (ph.na_vector_padded(), y)]
         split.lap("read")
 

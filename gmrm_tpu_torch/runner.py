@@ -9,6 +9,8 @@ iteration's sweep is one launch of the whole-sweep kernel
 arithmetic (sampler/whole_sweep.py); at W = 1 it is the per-block exact
 serial path.  Iterations are queued back to back; the host waits on the
 device only at thin boundaries, at checkpoints and at the end of the chain.
+``--dtype float64`` runs the W = 1 path with every float tensor of the
+chain in float64 (``run_dtype``) on the float64 kernels.
 
 ``--checkpoint-every N`` saves the chain every N iterations
 (gmrm_tpu_torch/checkpoint.py) and ``--resume`` continues it from the
@@ -50,6 +52,11 @@ from gmrm_tpu_torch.startup_cache import StartupCache
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def run_dtype(opt: Options) -> torch.dtype:
+    """The chain's float dtype, from ``--dtype``."""
+    return torch.float64 if opt.dtype == "float64" else torch.float32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -166,14 +173,15 @@ def shared_na_of(data: LoadedData) -> bool:
 def replicated_inputs(na, nonas, mtotgrp, n: int, opt: Options,
                       device) -> dict:
     """The static inputs that are the same for every marker, and on a
-    sharded run for every shard, as tensors on ``device``."""
-    f32 = torch.float32
+    sharded run for every shard, as tensors on ``device`` in the run's
+    dtype."""
+    dty = run_dtype(opt)
     return dict(
-        na=torch.as_tensor(na, dtype=f32, device=device).contiguous(),
-        nonas=torch.as_tensor(nonas, dtype=f32, device=device),
+        na=torch.as_tensor(na, dtype=dty, device=device).contiguous(),
+        nonas=torch.as_tensor(nonas, dtype=dty, device=device),
         mtotgrp=torch.as_tensor(mtotgrp, dtype=torch.int64, device=device),
-        cva=torch.as_tensor(opt.cva, dtype=f32, device=device),
-        cvai=torch.as_tensor(opt.cvai, dtype=f32, device=device),
+        cva=torch.as_tensor(opt.cva, dtype=dty, device=device),
+        cvai=torch.as_tensor(opt.cvai, dtype=dty, device=device),
         n_total=float(n))
 
 
@@ -187,7 +195,7 @@ def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
     With ``cache``, the statistics and the Gram cache come from its entry
     when it has one, and are saved to it when they are built."""
     bed = torch.as_tensor(bed, device=device)
-    warm = None if cache is None else cache.load(device)
+    warm = None if cache is None else cache.load(device, rep["na"].dtype)
     if warm is not None:
         mave, msig, gram_cache = warm
     else:
@@ -212,7 +220,8 @@ def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
 
 def startup_cache(data: LoadedData, opt: Options) -> Optional[StartupCache]:
     """The ``--cache-dir`` entry of a single-device run (None without the
-    flag), keyed by the loaded rows, the phen files and the geometry."""
+    flag), keyed by the loaded rows, the phen files and the geometry, the
+    dtype of the statistics included."""
     if not opt.cache_dir:
         return None
     wave_mode = opt.wave_size > 1
@@ -220,7 +229,7 @@ def startup_cache(data: LoadedData, opt: Options) -> Optional[StartupCache]:
         runner="one device", n=data.n, m_total=data.m_total,
         m_pad=data.m_pad, mb_pad=data.mb_pad, block_size=opt.block_size,
         interleave=wave_mode, shared_na=shared_na_of(data),
-        gram=wave_mode))
+        gram=wave_mode, dtype=opt.dtype))
 
 
 def build_static(data: LoadedData, opt: Options, device,
@@ -247,12 +256,13 @@ def initial_sigmag(opt: Options, n_traits: int, mtotgrp) -> np.ndarray:
 def init_sampler_state(data: LoadedData, opt: Options,
                        device) -> SamplerState:
     """The start of the chain: zero effects, the prior mixture
-    probabilities and :func:`initial_sigmag`."""
+    probabilities and :func:`initial_sigmag`, in the run's dtype."""
     t = len(data.phens)
     g, k = opt.cva.shape
     return init_state(t, data.m_pad, g, k, data.eps0,
                       pi_prior_from_cva(np.asarray(opt.cva)),
-                      initial_sigmag(opt, t, data.mtotgrp), device)
+                      initial_sigmag(opt, t, data.mtotgrp), device,
+                      run_dtype(opt))
 
 
 @dataclass
@@ -477,7 +487,8 @@ def run_training(opt: Options, device=None, verbose: bool = True
     n_rec, start_it = 0, 1
     if resuming:
         state, last_it, beta_acc, n_rec = checkpoint.load_checkpoint(
-            ckpt, dev, opt.seed, checkpoint.layout_of(opt, data.m_total))
+            ckpt, dev, opt.seed, checkpoint.layout_of(opt, data.m_total),
+            run_dtype(opt))
         start_it = last_it + 1
         if verbose:
             print(f"INFO   : resuming from checkpoint at iteration {last_it}")

@@ -87,8 +87,9 @@ def gamma_draws(gen: torch.Generator, shape, device, out=None):
 
 def gamma_from_draws(shape: torch.Tensor, draws) -> torch.Tensor:
     """The arithmetic half of :func:`gamma`: Gamma(shape, scale=1) from the
-    draws of :func:`gamma_draws`.  Issues no draw and never waits on the
-    device, so it can be captured into a CUDA graph."""
+    draws of :func:`gamma_draws`, float64 for a float64 ``shape`` and
+    float32 otherwise.  Issues no draw and never waits on the device, so it
+    can be captured into a CUDA graph."""
     x, uu, boost = draws
     a = shape.to(torch.float64)
     small = a < 1.0
@@ -100,7 +101,7 @@ def gamma_from_draws(shape: torch.Tensor, draws) -> torch.Tensor:
                     + d * torch.log(torch.where(v > 0, v, 1.0)))
     first = ok.to(torch.int32).argmax(0, keepdim=True)
     g = (d * v).gather(0, first)[0]
-    return torch.where(small, g * boost ** (1.0 / a), g).to(torch.float32)
+    return torch.where(small, g * boost ** (1.0 / a), g).to(_out_dtype(shape))
 
 
 def gamma(gen: torch.Generator, shape: torch.Tensor) -> torch.Tensor:
@@ -116,9 +117,18 @@ def gamma(gen: torch.Generator, shape: torch.Tensor) -> torch.Tensor:
                             gamma_draws(gen, shape.shape, shape.device))
 
 
+def _out_dtype(*xs) -> torch.dtype:
+    """float64 when any of ``xs`` is a float64 tensor (a float64 run),
+    else float32."""
+    return (torch.float64 if any(torch.is_tensor(x) and x.dtype
+                                 == torch.float64 for x in xs)
+            else torch.float32)
+
+
 def _scaled_chisq_args(a, b):
-    return torch.broadcast_tensors(torch.as_tensor(a, dtype=torch.float32),
-                                   torch.as_tensor(b, dtype=torch.float32))
+    dtype = _out_dtype(a, b)
+    return torch.broadcast_tensors(torch.as_tensor(a, dtype=dtype),
+                                   torch.as_tensor(b, dtype=dtype))
 
 
 def inv_scaled_chisq_from_draws(a, b, draws):

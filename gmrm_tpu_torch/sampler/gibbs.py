@@ -37,6 +37,13 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
 Nothing here waits on the device: the processing order reaches the kernels
 as device-side row indices, so a chain of iterations is queued without a
 host sync.
+
+The run's dtype is the residual's (``eps``): float32, or float64 on a
+``--dtype float64`` run, which plans W = 1.  At float64 the draws of the
+intercept and the sweep (u, z) are float64, as the JAX package draws them
+in the run's dtype (gibbs.py:514-515), and the W = 1 path's kernels take
+their float64 routes (kernels A-C: ops/block_gram, ops/block_kernels,
+ops/scan_kernel).
 """
 
 from __future__ import annotations
@@ -121,6 +128,7 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
     K = static.cva.shape[1]
     f32, i32 = torch.float32, torch.int32
     nonas = static.nonas
+    dtype = eps.dtype
 
     mega = (megakernel is not False and wave > 1 and B % wave == 0
             and static.gram_cache is not None)
@@ -133,8 +141,8 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
 
     lc_t, rd_t, sqb_t = build_sweep_tables(
         sigmag, sigmae, pi_est, static.cva, static.cvai, nonas,
-        static.n_total)
-    i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
+        static.n_total, dtype=dtype)
+    i2se = (1.0 / (2.0 * sigmae.to(dtype))).contiguous()
 
     if mega:
         # Natural-order operands and group tables go to the kernel as they
@@ -182,7 +190,7 @@ class _ComposedSweep:
     def __init__(self, betas, comp, acum, sigmag, static, blocks, u_all,
                  z_all, tables, i2se, wave):
         nblocks, B = blocks.shape
-        f32, i32 = torch.float32, torch.int32
+        dty, i32 = betas.dtype, torch.int32
         lc_t, rd_t, sqb_t = tables
         self.like = (betas, comp.to(i32), acum)
         perm = blocks.reshape(-1).long()                    # (m_pad,)
@@ -201,7 +209,7 @@ class _ComposedSweep:
         mave_p = self.mave_p = gathered(static.mave)
         msig_p = self.msig_p = gathered(static.msig)
         live, zerob = scan_masks(grp_p, perm < static.m_local, sigmag)
-        operands = (static.nonas.to(f32) - 1.0,
+        operands = (static.nonas.to(dty) - 1.0,
                     split(lc_t[:, :, grp_p]), split(rd_t[:, :, grp_p]),
                     split(sqb_t[:, :, grp_p]), gathered(betas),
                     gathered(comp.to(i32)), gathered(acum), u_all, z_all,
@@ -224,15 +232,17 @@ class _ComposedSweep:
         else:
             self.scan = SerialScanSweep(*operands)
             bed = static.bed
+            # The raw Gram stage takes the 0/1 mask in float32 at any dtype.
             na_gram = (static.na[:1] if static.shared_na
-                       else static.na).contiguous()
+                       else static.na).to(torch.float32).contiguous()
             nt = na_gram.shape[0]
 
             def grams(s):
                 return blocks_gram_scaled(bed, rows[s], na_gram, mave_p[s],
                                           msig_p[s])
         self.grams = grams
-        self.gram_run = gram_run_blocks(betas.shape[0], B, nt, nblocks)
+        self.gram_run = gram_run_blocks(betas.shape[0], B, nt, nblocks,
+                                        betas.element_size())
         self.gs, self.gs_start = None, 0
         self._build_grams(0)
 
@@ -329,15 +339,15 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
             "sums the residual delta across shards after every block")
     nblocks, B = blocks[0].shape
     K = statics[0].cva.shape[1]
-    f32 = torch.float32
+    dty = eps.dtype
     fused = wave > 1 and megakernel is not False
     if fused and (B % wave or any(s.gram_cache is None for s in statics)):
         raise ValueError(f"the sharded wave sweep needs wave {wave} to "
                          f"divide B={B} and a Gram cache on every shard")
     tables = build_sweep_tables(sigmag, sigmae, pi_est, statics[0].cva,
                                 statics[0].cvai, statics[0].nonas,
-                                statics[0].n_total)
-    i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
+                                statics[0].n_total, dtype=dty)
+    i2se = (1.0 / (2.0 * sigmae.to(dty))).contiguous()
     if fused:
         nt = statics[0].gram_cache.shape[1]
         na = statics[0].na
@@ -345,8 +355,8 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
             [_fused_operands(b, c, a, st, blk, u, z)
              for (b, c, a), st, blk, u, z in zip(marker_states, statics,
                                                  blocks, u_all, z_all)],
-            eps, (na[:1] if nt == 1 else na).contiguous(), sigmag.to(f32),
-            *tables, i2se, statics[0].nonas.to(f32), wave=wave)
+            eps, (na[:1] if nt == 1 else na).contiguous(), sigmag.to(dty),
+            *tables, i2se, statics[0].nonas.to(dty), wave=wave)
         total = torch.empty_like(eps) if comm.sums() else None
         for k in range(nblocks):
             if total is None:
@@ -375,13 +385,14 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
 
 
 def group_beta_sqn(betas, group_of, n_groups):
-    """Per-group sums of beta^2, (T, G) float32 (gibbs.py:530-532), as a
-    product with the groups' one-hot matrix: ``index_add_`` sums with float
-    atomics on the card, in an order that changes from run to run, and a
-    chain must be reproducible from its seed."""
+    """Per-group sums of beta^2, (T, G) in the dtype of betas
+    (gibbs.py:530-532), as a product with the groups' one-hot matrix:
+    ``index_add_`` sums with float atomics on the card, in an order that
+    changes from run to run, and a chain must be reproducible from its
+    seed."""
     onehot = (group_of[:, None]
               == torch.arange(n_groups, device=betas.device)[None, :])
-    return (betas * betas) @ onehot.to(torch.float32)
+    return (betas * betas) @ onehot.to(betas.dtype)
 
 
 def hyper_shapes(T, G, K):
@@ -427,15 +438,15 @@ def _hyper(betas, cass, eps, sigmag, pi_est, static, beta_sqn, chisq,
            dirichlet):
     """The hyperparameter block's arithmetic; ``chisq(name, a, b)`` and
     ``dirichlet(alpha)`` give its scaled inverse chi-squared and Dirichlet
-    variates."""
-    f32 = torch.float32
+    variates, in the run's dtype (the residual's)."""
+    dty = eps.dtype
     if beta_sqn is None:
         beta_sqn = group_beta_sqn(betas, static.group_of,
                                   static.cva.shape[0])
     mtot = static.mtotgrp
     m0 = torch.where(mtot > 0, mtot - cass[:, :, 0].long(),
                      torch.zeros_like(mtot))                # (T, G)
-    m0f = m0.to(f32)
+    m0f = m0.to(dty)
     active = (mtot[None, :] > 0) & (m0 > 0) & (cass.sum(dim=2) > 0)
 
     a_g = V0G + m0f
@@ -445,7 +456,7 @@ def _hyper(betas, cass, eps, sigmag, pi_est, static, beta_sqn, chisq,
         mtot[None, :] > 0,
         torch.where(active, sg_draw, torch.zeros_like(sg_draw)), sigmag)
 
-    pi_draw = dirichlet(cass.to(f32) + 1.0)
+    pi_draw = dirichlet(cass.to(dty) + 1.0)
     pi_new = torch.where(active[:, :, None], pi_draw, pi_est)
 
     e_sqn = (eps * eps).sum(dim=(1, 2))
@@ -492,7 +503,8 @@ def _intercept_step(state, static, it, rng):
         sigmae = 0.5 * (eps * eps).sum(dim=(1, 2)) / nonas
     else:
         sigmae = state.sigmae
-    z_mu = torch.randn((T,), generator=rng.gen(it, "mu"), device=eps.device)
+    z_mu = torch.randn((T,), generator=rng.gen(it, "mu"), device=eps.device,
+                       dtype=eps.dtype)
     # Mean epssum/nonas = 0: the reference never updates epssum.
     mu_new = state.epssum / nonas + torch.sqrt(sigmae / nonas) * z_mu
     eps -= mu_new[:, None, None] * na
@@ -509,10 +521,11 @@ def _sweep_draws(state, static, it, rng, block_size, wave, shuffle):
     dev = state.eps.device
     blocks = block_order(rng, it, nblocks, B, shuffle=shuffle, wave=wave,
                          m_local=static.m_local)
+    dtype = state.eps.dtype
     u_all = torch.rand((nblocks, T, B), generator=rng.gen(it, "u"),
-                       device=dev)
+                       device=dev, dtype=dtype)
     z_all = torch.randn((nblocks, T, B), generator=rng.gen(it, "z"),
-                        device=dev)
+                        device=dev, dtype=dtype)
     return blocks, u_all, z_all
 
 

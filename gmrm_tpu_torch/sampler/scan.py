@@ -32,27 +32,28 @@ class BlockScanResult(NamedTuple):
 def _scan(kernel, c, gs, beta_old, comp_old, acum_old, grp, valid, u, z,
           sigmag, sigmae, pi_est, cva, cvai, nonas, n_total):
     """The per-marker prep of scan_kernel.py:168-201, ``kernel`` on the
-    block, and the block's cass counts."""
+    block, and the block's cass counts; in float64 when ``c`` is float64
+    (the XLA ``block_scan`` of a float64 run), else float32."""
     T = c.shape[0]
     G, K = cva.shape
-    f32 = torch.float32
+    dty = c.dtype if c.dtype == torch.float64 else torch.float32
     lc_t, rd_t, sqb_t = build_sweep_tables(sigmag, sigmae, pi_est, cva,
-                                           cvai, nonas, n_total)
+                                           cvai, nonas, n_total, dtype=dty)
     grp = grp.long()
 
     def per_marker(tab):                      # (K, T, G) -> (K, T, B)
         return tab[:, :, grp].contiguous()
 
-    base = (c.to(f32) + beta_old.to(f32)
-            * (nonas.to(f32)[:, None] - 1.0)).contiguous()
+    base = (c.to(dty) + beta_old.to(dty)
+            * (nonas.to(dty)[:, None] - 1.0)).contiguous()
     live, zerob = scan_masks(grp, valid, sigmag)
-    i2se = (1.0 / (2.0 * sigmae.to(f32))).contiguous()
+    i2se = (1.0 / (2.0 * sigmae.to(dty))).contiguous()
     dbeta, beta_new, comp_new, acum_new = kernel(
         base, per_marker(lc_t), per_marker(rd_t), per_marker(sqb_t),
-        gs.to(f32).contiguous(), beta_old.to(f32).contiguous(),
+        gs.to(dty).contiguous(), beta_old.to(dty).contiguous(),
         comp_old.to(torch.int32).contiguous(),
-        acum_old.to(f32).contiguous(), u.to(f32).contiguous(),
-        z.to(f32).contiguous(), live, zerob, i2se)
+        acum_old.to(dty).contiguous(), u.to(dty).contiguous(),
+        z.to(dty).contiguous(), live, zerob, i2se)
     idx = grp[None, :] * K + comp_new.long()
     cass_inc = torch.zeros((T, G * K), dtype=torch.int32, device=c.device)
     cass_inc.scatter_add_(1, idx, live)

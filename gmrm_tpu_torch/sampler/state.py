@@ -3,7 +3,10 @@ gmrm_tpu/sampler/state.py, which uses ``flax.struct``).
 
 ``state_from_numpy`` / ``static_from_numpy`` take the JAX package's
 ``SamplerState`` / ``StaticInputs`` leaves as NumPy arrays (the PRNG key
-dropped), so that the two packages can be run from the same state.
+dropped), so that the two packages can be run from the same state.  The
+float leaves take the run's dtype: float64 when the residual leaf (``eps``
+of a state, ``na`` of the static inputs) is float64, as in a float64 run
+of the JAX package, else float32.
 
 A marker-sharded run holds one ``StaticInputs`` and one ``SamplerState``
 per local shard.  The per-shard leaves are the marker-indexed ones
@@ -48,12 +51,12 @@ class SamplerState:
 class StaticInputs:
     """Inputs that do not change along the chain."""
     bed: torch.Tensor        # (M_pad, mb) uint8, pad rows 0x55 (all missing)
-    na: torch.Tensor         # (T, 4, mb) 0/1 observed masks, float32
+    na: torch.Tensor         # (T, 4, mb) 0/1 observed masks, the run's dtype
     mave: torch.Tensor       # (T, M_pad)
     msig: torch.Tensor       # (T, M_pad)  (0 on pad rows)
     group_of: torch.Tensor   # (M_pad,) int64 group per marker (0 on pads)
     mtotgrp: torch.Tensor    # (G,) int64 markers per group
-    nonas: torch.Tensor      # (T,) float32
+    nonas: torch.Tensor      # (T,) the run's dtype
     cva: torch.Tensor        # (G, K)
     cvai: torch.Tensor       # (G, K)
     n_total: float           # the dims N
@@ -93,22 +96,23 @@ def pi_prior_from_cva(cva: np.ndarray) -> np.ndarray:
 
 
 def init_state(n_traits, m_pad, n_groups, n_mixtures, eps0, pi_prior,
-               sigmag0, device) -> SamplerState:
+               sigmag0, device, dtype=torch.float32) -> SamplerState:
+    """The start of a chain with its float leaves in ``dtype``."""
     t = n_traits
-    f32 = torch.float32
+    dty = dtype
 
-    def zeros(*shape, dtype=f32):
+    def zeros(*shape, dtype=dty):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    pi = torch.as_tensor(np.asarray(pi_prior), dtype=f32, device=device)
+    pi = torch.as_tensor(np.asarray(pi_prior), dtype=dty, device=device)
     return SamplerState(
-        eps=torch.as_tensor(np.asarray(eps0), dtype=f32,
+        eps=torch.as_tensor(np.asarray(eps0), dtype=dty,
                             device=device).contiguous(),
         betas=zeros(t, m_pad),
         comp=zeros(t, m_pad, dtype=torch.int32),
         acum=zeros(t, m_pad),
         cass=zeros(t, n_groups, n_mixtures, dtype=torch.int32),
-        sigmag=torch.as_tensor(np.asarray(sigmag0), dtype=f32,
+        sigmag=torch.as_tensor(np.asarray(sigmag0), dtype=dty,
                                device=device),
         sigmae=zeros(t),
         pi_est=pi.expand(t, n_groups, n_mixtures).contiguous(),
@@ -121,12 +125,20 @@ _INT_FIELDS = {"comp": torch.int32, "cass": torch.int32,
                "group_of": torch.int64, "mtotgrp": torch.int64}
 
 
-def _tensor(name, x, device):
+def _tensor(name, x, device, fdtype=torch.float32):
+    """A leaf as a tensor: the int fields as their dtype, uint8 as it is,
+    every float leaf in ``fdtype``."""
     dtype = _INT_FIELDS.get(name)
     if dtype is None:
         x = np.asarray(x)
-        dtype = torch.uint8 if x.dtype == np.uint8 else torch.float32
+        dtype = torch.uint8 if x.dtype == np.uint8 else fdtype
     return torch.tensor(np.asarray(x), device=device).to(dtype).contiguous()
+
+
+def _run_dtype(x) -> torch.dtype:
+    """float64 when the residual-shaped leaf ``x`` is, else float32."""
+    return (torch.float64 if np.asarray(x).dtype == np.float64
+            else torch.float32)
 
 
 # Marker-indexed leaves and their marker axis: one slice per shard.
@@ -151,10 +163,12 @@ def _split_shards(full, axes, n_shards, extra=None):
 
 
 def state_from_numpy(d: dict, device, n_shards=None):
-    """The JAX package's SamplerState leaves (NumPy, ``key`` ignored).
-    With ``n_shards``, a list of per-shard states from the global sharded
+    """The JAX package's SamplerState leaves (NumPy, ``key`` ignored), the
+    float leaves in the dtype of ``eps`` (float64 or float32).  With
+    ``n_shards``, a list of per-shard states from the global sharded
     arrays, sharing the replicated leaves."""
-    full = SamplerState(**{f.name: _tensor(f.name, d[f.name], device)
+    fdtype = _run_dtype(d.get("eps"))
+    full = SamplerState(**{f.name: _tensor(f.name, d[f.name], device, fdtype)
                            for f in dataclasses.fields(SamplerState)})
     if n_shards is None:
         return full
@@ -162,8 +176,10 @@ def state_from_numpy(d: dict, device, n_shards=None):
 
 
 def static_from_numpy(d: dict, device, n_shards=None):
-    """The JAX package's StaticInputs leaves as NumPy arrays.  Its
-    ``gram_cache`` is None on a W = 1 run; ``shared_na``, which the JAX
+    """The JAX package's StaticInputs leaves as NumPy arrays, the float
+    leaves in the dtype of ``na`` (float64 or float32; a Gram cache stays
+    float32).  Its ``gram_cache`` is None on a W = 1 run; ``shared_na``,
+    which the JAX
     package passes to its sweep as an argument, keeps its default unless
     ``d`` has it.  With ``n_shards``, a list of per-shard inputs from the
     global sharded arrays (``m_local`` then holds one count per shard)."""
@@ -173,6 +189,7 @@ def static_from_numpy(d: dict, device, n_shards=None):
         return _split_shards(full, SHARDED_STATIC, n_shards,
                              lambda i: {"m_local": int(m_local[i])})
     kw = {}
+    fdtype = _run_dtype(d.get("na"))
     for f in dataclasses.fields(StaticInputs):
         if f.name not in d:
             continue
@@ -184,5 +201,7 @@ def static_from_numpy(d: dict, device, n_shards=None):
         elif f.name == "m_local":
             kw[f.name] = int(x)
         else:
-            kw[f.name] = _tensor(f.name, x, device)
+            kw[f.name] = _tensor(f.name, x, device,
+                                 torch.float32 if f.name == "gram_cache"
+                                 else fdtype)
     return StaticInputs(**kw)

@@ -6,10 +6,11 @@ gmrm_tpu/parallel/runner.py:632-668).
 
 The key is a blake2b digest of the bed rows the run loaded (the bytes it
 read, in storage order and padded), of the whole phen files (they set the
-NA masks) and of the geometry.  The JAX package fingerprints the ``.bed``
-by its size, mtime and first and last MiB, so an edit in the middle with
-the mtime restored serves a stale cache; here any changed byte of the rows
-read changes the key.  The digest costs one pass over the loaded rows.
+NA masks) and of the geometry, which names the statistics' dtype (an entry
+of a float32 run is never served to a float64 one).  The JAX package
+fingerprints the ``.bed`` by its size, mtime and first and last MiB, so
+an edit in the middle with the mtime restored serves a stale cache; here
+any changed byte of the rows read changes the key.  The digest costs one pass over the loaded rows.
 
 A marker-sharded run keeps one entry per shard, keyed by its global id and
 the shard layout.  The cold build of a shard involves no other shard and no
@@ -50,15 +51,18 @@ class StartupCache:
         self.path = os.path.join(cache_dir, f"startup_{h.hexdigest()}.npz")
         self.warm = False
 
-    def load(self, device) -> Optional[Tuple[torch.Tensor, torch.Tensor,
-                                             Optional[torch.Tensor]]]:
-        """(mave, msig, gram_cache or None) on ``device``, or None when the
-        entry is not there."""
+    def load(self, device, dtype=torch.float32
+             ) -> Optional[Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]]:
+        """(mave, msig, gram_cache or None) on ``device``, the statistics in
+        the run's ``dtype`` (the key holds it, so an entry is read in the
+        dtype it was written in) and the Gram cache in float32, or None
+        when the entry is not there."""
         if not os.path.exists(self.path):
             return None
         with np.load(self.path) as z:
-            out = [torch.tensor(z[k], dtype=torch.float32,
-                                device=device).contiguous()
+            out = [torch.tensor(z[k], dtype=torch.float32 if k == "gram"
+                                else dtype, device=device).contiguous()
                    if k in z.files else None
                    for k in ("mave", "msig", "gram")]
         self.warm = True

@@ -14,7 +14,6 @@ import torch
 from gmrm_tpu.config import Options
 from gmrm_tpu.io.writers import read_history
 from gmrm_tpu_torch import cli
-from gmrm_tpu_torch.config import SliceNotCovered
 from gmrm_tpu_torch.runner import run_training
 
 torch.set_num_threads(2)
@@ -102,7 +101,8 @@ print('OK', res.iters_run, sharded.iters_run)
 
 
 @pytest.mark.parametrize("flags", [
-    # Predict is ported; float64 is not, in predict mode either.
+    # Predict and float64 are ported: predict at float64 on the .bet files
+    # of a float64 run.
     ["--predict", "--bim-file", "x.bim", "--ref-bim-file", "y.bim",
      "--dtype", "float64"],
     ["--resume"],
@@ -111,20 +111,28 @@ print('OK', res.iters_run, sharded.iters_run)
     ["--dtype", "float64"],
 ], ids=lambda f: f[0])
 def test_cli_refuses_uncovered_options(sim_tiny, tmp_path, flags):
-    """--dtype float64 is refused in every mode, naming the ROADMAP item.
-    --resume, --checkpoint-every and --cache-dir are ported: the command
-    line takes each and the run writes its checkpoint or startup cache, or
-    resumes a chain from one."""
+    """Every option this test once saw refused is ported: the command line
+    takes --dtype float64 (a W=1 float64 chain, other bytes than the
+    float32 chain of the same seed; predict at float64 writes the
+    .mlma), --resume, --checkpoint-every and --cache-dir, and the run
+    writes its chain, checkpoint or startup cache, or resumes a chain from
+    one.  (--dtype float64 with an explicit --wave-size > 1 is refused:
+    tests/test_torch_float64.py.)"""
     out = str(tmp_path / "out")
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),
             "--group-index-file", sim_tiny.gri,
             "--group-mixture-file", sim_tiny.grm, "--iterations", "5",
             "--block-size", "8", "--out-dir", out, "--verbosity", "-1"]
-    flags = [str(tmp_path / f) if f == "cache" else f for f in flags]
-    if "float64" in flags:
-        with pytest.raises(SliceNotCovered, match="ROADMAP"):
-            cli.main(argv + flags, device="cpu")
+    flags = [str(tmp_path / f) if f == "cache"
+             else sim_tiny.bim if f.endswith(".bim") else f for f in flags]
+    if flags[0] == "--predict":
+        assert cli.main(argv + ["--dtype", "float64"], device="cpu") == 0
+        assert cli.main(argv + flags, device="cpu") == 0
+        with open(os.path.join(out, "test1.mlma")) as fh:
+            lines = fh.read().splitlines()
+        assert len(lines) == sim_tiny.m
+        assert [int(ln.split()[1]) for ln in lines] == list(range(sim_tiny.m))
         return
     if flags == ["--resume"]:
         assert cli.main(argv + ["--iterations", "3", "--checkpoint-every",
@@ -134,6 +142,13 @@ def test_cli_refuses_uncovered_options(sim_tiny, tmp_path, flags):
     assert list(its) == [1, 2, 3, 4, 5]
     if flags[0] == "--cache-dir":
         assert [f[:8] for f in os.listdir(flags[1])] == ["startup_"]
+    elif flags[0] == "--dtype":
+        f32 = str(tmp_path / "f32")
+        argv[argv.index(out)] = f32
+        assert cli.main(argv, device="cpu") == 0
+        _, b64 = read_history(os.path.join(out, "test1.bet"), "f8")
+        _, b32 = read_history(os.path.join(f32, "test1.bet"), "f8")
+        assert np.isfinite(b64).all() and not np.array_equal(b64, b32)
     else:
         assert os.path.exists(os.path.join(out, "checkpoint.npz"))
 

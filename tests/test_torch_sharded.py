@@ -46,7 +46,7 @@ from gmrm_tpu.sampler import gibbs as jgibbs
 from gmrm_tpu.sampler.state import StaticInputs as JaxStatic
 from gmrm_tpu.sampler.state import pad_bed, pi_prior_from_cva
 from gmrm_tpu_torch import cli
-from gmrm_tpu_torch.config import Options, SliceNotCovered
+from gmrm_tpu_torch.config import Options
 from gmrm_tpu_torch.ops.sweep_kernel import (
     block_sweep, build_sweep_tables, sweep_blocks,
 )
@@ -709,17 +709,21 @@ def test_two_processes_four_shards_match_one_process(mp_sim, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--resume"], ["--checkpoint-every", "5"], ["--cache-dir", "cache"],
-    # Predict is ported; float64 is not, in predict mode either.
+    # Predict and float64 are ported: predict at float64 on the .bet files
+    # of a sharded float64 run.
     ["--predict", "--bim-file", "x.bim", "--ref-bim-file", "y.bim",
      "--dtype", "float64"],
     ["--dtype", "float64"],
 ], ids=lambda f: f[0])
 def test_cli_sharded_refusals_name_the_roadmap_item(sim_tiny, tmp_path,
                                                     flags):
-    """--dtype float64 on a sharded run is refused, naming the ROADMAP
-    item.  --resume, --checkpoint-every and --cache-dir are ported: with
-    --devices 4 the run writes its v2 checkpoint or one startup entry per
-    shard, or resumes a chain from its checkpoint."""
+    """Every option this test once saw refused on a sharded run is ported:
+    with --devices 4, --dtype float64 trains the sharded W=1 float64
+    chain (other bytes than the float32 one of the same seed) and predicts
+    from it; --resume, --checkpoint-every and --cache-dir write the v2
+    checkpoint or one startup entry per shard, or resume a chain from its
+    checkpoint.  (--dtype float64 with an explicit --wave-size > 1 is
+    refused, naming the ROADMAP item: tests/test_torch_float64.py.)"""
     out = str(tmp_path / "out")
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),
@@ -727,10 +731,15 @@ def test_cli_sharded_refusals_name_the_roadmap_item(sim_tiny, tmp_path,
             "--group-mixture-file", sim_tiny.grm, "--devices", "4",
             "--iterations", "5", "--block-size", "8", "--out-dir", out,
             "--verbosity", "-1"]
-    flags = [str(tmp_path / f) if f == "cache" else f for f in flags]
-    if "float64" in flags:
-        with pytest.raises(SliceNotCovered, match="sharded run.*ROADMAP"):
-            cli.main(argv + flags, device="cpu")
+    flags = [str(tmp_path / f) if f == "cache"
+             else sim_tiny.bim if f.endswith(".bim") else f for f in flags]
+    if flags[0] == "--predict":
+        assert cli.main(argv + ["--dtype", "float64"], device="cpu") == 0
+        assert cli.main(argv + flags, device="cpu") == 0
+        with open(os.path.join(out, "test1.mlma")) as fh:
+            lines = fh.read().splitlines()
+        assert len(lines) == sim_tiny.m
+        assert [int(ln.split()[1]) for ln in lines] == list(range(sim_tiny.m))
         return
     if flags == ["--resume"]:
         assert cli.main(argv + ["--iterations", "3", "--checkpoint-every",
@@ -740,6 +749,13 @@ def test_cli_sharded_refusals_name_the_roadmap_item(sim_tiny, tmp_path,
     assert list(its) == [1, 2, 3, 4, 5]
     if flags[0] == "--cache-dir":
         assert len(os.listdir(flags[1])) == 4
+    elif flags[0] == "--dtype":
+        f32 = str(tmp_path / "f32")
+        argv[argv.index(out)] = f32
+        assert cli.main(argv, device="cpu") == 0
+        _, b64 = read_history(os.path.join(out, "test1.bet"), "f8")
+        _, b32 = read_history(os.path.join(f32, "test1.bet"), "f8")
+        assert np.isfinite(b64).all() and not np.array_equal(b64, b32)
     else:
         with np.load(os.path.join(out, "checkpoint.npz")) as z:
             assert z["starts"].shape == (4, 2)

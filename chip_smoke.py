@@ -116,12 +116,16 @@ Phases, each of which must pass (any failure exits non-zero):
    time of each run_predict call split into read, upload, sums, OLS and
    write;
 7. float64 (``--dtype float64``: the exact serial W=1 path on kernels A-D,
-   csrc/block_gram.cu's float64 scaling, csrc/passes_f64.cu,
-   csrc/serial_scan_f64.cu, csrc/predict_sums.cu's float64 kernel): each
-   against its float64 plain version at the anchor's shapes (A bit-equal;
-   B, C within 1e-10 of the largest magnitude, C's comp exact; D's xtx
-   bit-equal, xty within 1e-11 sum|val*y| + 1e-12), timed by graph replay
-   beside float64 torch.matmul / torch.mv yardsticks; one float64 sweep on
+   csrc/block_gram.cu's float64 scaling, the column-slice passes of
+   csrc/block_passes.cuh at double (the c-dot, the update and the fused
+   update + next c-dot), csrc/serial_scan_f64.cu, csrc/predict_sums.cu's
+   float64 kernel): each against its float64 plain version at the anchor's
+   shapes (A bit-equal; B, C within 1e-10 of the largest magnitude, C's
+   comp exact; D's xtx bit-equal, xty within 1e-11 sum|val*y| + 1e-12),
+   timed by graph replay beside float64 torch.matmul / torch.mv
+   yardsticks; B's three launches also twice (bit-equal), through
+   BlockPasses (bit-equal to the one-block wrappers), with one stamped
+   launch each and again at mb_pad=25,088; one float64 sweep on
    the small panel against the plain float64 sweep on the host CPU;
    run_training at the anchor (W=1, 10 iterations) twice from one seed,
    byte-equal, with no float32 kernel launched, a profiler window over 5
@@ -152,6 +156,9 @@ TREE]`` runs phase 4d (2 and 4 shards) and the sharded profiler windows
 sharded sweep, and kernel 9's device time per block step of 1, 2 and 4
 shards on phase 2's wide panels (a tree of the earlier design launches
 once per shard); with ``--training-only`` in the same process.
+``--f64-only REPS [--repo TREE]`` times kernel B's launches alone at the
+anchor (NT=1, NT=4) beside their float64 torch.matmul yardsticks and runs
+phase 7c's float64 W=1 training and a float64 profiler window, REPS times.
 ``--same-bytes TREE`` runs phase 4's and 4b's float32 chains in TREE and
 in this tree (TREE, this, this, TREE; a process each) and requires equal
 ``.bet/.cpn/.csv`` bytes, and equal bytes from the float32 block Gram and
@@ -206,9 +213,12 @@ EARLIER_GRAM_CACHE_MS = (10.12, 38.49)
 EARLIER_WAVE_SCAN_MS = (0.0267,)
 
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, at 700 W): device
-# memory bytes/s, float32 outside the tensor cores, int8 tensor cores,
-# float64 outside the tensor cores (the float64 kernels use none).
-HBM_BPS, F32_OPS, INT8_OPS, F64_OPS = 3.35e12, 67e12, 1979e12, 33.5e12
+# memory bytes/s, float32 outside the tensor cores, int8 tensor cores, and
+# float64 at the card's peak, through its FP64 tensor cores (IEEE double,
+# as cuBLAS runs the float64 yardsticks; 34 TFLOP/s outside them): the
+# products a float64 kernel does could run there, so its bound counts them
+# at that rate whether or not it uses them.
+HBM_BPS, F32_OPS, INT8_OPS, F64_OPS = 3.35e12, 67e12, 1979e12, 67e12
 ITERS_F64 = 10          # the float64 anchor run (phase 7)
 
 
@@ -238,16 +248,20 @@ def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
-def f64_counts(nblocks, nt, sweeps=1, shards=1):
+def f64_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
     """Launches of ``sweeps`` float64 W=1 sweeps of ``shards`` shards of
-    ``nblocks`` blocks: kernel C once per block, kernel B's c-dot and
-    update once per block each (there is no fused float64 pass), kernel A
-    once per run of blocks under the Gram byte budget (8-byte entries)."""
+    ``nblocks`` blocks: kernel C once per block, kernel A once per run of
+    blocks under the Gram byte budget (8-byte entries); kernel B on one
+    device (``fused``) as the c-dot of the first block, the fused pass for
+    each block but the last and the update of the last, on a sharded run
+    the c-dot and the update once per block each."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
     runs = -(-nblocks // gram_run_blocks(T, B, nt, nblocks, 8))
-    per_sweep = {"block_gram_f64": runs, "block_cdot_f64": nblocks,
-                 "eps_update_f64": nblocks, "serial_scan_f64": nblocks}
-    return {k: v * sweeps * shards for k, v in per_sweep.items()}
+    per_sweep = ({"block_cdot_f64": 1, "update_cdot_f64": nblocks - 1,
+                  "eps_update_f64": 1} if fused else
+                 {"block_cdot_f64": nblocks, "eps_update_f64": nblocks})
+    per_sweep.update(block_gram_f64=runs, serial_scan_f64=nblocks)
+    return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
 def composed_counts(nblocks, sweeps=1):
@@ -383,13 +397,19 @@ def passes_one_block(bk, bed, rows, rows2, eps, mave, msig, mave2, msig2, d,
 
 
 def passes_sweep_arrays(bk, passes, bed, rows_all, mave_p, msig_p, na, eps,
-                        d_all, errs):
-    """Phase 2: kernels 2 and 4 and the fused pass through ``BlockPasses``
-    (the sweep's whole arrays and a block index) at a middle block and the
-    last one, against the plain versions on those blocks' slices; the fused
-    pass updates with the block before and dots the block.  Each launched
-    twice, bit-equal.  Returns the largest errors so far."""
+                        d_all, errs, f64=False):
+    """Phase 2 (and 7a with ``f64``): kernels 2 and 4 and the fused pass
+    (kernel B's three at float64) through ``BlockPasses`` (the sweep's whole
+    arrays and a block index) at a middle block and the last one, against
+    the plain versions on those blocks' slices (``close64`` at float64); the
+    fused pass updates with the block before and dots the block.  Each
+    launched twice, bit-equal.  Returns the largest errors so far."""
     import torch
+    sfx = "_f64" if f64 else ""
+
+    def held(name, got, want):
+        return (close64(name, got, want) if f64
+                else close(name, got, want, 1e-5, 1e-5))
     errs = dict(errs)
     eps = eps * na
     nb = rows_all.shape[0]
@@ -399,81 +419,99 @@ def passes_sweep_arrays(bk, passes, bed, rows_all, mave_p, msig_p, na, eps,
         def cdot():
             passes.cdot(b, eps)
             return (passes.c[b].clone(),)
-        got = bit_equal_twice(f"block_cdot ({where})", cdot)[0]
+        got = bit_equal_twice(f"block_cdot{sfx} ({where})", cdot)[0]
         want = bk.block_cdot_plain(bed, rows_all[b], eps, mave_p[b],
                                    msig_p[b])
-        errs["block_cdot"] = max(errs["block_cdot"], close(
-            f"block_cdot ({where})", got, want, 1e-5, 1e-5))
+        errs["block_cdot"] = max(errs["block_cdot"], held(
+            f"block_cdot{sfx} ({where})", got, want))
 
         def update():
             e = torch.zeros_like(eps)
             passes.update_(b, d_all, e)
             return (e,)
-        got = bit_equal_twice(f"eps_update ({where})", update)[0]
+        got = bit_equal_twice(f"eps_update{sfx} ({where})", update)[0]
         want = bk.block_eps_update_plain_(bed, rows_all[b], d_all[b],
                                           mave_p[b], na,
                                           torch.zeros_like(eps))
-        errs["eps_update"] = max(errs["eps_update"], close(
-            f"eps_update ({where})", got, want, 1e-5, 1e-5))
+        errs["eps_update"] = max(errs["eps_update"], held(
+            f"eps_update{sfx} ({where})", got, want))
         if not got.abs().sum() > 0:
-            fail(f"eps_update ({where}) is zero")
+            fail(f"eps_update{sfx} ({where}) is zero")
         for start, what in ((torch.zeros_like(eps), "zero"), (eps, "random")):
             def fused():
                 e = start.clone()
                 passes.update_cdot_(b - 1, d_all, e)
                 return e, passes.c[b].clone()
-            got = bit_equal_twice(f"update_cdot ({where})", fused)
+            got = bit_equal_twice(f"update_cdot{sfx} ({where})", fused)
             e = start.clone()
             want = (e, bk.block_update_cdot_plain_(
                 bed, rows_all[b - 1], d_all[b - 1], mave_p[b - 1], na, e,
                 rows_all[b], mave_p[b], msig_p[b]))
             for part, g, w in zip(("eps", "c"), got, want):
-                errs["update_cdot"] = max(errs["update_cdot"], close(
-                    f"update_cdot ({where}, {what} residual) {part}", g, w,
-                    1e-5, 1e-5))
+                errs["update_cdot"] = max(errs["update_cdot"], held(
+                    f"update_cdot{sfx} ({where}, {what} residual) {part}",
+                    g, w))
     return errs
 
 
-def passes_big(bk, dev, gen):
-    """Phase 2: kernels 2 and 4 and the fused pass at the large-N panel's
-    width (mb = 25,088) on a bed of 32 blocks with a per-trait mask:
-    checked as ``passes_sweep_arrays`` does, then timed at a middle block
-    by CUDA-graph replay beside their bounds."""
+def passes_big(bk, dev, gen, dtype=None):
+    """Phase 2 (and 7a at float64): kernels 2 and 4 and the fused pass at
+    the large-N panel's width (mb = 25,088) on a bed of 32 blocks with a
+    per-trait mask: checked as ``passes_sweep_arrays`` does, then timed at
+    a middle block by CUDA-graph replay beside their bounds and a
+    torch.matmul yardstick on pre-decoded operands (the c-dot (T, 4mb) @
+    (4mb, 2B), the update (T, 2B) @ (2B, 4mb), the fused pass both)."""
     import torch
+    from gmrm_tpu_torch.ops.decode import decode_planes
+    dtype = dtype or torch.float32
+    f64 = dtype == torch.float64
     nb, mb = MT_BIG // B, N_BIG // 4 + 88        # 32 blocks, mb_pad 25,088
     bed = torch.randint(0, 256, (nb * B, mb), generator=gen, device=dev,
                         dtype=torch.uint8)
     bed[:, mb - 88:] = 0x55
-    na = torch.ones((T, 4, mb), device=dev)
+    na = torch.ones((T, 4, mb), device=dev, dtype=dtype)
     na[:, :, mb - 88:] = 0
-    na = na * (torch.rand((T, 4, mb), generator=gen, device=dev) > 0.03)
+    na = na * (torch.rand((T, 4, mb), generator=gen, device=dev,
+                          dtype=dtype) > 0.03)
     rows_all = torch.randperm(nb * B, generator=gen, device=dev).to(
         torch.int32).reshape(nb, B).contiguous()
-    mave_p = torch.rand((nb, T, B), generator=gen, device=dev) * 1.6 + 0.2
-    msig_p = torch.rand((nb, T, B), generator=gen, device=dev) * 1.5 + 0.5
-    d_all = torch.randn((nb, T, B), generator=gen, device=dev) * 0.01
-    eps = torch.randn((T, 4, mb), generator=gen, device=dev) * na
+    mave_p = torch.rand((nb, T, B), generator=gen, device=dev,
+                        dtype=dtype) * 1.6 + 0.2
+    msig_p = torch.rand((nb, T, B), generator=gen, device=dev,
+                        dtype=dtype) * 1.5 + 0.5
+    d_all = torch.randn((nb, T, B), generator=gen, device=dev,
+                        dtype=dtype) * 0.01
+    eps = torch.randn((T, 4, mb), generator=gen, device=dev,
+                      dtype=dtype) * na
     passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
     res = {"errs": passes_sweep_arrays(
         bk, passes, bed, rows_all, mave_p, msig_p, na, eps, d_all,
-        dict.fromkeys(PASSES, 0.0))}
+        dict.fromkeys(PASSES, 0.0), f64)}
     b, e1 = nb // 2, eps.clone()
-    f4 = 4
-    plane, tb, blk = T * 4 * mb * f4, T * B * f4, B * mb + B * f4
+    es = 8 if f64 else 4
+    plane, tb, blk = T * 4 * mb * es, T * B * es, B * mb + B * 4
     ops = 4 * T * B * 4 * mb
-    plan = bk.pass_plan(T, B, mb)
-    for name, fn, nbytes, flops in (
+    plan = bk.pass_plan(T, B, mb, es)
+    pa, pb = decode_planes(bed[rows_all[b].long()], dtype)
+    ab = torch.cat([pa, pb]).reshape(2 * B, -1)
+    del pa, pb
+    e2 = eps.reshape(T, -1)
+    dd = torch.cat([d_all[b], mave_p[b] * d_all[b]], dim=1)
+    for name, fn, nbytes, flops, lib in (
             ("block_cdot", lambda: passes.cdot(b, eps), blk + plane + 3 * tb,
-             ops),
+             ops, lambda: e2 @ ab.T),
             ("eps_update", lambda: passes.update_(b, d_all, e1),
-             blk + 3 * plane + 2 * tb, ops),
+             blk + 3 * plane + 2 * tb, ops, lambda: dd @ ab),
             ("update_cdot", lambda: passes.update_cdot_(b, d_all, e1),
-             2 * blk + 3 * plane + 5 * tb, 2 * ops)):
+             2 * blk + 3 * plane + 5 * tb, 2 * ops,
+             lambda: (dd @ ab, e2 @ ab.T))):
         ms = cuda_ms(fn, 100)
-        bound = bound_of(nbytes, (flops, F32_OPS))
+        bound = bound_of(nbytes, (flops, F64_OPS if f64 else F32_OPS))
         res[name] = (f"{ms:.4f} ms (NT={T}), bound {bound[0]:.5f} ms by "
-                     f"{bound[1]}, {plan.grid} CTAs x {plan.S} byte columns, "
-                     f"{plan.groups} groups")
+                     f"{bound[1]}, torch.matmul yardstick "
+                     f"{cuda_ms(lib, 100):.4f} ms, {plan.grid} CTAs x "
+                     f"{plan.S} byte columns, {plan.groups} groups")
+    del ab
     if not torch.isfinite(e1).all():
         fail("the timed updates at mb=25,088 left a non-finite residual")
     return res
@@ -1875,7 +1913,7 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32"):
     else:
         nt = 1 if statics[0].shared_na else T
         sides = (("kernels", dev, None,
-                  f64_counts(nblocks, nt, shards=n_shards)
+                  f64_counts(nblocks, nt, shards=n_shards, fused=False)
                   if dtype == "float64" else
                   serial_counts(nblocks, nt, shards=n_shards,
                                 fused=False)),
@@ -1959,7 +1997,8 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     if opt.wave_size != (1 if f64 else W):
         fail(f"S={n_shards} training: the plan resolved to W={opt.wave_size}")
     nblocks = -(-(-(-MT // n_shards)) // B)     # ceil(ceil(MT / S) / B)
-    want = (f64_counts(nblocks, 1, iterations, n_shards) if f64 else
+    want = (f64_counts(nblocks, 1, iterations, n_shards, fused=False) if f64
+            else
             {"gram_cache": n_shards, "block_sweep": nblocks * iterations})
     for name, n in launches.items():
         if check_launches and n != want.get(name, 0):
@@ -2407,7 +2446,7 @@ def composed_phase(sim, dev, check_launches=True):
 
 
 def profile_phase(sim, dev, n_shards=0, wave=W, composed=False,
-                  dtype="float32"):
+                  dtype="float32", top_n=4):
     """Phase 5: torch.profiler over 5 iterations at the anchor after 2 of
     warm-up, on the single-device path of ``wave`` (the whole-sweep kernel,
     or the exact serial path at 1, also at ``dtype`` float64 for phase 7),
@@ -2415,7 +2454,7 @@ def profile_phase(sim, dev, n_shards=0, wave=W, composed=False,
     (eager gibbs_iteration with megakernel=False), or, with ``n_shards``, on
     the sharded path, as run_training runs it.  Returns the device-busy and
     wall milliseconds per iteration, host-issued launches (kernels and graph
-    replays) per iteration and the busiest device kernels."""
+    replays) per iteration and the ``top_n`` busiest device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gmrm_tpu_torch.parallel.distributed import Communicator
@@ -2478,7 +2517,7 @@ def profile_phase(sim, dev, n_shards=0, wave=W, composed=False,
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + device_us(e)
         count[e.name] = count.get(e.name, 0) + 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     # (name, device ms per iteration, launches per iteration)
     return (busy_us / 1e3 / n, wall * 1e3 / n, launches / n,
             [(k[:48], round(v / 1e3 / n, 3), count[k] / n) for k, v in top])
@@ -2703,6 +2742,56 @@ def training_only(dev, reps, card, repo):
                       f"[{card}]", flush=True)
 
 
+def f64_only(dev, reps, card, repo):
+    """``--f64-only REPS``: kernel B's launches alone at the anchor (the
+    c-dot, the update and the fused step of a middle block, NT=1 and NT=4,
+    each held against its float64 plain version first, ``f64_passes``)
+    beside their float64 torch.matmul yardsticks, then phase 7c's float64
+    W=1 run (10 iterations) and a profiler window over 5 float64 W=1
+    iterations, ``reps`` times, for comparing two trees inside one call (a
+    tree whose float64 fused step is two launches is timed as it runs).
+    The launch counts are checked only for this script's own tree."""
+    import torch
+    from gmrm_tpu_torch.ops import block_kernels as bk
+    own = os.path.abspath(repo) == REPO
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    bed, rows_all, mave_p, msig_p, na1, na4 = f64_anchor_operands(dev, gen)
+    nblocks = rows_all.shape[0]
+    d_all = (torch.randn((nblocks, T, B), generator=gen, device=dev,
+                         dtype=torch.float64) * 0.01).contiguous()
+    eps = torch.randn((T, 4, MB), generator=gen, device=dev,
+                      dtype=torch.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = anchor_dataset(os.path.join(tmp, "data"))
+        for rep in range(reps):
+            *_, times = f64_passes(bk, bed, rows_all, mave_p, msig_p, d_all,
+                                   eps, (na1, na4), (nblocks // 2,))
+            for nt, by in times.items():
+                print(f"# {repo}: kernel B {nt}, run {rep + 1} (ms, graph "
+                      f"replay: kernel / float64 torch.matmul): " + ", ".join(
+                          f"{name} {k:.5f} / {lib:.5f}"
+                          for name, (k, _, lib) in by.items())
+                      + f"  [{card}]", flush=True)
+            run_dir = os.path.join(tmp, f"run{rep}")
+            os.makedirs(run_dir)
+            _, launches, steady, _, _ = training_phase(
+                sim, dev, run_dir, 1, ITERS_F64, check_launches=own,
+                dtype="float64")
+            print(f"# {repo}: float64 training W=1, run {rep + 1}: "
+                  f"{steady * 1e3:.2f} ms/iteration over iterations "
+                  f"{THIN + 1}-{ITERS_F64}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }  [{card}]",
+                  flush=True)
+            busy, wall, calls, top = profile_phase(sim, dev, wave=1,
+                                                   dtype="float64", top_n=8)
+            print(f"# {repo}: profiler float64 W=1, run {rep + 1}: device "
+                  f"busy {busy:.3f} of {wall:.3f} ms/iteration, idle share "
+                  f"{1 - busy / wall:.3f}, {calls:.1f} launches per "
+                  f"iteration; busiest kernels (name, ms and launches per "
+                  f"iteration) {top}  [{card}]", flush=True)
+
+
 def close64(name, got, want):
     """Float64 kernels against their plain versions: within 1e-10 of
     max|want| (a sum of at most 4 mb float64 terms in another order)."""
@@ -2714,27 +2803,13 @@ def close64(name, got, want):
     return err
 
 
-def float64_kernel_phase(dev, gen, card):
-    """Phase 7a: kernels A, B and C against their float64 plain versions
-    on the card, at the anchor's shapes (T=4, B=128, K=4, mb_pad=2560,
-    157 blocks, the last with 96 pad slots), with the shared (NT=1) and a
-    per-trait (NT=4) NA mask, an adaV group; each launched twice on the
-    same inputs (bit-equal) and timed beside its plain version by graph
-    replay, with a float64 torch.matmul yardstick on pre-decoded operands
-    for A and B.  Kernel A's gs bit-equal (the same roundings as the plain
-    version); B's c and eps and C's betas and acum within 1e-10 of their
-    largest magnitude, C's comp exact, with |c| of order 30 and of order
-    1e3 (where some live steps must take the |dlogl| > 700 guard).
-    Returns {name: (max abs err, kernel ms, plain ms, library ms or None,
-    bound)}."""
+def f64_anchor_operands(dev, gen):
+    """The anchor's float64 pass operands on the card: a bed of 157 blocks
+    (the pad rows and the last 60 byte columns 0x55), the W=1 order (the
+    real markers shuffled, the pad rows last: the last block holds 96 pad
+    slots), mave and msig in that order (zero on pad slots), a shared
+    (NT=1) and a per-trait (NT=4) NA mask."""
     import torch
-    from gmrm_tpu_torch.ops import block_gram as bg
-    from gmrm_tpu_torch.ops import block_kernels as bk
-    from gmrm_tpu_torch.ops import scan_kernel as sk6
-    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
-    from gmrm_tpu_torch.ops import sweep_kernel as sk
-    from gmrm_tpu_torch.ops.decode import decode_planes
-
     f64 = torch.float64
     nblocks = -(-MT // B)
     m_pad = nblocks * B
@@ -2755,6 +2830,158 @@ def float64_kernel_phase(dev, gen, card):
                           dtype=f64) * 1.6 + 0.2) * real).contiguous()
     msig_p = ((torch.rand((nblocks, T, B), generator=gen, device=dev,
                           dtype=f64) * 1.5 + 0.5) * real).contiguous()
+    return bed, rows_all, mave_p, msig_p, na_shared, na_trait
+
+
+def f64_passes(bk, bed, rows_all, mave_p, msig_p, d_all, eps, masks,
+               blocks):
+    """Phase 7a and ``--f64-only``: kernel B's three launches (the c-dot,
+    the update and the fused pass) at float64 on the sweep's (nb, T, B)
+    arrays, for each NA mask of ``masks`` and each block of ``blocks``.
+    Through the one-block wrappers each is launched twice on the same
+    inputs (bit-equal) and held against its float64 plain version
+    (``close64``; the update from a zero residual, so the compared values
+    are the update itself; the fused pass updates ``eps`` with the block
+    before and dots the block), and the fused pass's c must be at least as
+    close to the plain c-dot of the residual it wrote as the c-dot alone
+    is; through ``BlockPasses`` (a block index) each is bit-equal to its
+    wrapper.  Then each is timed by graph replay at ``blocks[0]`` beside
+    its plain version and a float64 torch.matmul yardstick on pre-decoded
+    operands (the c-dot (T, 4mb) @ (4mb, 2B), the update (T, 2B) @ (2B,
+    4mb), the fused pass both).  Returns ({name: (max abs err, kernel ms,
+    plain ms, yardstick ms, bound)} at the first mask, {name: every mask's
+    times}, the last mask's ``BlockPasses``, {mask: {name: (kernel,
+    plain, yardstick ms)}})."""
+    import torch
+    from gmrm_tpu_torch.ops.decode import decode_planes
+    f64 = torch.float64
+    mb = bed.shape[1]
+    errs = dict.fromkeys(PASSES, 0.0)
+    times = {}
+    for na in masks:
+        nt = mask_name(na)
+        e = (eps * na).contiguous()
+        passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
+        for b in blocks:
+            where = f"{nt}, block {b}"
+            rows, mave, msig, d = rows_all[b], mave_p[b], msig_p[b], d_all[b]
+            prev = (rows_all[b - 1], d_all[b - 1], mave_p[b - 1])
+            c = bit_equal_twice(f"block_cdot_f64 ({where})", lambda: (
+                bk.block_cdot(bed, rows, e, mave, msig),))[0]
+            errs["block_cdot"] = max(errs["block_cdot"], close64(
+                f"block_cdot_f64 ({where})", c,
+                bk.block_cdot_plain(bed, rows, e, mave, msig)))
+
+            def upd():
+                t = torch.zeros_like(e)
+                bk.block_eps_update_(bed, rows, d, mave, na, t)
+                return (t,)
+            u = bit_equal_twice(f"eps_update_f64 ({where})", upd)[0]
+            errs["eps_update"] = max(errs["eps_update"], close64(
+                f"eps_update_f64 ({where})", u, bk.block_eps_update_plain_(
+                    bed, rows, d, mave, na, torch.zeros_like(e))))
+            if not u.abs().sum() > 0:
+                fail(f"eps_update_f64 ({where}) is zero")
+
+            def fused():
+                x = e.clone()
+                return x, bk.block_update_cdot_(bed, *prev, na, x, rows,
+                                                mave, msig)
+            fe, fc = bit_equal_twice(f"update_cdot_f64 ({where})", fused)
+            we = e.clone()
+            wc = bk.block_update_cdot_plain_(bed, *prev, na, we, rows, mave,
+                                             msig)
+            for part, g, w in (("eps", fe, we), ("c", fc, wc)):
+                errs["update_cdot"] = max(errs["update_cdot"], close64(
+                    f"update_cdot_f64 ({where}) {part}", g, w))
+            ref = bk.block_cdot_plain(bed, rows, fe, mave, msig)
+            alone = bk.block_cdot(bed, rows, fe, mave, msig)
+            if max_err(fc, ref) > max_err(alone, ref):
+                fail(f"update_cdot_f64 ({where}): c is further from the "
+                     f"plain c-dot ({max_err(fc, ref):.3e}) than the c-dot "
+                     f"alone ({max_err(alone, ref):.3e})")
+            passes.cdot(b, e)
+            same = torch.equal(passes.c[b], c)
+            t = torch.zeros_like(e)
+            passes.update_(b, d_all, t)
+            x = e.clone()
+            passes.update_cdot_(b - 1, d_all, x)
+            if not (same and torch.equal(t, u) and torch.equal(x, fe)
+                    and torch.equal(passes.c[b], fc)):
+                fail(f"BlockPasses at float64 ({where}): the sweep "
+                     f"interface and the one-block wrappers differ")
+        b = blocks[0]
+        target, x, x2 = torch.zeros_like(e), e.clone(), e.clone()
+        pa, pb = decode_planes(bed[rows_all[b].long()], f64)
+        ab = torch.cat([pa, pb]).reshape(2 * B, -1)
+        del pa, pb
+        e2 = e.reshape(T, -1)
+        dd = torch.cat([d_all[b], mave_p[b] * d_all[b]], dim=1)
+        plain = (bed, rows_all[b - 1], d_all[b - 1], mave_p[b - 1], na)
+        times[nt] = {
+            "block_cdot": (
+                cuda_ms(lambda: passes.cdot(b, e), 200),
+                cuda_ms(lambda: bk.block_cdot_plain(
+                    bed, rows_all[b], e, mave_p[b], msig_p[b]), 20),
+                cuda_ms(lambda: e2 @ ab.T, 200)),
+            "eps_update": (
+                cuda_ms(lambda: passes.update_(b, d_all, target), 200),
+                cuda_ms(lambda: bk.block_eps_update_plain_(
+                    bed, rows_all[b], d_all[b], mave_p[b], na, target), 20),
+                cuda_ms(lambda: dd @ ab, 200)),
+            "update_cdot": (
+                cuda_ms(lambda: passes.update_cdot_(b - 1, d_all, x), 200),
+                cuda_ms(lambda: bk.block_update_cdot_plain_(
+                    *plain, x2, rows_all[b], mave_p[b], msig_p[b]), 20),
+                cuda_ms(lambda: (dd @ ab, e2 @ ab.T), 200))}
+        del ab
+        if not (torch.isfinite(x).all() and torch.isfinite(target).all()):
+            fail("kernel B: the timed launches left a non-finite residual")
+    plane, tb = T * 4 * mb * 8, T * B * 8
+    blk = B * mb + B * 4
+    ops = 4 * T * B * 4 * mb
+    bounds = {"block_cdot": bound_of(blk + plane + 3 * tb, (ops, F64_OPS)),
+              "eps_update": bound_of(blk + 3 * plane + 2 * tb,
+                                     (ops, F64_OPS)),
+              "update_cdot": bound_of(2 * blk + 3 * plane + 5 * tb,
+                                      (2 * ops, F64_OPS))}
+    first = times[mask_name(masks[0])]
+    rows = {name + "_f64": (errs[name], *first[name], bounds[name])
+            for name in PASSES}
+    notes = {name + "_f64": "; ".join(
+        f"{nt}: kernel {t[name][0]:.5f}, torch.matmul {t[name][2]:.5f}"
+        for nt, t in times.items()) for name in PASSES}
+    return rows, notes, passes, times
+
+
+def float64_kernel_phase(dev, gen, card):
+    """Phase 7a: kernels A, B and C against their float64 plain versions
+    on the card, at the anchor's shapes (T=4, B=128, K=4, mb_pad=2560,
+    157 blocks, the last with 96 pad slots), with the shared (NT=1) and a
+    per-trait (NT=4) NA mask, an adaV group; each launched twice on the
+    same inputs (bit-equal) and timed beside its plain version by graph
+    replay, with a float64 torch.matmul yardstick on pre-decoded operands
+    for A and B.  Kernel A's gs bit-equal (the same roundings as the plain
+    version); B's c and eps and C's betas and acum within 1e-10 of their
+    largest magnitude, C's comp exact, with |c| of order 30 and of order
+    1e3 (where some live steps must take the |dlogl| > 700 guard).  Kernel
+    B is its three launches (``f64_passes``: the c-dot, the update and the
+    fused pass at a middle block and the last), one stamped launch of each
+    (``passes_stamp_split``) and the same at mb_pad=25,088
+    (``passes_big``).  Returns {name: (max abs err, kernel ms, plain ms,
+    library ms or None, bound)}."""
+    import torch
+    from gmrm_tpu_torch.ops import block_gram as bg
+    from gmrm_tpu_torch.ops import block_kernels as bk
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.ops.decode import decode_planes
+
+    f64 = torch.float64
+    nblocks = -(-MT // B)
+    bed, rows_all, mave_p, msig_p, na_shared, na_trait = f64_anchor_operands(
+        dev, gen)
     res = {}
     ms_of = {}
 
@@ -2793,67 +3020,30 @@ def float64_kernel_phase(dev, gen, card):
         f"NT={nt}: {k:.5f} per block in a run of {nb} (plain {p:.4f})"
         for (nb, k, p), nt in zip(a_ms, (1, T)))
 
-    # Kernel B: the c-dot and the update of one block through the one-block
-    # wrappers (the update from a zero residual: the compared values are
-    # the update itself), then through BlockPasses on the sweep's arrays
-    # and a block index, bit-equal to the wrappers, and timed there.
+    # Kernel B: the c-dot, the update and the fused pass, checked at a
+    # middle block and the last, timed at the middle one (f64_passes).
     bm = nblocks // 2
-    rows = rows_all[bm].contiguous()
-    eps = torch.randn((T, 4, MB), generator=gen, device=dev, dtype=f64)
     d_all = (torch.randn((nblocks, T, B), generator=gen, device=dev,
                          dtype=f64) * 0.01).contiguous()
-    err_c = err_u = 0.0
-    for na in (na_shared, na_trait):
-        e = (eps * na).contiguous()
-        mave, msig, d = mave_p[bm], msig_p[bm], d_all[bm]
-        where = f"{mask_name(na)}, one block"
-        c = bit_equal_twice(f"block_cdot_f64 ({where})", lambda: (
-            bk.block_cdot(bed, rows, e, mave, msig),))[0]
-        err_c = max(err_c, close64(f"block_cdot_f64 ({where})", c,
-                                   bk.block_cdot_plain(bed, rows, e, mave,
-                                                       msig)))
-
-        def upd():
-            t = torch.zeros_like(e)
-            bk.block_eps_update_(bed, rows, d, mave, na, t)
-            return (t,)
-        u = bit_equal_twice(f"eps_update_f64 ({where})", upd)[0]
-        want = bk.block_eps_update_plain_(bed, rows, d, mave, na,
-                                          torch.zeros_like(e))
-        err_u = max(err_u, close64(f"eps_update_f64 ({where})", u, want))
-        if not u.abs().sum() > 0:
-            fail(f"eps_update_f64 ({where}) is zero")
-        passes = bk.BlockPasses(bed, rows_all, mave_p, msig_p, na)
-        passes.cdot(bm, e)
-        target = torch.zeros_like(e)
-        passes.update_(bm, d_all, target)
-        if not (torch.equal(passes.c[bm], c) and torch.equal(target, u)):
-            fail(f"BlockPasses at float64 ({mask_name(na)}): the sweep "
-                 f"interface and the one-block wrappers differ")
-    e = (eps * na_shared).contiguous()
-    target = torch.zeros_like(e)
-    c_ms = cuda_ms(lambda: passes.cdot(bm, e), 200)
-    u_ms = cuda_ms(lambda: passes.update_(bm, d_all, target), 200)
-    c_plain = cuda_ms(lambda: bk.block_cdot_plain(
-        bed, rows, e, mave_p[bm], msig_p[bm]), 20)
-    u_plain = cuda_ms(lambda: bk.block_eps_update_plain_(
-        bed, rows, d_all[bm], mave_p[bm], na_shared, target), 20)
-    pa, pb = decode_planes(bed[rows.long()], f64)
-    ab = torch.cat([pa, pb]).reshape(2 * B, -1)
-    e2 = e.reshape(T, -1)
-    dd = torch.cat([d_all[bm], mave_p[bm] * d_all[bm]], dim=1)
-    lib_c = cuda_ms(lambda: e2 @ ab.T, 200)
-    lib_u = cuda_ms(lambda: dd @ ab, 200)
-    del pa, pb, ab
-    plane, tb = T * 4 * MB * 8, T * B * 8
-    blk = B * MB + B * 4
-    block_ops = 4 * T * B * 4 * MB
-    res["block_cdot_f64"] = (err_c, c_ms, c_plain, lib_c,
-                             bound_of(blk + plane + 3 * tb,
-                                      (block_ops, F64_OPS)))
-    res["eps_update_f64"] = (err_u, u_ms, u_plain, lib_u,
-                             bound_of(blk + 3 * plane + 2 * tb,
-                                      (block_ops, F64_OPS)))
+    eps = torch.randn((T, 4, MB), generator=gen, device=dev, dtype=f64)
+    b_rows, b_note, passes, _ = f64_passes(
+        bk, bed, rows_all, mave_p, msig_p, d_all, eps,
+        (na_shared, na_trait), (bm, nblocks - 1))
+    res.update(b_rows)
+    ms_of.update(b_note)
+    split = passes_stamp_split(bk, passes, bm, (eps * na_trait).contiguous(),
+                               d_all)
+    for name, parts in split.items():
+        ms_of[name + "_f64"] += (f"; stamps (NT={T}, us, mean/latest): "
+                                 f"{parts}")
+    wide = passes_big(bk, dev, gen, torch.float64)
+    for name in PASSES:
+        ms_of[name + "_f64"] += f"; at mb_pad={MB_BIG}: {wide[name]}"
+    err_w = wide["errs"]
+    for name in PASSES:
+        e, *rest = res[name + "_f64"]
+        res[name + "_f64"] = (max(e, err_w[name]), *rest)
+    tb = T * B * 8
 
     # Kernel C on the sweep's (157, ..., B) float64 arrays and a block
     # index: a middle block and the last (its 96 pad slots), twice
@@ -3034,7 +3224,7 @@ def float64_phase(sim, small, dev, tmp, card, gen):
     ref = os.path.join(tmp, "out_w1_f64")
     if not same_artifacts(sim, ref, ref + "_again"):
         fail("float64 training: two runs of one seed wrote other bytes")
-    prof = profile_phase(sim, dev, wave=1, dtype="float64")
+    prof = profile_phase(sim, dev, wave=1, dtype="float64", top_n=8)
 
     # (d) cut at 5 with a checkpoint at 3, resumed to the end.
     out = os.path.join(tmp, "resume_f64")
@@ -3127,23 +3317,31 @@ def float64_phase(sim, small, dev, tmp, card, gen):
 
 
 # Kernels A-D: source, the TPU kernel whose float64 side each is, and the
-# JAX package's float64 route that it replaces.
+# JAX package's float64 route that it replaces (kernel B's three launches
+# are the template of csrc/block_passes.cuh at double; the fused pass also
+# replaces pallas_kernels.py:275, F64_ALSO_REPLACES).
 F64_SOURCES = {
     "block_gram_f64": ("gmrm_tpu_torch/csrc/block_gram.cu",
                        "gmrm_tpu/ops/pallas_kernels.py:135",
                        "gmrm_tpu/ops/blockops.py:131"),
-    "block_cdot_f64": ("gmrm_tpu_torch/csrc/passes_f64.cu",
+    "block_cdot_f64": ("gmrm_tpu_torch/csrc/block_cdot.cu",
                        "gmrm_tpu/ops/pallas_kernels.py:275",
                        "gmrm_tpu/ops/blockops.py:131"),
-    "eps_update_f64": ("gmrm_tpu_torch/csrc/passes_f64.cu",
+    "eps_update_f64": ("gmrm_tpu_torch/csrc/eps_update.cu",
                        "gmrm_tpu/ops/pallas_kernels.py:352",
                        "gmrm_tpu/ops/blockops.py:141"),
+    "update_cdot_f64": ("gmrm_tpu_torch/csrc/update_cdot.cu",
+                        "gmrm_tpu/ops/pallas_kernels.py:352",
+                        "gmrm_tpu/ops/blockops.py:141"),
     "serial_scan_f64": ("gmrm_tpu_torch/csrc/serial_scan_f64.cu",
                         "gmrm_tpu/ops/scan_kernel.py:61",
                         "gmrm_tpu/sampler/scan.py:33"),
     "predict_sums_f64": ("gmrm_tpu_torch/csrc/predict_sums.cu",
                          "gmrm_tpu/predict.py:43", "gmrm_tpu/predict.py:43"),
 }
+
+
+F64_ALSO_REPLACES = {"update_cdot_f64": "gmrm_tpu/ops/pallas_kernels.py:275"}
 
 
 def main():
@@ -3154,6 +3352,7 @@ def main():
                         metavar="REPS")
     parser.add_argument("--sharded-only", type=int, default=0,
                         metavar="REPS")
+    parser.add_argument("--f64-only", type=int, default=0, metavar="REPS")
     parser.add_argument("--same-bytes", default="", metavar="TREE")
     parser.add_argument("--f32-chains", nargs=2, metavar=("SIM", "OUT"))
     parser.add_argument("--repo", default=REPO)
@@ -3180,14 +3379,16 @@ def main():
         return
     if args.same_bytes:
         same_bytes(args.same_bytes, card)
-        if not (args.training_only or args.sharded_only):
+        if not (args.training_only or args.sharded_only or args.f64_only):
             return
-    if args.training_only or args.sharded_only:
+    if args.training_only or args.sharded_only or args.f64_only:
         _build.library()
         if args.training_only:
             training_only(dev, args.training_only, card, args.repo)
         if args.sharded_only:
             sharded_only(dev, args.sharded_only, card, args.repo)
+        if args.f64_only:
+            f64_only(dev, args.f64_only, card, args.repo)
         return
     if args.sweep_only:
         _build.library()
@@ -3480,7 +3681,9 @@ def main():
                      "launches": f64_launches.get(name, 0),
                      "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
-                     "library_ms": lib})
+                     "library_ms": lib,
+                     **({"also_replaces": F64_ALSO_REPLACES[name]}
+                        if name in F64_ALSO_REPLACES else {})})
     print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

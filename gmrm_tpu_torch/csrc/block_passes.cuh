@@ -11,27 +11,39 @@
 // over a block's B marker rows rows[i] = blk*B + win[i] (processing order;
 // the bed is read in place, never permuted or copied).
 //
+// One template on the value type V: float for the float32 path, double for
+// a --dtype float64 run (kernel B, the float64 side of kernels 2 and 4; the
+// JAX package computes it with the XLA einsums of gmrm_tpu/ops/blockops.py:131
+// and :141).  Both instantiations run the same plan; at double the slices of
+// eps and na, the (d, mave*d) pairs, the reduction buffer and the scratch
+// partials are twice the bytes, a 16-byte copy moves 2 values instead of 4,
+// and a thread carries the traits MT_F64 at a time (the update's
+// acc[MT][4] of doubles in registers), in as many passes over its rows as
+// that takes.  The float instantiation carries all T at once, as before.
+//
 // Bound on the H100: latency at the shapes of the sweep.  A block moves B*mb
-// packed bytes (328 KB at the anchor) and one T x 4 x mb residual (164 KB);
-// its arithmetic is ~10 MFLOP.  Spread over the card that is well under a
-// microsecond, so what a launch costs is its round trips to memory and its
-// hand-offs.  So:
+// packed bytes (328 KB at the anchor) and one T x 4 x mb residual (164 KB
+// in float32, 328 KB in float64); its arithmetic is ~10 M multiply-adds
+// (0.31 us at 67 TFLOP/s: float32, or float64 on the FP64 tensor cores).
+// Spread over the card that is well under a microsecond, so what a launch
+// costs is its round trips to memory and its hand-offs.  So:
 //   - CTA s owns the byte columns [s*S, (s+1)*S) across all T traits and 4
 //     phase planes; S, a power of two from 16 to 256, is picked on the host
 //     (pass_plan in ops/block_kernels.py) so that the grid fills the 132
 //     SMs (160 CTAs of 16 columns at the anchor, mb = 2560; 392 of 64 at
-//     mb = 25,088);
+//     mb = 25,088) and the fused pass's shared memory fits;
 //   - once the block's row indices are in shared memory, everything else a
 //     CTA reads is issued at once as cp.async copies into shared memory:
 //     every bed row's slice in 32-bit words (16 individuals each), the
 //     slice of eps and na in 16-byte pieces.  Each bed byte is read from
-//     memory once and decoded in registers (decode.cuh's map, as floats);
+//     memory once and decoded in registers (decode.cuh's map, by selects,
+//     to exact 0, 1, 2 values);
 //   - the update: thread (column c, row part r) sums its rows' share for the
 //     4 planes and T traits of column c; the parts are summed in part order
 //     in shared memory and eps += na * deps is written once;
 //   - the c-dot: thread (row i, column part h) sums a_i.eps and b_i.eps over
 //     its columns; the parts are summed in order and each CTA writes its
-//     slice's centred partial sa - mave sb (T x B floats) to a scratch
+//     slice's centred partial sa - mave sb (T x B values) to a scratch
 //     buffer.  The partials go up a two-level tree in a fixed order, without
 //     float atomics, so c is a function of the inputs alone and a chain is
 //     reproducible from its seed: the last CTA of each group of GROUP slices
@@ -50,6 +62,7 @@
 namespace {
 
 constexpr int MAX_T = 8;
+constexpr int MT_F64 = 4;   // traits a float64 thread carries at once
 constexpr int THREADS = 256;
 constexpr int GROUP = 16;   // slices per group of the partials' tree
 constexpr int LINE = 32;    // 32-bit words per counter (its own 128 B line)
@@ -57,17 +70,18 @@ constexpr int MAX_R = THREADS / 16;  // row parts of the update at most
 constexpr int NST = 10;     // %globaltimer stamps per CTA
 enum { UPDATE = 1, CDOT = 2 };  // mode bits; UPDATE | CDOT is the fused pass
 
+template <typename V>
 struct PassArgs {
   const uint8_t* bed;   // (m_pad, mb)
   const int* rows_u;    // (B,) bed rows of the updated block
   const int* rows_c;    // (B,) bed rows of the dotted block
-  const float* d;       // (T, B) msig * dbeta of the updated block
-  const float* mave_u;  // (T, B) of the updated block
-  const float* mave_c;  // (T, B) of the dotted block
-  const float* msig_c;  // (T, B) of the dotted block
-  const float* na;      // (T, 4, mb)
-  float* eps;           // (T, 4, mb), updated in place by UPDATE
-  float* c;             // (T, B) of the dotted block
+  const V* d;           // (T, B) msig * dbeta of the updated block
+  const V* mave_u;      // (T, B) of the updated block
+  const V* mave_c;      // (T, B) of the dotted block
+  const V* msig_c;      // (T, B) of the dotted block
+  const V* na;          // (T, 4, mb)
+  V* eps;               // (T, 4, mb), updated in place by UPDATE
+  V* c;                 // (T, B) of the dotted block
   unsigned* scratch;    // counters, then the slices' and groups' partials
   unsigned long long* stamps;  // (grid, NST) or null
   int T, B, mb, S;
@@ -84,8 +98,9 @@ struct PassLayout {
   int P;   // column parts of the c-dot (threads per marker row)
 };
 
+// es: bytes of a value (4 float, 8 double).
 __host__ __device__ inline PassLayout pass_layout(int T, int B, int S,
-                                                  int mode) {
+                                                  int mode, int es) {
   PassLayout L;
   size_t off = 0;
   auto take = [&off](size_t bytes) {
@@ -94,8 +109,8 @@ __host__ __device__ inline PassLayout pass_layout(int T, int B, int S,
     return o;
   };
   const bool upd = mode & UPDATE, dot = mode & CDOT;
-  const size_t plane = (size_t)T * 4 * S * 4;  // the slice of eps or na
-  const size_t tb = (size_t)T * B * 4;
+  const size_t plane = (size_t)T * 4 * S * es;  // the slice of eps or na
+  const size_t tb = (size_t)T * B * es;
   L.SP = ((S / 4) % 2 == 0) ? S + 4 : S;
   L.R = S < THREADS ? THREADS / S : 1;
   L.P = B < THREADS ? THREADS / B : 1;
@@ -114,11 +129,48 @@ __host__ __device__ inline PassLayout pass_layout(int T, int B, int S,
 }
 
 // Scratch words: the top counter, one counter per group, the slices'
-// partials (nslices, T, B), the groups' partials (ngroups, T, B).
+// partials (nslices, T, B), the groups' partials (ngroups, T, B), values
+// of es bytes.
 __host__ __device__ inline size_t pass_scratch_words(int nslices, int T,
-                                                     int B) {
+                                                     int B, int es) {
   const int ngroups = (nslices + GROUP - 1) / GROUP;
-  return (size_t)(1 + ngroups) * LINE + (size_t)(nslices + ngroups) * T * B;
+  return (size_t)(1 + ngroups) * LINE +
+         (size_t)(nslices + ngroups) * T * B * (es / 4);
+}
+
+template <typename V> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+__device__ __forceinline__ float2 pair_of(float x, float y) {
+  return make_float2(x, y);
+}
+__device__ __forceinline__ double2 pair_of(double x, double y) {
+  return make_double2(x, y);
+}
+__device__ __forceinline__ float vfma(float x, float y, float z) {
+  return fmaf(x, y, z);
+}
+__device__ __forceinline__ double vfma(double x, double y, double z) {
+  return fma(x, y, z);
+}
+
+// Four consecutive values from shared memory (16-byte aligned).
+__device__ __forceinline__ void load4(const float* p, float& x, float& y,
+                                      float& z, float& w) {
+  const float4 e = *(const float4*)p;
+  x = e.x;
+  y = e.y;
+  z = e.z;
+  w = e.w;
+}
+__device__ __forceinline__ void load4(const double* p, double& x, double& y,
+                                      double& z, double& w) {
+  const double2 e0 = *(const double2*)p, e1 = *(const double2*)(p + 2);
+  x = e0.x;
+  y = e0.y;
+  z = e1.x;
+  w = e1.y;
 }
 
 __device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
@@ -152,34 +204,40 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The slice of a (T, 4, mb) operand into shared (T*4, S), zeros past mb.
-__device__ __forceinline__ void stage_planes(const PassArgs& a,
-                                             const float* src, float* dst,
+// A 16-byte copy moves E values; with mb % 4 == 0 a piece lies wholly
+// before mb or wholly past it.
+template <typename V>
+__device__ __forceinline__ void stage_planes(const PassArgs<V>& a,
+                                             const V* src, V* dst,
                                              int col0) {
+  constexpr int E = 16 / sizeof(V);
+  constexpr int ELOG = E == 4 ? 2 : 1;
   const int S = a.S, mb = a.mb, np = a.T * 4, sl = a.slog;
   if (a.vec) {
 #pragma unroll 1
-    for (int y = threadIdx.x; y < np << (sl - 2); y += THREADS) {
-      const int p = y >> (sl - 2), c = 4 * (y & ((S >> 2) - 1));
-      float* s = dst + p * S + c;
+    for (int y = threadIdx.x; y < np << (sl - ELOG); y += THREADS) {
+      const int p = y >> (sl - ELOG), c = E * (y & ((S >> ELOG) - 1));
+      V* s = dst + p * S + c;
       if (col0 + c < mb)
         cp_async16(s, src + (size_t)p * mb + col0 + c);
       else
-        *(float4*)s = make_float4(0.f, 0.f, 0.f, 0.f);
+        *(uint4*)s = make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
 #pragma unroll 1
     for (int y = threadIdx.x; y < np << sl; y += THREADS) {
       const int p = y >> sl, c = y & (S - 1);
-      dst[y] = col0 + c < mb ? src[(size_t)p * mb + col0 + c] : 0.f;
+      dst[y] = col0 + c < mb ? src[(size_t)p * mb + col0 + c] : V(0);
     }
   }
 }
 
 // Every row's slice of one block (row indices in shared srow) into shared
 // (B, SP) bytes; the pad byte 0x55 (a = b = 0) past mb.
-__device__ __forceinline__ void stage_bed(const PassArgs& a, const int* srow,
-                                          uint8_t* dst, int col0,
-                                          const PassLayout& L) {
+template <typename V>
+__device__ __forceinline__ void stage_bed(const PassArgs<V>& a,
+                                          const int* srow, uint8_t* dst,
+                                          int col0, const PassLayout& L) {
   const int S = a.S, mb = a.mb, B = a.B, sl = a.slog;
   if (a.vec) {
 #pragma unroll 1
@@ -209,12 +267,13 @@ __device__ __forceinline__ void stage_bed(const PassArgs& a, const int* srow,
 // for the one before.  The partials were written by other CTAs of this
 // launch and released to this one by the atomic that thread 0 acquired
 // before the barrier, which also invalidated this SM's L1.
-__device__ __forceinline__ float sum_in_order(const float* src, int n,
-                                              size_t stride) {
-  float s = 0.0f;
+template <typename V>
+__device__ __forceinline__ V sum_in_order(const V* src, int n,
+                                          size_t stride) {
+  V s = V(0);
 #pragma unroll 1
   for (int m0 = 0; m0 < n; m0 += GROUP) {
-    float v[GROUP];
+    V v[GROUP];
 #pragma unroll
     for (int m = 0; m < GROUP; ++m)
       v[m] = src[(size_t)min(m0 + m, n - 1) * stride];
@@ -225,30 +284,34 @@ __device__ __forceinline__ float sum_in_order(const float* src, int n,
   return s;
 }
 
-// decode.cuh's map with float results, by comparisons and selects: no
+// decode.cuh's map with V results, by comparisons and selects: no
 // int-to-float conversion, which issues at a quarter of the FMA rate.
-__device__ __forceinline__ void decode_f(uint32_t byte, int k, float& a,
-                                         float& b) {
+template <typename V>
+__device__ __forceinline__ void decode_f(uint32_t byte, int k, V& a, V& b) {
   const uint32_t c = (byte >> (2 * k)) & 3u;
-  b = c != 1u ? 1.0f : 0.0f;
-  a = c == 0u ? 2.0f : (c == 2u ? 1.0f : 0.0f);
+  b = c != 1u ? V(1) : V(0);
+  a = c == 0u ? V(2) : (c == 2u ? V(1) : V(0));
 }
 
-template <int MT, int MODE>
+// MT: traits a thread carries at once.  float: MT >= T, one pass; double:
+// MT = MT_F64, ceil(T / MT) passes over the thread's rows or columns.
+template <typename V, int MT, int MODE>
 __global__ void __launch_bounds__(THREADS) block_passes_kernel(
-    const PassArgs a) {
+    const PassArgs<V> a) {
   extern __shared__ __align__(16) unsigned char sm[];
   constexpr bool UPD = MODE & UPDATE, DOT = MODE & CDOT;
+  using V2 = typename Pair<V>::type;
   const int T = a.T, B = a.B, S = a.S, mb = a.mb;
-  const PassLayout L = pass_layout(T, B, S, MODE);
+  const PassLayout L = pass_layout(T, B, S, MODE, sizeof(V));
+  const int nch = sizeof(V) == 4 ? 1 : (T + MT - 1) / MT;
   const int tid = threadIdx.x;
   const int col0 = blockIdx.x * S;
   const int ncol = min(S, mb - col0);
   int* srow = (int*)(sm + L.row);
-  float* seps = (float*)(sm + L.eps);
-  float* sna = (float*)(sm + L.na);
-  float2* sdm = (float2*)(sm + L.d);   // (T, B) pairs (d, mave * d)
-  float* sred = (float*)(sm + L.red);
+  V* seps = (V*)(sm + L.eps);
+  V* sna = (V*)(sm + L.na);
+  V2* sdm = (V2*)(sm + L.d);   // (T, B) pairs (d, mave * d)
+  V* sred = (V*)(sm + L.red);
   auto stamp = [&](int e) {
     if (a.stamps != nullptr && tid == 0)
       a.stamps[(size_t)blockIdx.x * NST + e] = global_ns();
@@ -269,8 +332,8 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
   if (UPD) {
 #pragma unroll 1
     for (int x = tid; x < T * B; x += THREADS) {
-      const float dv = a.d[x];
-      sdm[x] = make_float2(dv, a.mave_u[x] * dv);
+      const V dv = a.d[x];
+      sdm[x] = pair_of(dv, a.mave_u[x] * dv);
     }
   }
   cp_async_wait_all();
@@ -286,49 +349,54 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
     for (int x = tid; x < S * R; x += THREADS) {
       const int c = x & (S - 1), r = x >> a.slog;
       const int i1 = min(B, (r + 1) * rw);
-      float acc[MT][4];
+#pragma unroll 1
+      for (int ch = 0; ch < nch; ++ch) {
+        const int t0 = ch * MT;
+        V acc[MT][4];
 #pragma unroll
-      for (int t = 0; t < MT; ++t)
+        for (int t = 0; t < MT; ++t)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[t][k] = 0.0f;
+          for (int k = 0; k < 4; ++k) acc[t][k] = V(0);
 #pragma unroll 2
-      for (int i = r * rw; i < i1; ++i) {
-        const uint32_t byte = sbed[(size_t)i * L.SP + c];
-        float af[4], bf[4];
+        for (int i = r * rw; i < i1; ++i) {
+          const uint32_t byte = sbed[(size_t)i * L.SP + c];
+          V af[4], bf[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) decode_f(byte, k, af[k], bf[k]);
+          for (int k = 0; k < 4; ++k) decode_f(byte, k, af[k], bf[k]);
 #pragma unroll
-        for (int t = 0; t < MT; ++t) {
-          if (t < T) {
-            const float2 dm = sdm[t * B + i];
-            const float dv = dm.x, mdv = dm.y;
+          for (int t = 0; t < MT; ++t) {
+            if (t0 + t < T) {
+              const V2 dm = sdm[(t0 + t) * B + i];
+              const V dv = dm.x, mdv = dm.y;
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
-              acc[t][k] = fmaf(-mdv, bf[k], fmaf(dv, af[k], acc[t][k]));
+              for (int k = 0; k < 4; ++k)
+                acc[t][k] = vfma(-mdv, bf[k], vfma(dv, af[k], acc[t][k]));
+            }
           }
         }
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+          if (t0 + t < T)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              sred[((size_t)r * T * 4 + (t0 + t) * 4 + k) * S + c] =
+                  acc[t][k];
       }
-#pragma unroll
-      for (int t = 0; t < MT; ++t)
-        if (t < T)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            sred[((size_t)r * T * 4 + t * 4 + k) * S + c] = acc[t][k];
     }
     __syncthreads();
     stamp(3);
     // The parts in part order; eps written once (and kept for the c-dot).
 #pragma unroll 1
     for (int y = tid; y < T * 4 * S; y += THREADS) {
-      float v[MAX_R];
+      V v[MAX_R];
 #pragma unroll
       for (int r = 0; r < MAX_R; ++r)
-        v[r] = r < R ? sred[(size_t)r * T * 4 * S + y] : 0.0f;
-      float s = v[0];
+        v[r] = r < R ? sred[(size_t)r * T * 4 * S + y] : V(0);
+      V s = v[0];
 #pragma unroll
       for (int r = 1; r < MAX_R; ++r)
         if (r < R) s += v[r];
-      const float e = seps[y] + sna[y] * s;
+      const V e = seps[y] + sna[y] * s;
       const int p = y >> a.slog, c = y & (S - 1);
       if (DOT) seps[y] = e;
       if (c < ncol) a.eps[(size_t)p * mb + col0 + c] = e;
@@ -349,37 +417,44 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
   for (int x = tid; x < B * P; x += THREADS) {
     const int i = x % B, h = x / B;
     const int c1 = min(S, (h + 1) * cw);
-    float sa[MT], sb[MT];
-#pragma unroll
-    for (int t = 0; t < MT; ++t) {
-      sa[t] = 0.0f;
-      sb[t] = 0.0f;
-    }
 #pragma unroll 1
-    for (int c = h * cw; c < c1; c += 4) {
-      const uint32_t word = *(const uint32_t*)(sbed + (size_t)i * L.SP + c);
+    for (int ch = 0; ch < nch; ++ch) {
+      const int t0 = ch * MT;
+      V sa[MT], sb[MT];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float af[4], bf[4];
+      for (int t = 0; t < MT; ++t) {
+        sa[t] = V(0);
+        sb[t] = V(0);
+      }
+#pragma unroll 1
+      for (int c = h * cw; c < c1; c += 4) {
+        const uint32_t word =
+            *(const uint32_t*)(sbed + (size_t)i * L.SP + c);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) decode_f(word >> (8 * q), k, af[q], bf[q]);
+        for (int k = 0; k < 4; ++k) {
+          V af[4], bf[4];
 #pragma unroll
-        for (int t = 0; t < MT; ++t) {
-          if (t < T) {
-            const float4 e = *(const float4*)(seps + (t * 4 + k) * S + c);
-            sa[t] = fmaf(af[3], e.w, fmaf(af[2], e.z, fmaf(af[1], e.y,
-                         fmaf(af[0], e.x, sa[t]))));
-            sb[t] = fmaf(bf[3], e.w, fmaf(bf[2], e.z, fmaf(bf[1], e.y,
-                         fmaf(bf[0], e.x, sb[t]))));
+          for (int q = 0; q < 4; ++q)
+            decode_f(word >> (8 * q), k, af[q], bf[q]);
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            if (t0 + t < T) {
+              V ex, ey, ez, ew;
+              load4(seps + ((t0 + t) * 4 + k) * S + c, ex, ey, ez, ew);
+              sa[t] = vfma(af[3], ew, vfma(af[2], ez, vfma(af[1], ey,
+                           vfma(af[0], ex, sa[t]))));
+              sb[t] = vfma(bf[3], ew, vfma(bf[2], ez, vfma(bf[1], ey,
+                           vfma(bf[0], ex, sb[t]))));
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int t = 0; t < MT; ++t) {
-      if (t < T) {
-        sred[((size_t)h * 2 * T + 2 * t) * B + i] = sa[t];
-        sred[((size_t)h * 2 * T + 2 * t + 1) * B + i] = sb[t];
+      for (int t = 0; t < MT; ++t) {
+        if (t0 + t < T) {
+          sred[((size_t)h * 2 * T + 2 * (t0 + t)) * B + i] = sa[t];
+          sred[((size_t)h * 2 * T + 2 * (t0 + t) + 1) * B + i] = sb[t];
+        }
       }
     }
   }
@@ -394,14 +469,14 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
   const int gsize = min(GROUP, nslices - g * GROUP);
   unsigned* top = a.scratch;
   unsigned* gcount = a.scratch + (size_t)(1 + g) * LINE;
-  float* part = (float*)(a.scratch + (size_t)(1 + ngroups) * LINE);
-  float* gpart = part + (size_t)nslices * TB;
+  V* part = (V*)(a.scratch + (size_t)(1 + ngroups) * LINE);
+  V* gpart = part + (size_t)nslices * TB;
   int& last = *(int*)(sm + L.flag);
-  float* mine = part + (size_t)blockIdx.x * TB;
+  V* mine = part + (size_t)blockIdx.x * TB;
 #pragma unroll 1
   for (int o = tid; o < TB; o += THREADS) {
     const int t = o / B, i = o % B;
-    float s_a = sred[(2 * t) * B + i], s_b = sred[(2 * t + 1) * B + i];
+    V s_a = sred[(2 * t) * B + i], s_b = sred[(2 * t + 1) * B + i];
 #pragma unroll 1
     for (int h = 1; h < P; ++h) {
       s_a += sred[((size_t)h * 2 * T + 2 * t) * B + i];
@@ -418,10 +493,10 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
   __syncthreads();
   stamp(6);
   if (!last) return;
-  const float* src = part + (size_t)g * GROUP * TB;
+  const V* src = part + (size_t)g * GROUP * TB;
 #pragma unroll 1
   for (int o = tid; o < TB; o += THREADS) {
-    const float s = sum_in_order(src + o, gsize, TB);
+    const V s = sum_in_order(src + o, gsize, TB);
     if (ngroups == 1)
       a.c[o] = a.msig_c[o] * s;
     else
@@ -446,8 +521,8 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
 
 // One launch on ceil(mb / S) CTAs.  Refuses T outside 1..MAX_T and an S that
 // is not a power of two of at least 16.
-template <int MODE>
-int launch_block_passes(PassArgs a, cudaStream_t stream) {
+template <typename V, int MODE>
+int launch_block_passes(PassArgs<V> a, cudaStream_t stream) {
   if (a.T < 1 || a.T > MAX_T || a.B < 1 || a.mb < 1 || a.S < 16 ||
       (a.S & (a.S - 1)) != 0)
     return (int)cudaErrorInvalidValue;
@@ -455,10 +530,13 @@ int launch_block_passes(PassArgs a, cudaStream_t stream) {
   while ((1 << a.slog) < a.S) ++a.slog;
   const uintptr_t al16 = (uintptr_t)a.eps | (uintptr_t)a.na;
   a.vec = a.mb % 4 == 0 && (uintptr_t)a.bed % 4 == 0 && al16 % 16 == 0;
-  const PassLayout L = pass_layout(a.T, a.B, a.S, MODE);
-  void (*kernel)(const PassArgs) = a.T <= 4
-                                       ? &block_passes_kernel<4, MODE>
-                                       : &block_passes_kernel<MAX_T, MODE>;
+  const PassLayout L = pass_layout(a.T, a.B, a.S, MODE, sizeof(V));
+  void (*kernel)(const PassArgs<V>);
+  if constexpr (sizeof(V) == 8)
+    kernel = &block_passes_kernel<V, MT_F64, MODE>;
+  else
+    kernel = a.T <= 4 ? &block_passes_kernel<V, 4, MODE>
+                      : &block_passes_kernel<V, MAX_T, MODE>;
   if (L.total > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -85,10 +85,11 @@ SIGNATURES = {
     # The float64 kernels of the exact serial path (A-D).
     # bed, rows, na (float32), mave, msig, raw, gs, nb, T, B, mb, nt, stream
     "gmrm_block_gram_f64": [_P] * 7 + [_I] * 5 + [_P],
-    # bed, rows, eps, mave, msig, c, T, B, mb, stream
-    "gmrm_block_cdot_f64": [_P] * 6 + [_I] * 3 + [_P],
-    # bed, rows, d, mave, na, target, T, B, mb, stream
-    "gmrm_eps_update_f64": [_P] * 6 + [_I] * 3 + [_P],
+    # Kernel B: the float64 entry points of kernels 2, 4 and the fused
+    # pass, with the float32 ones' arguments.
+    "gmrm_block_cdot_f64": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "gmrm_eps_update_f64": [_P] * 6 + [_I] * 4 + [_P, _P],
+    "gmrm_update_cdot_f64": [_P] * 11 + [_I] * 4 + [_P, _P],
     # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
     # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, b, bc, bg,
     # T, B, K, stream
@@ -104,8 +105,8 @@ _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "eps_update": 0, "block_gram": 0, "serial_scan": 0,
              "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0,
              "predict_sums": 0, "block_gram_f64": 0, "block_cdot_f64": 0,
-             "eps_update_f64": 0, "serial_scan_f64": 0,
-             "predict_sums_f64": 0}
+             "eps_update_f64": 0, "update_cdot_f64": 0,
+             "serial_scan_f64": 0, "predict_sums_f64": 0}
 
 
 def launch_counts() -> dict:

@@ -44,7 +44,7 @@ from gmrm_tpu_torch.ops.block_gram import (
     block_gram_scaled, blocks_gram_scaled, gram_run_blocks,
 )
 from gmrm_tpu_torch.ops.block_kernels import (
-    BlockPasses, block_cdot, block_eps_update_,
+    BlockPasses, block_cdot, block_eps_update_, block_update_cdot_,
 )
 from gmrm_tpu_torch.ops.decode import (
     decode_planes, from_phase_planes, to_phase_planes,
@@ -53,6 +53,7 @@ from gmrm_tpu_torch.ops.predict_sums import predict_sums
 from gmrm_tpu_torch.parallel.distributed import Communicator
 from gmrm_tpu_torch.parallel.runner import run_training_sharded
 from gmrm_tpu_torch.sampler import dists
+from gmrm_tpu_torch.sampler import gibbs as tgibbs
 from gmrm_tpu_torch.sampler.gibbs import (
     hyper_block, marker_sweep, marker_sweep_sharded,
 )
@@ -288,6 +289,100 @@ def test_gram_cdot_and_update_plain_match_jax_wide(nt):
     assert torch.equal(e2, want_e2)
     assert torch.equal(passes.c[1], block_cdot(_t(bed), _t(rows), want_e2,
                                                _t(mave), _t(msig)))
+
+
+@pytest.mark.parametrize("nt", [1, 3], ids=["shared_na", "per_trait_na"])
+def test_fused_plain_matches_jax_wide_over_two_blocks(nt):
+    """Kernel B's fused pass (block b's update, then block b + 1's c-dot
+    from the updated residual) through the one-block wrapper and through
+    BlockPasses on the CPU, against the JAX package's float64 route over
+    the same two consecutive blocks: ``block_eps_update(dtype=float64)``,
+    then ``_block_gram_wide``'s craw on the updated residual.  Tolerance:
+    rtol 1e-9 and 1e-11 of the largest magnitude (float64 sums of at most
+    4 mb terms in other orders, as RTOL says); the wrapper and BlockPasses
+    bit-equal."""
+    rng = np.random.default_rng(61 + nt)
+    T, B, mb = 3, 32, 300
+    bed, rows, na, eps, mave, msig = _block_case(rng, T, B, mb, nt)
+    rows_next = np.setdiff1d(np.arange(2 * B), rows).astype(np.int32)
+    rows_next = rng.permutation(rows_next).astype(np.int32)
+    mave_next = rng.uniform(0.2, 1.8, size=(T, B))
+    msig_next = rng.uniform(0.5, 2.0, size=(T, B))
+    d = rng.normal(size=(T, B)) * 0.1
+    with jax.enable_x64(True):
+        deps = block_eps_update(jnp.asarray(bed[rows]), jnp.asarray(d),
+                                jnp.asarray(na), jnp.asarray(mave),
+                                dtype=jnp.float64)
+        want_eps = jnp.asarray(eps) + deps
+        craw, _ = _block_gram_wide(jnp.asarray(bed[rows_next]), want_eps,
+                                   jnp.asarray(na), jnp.asarray(mave_next),
+                                   dtype=jnp.float64)
+        want_eps, craw = np.asarray(want_eps), np.asarray(craw)
+    want_c = msig_next * craw
+    got_eps = _t(eps.copy())
+    got_c = block_update_cdot_(_t(bed), _t(rows), _t(d), _t(mave), _t(na),
+                               got_eps, _t(rows_next), _t(mave_next),
+                               _t(msig_next))
+    assert got_c.dtype == got_eps.dtype == F64
+    np.testing.assert_allclose(got_eps.numpy(), want_eps, rtol=RTOL,
+                               atol=1e-11 * np.abs(want_eps).max())
+    np.testing.assert_allclose(got_c.numpy(), want_c, rtol=RTOL,
+                               atol=1e-11 * np.abs(want_c).max())
+    passes = BlockPasses(_t(bed), _t(np.stack([rows, rows_next])),
+                         _t(np.stack([mave, mave_next])),
+                         _t(np.stack([msig, msig_next])), _t(na))
+    e2 = _t(eps.copy())
+    passes.update_cdot_(0, _t(np.stack([d, d])), e2)
+    assert torch.equal(e2, got_eps) and torch.equal(passes.c[1], got_c)
+
+
+def test_f64_sweep_block_steps_follow_the_fused_cadence(setup64,
+                                                       monkeypatch):
+    """A float64 W=1 marker_sweep (4 blocks of 32) on one device: the c-dot
+    of block 0, then per block kernel B's fused step, the last block's
+    update alone, as the float32 sweep; eps, betas, comp, acum and cass
+    bit-equal to the three-call cadence (c-dot, scan, update per block;
+    forced by a target that is a new view of eps)."""
+    opt, data, static, state = setup64
+    blocks, u, z, eps, sigmae, betas, sigmag = _sweep_inputs(
+        data, static, state, 7)
+    tstate = state_from_numpy(_leaves(state), CPU)
+    tstatic = static_from_numpy(_leaves(static), CPU)
+    nb = blocks.shape[0]
+    calls, depth = [], [0]
+    for name in ("cdot", "update_", "update_cdot_"):
+        real = getattr(BlockPasses, name)
+
+        def spy(self, b, *rest, _real=real, _name=name):
+            if not depth[0]:
+                calls.append((_name, b))
+            depth[0] += 1
+            try:
+                return _real(self, b, *rest)
+            finally:
+                depth[0] -= 1
+        monkeypatch.setattr(BlockPasses, name, spy)
+
+    def sweep():
+        return marker_sweep(_t(eps.copy()), _t(betas), tstate.comp,
+                            tstate.acum, _t(sigmag), _t(sigmae),
+                            tstate.pi_est, tstatic, _t(blocks), _t(u), _t(z),
+                            wave=1)
+    got = sweep()
+    assert calls == ([("cdot", 0)]
+                     + [("update_cdot_", b) for b in range(nb - 1)]
+                     + [("update_", nb - 1)])
+    calls.clear()
+    step = tgibbs._ComposedSweep.step
+    monkeypatch.setattr(tgibbs._ComposedSweep, "step",
+                        lambda self, b, e, target:
+                        step(self, b, e, target.view_as(target)))
+    want = sweep()
+    assert calls == [(name, b) for b in range(nb)
+                     for name in ("cdot", "update_")]
+    assert got[0].dtype == F64 and (got[2] != 0).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("case", ["plain", "adav", "overflow", "k8"])

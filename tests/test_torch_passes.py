@@ -1,8 +1,10 @@
 """The per-block passes of the port's W=1 sweep (kernels 2 and 4, alone and
-fused into one launch) on the CPU: the fused pass's plain version against
-the JAX package's Pallas kernels, ``BlockPasses.update_cdot_`` against the
-two passes it fuses, the launch plan of the column-slice kernels, and one
-W=1 sweep through the fused cadence against the three-call cadence.
+fused into one launch; kernel B at float64) on the CPU: the fused pass's
+plain version against the JAX package's Pallas kernels,
+``BlockPasses.update_cdot_`` against the two passes it fuses (float32 and
+float64), the launch plan of the column-slice kernels at 4- and 8-byte
+values, the launches that each entry would make on the card, and one W=1
+sweep through the fused cadence against the three-call cadence.
 
 The JAX Pallas kernels run in interpret mode on the CPU, as the JAX
 package's own tests run them.  The CUDA kernels are checked against these
@@ -16,6 +18,7 @@ import torch
 
 import gmrm_tpu.ops.pallas_kernels as pk
 from gmrm_tpu_torch.ops import block_kernels as bk
+from gmrm_tpu_torch.ops.scan_kernel import F64_MAX_B
 from gmrm_tpu_torch.sampler import gibbs as tgibbs
 from gmrm_tpu_torch.sampler.gibbs import marker_sweep
 from test_torch_serial import _serial_sweep_args
@@ -27,9 +30,10 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def _passes_case(rng, T, B, nb, mb, shared_na):
+def _passes_case(rng, T, B, nb, mb, shared_na, dtype=np.float32):
     """A bed of nb blocks plus B unrelated rows, every block's rows in a
-    random processing order, and the operands of kernels 2 and 4."""
+    random processing order, and the operands of kernels 2 and 4 (float
+    operands in ``dtype``)."""
     bed = rng.integers(0, 256, size=((nb + 1) * B, mb), dtype=np.uint8)
     rows = (B + np.stack([b * B + rng.permutation(B) for b in range(nb)])
             ).astype(np.int32)
@@ -43,7 +47,7 @@ def _passes_case(rng, T, B, nb, mb, shared_na):
     msig = rng.uniform(0.5, 2.0, size=(nb, T, B)).astype(np.float32)
     d = (rng.normal(size=(nb, T, B)) * 0.05
          * (rng.uniform(size=(nb, T, B)) > 0.5)).astype(np.float32)
-    return bed, rows, na, eps, mave, msig, d
+    return (bed, rows, *(x.astype(dtype) for x in (na, eps, mave, msig, d)))
 
 
 # Tolerance as tests/test_torch_ops.py: the JAX kernels carry eps and d as
@@ -88,15 +92,18 @@ def test_update_cdot_plain_matches_pallas(mb, shared_na, monkeypatch):
     assert torch.equal(again, got_eps) and torch.equal(c2, got_c)
 
 
-@pytest.mark.parametrize("b", [0, 3, 6])
-def test_block_passes_update_cdot_is_update_then_cdot(b):
+@pytest.mark.parametrize("b,dtype", [
+    pytest.param(b, dtype, id=f"{b}{sfx}") for dtype, sfx in
+    ((np.float32, ""), (np.float64, "-float64")) for b in (0, 3, 6)])
+def test_block_passes_update_cdot_is_update_then_cdot(b, dtype):
     """BlockPasses.update_cdot_ on the CPU, for the first, a middle and the
     second-to-last of 8 blocks: bit-equal to update_ then cdot(b + 1), and
-    c written in slot b + 1 only."""
+    c written in slot b + 1 only; in float32 and in float64 (kernel B's
+    operands, c in float64)."""
     rng = np.random.default_rng(40 + b)
     T, B, nb, mb = 2, 16, 8, 96
     bed, rows, na, eps, mave, msig, d = _passes_case(rng, T, B, nb, mb,
-                                                     False)
+                                                     False, dtype)
     ops = (_t(bed), _t(rows), _t(mave), _t(msig), _t(na))
     fused, apart = bk.BlockPasses(*ops), bk.BlockPasses(*ops)
     for p in (fused, apart):
@@ -111,17 +118,20 @@ def test_block_passes_update_cdot_is_update_then_cdot(b):
     assert torch.isfinite(fused.c[b + 1]).all()
     others = [k for k in range(nb) if k != b + 1]
     assert torch.isnan(fused.c[others]).all()
+    assert fused.c.dtype == torch.from_numpy(eps).dtype
 
 
-def test_block_passes_fused_cadence():
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+def test_block_passes_fused_cadence(dtype):
     """c-dot of block 0, then per block the fused step, the last block's
     update alone: every c and the final residual bit-equal to the
-    three-call cadence (c-dot, update per block).  The last block has no
-    next block to dot."""
+    three-call cadence (c-dot, update per block), in float32 and in
+    float64.  The last block has no next block to dot."""
     rng = np.random.default_rng(77)
     T, B, nb, mb = 3, 8, 5, 64
     bed, rows, na, eps, mave, msig, d = _passes_case(rng, T, B, nb, mb,
-                                                     True)
+                                                     True, dtype)
     ops = (_t(bed), _t(rows), _t(mave), _t(msig), _t(na))
     fused, apart = bk.BlockPasses(*ops), bk.BlockPasses(*ops)
     e_fused, e_apart = _t(eps.copy()), _t(eps.copy())
@@ -140,45 +150,143 @@ def test_block_passes_fused_cadence():
 
 
 # (mb, S, grid): 16-byte slices until mb reaches 2 x SLICE_TARGET x 16
-# bytes; the anchor (mb 2560) and the large-N panel (25,088).
+# bytes; the anchor (mb 2560) and the large-N panel (25,088).  Kernel B
+# (8-byte values) takes the same slices at B=128; at the float64 path's
+# limits (T=8, B=F64_MAX_B) 64-byte slices do not fit at 25,088 and the
+# plan halves them.
 PLANS = [(64, 16, 4), (300, 16, 19), (2560, 16, 160), (25088, 64, 392)]
+PLAN_CASES = (
+    [pytest.param(T, 128, mb, S, grid, es, id=f"{mb}-{S}-{grid}-{T}{sfx}")
+     for es, sfx in ((4, ""), (8, "-float64"))
+     for mb, S, grid in PLANS for T in (1, 4, 8)]
+    + [pytest.param(8, F64_MAX_B, mb, S, grid, 8,
+                    id=f"{mb}-{S}-{grid}-8-B{F64_MAX_B}-float64")
+       for mb, S, grid in ((2560, 16, 160), (25088, 32, 784))])
+
+# The fused pass's layout at float64 at the anchor (T=4, B=128, S=16),
+# hand-summed (pass_layout's 16-byte pieces): row indices 2*128*4, two bed
+# slices of 128 rows x 20 bytes, the eps and na slices 4*4*16*8 each, the
+# (d, mave*d) pairs 2*4*128*8 and the update's 16 row parts of the eps
+# slice (larger than the c-dot's 2*2*4*128*8), and the flag.
+ANCHOR_F64_SMEM = 1024 + 2 * 2560 + 2 * 2048 + 8192 + 16 * 2048 + 16
 
 
-@pytest.mark.parametrize("T", [1, 4, 8])
-@pytest.mark.parametrize("mb,S,grid", PLANS)
-def test_pass_plan(mb, S, grid, T):
+@pytest.mark.parametrize("T,B,mb,S,grid,es", PLAN_CASES)
+def test_pass_plan(T, B, mb, S, grid, es):
     """The slice width, grid and scratch of the column-slice kernels at
-    B=128: enough slices to fill the card (at least SLICE_TARGET once mb
-    allows), 16-byte multiples, the fused pass within shared memory, and
-    the scratch of counters and partials that the kernel carves."""
-    B = 128
-    plan = bk.pass_plan(T, B, mb)
+    ``es``-byte values (4: kernels 2 and 4, 8: kernel B): enough slices to
+    fill the card (at least SLICE_TARGET once mb allows), 16-byte
+    multiples, the fused pass within shared memory, and the scratch of
+    counters and partials (of the value size) that the kernel carves."""
+    plan = bk.pass_plan(T, B, mb, es)
     assert (plan.S, plan.grid) == (S, grid)
     assert plan.S % 16 == 0 and plan.grid * plan.S >= mb
     assert (plan.grid - 1) * plan.S < mb
     groups = -(-grid // bk.GROUP)
     assert plan.groups == groups
-    assert plan.scratch_words == 32 * (1 + groups) + (grid + groups) * T * B
-    assert plan.smem == bk.pass_smem(T, B, S, bk.UPDATE | bk.CDOT)
+    assert plan.scratch_words == (32 * (1 + groups)
+                                  + es // 4 * (grid + groups) * T * B)
+    assert plan.smem == bk.pass_smem(T, B, S, bk.UPDATE | bk.CDOT, es)
     assert plan.smem <= bk.SMEM_BYTES
     for mode in (bk.UPDATE, bk.CDOT):
-        assert bk.pass_smem(T, B, S, mode) < plan.smem
+        assert bk.pass_smem(T, B, S, mode, es) < plan.smem
+    if es == 8:
+        assert plan.smem > bk.pass_smem(T, B, S, bk.UPDATE | bk.CDOT)
+    if (T, B, mb, es) == (4, 128, 2560, 8):
+        assert plan.smem == ANCHOR_F64_SMEM
+    if mb == 25088 and S < 64:     # halved from the 64 the width asks
+        assert bk.pass_smem(T, B, 64, bk.UPDATE | bk.CDOT, es) > \
+            bk.SMEM_BYTES
 
 
-def test_pass_plan_refusals():
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+def test_entries_launch_their_dtypes_kernels(dtype, monkeypatch):
+    """What each entry would launch on the card, with the launch recorded
+    instead of made (``_on_cpu`` patched to False): the float64 entries
+    launch kernel B's ``*_f64`` kernels, the float32 ones kernels 2, 4 and
+    the fused pass; every entry takes a stamp buffer (none raises for want
+    of stamps); BlockPasses passes each block's operands at the dtype's
+    strides (8 bytes a value at float64) and the plan's slice width, and
+    the one-block wrappers their own tensors and a scratch of the plan's
+    size."""
+    rng = np.random.default_rng(5)
+    T, B, nb, mb = 3, 16, 4, 96
+    bed, rows, na, eps, mave, msig, d = (
+        _t(x) for x in _passes_case(rng, T, B, nb, mb, False, dtype))
+    calls = []
+    monkeypatch.setattr(bk, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(bk._build, "launch",
+                        lambda kernel, *args: calls.append((kernel, args)))
+    sfx = "_f64" if dtype == np.float64 else ""
+    es = np.dtype(dtype).itemsize
+    plan = bk.pass_plan(T, B, mb, es)
+    passes = bk.BlockPasses(bed, rows, mave, msig, na)
+    assert passes.plan == plan
+    stamps = torch.zeros((plan.grid, bk.NST), dtype=torch.int64)
+    target = torch.zeros_like(eps)
+    passes.cdot(1, eps, stamps)
+    passes.update_(1, d, target, stamps)
+    passes.update_cdot_(1, d, eps, stamps)
+    assert [k for k, _ in calls] == [f"block_cdot{sfx}", f"eps_update{sfx}",
+                                     f"update_cdot{sfx}"]
+    (_, cd), (_, up), (_, fu) = calls
+    assert all(args[-1] is stamps and args[-2] == plan.S
+               for _, args in calls)
+    ptr = torch.Tensor.data_ptr
+    assert cd[:6] == (bed.data_ptr(), ptr(rows[1]), eps.data_ptr(),
+                      ptr(mave[1]), ptr(msig[1]), ptr(passes.c[1]))
+    assert up[:6] == (bed.data_ptr(), ptr(rows[1]), ptr(d[1]), ptr(mave[1]),
+                      na.data_ptr(), target.data_ptr())
+    assert fu[:10] == (bed.data_ptr(), ptr(rows[1]), ptr(rows[2]), ptr(d[1]),
+                       ptr(mave[1]), ptr(mave[2]), ptr(msig[2]),
+                       na.data_ptr(), eps.data_ptr(), ptr(passes.c[2]))
+    assert cd[6] == fu[10] == passes.scratch.data_ptr()
+    assert passes.scratch.numel() == plan.scratch_words
+    assert cd[7:10] == up[6:9] == fu[11:14] == (T, B, mb)
+
+    calls.clear()
+    c = bk.block_cdot(bed, rows[0], eps, mave[0], msig[0])
+    bk.block_eps_update_(bed, rows[0], d[0], mave[0], na, target)
+    c2 = bk.block_update_cdot_(bed, rows[0], d[0], mave[0], na, eps,
+                               rows[1], mave[1], msig[1])
+    assert [k for k, _ in calls] == [f"block_cdot{sfx}", f"eps_update{sfx}",
+                                     f"update_cdot{sfx}"]
+    assert c.dtype == c2.dtype == eps.dtype
+    (_, cd), (_, up), (_, fu) = calls
+    assert cd[5] is c and fu[9] is c2 and up[5] is target
+    assert cd[6].numel() == fu[10].numel() == plan.scratch_words
+    assert all(args[-2:] == (plan.S, None) for _, args in calls)
+
+
+@pytest.mark.parametrize("es,big_B,wide_B,S_128", [
+    pytest.param(4, 4096, 1024, bk.SLICE_MAX, id="float32"),
+    pytest.param(8, 1024, F64_MAX_B, 128, id="float64")])
+def test_pass_plan_refusals(es, big_B, wide_B, S_128):
     """Above MAX_T traits, and a block whose 16-byte slices do not fit in
-    shared memory; a wide block narrows the slice before it is refused."""
+    shared memory (B=4096 at T=8; at 8-byte values already B=1024, which
+    float32 still takes), which _check_blocks refuses with the dtype named;
+    a wide block narrows the slice before it is refused, and every width
+    has a plan up to wide_B (the float64 path's limit at 8 bytes)."""
+    dtype = torch.float32 if es == 4 else torch.float64
     with pytest.raises(ValueError, match="MAX_T"):
-        bk.pass_plan(9, 128, 2560)
-    assert bk.pass_plan(8, 4096, 2560) is None
-    wide = bk.pass_plan(8, 1024, 200_000)
-    assert wide is not None and wide.S < bk.SLICE_MAX
-    assert bk.pass_plan(8, 128, 200_000).S == bk.SLICE_MAX
-    bed = torch.zeros((4096, 2560), dtype=torch.uint8)
-    mave = torch.zeros((8, 4096))
-    with pytest.raises(ValueError, match="shared memory"):
-        bk._check_blocks(bed, torch.zeros(4096, dtype=torch.int32), mave,
+        bk.pass_plan(9, 128, 2560, es)
+    assert bk.pass_plan(8, big_B, 2560, es) is None
+    assert bk.pass_plan(8, 1024, 2560) is not None
+    assert bk.pass_plan(8, wide_B, 200_000, es).S < bk.SLICE_MAX
+    assert bk.pass_plan(8, 128, 200_000, es).S == S_128
+    for mb in (64, 2560, 25088, 200_000):
+        assert bk.pass_plan(8, wide_B, mb, es) is not None
+    bed = torch.zeros((big_B, 2560), dtype=torch.uint8)
+    mave = torch.zeros((8, big_B), dtype=dtype)
+    with pytest.raises(ValueError,
+                       match=f"shared memory at {dtype} even at 16-byte"):
+        bk._check_blocks(bed, torch.zeros(big_B, dtype=torch.int32), mave,
                          None, None)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        bk._check_blocks(bed, torch.zeros(128, dtype=torch.int32),
+                         torch.zeros((4, 128), dtype=torch.float16), None,
+                         None)
 
 
 def test_w1_sweep_fused_cadence_bit_equal(sim_medium, monkeypatch):

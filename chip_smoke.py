@@ -118,14 +118,20 @@ Phases, each of which must pass (any failure exits non-zero):
 7. float64 (``--dtype float64``: the exact serial W=1 path on kernels A-D,
    csrc/block_gram.cu's float64 scaling, the column-slice passes of
    csrc/block_passes.cuh at double (the c-dot, the update and the fused
-   update + next c-dot), csrc/serial_scan_f64.cu, csrc/predict_sums.cu's
-   float64 kernel): each against its float64 plain version at the anchor's
-   shapes (A bit-equal; B, C within 1e-10 of the largest magnitude, C's
-   comp exact; D's xtx bit-equal, xty within 1e-11 sum|val*y| + 1e-12),
-   timed by graph replay beside float64 torch.matmul / torch.mv
-   yardsticks; B's three launches also twice (bit-equal), through
-   BlockPasses (bit-equal to the one-block wrappers), with one stamped
-   launch each and again at mb_pad=25,088; one float64 sweep on
+   update + next c-dot), csrc/serial_scan.cu at double,
+   csrc/predict_sums.cu's float64 kernel): each against its float64 plain
+   version at the anchor's shapes (A bit-equal; B, C within 1e-10 of the
+   largest magnitude, C's comp exact and d bit-equal; D's xtx bit-equal,
+   xty within 1e-11 sum|val*y| + 1e-12), timed by graph replay beside
+   float64 torch.matmul / torch.mv yardsticks; B's three launches also
+   twice (bit-equal), through BlockPasses (bit-equal to the one-block
+   wrappers), with one stamped launch each and again at mb_pad=25,088;
+   C twice (bit-equal) with per-trait Grams at the anchor and at shapes
+   that take other plans and more CTAs (F64_SCAN_SHAPES), its one-block
+   wrapper bit-equal to the sweep interface, one stamped launch, and its
+   written-out reciprocal and exponential bit-equal to the IEEE division
+   and the library's exp on 10^7 seeded x each and the edges
+   (math_gate); one float64 sweep on
    the small panel against the plain float64 sweep on the host CPU;
    run_training at the anchor (W=1, 10 iterations) twice from one seed,
    byte-equal, with no float32 kernel launched, a profiler window over 5
@@ -156,9 +162,11 @@ TREE]`` runs phase 4d (2 and 4 shards) and the sharded profiler windows
 sharded sweep, and kernel 9's device time per block step of 1, 2 and 4
 shards on phase 2's wide panels (a tree of the earlier design launches
 once per shard); with ``--training-only`` in the same process.
-``--f64-only REPS [--repo TREE]`` times kernel B's launches alone at the
-anchor (NT=1, NT=4) beside their float64 torch.matmul yardsticks and runs
-phase 7c's float64 W=1 training and a float64 profiler window, REPS times.
+``--f64-only REPS [--repo TREE]`` holds kernel C against its plain
+version (phase 7a's gate), then times kernel B's launches alone at the
+anchor (NT=1, NT=4) beside their float64 torch.matmul yardsticks, kernel
+C alone on a middle block (NT=1, NT=4, one stamped launch) and runs phase
+7c's float64 W=1 training and a float64 profiler window, REPS times.
 ``--same-bytes TREE`` runs phase 4's and 4b's float32 chains in TREE and
 in this tree (TREE, this, this, TREE; a process each) and requires equal
 ``.bet/.cpn/.csv`` bytes, and equal bytes from the float32 block Gram and
@@ -220,6 +228,12 @@ EARLIER_WAVE_SCAN_MS = (0.0267,)
 # at that rate whether or not it uses them.
 HBM_BPS, F32_OPS, INT8_OPS, F64_OPS = 3.35e12, 67e12, 1979e12, 67e12
 ITERS_F64 = 10          # the float64 anchor run (phase 7)
+# The phases of a stamped scan step that form its dependent chain (the
+# others wait for the helper warps and hand the result over).
+CHAIN_PHASES = ("L", "exp", "rcp", "comp", "dbeta")
+# Kernels 6 and C: their chain bound, ms a block (scan_stamp_split), for
+# the kernels line beside the bytes bound.
+CHAIN_BOUND_MS = {}
 
 
 def bound_of(nbytes, *ops_and_rates):
@@ -1078,6 +1092,9 @@ def kernel_phase(dev, gen):
         c_1n = c_1[None]
         timed("serial_scan", lambda: sweep.step(1, c_1n, gs_s, 1),
               lambda: sk6.serial_scan_plain(*plain_1), 200, 3)
+        if scale == 1.0:
+            split6 = scan_stamp_split(sweep, c_1n, gs_s, 1, bc=0)
+            CHAIN_BOUND_MS["serial_scan"] = split6["chain_ms"]
     for scale in (1.0, 40.0):
         sargs = (args[0] * scale,) + args[1:]
         got = sk6.serial_scan(*sargs)
@@ -1110,7 +1127,8 @@ def kernel_phase(dev, gen):
         "block's tensors likewise; shared memory plan (mode, rows per "
         f"group, groups) {sk6.scan_plan(T, B, K)}; "
         f"{times['serial_scan'][0][0] * 1e-3 * clk * 1e6 / B:.0f} cycles per "
-        f"step at the SM clock of {clk:.0f} MHz read after the run")
+        f"step at the SM clock of {clk:.0f} MHz read after the run; stamps "
+        f"(block 1, |base| ~30): {split6['text']}")
     # Of the Gram only the entries i > j are read, and updated with.
     bounds["serial_scan"] = bound_of(
         scan_bytes + 2 * tb + T * B * (B - 1) // 2 * f4,
@@ -2743,16 +2761,20 @@ def training_only(dev, reps, card, repo):
 
 
 def f64_only(dev, reps, card, repo):
-    """``--f64-only REPS``: kernel B's launches alone at the anchor (the
-    c-dot, the update and the fused step of a middle block, NT=1 and NT=4,
-    each held against its float64 plain version first, ``f64_passes``)
-    beside their float64 torch.matmul yardsticks, then phase 7c's float64
+    """``--f64-only REPS``: kernel C's gate (``scan_f64_gate``) once, then
+    kernel B's launches alone at the anchor (the c-dot, the update and the
+    fused step of a middle block, NT=1 and NT=4, each held against its
+    float64 plain version first, ``f64_passes``) beside their float64
+    torch.matmul yardsticks, kernel C alone on a middle block (NT=1, NT=4)
+    with one stamped launch (``scan_stamp_split``) and kernel 6 on the same
+    block's operands cast to float32, then phase 7c's float64
     W=1 run (10 iterations) and a profiler window over 5 float64 W=1
     iterations, ``reps`` times, for comparing two trees inside one call (a
     tree whose float64 fused step is two launches is timed as it runs).
     The launch counts are checked only for this script's own tree."""
     import torch
     from gmrm_tpu_torch.ops import block_kernels as bk
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
     own = os.path.abspath(repo) == REPO
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261017)
@@ -2762,6 +2784,18 @@ def f64_only(dev, reps, card, repo):
                          dtype=torch.float64) * 0.01).contiguous()
     eps = torch.randn((T, 4, MB), generator=gen, device=dev,
                       dtype=torch.float64)
+    err_c, note_c, (sweep, c_n, gs_n) = scan_f64_gate(dev, gen)
+    if own:
+        note_c += "; " + math_gate(dev, gen)
+    print(f"# {repo}: kernel C held against its plain version: max abs err "
+          f"{err_c:.3e}; {note_c}  [{card}]", flush=True)
+    # Kernel 6, C's float32 twin, on the same operands cast to float32.
+    f32 = [x.float() if x.is_floating_point() else x
+           for x in (sweep.nm1, *sweep.tables, *sweep.state, sweep.msig_p,
+                     sweep.i2se)]
+    sweep6 = sk6.SerialScanSweep(f32[0], *f32[1:4], *f32[4:11], f32[11],
+                                 f32[12])
+    c6, gs6 = c_n.float(), gs_n["NT=1"].float()
     with tempfile.TemporaryDirectory() as tmp:
         sim = anchor_dataset(os.path.join(tmp, "data"))
         for rep in range(reps):
@@ -2773,6 +2807,15 @@ def f64_only(dev, reps, card, repo):
                           f"{name} {k:.5f} / {lib:.5f}"
                           for name, (k, _, lib) in by.items())
                       + f"  [{card}]", flush=True)
+            bm = nblocks // 2
+            c_ms, c_plain = scan_f64_times(sweep, c_n, gs_n, bm)
+            split = scan_stamp_split(sweep, c_n, gs_n["NT=1"], bm)
+            k6_ms = cuda_ms(lambda: sweep6.step(bm, c6, gs6, bm, bc=bm), 20)
+            print(f"# {repo}: kernel C, run {rep + 1} (ms a block, graph "
+                  f"replay): NT=1 {c_ms['NT=1']:.5f}, NT={T} "
+                  f"{c_ms['NT=4']:.5f}, plain {c_plain:.4f}; kernel 6 on the "
+                  f"same block in float32 {k6_ms:.5f}; stamps (NT=1): "
+                  f"{split['text']}  [{card}]", flush=True)
             run_dir = os.path.join(tmp, f"run{rep}")
             os.makedirs(run_dir)
             _, launches, steady, _, _ = training_phase(
@@ -2954,6 +2997,289 @@ def f64_passes(bk, bed, rows_all, mave_p, msig_p, d_all, eps, masks,
     return rows, notes, passes, times
 
 
+# Kernel C beyond the anchor, (T, B, K) on one block's sweep arrays, each
+# against serial_scan_plain (phase 7a, --f64-only): one trait; eight; 33
+# (more traits than one CTA takes); K=8; K=16 at eight traits and, at
+# B=512, twelve; B=512; B=203 (no bulk copies); B=1.
+F64_SCAN_SHAPES = ((1, 128, 4), (8, 128, 4), (33, 128, 4), (4, 128, 8),
+                   (8, 128, 16), (4, 512, 4), (12, 512, 16), (4, 203, 4),
+                   (4, 1, 4))
+
+
+def f64_scan_operands(dev, gen, Tv, Bv, Kv, nb, pad, G=3):
+    """Kernel C's operands on the card: the sweep's (nb, ..., B) float64
+    arrays of Tv traits and Kv components (mixtures 0 and a log-spaced
+    run, an adaV group), the last block's last ``pad`` slots padding; c of
+    order 30; the scaled Grams of 600 random columns, the same for every
+    trait (NT=1) and each trait's scaled by its own factor in [0.5, 1.5]
+    (NT=4, as per-trait NA masks make them).  Returns (SerialScanSweep's
+    operands, c, {"NT=1": gs, "NT=4": gs}, live)."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    f64 = torch.float64
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f64)
+
+    def nrm(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f64)
+    cva = torch.cat([torch.zeros((G, 1), device=dev, dtype=f64),
+                     torch.logspace(-3, -1.3, Kv - 1, device=dev,
+                                    dtype=f64).expand(G, Kv - 1)], dim=1)
+    cvai = torch.zeros_like(cva)
+    cvai[:, 1:] = 1.0 / cva[:, 1:]
+    sigmag = rnd(Tv, G) * 0.4 + 0.1
+    sigmag[0, 1] = 0.0                                   # an adaV group
+    sigmae = rnd(Tv) * 0.4 + 0.5
+    pi = rnd(Tv, G, Kv) + 0.1
+    pi = pi / pi.sum(-1, keepdim=True)
+    nonas = torch.full((Tv,), 490.0, device=dev, dtype=f64)
+    tabs = sk.build_sweep_tables(sigmag, sigmae, pi, cva, cvai, nonas, 500.0,
+                                 dtype=f64)
+    grp = torch.randint(0, G, (nb, Bv), generator=gen, device=dev)
+    valid = torch.ones((nb, Bv), dtype=torch.bool, device=dev)
+    valid[-1, Bv - pad:] = False
+    live, zerob = (x.movedim(0, 1).contiguous()
+                   for x in sw.scan_masks(grp, valid, sigmag))
+    xg = nrm(nb, Bv, 600)
+    gs1 = torch.bmm(xg, xg.transpose(1, 2))
+    del xg
+    gs = {"NT=1": gs1[:, None].expand(nb, Tv, Bv, Bv).contiguous(),
+          "NT=4": (gs1[:, None] * (rnd(Tv) + 0.5)[None, :, None, None])
+          .contiguous()}
+    del gs1
+    ops = (nonas - 1.0,
+           *(t[:, :, grp].movedim(2, 0).contiguous() for t in tabs),
+           nrm(nb, Tv, Bv) * 0.05,
+           torch.randint(0, Kv, (nb, Tv, Bv), generator=gen, device=dev,
+                         dtype=torch.int32),
+           rnd(nb, Tv, Bv), rnd(nb, Tv, Bv), nrm(nb, Tv, Bv), live, zerob,
+           rnd(nb, Tv, Bv) + 0.5, (1.0 / (2.0 * sigmae)).contiguous())
+    return ops, nrm(nb, Tv, Bv) * 30.0, gs, live
+
+
+def math_gate(dev, gen, n=10_000_000):
+    """Kernel C's written-out math (csrc/serial_scan.cu, through
+    gmrm_math_check) against the library's on the card.  The reciprocal
+    rcp_ge1 against the IEEE division __ddiv_rn(1.0, x): n seeded x in
+    [1, 2^1000) (a uniform exponent, uniform mantissa bits) and the edges:
+    1, the next double above 1, every power of two from 1 to 2^1023, the
+    largest mantissa at every one of those exponents, 2^1022 and its
+    neighbours, the largest finite double and +inf; bit-equal up to 2^1022
+    (and equal to torch's 1 / x); above it rcp_ge1 gives 0 where the
+    division gives a subnormal, or 0 at +inf.  exp_near against exp: n
+    seeded x in [-760, 760] and the edges of its range (0, +-1e-300, +-700,
+    the doubles on both sides of |x| = 708.4 where it hands over to exp,
+    +-745.2, +-inf, NaN); bit-equal wherever it takes x (all |x| < 708.39),
+    out of range elsewhere.  Returns a note."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    i64, f64 = torch.int64, torch.float64
+
+    def check(x):
+        out = torch.empty((x.numel(), 4), dtype=i64, device=dev)
+        err = _build.library().gmrm_math_check(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"gmrm_math_check launch failed: {_build.error_string(err)}")
+        torch.cuda.synchronize()
+        return out
+
+    expo = torch.randint(1023, 2023, (n,), generator=gen, device=dev,
+                         dtype=i64)
+    mant = torch.randint(0, 2 ** 52, (n,), generator=gen, device=dev,
+                         dtype=i64)
+    every = torch.arange(1023, 2047, device=dev, dtype=i64)
+    top = torch.tensor([2.0 ** 1022], dtype=f64)
+    edges = torch.cat([
+        torch.tensor([1.0, 2.0 ** 1022, torch.finfo(f64).max,
+                      float("inf")], dtype=f64),
+        torch.nextafter(torch.tensor([1.0], dtype=f64),
+                        torch.tensor([2.0], dtype=f64)),
+        torch.nextafter(top, torch.zeros_like(top)),
+        torch.nextafter(top, top * 2)]).to(dev)
+    x = torch.cat([((expo << 52) | mant).view(f64), (every << 52).view(f64),
+                   ((every << 52) | (2 ** 52 - 1)).view(f64),
+                   edges]).contiguous()
+    out = check(x)
+    mine, ieee = out[:, 0], out[:, 1]
+    inside = x <= 2.0 ** 1022
+    bad = (mine != ieee) & inside
+    if bad.any():
+        fail(f"serial_scan_f64: rcp_ge1 differs from __ddiv_rn(1.0, x) at "
+             f"{int(bad.sum())} of {int(inside.sum())} x in [1, 2^1022], "
+             f"first x = {float(x[bad][0])!r}")
+    if not torch.equal(ieee[inside].view(f64), 1.0 / x[inside]):
+        fail("serial_scan_f64: __ddiv_rn(1.0, x) differs from torch's 1 / x")
+    above = ~inside
+    if (mine[above] != 0).any() or (
+            ieee[above].view(f64) >= 2.0 ** -1022).any():
+        fail("serial_scan_f64: above 2^1022 rcp_ge1 is not 0, or the "
+             "division not subnormal")
+    n_rcp = int(inside.sum())
+
+    hand = torch.tensor([0x4086232A_FFFFFFFF, 0x4086232B_00000000],
+                        dtype=i64).view(f64)
+    xe = torch.cat([
+        (torch.rand((n,), generator=gen, device=dev, dtype=f64) - 0.5)
+        * 1520.0,
+        torch.tensor([0.0, -0.0, 1e-300, -1e-300, 700.0, -700.0, 745.2,
+                      -745.2, float("inf"), float("-inf"), float("nan")],
+                     dtype=f64, device=dev),
+        hand.to(dev), -hand.to(dev)]).contiguous()
+    out = check(xe)
+    near, lib = out[:, 2], out[:, 3]
+    taken = near != -1
+    if (~taken & (xe.abs() < 708.39)).any():
+        fail("serial_scan_f64: exp_near hands over to exp below |x| 708.39")
+    bad = taken & (near != lib)
+    if bad.any():
+        fail(f"serial_scan_f64: exp_near differs from exp at "
+             f"{int(bad.sum())} of {int(taken.sum())} x, first x = "
+             f"{float(xe[bad][0])!r}")
+    return (f"rcp_ge1 bit-equal to __ddiv_rn(1.0, x) at {n_rcp} x in "
+            f"[1, 2^1022] ({n} seeded, the rest edges), 0 at the "
+            f"{int(above.sum())} above; exp_near bit-equal to exp at "
+            f"{int(taken.sum())} of {xe.numel()} x in [-760, 760] and "
+            f"edges, exp taken at the rest")
+
+
+def scan_f64_gate(dev, gen):
+    """Kernel C against serial_scan_plain on the card: at the anchor on the
+    sweep's 157-block arrays (a middle block and the last, with its 96 pad
+    slots) with per-trait Grams at |c| of order 30 and 1e3 (where live
+    steps must take the |dlogl| > 700 guard) and the shared Gram at the
+    middle block, then at F64_SCAN_SHAPES on one block, at both |c|.  Each
+    launch twice (bit-equal), comp exact, dbeta, beta and acum within 1e-10
+    of their largest magnitude, d = msig * dbeta bit for bit, the one-block
+    wrapper bit-equal to the sweep interface.  Returns (max abs err, a
+    note, the anchor's (sweep, c, {NT: gs}))."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    err = 0.0
+
+    def held(where, sweep, ops, c, gs, b):
+        nonlocal err
+
+        def step():
+            sweep.step(b, c, gs, b, bc=b)
+            return tuple(x[b].clone() for x in (
+                sweep.dbeta, sweep.beta_new, sweep.comp_new, sweep.acum_new,
+                sweep.d))
+        got = bit_equal_twice(f"serial_scan_f64 ({where})", step)
+        base = (c[b] + ops[4][b] * ops[0][:, None]).contiguous()
+        blk = (base, *(x[b] for x in ops[1:4]), gs[b],
+               *(x[b] for x in ops[4:11]), ops[12])
+        want = sk6.serial_scan_plain(*blk)
+        if not torch.equal(got[2], want[2]):
+            fail(f"serial_scan_f64 ({where}): comp differs from the plain "
+                 f"version in {int((got[2] != want[2]).sum())} entries")
+        for part, g, w in zip(("dbeta", "beta", "acum"),
+                              (got[0], got[1], got[3]),
+                              (want[0], want[1], want[3])):
+            err = max(err, close64(f"serial_scan_f64 ({where}) {part}", g,
+                                   w))
+        if not torch.equal(got[4], ops[11][b] * got[0]):
+            fail(f"serial_scan_f64 ({where}): d is not msig * dbeta bit for "
+                 f"bit")
+        one = sk6.serial_scan(*blk)
+        if not all(torch.equal(x, y) for x, y in zip(one, got)):
+            fail(f"serial_scan_f64 ({where}): the one-block wrapper and the "
+                 f"sweep interface wrote different bits")
+        return want, blk
+
+    def guarded_steps(blk, dbeta, live_b):
+        """Live steps where some |L_k - L_i| > 700, each step's num rebuilt
+        from the plain version's dbeta."""
+        base, lc, rd, gs_b, i2se = blk[0], blk[1], blk[2], blk[4], blk[-1]
+        num = base + (dbeta[:, :, None] * torch.triu(gs_b, 1)).sum(1)
+        logl = lc + rd * num * (num * i2se[:, None])
+        spread = logl.max(0).values - logl.min(0).values
+        return int(((spread > 700.0) & (live_b != 0)).sum())
+
+    nblocks = -(-MT // B)
+    bm = nblocks // 2
+    ops, c, gs, live = f64_scan_operands(dev, gen, T, B, K, nblocks, 96)
+    sweep = sk6.SerialScanSweep(*ops)
+    guarded, drawn = 0, set()
+    for scale in (1.0, 40.0):
+        for b in (bm, nblocks - 1):
+            want, blk = held(f"anchor, block {b}, NT={T}, |c| "
+                             f"~{30 * scale:.0f}", sweep, ops, c * scale,
+                             gs["NT=4"], b)
+            drawn.update(want[2][live[b] != 0].tolist())
+            if scale > 1:
+                guarded += guarded_steps(blk, want[0], live[b])
+    held(f"anchor, block {bm}, NT=1", sweep, ops, c, gs["NT=1"], bm)
+    if not guarded:
+        fail("serial_scan_f64: no step at |c| ~1e3 took the 700 guard")
+    if len(drawn) < 2:
+        fail(f"serial_scan_f64: the blocks drew components {drawn} only")
+    if not torch.equal(sweep.beta_new[-1][:, B - 96:], ops[4][-1][:, B - 96:]):
+        fail("serial_scan_f64: the last block's pad slots moved")
+    for Tv, Bv, Kv in F64_SCAN_SHAPES:
+        o2, c2, g2, _ = f64_scan_operands(dev, gen, Tv, Bv, Kv, 1,
+                                          min(3, Bv - 1))
+        sw2 = sk6.SerialScanSweep(*o2)
+        for scale in (1.0, 40.0):
+            held(f"T={Tv}, B={Bv}, K={Kv}, |c| ~{30 * scale:.0f}", sw2, o2,
+                 c2 * scale, g2["NT=4"], 0)
+        del o2, c2, g2, sw2
+    note = (f"{guarded} live steps of the two anchor blocks at |c| ~1e3 "
+            f"took the 700 guard; also held at (T, B, K) in "
+            f"{list(F64_SCAN_SHAPES)}, per-trait Grams")
+    return err, note, (sweep, c, gs)
+
+
+def scan_f64_times(sweep, c, gs, b):
+    """Kernel C's ms a block at block b (graph replay) with the shared
+    Gram (NT=1) and per-trait Grams (NT=4), and its plain version's."""
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    ms = {nt: cuda_ms(lambda g=g: sweep.step(b, c, g, b, bc=b), 20)
+          for nt, g in gs.items()}
+    ops_b = [x[b] for x in sweep.state]
+    base = (c[b] + ops_b[0] * sweep.nm1[:, None]).contiguous()
+    blk = (base, *(x[b] for x in sweep.tables), gs["NT=1"][b], *ops_b,
+           sweep.i2se)
+    return ms, cuda_ms(lambda: sk6.serial_scan_plain(*blk), 1)
+
+
+def scan_stamp_split(sweep, c, gs, b, bc=None):
+    """One stamped launch of a serial scan sweep (``step(...,
+    stamps=)``, events scan_kernel.SCAN_STAMPS) at block b (with c[bc],
+    c[b] by default): its SM clock, the cycles a step of each phase
+    (summed over the block's steps by the scanning warp's lane 0, each
+    phase ended once its value is known), the steps that waited for a
+    helper warp or the Gram ring, and the chain bound: the cycles of the
+    step's dependent phases (CHAIN_PHASES) over the block, at that clock.
+    Returns {"text", "chain_ms"}; chain_ms is None for a tree whose kernel
+    records none."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    names = getattr(sk6, "SCAN_STAMPS", None)
+    if names is None:
+        return {"text": "none recorded", "chain_ms": None}
+    st = torch.zeros(len(names), dtype=torch.int64, device=c.device)
+    sweep.step(b, c, gs, b, bc=b if bc is None else bc, stamps=st)
+    torch.cuda.synchronize()
+    v = dict(zip(names, st.tolist()))
+    ns = v["end_ns"] - v["start_ns"]
+    ghz = v["cycles"] / ns
+    nsteps = c.shape[-1]
+    chain = sum(v[k] for k in CHAIN_PHASES)
+    text = (f"chain {ns / 1e3:.2f} us, {v['cycles'] / nsteps:.0f} cycles a "
+            f"step at {ghz * 1e3:.0f} MHz; cycles a step by phase "
+            + ", ".join(f"{k} {v[k] / nsteps:.0f}" for k in sk6.SCAN_PHASES)
+            + f"; chain bound {chain / nsteps:.0f} cycles a step, "
+            f"{chain / ghz / 1e6:.5f} ms a block")
+    for what in ("helper", "ring"):
+        text += (f"; waited for the {what} at {v[what + '_waits']} of "
+                 f"{nsteps} steps, {v[what + '_wait_cycles']} cycles")
+    return {"text": text, "chain_ms": chain / ghz / 1e6}
+
+
 def float64_kernel_phase(dev, gen, card):
     """Phase 7a: kernels A, B and C against their float64 plain versions
     on the card, at the anchor's shapes (T=4, B=128, K=4, mb_pad=2560,
@@ -2962,20 +3288,18 @@ def float64_kernel_phase(dev, gen, card):
     same inputs (bit-equal) and timed beside its plain version by graph
     replay, with a float64 torch.matmul yardstick on pre-decoded operands
     for A and B.  Kernel A's gs bit-equal (the same roundings as the plain
-    version); B's c and eps and C's betas and acum within 1e-10 of their
-    largest magnitude, C's comp exact, with |c| of order 30 and of order
-    1e3 (where some live steps must take the |dlogl| > 700 guard).  Kernel
-    B is its three launches (``f64_passes``: the c-dot, the update and the
-    fused pass at a middle block and the last), one stamped launch of each
-    (``passes_stamp_split``) and the same at mb_pad=25,088
-    (``passes_big``).  Returns {name: (max abs err, kernel ms, plain ms,
-    library ms or None, bound)}."""
+    version); B's c and eps within 1e-10 of their largest magnitude.
+    Kernel B is its three launches (``f64_passes``: the c-dot, the update
+    and the fused pass at a middle block and the last), one stamped launch
+    of each (``passes_stamp_split``) and the same at mb_pad=25,088
+    (``passes_big``).  Kernel C is ``scan_f64_gate`` (per-trait Grams, the
+    anchor and F64_SCAN_SHAPES), timed at a middle block with the shared
+    and per-trait Grams, and one stamped launch (``scan_stamp_split``).
+    Returns {name: (max abs err, kernel ms, plain ms, library ms or None,
+    bound)}; C's chain bound goes into CHAIN_BOUND_MS."""
     import torch
     from gmrm_tpu_torch.ops import block_gram as bg
     from gmrm_tpu_torch.ops import block_kernels as bk
-    from gmrm_tpu_torch.ops import scan_kernel as sk6
-    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
-    from gmrm_tpu_torch.ops import sweep_kernel as sk
     from gmrm_tpu_torch.ops.decode import decode_planes
 
     f64 = torch.float64
@@ -3045,117 +3369,19 @@ def float64_kernel_phase(dev, gen, card):
         res[name + "_f64"] = (max(e, err_w[name]), *rest)
     tb = T * B * 8
 
-    # Kernel C on the sweep's (157, ..., B) float64 arrays and a block
-    # index: a middle block and the last (its 96 pad slots), twice
-    # (bit-equal), against serial_scan_plain on the card (a few blocks
-    # only: about 10 ms a block), the one-block wrapper bit-equal to the
-    # sweep interface.
-    G = 3
-    cva = torch.tensor([[0.0, 1e-3, 1e-2, 5e-2]] * G, device=dev, dtype=f64)
-    cvai = torch.zeros_like(cva)
-    cvai[:, 1:] = 1.0 / cva[:, 1:]
-    sigmag = torch.rand((T, G), generator=gen, device=dev, dtype=f64) * 0.4
-    sigmag += 0.1
-    sigmag[0, 1] = 0.0                                   # an adaV group
-    sigmae = torch.rand((T,), generator=gen, device=dev, dtype=f64) * 0.4
-    sigmae += 0.5
-    pi = torch.rand((T, G, K), generator=gen, device=dev, dtype=f64) + 0.1
-    pi = pi / pi.sum(-1, keepdim=True)
-    nonas = torch.full((T,), 490.0, device=dev, dtype=f64)
-    lc_t, rd_t, sqb_t = sk.build_sweep_tables(sigmag, sigmae, pi, cva, cvai,
-                                              nonas, 500.0, dtype=f64)
-    grp_n = torch.randint(0, G, (nblocks, B), generator=gen, device=dev)
-    valid_n = rows_all < MT
-    live_n, zerob_n = (x.movedim(0, 1).contiguous()
-                       for x in sw.scan_masks(grp_n, valid_n, sigmag))
-
-    def blocks_of(tab):                       # (K, T, G) -> (nb, K, T, B)
-        return tab[:, :, grp_n].movedim(2, 0).contiguous()
-
-    xg = torch.randn((nblocks, B, 600), generator=gen, device=dev, dtype=f64)
-    gs_n = torch.bmm(xg, xg.transpose(1, 2))[:, None].expand(
-        nblocks, T, B, B).contiguous()
-    del xg
-    c_n = torch.randn((nblocks, T, B), generator=gen, device=dev,
-                      dtype=f64) * 30.0
-    nm1 = nonas - 1.0
-    i2se = (1.0 / (2.0 * sigmae)).contiguous()
-
-    def rnd(*shape):
-        return torch.rand(shape, generator=gen, device=dev, dtype=f64)
-    ops = (nm1, blocks_of(lc_t), blocks_of(rd_t), blocks_of(sqb_t),
-           torch.randn((nblocks, T, B), generator=gen, device=dev,
-                       dtype=f64) * 0.05,
-           torch.randint(0, K, (nblocks, T, B), generator=gen, device=dev,
-                         dtype=torch.int32),
-           rnd(nblocks, T, B), rnd(nblocks, T, B),
-           torch.randn((nblocks, T, B), generator=gen, device=dev,
-                       dtype=f64), live_n, zerob_n,
-           rnd(nblocks, T, B) + 0.5, i2se)
-    sweep = sk6.SerialScanSweep(*ops)
-
-    def plain_block(b):
-        base = (c_n[b] + ops[4][b] * nm1[:, None]).contiguous()
-        return (base, *(x[b] for x in ops[1:4]), gs_n[b],
-                *(x[b] for x in ops[4:11]), i2se)
-
-    def guarded_steps(b, c, dbeta):
-        """Live steps of block b where some |L_k - L_i| > 700, the base of
-        each step rebuilt from the plain version's dbeta."""
-        base = c[b] + ops[4][b] * nm1[:, None]
-        num = base + (dbeta[:, :, None] * torch.triu(gs_n[b], 1)).sum(1)
-        logl = ops[1][b] + ops[2][b] * num * (num * i2se[:, None])
-        spread = logl.max(0).values - logl.min(0).values
-        return int(((spread > 700.0) & (live_n[b] != 0)).sum())
-
-    # |base| of order 30, then of order 1e3, where the 700 guards fire.
-    err_s, drawn, guarded = 0.0, set(), 0
-    c_big = c_n * 40.0
-    for c_in, b in ((c_n, bm), (c_n, nblocks - 1), (c_big, bm),
-                    (c_big, nblocks - 1)):
-        where = f"block {b}, |c| ~{'1e3' if c_in is c_big else '30'}"
-
-        def step(b=b, c_in=c_in):
-            sweep.step(b, c_in, gs_n, b, bc=b)
-            return tuple(x[b].clone() for x in (
-                sweep.dbeta, sweep.beta_new, sweep.comp_new, sweep.acum_new,
-                sweep.d))
-        got = bit_equal_twice(f"serial_scan_f64 ({where})", step)
-        base = (c_in[b] + ops[4][b] * nm1[:, None]).contiguous()
-        want = sk6.serial_scan_plain(base, *plain_block(b)[1:])
-        if not torch.equal(got[2], want[2]):
-            fail(f"serial_scan_f64 ({where}): comp differs from the plain "
-                 f"version in {int((got[2] != want[2]).sum())} entries")
-        for part, g, w in zip(("dbeta", "beta", "acum"),
-                              (got[0], got[1], got[3]),
-                              (want[0], want[1], want[3])):
-            err_s = max(err_s, close64(f"serial_scan_f64 ({where}) {part}",
-                                       g, w))
-        if not torch.equal(got[4], ops[11][b] * got[0]):
-            fail("serial_scan_f64: d is not msig * dbeta bit for bit")
-        drawn.update(want[2][live_n[b] != 0].tolist())
-        if c_in is c_big:
-            guarded += guarded_steps(b, c_in, want[0])
-        elif b == bm:
-            mid = got
-    if not guarded:
-        fail("serial_scan_f64: no step at |c| ~1e3 took the 700 guard")
-    ms_of["serial_scan_f64"] = (f"{guarded} live steps of the two blocks "
-                                f"at |c| ~1e3 took the 700 guard")
-    if len(drawn) < 2:
-        fail(f"serial_scan_f64: the blocks drew components {drawn} only")
-    if not torch.equal(sweep.beta_new[-1][:, B - 96:], ops[4][-1][:, B - 96:]):
-        fail("serial_scan_f64: the last block's pad slots moved")
-    one = sk6.serial_scan(*plain_block(bm))
-    if not all(torch.equal(x, y) for x, y in zip(one, mid)):
-        fail("serial_scan_f64: the one-block wrapper and the sweep "
-             "interface wrote different bits for the same block")
-    plain_m = plain_block(bm)
-    s_ms = cuda_ms(lambda: sweep.step(bm, c_n, gs_n, bm, bc=bm), 20)
-    s_plain = cuda_ms(lambda: sk6.serial_scan_plain(*plain_m), 1)
+    # Kernel C (math_gate, scan_f64_gate, scan_f64_times, scan_stamp_split).
+    note_r = math_gate(dev, gen)
+    err_s, note_s, (sweep, c_n, gs_n) = scan_f64_gate(dev, gen)
+    bm = nblocks // 2
+    s_ms, s_plain = scan_f64_times(sweep, c_n, gs_n, bm)
+    split = scan_stamp_split(sweep, c_n, gs_n["NT=1"], bm)
+    ms_of["serial_scan_f64"] = (
+        f"NT={T} {s_ms['NT=4']:.5f}; {note_s}; {note_r}; stamps (NT=1): "
+        f"{split['text']}")
     # The Gram entries i > j a block reads, its operands and results once.
-    res["serial_scan_f64"] = (err_s, s_ms, s_plain, None, bound_of(
+    res["serial_scan_f64"] = (err_s, s_ms["NT=1"], s_plain, None, bound_of(
         T * B * (B - 1) // 2 * 8 + (3 * K + 10) * tb + T * 16, ))
+    CHAIN_BOUND_MS["serial_scan_f64"] = split["chain_ms"]
     for name, (err, k_ms, p_ms, lib, bound) in res.items():
         print(f"# {name}: max abs err {err:.3e}; kernel ms {k_ms:.5f}, "
               f"plain ms {p_ms:.4f} (CUDA graph replay"
@@ -3333,7 +3559,7 @@ F64_SOURCES = {
     "update_cdot_f64": ("gmrm_tpu_torch/csrc/update_cdot.cu",
                         "gmrm_tpu/ops/pallas_kernels.py:352",
                         "gmrm_tpu/ops/blockops.py:141"),
-    "serial_scan_f64": ("gmrm_tpu_torch/csrc/serial_scan_f64.cu",
+    "serial_scan_f64": ("gmrm_tpu_torch/csrc/serial_scan.cu",
                         "gmrm_tpu/ops/scan_kernel.py:61",
                         "gmrm_tpu/sampler/scan.py:33"),
     "predict_sums_f64": ("gmrm_tpu_torch/csrc/predict_sums.cu",
@@ -3631,6 +3857,8 @@ def main():
              "ms": kernels[name][1][0], "plain_ms": kernels[name][2][0],
              "bound_ms": kernels[name][4][0], "bound_by": kernels[name][4][1],
              "library_ms": None,
+             **({"chain_bound_ms": CHAIN_BOUND_MS[name]}
+                if name in CHAIN_BOUND_MS else {}),
              **({"also_replaces": ALSO_REPLACES[name]}
                 if name in ALSO_REPLACES else {})}
             for name, (src, rep) in SOURCES.items()]
@@ -3682,6 +3910,8 @@ def main():
                      "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": lib,
+                     **({"chain_bound_ms": CHAIN_BOUND_MS[name]}
+                        if name in CHAIN_BOUND_MS else {}),
                      **({"also_replaces": F64_ALSO_REPLACES[name]}
                         if name in F64_ALSO_REPLACES else {})})
     print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")

@@ -58,9 +58,9 @@ SIGNATURES = {
     # bed, rows, na, mave, msig, raw, gs, nb, T, B, mb, nt, stream
     "gmrm_block_gram": [_P] * 7 + [_I] * 5 + [_P],
     # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
-    # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, b, bc, bg,
-    # T, B, K, mode, GR, NG, stream
-    "gmrm_serial_scan": [_P] * 20 + [_I] * 9 + [_P],
+    # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, stamps (or
+    # null), b, bc, bg, T, B, K, mode, GR, NG, stream
+    "gmrm_serial_scan": [_P] * 21 + [_I] * 9 + [_P],
     # bed, blkidx, win, gram, eps, na, mave, msig, beta_old, comp_old,
     # acum_old, grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, beta_new,
     # comp_new, acum_new, scratch, stamps (or null), nblocks, T, B, mb, nt,
@@ -90,10 +90,13 @@ SIGNATURES = {
     "gmrm_block_cdot_f64": [_P] * 7 + [_I] * 4 + [_P, _P],
     "gmrm_eps_update_f64": [_P] * 6 + [_I] * 4 + [_P, _P],
     "gmrm_update_cdot_f64": [_P] * 11 + [_I] * 4 + [_P, _P],
-    # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
-    # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, b, bc, bg,
-    # T, B, K, stream
-    "gmrm_serial_scan_f64": [_P] * 20 + [_I] * 6 + [_P],
+    # Kernel C: kernel 6's template at double (csrc/serial_scan.cu), with
+    # gmrm_serial_scan's arguments and TG, the traits of a CTA, after NG.
+    "gmrm_serial_scan_f64": [_P] * 21 + [_I] * 10 + [_P],
+    # x, out (n, 4), n, stream: kernel C's float64 reciprocal and exp
+    # beside the IEEE division and the library's exp, for chip_smoke.py's
+    # check (not counted)
+    "gmrm_math_check": [_P, _P, _I, _P],
     # bed, na, y, keep (scratch), out, M, L, stream
     "gmrm_predict_sums_f64": [_P] * 5 + [_I] * 2 + [_P],
 }

@@ -1,4 +1,4 @@
-"""The exact serial within-block scan (kernel 6).
+"""The exact serial within-block scan (kernel 6; kernel C at float64).
 
 Port of the kernel of ``block_scan_pallas`` (gmrm_tpu/ops/scan_kernel.py:61):
 the block's B markers are drawn one after the other, each against the
@@ -20,24 +20,28 @@ Two interfaces, one kernel (csrc/serial_scan.cu):
 
 CUDA tensors launch the kernel; CPU tensors run ``serial_scan_plain``.
 
-Float64 (a ``--dtype float64`` run, kernel C): float64 operands launch
-csrc/serial_scan_f64.cu instead, through the same two interfaces (one warp
-per trait; K <= 16, B <= 512), the counterpart of the JAX package's XLA
-``block_scan`` (gmrm_tpu/sampler/scan.py:33).  ``serial_scan_plain`` is
-written for either dtype.
+Float64 (a ``--dtype float64`` run, kernel C): float64 operands launch the
+same kernel's double instance, through the same two interfaces, the
+counterpart of the JAX package's XLA ``block_scan``
+(gmrm_tpu/sampler/scan.py:33).  ``serial_scan_plain`` is written for
+either dtype.
 
 Limits on CUDA tensors: K <= 16 mixture components (4, 8 or 16 lanes a
-trait), T <= 32 traits; 32 // lanes traits are drawn at once and more take
-further passes over the warp.  ``scan_plan`` fits the block into the
-227 KB of shared memory: the running correction (T B floats), the steps'
-raw results (4 T B), the packed inputs of eight steps (8 KB), a ring of
-Gram rows (a power of two of groups of 8, 4, 2 or 1 rows), and, while they
-fit beside a ring of 16 rows, the block's state (9 T B words) and tables
-(3 K T B); larger blocks leave the tables, or tables and state, in global
-memory (the large-block branch, slower).  A block whose correction,
-results and a few Gram rows exceed shared memory (about T B > 6,000)
-raises ``ValueError``, as does any operand of the wrong device, dtype,
-shape or layout.
+trait).  ``scan_plan`` fits a CTA's traits into the 227 KB of shared
+memory, in values of the dtype's size: the running correction (T B
+values), the steps' raw results (4 T B), the packed inputs of eight steps
+(8 KB in float, 16 in double), a ring of Gram rows (a power of two of
+groups of 8, 4, 2 or 1 rows), and, while they fit beside a ring of 16
+rows, the block's state (9 T B) and tables (3 K T B); larger blocks leave
+the tables, or tables and state, in global memory (the large-block
+branch, slower).  Float32: one CTA takes every trait, T <= 32; 32 // lanes
+traits are drawn at once and more take further passes over the warp; a
+block whose correction, results and a few Gram rows exceed shared memory
+(about T B > 6,000) raises ``ValueError``.  Float64 (``f64_plan``): T <=
+65,535 and B <= 512; a CTA takes at most one pass of traits, as many as
+fit (about T B <= 3,000), and the grid the rest, so every such block runs.
+Any operand of the wrong device, dtype, shape or layout raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -47,22 +51,32 @@ import torch
 from gmrm_tpu_torch.ops import _build
 
 MAX_K = 16     # mixture components (lanes of a trait)
-MAX_T = 32     # traits (csrc MAX_T)
+MAX_T = 32     # traits of a CTA (csrc MAX_T)
 MAX_NG = 32    # ring groups (csrc MAX_NG)
 NSTATE = 9     # staged (T, B) arrays (csrc NSTATE)
 REC_SLOTS = 8  # steps of packed inputs in flight (csrc REC_SLOTS)
 SMEM_BYTES = 232448   # dynamic shared memory of one CTA on the H100
 F64_MAX_B = 512       # markers of a block in the float64 kernel (csrc)
+F64_MAX_T = 65535     # traits of a float64 launch, over its CTAs (csrc)
+# A stamped launch's buffer (stamps=, int64): %globaltimer at the chain's
+# start and end, its SM cycles, the cycles of each phase of a step summed
+# over the block's steps (SCAN_PHASES), then the steps whose scan waited
+# for its helper warp and those waits' cycles, and the same for the Gram
+# ring's groups.
+SCAN_PHASES = ("inputs", "L", "exp", "rcp", "comp", "dbeta", "handoff")
+SCAN_STAMPS = ("start_ns", "end_ns", "cycles", *SCAN_PHASES, "helper_waits",
+               "helper_wait_cycles", "ring_waits", "ring_wait_cycles")
 
 
 def _al4(x: int) -> int:
     return (x + 3) & ~3
 
 
-def _layout_words(T, B, K, mode, GR, NG) -> int:
-    """Shared memory words of csrc/serial_scan.cu make_layout."""
-    o = ((8 * (2 + 2 * MAX_NG) + 15) // 16 * 4 + 4 * MAX_T
-         + REC_SLOTS * 32 * 8 + T * _al4(B) + 4 * T * B)
+def _layout_words(T, B, K, mode, GR, NG, es=4) -> int:
+    """Shared memory of csrc/serial_scan.cu make_layout, in values of es
+    bytes (4: float, 8: double)."""
+    o = ((8 * (2 + 2 * MAX_NG) + 15) // 16 * (16 // es) + 2 * MAX_T * 4 // es
+         + 2 * MAX_T + REC_SLOTS * 32 * 8 + T * _al4(B) + 4 * T * B)
     if mode >= 1:
         o += NSTATE * _al4(T * B)
     if mode >= 2:
@@ -70,16 +84,17 @@ def _layout_words(T, B, K, mode, GR, NG) -> int:
     return o + NG * GR * T * _al4(B)
 
 
-def scan_plan(T: int, B: int, K: int):
-    """(mode, GR, NG) of the kernel's shared memory, or None when the block
-    does not fit.  mode 2 stages state and tables, 1 the state, 0 neither;
-    the Gram streams through a ring of NG groups of GR rows, both powers of
-    two.  Staging is taken while a ring of at least 16 rows (or all B - 1)
-    fits beside it."""
+def scan_plan(T: int, B: int, K: int, es: int = 4):
+    """(mode, GR, NG) of one CTA's shared memory for T traits at values of
+    es bytes, or None when the block does not fit.  mode 2 stages state
+    and tables, 1 the state, 0 neither; the Gram streams through a ring of
+    NG groups of GR rows, both powers of two.  Staging is taken while a
+    ring of at least 16 rows (or all B - 1) fits beside it."""
     rows = max(B - 1, 1)
     for mode in (2, 1, 0):
         for GR in (8, 4, 2, 1):
-            rest = SMEM_BYTES // 4 - _layout_words(T, B, K, mode, GR, 0)
+            rest = (SMEM_BYTES // es
+                    - _layout_words(T, B, K, mode, GR, 0, es))
             fit = min(MAX_NG, rest // (GR * T * _al4(B)))
             if fit < 1:
                 continue
@@ -93,14 +108,37 @@ def scan_plan(T: int, B: int, K: int):
     return None
 
 
+def lanes_of(K: int) -> int:
+    """Lanes of the scanning warp a trait takes (csrc MAXK)."""
+    return 4 if K <= 4 else 8 if K <= 8 else 16
+
+
+def f64_plan(T: int, B: int, K: int):
+    """(mode, GR, NG, TG) of the float64 kernel: TG traits a CTA, at most
+    one pass over the lanes (32 // lanes_of(K), and no more than T), the
+    most among those whose block a CTA stages furthest at 8-byte values
+    (``scan_plan``'s mode: the CTAs run side by side, and a staged block
+    keeps the helpers' reads in shared memory); ceil(T / TG) CTAs.  None
+    when not even one trait fits."""
+    plans = [(*plan, tg) for tg in range(1, min(T, 32 // lanes_of(K)) + 1)
+             if (plan := scan_plan(tg, B, K, 8)) is not None]
+    return max(plans, key=lambda p: (p[0], p[3]), default=None)
+
+
 def _plan_f64_or_raise(T, B, K):
-    """The float64 kernel has no shared memory plan: its limits only."""
     if K > MAX_K:
         raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     if B > F64_MAX_B:
         raise ValueError(f"B={B} exceeds the float64 serial scan's "
                          f"{F64_MAX_B} markers a block")
-    return ()
+    if T > F64_MAX_T:
+        raise ValueError(f"T={T} traits exceed the float64 serial scan's "
+                         f"{F64_MAX_T}")
+    plan = f64_plan(T, B, K)
+    if plan is None:
+        raise ValueError(f"B={B}, K={K}: one trait exceeds the float64 "
+                         f"serial scan's shared memory")
+    return plan
 
 
 def _plan_or_raise(T, B, K):
@@ -210,7 +248,7 @@ def serial_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
     _build.launch("serial_scan_f64" if f64 else "serial_scan", base, None,
                   lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
                   zerob, None, i2se, dbeta, None, beta_new, comp_new,
-                  acum_new, 0, 0, 0, T, B, K, *plan)
+                  acum_new, None, 0, 0, 0, T, B, K, *plan)
     return dbeta, beta_new, comp_new, acum_new
 
 
@@ -313,9 +351,11 @@ class SerialScanSweep(ScanSweep):
     def _plain(*args):
         return serial_scan_plain(*args)
 
-    def _launch(self, pc, pgs, b, bc, bg):
+    def _launch(self, pc, pgs, b, bc, bg, stamps=None):
+        """``stamps``: an int64 (len(SCAN_STAMPS),) buffer that one launch
+        fills (K = 4 and one pass over the lanes only)."""
         nb, T, B, K = self.shape
         kernel = ("serial_scan_f64" if self.dtype == torch.float64
                   else "serial_scan")
-        _build.launch(kernel, pc, *self.head, pgs, *self.tail, b, bc, bg, T,
-                      B, K, *self.plan)
+        _build.launch(kernel, pc, *self.head, pgs, *self.tail, stamps, b, bc,
+                      bg, T, B, K, *self.plan)

@@ -385,14 +385,18 @@ def test_f64_sweep_block_steps_follow_the_fused_cadence(setup64,
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("case", ["plain", "adav", "overflow", "k8"])
+@pytest.mark.parametrize("case", ["plain", "adav", "overflow", "k8", "k16",
+                                  "b37"])
 def test_block_scan_matches_jax_at_f64(case):
     """Kernel C's plain version, through sampler/scan.block_scan, against
     the JAX package's XLA block_scan at float64, on the cases of
-    tests/test_scan_kernel.py:57-80."""
-    seed = {"plain": 0, "adav": 1, "overflow": 2, "k8": 3}[case]
+    tests/test_scan_kernel.py:57-80, with 8 and 16 components and a block
+    of 37 markers (not a multiple of 4: no bulk copies on the card)."""
+    seed = {"plain": 0, "adav": 1, "overflow": 2, "k8": 3, "k16": 4,
+            "b37": 5}[case]
     rng = np.random.default_rng(seed)
-    T, B, G, K = 3, 32, 2, 8 if case == "k8" else 4
+    K = {"k8": 8, "k16": 16}.get(case, 4)
+    T, B, G = 3, 37 if case == "b37" else 32, 2
     args = [np.asarray(x) for x in _random_case(
         rng, T, B, G, K, adav_group=0 if case == "adav" else None,
         overflow=case == "overflow")]

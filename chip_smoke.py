@@ -18,9 +18,11 @@ Phases, each of which must pass (any failure exits non-zero):
    anchor's (157, ..., B) arrays with a block index (a middle and the last
    block, twice, bit-equal), on one block's tensors, and on shapes that
    reach its other branches, with one stamped launch.  The block Gram
-   (kernel 5) builds a run of blocks
-   per launch (all 157 at NT=1, a run under its byte budget at NT=4) and
-   one block alone; the serial scan (kernel 6) runs on the sweep's arrays
+   (kernel 5) builds all 157 blocks in one launch at NT=1 and NT=4 (twice,
+   bit-equal; its launch plan and one stamped launch: main loop against
+   epilogue), then B=64, 192, 512, 203, 37, 1, mb=203 and mb_pad=25,088
+   at NT=1 and NT=4 (GRAM_GATE_SHAPES), and one block
+   alone; the serial scan (kernel 6) runs on the sweep's arrays
    with a block index and on one block's tensors; the c-dot and the update
    (kernels 2 and 4) and the two fused into one launch run on one block
    (also at mb 200 and 203: a one-level tree, byte copies), launched twice
@@ -120,9 +122,12 @@ Phases, each of which must pass (any failure exits non-zero):
    csrc/block_passes.cuh at double (the c-dot, the update and the fused
    update + next c-dot), csrc/serial_scan.cu at double,
    csrc/predict_sums.cu's float64 kernel): each against its float64 plain
-   version at the anchor's shapes (A bit-equal; B, C within 1e-10 of the
+   version at the anchor's shapes (A bit-equal, all 157 blocks in one
+   launch at NT=1 and NT=4 and at GRAM_GATE_SHAPES, each twice; B, C
+   within 1e-10 of the
    largest magnitude, C's comp exact and d bit-equal; D's xtx bit-equal,
-   xty within 1e-11 sum|val*y| + 1e-12), timed by graph replay beside
+   xty within 1e-11 sum|val*y| + 1e-12, also at N=100,000 x 4,096 with
+   NAs), timed by graph replay beside
    float64 torch.matmul / torch.mv yardsticks; B's three launches also
    twice (bit-equal), through BlockPasses (bit-equal to the one-block
    wrappers), with one stamped launch each and again at mb_pad=25,088;
@@ -162,15 +167,19 @@ TREE]`` runs phase 4d (2 and 4 shards) and the sharded profiler windows
 sharded sweep, and kernel 9's device time per block step of 1, 2 and 4
 shards on phase 2's wide panels (a tree of the earlier design launches
 once per shard); with ``--training-only`` in the same process.
-``--f64-only REPS [--repo TREE]`` holds kernel C against its plain
+``--f64-only REPS [--repo TREE]`` times kernels A and 5 (all 157 anchor
+blocks a launch, NT=1 and NT=4, split by kernel name under the profiler
+and, where the tree records them, by stamps; the widened gate in the
+first rep) and D beside the float32 predict kernel on one bed (with the
+int-to-float conversions in their SASS), holds kernel C against its plain
 version (phase 7a's gate), then times kernel B's launches alone at the
 anchor (NT=1, NT=4) beside their float64 torch.matmul yardsticks, kernel
 C alone on a middle block (NT=1, NT=4, one stamped launch) and runs phase
 7c's float64 W=1 training and a float64 profiler window, REPS times.
 ``--same-bytes TREE`` runs phase 4's and 4b's float32 chains in TREE and
 in this tree (TREE, this, this, TREE; a process each) and requires equal
-``.bet/.cpn/.csv`` bytes, and equal bytes from the float32 block Gram and
-predict sums kernels on seeded inputs.
+``.bet/.cpn/.csv`` bytes, and equal bytes from the block Gram and predict
+sums kernels, float32 and float64, on seeded inputs.
 """
 
 import argparse
@@ -246,7 +255,7 @@ def bound_of(nbytes, *ops_and_rates):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
+def serial_counts(nblocks, sweeps=1, shards=1, fused=True):
     """Launches of ``sweeps`` W=1 sweeps of ``shards`` shards of ``nblocks``
     blocks: kernel 6 once per block and kernel 5 once per run of blocks
     under the Gram byte budget; on one device (``fused``) kernel 2 once
@@ -254,7 +263,7 @@ def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
     and kernel 4 once for the last, on a sharded run kernels 2 and 4 once
     per block."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
-    runs = -(-nblocks // gram_run_blocks(T, B, nt, nblocks))
+    runs = -(-nblocks // gram_run_blocks(T, B, nblocks))
     per_sweep = ({"block_cdot": 1, "serial_scan": nblocks,
                   "update_cdot": nblocks - 1, "eps_update": 1} if fused
                  else dict.fromkeys(SERIAL_KERNELS, nblocks))
@@ -262,7 +271,7 @@ def serial_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
-def f64_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
+def f64_counts(nblocks, sweeps=1, shards=1, fused=True):
     """Launches of ``sweeps`` float64 W=1 sweeps of ``shards`` shards of
     ``nblocks`` blocks: kernel C once per block, kernel A once per run of
     blocks under the Gram byte budget (8-byte entries); kernel B on one
@@ -270,7 +279,7 @@ def f64_counts(nblocks, nt, sweeps=1, shards=1, fused=True):
     each block but the last and the update of the last, on a sharded run
     the c-dot and the update once per block each."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
-    runs = -(-nblocks // gram_run_blocks(T, B, nt, nblocks, 8))
+    runs = -(-nblocks // gram_run_blocks(T, B, nblocks, 8))
     per_sweep = ({"block_cdot_f64": 1, "update_cdot_f64": nblocks - 1,
                   "eps_update_f64": 1} if fused else
                  {"block_cdot_f64": nblocks, "eps_update_f64": nblocks})
@@ -596,6 +605,105 @@ def scan_case(dev, gen, Tv, Bv, Kv, G=3):
              zerob_v, (1.0 / (2.0 * se_v)).contiguous()), live_v)
 
 
+# The block Gram's gate beyond the anchor (phases 2 and 7a), (B, mb,
+# blocks): B of one band, of bands outside their tile (192) and of four
+# tiles (512); odd B (scalar stores, a last column alone): 203 (a band's
+# rows and a consumer group's columns past B), 37 (one band, one live
+# group) and 1; rows not on 16 bytes (mb=203, the byte loads) and the
+# large-N panel's mb_pad=25,088 (two segments of keep words); each at
+# NT=1 and NT=4, the last block of each run partly pad slots (B=1: the
+# last block is one).
+GRAM_GATE_SHAPES = ((64, MB, 6), (192, MB, 4), (512, MB, 2), (B, 203, 5),
+                    (B, MB_BIG, 3), (203, MB, 3), (37, 203, 4), (1, MB, 5))
+
+
+def gram_case(dev, gen, Bv, mb, nb, dtype):
+    """A run of ``nb`` blocks of ``Bv`` markers on a seeded bed of mb byte
+    columns: the real markers shuffled, min(37, Bv - 1) pad rows (0x55)
+    last (one at Bv = 1), so the last block ends with pad slots (mave =
+    msig = 0 there); the last 7 byte columns 0x55 and unobserved; a
+    shared (NT=1) and a per-trait (NT=4) float32 NA mask; mave, msig in
+    ``dtype``."""
+    import torch
+    m_pad = nb * Bv
+    m_real = m_pad - (1 if Bv == 1 else min(37, Bv - 1))
+    bed = torch.randint(0, 256, (m_pad, mb), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    bed[m_real:] = 0x55
+    bed[:, mb - 7:] = 0x55
+    na1 = torch.ones((1, 4, mb), device=dev)
+    na1[:, :, mb - 7:] = 0
+    na4 = (na1 * (torch.rand((T, 4, mb), generator=gen, device=dev)
+                  > 0.03)).contiguous()
+    rows = torch.cat([torch.randperm(m_real, generator=gen, device=dev),
+                      torch.arange(m_real, m_pad, device=dev)]).to(
+        torch.int32).reshape(nb, Bv).contiguous()
+    real = (rows < m_real)[:, None, :]
+    mave = ((torch.rand((nb, T, Bv), generator=gen, device=dev, dtype=dtype)
+             * 1.6 + 0.2) * real).contiguous()
+    msig = ((torch.rand((nb, T, Bv), generator=gen, device=dev, dtype=dtype)
+             * 1.5 + 0.5) * real).contiguous()
+    return bed, rows, na1, na4, mave, msig
+
+
+def gram_plan_text(bg, Bv, nt, nb):
+    """The plan ``blocks_gram_scaled`` launches on this card, as one
+    line."""
+    p = bg.device_gram_plan(Bv, nt, nb, 0)
+    return (f"B={Bv} NT={nt} {nb} blocks: {p['bands']} bands x {p['tiles']} "
+            f"tiles a block and mask, {p['items']} items on {p['grid']} CTAs"
+            f" ({p['rounds']} rounds), {p['stages']} stages of "
+            f"{p['panels']} panels, {p['smem']} B of shared memory")
+
+
+def gram_gate(bg, dev, gen, dtype):
+    """Kernel 5 (float32) or A (float64) at GRAM_GATE_SHAPES, NT=1 and
+    NT=4: two launches bit-equal to each other and to the plain version.
+    Returns the plans' lines."""
+    import torch
+    lines = []
+    for Bv, mb, nb in GRAM_GATE_SHAPES:
+        bed, rows, na1, na4, mave, msig = gram_case(dev, gen, Bv, mb, nb,
+                                                    dtype)
+        for na in (na1, na4):
+            args = (bed, rows, na, mave, msig)
+            what = f"block_gram {dtype} (B={Bv}, mb={mb}, NT={na.shape[0]})"
+            got = bit_equal_twice(what, lambda: (
+                bg.blocks_gram_scaled(*args),))[0]
+            want = bg.blocks_gram_scaled_plain(*args)
+            if got.dtype != dtype or not torch.equal(got, want):
+                fail(f"{what}: gs is not bit-equal to its plain version "
+                     f"(max abs err {max_err(got, want):.3e})")
+            if not (got[-1 if Bv > 1 else -2].abs().sum() > 0
+                    and (got[-1][:, -1] == 0).all()):
+                fail(f"{what}: the last block's pad slots")
+            lines.append(gram_plan_text(bg, Bv, na.shape[0], nb))
+            del got, want
+    return lines
+
+
+def gram_stamp_split(bg, args):
+    """One stamped launch of the block Gram on ``args``: per CTA the ns of
+    its main loops and of its epilogues over its items; returns the means
+    over the CTAs, the launch's span and the main loops' share."""
+    import torch
+    nb, _, Bv = args[3].shape
+    plan = bg.device_gram_plan(Bv, args[2].shape[0], nb, args[0].device)
+    stamps = torch.zeros((plan["grid"], bg.NSTAMP), dtype=torch.int64,
+                         device=args[0].device)
+    bg.blocks_gram_scaled(*args, stamps=stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().double()
+    span = (st[:, 3].max() - st[:, 0].min()) / 1e3
+    loop, epi = st[:, 1].mean() / 1e3, st[:, 2].mean() / 1e3
+    return (f"span {span:.1f} us; per CTA ({plan['rounds']} rounds of "
+            f"items at most) main loops {loop:.1f} us, epilogues {epi:.1f} "
+            f"us (max {st[:, 2].max() / 1e3:.1f}), main loops' share "
+            f"{loop / (loop + epi):.3f}; consumers waited for full stages "
+            f"{st[:, 4].mean() / 1e3:.1f} us, producers for empty ones "
+            f"{st[:, 5].mean() / 1e3:.1f} us")
+
+
 def kernel_phase(dev, gen):
     """Phase 2: every kernel against its plain version on the card."""
     import torch
@@ -897,9 +1005,9 @@ def kernel_phase(dev, gen):
         (2 * fold_floats + T * B * K * 12, F32_OPS))
 
     # Kernel 5: the scaled Grams of a run of blocks from one launch, gs
-    # bit-equal: all 157 blocks at NT=1 (pad rows last, so the last block
-    # has pad slots), a run under the byte budget at NT=4; then one block
-    # with its c (the public counterpart, nb = 1).
+    # bit-equal, twice: all 157 blocks at NT=1 and NT=4 (one run each; pad
+    # rows last, so the last block has pad slots), then GRAM_GATE_SHAPES;
+    # then one block with its c (the public counterpart, nb = 1).
     order = torch.cat([torch.randperm(MT, generator=gen, device=dev),
                        torch.arange(MT, m_pad, device=dev)])
     rows_all = order.to(torch.int32).reshape(nblocks, B).contiguous()
@@ -911,12 +1019,12 @@ def kernel_phase(dev, gen):
     err, extra = 0.0, {}
     for na_in in (na_shared[:1].contiguous(), na_trait):
         nt = na_in.shape[0]
-        nb = bg.gram_run_blocks(T, B, nt, nblocks)
-        if nb != (nblocks if nt == 1 else 128):
+        nb = bg.gram_run_blocks(T, B, nblocks)
+        if nb != nblocks:
             fail(f"block_gram: a run of {nb} blocks at NT={nt}")
-        run = (rows_all[-nb:], na_in, mave_p[-nb:].contiguous(),
-               msig_p[-nb:].contiguous())
-        got = bg.blocks_gram_scaled(bed, *run)
+        run = (rows_all, na_in, mave_p.contiguous(), msig_p.contiguous())
+        got = bit_equal_twice(f"block_gram (NT={nt})", lambda: (
+            bg.blocks_gram_scaled(bed, *run),))[0]
         want = bg.blocks_gram_scaled_plain(bed, *run)
         if not torch.equal(got, want):
             fail(f"block_gram (NT={nt}, {nb} blocks): gs is not bit-equal "
@@ -930,7 +1038,12 @@ def kernel_phase(dev, gen):
         extra[f"NT={nt}"] = (
             f"{nb} blocks per launch, {ms * nb:.4f} ms per launch, "
             f"{gram_ops * nt / (ms * 1e-3) / 1e12:.1f} int8 TOP/s of the "
-            f"products the function needs")
+            f"products the function needs; plan "
+            f"{gram_plan_text(bg, B, nt, nb)}; stamps "
+            f"{gram_stamp_split(bg, (bed, *run))}")
+    extra["gate"] = ("bit-equal twice at (B, mb, blocks) "
+                     f"{GRAM_GATE_SHAPES}, NT=1 and NT={T}; plans: "
+                     + " | ".join(gram_gate(bg, dev, gen, torch.float32)))
     for na_in in (na_shared[:1].contiguous(), na_trait):
         got = bg.block_gram_scaled(bed, rows, eps, na_in, mave, msig)
         want = bg.block_gram_scaled_plain(bed, rows, eps, na_in, mave, msig)
@@ -1769,8 +1882,8 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
         counts[key] = {k: v for k, v in _build.launch_counts().items() if v}
     nt = 1 if static.shared_na else T
     want_counts = ({"sweep_blocks": 1} if opt.wave_size > 1
-                   else f64_counts(nblocks, nt) if dtype == "float64"
-                   else serial_counts(nblocks, nt))
+                   else f64_counts(nblocks) if dtype == "float64"
+                   else serial_counts(nblocks))
     if counts["kernels"] != want_counts or (
             against == "composed"
             and counts[against] != composed_counts(nblocks)):
@@ -1844,8 +1957,8 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True,
     # The anchor has no phenotype NAs: NT = 1.
     path = (launches if not check_launches
             else {"gram_cache": 1, "sweep_blocks": iterations} if wave > 1
-            else f64_counts(nblocks, 1, sweeps=iterations) if f64
-            else serial_counts(nblocks, 1, sweeps=iterations))
+            else f64_counts(nblocks, sweeps=iterations) if f64
+            else serial_counts(nblocks, sweeps=iterations))
     for name, n in launches.items():
         want = path.get(name, 0)
         if n != want:
@@ -1929,11 +2042,10 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32"):
                  ("composed", dev, False,
                   dict.fromkeys(COMPOSED_KERNELS, n_launch)))
     else:
-        nt = 1 if statics[0].shared_na else T
         sides = (("kernels", dev, None,
-                  f64_counts(nblocks, nt, shards=n_shards, fused=False)
+                  f64_counts(nblocks, shards=n_shards, fused=False)
                   if dtype == "float64" else
-                  serial_counts(nblocks, nt, shards=n_shards,
+                  serial_counts(nblocks, shards=n_shards,
                                 fused=False)),
                  ("plain", torch.device("cpu"), None, {}))
     res, ms = [], []
@@ -2015,7 +2127,7 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     if opt.wave_size != (1 if f64 else W):
         fail(f"S={n_shards} training: the plan resolved to W={opt.wave_size}")
     nblocks = -(-(-(-MT // n_shards)) // B)     # ceil(ceil(MT / S) / B)
-    want = (f64_counts(nblocks, 1, iterations, n_shards, fused=False) if f64
+    want = (f64_counts(nblocks, iterations, n_shards, fused=False) if f64
             else
             {"gram_cache": n_shards, "block_sweep": nblocks * iterations})
     for name, n in launches.items():
@@ -2165,8 +2277,8 @@ def resume_phase(sim, dev, tmp, card):
         want_cold={"gram_cache": 1, "sweep_blocks": 12},
         want_warm={"sweep_blocks": ITERS - 7})
     chain("w1", 1, os.path.join(tmp, "out_w1"), ITERS_SERIAL, 3, 5,
-          want_cold=serial_counts(nblocks, 1, sweeps=5),
-          want_warm=serial_counts(nblocks, 1, sweeps=ITERS_SERIAL - 3))
+          want_cold=serial_counts(nblocks, sweeps=5),
+          want_warm=serial_counts(nblocks, sweeps=ITERS_SERIAL - 3))
     s0, w0, n0 = SHARDED_RUNS[0]
     nb_s = -(-(-(-MT // s0)) // B)
     chain(f"s{s0}", w0, os.path.join(tmp, f"out_s{s0}"), n0, 3, 5,
@@ -2313,6 +2425,26 @@ def predict_case(name, bed_d, na_d, y_d, n, card, reps=40):
           f"bound {bound[0]:.5f} ms by {bound[1]}  [{card}]", flush=True)
     return dict(err=float(dxty.max()), ms=ms, plain_ms=plain_ms,
                 mv_ms=mv_ms, bound=bound)
+
+
+def big_predict_operands(dev, gen, dtype):
+    """A seeded bed of the large-N panel's shape for predict (4,096 rows
+    of N=100,000 individuals at the kernel's row pitch, the pad bytes
+    0x55) with one trait's planes: 2% NAs, y zero where missing and past
+    N."""
+    import torch
+    from gmrm_tpu_torch.ops.predict_sums import pitch_of
+    mb = (N_BIG + 3) // 4
+    pitch = pitch_of(mb)
+    bed = torch.randint(0, 256, (MT_BIG, pitch), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    bed[:, mb:] = 0x55
+    na = (torch.rand((4, pitch), generator=gen, device=dev) > 0.02).to(dtype)
+    col = torch.arange(pitch, device=dev)
+    na = na * (col[None, :] * 4 + torch.arange(4, device=dev)[:, None]
+               < N_BIG)
+    y = torch.randn((4, pitch), generator=gen, device=dev, dtype=dtype) * na
+    return bed, na.contiguous(), y.contiguous()
 
 
 def mlma_fields(path):
@@ -2658,15 +2790,16 @@ def f32_chains(sim_pkl, out, card, repo):
         steady = sum(res.iter_seconds[THIN:]) / (iters - THIN)
         print(f"# {repo}: float32 W={wave} {steady * 1e3:.2f} ms/iteration "
               f"over iterations {THIN + 1}-{iters}  [{card}]", flush=True)
-    f32_kernel_bytes(os.path.join(out, "kernels"))
+    kernel_bytes(os.path.join(out, "kernels"))
 
 
-def f32_kernel_bytes(out):
-    """The float32 block Gram (kernel 5, a run of 16 blocks at NT=1 and
-    NT=4) and predict sums (a (4,096, 2,560) bed, one trait with NAs) on
-    inputs drawn from one seed on the card, their raw bytes written into
-    OUT: the kernels the float64 work instantiates from shared templates,
-    compared across two trees by ``same_bytes``."""
+def kernel_bytes(out):
+    """The block Gram (kernels 5 and A, a run of 16 blocks at NT=1 and
+    NT=4) and predict sums (the predict kernel and D, a (4,096, 2,560)
+    bed, one trait with NAs) in float32 and float64 on inputs drawn from
+    one seed on the card, their raw bytes written into OUT: the kernels
+    that share templates across the two types, compared across two trees
+    by ``same_bytes``."""
     import torch
     from gmrm_tpu_torch.ops.block_gram import blocks_gram_scaled
     from gmrm_tpu_torch.ops.predict_sums import predict_sums
@@ -2683,10 +2816,16 @@ def f32_kernel_bytes(out):
     mave = torch.rand((nb, T, B), generator=gen, device=dev) * 1.6 + 0.2
     msig = torch.rand((nb, T, B), generator=gen, device=dev) + 0.5
     y = torch.randn((4, MB), generator=gen, device=dev) * na[0]
-    outs = {f"block_gram_nt{nt}": blocks_gram_scaled(
-        bed, rows, na[:nt].contiguous(), mave, msig) for nt in (1, T)}
-    outs["predict_sums"] = torch.stack(predict_sums(
-        bed[:4096].contiguous(), na[0].contiguous(), y.contiguous()))
+    outs = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "" if dtype == torch.float32 else "_f64"
+        for nt in (1, T):
+            outs[f"block_gram_nt{nt}{tag}"] = blocks_gram_scaled(
+                bed, rows, na[:nt].contiguous(), mave.to(dtype),
+                msig.to(dtype))
+        outs["predict_sums" + tag] = torch.stack(predict_sums(
+            bed[:4096].contiguous(), na[0].to(dtype).contiguous(),
+            y.to(dtype).contiguous()))
     for name, x in outs.items():
         with open(os.path.join(out, name + ".bin"), "wb") as fh:
             fh.write(x.cpu().numpy().tobytes())
@@ -2696,8 +2835,8 @@ def same_bytes(tree, card):
     """``--same-bytes TREE``: phase 4's and 4b's float32 chains written by
     the tree at TREE and by this one, each in its own process on the one
     card, in the order TREE, this, this, TREE (``f32_chains``), with the
-    float32 kernel outputs of ``f32_kernel_bytes``; the files of the first
-    two runs must be equal byte for byte."""
+    float32 and float64 kernel outputs of ``kernel_bytes``; the files of
+    the first two runs must be equal byte for byte."""
     import filecmp
     import pickle
     with tempfile.TemporaryDirectory() as tmp:
@@ -2719,9 +2858,9 @@ def same_bytes(tree, card):
             if differ or errors or names != sorted(os.listdir(b)):
                 fail(f"float32 {w}: {tree} and {REPO} wrote other bytes "
                      f"({differ or errors})")
-            what = ("kernel outputs'" if w == "kernels"
-                    else f"{w} chain's")
-            print(f"# same bytes: the float32 {what} {len(names)} "
+            what = ("float32 and float64 kernel outputs'" if w == "kernels"
+                    else f"float32 {w} chain's")
+            print(f"# same bytes: the {what} {len(names)} "
                   f"files of {tree} and {REPO} are equal  [{card}]",
                   flush=True)
 
@@ -2799,6 +2938,7 @@ def f64_only(dev, reps, card, repo):
     with tempfile.TemporaryDirectory() as tmp:
         sim = anchor_dataset(os.path.join(tmp, "data"))
         for rep in range(reps):
+            ad_times(dev, gen, card, repo, rep)
             *_, times = f64_passes(bk, bed, rows_all, mave_p, msig_p, d_all,
                                    eps, (na1, na4), (nblocks // 2,))
             for nt, by in times.items():
@@ -2833,6 +2973,122 @@ def f64_only(dev, reps, card, repo):
                   f"{1 - busy / wall:.3f}, {calls:.1f} launches per "
                   f"iteration; busiest kernels (name, ms and launches per "
                   f"iteration) {top}  [{card}]", flush=True)
+
+
+def kernel_ms_by_name(fn, reps=5):
+    """Device ms per call of ``fn`` by kernel name: ``reps`` calls captured
+    in one CUDA graph, one replay of it under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if "cuda" in str(e.device_type).lower() and e.name:
+            us = getattr(e, "device_time", None) or e.cuda_time
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / reps
+    return by_name
+
+
+def sass_counts(lib, fn_part, ops):
+    """How often each SASS opcode prefix of ``ops`` occurs in every
+    function of the shared library ``lib`` whose mangled name contains
+    ``fn_part`` (``cuobjdump -sass``), and its instructions in all but
+    the NOPs that pad it (``"all"``)."""
+    import re
+    from gmrm_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if fn_part in head.group(1) else None
+            if fn:
+                counts[fn] = dict.fromkeys((*ops, "all"), 0)
+        elif fn:
+            instr = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+            counts[fn]["all"] += (instr is not None
+                                  and instr.group(1) != "NOP")
+            for op in ops:
+                if instr and instr.group(1).startswith(op):
+                    counts[fn][op] += 1
+    return counts
+
+
+def ad_times(dev, gen, card, repo, rep):
+    """Kernels A and D alone (``--f64-only``), for comparing two trees in
+    one call: A on all 157 anchor blocks at NT=1 and NT=4, gs bit-equal to
+    the plain version, device ms per launch by graph replay, and the
+    launch's kernels split by name under torch.profiler (a tree of the
+    earlier design launches a raw kernel and a scaling pass); where the
+    tree's wrapper records them (``stamps=``), the %globaltimer split of
+    one launch into main loop and epilogue.  D and the float32 predict
+    kernel on one seeded bed of the anchor's shape (20,000 rows, 2% NAs),
+    each held by ``predict_case``, and the int-to-float conversions in
+    both instances' SASS.  In a tree that records stamps, the first rep
+    also runs the widened gate (``gram_gate``) at both types."""
+    import inspect
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops import block_gram as bg
+    bed, rows_all, mave_p, msig_p, na1, na4 = f64_anchor_operands(dev, gen)
+    nblocks = rows_all.shape[0]
+    stamped = "stamps" in inspect.signature(bg.blocks_gram_scaled).parameters
+    for nt, na in ((1, na1[:1]), (T, na4)):
+        for dtype in (torch.float64, torch.float32):
+            args = (bed, rows_all, na.float().contiguous(),
+                    mave_p.to(dtype), msig_p.to(dtype))
+            got = bit_equal_twice(f"block_gram {dtype} (NT={nt})", lambda: (
+                bg.blocks_gram_scaled(*args),))[0]
+            if not torch.equal(got, bg.blocks_gram_scaled_plain(*args)):
+                fail(f"block_gram {dtype} (NT={nt}): gs is not bit-equal to "
+                     f"its plain version")
+            del got
+            ms = cuda_ms(lambda: bg.blocks_gram_scaled(*args), 5)
+            split = kernel_ms_by_name(lambda: bg.blocks_gram_scaled(*args))
+            parts = ", ".join(f"{k[:40]} {v:.4f}" for k, v in split.items())
+            stamps = ""
+            if stamped:
+                stamps = "; stamps: " + gram_stamp_split(bg, args)
+            print(f"# {repo}: kernel {'A' if dtype == torch.float64 else 5}"
+                  f" NT={nt}, run {rep + 1}: {ms:.4f} ms a launch of "
+                  f"{nblocks} blocks (graph replay); by kernel (profiler): "
+                  f"{parts}{stamps}  [{card}]", flush=True)
+    if stamped and rep == 0:
+        for dtype in (torch.float32, torch.float64):
+            lines = gram_gate(bg, dev, gen, dtype)
+            print(f"# {repo}: block_gram {dtype} bit-equal twice at (B, mb, "
+                  f"blocks) {GRAM_GATE_SHAPES}, NT=1 and NT={T}; plans: "
+                  + " | ".join(lines[::2]) + f"  [{card}]", flush=True)
+    m = MT
+    pitch = MB
+    pbed = torch.randint(0, 256, (m, pitch), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    keep = (torch.rand((4, pitch), generator=gen, device=dev) > 0.02)
+    y = torch.randn((4, pitch), generator=gen, device=dev,
+                    dtype=torch.float64)
+    for dtype in (torch.float64, torch.float32):
+        row = predict_case(f"{repo} run {rep + 1}, seeded anchor bed, 2% "
+                           f"NAs, {dtype}", pbed, keep.to(dtype),
+                           (y * keep).to(dtype), 4 * pitch, card)
+        del row
+    ops = ("I2F.F64", "I2F", "F2F", "DFMA", "PRMT")
+    counts = sass_counts(_build.build(), "predict_sums_kernel", ops)
+    print(f"# {repo}: SASS of the predict kernels (instructions whose "
+          f"opcode starts {', '.join(ops)}, and all but NOPs): " + "; ".join(
+              f"{'double' if 'kernelId' in fn else 'float'} {c}"
+              for fn, c in counts.items()) + f"  [{card}]", flush=True)
 
 
 def close64(name, got, want):
@@ -3309,17 +3565,17 @@ def float64_kernel_phase(dev, gen, card):
     res = {}
     ms_of = {}
 
-    # Kernel A: a run of blocks that ends with the last one, at NT=1 (all
-    # 157 blocks, one run) and NT=4 (the run the byte budget allows).
+    # Kernel A: all 157 blocks in one run at NT=1 and NT=4 (the last block
+    # with its pad slots), twice, bit-equal; then GRAM_GATE_SHAPES.
     gram_ops = 2 * (2 * (B * (B + 1) // 2) + B * B) * 4 * (MB - 60)
-    err_a, a_ms = 0.0, []
+    err_a, a_ms, a_notes = 0.0, [], []
     for na in (na_shared, na_trait):
         nt = 1 if na is na_shared else T
         na_in = (na[:1] if nt == 1 else na).to(torch.float32).contiguous()
-        nb = bg.gram_run_blocks(T, B, nt, nblocks, 8)
-        s = slice(nblocks - nb, nblocks)
-        args = (bed, rows_all[s].contiguous(), na_in,
-                mave_p[s].contiguous(), msig_p[s].contiguous())
+        nb = bg.gram_run_blocks(T, B, nblocks, 8)
+        if nb != nblocks:
+            fail(f"block_gram_f64: a run of {nb} blocks at NT={nt}")
+        args = (bed, rows_all, na_in, mave_p, msig_p)
         got = bit_equal_twice(f"block_gram_f64 (NT={nt})", lambda: (
             bg.blocks_gram_scaled(*args),))[0]
         want = bg.blocks_gram_scaled_plain(*args)
@@ -3330,6 +3586,11 @@ def float64_kernel_phase(dev, gen, card):
         a_ms.append((nb, cuda_ms(lambda: bg.blocks_gram_scaled(*args), 5)
                      / nb, cuda_ms(lambda: bg.blocks_gram_scaled_plain(
                          *args), 1) / nb))
+        a_notes.append(f"NT={nt}: plan {gram_plan_text(bg, B, nt, nb)}; "
+                       f"stamps {gram_stamp_split(bg, args)}")
+    a_notes.append("bit-equal twice at (B, mb, blocks) "
+                   f"{GRAM_GATE_SHAPES}, NT=1 and NT={T}; plans: "
+                   + " | ".join(gram_gate(bg, dev, gen, f64)))
     # One block's scaled Gram from pre-decoded float64 operands (NT=1).
     pa, pb = decode_planes(bed[rows_all[0].long()], f64)
     ab = torch.cat([pa, pb]).reshape(2 * B, -1)
@@ -3341,8 +3602,9 @@ def float64_kernel_phase(dev, gen, card):
         bound_of(B * MB + T * B * B * 8 + 2 * T * B * 8,
                  (gram_ops, INT8_OPS), (8 * T * B * B, F64_OPS)))
     ms_of["block_gram_f64"] = ", ".join(
-        f"NT={nt}: {k:.5f} per block in a run of {nb} (plain {p:.4f})"
-        for (nb, k, p), nt in zip(a_ms, (1, T)))
+        f"NT={nt}: {k:.5f} per block in a run of {nb} ({k * nb:.4f} a "
+        f"launch; plain {p:.4f})" for (nb, k, p), nt in zip(a_ms, (1, T)))
+    ms_of["block_gram_f64"] += "; " + "; ".join(a_notes)
 
     # Kernel B: the c-dot, the update and the fused pass, checked at a
     # middle block and the last, timed at the middle one (f64_passes).
@@ -3458,7 +3720,7 @@ def float64_phase(sim, small, dev, tmp, card, gen):
         opt = anchor_options(sim, out, None, stop, "float64")
         opt.checkpoint_every, opt.resume = 3, resume
         _, c = counted(lambda: run_training(opt, device=dev, verbose=False))
-        want = f64_counts(nblocks, 1, sweeps=5 if not resume
+        want = f64_counts(nblocks, sweeps=5 if not resume
                           else ITERS_F64 - 3)
         if c != want:
             fail(f"float64 resume: launches {c}, expected {want}")
@@ -3490,7 +3752,10 @@ def float64_phase(sim, small, dev, tmp, card, gen):
                        dtype=torch.float64) > 0.02).to(torch.float64)
     p2 = predict_case("anchor, 2% NAs, float64", bed_d, na_d * keep,
                       y_d * keep, N, card)
-    prow = dict(prow, err=max(prow["err"], p2["err"]))
+    p3 = predict_case("N=100,000 x 4,096, 2% NAs, float64",
+                      *big_predict_operands(dev, gen, torch.float64), N_BIG,
+                      card)
+    prow = dict(prow, err=max(prow["err"], p2["err"], p3["err"]))
     pruns = {}
     for key, device in (("card", dev), ("cpu", "cpu")):
         pout = os.path.join(tmp, f"predict_f64_{key}")

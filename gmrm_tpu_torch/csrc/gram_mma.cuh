@@ -1,9 +1,8 @@
 // The NA-masked integer Gram tile of 2-bit genotypes on the int8 tensor
 // cores: a 128 x 128 tile of  sum_n keep[n] * x_r[n] * y_c[n]  over the
 // individuals n, where x and y are the a (0/1/2) or b (0/1) decode of the
-// bed rows of 128 markers each.  Shared by the block Gram (block_gram.cu);
-// written as device functions so that the Gram cache (gram_cache.cu, the
-// same product per natural block) can take it over.
+// bed rows of 128 markers each: the Gram cache's tile (gram_cache.cu).  The
+// block Gram (block_gram.cu, on wgmma) takes its 16-byte row loader.
 //
 // Design for the H100:
 // - The sum over individuals is order-free (every term is an exact

@@ -42,10 +42,17 @@
 //
 // Float64 (kernel D, gmrm_predict_sums_f64, a --dtype float64 predict):
 // the same two kernels, templated on the value type V of na, y and out
-// (Sums<V> holds the loads, the conversion of a value and the
-// multiply-add).  xtx stays the int32 popcount sum (exact); each val
-// becomes a double by a conversion and xty is a double FMA a value, in the
-// order of the float32 kernel.  It replaces
+// (Sums<V> holds the loads, the making of a value's V and the
+// multiply-add).  xtx stays the int32 popcount sum (exact); xty is a
+// double FMA a value, in the order of the float32 kernel.  A value (0, 1
+// or 2) becomes its double without a conversion instruction (those issue
+// at a quarter of the double FMA rate on the H100), by the float32
+// kernel's trick at 2^52: one byte permute puts it in the low word under
+// the high word of 2^52, one add takes 2^52 away.  The double is exact,
+// so the sums are the bits of the conversion's.  Its y is staged in
+// shared memory a span of vectors at a time (lane_sums' STAGE) where
+// several groups of warps share it: read straight from global memory,
+// every 16-byte load of a warp touches 32 cache lines.  It replaces
 // _predict_sums_scan(dtype=float64) (gmrm_tpu/predict.py:43).  Bound: the
 // bed once, as in float32 (xty's FMAs at the float64 rate take less time);
 // y is twice as wide and stays in L1 and L2 as well.
@@ -98,8 +105,12 @@ template <> struct Sums<double> {
   static __device__ __forceinline__ double at(const Quad &q, int b) {
     return b == 0 ? q.lo.x : b == 1 ? q.lo.y : b == 2 ? q.hi.x : q.hi.y;
   }
+  // Byte b of vk into the low word under the high word 0x43300000:
+  // 2^52 + val, minus 2^52 (exact; one byte permute and one add).
   static __device__ __forceinline__ double value(uint32_t vk, int b) {
-    return (double)((vk >> (8 * b)) & 0xffu);
+    return __dsub_rn(
+        __hiloint2double(0x43300000, (int)__byte_perm(vk, 0, 0x4440 + b)),
+        4503599627370496.0);
   }
   static __device__ __forceinline__ double madd(double a, double b,
                                                 double c) {
@@ -127,20 +138,114 @@ __global__ void keep_words_kernel(const V* __restrict__ na,
   keep[j] = w;
 }
 
+// The y of a double launch is staged (STAGE) in shared memory where
+// several groups of warps share it (team < WARPS).  Each lane reads its
+// own vector's y, 16 columns from its neighbour's, so a warp's direct
+// 16-byte loads of y touch 32 cache lines each, and every group of warps
+// of the CTA loads the same y.  Staged, the CTA copies the y of the
+// vectors its warps take in a span once, coalesced, into rows of YS
+// doubles (16 and a pad: a quarter-warp's 16-byte reads hit distinct
+// banks), then every warp reads it from there.  When one group takes the
+// whole CTA (rows of 65,536 individuals or more) nothing is shared, and
+// the y is read directly, as at float.
+constexpr int YS = 18;
+
+// Shared memory of a launch: the staged y of one span.
+inline int staged_bytes(int team, int es) {
+  return es == 8 && team < WARPS ? 4 * team * 32 * YS * 8 : 0;
+}
+
+// This lane's partial sums of the group's G rows from row0: acc the xty,
+// cnt the xtx.  Each lane takes the vectors vl, vl + span, ... of a row;
+// the order of its operations is the same with y staged or not.
+template <typename V, bool STAGE>
+__device__ __forceinline__ void lane_sums(
+    const uint8_t* __restrict__ bed, const uint32_t* __restrict__ keep,
+    const V* __restrict__ y, int M, int L, int team, long long row0,
+    V (&acc)[G], int (&cnt)[G]) {
+  using S = Sums<V>;
+  static_assert(!STAGE || sizeof(V) == 8, "y is staged at double only");
+  extern __shared__ __align__(16) double ys[];   // [4][span][YS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nv = L / 16;
+  const int span = team * 32;                    // vectors a span
+  const int vl = (warp % team) * 32 + lane;      // this lane's, in the span
+  // Staged, every thread of the CTA takes part in the copies, live or not;
+  // else the caller runs only live groups.
+  const bool live = !STAGE || row0 < M;
+  const uint4* rows[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    rows[g] = live && row0 + g < M
+                  ? (const uint4*)(bed + (size_t)(row0 + g) * L)
+                  : nullptr;
+  for (int v0 = STAGE ? 0 : vl; v0 < nv; v0 += span) {
+    if constexpr (STAGE) {
+      __syncthreads();                           // the last span's reads
+      for (int i = threadIdx.x; i < 4 * span * 8; i += THREADS) {
+        const int k = i / (span * 8), r = i % (span * 8);
+        const int vv = r / 8, c = 2 * (r % 8);
+        double2 two = make_double2(0.0, 0.0);
+        if (v0 + vv < nv)
+          two = __ldg(
+              (const double2*)(y + (size_t)k * L + 16 * (v0 + vv) + c));
+        *(double2*)(ys + ((size_t)k * span + vv) * YS + c) = two;
+      }
+      __syncthreads();
+    }
+    const int v = STAGE ? v0 + vl : v0;
+    if (STAGE && (!live || v >= nv)) continue;
+    uint4 w[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      w[g] = rows[g] ? __ldcs(rows[g] + v)
+                     : make_uint4(0x55555555u, 0x55555555u, 0x55555555u,
+                                  0x55555555u);
+    const uint4 kw = __ldg((const uint4*)keep + v);
+    const int col = v * 16;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      typename S::Quad yk[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (STAGE) {
+          const double2* p =
+              (const double2*)(ys + ((size_t)k * span + vl) * YS + 4 * q);
+          yk[k] = {p[0], p[1]};
+        } else {
+          yk[k] = S::load(y + (size_t)k * L + col + 4 * q);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        uint32_t a2, a1;
+        gmrm_decode_word(word_of(w[g], q), word_of(kw, q), a2, a1);
+        cnt[g] += 4 * __popc(a2) + __popc(a1);
+        const uint32_t val = (a2 << 1) | a1;   // a * na per 2-bit field
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t vk = (val >> (2 * k)) & 0x03030303u;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[g] = S::madd(S::value(vk, b), S::at(yk[k], b), acc[g]);
+        }
+      }
+    }
+  }
+}
+
 template <typename V>
 __global__ void __launch_bounds__(THREADS, Sums<V>::CTAS_PER_SM)
 predict_sums_kernel(const uint8_t* __restrict__ bed,
                     const uint32_t* __restrict__ keep,
                     const V* __restrict__ y, V* __restrict__ out,
                     int M, int L, int team) {
-  using S = Sums<V>;
   __shared__ V red_y[WARPS][G];
   __shared__ int red_x[WARPS][G];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int groups = WARPS / team;
   const long long row0 =
       ((long long)blockIdx.x * groups + warp / team) * G;
-  const int nv = L / 16;
 
   V acc[G];
   int cnt[G];
@@ -149,44 +254,14 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
     acc[g] = V(0);
     cnt[g] = 0;
   }
-  if (row0 < M) {
-    const uint4* rows[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      rows[g] = row0 + g < M
-                    ? (const uint4*)(bed + (size_t)(row0 + g) * L)
-                    : nullptr;
-    for (int v = (warp % team) * 32 + lane; v < nv; v += team * 32) {
-      uint4 w[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        w[g] = rows[g] ? __ldcs(rows[g] + v)
-                       : make_uint4(0x55555555u, 0x55555555u, 0x55555555u,
-                                    0x55555555u);
-      const uint4 kw = __ldg((const uint4*)keep + v);
-      const int col = v * 16;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        typename S::Quad yk[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          yk[k] = S::load(y + (size_t)k * L + col + 4 * q);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          uint32_t a2, a1;
-          gmrm_decode_word(word_of(w[g], q), word_of(kw, q), a2, a1);
-          cnt[g] += 4 * __popc(a2) + __popc(a1);
-          const uint32_t val = (a2 << 1) | a1;   // a * na per 2-bit field
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const uint32_t vk = (val >> (2 * k)) & 0x03030303u;
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-              acc[g] = S::madd(S::value(vk, b), S::at(yk[k], b), acc[g]);
-          }
-        }
-      }
+  if constexpr (sizeof(V) == 8) {
+    if (team < WARPS) {
+      lane_sums<V, true>(bed, keep, y, M, L, team, row0, acc, cnt);
+    } else if (row0 < M) {
+      lane_sums<V, false>(bed, keep, y, M, L, team, row0, acc, cnt);
     }
+  } else if (row0 < M) {
+    lane_sums<V, false>(bed, keep, y, M, L, team, row0, acc, cnt);
   }
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -241,7 +316,14 @@ static int launch_sums(const void* bed, const void* na, const void* y,
   keep_words_kernel<V><<<(L / 4 + THREADS - 1) / THREADS, THREADS, 0,
                          (cudaStream_t)stream>>>((const V*)na,
                                                  (uint32_t*)keep, L);
-  predict_sums_kernel<V><<<(unsigned)grid, THREADS, 0,
+  const int smem = staged_bytes(team, sizeof(V));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        predict_sums_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  predict_sums_kernel<V><<<(unsigned)grid, THREADS, smem,
                            (cudaStream_t)stream>>>(
       (const uint8_t*)bed, (const uint32_t*)keep, (const V*)y, (V*)out, M,
       L, team);

@@ -55,8 +55,9 @@ SIGNATURES = {
     # bed, rows, rows_next, d, mave, mave_next, msig_next, na, eps, c_next,
     # scratch, T, B, mb, S, stamps (or null), stream
     "gmrm_update_cdot": [_P] * 11 + [_I] * 4 + [_P, _P],
-    # bed, rows, na, mave, msig, raw, gs, nb, T, B, mb, nt, stream
-    "gmrm_block_gram": [_P] * 7 + [_I] * 5 + [_P],
+    # bed, rows, na, mave, msig, gs, stamps (or null), nb, T, B, mb, nt,
+    # panels, stages, grid, stream
+    "gmrm_block_gram": [_P] * 7 + [_I] * 8 + [_P],
     # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
     # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, stamps (or
     # null), b, bc, bg, T, B, K, mode, GR, NG, stream
@@ -83,8 +84,9 @@ SIGNATURES = {
     # L: no launch, the warps the predict kernel gives a group of rows
     "gmrm_predict_sums_team": [_I],
     # The float64 kernels of the exact serial path (A-D).
-    # bed, rows, na (float32), mave, msig, raw, gs, nb, T, B, mb, nt, stream
-    "gmrm_block_gram_f64": [_P] * 7 + [_I] * 5 + [_P],
+    # bed, rows, na (float32), mave, msig, gs, stamps (or null), nb, T, B,
+    # mb, nt, panels, stages, grid, stream
+    "gmrm_block_gram_f64": [_P] * 7 + [_I] * 8 + [_P],
     # Kernel B: the float64 entry points of kernels 2, 4 and the fused
     # pass, with the float32 ones' arguments.
     "gmrm_block_cdot_f64": [_P] * 7 + [_I] * 4 + [_P, _P],

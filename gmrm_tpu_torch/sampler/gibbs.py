@@ -224,7 +224,6 @@ class _ComposedSweep:
             win = perm.reshape(nblocks, B) - blk[:, None] * B
             win2 = torch.cat([win, win + B], dim=1)         # (nblocks, 2B)
             cache = static.gram_cache
-            nt = cache.shape[1]
 
             def grams(s):
                 return cached_grams_scaled(cache, blk[s], win2[s], mave_p[s],
@@ -235,13 +234,12 @@ class _ComposedSweep:
             # The raw Gram stage takes the 0/1 mask in float32 at any dtype.
             na_gram = (static.na[:1] if static.shared_na
                        else static.na).to(torch.float32).contiguous()
-            nt = na_gram.shape[0]
 
             def grams(s):
                 return blocks_gram_scaled(bed, rows[s], na_gram, mave_p[s],
                                           msig_p[s])
         self.grams = grams
-        self.gram_run = gram_run_blocks(betas.shape[0], B, nt, nblocks,
+        self.gram_run = gram_run_blocks(betas.shape[0], B, nblocks,
                                         betas.element_size())
         self.gs, self.gs_start = None, 0
         self._build_grams(0)

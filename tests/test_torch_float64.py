@@ -236,15 +236,18 @@ def _block_case(rng, T, B, mb, nt):
     return bed, rows, na, eps, mave, msig
 
 
+@pytest.mark.parametrize("B, mb", [(32, 300), (192, 203)],
+                         ids=["B32_mb300", "B192_mb203"])
 @pytest.mark.parametrize("nt", [1, 3], ids=["shared_na", "per_trait_na"])
-def test_gram_cdot_and_update_plain_match_jax_wide(nt):
+def test_gram_cdot_and_update_plain_match_jax_wide(nt, B, mb):
     """Kernels A and B's plain versions (the wrappers on CPU tensors)
     against the JAX package's float64 route: the scaled Gram and c from
-    ``_block_gram_wide``, and ``block_eps_update(dtype=float64)``.  The
-    port's Gram is the quadrant expression, JAX's a direct product:
-    within 1e-11 of max|gs|."""
+    ``_block_gram_wide``, and ``block_eps_update(dtype=float64)``, also at
+    the card's gate shapes B=192 (bands outside their tile) and mb=203
+    (rows not on 16 bytes).  The port's Gram is the quadrant expression,
+    JAX's a direct product: within 1e-11 of max|gs|."""
     rng = np.random.default_rng(41 + nt)
-    T, B, mb = 3, 32, 300
+    T = 3
     bed, rows, na, eps, mave, msig = _block_case(rng, T, B, mb, nt)
     d = rng.normal(size=(T, B)) * 0.1
     with jax.enable_x64(True):
@@ -749,19 +752,20 @@ def test_cli_trains_resumes_and_predicts_at_f64(sim_small, tmp_path,
 
 def test_gram_runs_count_f64_bytes(sim_small, monkeypatch):
     """A float64 sweep sizes its runs of Grams for 8 bytes an entry: the
-    anchor's 157 blocks at NT=1 still fit one run, at NT=4 fewer blocks fit
-    than at float32, and as many as for 2 T float32 Grams."""
+    anchor's 157 blocks still fit one run, on a sweep of 7,813 blocks
+    fewer blocks fit than at float32, and as many as for 2 T float32
+    Grams."""
     from gmrm_tpu_torch.sampler import gibbs as tgibbs
-    assert gram_run_blocks(4, 128, 1, 157, 8) == 157
-    assert (gram_run_blocks(4, 128, 4, 157, 8)
-            < gram_run_blocks(4, 128, 4, 157))
-    assert (gram_run_blocks(4, 128, 4, 157, 8)
-            == gram_run_blocks(8, 128, 4, 157))
+    assert gram_run_blocks(4, 128, 157, 8) == 157
+    assert (gram_run_blocks(4, 128, 7813, 8)
+            < gram_run_blocks(4, 128, 7813))
+    assert (gram_run_blocks(4, 128, 7813, 8)
+            == gram_run_blocks(8, 128, 7813))
     seen = []
 
-    def spy(T, B, nt, nblocks, elem=4):
+    def spy(T, B, nblocks, elem=4):
         seen.append((T, elem))
-        return gram_run_blocks(T, B, nt, nblocks, elem)
+        return gram_run_blocks(T, B, nblocks, elem)
 
     monkeypatch.setattr(tgibbs, "gram_run_blocks", spy)
     for dtype, elem in (("float64", 8), ("float32", 4)):

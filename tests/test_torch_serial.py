@@ -170,14 +170,15 @@ def test_blocks_gram_matches_pallas_and_plain(nt):
 
 
 def test_gram_runs_stay_under_the_byte_budget(monkeypatch):
-    """A run's scaled Grams and raw scratch fit the budget; never less
-    than one block, never more than the sweep has."""
+    """A run's scaled Grams fit the budget (the kernel keeps no raw Gram
+    in device memory, so the masks do not count); never less than one
+    block, never more than the sweep has."""
     import gmrm_tpu_torch.ops.block_gram as bgm
-    assert gram_run_blocks(4, 128, 1, 157) == 157
-    assert gram_run_blocks(4, 128, 4, 157) == 128
-    assert gram_run_blocks(4, 128, 4, 7813) == 128
+    assert gram_run_blocks(4, 128, 157) == 157
+    assert gram_run_blocks(4, 128, 7813) == 512
+    assert 512 * 4 * 4 * 128 ** 2 == bgm.GRAM_RUN_BYTES
     monkeypatch.setattr(bgm, "GRAM_RUN_BYTES", 1)
-    assert gram_run_blocks(4, 128, 4, 157) == 1
+    assert gram_run_blocks(4, 128, 157) == 1
 
 
 @pytest.mark.parametrize("case", ["plain", "adav", "overflow"])

@@ -143,7 +143,28 @@ Phases, each of which must pass (any failure exits non-zero):
    float64 iterations, and the chain cut at 5 and resumed,
    byte-equal; one S=2 sharded float64 sweep against the plain one;
    run_training_sharded at S=2, and inside a one-rank NCCL group,
-   byte-equal; run_predict at float64 on the card and on the CPU.
+   byte-equal; run_predict at float64 on the card and on the CPU;
+8. any number of traits (ops/trait_chunks.py): (a) sweep gates at T=16
+   at the anchor's shapes (16 of 32 phenotypes simulated with seed
+   171014, NT=1; 16 with 2% NAs, NT=16): W=32 (kernels 7/8 in two
+   launches of 8) over the anchor's 157 blocks, and composed W=32, sharded
+   S=2 at W=32 (kernel 9 in two launches a block step), W=1 and float64
+   W=1 over 32 blocks of the anchor's N, B and traits (the small panel
+   with 16 phenotypes, NT=1, or 16 of its 33, NT=16), each against its plain
+   version on the host CPU (comp and cass equal, max|dbeta|, max|deps| <=
+   1e-4, 1e-9 at float64), and at T=33 on the small panel (NT=33) at W=1
+   (kernel 6 as a grid of trait groups) against the plain version and at
+   W=32 bit-equal to the sweep of each trait chunk alone (the plain
+   comparison printed beside it); kernels 7/8 at launch widths 5, 6 and 7
+   against the plain sweep; (b) every chunked
+   launch bit-equal to its kernel on that chunk's traits alone (kernels
+   7/8 and 9 at 16 traits, NT=1 and NT=16; the passes at 48 traits, float32
+   and float64; kernel 6 at 33 and kernel 3 at 48 traits, grids of trait
+   groups); (c) kernels 1, 5 and A at T=16, NT=16, bit-equal; (d)
+   run_training at T = 8, 16 and 32, W=32 and W=1, 10 iterations each:
+   ms/iteration, launches an iteration (each kernel's count checked with
+   its trait chunks) and peak device memory.  ``--traits-only REPS`` runs
+   phase 8 alone (the timing runs REPS times).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -176,6 +197,15 @@ version (phase 7a's gate), then times kernel B's launches alone at the
 anchor (NT=1, NT=4) beside their float64 torch.matmul yardsticks, kernel
 C alone on a middle block (NT=1, NT=4, one stamped launch) and runs phase
 7c's float64 W=1 training and a float64 profiler window, REPS times.
+``--predict-only REPS [--repo TREE]`` times the float32 predict kernel
+alone on a seeded anchor-shaped bed (2% NAs) and at N=100,000 x 4,096,
+held to its plain version beside torch.mv, its launch's two kernels split
+by the profiler, and, where the tree has the probe entry point, the
+%globaltimer and cycle split of one stamped launch per CTA, with its SASS
+counts.  ``--predict-pairs N --against TREE`` loads TREE's kernel library
+beside this tree's and times the float32 predict kernel and D of both in
+N alternating pairs in one process, on that seeded bed, the anchor
+dataset's own bed and at N=100,000 (``predict_pairs``).
 ``--same-bytes TREE`` runs phase 4's and 4b's float32 chains in TREE and
 in this tree (TREE, this, this, TREE; a process each) and requires equal
 ``.bet/.cpn/.csv`` bytes, and equal bytes from the block Gram and predict
@@ -255,44 +285,69 @@ def bound_of(nbytes, *ops_and_rates):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def serial_counts(nblocks, sweeps=1, shards=1, fused=True):
+def pass_chunks(traits, es=4, mb=MB):
+    """Launches of one pass (kernels 2, 4, the fused pass, B) at
+    ``traits`` traits: one, or one a trait chunk where the traits' slices
+    do not fit one launch (ops/trait_chunks.py)."""
+    from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
+    return len(trait_chunks("passes", traits, B, mb=mb, es=es))
+
+
+def sweep_chunks(traits, kernel="sweep_blocks"):
+    """Launches of kernels 7/8 a sweep (or of kernel 9 a block step) at
+    ``traits`` traits: one a chunk of at most 8."""
+    from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
+    return len(trait_chunks(kernel, traits, B))
+
+
+def serial_counts(nblocks, sweeps=1, shards=1, fused=True, traits=T,
+                  mb=MB):
     """Launches of ``sweeps`` W=1 sweeps of ``shards`` shards of ``nblocks``
-    blocks: kernel 6 once per block and kernel 5 once per run of blocks
-    under the Gram byte budget; on one device (``fused``) kernel 2 once
-    for the first block, the fused pass once for each block but the last
-    and kernel 4 once for the last, on a sharded run kernels 2 and 4 once
-    per block."""
+    blocks: kernel 6 once per block (its trait groups are one grid) and
+    kernel 5 once per run of blocks under the Gram byte budget; on one
+    device (``fused``) kernel 2 once for the first block, the fused pass
+    once for each block but the last and kernel 4 once for the last, on a
+    sharded run kernels 2 and 4 once per block; each pass once a trait
+    chunk (``pass_chunks``)."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
-    runs = -(-nblocks // gram_run_blocks(T, B, nblocks))
+    runs = -(-nblocks // gram_run_blocks(traits, B, nblocks))
     per_sweep = ({"block_cdot": 1, "serial_scan": nblocks,
                   "update_cdot": nblocks - 1, "eps_update": 1} if fused
                  else dict.fromkeys(SERIAL_KERNELS, nblocks))
+    pc = pass_chunks(traits, 4, mb)
+    per_sweep = {k: v * (1 if k == "serial_scan" else pc)
+                 for k, v in per_sweep.items()}
     per_sweep["block_gram"] = runs
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
-def f64_counts(nblocks, sweeps=1, shards=1, fused=True):
+def f64_counts(nblocks, sweeps=1, shards=1, fused=True, traits=T, mb=MB):
     """Launches of ``sweeps`` float64 W=1 sweeps of ``shards`` shards of
     ``nblocks`` blocks: kernel C once per block, kernel A once per run of
     blocks under the Gram byte budget (8-byte entries); kernel B on one
     device (``fused``) as the c-dot of the first block, the fused pass for
     each block but the last and the update of the last, on a sharded run
-    the c-dot and the update once per block each."""
+    the c-dot and the update once per block each; B once a trait chunk."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
-    runs = -(-nblocks // gram_run_blocks(T, B, nblocks, 8))
+    runs = -(-nblocks // gram_run_blocks(traits, B, nblocks, 8))
     per_sweep = ({"block_cdot_f64": 1, "update_cdot_f64": nblocks - 1,
                   "eps_update_f64": 1} if fused else
                  {"block_cdot_f64": nblocks, "eps_update_f64": nblocks})
+    pc = pass_chunks(traits, 8, mb)
+    per_sweep = {k: v * pc for k, v in per_sweep.items()}
     per_sweep.update(block_gram_f64=runs, serial_scan_f64=nblocks)
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
-def composed_counts(nblocks, sweeps=1):
+def composed_counts(nblocks, sweeps=1, traits=T, mb=MB):
     """Launches of ``sweeps`` composed W>1 sweeps on one device: per sweep
-    kernel 2 for the first block, kernel 3 per block, the fused update and
-    next c-dot for every block but the last and kernel 4 for the last."""
-    return {"block_cdot": sweeps, "wave_scan": nblocks * sweeps,
-            "update_cdot": (nblocks - 1) * sweeps, "eps_update": sweeps}
+    kernel 2 for the first block, kernel 3 per block (its trait groups are
+    one grid), the fused update and next c-dot for every block but the
+    last and kernel 4 for the last; each pass once a trait chunk."""
+    pc = pass_chunks(traits, 4, mb)
+    return {"block_cdot": sweeps * pc, "wave_scan": nblocks * sweeps,
+            "update_cdot": (nblocks - 1) * sweeps * pc,
+            "eps_update": sweeps * pc}
 
 
 def fail(msg):
@@ -1250,11 +1305,13 @@ def kernel_phase(dev, gen):
             for name, err in out.items()}
 
 
-def sweep_operands(dev, gen, shared, mb=MB, mt=MT):
-    """One sweep's operands at the anchor's shapes (or ``mb`` byte columns
-    and ``mt`` markers): 157 blocks of B=128 (the last with 96 pad slots),
-    G=3 groups, one of them adaV for trait 0, a standardized residual and
-    the statistics of a random bed whose last 60 byte columns are pad."""
+def sweep_operands(dev, gen, shared, mb=MB, mt=MT, traits=T):
+    """One sweep's operands at the anchor's shapes (or ``mb`` byte columns,
+    ``mt`` markers and ``traits`` traits): 157 blocks of B=128 (the last
+    with 96 pad slots), G=3 groups, one of them adaV for trait 0, a
+    standardized residual and the statistics of a random bed whose last 60
+    byte columns are pad."""
+    T = traits
     import torch
     from gmrm_tpu_torch.ops import sweep_kernel as sk
     from gmrm_tpu_torch.ops.blockops import marker_stats
@@ -1814,10 +1871,13 @@ def one_thread():
         ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"), "1"))
 
 
-def anchor_options(sim, out_dir, wave=W, iterations=ITERS, dtype="float32"):
-    """``wave`` None lets the plan pick the wave, as a user's run does."""
+def anchor_options(sim, out_dir, wave=W, iterations=ITERS, dtype="float32",
+                   phens=None):
+    """``wave`` None lets the plan pick the wave, as a user's run does;
+    ``phens`` trains a subset of the simulated phenotypes."""
     from gmrm_tpu_torch.config import Options
-    opt = Options(bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
+    opt = Options(bed_file=sim.bed, dim_file=sim.dim,
+                  phen_files=list(phens or sim.phens),
                   group_index_file=sim.gri, group_mixture_file=sim.grm,
                   iterations=iterations, seed=42, out_dir=out_dir,
                   block_size=B, wave_size=wave, output_thin_rate=THIN,
@@ -1828,14 +1888,17 @@ def anchor_options(sim, out_dir, wave=W, iterations=ITERS, dtype="float32"):
 
 
 def sweep_gate(sim, dev, wave, name, card, against="plain",
-               dtype="float32"):
-    """Phases 3, 3b, 3c and 7b: one sweep through the default marker_sweep
-    on the card (the whole-sweep kernel at W>1; at W=1 kernels 5, 2, 6,
-    the fused pass and 4, or at float64 kernels A, B and C) against the
-    plain versions on the host CPU or, with ``against`` "composed",
-    against the composed kernels 2, 3, 4 on the card.  ``wave`` None is
-    the auto plan, which must resolve to W=1.  At float64 the draws are
-    float64 and |dbeta|, |deps| are held to 1e-9 (1e-4 at float32)."""
+               dtype="float32", phens=None, mega=None, timed=True):
+    """Phases 3, 3b, 3c, 7b and 8a: one sweep through the default
+    marker_sweep on the card (the whole-sweep kernel at W>1; at W=1
+    kernels 5, 2, 6, the fused pass and 4, or at float64 kernels A, B and
+    C; with ``mega`` False the composed kernels 2, 3, 4) against the plain
+    versions on the host CPU or, with ``against`` "composed", against the
+    composed kernels 2, 3, 4 on the card.  ``wave`` None is the auto plan,
+    which must resolve to W=1.  ``phens``: a subset of the phenotypes (the
+    launches counted with the kernels' trait chunks).  At float64 the draws
+    are float64 and |dbeta|, |deps| are held to 1e-9 (1e-4 at float32).
+    Returns the Gram cache's bytes."""
     import numpy as np
     import torch
     from gmrm_tpu_torch import runner
@@ -1844,11 +1907,13 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
     from gmrm_tpu_torch.ops.sweep_kernel import sweep_plan
     from gmrm_tpu_torch.sampler.gibbs import marker_sweep
 
-    opt = anchor_options(sim, "", wave, dtype=dtype)
+    t_gate = time.perf_counter()
+    opt = anchor_options(sim, "", wave, dtype=dtype, phens=phens)
     resolve_plan(opt, "cuda", sim.m)
-    if (opt.wave_size > 1) != (wave is not None):
+    if (opt.wave_size > 1) != (wave is not None and wave > 1):
         fail(f"{name}: the plan resolved to W={opt.wave_size}")
     fdt = np.float64 if dtype == "float64" else np.float32
+    nT = len(opt.phen_files)
     data = runner.load_data(opt)
     static = runner.build_static(data, opt, dev)
     state = runner.init_sampler_state(data, opt, dev)
@@ -1862,31 +1927,35 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
                                  np.arange(data.m_local, data.m_pad)])
     inj = [torch.from_numpy(a) for a in (
         blocks.reshape(nblocks, B),
-        rng.uniform(size=(nblocks, T, B)).astype(fdt),
-        rng.normal(size=(nblocks, T, B)).astype(fdt))]
+        rng.uniform(size=(nblocks, nT, B)).astype(fdt),
+        rng.normal(size=(nblocks, nT, B)).astype(fdt))]
     sigmae = 0.5 * (state.eps * state.eps).sum(dim=(1, 2)) / static.nonas
     if against == "plain":
         other = (torch.device("cpu"), to_device(state, "cpu"),
-                 to_device(static, "cpu"), None)
+                 to_device(static, "cpu"), mega)
     else:
         other = (dev, state, static, False)
     res, counts = {}, {}
-    for key, (d, st, sta, mega) in (("kernels", (dev, state, static, None)),
-                                    (against, other)):
+    for key, (d, st, sta, mg) in (("kernels", (dev, state, static, mega)),
+                                  (against, other)):
         _build.reset_launch_counts()
         out = marker_sweep(
             st.eps.clone(), st.betas, st.comp, st.acum, st.sigmag,
             sigmae.to(d), st.pi_est, sta, *[x.to(d) for x in inj],
-            wave=opt.wave_size, megakernel=mega)
+            wave=opt.wave_size, megakernel=mg)
         res[key] = [x.cpu() for x in out]
         counts[key] = {k: v for k, v in _build.launch_counts().items() if v}
-    nt = 1 if static.shared_na else T
-    want_counts = ({"sweep_blocks": 1} if opt.wave_size > 1
-                   else f64_counts(nblocks) if dtype == "float64"
-                   else serial_counts(nblocks))
+    nt = 1 if static.shared_na else nT
+    mb = data.mb_pad
+    want_counts = (
+        composed_counts(nblocks, traits=nT, mb=mb) if mega is False
+        else {"sweep_blocks": sweep_chunks(nT)} if opt.wave_size > 1
+        else f64_counts(nblocks, traits=nT, mb=mb) if dtype == "float64"
+        else serial_counts(nblocks, traits=nT, mb=mb))
     if counts["kernels"] != want_counts or (
             against == "composed"
-            and counts[against] != composed_counts(nblocks)):
+            and counts[against] != composed_counts(nblocks, traits=nT,
+                                                   mb=mb)):
         fail(f"{name}: launches {counts}")
     (ke, kb, kc, _, kcass), (pe, pb, pc, _, pcass) = (res["kernels"],
                                                       res[against])
@@ -1894,15 +1963,24 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
     db = float((kb - pb).abs().max())
     de = float((ke - pe).abs().max())
     tol = 1e-9 if dtype == "float64" else 1e-4
-    print(f"# {name} (W={opt.wave_size}, NT={nt}, {nblocks} blocks, "
-          f"mb_pad={data.mb_pad}, {dtype}) against the {against} sweep: "
-          f"comp mismatches {n_diff} of {kc.numel()}, cass equal "
+    print(f"# {name} (T={nT}, W={opt.wave_size}, NT={nt}, {nblocks} "
+          f"blocks, mb_pad={data.mb_pad}, {dtype}) against the {against} "
+          f"sweep: comp mismatches {n_diff} of {kc.numel()}, cass equal "
           f"{torch.equal(kcass, pcass)}, max|dbeta| {db:.3e}, max|deps| "
-          f"{de:.3e}; launches {counts['kernels']}", flush=True)
+          f"{de:.3e}; launches {counts['kernels']}; "
+          f"{time.perf_counter() - t_gate:.1f} s", flush=True)
     if n_diff or not torch.equal(kcass, pcass) or db > tol or de > tol:
-        fail(f"{name}: the kernels disagree with the {against} sweep")
-    if opt.wave_size > 1:
-        plan = sweep_plan(T, B, data.mb_pad, nt, K, opt.wave_size)
+        where = (kc != pc).nonzero()
+        u_nat = torch.empty_like(res[against][3])
+        u_nat[:, inj[0].reshape(-1).long()] = inj[1].movedim(1, 0).reshape(
+            nT, -1).to(u_nat.dtype)
+        margin = torch.minimum((u_nat - res["kernels"][3]).abs(),
+                               (u_nat - res[against][3]).abs())[kc != pc]
+        fail(f"{name}: the kernels disagree with the {against} sweep; comp "
+             f"differs at (trait, slot) {where[:12].tolist()}; least margin "
+             f"|u - acum| there {float(margin.min()) if n_diff else 0:.3e}")
+    if opt.wave_size > 1 and mega is None and timed:
+        plan = sweep_plan(nT, B, data.mb_pad, nt, K, opt.wave_size)
         dev_inj = [x.to(dev) for x in inj]
 
         def sweep_ms(mega, reps):
@@ -1984,7 +2062,7 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True,
     return res, launches, steady, sg / (sg + se), peak
 
 
-def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32"):
+def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32", phens=None):
     """The per-shard static inputs, start states and RNG plans of ``sim``,
     as run_training_sharded builds them, every shard on ``dev``; ``wave``
     None is the auto plan."""
@@ -1992,7 +2070,7 @@ def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32"):
     from gmrm_tpu_torch.parallel import runner as prunner
     from gmrm_tpu_torch.sampler.dists import RngPlan
 
-    opt = anchor_options(sim, "", wave, dtype=dtype)
+    opt = anchor_options(sim, "", wave, dtype=dtype, phens=phens)
     resolve_plan(opt, "cuda", sim.m // n_shards, sharded=True)
     data = prunner.load_data_process(opt, n_shards,
                                      interleave=opt.wave_size > 1)
@@ -2001,24 +2079,29 @@ def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32"):
             [RngPlan(opt.seed, dev, shard=i) for i in range(n_shards)])
 
 
-def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32"):
-    """Phases 3d, 3e and 7e: one sharded sweep on the card, with the same
-    injected order and draws per shard on both sides.  At W > 1 the fused
-    per-block kernel against the composed kernels 2, 3 and 4 at the same
-    cadence, both on the card; with ``wave`` None (the auto plan, which
-    must resolve to W=1) kernels 5, 2, 6 and 4 (at float64 A, B and C)
-    adding into a delta against their plain versions on the host CPU."""
+def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
+                 phens=None, against="composed"):
+    """Phases 3d, 3e, 7e and 8a: one sharded sweep on the card, with the
+    same injected order and draws per shard on both sides.  At W > 1 the
+    fused per-block kernel against the composed kernels 2, 3 and 4 at the
+    same cadence, both on the card, or (``against`` "plain") against its
+    plain version on the host CPU; with ``wave`` None (the auto plan,
+    which must resolve to W=1) kernels 5, 2, 6 and 4 (at float64 A, B and
+    C) adding into a delta against their plain versions on the host CPU.
+    ``phens``: a subset of the phenotypes."""
     import numpy as np
     import torch
     from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.parallel.distributed import Communicator
     from gmrm_tpu_torch.sampler.gibbs import marker_sweep_sharded
 
+    t_gate = time.perf_counter()
     opt, data, statics, states, _ = sharded_setup(sim, dev, n_shards, wave,
-                                                  dtype)
+                                                  dtype, phens)
     if (opt.wave_size > 1) != (wave is not None):
         fail(f"{name}: the plan resolved to W={opt.wave_size}")
     fdt = np.float64 if dtype == "float64" else np.float32
+    nT = len(opt.phen_files)
     mps = data.layout.m_pad_shard
     nblocks = mps // B
     rng = np.random.default_rng(11)
@@ -2029,24 +2112,31 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32"):
     else:
         orders = [np.concatenate([rng.permutation(ln), np.arange(ln, mps)])
                   .reshape(nblocks, B) for ln in data.m_local]
-    u = [rng.uniform(size=(nblocks, T, B)).astype(fdt)
+    u = [rng.uniform(size=(nblocks, nT, B)).astype(fdt)
          for _ in range(n_shards)]
-    z = [rng.normal(size=(nblocks, T, B)).astype(fdt)
+    z = [rng.normal(size=(nblocks, nT, B)).astype(fdt)
          for _ in range(n_shards)]
     first = states[0]
     sigmae = 0.5 * (first.eps * first.eps).sum(dim=(1, 2)) / statics[0].nonas
     n_launch = n_shards * nblocks
+    mb = data.mb_pad
     if opt.wave_size > 1:
-        # One launch per block step for all shards.
-        sides = (("fused", dev, None, {"block_sweep": nblocks}),
+        # One launch per block step for all shards (and trait chunk).
+        pc = pass_chunks(nT, 4, mb)
+        sides = (("fused", dev, None,
+                  {"block_sweep": nblocks * sweep_chunks(nT, "block_sweep")}),
                  ("composed", dev, False,
-                  dict.fromkeys(COMPOSED_KERNELS, n_launch)))
+                  {k: n_launch * (1 if k == "wave_scan" else pc)
+                   for k in COMPOSED_KERNELS})
+                 if against == "composed" else
+                 ("plain", torch.device("cpu"), None, {}))
     else:
         sides = (("kernels", dev, None,
-                  f64_counts(nblocks, shards=n_shards, fused=False)
+                  f64_counts(nblocks, shards=n_shards, fused=False,
+                             traits=nT, mb=mb)
                   if dtype == "float64" else
-                  serial_counts(nblocks, shards=n_shards,
-                                fused=False)),
+                  serial_counts(nblocks, shards=n_shards, fused=False,
+                                traits=nT, mb=mb)),
                  ("plain", torch.device("cpu"), None, {}))
     res, ms = [], []
     for key, d, mega, want in sides:
@@ -2077,14 +2167,14 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32"):
     moved = sum(int((a[1] != 0).sum()) for a in a_st)
     timing = "; ".join(f"{t:.3f} ms per sharded sweep {side[0]}"
                        for side, t in zip(sides, ms) if t is not None)
-    print(f"# {name} (S={n_shards}, W={opt.wave_size}, {dtype}, {nblocks} "
-          f"blocks per shard, shards of {data.m_local} markers, "
+    print(f"# {name} (T={nT}, S={n_shards}, W={opt.wave_size}, {dtype}, "
+          f"{nblocks} blocks per shard, shards of {data.m_local} markers, "
           f"mb_pad={data.mb_pad}): "
           f"{sides[0][0]} against {sides[1][0]} at the same cadence: comp "
-          f"mismatches {n_diff} of {n_shards * T * mps}, cass equal "
+          f"mismatches {n_diff} of {n_shards * nT * mps}, cass equal "
           f"{torch.equal(acass, bcass)}, max|dbeta| {db:.3e}, max|deps| "
-          f"{de:.3e}; {timing} (CUDA events around eager calls)  [{card}]",
-          flush=True)
+          f"{de:.3e}; {timing} (CUDA events around eager calls); "
+          f"{time.perf_counter() - t_gate:.1f} s  [{card}]", flush=True)
     tol = 1e-9 if dtype == "float64" else 1e-4
     if (n_diff or not torch.equal(acass, bcass) or db > tol or de > tol
             or not moved):
@@ -2585,7 +2675,8 @@ def composed_phase(sim, dev, check_launches=True):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = _build.launch_counts()
-    want = composed_counts(-(-MT // B), ITERS_COMPOSED)
+    want = (composed_counts(-(-MT // B), ITERS_COMPOSED) if check_launches
+            else {})
     for name, n in launches.items():
         if check_launches and n != want.get(name, 0):
             fail(f"composed path: kernel {name} launched {n} times, "
@@ -3834,6 +3925,744 @@ F64_SOURCES = {
 
 F64_ALSO_REPLACES = {"update_cdot_f64": "gmrm_tpu/ops/pallas_kernels.py:275"}
 
+# Phase 8, trait chunks (``--traits-only``): the trait counts of its timing
+# runs, their iterations, and its datasets: the anchor's N and markers with
+# 32 phenotypes (subsets of 8 and 16 of them), with 16 phenotypes and 2%
+# NAs (NT = 16), and the small panel with 33 phenotypes and 2% NAs.
+TRAIT_TIMING = (8, 16, 32)
+ITERS_TRAITS = 10
+T_GATE, T_SMALL = 16, 33
+# The most float32 ulps of u from its CDF boundary at which a draw of the
+# T=33 W=32 sweep may go the other way from the plain version's.
+TIE_ULPS = 4
+
+
+def traits_anchor(tmp):
+    """The anchor's N and markers with 32 phenotypes, seed 171014."""
+    import numpy as np
+    from gmrm_tpu_torch.io.sim import simulate
+    return simulate(tmp, n=N, m=MT, n_traits=32, n_causal=MT // 4, h2=0.5,
+                    n_groups=1, na_rate=0.0, seed=171014,
+                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
+
+
+def traits_anchor_na(tmp):
+    """The anchor with 16 phenotypes of 2% NAs (NT = 16), seed 171014."""
+    import numpy as np
+    from gmrm_tpu_torch.io.sim import simulate
+    return simulate(tmp, n=N, m=MT, n_traits=T_GATE, n_causal=MT // 4,
+                    h2=0.5, n_groups=1, na_rate=0.02, seed=171014,
+                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
+
+
+def traits_small(tmp):
+    """The small panel (N=10,000, 4,096 markers) with 33 phenotypes of 2%
+    NAs (NT = 33), seed 171015."""
+    import numpy as np
+    from gmrm_tpu_torch.io.sim import simulate
+    return simulate(tmp, n=N, m=MT_SMALL, n_traits=T_SMALL,
+                    n_causal=MT_SMALL // 4, h2=0.5, n_groups=1,
+                    na_rate=0.02, seed=171015,
+                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
+
+
+def traits_small16(tmp):
+    """The small panel with 16 phenotypes and no NAs (NT = 1), seed
+    171014: the W=1 gates' panel at T=16, the anchor cut to 32 blocks."""
+    import numpy as np
+    from gmrm_tpu_torch.io.sim import simulate
+    return simulate(tmp, n=N, m=MT_SMALL, n_traits=T_GATE,
+                    n_causal=MT_SMALL // 4, h2=0.5, n_groups=1, na_rate=0.0,
+                    seed=171014,
+                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
+
+
+TRAIT_DATASETS = (("traits32", traits_anchor), ("traits16na", traits_anchor_na),
+                  ("traits33", traits_small), ("traits16", traits_small16))
+
+
+# The trait axis of each sweep_blocks operand (None: shared by the traits;
+# the Gram cache and na only with a mask a trait).
+SWEEP_TRAIT_AXES = dict(
+    bed=None, blkidx=None, win_p=None, m_local=None, gram_cache=1, eps=0,
+    na=0, mave=0, msig=0, beta_old=0, comp_old=0, acum_old=0, grp=None,
+    u_p=1, z_p=1, sigmag=0, lc=1, rd=1, sqb=1, i2se=0, nonas=0)
+# The trait axis of each argument of the one-block scan wrappers.
+SCAN_TRAIT_AXES = (0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+
+
+def trait_slice(x, axis, t0, t1):
+    return x if axis is None else x.narrow(axis, t0, t1 - t0).contiguous()
+
+
+def chunk_gates(dev, gen, card):
+    """Phase 8b: every launch of a trait chunk bit-equal to the same kernel
+    run on that chunk's traits alone (their contiguous copies): kernels 7/8
+    (a whole anchor sweep of 16 traits, two launches of 8) and 9 (one block
+    step of 16), at NT=1 and NT=16; the passes at 48 traits (B=128: two
+    launches of 24; float64, B: three of 16); kernel 6 at 33 traits (a grid
+    of trait groups of 8 against one CTA of a group) and kernel 3 at 48 (two
+    groups of 24)."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops import block_kernels as bk
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
+
+    i32 = torch.int32
+    report = []
+
+    def same(name, full, parts, chunks, axis=0):
+        for (t0, t1), part in zip(chunks, parts):
+            for i, (f, p) in enumerate(zip(full, part)):
+                if not torch.equal(trait_slice(f, axis, t0, t1), p):
+                    fail(f"chunk gate {name}: output {i} of traits {t0}.."
+                         f"{t1 - 1} differs from the chunk alone")
+
+    def counted(fn):
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in _build.launch_counts().items() if v}
+
+    nT = T_GATE
+    for shared in (True, False):
+        static, st, blk, win, (u, z) = sweep_operands(dev, gen, shared,
+                                                      traits=nT)
+        nt = static.gram_cache.shape[1]
+        tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
+                                       static.cva, static.cvai, static.nonas,
+                                       static.n_total)
+        ops = dict(bed=static.bed, blkidx=blk.to(i32),
+                   win_p=win.to(i32).contiguous(), m_local=static.m_local,
+                   gram_cache=static.gram_cache, eps=st["eps"],
+                   na=static.na[:nt].contiguous(), mave=static.mave,
+                   msig=static.msig, beta_old=st["betas"],
+                   comp_old=st["comp"], acum_old=st["acum"],
+                   grp=static.group_of.to(i32), u_p=u, z_p=z,
+                   sigmag=st["sigmag"], lc=tables[0], rd=tables[1],
+                   sqb=tables[2], i2se=(1.0 / (2.0 * st["sigmae"])),
+                   nonas=static.nonas)
+        chunks = trait_chunks("sweep_blocks", nT, B)
+
+        def of(t0, t1):
+            return {k: (v if (nt == 1 and k in ("gram_cache", "na"))
+                        else trait_slice(v, SWEEP_TRAIT_AXES[k], t0, t1))
+                    for k, v in ops.items()}
+
+        def sweep(o):
+            args = [o[k] for k in SWEEP_TRAIT_AXES]
+            args[5] = args[5].clone()
+            return sk.sweep_blocks(*args, wave=W)
+
+        def step(o, b=0):
+            beta, comp, acum = (o[k].clone() for k in
+                                ("beta_old", "comp_old", "acum_old"))
+            deps = sk.block_sweep(
+                o["blkidx"][b], o["m_local"], o["bed"], o["win_p"][b],
+                o["gram_cache"], o["eps"], o["na"], o["mave"], o["msig"],
+                beta, comp, acum, o["grp"], o["u_p"][b], o["z_p"][b],
+                o["sigmag"], o["lc"], o["rd"], o["sqb"], o["i2se"],
+                o["nonas"], wave=W)[0]
+            return deps, beta, comp, acum
+
+        for name, fn, kernel in (("sweep_blocks", sweep, "sweep_blocks"),
+                                 ("block_sweep", step, "block_sweep")):
+            full, n_full = counted(lambda: fn(ops))
+            parts = []
+            for t0, t1 in chunks:
+                part, n_part = counted(lambda: fn(of(t0, t1)))
+                if n_part != {kernel: 1}:
+                    fail(f"chunk gate {name}: a chunk alone launched "
+                         f"{n_part}")
+                parts.append(part)
+            if n_full != {kernel: len(chunks)}:
+                fail(f"chunk gate {name}: {nT} traits launched {n_full}")
+            same(f"{name} (NT={nt})", full, parts, chunks)
+            report.append(f"{name} T={nT} NT={nt}: {len(chunks)} launches "
+                          f"of {chunks[0][1]}")
+        del static, st, ops
+
+    for dtype in (torch.float32, torch.float64):
+        nP, nb = 48, 2
+        es = torch.tensor([], dtype=dtype).element_size()
+        bed = torch.randint(0, 256, ((nb + 1) * B, MB), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        rows = torch.stack([B + b * B + torch.randperm(B, generator=gen,
+                                                       device=dev)
+                            for b in range(nb)]).to(i32)
+        na = (torch.rand((nP, 4, MB), generator=gen, device=dev)
+              > 0.03).to(dtype)
+        eps0 = torch.randn((nP, 4, MB), generator=gen, device=dev,
+                           dtype=dtype) * na
+        mave = torch.rand((nb, nP, B), generator=gen, device=dev,
+                          dtype=dtype) * 1.6 + 0.2
+        msig = torch.rand((nb, nP, B), generator=gen, device=dev,
+                          dtype=dtype) * 1.5 + 0.5
+        d = torch.randn((nb, nP, B), generator=gen, device=dev,
+                        dtype=dtype) * 0.05
+        chunks = trait_chunks("passes", nP, B, mb=MB, es=es)
+
+        def passes(t0, t1):
+            s = slice(t0, t1)
+            ps = bk.BlockPasses(bed, rows, mave[:, s].contiguous(),
+                                msig[:, s].contiguous(), na[s].contiguous())
+            eps = eps0[s].clone()
+            ps.cdot(0, eps)
+            ps.update_cdot_(0, d[:, s].contiguous(), eps)
+            ps.update_(1, d[:, s].contiguous(), eps)
+            return ps.c.movedim(1, 0), eps
+
+        sfx = "_f64" if dtype == torch.float64 else ""
+        full, n_full = counted(lambda: passes(0, nP))
+        parts = [passes(t0, t1) for t0, t1 in chunks]
+        want = {f"block_cdot{sfx}": len(chunks),
+                f"update_cdot{sfx}": len(chunks),
+                f"eps_update{sfx}": len(chunks)}
+        if len(chunks) < 2 or n_full != want:
+            fail(f"chunk gate passes {dtype}: {chunks}, launches {n_full}")
+        same(f"passes {dtype}", full, parts, chunks)
+        report.append(f"passes T={nP} {dtype}: {len(chunks)} launches of "
+                      f"{chunks[0][1]}")
+
+    for kernel, nS, Bs in (("serial_scan", T_SMALL, B), ("wave_scan", 48, B)):
+        vargs, _ = scan_case(dev, gen, nS, Bs, K)
+        TG = (sk6.launch_plan(nS, Bs, K) if kernel == "serial_scan"
+              else sw.launch_plan(nS, Bs, K, W))[-1]
+        chunks = [(t0, min(nS, t0 + TG)) for t0 in range(0, nS, TG)]
+
+        def scan(args):
+            if kernel == "serial_scan":
+                return sk6.serial_scan(*args)
+            return sw.wave_scan(*args, wave=W)
+
+        full, n_full = counted(lambda: scan(vargs))
+        parts = [scan([trait_slice(x, ax, t0, t1) for x, ax in
+                       zip(vargs, SCAN_TRAIT_AXES)]) for t0, t1 in chunks]
+        if len(chunks) < 2 or n_full != {kernel: 1}:
+            fail(f"chunk gate {kernel}: {chunks}, launches {n_full}")
+        same(kernel, full, parts, chunks)
+        report.append(f"{kernel} T={nS}: a grid of {len(chunks)} trait "
+                      f"groups of {chunks[0][1]}")
+    print(f"# chunk gates (phase 8b): every chunked launch bit-equal to its "
+          f"kernel on that chunk's traits alone: {'; '.join(report)}  "
+          f"[{card}]", flush=True)
+
+
+def sweep_width_gate(dev, gen, card, widths=(5, 6, 7)):
+    """Phase 8b': kernels 7/8 at the launch widths a chunked run gives
+    besides 4 and 8 (33 traits: 7 and 5), on the small panel's shapes
+    with a mask a trait, against the plain sweep on the card: comp and
+    cass exact, beta and eps within 1e-4; a mismatch reports the least
+    margin |u - cdf| of the draws it hit."""
+    import torch
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    from gmrm_tpu_torch.sampler.gibbs import _natural_cass
+    i32 = torch.int32
+    out = []
+    for nT in widths:
+        static, st, blk, win, (u, z) = sweep_operands(
+            dev, gen, False, mt=MT_SMALL, traits=nT)
+        nt = static.gram_cache.shape[1]
+        m_pad = static.bed.shape[0]
+        tables = sk.build_sweep_tables(st["sigmag"], st["sigmae"], st["pi"],
+                                       static.cva, static.cvai, static.nonas,
+                                       static.n_total)
+        ops = (static.bed, blk.to(i32), win.to(i32).contiguous(),
+               static.m_local, static.gram_cache, None,
+               static.na[:nt].contiguous(), static.mave, static.msig,
+               st["betas"], st["comp"], st["acum"], static.group_of, u, z,
+               st["sigmag"], *tables, 1.0 / (2.0 * st["sigmae"]),
+               static.nonas)
+        got, want = (fn(*ops[:5], st["eps"].clone(), *ops[6:], wave=W)
+                     for fn in (sk.sweep_blocks, sk.sweep_blocks_plain))
+        diff = got[2] != want[2]
+        cass = [_natural_cass(x[2], static.group_of, st["sigmag"], MT_SMALL,
+                              K) for x in (got, want)]
+        d_beta, d_eps = max_err(got[1], want[1]), max_err(got[0], want[0])
+        if diff.any():
+            rows = (blk[:, None] * B + win).reshape(-1)
+            u_nat = torch.empty_like(want[3])
+            u_nat[:, rows] = u.movedim(1, 0).reshape(nT, m_pad)
+            margin = torch.minimum((u_nat - got[3]).abs(),
+                                   (u_nat - want[3]).abs())[diff].min()
+            fail(f"sweep_blocks at T={nT}: comp differs from the plain "
+                 f"version at (trait, slot) {diff.nonzero()[:12].tolist()}"
+                 f"; least margin |u - cdf| {float(margin):.3e}")
+        if not torch.equal(*cass) or d_beta > 1e-4 or d_eps > 1e-4:
+            fail(f"sweep_blocks at T={nT}: cass equal "
+                 f"{torch.equal(*cass)}, max|dbeta| {d_beta:.3e}, "
+                 f"max|deps| {d_eps:.3e}")
+        out.append(f"T={nT} max|dbeta| {d_beta:.1e}, max|deps| {d_eps:.1e}")
+    print(f"# sweep_blocks at launch widths {widths} (NT=T, "
+          f"{MT_SMALL} markers): comp and cass equal to the plain version; "
+          f"{'; '.join(out)}  [{card}]", flush=True)
+
+
+def first_flip(got, want, u_nat, order, t):
+    """Trait t's first draw in sweep order (``order``: the markers in the
+    order drawn) whose comp differs between two sweeps' outputs (eps,
+    beta, comp, acum, cass): its place in the order, the marker, its u, the
+    distance |u - cdf| from the nearer of the two sweeps' acum (the CDF
+    value at the component drawn) and that distance in float32 ulps of u."""
+    import numpy as np
+    first = int((got[2][t, order] != want[2][t, order]).int().argmax())
+    r = int(order[first])
+    u = float(u_nat[t, r])
+    margin = min(abs(u - float(got[3][t, r])), abs(u - float(want[3][t, r])))
+    return first, r, u, margin, margin / float(np.spacing(np.float32(u)))
+
+
+def chunked_sweep_gate(sim, dev, card, name):
+    """Phase 8a at T=33, W=32: one whole sweep of the default path (kernels
+    7/8 in five launches: 7, 7, 7, 7 and 5 traits), with injected block
+    order and draws, held (1) bit for bit (eps, beta, comp, acum and cass)
+    to marker_sweep run on each trait chunk's phenotypes alone (their
+    slices of the static inputs and the state, one launch each), and (2)
+    to the plain sweep on the host CPU, tie-aware: every trait whose comp
+    equals the plain version's has its cass equal and max|dbeta| and
+    max|deps| within 1e-4; in a trait whose comp differs, the first
+    differing draw in sweep order must have u within TIE_ULPS float32 ulps
+    of its CDF boundary (such a draw follows the order of the sums, and
+    the trait's chain differs from there on).  The second witness for such
+    a trait, printed beside it: the plain sweep on its chunk's traits
+    alone, and whether that trait's comp there equals the plain sweep's on
+    all traits."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch import runner
+    from gmrm_tpu_torch.config import resolve_plan
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
+    from gmrm_tpu_torch.sampler.gibbs import marker_sweep
+
+    t_gate = time.perf_counter()
+    opt = anchor_options(sim, "", W)
+    resolve_plan(opt, "cuda", sim.m)
+    nT = len(opt.phen_files)
+    data = runner.load_data(opt)
+    static = runner.build_static(data, opt, dev)
+    state = runner.init_sampler_state(data, opt, dev)
+    nblocks = data.m_pad // B
+    nt = static.gram_cache.shape[1]
+    rng = np.random.default_rng(7)
+    blocks = (rng.permutation(nblocks)[:, None] * B
+              + np.argsort(rng.uniform(size=(nblocks, B)), axis=1))
+    inj = [torch.from_numpy(a).to(dev) for a in (
+        blocks.reshape(nblocks, B),
+        rng.uniform(size=(nblocks, nT, B)).astype(np.float32),
+        rng.normal(size=(nblocks, nT, B)).astype(np.float32))]
+    sigmae = 0.5 * (state.eps * state.eps).sum(dim=(1, 2)) / static.nonas
+
+    def sweep(s_=slice(None), on=dev):
+        """marker_sweep of traits s_ alone, on ``on``, outputs on the
+        host."""
+        sta = dataclasses.replace(
+            static, na=static.na[s_], mave=static.mave[s_],
+            msig=static.msig[s_],
+            nonas=static.nonas[s_],
+            gram_cache=(static.gram_cache if nt == 1 else
+                        static.gram_cache[:, s_]))
+        st = dataclasses.replace(state, **{
+            k: getattr(state, k)[s_] for k in (
+                "eps", "betas", "comp", "acum", "sigmag", "pi_est")})
+        sta, st = (to_device(dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).contiguous()
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)}), on)
+            for x in (sta, st))
+        u, z = (x[:, s_].contiguous().to(on) for x in inj[1:])
+        return [x.cpu().clone() for x in marker_sweep(
+            st.eps.clone(), st.betas, st.comp, st.acum, st.sigmag,
+            sigmae[s_].contiguous().to(on), st.pi_est, sta, inj[0].to(on),
+            u, z, wave=W)]
+
+    _build.reset_launch_counts()
+    whole = sweep()
+    chunks = trait_chunks("sweep_blocks", nT, B)
+    if _build.launch_counts()["sweep_blocks"] != len(chunks):
+        fail(f"{name}: {_build.launch_counts()} for {len(chunks)} chunks")
+    for t0, t1 in chunks:
+        part = sweep(slice(t0, t1))
+        for i, (w, p_) in enumerate(zip(whole, part)):
+            if not torch.equal(w[t0:t1], p_):
+                fail(f"{name}: output {i} of traits {t0}..{t1 - 1} differs "
+                     f"from the sweep of that chunk alone")
+    cpu = torch.device("cpu")
+    plain = sweep(on=cpu)
+    order = inj[0].cpu().reshape(-1).long()
+    u_nat = torch.empty_like(plain[3])
+    u_nat[:, order] = inj[1].cpu().movedim(1, 0).reshape(nT, -1)
+    flipped = (whole[2] != plain[2]).any(dim=1)
+    same = ~flipped
+    d_beta = max_err(whole[1][same], plain[1][same])
+    d_eps = max_err(whole[0][same], plain[0][same])
+    if (not torch.equal(whole[4][same], plain[4][same]) or d_beta > 1e-4
+            or d_eps > 1e-4):
+        fail(f"{name}: the traits whose comp equals the plain version's: "
+             f"cass equal {torch.equal(whole[4][same], plain[4][same])}, "
+             f"max|dbeta| {d_beta:.3e}, max|deps| {d_eps:.3e}")
+    ties = []
+    for t in flipped.nonzero()[:, 0].tolist():
+        first, r, u, margin, ulps = first_flip(whole, plain, u_nat, order, t)
+        t0, t1 = next(c for c in chunks if c[0] <= t < c[1])
+        alone = sweep(slice(t0, t1), on=cpu)
+        witness = torch.equal(alone[2][t - t0], plain[2][t])
+        ties.append(
+            f"trait {t}: {int((whole[2][t] != plain[2][t]).sum())} comp "
+            f"mismatches, the first in sweep order at draw {first} of "
+            f"{order.numel()} (marker {r}, comp {int(whole[2][t, r])} here, "
+            f"{int(plain[2][t, r])} plain): u {u:.9g}, acum "
+            f"{float(whole[3][t, r]):.9g} here, "
+            f"{float(plain[3][t, r]):.9g} plain, |u - cdf| "
+            f"{margin:.3e} = {ulps:.2f} ulps; the plain sweep of traits "
+            f"{t0}..{t1 - 1} alone gives trait {t} the comp of the plain "
+            f"sweep of all traits: {witness}")
+        if ulps > TIE_ULPS:
+            fail(f"{name}: {ties[-1]}; more than {TIE_ULPS} ulps from its "
+                 f"CDF boundary")
+    print(f"# {name} (T={nT}, W={W}, NT={nt}, {nblocks} blocks): {len(chunks)}"
+          f" launches of {[t1 - t0 for t0, t1 in chunks]} traits, every "
+          f"output bit-equal to the sweep of each chunk alone; against the "
+          f"plain sweep: {int(same.sum())} traits with comp and cass equal, "
+          f"max|dbeta| {d_beta:.3e}, max|deps| {d_eps:.3e}; "
+          f"{'; '.join(ties) or 'no trait differs'}; "
+          f"{time.perf_counter() - t_gate:.1f} s  [{card}]", flush=True)
+
+
+def gram_kernels_at_nt(dev, gen, card):
+    """Phase 8c: kernels 1 and 5 (A at float64) at 16 traits with a mask a
+    trait (NT = 16), on four anchor blocks: bit-equal to their plain
+    versions; they take nt in {1, T} at any T and are not chunked."""
+    import torch
+    from gmrm_tpu_torch.ops import block_gram as bg
+    from gmrm_tpu_torch.ops import sweep_kernel as sk
+    nT, nb = T_GATE, 4
+    bed = torch.randint(0, 256, (nb * B, MB), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    na = (torch.rand((nT, 4, MB), generator=gen, device=dev)
+          > 0.03).float().contiguous()
+    cache = sk.build_gram_cache(bed, na, block_size=B, shared_na=False)
+    if not torch.equal(cache, sk.gram_cache_plain(bed, na, B)):
+        fail("kernel 1 at NT=16: not bit-equal to its plain version")
+    rows = torch.stack([b * B + torch.randperm(B, generator=gen, device=dev)
+                        for b in range(nb)]).to(torch.int32)
+    for dtype in (torch.float32, torch.float64):
+        mave = (torch.rand((nb, nT, B), generator=gen, device=dev) * 1.6
+                + 0.2).to(dtype)
+        msig = (torch.rand((nb, nT, B), generator=gen, device=dev) * 1.5
+                + 0.5).to(dtype)
+        got = bg.blocks_gram_scaled(bed, rows, na, mave, msig)
+        if not torch.equal(got, bg.blocks_gram_scaled_plain(bed, rows, na,
+                                                            mave, msig)):
+            fail(f"kernel {'A' if dtype == torch.float64 else 5} at NT=16: "
+                 f"not bit-equal to its plain version")
+    print(f"# kernels 1, 5 and A at T=16, NT=16 ({nb} anchor blocks): "
+          f"bit-equal to their plain versions  [{card}]", flush=True)
+
+
+def trait_training(sim, dev, tmp, nT, wave):
+    """Phase 8d: run_training at the anchor with the first ``nT``
+    phenotypes, ITERS_TRAITS iterations: steady ms/iteration, launches an
+    iteration (each kernel's, checked against its trait chunks) and peak
+    device memory."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.runner import check_finite_chain, run_training
+    out_dir = os.path.join(tmp, f"traits_t{nT}_w{wave}")
+    opt = anchor_options(sim, out_dir, wave, ITERS_TRAITS,
+                         phens=sim.phens[:nT])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = run_training(opt, device=dev, verbose=False)
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    nblocks = -(-MT // B)
+    want = ({"gram_cache": 1, "sweep_blocks":
+             ITERS_TRAITS * sweep_chunks(nT)} if wave > 1
+            else serial_counts(nblocks, sweeps=ITERS_TRAITS, traits=nT))
+    if counts != want:
+        fail(f"T={nT} W={wave} training: launches {counts}, expected {want}")
+    check_finite_chain(res.state.sigmag.cpu().numpy(),
+                       res.state.sigmae.cpu().numpy(), ITERS_TRAITS)
+    steady = sum(res.iter_seconds[THIN:]) / (ITERS_TRAITS - THIN)
+    per_iter = {k: v / ITERS_TRAITS for k, v in counts.items()
+                if k != "gram_cache"}
+    return steady, per_iter, peak, res.startup_seconds
+
+
+def traits_phase(dev, tmp, card, gen, sims):
+    """Phase 8: any number of traits on every CUDA training path.  (a)
+    Sweep gates at T=16 at the anchor (16 of the 32 phenotypes, NT=1; 16
+    with 2% NAs, NT=16): W=32 (the whole-sweep kernel, two launches of 8)
+    on the anchor's 157 blocks; composed W=32, sharded S=2 at W=32, W=1 and
+    float64 W=1 on the anchor cut to 32 blocks (the small panel with 16
+    phenotypes: no NAs, or 16 of the 33 with NAs), each against its plain
+    version on the host CPU; at T=33 on the small panel (NT=33), W=1
+    (kernel 6 as a grid of trait groups) and W=32.  (b) chunk_gates.
+    (c) gram_kernels_at_nt.  (d) run_training at T = 8, 16 and 32, W=32 and
+    W=1 (ms/iteration, launches an iteration, peak memory).  Returns the
+    timing rows."""
+    t0 = time.perf_counter()
+    a32, a16na, s33, s16 = sims
+    sweep_width_gate(dev, gen, card)
+    # The default W=32 path sweeps the anchor's 157 blocks; the others run
+    # on the anchor cut to 32 blocks (the small panel's 4,096 markers at
+    # the same N, B and traits), where their plain sweeps on the host take
+    # seconds.
+    for sim, phens, small, small_phens, tag in (
+            (a32, a32.phens[:T_GATE], s16, None, "NT=1"),
+            (a16na, None, s33, s33.phens[:T_GATE], f"NT={T_GATE}")):
+        sweep_gate(sim, dev, W, f"T={T_GATE} W={W} sweep gate ({tag})",
+                   card, phens=phens, timed=False)
+        sweep_gate(small, dev, 1, f"T={T_GATE} W=1 sweep gate ({tag})",
+                   card, phens=small_phens)
+        sweep_gate(small, dev, W, f"T={T_GATE} composed W={W} sweep gate "
+                   f"({tag})", card, phens=small_phens, mega=False)
+        sharded_gate(small, dev, card, 2, W, f"T={T_GATE} sharded S=2 sweep "
+                     f"gate ({tag})", phens=small_phens, against="plain")
+        sweep_gate(small, dev, 1, f"T={T_GATE} float64 W=1 sweep gate "
+                   f"({tag})", card, dtype="float64", phens=small_phens)
+    sweep_gate(s33, dev, 1, f"T={T_SMALL} W=1 sweep gate", card)
+    chunked_sweep_gate(s33, dev, card, f"T={T_SMALL} W={W} sweep gate")
+    t_gates = time.perf_counter() - t0
+    chunk_gates(dev, gen, card)
+    gram_kernels_at_nt(dev, gen, card)
+    rows = {}
+    for nT in TRAIT_TIMING:
+        for wave in (W, 1):
+            steady, per_iter, peak, startup = trait_training(a32, dev, tmp,
+                                                             nT, wave)
+            rows[(nT, wave)] = (steady, per_iter, peak)
+            print(f"# traits T={nT} W={wave} training at the anchor: steady "
+                  f"{steady * 1e3:.2f} ms/iteration over iterations "
+                  f"{THIN + 1}-{ITERS_TRAITS}; launches an iteration "
+                  f"{per_iter} ({sum(per_iter.values()):.0f}); peak device "
+                  f"memory {peak / 2**20:.1f} MiB; startup {startup:.2f} s  "
+                  f"[{card}]", flush=True)
+    print(f"# phase 8 (traits): gates {t_gates:.1f} s, all "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def traits_only(dev, tmp, card, reps):
+    """``--traits-only REPS``: phase 8 alone, its datasets simulated while
+    the kernels build; the timing runs REPS times."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    with concurrent.futures.ProcessPoolExecutor(
+            len(TRAIT_DATASETS),
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=one_thread) as pool:
+        futs = [pool.submit(make, os.path.join(tmp, name))
+                for name, make in TRAIT_DATASETS]
+        t0 = time.perf_counter()
+        _build.library()
+        print(f"# build {time.perf_counter() - t0:.1f} s", flush=True)
+        sims = [f.result() for f in futs]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    traits_phase(dev, tmp, card, gen, sims)
+    a32 = sims[0]
+    for rep in range(1, reps):
+        for nT in TRAIT_TIMING:
+            for wave in (W, 1):
+                steady, per_iter, peak, _ = trait_training(a32, dev, tmp, nT,
+                                                           wave)
+                print(f"# traits T={nT} W={wave} run {rep + 1}: "
+                      f"{steady * 1e3:.2f} ms/iteration, "
+                      f"{sum(per_iter.values()):.0f} launches an iteration, "
+                      f"peak {peak / 2**20:.1f} MiB  [{card}]", flush=True)
+
+
+def predict_stamp_split(st):
+    """A stamped predict launch's CTAs (``gmrm_predict_sums_probe``): the
+    launch's span, a CTA's mean and longest, the tail after the last CTA
+    started, how many CTAs an SM ran, and the loop's phases' shares."""
+    import torch
+    st = st[st[:, 0] != 0].double()     # the CTAs the launch ran
+    start, end = st[:, 0], st[:, 1]
+    span = float(end.max() - start.min()) / 1e3
+    dur = (end - start) / 1e3
+    tail = float(end.max() - start.max()) / 1e3
+    per_sm = torch.bincount(st[:, 2].long())
+    phases = st[:, 4:8].sum(0)         # no y staging at float
+    names = ("bed + mask loads", "y loads", "decode + FMAs",
+             "reductions and writes")
+    share = ", ".join(f"{n} {float(v / phases.sum()):.3f}"
+                      for n, v in zip(names, phases))
+    return (f"span {span:.2f} us, CTA mean {float(dur.mean()):.2f} us, "
+            f"longest {float(dur.max()):.2f}, tail after the last start "
+            f"{tail:.2f} us, CTAs an SM {int(per_sm.min())}-"
+            f"{int(per_sm.max())} ({st.shape[0]} CTAs); cycles by phase "
+            f"(stamped loop, loads waited out): {share}")
+
+
+def seeded_predict_operands(dev, gen):
+    """A seeded anchor-shaped predict bed (20,000 rows at the row pitch of
+    N=10,000, 2,512 bytes, the pad bytes 0x55) and one trait's float32
+    planes: 2% NAs, y zero where missing and past N."""
+    import torch
+    from gmrm_tpu_torch.ops.predict_sums import pitch_of
+    pitch = pitch_of((N + 3) // 4)
+    bed = torch.randint(0, 256, (MT, pitch), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    bed[:, (N + 3) // 4:] = 0x55
+    keep = (torch.rand((4, pitch), generator=gen, device=dev) > 0.02).float()
+    col = torch.arange(pitch, device=dev)
+    keep = (keep * (col[None, :] * 4 + torch.arange(4, device=dev)[:, None]
+                    < N)).contiguous()
+    y = (torch.randn((4, pitch), generator=gen, device=dev)
+         * keep).contiguous()
+    return bed, keep, y
+
+
+def predict_times(dev, gen, card, repo, rep):
+    """``--predict-only``: the float32 predict kernel alone, for two trees
+    in one call: on a seeded anchor-shaped bed (``seeded_predict_operands``)
+    and at N=100,000 x 4,096, each held by ``predict_case`` (its ms by graph
+    replay, torch.mv beside it; kernel D on the same bed and planes at
+    float64 before it), the launch's two kernels split by the profiler,
+    and, where the tree has the probe entry point, one stamped launch, and
+    the kernels' SASS counts."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.predict_sums import predict_sums
+    lib = _build.library()
+    cases = (("anchor", *seeded_predict_operands(dev, gen), N),
+             ("N=100,000", *big_predict_operands(dev, gen, torch.float32),
+              N_BIG))
+    for name, b_, na_, y_, n in cases:
+        d_row = predict_case(f"{repo} run {rep + 1}, {name}, kernel D", b_,
+                             na_.double(), y_.double(), n, card)
+        print(f"# {repo}: predict_sums_f64 (D) {name} run {rep + 1}: "
+              f"{d_row['ms']:.5f} ms a trait  [{card}]", flush=True)
+        row = predict_case(f"{repo} run {rep + 1}, {name}", b_, na_, y_, n,
+                           card)
+        split = kernel_ms_by_name(lambda: predict_sums(b_, na_, y_))
+        parts = ", ".join(f"{k[:40]} {v:.5f}" for k, v in split.items())
+        print(f"# {repo}: predict_sums {name} run {rep + 1}: {row['ms']:.5f} "
+              f"ms a trait; by kernel (profiler): {parts}  [{card}]",
+              flush=True)
+        if not hasattr(lib, "gmrm_predict_sums_probe"):
+            continue
+        m, L = b_.shape
+        team = lib.gmrm_predict_sums_team(L)
+        grid = -(-m // (8 // team * 4))
+        out = torch.empty((2, m), device=dev)
+        kw = torch.empty(L // 4 + 4, dtype=torch.int32, device=dev)
+        st = torch.zeros((grid, 8), dtype=torch.int64, device=dev)
+        err = lib.gmrm_predict_sums_probe(
+            b_.data_ptr(), na_.data_ptr(), y_.data_ptr(), kw.data_ptr(),
+            out.data_ptr(), m, L, st.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"predict probe: {_build.error_string(err)}")
+        torch.cuda.synchronize()
+        if not torch.equal(out, torch.stack(predict_sums(b_, na_, y_))):
+            fail(f"predict probe, {name}: the stamped launch's sums differ "
+                 f"from the kernel's")
+        print(f"# {repo}: predict_sums {name}, stamped launch (team "
+              f"{team}): {predict_stamp_split(st.cpu())}  [{card}]",
+              flush=True)
+    if rep == 0:
+        ops = ("LDG", "LDS", "STS", "FFMA", "FADD", "FMUL", "PRMT", "BAR",
+               "POPC", "LOP3", "SHF", "IMAD", "IADD3", "LEA", "MOV", "ISETP",
+               "SEL", "BRA", "SHFL", "I2F")
+        counts = sass_counts(_build.build(), "predict_sums_kernel", ops)
+        print(f"# {repo}: SASS of the predict kernels (opcodes starting "
+              f"{', '.join(ops)}, and all but NOPs): " + "; ".join(
+                  f"{fn[-40:]} {c}" for fn, c in counts.items())
+              + f"  [{card}]", flush=True)
+
+
+def predict_pairs(dev, gen, card, trees, pairs, tmp):
+    """``--predict-pairs N --against TREE``: the float32 predict kernel
+    (``gmrm_predict_sums``) and D (``gmrm_predict_sums_f64``) of this tree
+    against each TREE's, their libraries loaded side by side in this
+    process (TREE's built by a subprocess of its own package).  On three
+    beds: the seeded anchor-shaped bed of ``--predict-only`` (2% NAs), the
+    anchor dataset's own bed with its first trait (phase 6's "anchor,
+    NT=1") and the seeded N=100,000 x 4,096 bed.  Every tree's sums must be
+    bit-equal to this tree's.  Then N pairs, the trees in turn (TREE first
+    in the even pairs, this tree first in the odd ones), each reading the
+    device ms of one call by CUDA-graph replay of 100.  Prints every pair
+    and, per bed, kernel and TREE, both ranges and in how many pairs this
+    tree read below all of TREE's readings (a win beyond its spread)."""
+    import ctypes
+    import torch
+    from gmrm_tpu_torch.io.bed import read_bed
+    from gmrm_tpu_torch.io.phen import read_phen
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.ops.predict_sums import padded_chunk, pitch_of
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from gmrm_tpu_torch.ops import _build; print(_build.build())")
+    builds = [subprocess.Popen([sys.executable, "-c", code, t],
+                               stdout=subprocess.PIPE, text=True)
+              for t in trees]
+    libs = {".": _build.library()}
+    for t, b in zip(trees, builds):
+        path = b.communicate(timeout=900)[0].strip()
+        if b.returncode or not path:
+            fail(f"predict pairs: {t}'s build failed")
+        libs[t] = ctypes.CDLL(path.splitlines()[-1])
+    for lib in libs.values():
+        for fn in ("gmrm_predict_sums", "gmrm_predict_sums_f64"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+    sim = anchor_dataset(os.path.join(tmp, "anchor"))
+    pitch = pitch_of((N + 3) // 4)
+    beds = (("seeded anchor-shaped bed, 2% NAs",
+             *seeded_predict_operands(dev, gen)),
+            ("anchor dataset's bed, NT=1",
+             padded_chunk(read_bed(sim.bed, N, MT), 0, MT, dev),
+             *predict_planes(read_phen(sim.phens[0], N), dev, pitch)),
+            ("N=100,000 x 4,096, 2% NAs",
+             *big_predict_operands(dev, gen, torch.float32)))
+    for bed_name, bed, na, y in beds:
+        m, L = bed.shape
+        for fn, dt in (("gmrm_predict_sums", torch.float32),
+                       ("gmrm_predict_sums_f64", torch.float64)):
+            na_, y_ = na.to(dt), y.to(dt)
+            calls, outs = {}, {}
+            for t, lib in libs.items():
+                out = torch.empty((2, m), dtype=dt, device=dev)
+                keep = torch.empty(L // 4 + 4, dtype=torch.int32, device=dev)
+
+                def call(f=getattr(lib, fn), out=out, keep=keep, t=t):
+                    err = f(bed.data_ptr(), na_.data_ptr(), y_.data_ptr(),
+                            keep.data_ptr(), out.data_ptr(), m, L,
+                            torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        fail(f"predict pairs: {fn} of {t} failed ({err})")
+                call()
+                calls[t], outs[t] = call, out
+            torch.cuda.synchronize()
+            for t in trees:
+                if not torch.equal(outs[t], outs["."]):
+                    fail(f"predict pairs, {bed_name}: {fn} of {t} differs "
+                         f"from this tree's")
+            ms = {t: [] for t in libs}
+            for i in range(pairs):
+                order = [*trees, "."] if i % 2 == 0 else [".", *trees]
+                for t in order:
+                    ms[t].append(cuda_ms(calls[t], 100))
+                print(f"# predict pair {i + 1}, {bed_name}, {fn}: "
+                      + ", ".join(f"{t} {ms[t][-1]:.5f}" for t in order)
+                      + " ms a trait", flush=True)
+            for t in trees:
+                wins = sum(x < min(ms[t]) for x in ms["."])
+                print(f"# predict pairs, {bed_name}, {fn}: {t} "
+                      f"{min(ms[t]):.5f}-{max(ms[t]):.5f}, this tree "
+                      f"{min(ms['.']):.5f}-{max(ms['.']):.5f} ms a trait; "
+                      f"this tree below all of {t}'s readings in {wins} of "
+                      f"{pairs} pairs (bytes equal)  [{card}]", flush=True)
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3844,6 +4673,14 @@ def main():
     parser.add_argument("--sharded-only", type=int, default=0,
                         metavar="REPS")
     parser.add_argument("--f64-only", type=int, default=0, metavar="REPS")
+    parser.add_argument("--traits-only", type=int, default=0,
+                        metavar="REPS")
+    parser.add_argument("--predict-only", type=int, default=0,
+                        metavar="REPS")
+    parser.add_argument("--predict-pairs", type=int, default=0,
+                        metavar="N")
+    parser.add_argument("--against", action="append", default=[],
+                        metavar="TREE")
     parser.add_argument("--same-bytes", default="", metavar="TREE")
     parser.add_argument("--f32-chains", nargs=2, metavar=("SIM", "OUT"))
     parser.add_argument("--repo", default=REPO)
@@ -3870,9 +4707,17 @@ def main():
         return
     if args.same_bytes:
         same_bytes(args.same_bytes, card)
-        if not (args.training_only or args.sharded_only or args.f64_only):
+        if not (args.training_only or args.sharded_only or args.f64_only
+                or args.predict_only):
             return
-    if args.training_only or args.sharded_only or args.f64_only:
+    if args.traits_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            traits_only(dev, tmp, card, args.traits_only)
+        if not (args.training_only or args.sharded_only or args.f64_only
+                or args.predict_only):
+            return
+    if (args.training_only or args.sharded_only or args.f64_only
+            or args.predict_only):
         _build.library()
         if args.training_only:
             training_only(dev, args.training_only, card, args.repo)
@@ -3880,6 +4725,18 @@ def main():
             sharded_only(dev, args.sharded_only, card, args.repo)
         if args.f64_only:
             f64_only(dev, args.f64_only, card, args.repo)
+        if args.predict_only:
+            gen = torch.Generator(device=dev)
+            for rep in range(args.predict_only):
+                gen.manual_seed(20261017)
+                predict_times(dev, gen, card, args.repo, rep)
+        return
+    if args.predict_pairs:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20261017)
+        with tempfile.TemporaryDirectory() as tmp:
+            predict_pairs(dev, gen, card, args.against, args.predict_pairs,
+                          tmp)
         return
     if args.sweep_only:
         _build.library()
@@ -3899,7 +4756,7 @@ def main():
     # The three datasets are simulated by worker processes, one thread each,
     # while the kernels build and phase 2 runs.
     datasets = (("data", anchor_dataset), ("small", small_dataset),
-                ("big", big_dataset))
+                ("big", big_dataset), *TRAIT_DATASETS)
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ProcessPoolExecutor(
                 len(datasets),
@@ -4002,7 +4859,7 @@ def main():
                                   [r["eager_ms"]], r["bound"])
 
         t0 = time.perf_counter()
-        sim, small, big = (f.result() for f in sims)
+        sim, small, big = (f.result() for f in sims[:3])
         print(f"# anchor, small and large-N datasets: waited "
               f"{time.perf_counter() - t0:.1f} s more for the worker "
               f"processes", flush=True)
@@ -4034,6 +4891,8 @@ def main():
         sh_prof = profile_phase(sim, dev, n_shards=s0)
         f64_rows, f64_launches, f64 = float64_phase(sim, small, dev, tmp,
                                                     card, gen)
+        trait_rows = traits_phase(dev, tmp, card, gen,
+                                  [f.result() for f in sims[3:]])
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2, peak) in runs.items():
         startup = ("load + stats + Gram cache of "
@@ -4179,6 +5038,10 @@ def main():
                         if name in CHAIN_BOUND_MS else {}),
                      **({"also_replaces": F64_ALSO_REPLACES[name]}
                         if name in F64_ALSO_REPLACES else {})})
+    for (nT, wave), (steady, per_iter, peak) in trait_rows.items():
+        print(f"# traits T={nT} W={wave}: {steady * 1e3:.2f} ms/iteration, "
+              f"{sum(per_iter.values()):.0f} launches an iteration, peak "
+              f"{peak / 2**20:.1f} MiB  [{card}]", flush=True)
     print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

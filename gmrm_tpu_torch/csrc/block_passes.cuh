@@ -19,7 +19,12 @@
 // partials are twice the bytes, a 16-byte copy moves 2 values instead of 4,
 // and a thread carries the traits MT_F64 at a time (the update's
 // acc[MT][4] of doubles in registers), in as many passes over its rows as
-// that takes.  The float instantiation carries all T at once, as before.
+// that takes.  The float instantiation carries all T at once up to MAX_T
+// traits, as before, and more MAX_T at a time in the same way, so one
+// launch takes any T whose slices fit in shared memory (pass_plan; a run
+// with more traits than that is launched in trait chunks by the host,
+// ops/trait_chunks.py).  A trait's sums are the same in every case: each
+// thread adds its rows, or columns, in the same order for every trait.
 //
 // Bound on the H100: latency at the shapes of the sweep.  A block moves B*mb
 // packed bytes (328 KB at the anchor) and one T x 4 x mb residual (164 KB
@@ -61,7 +66,7 @@
 
 namespace {
 
-constexpr int MAX_T = 8;
+constexpr int MAX_T = 8;    // traits a float thread carries at once
 constexpr int MT_F64 = 4;   // traits a float64 thread carries at once
 constexpr int THREADS = 256;
 constexpr int GROUP = 16;   // slices per group of the partials' tree
@@ -293,9 +298,10 @@ __device__ __forceinline__ void decode_f(uint32_t byte, int k, V& a, V& b) {
   a = c == 0u ? V(2) : (c == 2u ? V(1) : V(0));
 }
 
-// MT: traits a thread carries at once.  float: MT >= T, one pass; double:
-// MT = MT_F64, ceil(T / MT) passes over the thread's rows or columns.
-template <typename V, int MT, int MODE>
+// MT: traits a thread carries at once.  MULTI false (float, T <= MT): one
+// pass; MULTI (double: MT = MT_F64; float above MAX_T: MT = MAX_T):
+// ceil(T / MT) passes over the thread's rows or columns.
+template <typename V, int MT, int MODE, bool MULTI>
 __global__ void __launch_bounds__(THREADS) block_passes_kernel(
     const PassArgs<V> a) {
   extern __shared__ __align__(16) unsigned char sm[];
@@ -303,7 +309,7 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
   using V2 = typename Pair<V>::type;
   const int T = a.T, B = a.B, S = a.S, mb = a.mb;
   const PassLayout L = pass_layout(T, B, S, MODE, sizeof(V));
-  const int nch = sizeof(V) == 4 ? 1 : (T + MT - 1) / MT;
+  const int nch = MULTI ? (T + MT - 1) / MT : 1;
   const int tid = threadIdx.x;
   const int col0 = blockIdx.x * S;
   const int ncol = min(S, mb - col0);
@@ -519,12 +525,11 @@ __global__ void __launch_bounds__(THREADS) block_passes_kernel(
   stamp(9);
 }
 
-// One launch on ceil(mb / S) CTAs.  Refuses T outside 1..MAX_T and an S that
-// is not a power of two of at least 16.
+// One launch on ceil(mb / S) CTAs.  Refuses T < 1, an S that is not a power
+// of two of at least 16, and a layout beyond the card's shared memory.
 template <typename V, int MODE>
 int launch_block_passes(PassArgs<V> a, cudaStream_t stream) {
-  if (a.T < 1 || a.T > MAX_T || a.B < 1 || a.mb < 1 || a.S < 16 ||
-      (a.S & (a.S - 1)) != 0)
+  if (a.T < 1 || a.B < 1 || a.mb < 1 || a.S < 16 || (a.S & (a.S - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   a.slog = 0;
   while ((1 << a.slog) < a.S) ++a.slog;
@@ -533,10 +538,11 @@ int launch_block_passes(PassArgs<V> a, cudaStream_t stream) {
   const PassLayout L = pass_layout(a.T, a.B, a.S, MODE, sizeof(V));
   void (*kernel)(const PassArgs<V>);
   if constexpr (sizeof(V) == 8)
-    kernel = &block_passes_kernel<V, MT_F64, MODE>;
+    kernel = &block_passes_kernel<V, MT_F64, MODE, true>;
   else
-    kernel = a.T <= 4 ? &block_passes_kernel<V, 4, MODE>
-                      : &block_passes_kernel<V, MAX_T, MODE>;
+    kernel = a.T <= 4       ? &block_passes_kernel<V, 4, MODE, false>
+             : a.T <= MAX_T ? &block_passes_kernel<V, MAX_T, MODE, false>
+                            : &block_passes_kernel<V, MAX_T, MODE, true>;
   if (L.total > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -76,6 +76,11 @@
 // With a stamp buffer, thread 0 of every CTA records %globaltimer at the
 // events of BLOCK_STEP_STAMPS (ops/sweep_kernel.py), in a separate
 // instantiation.
+// A launch takes at most MAX_T traits.  A run with more takes a block step
+// in launches of trait chunks (ops/trait_chunks.py), as csrc/sweep_blocks.cu
+// does a sweep: the entry point offsets every operand to the chunk's first
+// trait t0 and keeps the run's trait count TS as the stride of u, z, the
+// tables and a per-trait Gram cache.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,6 +145,9 @@ struct StepArgs {
   int step, ns, mode;
   int T, B, mb, nt, K, W, G, C, span, cap, vec, flags, ncol, ngroups,
       gs_tot;
+  int TS;   // the run's traits: the stride of u, z (nblocks, TS, B), the
+            //   tables (K, TS, G) and a Gram cache of a mask a trait
+            //   (nb, TS, 2B, 2B), each offset to the chunk's first trait
 };
 
 // The packed scaled Gram, as csrc/sweep_blocks.cu keeps it: per trait, wave
@@ -536,7 +544,8 @@ __device__ __forceinline__ void column_cta(const StepArgs& a, const Layout& L,
       const ShardOps& s = a.sh[q];
       const int blk = s.nb > 1 ? s.blk[a.step] : 0;
       const float* gq =
-          s.gram + ((size_t)blk * a.nt + (a.nt == 1 ? 0 : t)) * quad;
+          s.gram + ((size_t)blk * (a.nt == 1 ? 1 : a.TS) +
+                    (a.nt == 1 ? 0 : t)) * quad;
       const int wj = swin[q * B + j], wi = swin[q * B + i];
       const float* mq = smave + q * TB + t * B;
       const float* sq = smsig + q * TB + t * B;
@@ -731,7 +740,7 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
   for (int x = tid; x < TB; x += BS_THREADS) {
     const int t = x / B, i = x % B;
     const size_t o = (size_t)t * m_in + srow[i];
-    const size_t d = (size_t)a.step * TB + x;
+    const size_t d = ((size_t)a.step * a.TS + t) * B + i;
     const int tg = t * G + sgrp[i];
     const float v_msig = s.msig[o];
     const float v_beta = s.beta[o], v_acum = s.acum[o];
@@ -742,7 +751,7 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
 #pragma unroll
     for (int k = 0; k < MK; ++k) {
       if (tab_s && k < K) {
-        const size_t e = (size_t)k * T * G + tg;
+        const size_t e = (size_t)k * a.TS * G + tg;
         tl[k] = a.lc[e];
         tr[k] = a.rd[e];
         ts[k] = a.sqb[e];
@@ -864,7 +873,7 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
           tab_s ? gmrm_wave_draw<MK>(num, a.i2se[t], slc + o, srd + o,
                                      ssqb + o, (size_t)TB, K, su[o], sz[o])
                 : gmrm_wave_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
-                                     a.sqb + tg, (size_t)T * G, K, su[o],
+                                     a.sqb + tg, (size_t)a.TS * G, K, su[o],
                                      sz[o]);
       const bool lv = sflag[o] & 1;
       const bool zb = sflag[o] & 2;
@@ -1142,31 +1151,50 @@ extern "C" int gmrm_block_sweep_plan(int T, int B, int mb, int nt, int K,
 // of the whole step, which fix the plan, and with it the columns every
 // partial sums over, for all of the step's launches.  The scratch holds
 // the plan's slots, zeroed before its first launch; every launch leaves it
-// so.
+// so.  Traits t0 .. t0 + T - 1 of a run of TS traits (t0 = 0, T = TS: the
+// whole run): the table's and the other operands are the run's (nt = 1 or
+// TS masks), and the launch reads and writes the chunk's traits only.
 extern "C" int gmrm_block_sweep(
     const void* table, int s0, int ns, int step, int mode,
     void* eps, const void* na, void* out, const void* sigmag, const void* lc,
     const void* rd, const void* sqb, const void* i2se, const void* nonas,
     void* scratch, void* stamps, int T, int B, int mb, int nt, int K, int W,
-    int G, int want, void* stream) {
+    int G, int want, int t0, int TS, void* stream) {
+  if (t0 < 0 || TS < 1 || t0 + T > TS || (nt != 1 && nt != TS))
+    return (int)cudaErrorInvalidValue;
+  const int ntc = nt == 1 ? 1 : T;   // the chunk's masks
   Plan p;
-  cudaError_t err = plan_step(T, B, mb, nt, K, W, want, &p);
+  cudaError_t err = plan_step(T, B, mb, ntc, K, W, want, &p);
   if (err != cudaSuccess) return (int)err;
   if (ns < 1 || ns > p.cap || s0 < 0 || step < 0 ||
       (mode & ~(ACCUMULATE | IN_PLACE)) != 0)
     return (int)cudaErrorInvalidValue;
+  const size_t quad = (size_t)4 * B * B, tp = (size_t)t0 * 4 * mb;
+  const size_t tg = (size_t)t0 * G;
   StepArgs a;
   const ShardOps* tab = (const ShardOps*)table;
-  for (int q = 0; q < ns; ++q) a.sh[q] = tab[s0 + q];
-  a.eps = (float*)eps;
-  a.na = (const float*)na;
-  a.out = (float*)out;
-  a.sigmag = (const float*)sigmag;
-  a.lc = (const float*)lc;
-  a.rd = (const float*)rd;
-  a.sqb = (const float*)sqb;
-  a.i2se = (const float*)i2se;
-  a.nonas = (const float*)nonas;
+  for (int q = 0; q < ns; ++q) {
+    ShardOps& o = a.sh[q];
+    o = tab[s0 + q];
+    const size_t tm = (size_t)t0 * o.nb * B;
+    o.gram += nt == 1 ? 0 : (size_t)t0 * quad;
+    o.mave += tm;
+    o.msig += tm;
+    o.beta += tm;
+    o.comp += tm;
+    o.acum += tm;
+    o.u += (size_t)t0 * B;
+    o.z += (size_t)t0 * B;
+  }
+  a.eps = (float*)eps + tp;
+  a.na = (const float*)na + (nt == 1 ? 0 : tp);
+  a.out = out ? (float*)out + tp : nullptr;
+  a.sigmag = (const float*)sigmag + tg;
+  a.lc = (const float*)lc + tg;
+  a.rd = (const float*)rd + tg;
+  a.sqb = (const float*)sqb + tg;
+  a.i2se = (const float*)i2se + t0;
+  a.nonas = (const float*)nonas + t0;
   a.scratch = (unsigned*)scratch;
   a.stamps = (unsigned long long*)stamps;
   a.slot_words = p.slot_words;
@@ -1176,7 +1204,8 @@ extern "C" int gmrm_block_sweep(
   a.T = T;
   a.B = B;
   a.mb = mb;
-  a.nt = nt;
+  a.nt = ntc;
+  a.TS = TS;
   a.K = K;
   a.W = W;
   a.G = G;

@@ -35,7 +35,10 @@
 // loads serve four rows.  A team of 1, 2, 4 or 8 warps takes a group of G
 // rows (more warps on wide rows, so that each lane still reads at least
 // four 16-byte vectors a row and narrow panels keep many rows in flight);
-// its lanes stride over the row's vectors.  The sums are in a fixed order:
+// its lanes stride over the row's vectors.  The loop issues a PRMT, an
+// FADD and the FFMA a value and the decode's bit operations a word: that
+// issue, not the bed's bytes, bounds it (its stamps: decode and FMAs
+// about 86% of the loop's cycles).  The sums are in a fixed order:
 // each lane's partial over its vectors in order, a fixed __shfl_xor tree
 // over the warp, then the team's warps in order through shared memory.  No
 // atomics: two launches on the same inputs give the same bits.
@@ -52,7 +55,9 @@
 // so the sums are the bits of the conversion's.  Its y is staged in
 // shared memory a span of vectors at a time (lane_sums' STAGE) where
 // several groups of warps share it: read straight from global memory,
-// every 16-byte load of a warp touches 32 cache lines.  It replaces
+// every 16-byte load of a warp touches 32 cache lines.  (At float the
+// same staging made the kernel slower: its y loads are not what holds
+// it.)  It replaces
 // _predict_sums_scan(dtype=float64) (gmrm_tpu/predict.py:43).  Bound: the
 // bed once, as in float32 (xty's FMAs at the float64 rate take less time);
 // y is twice as wide and stays in L1 and L2 as well.
@@ -155,14 +160,67 @@ inline int staged_bytes(int team, int es) {
   return es == 8 && team < WARPS ? 4 * team * 32 * YS * 8 : 0;
 }
 
+// A stamped launch (ST, for measurement only) records per CTA, by lane 0
+// of warp 0: %globaltimer at its start and end, its SM, and the SM cycles
+// of each phase of its loop summed over its spans: the y staging (copies
+// and barriers; double only), the bed and mask loads, the y loads, the
+// decode and FMAs, and the rest (the reductions and the writes).
+// A phase ends when its values are in
+// registers (the clock read is predicated on a test of them), so the
+// stamped loop waits out every load where the plain one overlaps them.
+constexpr int PNST = 8;
+enum { P_START, P_END, P_SM, P_STAGE, P_BED, P_Y, P_FMA, P_RED };
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
+  return t;
+}
+__device__ __forceinline__ long long clk_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+__device__ __forceinline__ long long clk_after(uint32_t x) {
+  long long t;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, %1;\n"
+      "@!p mov.u64 %0, %%clock64;\n@p mov.u64 %0, 0;\n}"
+      : "=l"(t) : "r"(x) : "memory");
+  return t;
+}
+__device__ __forceinline__ uint32_t bits_of(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ uint32_t bits_of(double x) {
+  return (uint32_t)__double_as_longlong(x);
+}
+template <bool ST>
+struct LoopClock {
+  long long first, last, acc[4];
+  __device__ __forceinline__ void start() {
+    if constexpr (ST) {
+      first = last = clk_now();
+      for (int e = 0; e < 4; ++e) acc[e] = 0;
+    }
+  }
+  __device__ __forceinline__ void at(int e, uint32_t dep) {
+    if constexpr (ST) {
+      const long long t = clk_after(dep);
+      acc[e] += t - last;
+      last = t;
+    }
+  }
+};
+
 // This lane's partial sums of the group's G rows from row0: acc the xty,
 // cnt the xtx.  Each lane takes the vectors vl, vl + span, ... of a row;
 // the order of its operations is the same with y staged or not.
-template <typename V, bool STAGE>
+template <typename V, bool STAGE, bool ST>
 __device__ __forceinline__ void lane_sums(
     const uint8_t* __restrict__ bed, const uint32_t* __restrict__ keep,
     const V* __restrict__ y, int M, int L, int team, long long row0,
-    V (&acc)[G], int (&cnt)[G]) {
+    V (&acc)[G], int (&cnt)[G], LoopClock<ST>& clk) {
   using S = Sums<V>;
   static_assert(!STAGE || sizeof(V) == 8, "y is staged at double only");
   extern __shared__ __align__(16) double ys[];   // [4][span][YS]
@@ -192,6 +250,7 @@ __device__ __forceinline__ void lane_sums(
         *(double2*)(ys + ((size_t)k * span + vv) * YS + c) = two;
       }
       __syncthreads();
+      clk.at(0, 0u);
     }
     const int v = STAGE ? v0 + vl : v0;
     if (STAGE && (!live || v >= nv)) continue;
@@ -202,6 +261,7 @@ __device__ __forceinline__ void lane_sums(
                      : make_uint4(0x55555555u, 0x55555555u, 0x55555555u,
                                   0x55555555u);
     const uint4 kw = __ldg((const uint4*)keep + v);
+    clk.at(1, w[0].x ^ w[G - 1].w ^ kw.x);
     const int col = v * 16;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -216,6 +276,7 @@ __device__ __forceinline__ void lane_sums(
           yk[k] = S::load(y + (size_t)k * L + col + 4 * q);
         }
       }
+      clk.at(2, bits_of(S::at(yk[0], 0)) ^ bits_of(S::at(yk[3], 3)));
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         uint32_t a2, a1;
@@ -230,22 +291,29 @@ __device__ __forceinline__ void lane_sums(
             acc[g] = S::madd(S::value(vk, b), S::at(yk[k], b), acc[g]);
         }
       }
+      clk.at(3, bits_of(acc[G - 1]) ^ (uint32_t)cnt[G - 1]);
     }
   }
 }
 
-template <typename V>
+// stamps: (grid, PNST) for ST.
+template <typename V, bool ST>
 __global__ void __launch_bounds__(THREADS, Sums<V>::CTAS_PER_SM)
 predict_sums_kernel(const uint8_t* __restrict__ bed,
                     const uint32_t* __restrict__ keep,
                     const V* __restrict__ y, V* __restrict__ out,
-                    int M, int L, int team) {
+                    int M, int L, int team,
+                    unsigned long long* __restrict__ stamps) {
   __shared__ V red_y[WARPS][G];
   __shared__ int red_x[WARPS][G];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int groups = WARPS / team;
   const long long row0 =
       ((long long)blockIdx.x * groups + warp / team) * G;
+  unsigned long long g0 = 0;
+  if constexpr (ST) g0 = global_ns();
+  LoopClock<ST> clk;
+  clk.start();
 
   V acc[G];
   int cnt[G];
@@ -256,12 +324,12 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
   }
   if constexpr (sizeof(V) == 8) {
     if (team < WARPS) {
-      lane_sums<V, true>(bed, keep, y, M, L, team, row0, acc, cnt);
+      lane_sums<V, true, ST>(bed, keep, y, M, L, team, row0, acc, cnt, clk);
     } else if (row0 < M) {
-      lane_sums<V, false>(bed, keep, y, M, L, team, row0, acc, cnt);
+      lane_sums<V, false, ST>(bed, keep, y, M, L, team, row0, acc, cnt, clk);
     }
   } else if (row0 < M) {
-    lane_sums<V, false>(bed, keep, y, M, L, team, row0, acc, cnt);
+    lane_sums<V, false, ST>(bed, keep, y, M, L, team, row0, acc, cnt, clk);
   }
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -290,6 +358,22 @@ predict_sums_kernel(const uint8_t* __restrict__ bed,
       out[(size_t)M + row] = s;
     }
   }
+  if constexpr (ST) {
+    if (threadIdx.x == 0) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      unsigned long long* st = stamps + (size_t)blockIdx.x * PNST;
+      st[P_START] = g0;
+      st[P_END] = global_ns();
+      st[P_SM] = sm;
+      long long rest = clk_now() - clk.first;
+      for (int e = 0; e < 4; ++e) {
+        st[P_STAGE + e] = (unsigned long long)clk.acc[e];
+        rest -= clk.acc[e];
+      }
+      st[P_RED] = (unsigned long long)rest;
+    }
+  }
 }
 
 }  // namespace
@@ -303,9 +387,11 @@ extern "C" int gmrm_predict_sums_team(int L) {
   return team;
 }
 
+// stamps: (grid, PNST) int64 or null, one row a CTA.
 template <typename V>
 static int launch_sums(const void* bed, const void* na, const void* y,
-                       void* keep, void* out, int M, int L, void* stream) {
+                       void* keep, void* out, int M, int L, void* stream,
+                       void* stamps = nullptr) {
   if (M < 1 || L < 16 || L % 16 || (uintptr_t)bed % 16 ||
       (uintptr_t)na % 16 || (uintptr_t)y % 16 || (uintptr_t)keep % 16)
     return (int)cudaErrorInvalidValue;
@@ -317,16 +403,16 @@ static int launch_sums(const void* bed, const void* na, const void* y,
                          (cudaStream_t)stream>>>((const V*)na,
                                                  (uint32_t*)keep, L);
   const int smem = staged_bytes(team, sizeof(V));
+  auto kernel = stamps ? predict_sums_kernel<V, true>
+                       : predict_sums_kernel<V, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        predict_sums_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  predict_sums_kernel<V><<<(unsigned)grid, THREADS, smem,
-                           (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)bed, (const uint32_t*)keep, (const V*)y, (V*)out, M,
-      L, team);
+      L, team, (unsigned long long*)stamps);
   return (int)cudaGetLastError();
 }
 
@@ -337,6 +423,16 @@ extern "C" int gmrm_predict_sums(const void* bed, const void* na,
                                  const void* y, void* keep, void* out, int M,
                                  int L, void* stream) {
   return launch_sums<float>(bed, na, y, keep, out, M, L, stream);
+}
+
+// For measurement only: gmrm_predict_sums through the stamped
+// instantiation, stamps ((grid, PNST) int64) a CTA.
+extern "C" int gmrm_predict_sums_probe(const void* bed, const void* na,
+                                       const void* y, void* keep, void* out,
+                                       int M, int L, void* stamps,
+                                       void* stream) {
+  if (!stamps) return (int)cudaErrorInvalidValue;
+  return launch_sums<float>(bed, na, y, keep, out, M, L, stream, stamps);
 }
 
 // Kernel D: as gmrm_predict_sums, with na and y (4, L) float64 and out

@@ -66,6 +66,13 @@
 // piece of code has one call site and plain copy loops are not unrolled.
 // Buffers written inside the launch (partials, dbeta, the scaled Gram) are
 // read with __ldcg, never through the non-coherent path.
+//
+// A launch takes at most MAX_T traits (register arrays).  A run with more
+// is launched once a chunk of traits, back to back on the stream, reusing
+// one scratch (ops/trait_chunks.py): the traits' chains are independent,
+// and the entry point offsets every operand to the chunk's first trait
+// t0 and keeps the run's trait count TS as the stride of the operands that
+// are not trait-leading (u and z, the tables, a per-trait Gram cache).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +133,9 @@ struct SweepArgs {
   unsigned* sync;
   unsigned long long* stamps;  // (grid, nblocks + 1, NST) or null
   int nblocks, T, B, mb, nt, K, W, G, m_local, S, flags;
+  int TS;   // the run's traits: u and z are (nblocks, TS, B), the tables
+            //   (K, TS, G) and a Gram cache of a mask a trait (nblocks, TS,
+            //   2B, 2B), each offset to the chunk's first trait
 };
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -392,7 +402,8 @@ __device__ void column_cta(const SweepArgs& a, const Layout& L,
     const float* smsig = (const float*)(sm + L.msig[q]);
     const int B2 = 2 * B;
     const size_t quad = (size_t)B2 * B2;
-    const float* g0 = a.gram + (size_t)a.blkidx[b] * a.nt * quad;
+    const float* g0 =
+        a.gram + (size_t)a.blkidx[b] * (a.nt == 1 ? 1 : a.TS) * quad;
     float* out = a.gsbuf + (size_t)(b & 1) * T * L.gs_tot;
     // The packed entries are dealt to the threads of all column CTAs, so
     // that each thread makes the four gathered loads of an entry once.
@@ -687,13 +698,14 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
       const float v_mave = a.mave[o], v_msig = a.msig[o];
       const float v_beta = a.beta_old[o], v_acum = a.acum_old[o];
       const int v_comp = a.comp_old[o];
-      const float v_u = a.u[(size_t)b * TB + x], v_z = a.z[(size_t)b * TB + x];
+      const size_t ux = (size_t)b * a.TS * B + x;
+      const float v_u = a.u[ux], v_z = a.z[ux];
       const bool adav = a.sigmag[tg] == 0.0f;
       float tl[MK], tr[MK], ts[MK];
 #pragma unroll
       for (int k = 0; k < MK; ++k) {
         if (tab_s && k < K) {
-          const size_t s = (size_t)k * T * G + tg;
+          const size_t s = (size_t)k * a.TS * G + tg;
           tl[k] = a.lc[s];
           tr[k] = a.rd[s];
           ts[k] = a.sqb[s];
@@ -821,8 +833,8 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
             tab_s ? gmrm_wave_draw<MK>(num, a.i2se[t], slc + o, srd + o,
                                        ssqb + o, (size_t)TB, K, su[o], sz[o])
                   : gmrm_wave_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
-                                       a.sqb + tg, (size_t)T * G, K, su[o],
-                                       sz[o]);
+                                       a.sqb + tg, (size_t)a.TS * G, K,
+                                       su[o], sz[o]);
         const bool lv = sflag[o] & 1;
         const bool zb = sflag[o] & 2;
         const float bo = sbeta[o];
@@ -998,6 +1010,9 @@ extern "C" int gmrm_sweep_blocks_plan(int T, int B, int mb, int nt, int K,
   return 0;
 }
 
+// Traits t0 .. t0 + T - 1 of a run of TS traits (t0 = 0, T = TS: the whole
+// run): every operand is the run's (nt = 1 or TS masks), and the launch
+// reads and writes the chunk's traits only.
 extern "C" int gmrm_sweep_blocks(
     const void* bed, const void* blkidx, const void* win, const void* gram,
     void* eps, const void* na, const void* mave, const void* msig,
@@ -1006,36 +1021,42 @@ extern "C" int gmrm_sweep_blocks(
     const void* lc, const void* rd, const void* sqb, const void* i2se,
     const void* nonas, void* beta_new, void* comp_new, void* acum_new,
     void* scratch, void* stamps, int nblocks, int T, int B, int mb, int nt,
-    int K, int W, int G, int m_local, void* stream) {
+    int K, int W, int G, int m_local, int t0, int TS, void* stream) {
+  if (t0 < 0 || TS < 1 || t0 + T > TS || (nt != 1 && nt != TS))
+    return (int)cudaErrorInvalidValue;
+  const int ntc = nt == 1 ? 1 : T;   // the chunk's masks
   Plan p;
-  cudaError_t err = plan_sweep(T, B, mb, nt, K, W, stamps != nullptr, &p);
+  cudaError_t err = plan_sweep(T, B, mb, ntc, K, W, stamps != nullptr, &p);
   if (err != cudaSuccess) return (int)err;
+  const size_t m_pad = (size_t)nblocks * B, quad = (size_t)4 * B * B;
+  const size_t tm = (size_t)t0 * m_pad, tp = (size_t)t0 * 4 * mb;
+  const size_t tg = (size_t)t0 * G;
   SweepArgs a;
   a.bed = (const uint8_t*)bed;
   a.blkidx = (const int*)blkidx;
   a.win = (const int*)win;
-  a.gram = (const float*)gram;
-  a.eps = (float*)eps;
-  a.na = (const float*)na;
-  a.mave = (const float*)mave;
-  a.msig = (const float*)msig;
-  a.beta_old = (const float*)beta_old;
-  a.comp_old = (const int*)comp_old;
-  a.acum_old = (const float*)acum_old;
+  a.gram = (const float*)gram + (nt == 1 ? 0 : (size_t)t0 * quad);
+  a.eps = (float*)eps + tp;
+  a.na = (const float*)na + (nt == 1 ? 0 : tp);
+  a.mave = (const float*)mave + tm;
+  a.msig = (const float*)msig + tm;
+  a.beta_old = (const float*)beta_old + tm;
+  a.comp_old = (const int*)comp_old + tm;
+  a.acum_old = (const float*)acum_old + tm;
   a.grp = (const int*)grp;
-  a.u = (const float*)u;
-  a.z = (const float*)z;
-  a.sigmag = (const float*)sigmag;
-  a.lc = (const float*)lc;
-  a.rd = (const float*)rd;
-  a.sqb = (const float*)sqb;
-  a.i2se = (const float*)i2se;
-  a.nonas = (const float*)nonas;
-  a.beta_new = (float*)beta_new;
-  a.comp_new = (int*)comp_new;
-  a.acum_new = (float*)acum_new;
+  a.u = (const float*)u + (size_t)t0 * B;
+  a.z = (const float*)z + (size_t)t0 * B;
+  a.sigmag = (const float*)sigmag + tg;
+  a.lc = (const float*)lc + tg;
+  a.rd = (const float*)rd + tg;
+  a.sqb = (const float*)sqb + tg;
+  a.i2se = (const float*)i2se + t0;
+  a.nonas = (const float*)nonas + t0;
+  a.beta_new = (float*)beta_new + tm;
+  a.comp_new = (int*)comp_new + tm;
+  a.acum_new = (float*)acum_new + tm;
   const Scratch s = scratch_layout(
-      p.grid - 1, T, B, make_layout(T, B, W, K, nt, p.S, p.flags).gs_tot);
+      p.grid - 1, T, B, make_layout(T, B, W, K, ntc, p.S, p.flags).gs_tot);
   float* f = (float*)scratch;
   a.part = f + s.part;
   a.gpart = f + s.gpart;
@@ -1047,13 +1068,14 @@ extern "C" int gmrm_sweep_blocks(
   a.T = T;
   a.B = B;
   a.mb = mb;
-  a.nt = nt;
+  a.nt = ntc;
   a.K = K;
   a.W = W;
   a.G = G;
   a.m_local = m_local;
   a.S = p.S;
   a.flags = p.flags;
+  a.TS = TS;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(THREADS),
                                     args, (size_t)p.smem,

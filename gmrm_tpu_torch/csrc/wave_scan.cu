@@ -47,6 +47,10 @@
 //   - each fold term's W-long sum is split over up to 8 neighbouring lanes,
 //     lane h taking the terms h, h + split, ... in order, then a fixed
 //     shuffle tree, so two launches on the same inputs write the same bits.
+// A block whose state one CTA cannot hold (large T B) runs as a grid of
+// trait groups, TG traits a CTA (ops/trait_chunks.py): the traits' chains
+// are independent, so a CTA takes its traits' slice of every operand and
+// runs the block as above, and each trait gets the bits it gets alone.
 // The draw is sweep_math.cuh's gmrm_wave_draw: every add and product uses
 // the _rn intrinsics, so comp agrees exactly with the plain PyTorch
 // version; the tables' K is a template bound (4, 8 or 16) so the
@@ -84,9 +88,44 @@ struct WaveArgs {
   float* beta_new;
   int* comp_new;
   float* acum_new;
-  unsigned long long* stamps;  // (2 + 2 nw,) or null
-  int T, B, K, W, tab, gsw, vec;
+  unsigned long long* stamps;  // (2 + 2 nw,) or null: CTA 0's
+  int T, B, K, W, tab, gsw, vec;  // T: the CTA's traits (after wave_group)
+  int TK;  // the launch's traits: the k stride of the tables in traits
+  int TG;  // traits a CTA
 };
+
+// CTA blockIdx.x's traits t0 = blockIdx.x TG .. (TG of them, fewer in the
+// last CTA): every (T, ..) operand offset to them; the tables keep the
+// launch's k stride.  One CTA of every trait (TG = T) is unchanged.
+__device__ __forceinline__ WaveArgs wave_group(const WaveArgs& a0) {
+  WaveArgs a = a0;
+  const int t0 = blockIdx.x * a0.TG;
+  const size_t o = (size_t)t0 * a0.B;
+  a.T = min(a0.TG, a0.T - t0);
+  a.c += o;
+  if (a.nm1) a.nm1 += t0;
+  a.lc += o;
+  a.rd += o;
+  a.sqb += o;
+  a.gs += o * a0.B;
+  a.beta_old += o;
+  a.comp_old += o;
+  a.acum_old += o;
+  a.u += o;
+  a.z += o;
+  a.live += o;
+  a.zerob += o;
+  if (a.msig) {
+    a.msig += o;
+    a.d += o;
+  }
+  a.i2se += t0;
+  a.dbeta += o;
+  a.beta_new += o;
+  a.comp_new += o;
+  a.acum_new += o;
+  return a;
+}
 
 __host__ __device__ inline int al4(int x) { return (x + 3) & ~3; }
 
@@ -237,8 +276,9 @@ __device__ __forceinline__ void stage_gs_wave(float* dst, const float* gs,
 
 template <int MK, bool TAB, bool ST>
 __global__ void __launch_bounds__(THREADS)
-wave_scan_kernel(const WaveArgs a) {
+wave_scan_kernel(const WaveArgs a0) {
   extern __shared__ __align__(16) float sm[];
+  const WaveArgs a = wave_group(a0);
   const int T = a.T, B = a.B, K = a.K, W = a.W;
   const int TB = T * B, TW = T * W;
   const int nw = B / W;
@@ -260,12 +300,15 @@ wave_scan_kernel(const WaveArgs a) {
   int* goff = (int*)(sm + L.goff);
   float* swdb = sm + L.wdb;
   float* sgs = sm + L.gs;
+  // The tables' k stride: the staged copy's, or the launch's in global
+  // memory.
+  const size_t tstride = TAB ? (size_t)TB : (size_t)a.TK * B;
   const float* lcp = TAB ? sm + L.lc : a.lc;
   const float* rdp = TAB ? sm + L.rd : a.rd;
   const float* sqbp = TAB ? sm + L.sqb : a.sqb;
   int ev = 0;
   auto stamp = [&]() {
-    if (ST && tid == 0) a.stamps[ev] = global_ns();
+    if (ST && tid == 0 && blockIdx.x == 0) a.stamps[ev] = global_ns();
     ++ev;
   };
   stamp();
@@ -287,26 +330,34 @@ wave_scan_kernel(const WaveArgs a) {
     const void* src;
     int n;
   };
-  const Piece ops[] = {
+  const Piece state[] = {
       {sc, a.c, TB},           {sbeta, a.beta_old, TB},
       {sacum, a.acum_old, TB}, {su, a.u, TB},
       {sz, a.z, TB},           {scomp, a.comp_old, TB},
       {slive, a.live, TB},     {szerob, a.zerob, TB},
-      {smsig, a.msig, a.msig ? TB : 0},
-      {sm + L.lc, a.lc, TAB ? K * TB : 0},
-      {sm + L.rd, a.rd, TAB ? K * TB : 0},
-      {sm + L.sqb, a.sqb, TAB ? K * TB : 0}};
-  constexpr int NOPS = sizeof(ops) / sizeof(ops[0]);
+      {smsig, a.msig, a.msig ? TB : 0}};
+  constexpr int NSTATE_OPS = sizeof(state) / sizeof(state[0]);
+  // Each table is one copy of its K planes when the CTA has every trait,
+  // a copy a plane when its traits are a slice of each plane.
+  const int tp = a.TK == T ? 1 : K;
+  const int nops = NSTATE_OPS + (TAB ? 3 * tp : 0);
+  const int ktb = al4(K * TB);
+  auto piece = [&](int k) -> Piece {
+    if (k < NSTATE_OPS) return state[k];
+    const int q = (k - NSTATE_OPS) / tp, p = (k - NSTATE_OPS) % tp;
+    const float* tab = q == 0 ? a.lc : q == 1 ? a.rd : a.sqb;
+    return {sm + L.lc + q * ktb + p * TB, tab + (size_t)p * a.TK * B,
+            tp == 1 ? K * TB : TB};
+  };
   if (vec && tid == 0) {
     uint32_t bytes = 0;
-#pragma unroll
-    for (int k = 0; k < NOPS; ++k) bytes += 4u * ops[k].n;
+    for (int k = 0; k < nops; ++k) bytes += 4u * piece(k).n;
     bar_arrive_tx(bars, bytes);
   }
-#pragma unroll
-  for (int k = 0; k < NOPS; ++k)
-    if (ops[k].n)
-      copy_words(ops[k].dst, ops[k].src, ops[k].n, vec, bars, k, 0);
+  for (int k = 0; k < nops; ++k) {
+    const Piece pc = piece(k);
+    if (pc.n) copy_words(pc.dst, pc.src, pc.n, vec, bars, k, 0);
+  }
   // The packed Gram rows of the staged waves, issued at entry beside the
   // operands by the warps that draw nothing (by all when every warp draws),
   // a bulk copy per row and trait (one lane each): wave 0's rows count on
@@ -413,7 +464,7 @@ wave_scan_kernel(const WaveArgs a) {
                   : sc[o];
       const float num = __fadd_rn(base, scorr[o]);
       const GmrmDraw dr = gmrm_wave_draw<MK>(num, si2se[t], lcp + o, rdp + o,
-                                             sqbp + o, (size_t)TB, K, su[o],
+                                             sqbp + o, tstride, K, su[o],
                                              sz[o]);
       const bool lv = slive[o] != 0;
       const bool zb = szerob[o] != 0;
@@ -470,7 +521,8 @@ int launch_kernel(const WaveArgs& a, size_t smem, cudaStream_t s) {
     if (err != cudaSuccess) return (int)err;
     if (dev >= 0 && dev < 64) raised[dev] = true;
   }
-  wave_scan_kernel<MK, TAB, ST><<<1, THREADS, smem, s>>>(a);
+  wave_scan_kernel<MK, TAB, ST><<<(a.T + a.TG - 1) / a.TG, THREADS, smem,
+                                  s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -491,9 +543,10 @@ int launch(const WaveArgs& a, size_t smem, cudaStream_t s) {
 // int32; lc, rd, sqb (nb, K, T, B); block b of them is scanned.  c (nc, T,
 // B), row bc; gs (nr, T, B, B), Gram bg.  nm1, msig and d null: c is base
 // itself and d is not written (the one-block interface).  tab, gsw: the
-// plan of ops/scan_kernel_wave.wave_plan (tables staged; the waves whose
-// Gram rows are staged).  stamps: (2 + 2 nw) int64 or null, %globaltimer
-// at ops/scan_kernel_wave.wave_stamp_names' events, by thread 0.
+// plan of ops/scan_kernel_wave.wave_plan at TG traits (tables staged; the
+// waves whose Gram rows are staged).  TG: traits a CTA, ceil(T / TG) CTAs
+// (TG = T: one CTA).  stamps: (2 + 2 nw) int64 or null, %globaltimer at
+// ops/scan_kernel_wave.wave_stamp_names' events, by thread 0 of CTA 0.
 extern "C" int gmrm_wave_scan(
     const void* c, const void* nm1, const void* lc, const void* rd,
     const void* sqb, const void* gs, const void* beta_old,
@@ -501,10 +554,11 @@ extern "C" int gmrm_wave_scan(
     const void* live, const void* zerob, const void* msig, const void* i2se,
     void* dbeta, void* d, void* beta_new, void* comp_new, void* acum_new,
     void* stamps, int b, int bc, int bg, int T, int B, int K, int W, int tab,
-    int gsw, void* stream) {
+    int gsw, int TG, void* stream) {
   if (K < 1 || K > GMRM_MAX_K || T < 1 || B < 1 || W < 1 || B % W != 0 ||
       b < 0 || bc < 0 || bg < 0 || tab < 0 || tab > 1 || gsw < 0 ||
-      gsw > B / W || (msig == nullptr) != (d == nullptr))
+      gsw > B / W || (msig == nullptr) != (d == nullptr) || TG < 1 ||
+      TG > T || (T + TG - 1) / TG > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t tb = (size_t)b * T * B, ktb = (size_t)b * K * T * B;
   WaveArgs a;
@@ -535,13 +589,15 @@ extern "C" int gmrm_wave_scan(
   a.W = W;
   a.tab = tab;
   a.gsw = gsw;
+  a.TK = T;
+  a.TG = TG;
   const void* ptrs[] = {a.c,    a.lc,       a.rd,       a.sqb, a.gs,
                         a.beta_old, a.comp_old, a.acum_old, a.u, a.z,
                         a.live, a.zerob,    a.msig};
   int vec = B % 4 == 0 && W % 4 == 0;
   for (const void* p : ptrs) vec &= ((uintptr_t)p % 16 == 0);
   a.vec = vec;
-  const size_t smem = 4 * (size_t)make_layout(T, B, K, W, tab, gsw).words;
+  const size_t smem = 4 * (size_t)make_layout(TG, B, K, W, tab, gsw).words;
   if (smem > (size_t)SMEM_CAP) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (K <= 4) return launch<4>(a, smem, s);

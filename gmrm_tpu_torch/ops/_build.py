@@ -48,8 +48,8 @@ SIGNATURES = {
     "gmrm_block_cdot": [_P] * 7 + [_I] * 4 + [_P, _P],
     # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
     # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, stamps (or
-    # null), b, bc, bg, T, B, K, W, tab, gsw, stream
-    "gmrm_wave_scan": [_P] * 21 + [_I] * 9 + [_P],
+    # null), b, bc, bg, T, B, K, W, tab, gsw, TG (traits a CTA), stream
+    "gmrm_wave_scan": [_P] * 21 + [_I] * 10 + [_P],
     # bed, rows, d, mave, na, eps, T, B, mb, S, stamps (or null), stream
     "gmrm_eps_update": [_P] * 6 + [_I] * 4 + [_P, _P],
     # bed, rows, rows_next, d, mave, mave_next, msig_next, na, eps, c_next,
@@ -60,21 +60,22 @@ SIGNATURES = {
     "gmrm_block_gram": [_P] * 7 + [_I] * 8 + [_P],
     # c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z, live,
     # zerob, msig, i2se, dbeta, d, beta_new, comp_new, acum_new, stamps (or
-    # null), b, bc, bg, T, B, K, mode, GR, NG, stream
-    "gmrm_serial_scan": [_P] * 21 + [_I] * 9 + [_P],
+    # null), b, bc, bg, T, B, K, mode, GR, NG, TG (traits a CTA), stream
+    "gmrm_serial_scan": [_P] * 21 + [_I] * 10 + [_P],
     # bed, blkidx, win, gram, eps, na, mave, msig, beta_old, comp_old,
     # acum_old, grp, u, z, sigmag, lc, rd, sqb, i2se, nonas, beta_new,
     # comp_new, acum_new, scratch, stamps (or null), nblocks, T, B, mb, nt,
-    # K, W, G, m_local, stream (a cooperative launch inside the entry point)
-    "gmrm_sweep_blocks": [_P] * 25 + [_I] * 9 + [_P],
+    # K, W, G, m_local, t0, TS (traits t0 .. t0 + T - 1 of a run of TS),
+    # stream (a cooperative launch inside the entry point)
+    "gmrm_sweep_blocks": [_P] * 25 + [_I] * 11 + [_P],
     # T, B, mb, nt, K, W, out (7 ints): no launch, the grid, the shared
     # memory residency and the scratch the sweep kernel will use
     "gmrm_sweep_blocks_plan": [_I] * 6 + [_P],
     # table (host array of per-shard operand records), s0, ns, step, mode,
     # eps, na, out, sigmag, lc, rd, sqb, i2se, nonas, scratch, stamps (or
-    # null), T, B, mb, nt, K, W, G, want, stream (a cooperative launch
-    # inside the entry point)
-    "gmrm_block_sweep": [_P] + [_I] * 4 + [_P] * 11 + [_I] * 8 + [_P],
+    # null), T, B, mb, nt, K, W, G, want, t0, TS (traits t0 .. t0 + T - 1
+    # of a run of TS), stream (a cooperative launch inside the entry point)
+    "gmrm_block_sweep": [_P] + [_I] * 4 + [_P] * 11 + [_I] * 10 + [_P],
     # T, B, mb, nt, K, W, want, out (8 ints): no launch, the shards a launch
     # takes, the columns, grid, shared memory and scratch the sharded
     # block-step kernel will use at these shapes
@@ -83,6 +84,9 @@ SIGNATURES = {
     "gmrm_predict_sums": [_P] * 5 + [_I] * 2 + [_P],
     # L: no launch, the warps the predict kernel gives a group of rows
     "gmrm_predict_sums_team": [_I],
+    # gmrm_predict_sums' arguments, then stamps, stream: the stamped
+    # launch, for measurement (not counted)
+    "gmrm_predict_sums_probe": [_P] * 5 + [_I] * 2 + [_P, _P],
     # The float64 kernels of the exact serial path (A-D).
     # bed, rows, na (float32), mave, msig, gs, stamps (or null), nb, T, B,
     # mb, nt, panels, stages, grid, stream

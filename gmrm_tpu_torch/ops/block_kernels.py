@@ -13,7 +13,11 @@ b's update fused with block b+1's c-dot).
 power of two from 16 to 256, so that the grid fills the card), the grid,
 the c-dot's scratch (counters and partials) and the shared memory of the
 fused pass, which is the largest; a shape whose 16-column slices do not fit
-in shared memory is refused.
+in shared memory is refused.  A launch takes any number of traits (a
+thread carries them 8 at a time, 4 at float64, in passes over its rows);
+``BlockPasses`` launches a run whose traits' slices do not fit in trait
+chunks (``trait_chunks.trait_chunks``), one launch a chunk on the chunk's
+contiguous rows of every operand, each planned at the chunk's width.
 
 ``BlockPasses`` runs the kernels over a sweep's blocks from the sweep's
 whole processing-order arrays: the operands are checked once, the c-dot's
@@ -39,8 +43,8 @@ import torch
 
 from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.decode import decode_planes
+from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
 
-MAX_T = 8            # traits a kernel thread carries in registers (csrc MAX_T)
 THREADS = 256        # threads a CTA (csrc THREADS)
 GROUP = 16           # slices per group of the c-dot's tree (csrc GROUP)
 LINE = 32            # 32-bit words per counter (csrc LINE)
@@ -128,8 +132,6 @@ def pass_plan(T: int, B: int, mb: int, es: int = 4):
     (T, B, mb), or None when 16-column slices do not fit in shared memory.
     S is the widest power of two up to SLICE_MAX that still gives
     SLICE_TARGET slices, then halved while the fused pass does not fit."""
-    if T > MAX_T:
-        raise ValueError(f"{T} traits exceed the kernels' MAX_T={MAX_T}")
     S = 16
     while 2 * S <= SLICE_MAX and -(-mb // (2 * S)) >= SLICE_TARGET:
         S *= 2
@@ -143,11 +145,12 @@ def pass_plan(T: int, B: int, mb: int, es: int = 4):
                     pass_scratch_words(grid, T, B, es), smem)
 
 
-def _check_blocks(bed, rows, mave, msig, na):
+def _check_blocks(bed, rows, mave, msig, na, width=None):
     """The limits and the operand checks of kernels 2 and 4, for one block
     (rows (B,), mave/msig (T, B)) or a sweep's blocks ((nb, B), (nb, T, B));
     ``msig`` is None for the update alone, ``na`` for the c-dot alone.
-    Returns the launch plan at the dtype of ``mave``."""
+    Returns the launch plan at the dtype of ``mave`` for ``width`` traits a
+    launch (all T by default)."""
     T, B = mave.shape[-2:]
     lead = tuple(mave.shape[:-2])
     dev = bed.device
@@ -155,11 +158,11 @@ def _check_blocks(bed, rows, mave, msig, na):
     if dtype not in _SUFFIX:
         raise ValueError(f"mave has dtype {dtype}: the passes take float32 "
                          f"or float64")
-    plan = pass_plan(T, B, bed.shape[1], mave.element_size())
+    plan = pass_plan(width or T, B, bed.shape[1], mave.element_size())
     if plan is None:
-        raise ValueError(f"T={T}, B={B} exceed the passes' {SMEM_BYTES} "
-                         f"bytes of shared memory at {dtype} even at "
-                         f"16-byte slices")
+        raise ValueError(f"T={width or T}, B={B} exceed the passes' "
+                         f"{SMEM_BYTES} bytes of shared memory at {dtype} "
+                         f"even at 16-byte slices")
     _build.check(bed, "bed", torch.uint8, tuple(bed.shape), dev)
     _build.check(rows, "rows", torch.int32, lead + (B,), dev)
     _build.check(mave, "mave", dtype, lead + (T, B), dev)
@@ -291,23 +294,44 @@ class BlockPasses:
     from the updated ``eps``, into ``c[b + 1]``, in one launch.  On CUDA
     tensors each takes an optional stamp buffer (``grid``, NST) int64 that
     the launch fills (``PASS_STAMPS``).
+
+    A run whose traits' slices do not fit one launch is launched in trait
+    chunks (``chunks``, from ``trait_chunks``): each call then makes one
+    launch a chunk, on the chunk's rows of every operand, each planned at
+    the chunk's width (``plans``; ``plan`` is the first chunk's), one
+    scratch serving them all in turn.  A stamp buffer records one launch.
     """
 
     def __init__(self, bed, rows_all, mave_p, msig_p, na):
         nb, T, B = mave_p.shape
         dev = bed.device
-        self.dims = (nb, T, B, bed.shape[1])
+        mb = bed.shape[1]
+        self.dims = (nb, T, B, mb)
         self.ops = (bed, rows_all, mave_p, msig_p, na)
         self.dtype = mave_p.dtype
         self.es = mave_p.element_size()
         self.c = torch.empty((nb, T, B), dtype=self.dtype, device=dev)
         self.cuda = not _on_cpu(bed)
         if self.cuda:
-            self.plan = _check_blocks(bed, rows_all, mave_p, msig_p, na)
-            self.scratch = _scratch(self.plan, dev)
+            self.chunks = trait_chunks("passes", T, B, mb=mb, es=self.es)
+            self.plans = {w: _check_blocks(bed, rows_all, mave_p, msig_p,
+                                           na, w)
+                          for w in {t1 - t0 for t0, t1 in self.chunks}}
+            self.plan = self.plans[self.chunks[0][1]]
+            self.scratch = torch.zeros(
+                max(p.scratch_words for p in self.plans.values()),
+                dtype=torch.int32, device=dev)
             self.ptr = [x.data_ptr() for x in (*self.ops, self.c,
                                                self.scratch)]
             self.seen = {}
+
+    def _launches(self, stamps):
+        """(t0, traits, S) of each launch: the offsets of its first trait
+        in the operands and its plan's slice width."""
+        if stamps is not None and len(self.chunks) > 1:
+            raise ValueError("stamps record one launch")
+        return [(t0, t1 - t0, self.plans[t1 - t0].S)
+                for t0, t1 in self.chunks]
 
     def _plane_ptr(self, x, name):
         """The address of a (T, 4, mb) residual-shaped operand."""
@@ -328,10 +352,12 @@ class BlockPasses:
             return
         nb, T, B, mb = self.dims
         pbed, prow, pmave, pmsig, _, pc, pscr = self.ptr
-        tb = b * T * B * self.es
-        _launch_cdot(self.dtype, pbed, prow + b * B * 4,
-                     self._plane_ptr(eps, "eps"), pmave + tb, pmsig + tb,
-                     pc + tb, pscr, T, B, mb, self.plan.S, stamps)
+        peps = self._plane_ptr(eps, "eps")
+        for t0, tc, S in self._launches(stamps):
+            tb = (b * T + t0) * B * self.es
+            _launch_cdot(self.dtype, pbed, prow + b * B * 4,
+                         peps + t0 * 4 * mb * self.es, pmave + tb,
+                         pmsig + tb, pc + tb, pscr, tc, B, mb, S, stamps)
 
     def update_(self, b, d_all, target, stamps=None):
         bed, rows_all, mave_p, _, na = self.ops
@@ -341,11 +367,14 @@ class BlockPasses:
             return
         nb, T, B, mb = self.dims
         pbed, prow, pmave, _, pna, _, _ = self.ptr
-        tb = b * T * B * self.es
-        _launch_update(self.dtype, pbed, prow + b * B * 4,
-                       self._d_ptr(d_all) + tb, pmave + tb, pna,
-                       self._plane_ptr(target, "target"), T, B, mb,
-                       self.plan.S, stamps)
+        pd = self._d_ptr(d_all)
+        ptgt = self._plane_ptr(target, "target")
+        for t0, tc, S in self._launches(stamps):
+            tb = (b * T + t0) * B * self.es
+            tp = t0 * 4 * mb * self.es
+            _launch_update(self.dtype, pbed, prow + b * B * 4, pd + tb,
+                           pmave + tb, pna + tp, ptgt + tp, tc, B, mb, S,
+                           stamps)
 
     def update_cdot_(self, b, d_all, eps, stamps=None):
         """``update_(b, d_all, eps)`` then ``cdot(b + 1, eps)``, fused."""
@@ -358,9 +387,13 @@ class BlockPasses:
             self.cdot(b + 1, eps)
             return
         pbed, prow, pmave, pmsig, pna, pc, pscr = self.ptr
-        tb, tn = b * T * B * self.es, (b + 1) * T * B * self.es
-        _launch_update_cdot(self.dtype, pbed, prow + b * B * 4,
-                            prow + (b + 1) * B * 4, self._d_ptr(d_all) + tb,
-                            pmave + tb, pmave + tn, pmsig + tn, pna,
-                            self._plane_ptr(eps, "eps"), pc + tn, pscr, T, B,
-                            mb, self.plan.S, stamps)
+        pd = self._d_ptr(d_all)
+        peps = self._plane_ptr(eps, "eps")
+        for t0, tc, S in self._launches(stamps):
+            tb = (b * T + t0) * B * self.es
+            tn = ((b + 1) * T + t0) * B * self.es
+            tp = t0 * 4 * mb * self.es
+            _launch_update_cdot(self.dtype, pbed, prow + b * B * 4,
+                                prow + (b + 1) * B * 4, pd + tb, pmave + tb,
+                                pmave + tn, pmsig + tn, pna + tp, peps + tp,
+                                pc + tn, pscr, tc, B, mb, S, stamps)

@@ -34,13 +34,14 @@ values), the steps' raw results (4 T B), the packed inputs of eight steps
 groups of 8, 4, 2 or 1 rows), and, while they fit beside a ring of 16
 rows, the block's state (9 T B) and tables (3 K T B); larger blocks leave
 the tables, or tables and state, in global memory (the large-block
-branch, slower).  Float32: one CTA takes every trait, T <= 32; 32 // lanes
-traits are drawn at once and more take further passes over the warp; a
-block whose correction, results and a few Gram rows exceed shared memory
-(about T B > 6,000) raises ``ValueError``.  Float64 (``f64_plan``): T <=
-65,535 and B <= 512; a CTA takes at most one pass of traits, as many as
-fit (about T B <= 3,000), and the grid the rest, so every such block runs.
-Any operand of the wrong device, dtype, shape or layout raises
+branch, slower).  Float32: one CTA takes every trait while it holds them
+(T <= 32 and about T B <= 6,000); 32 // lanes traits are drawn at once and
+more take further passes over the warp.  Where one CTA cannot hold them,
+and always at float64 (``f64_plan``), the launch is a grid of trait groups
+(``group_plan``; ``launch_plan`` chooses): T <= 65,535 and B <= 512;
+a CTA takes at most one pass of traits, as many as fit (about T B <= 6,000
+in float, 3,000 in double), and the grid the rest, so every such block
+runs.  Any operand of the wrong device, dtype, shape or layout raises
 ``ValueError``.
 """
 
@@ -56,8 +57,9 @@ MAX_NG = 32    # ring groups (csrc MAX_NG)
 NSTATE = 9     # staged (T, B) arrays (csrc NSTATE)
 REC_SLOTS = 8  # steps of packed inputs in flight (csrc REC_SLOTS)
 SMEM_BYTES = 232448   # dynamic shared memory of one CTA on the H100
-F64_MAX_B = 512       # markers of a block in the float64 kernel (csrc)
-F64_MAX_T = 65535     # traits of a float64 launch, over its CTAs (csrc)
+F64_MAX_B = 512       # markers of a block in a launch of trait groups
+F64_MAX_T = 65535     # traits of such a launch, over its CTAs (csrc; every
+                      # float64 launch is one)
 # A stamped launch's buffer (stamps=, int64): %globaltimer at the chain's
 # start and end, its SM cycles, the cycles of each phase of a step summed
 # over the block's steps (SCAN_PHASES), then the steps whose scan waited
@@ -113,16 +115,34 @@ def lanes_of(K: int) -> int:
     return 4 if K <= 4 else 8 if K <= 8 else 16
 
 
-def f64_plan(T: int, B: int, K: int):
-    """(mode, GR, NG, TG) of the float64 kernel: TG traits a CTA, at most
-    one pass over the lanes (32 // lanes_of(K), and no more than T), the
-    most among those whose block a CTA stages furthest at 8-byte values
-    (``scan_plan``'s mode: the CTAs run side by side, and a staged block
-    keeps the helpers' reads in shared memory); ceil(T / TG) CTAs.  None
-    when not even one trait fits."""
+def group_plan(T: int, B: int, K: int, es: int = 4):
+    """(mode, GR, NG, TG) of a grid of trait groups at ``es``-byte values:
+    TG traits a CTA, at most one pass over the lanes (32 // lanes_of(K),
+    and no more than T), the most among those whose block a CTA stages
+    furthest (``scan_plan``'s mode: the CTAs run side by side, and a staged
+    block keeps the helpers' reads in shared memory); ceil(T / TG) CTAs.
+    None when not even one trait fits."""
     plans = [(*plan, tg) for tg in range(1, min(T, 32 // lanes_of(K)) + 1)
-             if (plan := scan_plan(tg, B, K, 8)) is not None]
+             if (plan := scan_plan(tg, B, K, es)) is not None]
     return max(plans, key=lambda p: (p[0], p[3]), default=None)
+
+
+def launch_plan(T: int, B: int, K: int, es: int = 4):
+    """(mode, GR, NG, TG) of a launch at T traits and ``es``-byte values:
+    at float32 one CTA of all of them (TG = T) where it holds them (T <=
+    MAX_T and ``scan_plan``), else, and always at float64, a grid of trait
+    groups (``group_plan``).  None when not even one trait fits."""
+    if es == 4 and T <= MAX_T:
+        plan = scan_plan(T, B, K)
+        if plan is not None:
+            return (*plan, T)
+    return group_plan(T, B, K, es)
+
+
+def f64_plan(T: int, B: int, K: int):
+    """The float64 kernel's plan: always a grid of trait groups
+    (``group_plan`` at 8-byte values)."""
+    return group_plan(T, B, K, 8)
 
 
 def _plan_f64_or_raise(T, B, K):
@@ -142,6 +162,7 @@ def _plan_f64_or_raise(T, B, K):
 
 
 def _plan_or_raise(T, B, K):
+    """The plan of one float32 CTA of all T traits, or ``ValueError``."""
     if K > MAX_K:
         raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     if T > MAX_T:
@@ -150,6 +171,23 @@ def _plan_or_raise(T, B, K):
     if plan is None:
         raise ValueError(f"T={T}, B={B} exceed the serial scan's shared "
                          f"memory (about T*B <= 6,000)")
+    return plan
+
+
+def _plan_f32_or_raise(T, B, K):
+    """``launch_plan`` of a float32 launch, or ``ValueError``."""
+    if K > MAX_K:
+        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
+    plan = launch_plan(T, B, K)
+    if plan is not None and plan[3] == T:
+        return plan
+    if B > F64_MAX_B or T > F64_MAX_T:
+        raise ValueError(f"T={T}, B={B}: one CTA cannot hold the traits, "
+                         f"and a grid of trait groups takes B <= "
+                         f"{F64_MAX_B} and T <= {F64_MAX_T}")
+    if plan is None:
+        raise ValueError(f"B={B}, K={K}: one trait exceeds the serial "
+                         f"scan's shared memory")
     return plan
 
 
@@ -229,7 +267,7 @@ def serial_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
     if dty not in (torch.float32, torch.float64):
         raise ValueError(f"base has dtype {dty}: the serial scan takes "
                          f"float32 or float64")
-    plan = (_plan_f64_or_raise if f64 else _plan_or_raise)(T, B, K)
+    plan = (_plan_f64_or_raise if f64 else _plan_f32_or_raise)(T, B, K)
     dev = base.device
     for name, x in (("base", base), ("beta_old", beta_old),
                     ("acum_old", acum_old), ("u", u), ("z", z)):
@@ -345,7 +383,7 @@ class SerialScanSweep(ScanSweep):
         if self.dtype != torch.float32:
             raise ValueError(f"beta_p has dtype {self.dtype}: the serial "
                              f"scan takes float32 or float64")
-        return _plan_or_raise(T, B, K)
+        return _plan_f32_or_raise(T, B, K)
 
     @staticmethod
     def _plain(*args):
@@ -353,7 +391,8 @@ class SerialScanSweep(ScanSweep):
 
     def _launch(self, pc, pgs, b, bc, bg, stamps=None):
         """``stamps``: an int64 (len(SCAN_STAMPS),) buffer that one launch
-        fills (K = 4 and one pass over the lanes only)."""
+        fills (K = 4 and one pass over the lanes of a CTA only; CTA 0's
+        chain)."""
         nb, T, B, K = self.shape
         kernel = ("serial_scan_f64" if self.dtype == torch.float64
                   else "serial_scan")

@@ -18,10 +18,12 @@ Two interfaces, one kernel (csrc/wave_scan.cu), as kernel 6 has:
   W > 1 sweep, sampler/gibbs.py).
 
 CUDA tensors launch the kernel; CPU tensors run ``wave_scan_plain``.
-Limits on CUDA tensors: K <= 16, W dividing B, and the block's state
-(10 T B words) in shared memory (``wave_plan``: about T B <= 5,700); any
-T W.  Anything else of the wrong device, dtype, shape or layout raises
-``ValueError``.
+Limits on CUDA tensors: K <= 16 and W dividing B.  One CTA takes every
+trait while the block's state (10 T B words) fits in its shared memory
+(``wave_plan``: about T B <= 5,700); beyond that the launch is a grid of
+trait groups, TG traits a CTA (``launch_plan``), so any T runs while one
+trait's state fits.  Anything else of the wrong device, dtype, shape or
+layout raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.scan_kernel import ScanSweep
+from gmrm_tpu_torch.ops.trait_chunks import even_width, most_that_fit
 
 MAX_K = 16     # mixture components the kernel keeps in registers
 NSTATE = 10    # staged (T, B) arrays (csrc NSTATE)
@@ -83,6 +86,7 @@ def wave_stamp_names(nw: int) -> tuple:
 
 
 def _plan_or_raise(T, B, K, W):
+    """The plan of one CTA of all T traits, or ``ValueError``."""
     if K > MAX_K:
         raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     plan = wave_plan(T, B, K, W)
@@ -90,6 +94,24 @@ def _plan_or_raise(T, B, K, W):
         raise ValueError(f"T={T}, B={B} exceed the wave scan's shared "
                          f"memory (about T*B <= 5,700)")
     return plan
+
+
+def launch_plan(T, B, K, W):
+    """(tab, gsw, TG) of a launch at T traits: one CTA of all of them (TG =
+    T) where ``wave_plan`` holds them, else a grid of trait groups, TG the
+    width of the most even split of T into groups of at most the most
+    traits it holds; the plan is that of a CTA of TG traits."""
+    if K > MAX_K:
+        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
+    plan = wave_plan(T, B, K, W)
+    if plan is not None:
+        return (*plan, T)
+    cap = most_that_fit(T, lambda t: wave_plan(t, B, K, W) is not None)
+    if cap == 0:
+        raise ValueError(f"B={B}: one trait's block state exceeds the wave "
+                         f"scan's shared memory")
+    TG = even_width(T, cap)
+    return (*wave_plan(TG, B, K, W), TG)
 
 
 def wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
@@ -171,7 +193,7 @@ def wave_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
                                acum_old, u, z, live, zerob, i2se, wave)
     T, B = base.shape
     K = lc.shape[0]
-    plan = _plan_or_raise(T, B, K, wave)
+    plan = launch_plan(T, B, K, wave)
     dev = base.device
     f32, i32 = torch.float32, torch.int32
     for name, x in (("base", base), ("beta_old", beta_old),
@@ -209,7 +231,7 @@ class WaveScanSweep(ScanSweep):
         if self.dtype != torch.float32:
             raise ValueError(f"beta_p has dtype {self.dtype}: the wave scan "
                              f"is float32 only (float64 runs at W=1)")
-        return _plan_or_raise(T, B, K, self.wave)
+        return launch_plan(T, B, K, self.wave)
 
     def _plain(self, *args):
         return wave_scan_plain(*args, self.wave)

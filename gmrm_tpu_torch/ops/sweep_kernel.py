@@ -17,6 +17,13 @@ the one residual, and sums their deltas in shard order: into the residual
 itself, or into an output that the caller sums over processes;
 ``block_sweep`` is its one-shard, one-block case with the delta as the
 output.
+
+Kernels 7/8 and 9 take at most 8 traits a launch (csrc MAX_T; the chunk
+plan's ``LAUNCH_MAX_T``).  A run with more
+is launched in trait chunks (``trait_chunks.trait_chunks``), back to back
+on the stream with one scratch: every operand is passed whole, with the
+chunk's first trait and the run's trait count, and each chunk computes
+what it would alone.
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ import torch
 
 from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.decode import decode_planes
+from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
 
-MAX_T = 8      # traits a kernel thread carries in registers (csrc MAX_T)
 MAX_K = 16     # mixture components the kernels keep in registers
 
 
@@ -253,8 +260,7 @@ class SweepBlocks:
     :func:`sweep_blocks`, for a caller that sweeps again and again with the
     same tensors: each operand is checked when it is first seen under its
     name (``_build.check_once``) and the kernel's scratch is kept, so that
-    a call costs the host one launch.  CPU tensors take the plain
-    version."""
+    a call costs the host one launch a trait chunk (one up to 8 traits).  CPU tensors take the plain version."""
 
     def __init__(self):
         self.seen = {}
@@ -285,9 +291,8 @@ class SweepBlocks:
         dev = bed.device
         mb = bed.shape[1]
         K, _, G = lc.shape
-        if T > MAX_T or K > MAX_K:
-            raise ValueError(f"T={T}, K={K} exceed the kernel's "
-                             f"MAX_T={MAX_T}, MAX_K={MAX_K}")
+        if K > MAX_K:
+            raise ValueError(f"K={K} exceeds the kernel's MAX_K={MAX_K}")
         if m_pad >= 2 ** 31:
             raise ValueError(f"{m_pad} marker slots exceed the kernel's "
                              f"int32 row index")
@@ -323,17 +328,22 @@ class SweepBlocks:
             ptr(out[0], "beta_new", f32, tb),
             ptr(out[1], "comp_new", i32, tb),
             ptr(out[2], "acum_new", f32, tb)]
-        plan = sweep_plan(T, B, mb, nt, K, wave)
-        words = plan["scratch_bytes"] // 4
+        chunks = trait_chunks("sweep_blocks", T, B)
+        plans = {w: sweep_plan(w, B, mb, 1 if nt == 1 else w, K, wave)
+                 for w in {t1 - t0 for t0, t1 in chunks}}
+        words = max(p["scratch_bytes"] for p in plans.values()) // 4
         if (self.scratch is None or self.scratch.device != dev
                 or self.scratch.numel() < words):
             self.scratch = torch.empty((words,), dtype=f32, device=dev)
         if stamps is not None:
+            if len(chunks) > 1:
+                raise ValueError("stamps record one launch")
             _build.check(stamps, "stamps", torch.int64,
-                         (plan["grid"], nblocks + 1, NST), dev)
-        _build.launch("sweep_blocks", *ptrs, self.scratch,
-                      0 if stamps is None else stamps, nblocks, T, B, mb, nt,
-                      K, wave, G, int(m_local))
+                         (plans[T]["grid"], nblocks + 1, NST), dev)
+        for t0, t1 in chunks:
+            _build.launch("sweep_blocks", *ptrs, self.scratch,
+                          0 if stamps is None else stamps, nblocks, t1 - t0,
+                          B, mb, nt, K, wave, G, int(m_local), t0, T)
         return (eps, *out)
 
 
@@ -528,7 +538,9 @@ class ShardedBlockSweep:
     the table of their addresses; :meth:`step` runs one block step of all
     of them, one launch when the shards fit one grid (``MAX_SHARDS`` and
     ``block_sweep_plan``'s ``cap``), else launches of consecutive shards,
-    each after the first adding onto the sum of those before.  The scratch
+    each after the first adding onto the sum of those before; a run of
+    more than 8 traits takes these launches once a trait chunk
+    (``trait_chunks``), each on its chunk's traits.  The scratch
     (counters and the tree's partials, zeroed once; every launch leaves it
     zeroed) is kept from sweep to sweep of one object.  CPU tensors take
     the plain version, launch for launch."""
@@ -558,27 +570,31 @@ class ShardedBlockSweep:
         self.shards, self.eps, self.wave = list(shards), eps, wave
         self.common = (na, sigmag, lc_tab, rd_tab, sqb_tab, i2se, nonas)
         cap = MAX_SHARDS
-        if eps.device.type == "cuda":
+        self.chunks = ((0, T),)
+        if eps.device.type != "cpu":
             K, _, G = lc_tab.shape
-            if T > MAX_T or K > MAX_K:
-                raise ValueError(f"T={T}, K={K} exceed the kernel's "
-                                 f"MAX_T={MAX_T}, MAX_K={MAX_K}")
+            if K > MAX_K:
+                raise ValueError(f"K={K} exceeds the kernel's MAX_K={MAX_K}")
             # The plan, and with it the columns each CTA sums over, is the
             # one of all the step's shards, however many launches take
-            # them: a split step gives the bits of one launch.
+            # them: a split step gives the bits of one launch.  Each trait
+            # chunk has its own, at its width.
             want = len(shards)
-            plan = block_sweep_plan(T, B, mb, nt, K, wave, want)
-            cap = min(plan["cap"], MAX_SHARDS)
-            self._set_up(plan, (T, B, mb, nt, K, wave, want, G), nblocks)
+            self.chunks = trait_chunks("block_sweep", T, B)
+            plans = [block_sweep_plan(w, B, mb, 1 if nt == 1 else w, K,
+                                      wave, want)
+                     for w in {t1 - t0 for t0, t1 in self.chunks}]
+            cap = min(min(p["cap"] for p in plans), MAX_SHARDS)
+            self._set_up(plans, (T, B, mb, nt, K, wave, want, G), nblocks)
         n = len(self.shards)
         self.groups = [(s0, min(cap, n - s0)) for s0 in range(0, n, cap)]
         self.partial = (torch.empty_like(eps) if len(self.groups) > 1
                         else None)
         return self
 
-    def _set_up(self, plan, key, nblocks):
+    def _set_up(self, plans, key, nblocks):
         """The checks, the table of addresses and the scratch of a sweep on
-        the card."""
+        the card (one scratch for the plans of every trait chunk)."""
         T, B, mb, nt, K, wave, want, G = key
         dev = self.eps.device
         f32, i32 = torch.float32, torch.int32
@@ -625,7 +641,8 @@ class ShardedBlockSweep:
         if (self.key != key or self.scratch is None
                 or self.scratch.device != dev):
             self.scratch = torch.zeros(
-                (plan["cap"] * plan["slot_words"],), dtype=i32, device=dev)
+                (max(p["cap"] * p["slot_words"] for p in plans),),
+                dtype=i32, device=dev)
             self.key = key
         self.args = (common, tail, (T, B, mb, nt, K, wave, G, want))
 
@@ -649,18 +666,20 @@ class ShardedBlockSweep:
         if out is not None:
             _build.check_once(self.seen, out, "out", torch.float32,
                               tuple(self.eps.shape), self.eps.device)
-        if stamps is not None and n_groups > 1:
+        if stamps is not None and n_groups * len(self.chunks) > 1:
             raise ValueError("stamps record one launch")
         table = self.table.ctypes.data
-        for i, (s0, n) in enumerate(self.groups):
-            final = i == n_groups - 1
-            mode = (ACCUMULATE if i else 0) | (
-                IN_PLACE if final and out is None else 0)
-            _build.launch("block_sweep", table, s0, n, b, mode,
-                          *common, 0 if buf is None else buf.data_ptr(),
-                          *tail, self.scratch.data_ptr(),
-                          0 if stamps is None else stamps.data_ptr(),
-                          *shapes)
+        T = shapes[0]
+        for t0, t1 in self.chunks:
+            for i, (s0, n) in enumerate(self.groups):
+                final = i == n_groups - 1
+                mode = (ACCUMULATE if i else 0) | (
+                    IN_PLACE if final and out is None else 0)
+                _build.launch("block_sweep", table, s0, n, b, mode,
+                              *common, 0 if buf is None else buf.data_ptr(),
+                              *tail, self.scratch.data_ptr(),
+                              0 if stamps is None else stamps.data_ptr(),
+                              t1 - t0, *shapes[1:], t0, T)
         return self.eps if out is None else out
 
     def finish(self):

@@ -5,8 +5,9 @@
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. build the CUDA kernels of gmrm_tpu_torch/csrc with nvcc (sm_90a), one
-   nvcc per source, all started together; meanwhile worker processes
+1. build the host I/O library (csrc/io_native.cpp, the host compiler, no
+   nvcc), then the CUDA kernels of gmrm_tpu_torch/csrc with nvcc (sm_90a),
+   one nvcc per source, all started together; meanwhile worker processes
    simulate the datasets of phases 3 to 5;
 2. each kernel against its plain PyTorch version on the card, at the
    training paths' shapes (T=4 traits, B=128, W=32, K=4, mb_pad=2560),
@@ -165,6 +166,17 @@ Phases, each of which must pass (any failure exits non-zero):
    ms/iteration, launches an iteration (each kernel's count checked with
    its trait chunks) and peak device memory.  ``--traits-only REPS`` runs
    phase 8 alone (the timing runs REPS times).
+9. the host I/O library (gmrm_tpu_torch/io/native.py) on every load path,
+   against the readers' NumPy routes (``route="numpy"``): the anchor's bed
+   (50 MB) and the large-N panel's (102 MB) read by both, byte-equal, best
+   of 5 with a warm page cache (MB/s, host time); the anchor's phens parsed
+   by both, bit-equal, none sent back to the NumPy route; load_data and
+   load_data_process (S=2) timed by each route, equal arrays; run_training
+   at W=32 and W=1, 5 iterations, by each route: byte-equal chains, the
+   library's call counters non-zero on the native route and 0 on the
+   other, kernels 1 and 7 (W=32) and 5, 6 and the passes (W=1) launched;
+   run_predict on the W=32 chain by each route, byte-equal .mlma, its wall
+   split.  ``--io-only`` runs phase 9 alone.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -214,6 +226,7 @@ sums kernels, float32 and float64, on seeded inputs.
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -267,6 +280,8 @@ EARLIER_WAVE_SCAN_MS = (0.0267,)
 # at that rate whether or not it uses them.
 HBM_BPS, F32_OPS, INT8_OPS, F64_OPS = 3.35e12, 67e12, 1979e12, 67e12
 ITERS_F64 = 10          # the float64 anchor run (phase 7)
+IO_REPS, IO_ITERS = 5, 5   # phase 9: reads timed best of, iterations a chain
+IO_THREADS = (1, 2, 4, 8, 16)   # phase 9: the pread's threads asked
 # The phases of a stamped scan step that form its dependent chain (the
 # others wait for the helper warps and hand the result over).
 CHAIN_PHASES = ("L", "exp", "rcp", "comp", "dbeta")
@@ -4664,6 +4679,247 @@ def predict_pairs(dev, gen, card, trees, pairs, tmp):
                       f"{pairs} pairs (bytes equal)  [{card}]", flush=True)
 
 
+@contextlib.contextmanager
+def load_route(route):
+    """Every load path of the port (run_training, load_data_process,
+    run_predict) reading on ``route``: "native" (the default, the host
+    library) or "numpy" (the readers' plain versions)."""
+    import functools
+    from gmrm_tpu_torch import predict, runner
+    from gmrm_tpu_torch.io.bed import read_bed
+    from gmrm_tpu_torch.io.phen import read_phen
+    from gmrm_tpu_torch.parallel import runner as prunner
+    saved = [(m, m.read_bed, m.read_phen) for m in (runner, prunner, predict)]
+    try:
+        for m, _, _ in saved:
+            m.read_bed = functools.partial(read_bed, route=route)
+            m.read_phen = functools.partial(read_phen, route=route)
+        yield
+    finally:
+        for m, bed, phen in saved:
+            m.read_bed, m.read_phen = bed, phen
+
+
+def best_of(fn, reps=IO_REPS):
+    """(fn's last result, its best wall seconds over ``reps`` calls)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def phen_fields(ph):
+    return (ph.values.tobytes(), ph.mask.tobytes(), ph.epsilon0.tobytes(),
+            ph.nas, ph.nonas)
+
+
+def same_data(a, b):
+    """Whether two loaded inputs (LoadedData, ProcessData and what they
+    hold) are equal, their arrays bit for bit."""
+    import numpy as np
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_data, a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_data(a[k], b[k]) for k in a)
+    if hasattr(a, "__dict__"):
+        return type(a) is type(b) and same_data(vars(a), vars(b))
+    return a == b
+
+
+def io_phase(sim, big, dev, tmp, card):
+    """Phase 9: the host I/O library (csrc/io_native.cpp) on every load
+    path, against the readers' NumPy routes, host time on this machine.
+    (a) The anchor's bed (50 MB) and the large-N panel's (102 MB) read by
+    both routes, byte-equal, best of IO_REPS with a warm page cache; (b) the
+    anchor's phens parsed by both, bit-equal, none sent back to NumPy; (c)
+    load_data (W=32) and load_data_process (S=2, W=32) by each route,
+    equal; (d) run_training at W=32 and W=1 for IO_ITERS iterations by each
+    route: the .csv/.bet/.cpn bytes equal, the library's counters non-zero
+    on the native route and 0 on the NumPy route, kernels 1 and 7 (W=32)
+    and 5, 6 and the passes (W=1) launched as phases 4 and 4b count them;
+    (e) run_predict on the W=32 .bet files by each route, the .mlma bytes
+    equal, its read / upload / sums / ols / write split."""
+    from gmrm_tpu_torch import runner
+    from gmrm_tpu_torch.config import Options
+    from gmrm_tpu_torch.io import native
+    from gmrm_tpu_torch.io.bed import read_bed
+    from gmrm_tpu_torch.io.phen import read_phen
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.parallel.runner import load_data_process
+    from gmrm_tpu_torch.predict import run_predict
+    from gmrm_tpu_torch.runner import run_training
+
+    import numpy as np
+    routes = ("native", "numpy")
+    t_phase = time.perf_counter()
+    for name, ds, n, m in (("anchor", sim, N, MT),
+                           ("large-N panel", big, N_BIG, MT_BIG)):
+        read = {r: (lambda r=r: read_bed(ds.bed, n, m, route=r))
+                for r in routes}
+        read["numpy"]()                        # the page cache warm
+        got = {r: best_of(read[r]) for r in routes}
+        if got["native"][0].tobytes() != got["numpy"][0].tobytes():
+            fail(f"io: the {name}'s bed reads other bytes natively")
+        mbytes = got["native"][0].nbytes / 1e6
+        print(f"# io, bed of the {name} ({n:,} x {m:,}, {mbytes:.1f} MB), "
+              f"best of {IO_REPS}, warm page cache: native "
+              f"{got['native'][1] * 1e3:.2f} ms = "
+              f"{mbytes / got['native'][1]:.0f} MB/s, NumPy "
+              f"{got['numpy'][1] * 1e3:.2f} ms = "
+              f"{mbytes / got['numpy'][1]:.0f} MB/s; byte-equal  "
+              f"[{card}] (host time)", flush=True)
+    # What holds the pread, on the large-N bed: its threads, and the first
+    # touch of the fresh buffer read_bed gets (np.empty) against a buffer
+    # already faulted in (the library called directly; and Python's
+    # readinto, one thread).
+    lib = _build.host_library()
+    size = MT_BIG * ((N_BIG + 3) // 4)
+    buf = np.zeros(size, np.uint8)
+    sweep = []
+    for nt in IO_THREADS:
+        fresh = best_of(lambda: native.native_read_block(big.bed, 3, size,
+                                                         nt))[1]
+        reused = best_of(lambda: lib.gmrm_read_block(
+            big.bed.encode(), 3, size, buf.ctypes.data, nt))[1]
+        sweep.append(f"{nt}: {fresh * 1e3:.2f} / {reused * 1e3:.2f}")
+    with open(big.bed, "rb", buffering=0) as fh:
+        def readinto():
+            fh.seek(3)
+            return fh.readinto(memoryview(buf))
+        one = best_of(readinto)[1]
+    print(f"# io, pread of the large-N bed ({size / 1e6:.1f} MB) by threads "
+          f"asked (at most one per 8 MiB; {os.cpu_count()} CPUs), ms best of "
+          f"{IO_REPS}, fresh buffer / buffer faulted in: "
+          f"{'; '.join(sweep)}; Python readinto, faulted in, one thread: "
+          f"{one * 1e3:.2f}  [{card}] (host time)", flush=True)
+
+    native.reset_call_counts()
+    parse = {r: best_of(lambda r=r: [read_phen(p, N, route=r)
+                                     for p in sim.phens]) for r in routes}
+    deferred = native.call_counts()["parses_deferred"]
+    if deferred or ([phen_fields(ph) for ph in parse["native"][0]]
+                    != [phen_fields(ph) for ph in parse["numpy"][0]]):
+        fail(f"io: the anchor's phens parse otherwise natively ({deferred} "
+             f"sent back to NumPy)")
+    print(f"# io, the anchor's {T} phens ({N:,} lines each), best of "
+          f"{IO_REPS}: native {parse['native'][1] * 1e3:.2f} ms, NumPy "
+          f"{parse['numpy'][1] * 1e3:.2f} ms; values, mask, epsilon0 "
+          f"bit-equal, none sent back  [{card}] (host time)", flush=True)
+
+    opt = anchor_options(sim, os.path.join(tmp, "io_load"), W, IO_ITERS)
+    loads = {}
+    for r in routes:
+        with load_route(r):
+            loads[r] = (best_of(lambda: runner.load_data(opt), 3),
+                        best_of(lambda: load_data_process(
+                            opt, 2, interleave=True), 3))
+    for i, what in enumerate(("load_data", "load_data_process(S=2)")):
+        if not same_data(*(loads[r][i][0] for r in routes)):
+            fail(f"io: {what} gives other arrays natively")
+        print(f"# io, {what} at the anchor (W={W}), best of 3: native "
+              f"{loads['native'][i][1]:.3f} s, NumPy "
+              f"{loads['numpy'][i][1]:.3f} s; equal arrays  [{card}] "
+              f"(host time)", flush=True)
+
+    nblocks = -(-MT // B)
+    for w in (W, 1):
+        want = ({"gram_cache": 1, "sweep_blocks": IO_ITERS} if w > 1
+                else serial_counts(nblocks, sweeps=IO_ITERS))
+        outs = {}
+        for i, r in enumerate(routes + routes[::-1]):
+            out = os.path.join(tmp, f"io_w{w}_{r}{i // 2 or ''}")
+            opt = anchor_options(sim, out, w, IO_ITERS)
+            with load_route(r):
+                native.reset_call_counts()
+                res, launches = counted(lambda: run_training(
+                    opt, device=dev, verbose=False))
+                calls = native.call_counts()
+            outs[out] = r
+            for name in set(want) | set(launches):
+                n_l = want.get(name, 0)
+                if launches.get(name, 0) != n_l:
+                    fail(f"io: W={w} training ({r}): kernel {name} launched "
+                         f"{launches.get(name, 0)} times, expected {n_l}")
+            if r == "native" and (calls["reads"] != 1
+                                  or calls["parses"] != T
+                                  or calls["parses_deferred"]):
+                fail(f"io: W={w} training did not read natively: {calls}")
+            if r == "numpy" and any(calls.values()):
+                fail(f"io: W={w} training on the NumPy route called the "
+                     f"library: {calls}")
+            print(f"# io, W={w} training ({IO_ITERS} iterations) on the {r} "
+                  f"route: startup {res.startup_seconds:.3f} s; library "
+                  f"calls {calls}; launches {launches}  [{card}]",
+                  flush=True)
+        first, *rest = outs
+        if not all(same_artifacts(sim, first, out) for out in rest):
+            fail(f"io: W={w} chains differ by route")
+    print(f"# io, W={W} and W=1 chains byte-equal by either route", flush=True)
+
+    splits = {}
+    train = os.path.join(tmp, f"io_w{W}_native")
+    popt = Options(bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
+                   bim_file=sim.bim, ref_bim_file=sim.bim, out_dir=train,
+                   predict=True)
+    for r in routes:
+        with load_route(r):
+            native.reset_call_counts()
+            splits[r] = run_predict(popt, device=dev, verbose=False)
+            calls = native.call_counts()
+        if (calls["reads"] == 0) != (r == "numpy"):
+            fail(f"io: predict on the {r} route: library calls {calls}")
+        mlma = {}
+        for p in sim.phens:
+            name = os.path.splitext(os.path.basename(p))[0] + ".mlma"
+            with open(os.path.join(train, name), "rb") as fh:
+                mlma[name] = fh.read()
+        splits[r + " mlma"] = mlma
+    if splits["native mlma"] != splits["numpy mlma"]:
+        fail("io: predict writes other .mlma bytes by route")
+    for r in routes:
+        split = splits[r]
+        print(f"# io, predict at the anchor ({T} traits) on the {r} route: "
+              f"wall {sum(split.values()):.3f} s = "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in split.items())}; "
+              f".mlma byte-equal  [{card}] (host and device)", flush=True)
+    print(f"# phase 9 (io) wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def build_host_library():
+    """Phase 1's host half: csrc/io_native.cpp with the host compiler (no
+    nvcc), timed."""
+    from gmrm_tpu_torch.ops import _build
+    found = set(_build.BUILD_DIR.glob("libgmrm_io_*.so"))
+    t0 = time.perf_counter()
+    lib = _build.host_build()
+    took = time.perf_counter() - t0
+    _build.host_library()
+    print(f"# build: {lib.name} (the host I/O library, "
+          f"{' '.join(_build.HOST_CXX_FLAGS)}) in {took:.2f} s"
+          f"{' (found built)' if lib in found else ''}", flush=True)
+
+
+def io_only(dev, tmp, card):
+    """``--io-only``: phase 9 alone, on the anchor and large-N datasets
+    simulated by worker processes while the kernels build."""
+    from gmrm_tpu_torch.ops import _build
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"),
+            initializer=one_thread) as pool:
+        sims = [pool.submit(make, os.path.join(tmp, name)) for name, make
+                in (("data", anchor_dataset), ("big", big_dataset))]
+        build_host_library()
+        _build.library()
+        sim, big = (f.result() for f in sims)
+    io_phase(sim, big, dev, tmp, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--training-only", type=int, default=0,
@@ -4681,6 +4937,7 @@ def main():
                         metavar="N")
     parser.add_argument("--against", action="append", default=[],
                         metavar="TREE")
+    parser.add_argument("--io-only", action="store_true")
     parser.add_argument("--same-bytes", default="", metavar="TREE")
     parser.add_argument("--f32-chains", nargs=2, metavar=("SIM", "OUT"))
     parser.add_argument("--repo", default=REPO)
@@ -4704,6 +4961,10 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
     if args.f32_chains:
         f32_chains(*args.f32_chains, card, args.repo)
+        return
+    if args.io_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            io_only(dev, tmp, card)
         return
     if args.same_bytes:
         same_bytes(args.same_bytes, card)
@@ -4764,6 +5025,7 @@ def main():
                 initializer=one_thread) as pool:
         sims = [pool.submit(make, os.path.join(tmp, name))
                 for name, make in datasets]
+        build_host_library()
         t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
@@ -4893,6 +5155,7 @@ def main():
                                                     card, gen)
         trait_rows = traits_phase(dev, tmp, card, gen,
                                   [f.result() for f in sims[3:]])
+        io_phase(sim, big, dev, tmp, card)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2, peak) in runs.items():
         startup = ("load + stats + Gram cache of "

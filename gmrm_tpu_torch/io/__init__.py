@@ -1,8 +1,10 @@
-"""File I/O of the port: its own copies of gmrm_tpu/io (NumPy only): PLINK
-.bed/.phen/.bim readers, the .dim/.gri/.grm readers, the .bet/.cpn/.csv
-writers and the dataset simulator.  The optional native reader of the JAX
-package (gmrm_tpu/io/native.py) is not ported; these take the NumPy
-routes."""
+"""File I/O of the port: its own copies of gmrm_tpu/io: PLINK .bed/.phen/.bim
+readers, the .dim/.gri/.grm readers, the .bet/.cpn/.csv writers and the
+dataset simulator.  ``read_bed`` (without ``use_mmap``) and ``read_phen``
+(given the expected count) read through the port's host C++ library
+(``io/native.py``, built from ``csrc/io_native.cpp`` at first use); their
+NumPy routes (``route="numpy"``) are the plain versions the tests hold it
+against."""
 
 from gmrm_tpu_torch.io.bed import read_bed, write_bed, bed_bytes_per_marker
 from gmrm_tpu_torch.io.phen import Phenotype, read_phen

@@ -30,6 +30,8 @@ import os
 
 import numpy as np
 
+from gmrm_tpu_torch.io.native import native_read_block
+
 BED_MAGIC = b"\x6c\x1b\x01"
 
 # Byte value whose four 2-bit codes are all "missing" (0b01010101): decodes
@@ -50,12 +52,18 @@ def read_bed(
     start_marker: int = 0,
     n_markers: int | None = None,
     use_mmap: bool = False,
+    route: str = "native",
 ) -> np.ndarray:
     """Read a marker slice of a .bed file into a (n_markers, mbytes) uint8 array.
 
     The slice [start_marker, start_marker + n_markers) mirrors the reference's
-    per-rank load at offset ``3 + S * mbytes`` (src/bayes.cpp:882).
+    per-rank load at offset ``3 + S * mbytes`` (src/bayes.cpp:882).  Without
+    ``use_mmap`` the bytes come from the port's host library, a parallel
+    pread (``io/native.py``); ``route="numpy"`` reads them with NumPy, the
+    plain version that the tests hold it against.
     """
+    if route not in ("native", "numpy"):
+        raise ValueError(f"route must be 'native' or 'numpy', got {route!r}")
     mbytes = bed_bytes_per_marker(n_individuals)
     if n_markers is None:
         n_markers = n_markers_total - start_marker
@@ -78,11 +86,12 @@ def read_bed(
         mm = np.memmap(path, dtype=np.uint8, mode="r", offset=offset,
                        shape=(n_markers, mbytes))
         return np.asarray(mm)
-    # The NumPy route; the optional native reader (gmrm_tpu/io/native.py)
-    # is not ported yet (ROADMAP.md).
-    with open(path, "rb") as fh:
-        fh.seek(offset)
-        data = np.fromfile(fh, dtype=np.uint8, count=n_markers * mbytes)
+    if route == "native":
+        data = native_read_block(path, offset, n_markers * mbytes)
+    else:
+        with open(path, "rb") as fh:
+            fh.seek(offset)
+            data = np.fromfile(fh, dtype=np.uint8, count=n_markers * mbytes)
     if data.size != n_markers * mbytes:
         raise IOError(f"short read from {path}")
     return data.reshape(n_markers, mbytes)

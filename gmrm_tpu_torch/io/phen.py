@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from gmrm_tpu_torch.io.bed import bed_bytes_per_marker
+from gmrm_tpu_torch.io.native import native_parse_phen
 
 
 @dataclass
@@ -55,9 +56,9 @@ class Phenotype:
         return self.epsilon0.copy()
 
 
-def read_phen(filepath: str, n_expected: int | None = None) -> Phenotype:
-    # The NumPy route; the optional native parser (gmrm_tpu/io/native.py)
-    # is not ported yet (ROADMAP.md).
+def _parse_numpy(filepath: str) -> np.ndarray:
+    """The NumPy route: Python's text mode, ``str.split`` and ``float``;
+    NaN at NAs."""
     vals_list = []
     with open(filepath) as fh:
         for line in fh:
@@ -79,7 +80,29 @@ def read_phen(filepath: str, n_expected: int | None = None) -> Phenotype:
                         f"phen file {filepath}: expected numeric value "
                         f"or NA, got {line!r}"
                     ) from None
-    values = np.asarray(vals_list, dtype=np.float64)
+    return np.asarray(vals_list, dtype=np.float64)
+
+
+def read_phen(filepath: str, n_expected: int | None = None,
+              route: str = "native") -> Phenotype:
+    """Read and preprocess a .phen file.  Given ``n_expected``, it is parsed
+    by the port's host library (``io/native.py``), as gmrm_tpu parses it;
+    a file that library sends back (a line it does not read as the NumPy
+    route does, or more lines than ``n_expected``) is parsed again on the
+    NumPy route, so the values, or the error, are that route's.
+    ``route="numpy"`` takes the NumPy route alone: the plain version that
+    the tests hold the library against."""
+    if route not in ("native", "numpy"):
+        raise ValueError(f"route must be 'native' or 'numpy', got {route!r}")
+    values = None
+    if n_expected and route == "native":
+        try:
+            raw, isna = native_parse_phen(filepath, n_expected)
+            values = np.where(isna, np.nan, raw)
+        except IOError:
+            pass
+    if values is None:
+        values = _parse_numpy(filepath)
     mask = ~np.isnan(values)
     nonas = int(mask.sum())
     nas = int((~mask).sum())

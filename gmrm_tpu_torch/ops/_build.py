@@ -12,6 +12,12 @@ Every C entry point launches on the stream it is given and returns
 refused launch never runs and a later synchronize does not report it.
 No ``--use_fast_math``: ``expf``/``logf``/``sqrtf`` stay IEEE-accurate next
 to the plain PyTorch versions.
+
+The host I/O library (``csrc/io_native.cpp``: the ``.bed`` pread and the
+``.phen`` parser of ``gmrm_tpu_torch.io.native``) is built apart from the
+kernels, with the host compiler and no ``nvcc`` (:func:`host_build`,
+:func:`host_library`), so it builds wherever the port runs, the CPU tests
+included.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +39,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+
+HOST_SOURCE = CSRC / "io_native.cpp"
+# No -march=native: a _build/ copied to another host must still load there.
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -198,6 +209,70 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.gmrm_error_string.argtypes = [ctypes.c_int]
     lib.gmrm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _host_cxx() -> list:
+    cxx = os.environ.get("CXX")
+    if cxx:
+        return shlex.split(cxx)
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return [found]
+    raise RuntimeError("no host C++ compiler (CXX, c++ or g++): the I/O "
+                       "library of gmrm_tpu_torch is built from source at "
+                       "first use")
+
+
+def host_build() -> Path:
+    """Compile csrc/io_native.cpp with the host compiler into BUILD_DIR,
+    once per hash of the source and flags.  Raises RuntimeError, with the
+    compiler's output, when it cannot build."""
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    lib = BUILD_DIR / f"libgmrm_io_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Concurrent builds each compile in their own directory; the rename
+    # is atomic, so no process loads a half-written library.
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        cmd = [*_host_cxx(), *HOST_CXX_FLAGS, "-o", str(work / "lib.so"),
+               str(HOST_SOURCE)]
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"host compiler failed: {' '.join(cmd)}: "
+                               f"{e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"host compiler failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout[-4000:]}")
+        os.replace(work / "lib.so", lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """The host I/O library, built at first use; raises RuntimeError when
+    it cannot be built or loaded (the readers do not fall back)."""
+    path = host_build()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path}: {e}") from e
+    # Offsets and sizes as long long, buffers as c_void_p: a panel over
+    # 2 GiB must not wrap, nor an address be cut to 32 bits.
+    lib.gmrm_read_block.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                    ctypes.c_longlong, _P, _I]
+    lib.gmrm_read_block.restype = ctypes.c_longlong
+    lib.gmrm_parse_phen.argtypes = [ctypes.c_char_p, ctypes.c_longlong, _P,
+                                    _P]
+    lib.gmrm_parse_phen.restype = ctypes.c_longlong
     return lib
 
 

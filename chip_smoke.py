@@ -145,6 +145,20 @@ Phases, each of which must pass (any failure exits non-zero):
    byte-equal; one S=2 sharded float64 sweep against the plain one;
    run_training_sharded at S=2, and inside a one-rank NCCL group,
    byte-equal; run_predict at float64 on the card and on the CPU;
+   7h: float64 at W=32 (``--dtype float64 --wave-size 32``: the composed
+   wave path on kernels A, B and E, csrc/wave_scan.cu at double): kernel
+   E against its plain version at the anchor's 157-block arrays (NT=1 and
+   NT=4, an adaV group, the last block's 96 pad slots, |c| ~30 and ~1e3)
+   and at E_SHAPES (T=2 with every wave's Gram rows staged, T=16 with
+   none, T=33 as a grid of trait groups, 4-byte-aligned copies, K=16),
+   comp exact, values within 1e-10 of the largest magnitude, twice
+   bit-equal, timed by graph replay beside kernel 3 on the same block in
+   float32; one float64 W=32 sweep on the small panel against the plain
+   one on the host CPU, on one device and at S=2; run_training at the
+   anchor twice (byte-equal, no Gram cache, no float32 kernel), a
+   profiler window, the chain cut at 5 and resumed (byte-equal), and
+   run_training_sharded at S=2.  ``--wave64-only`` runs phase 7h
+   alone;
 8. any number of traits (ops/trait_chunks.py): (a) sweep gates at T=16
    at the anchor's shapes (16 of 32 phenotypes simulated with seed
    171014, NT=1; 16 with 2% NAs, NT=16): W=32 (kernels 7/8 in two
@@ -218,10 +232,11 @@ counts.  ``--predict-pairs N --against TREE`` loads TREE's kernel library
 beside this tree's and times the float32 predict kernel and D of both in
 N alternating pairs in one process, on that seeded bed, the anchor
 dataset's own bed and at N=100,000 (``predict_pairs``).
-``--same-bytes TREE`` runs phase 4's and 4b's float32 chains in TREE and
-in this tree (TREE, this, this, TREE; a process each) and requires equal
-``.bet/.cpn/.csv`` bytes, and equal bytes from the block Gram and predict
-sums kernels, float32 and float64, on seeded inputs.
+``--same-bytes TREE`` runs phase 4's and 4b's float32 chains and phase
+7c's float64 W=1 chain in TREE and in this tree (TREE, this, this, TREE;
+a process each) and requires equal ``.bet/.cpn/.csv`` bytes, and equal
+bytes from the block Gram and predict sums kernels, float32 and float64,
+and kernel 3 (float32), on seeded inputs.
 """
 
 import argparse
@@ -336,13 +351,15 @@ def serial_counts(nblocks, sweeps=1, shards=1, fused=True, traits=T,
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
-def f64_counts(nblocks, sweeps=1, shards=1, fused=True, traits=T, mb=MB):
-    """Launches of ``sweeps`` float64 W=1 sweeps of ``shards`` shards of
-    ``nblocks`` blocks: kernel C once per block, kernel A once per run of
-    blocks under the Gram byte budget (8-byte entries); kernel B on one
-    device (``fused``) as the c-dot of the first block, the fused pass for
-    each block but the last and the update of the last, on a sharded run
-    the c-dot and the update once per block each; B once a trait chunk."""
+def f64_counts(nblocks, sweeps=1, shards=1, fused=True, traits=T, mb=MB,
+               wave=1):
+    """Launches of ``sweeps`` float64 sweeps of ``shards`` shards of
+    ``nblocks`` blocks: the scan once per block (kernel C at W=1, kernel E
+    at ``wave`` > 1), kernel A once per run of blocks under the Gram byte
+    budget (8-byte entries); kernel B on one device (``fused``) as the
+    c-dot of the first block, the fused pass for each block but the last
+    and the update of the last, on a sharded run the c-dot and the update
+    once per block each; B once a trait chunk."""
     from gmrm_tpu_torch.ops.block_gram import gram_run_blocks
     runs = -(-nblocks // gram_run_blocks(traits, B, nblocks, 8))
     per_sweep = ({"block_cdot_f64": 1, "update_cdot_f64": nblocks - 1,
@@ -350,7 +367,8 @@ def f64_counts(nblocks, sweeps=1, shards=1, fused=True, traits=T, mb=MB):
                  {"block_cdot_f64": nblocks, "eps_update_f64": nblocks})
     pc = pass_chunks(traits, 8, mb)
     per_sweep = {k: v * pc for k, v in per_sweep.items()}
-    per_sweep.update(block_gram_f64=runs, serial_scan_f64=nblocks)
+    per_sweep["block_gram_f64"] = runs
+    per_sweep["wave_scan_f64" if wave > 1 else "serial_scan_f64"] = nblocks
     return {k: v * sweeps * shards for k, v in per_sweep.items() if v}
 
 
@@ -1904,10 +1922,11 @@ def anchor_options(sim, out_dir, wave=W, iterations=ITERS, dtype="float32",
 
 def sweep_gate(sim, dev, wave, name, card, against="plain",
                dtype="float32", phens=None, mega=None, timed=True):
-    """Phases 3, 3b, 3c, 7b and 8a: one sweep through the default
+    """Phases 3, 3b, 3c, 7b, 7h and 8a: one sweep through the default
     marker_sweep on the card (the whole-sweep kernel at W>1; at W=1
     kernels 5, 2, 6, the fused pass and 4, or at float64 kernels A, B and
-    C; with ``mega`` False the composed kernels 2, 3, 4) against the plain
+    C, and A, B and E at float64 W>1 in a uniform order; with ``mega``
+    False the composed kernels 2, 3, 4) against the plain
     versions on the host CPU or, with ``against`` "composed", against the
     composed kernels 2, 3, 4 on the card.  ``wave`` None is the auto plan,
     which must resolve to W=1.  ``phens``: a subset of the phenotypes (the
@@ -1934,7 +1953,7 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
     state = runner.init_sampler_state(data, opt, dev)
     nblocks = data.m_pad // B
     rng = np.random.default_rng(7)
-    if opt.wave_size > 1:
+    if opt.wave_size > 1 and dtype == "float32":
         blocks = (rng.permutation(nblocks)[:, None] * B
                   + np.argsort(rng.uniform(size=(nblocks, B)), axis=1))
     else:
@@ -1964,8 +1983,9 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
     mb = data.mb_pad
     want_counts = (
         composed_counts(nblocks, traits=nT, mb=mb) if mega is False
+        else f64_counts(nblocks, traits=nT, mb=mb, wave=opt.wave_size)
+        if dtype == "float64"
         else {"sweep_blocks": sweep_chunks(nT)} if opt.wave_size > 1
-        else f64_counts(nblocks, traits=nT, mb=mb) if dtype == "float64"
         else serial_counts(nblocks, traits=nT, mb=mb))
     if counts["kernels"] != want_counts or (
             against == "composed"
@@ -1994,7 +2014,7 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
         fail(f"{name}: the kernels disagree with the {against} sweep; comp "
              f"differs at (trait, slot) {where[:12].tolist()}; least margin "
              f"|u - acum| there {float(margin.min()) if n_diff else 0:.3e}")
-    if opt.wave_size > 1 and mega is None and timed:
+    if opt.wave_size > 1 and mega is None and timed and dtype == "float32":
         plan = sweep_plan(nT, B, data.mb_pad, nt, K, opt.wave_size)
         dev_inj = [x.to(dev) for x in inj]
 
@@ -2023,7 +2043,8 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True,
     iteration; at W=1 (``serial_counts``) kernel 6 once per block, the
     fused update and c-dot once per block but the last, kernels 2 and 4
     once each, and kernel 5 once per run of blocks; at float64 (phase 7c,
-    ``f64_counts``) kernels A, B and C.  The other paths' kernels launch
+    ``f64_counts``) kernels A, B and C, and A, B and E at W>1 (phase 7h).
+    The other paths' kernels launch
     not at all.  ``check_launches`` False skips that check, for a tree of
     another cadence.  ``tag`` names the out-dir of a repeated run.  Also
     returns the run's peak device memory
@@ -2049,8 +2070,8 @@ def training_phase(sim, dev, tmp, wave, iterations, check_launches=True,
     nblocks = -(-MT // B)
     # The anchor has no phenotype NAs: NT = 1.
     path = (launches if not check_launches
+            else f64_counts(nblocks, sweeps=iterations, wave=wave) if f64
             else {"gram_cache": 1, "sweep_blocks": iterations} if wave > 1
-            else f64_counts(nblocks, sweeps=iterations) if f64
             else serial_counts(nblocks, sweeps=iterations))
     for name, n in launches.items():
         want = path.get(name, 0)
@@ -2086,7 +2107,7 @@ def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32", phens=None):
     from gmrm_tpu_torch.sampler.dists import RngPlan
 
     opt = anchor_options(sim, "", wave, dtype=dtype, phens=phens)
-    resolve_plan(opt, "cuda", sim.m // n_shards, sharded=True)
+    resolve_plan(opt, "cuda", sim.m // n_shards)
     data = prunner.load_data_process(opt, n_shards,
                                      interleave=opt.wave_size > 1)
     return (opt, data, prunner.build_static_sharded(data, opt, dev),
@@ -2097,12 +2118,13 @@ def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32", phens=None):
 def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
                  phens=None, against="composed"):
     """Phases 3d, 3e, 7e and 8a: one sharded sweep on the card, with the
-    same injected order and draws per shard on both sides.  At W > 1 the
-    fused per-block kernel against the composed kernels 2, 3 and 4 at the
-    same cadence, both on the card, or (``against`` "plain") against its
-    plain version on the host CPU; with ``wave`` None (the auto plan,
-    which must resolve to W=1) kernels 5, 2, 6 and 4 (at float64 A, B and
-    C) adding into a delta against their plain versions on the host CPU.
+    same injected order and draws per shard on both sides.  At float32
+    W > 1 the fused per-block kernel against the composed kernels 2, 3 and
+    4 at the same cadence, both on the card, or (``against`` "plain")
+    against its plain version on the host CPU; with ``wave`` None (the
+    auto plan, which must resolve to W=1) kernels 5, 2, 6 and 4 (at
+    float64 A, B and C), and at float64 W > 1 kernels A, B and E, adding
+    into a delta against their plain versions on the host CPU.
     ``phens``: a subset of the phenotypes."""
     import numpy as np
     import torch
@@ -2120,7 +2142,8 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
     mps = data.layout.m_pad_shard
     nblocks = mps // B
     rng = np.random.default_rng(11)
-    if opt.wave_size > 1:
+    fused = opt.wave_size > 1 and dtype == "float32"
+    if fused:
         orders = [rng.permutation(nblocks)[:, None] * B
                   + np.argsort(rng.uniform(size=(nblocks, B)), axis=1)
                   for _ in range(n_shards)]
@@ -2135,7 +2158,7 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
     sigmae = 0.5 * (first.eps * first.eps).sum(dim=(1, 2)) / statics[0].nonas
     n_launch = n_shards * nblocks
     mb = data.mb_pad
-    if opt.wave_size > 1:
+    if fused:
         # One launch per block step for all shards (and trait chunk).
         pc = pass_chunks(nT, 4, mb)
         sides = (("fused", dev, None,
@@ -2148,7 +2171,7 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
     else:
         sides = (("kernels", dev, None,
                   f64_counts(nblocks, shards=n_shards, fused=False,
-                             traits=nT, mb=mb)
+                             traits=nT, mb=mb, wave=opt.wave_size)
                   if dtype == "float64" else
                   serial_counts(nblocks, shards=n_shards, fused=False,
                                 traits=nT, mb=mb)),
@@ -2204,7 +2227,7 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     group.  The Gram cache launches once per shard, kernel 9 once per block
     step and iteration (all shards in one launch), nothing else; at
     float64 (phase 7f, W=1) kernels A, B and C per shard and block step
-    (``f64_counts``).  ``check_launches`` False skips that check, for a
+    (``f64_counts``), and A, B and E at float64 W>1 (phase 7h).  ``check_launches`` False skips that check, for a
     tree of another cadence."""
     import numpy as np
     import torch.distributed as dist
@@ -2214,12 +2237,12 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     from gmrm_tpu_torch.parallel.runner import run_training_sharded
 
     f64 = dtype == "float64"
-    out_dir = os.path.join(tmp, f"out_s{n_shards}{'_nccl' if nccl else ''}"
-                                f"{'_f64' if f64 else ''}")
+    tag = (f"{'_nccl' if nccl else ''}{'_f64' if f64 else ''}"
+           f"{f'_w{wave}' if f64 and wave else ''}")
+    out_dir = os.path.join(tmp, f"out_s{n_shards}{tag}")
     opt = anchor_options(sim, out_dir, wave, iterations, dtype)
     if nccl:
-        init_distributed(f"file://{tmp}/rendezvous_s{n_shards}"
-                         f"{'_f64' if f64 else ''}", 1, 0,
+        init_distributed(f"file://{tmp}/rendezvous_s{n_shards}{tag}", 1, 0,
                          backend="nccl", timeout_seconds=120)
     try:
         _build.reset_launch_counts()
@@ -2229,10 +2252,11 @@ def sharded_training_phase(sim, dev, tmp, n_shards, wave, iterations,
     finally:
         if nccl:
             dist.destroy_process_group()
-    if opt.wave_size != (1 if f64 else W):
+    if opt.wave_size != (wave or (1 if f64 else W)):
         fail(f"S={n_shards} training: the plan resolved to W={opt.wave_size}")
     nblocks = -(-(-(-MT // n_shards)) // B)     # ceil(ceil(MT / S) / B)
-    want = (f64_counts(nblocks, iterations, n_shards, fused=False) if f64
+    want = (f64_counts(nblocks, iterations, n_shards, fused=False,
+                       wave=opt.wave_size) if f64
             else
             {"gram_cache": n_shards, "block_sweep": nblocks * iterations})
     for name, n in launches.items():
@@ -2882,19 +2906,23 @@ def sharded_only(dev, reps, card, repo):
 
 def f32_chains(sim_pkl, out, card, repo):
     """``--f32-chains SIM OUT``: phase 4's and 4b's float32 configurations
-    (W=32 for 20 iterations, W=1 for 10, thinned output) through
-    run_training of the tree at ``repo``, writing into OUT; prints each
-    run's ms/iteration."""
+    (W=32 for 20 iterations, W=1 for 10, thinned output) and phase 7c's
+    float64 W=1 one (10 iterations) through run_training of the tree at
+    ``repo``, writing into OUT; prints each run's ms/iteration."""
     import pickle
     import torch
     from gmrm_tpu_torch.runner import run_training
     with open(sim_pkl, "rb") as fh:
         sim = pickle.load(fh)
-    for wave, iters in ((W, ITERS), (1, ITERS_SERIAL)):
-        opt = anchor_options(sim, os.path.join(out, f"w{wave}"), wave, iters)
+    for wave, iters, dtype in ((W, ITERS, "float32"),
+                               (1, ITERS_SERIAL, "float32"),
+                               (1, ITERS_F64, "float64")):
+        tag = "_f64" if dtype == "float64" else ""
+        opt = anchor_options(sim, os.path.join(out, f"w{wave}{tag}"), wave,
+                             iters, dtype)
         res = run_training(opt, device=torch.device("cuda"), verbose=False)
         steady = sum(res.iter_seconds[THIN:]) / (iters - THIN)
-        print(f"# {repo}: float32 W={wave} {steady * 1e3:.2f} ms/iteration "
+        print(f"# {repo}: {dtype} W={wave} {steady * 1e3:.2f} ms/iteration "
               f"over iterations {THIN + 1}-{iters}  [{card}]", flush=True)
     kernel_bytes(os.path.join(out, "kernels"))
 
@@ -2902,13 +2930,15 @@ def f32_chains(sim_pkl, out, card, repo):
 def kernel_bytes(out):
     """The block Gram (kernels 5 and A, a run of 16 blocks at NT=1 and
     NT=4) and predict sums (the predict kernel and D, a (4,096, 2,560)
-    bed, one trait with NAs) in float32 and float64 on inputs drawn from
-    one seed on the card, their raw bytes written into OUT: the kernels
-    that share templates across the two types, compared across two trees
-    by ``same_bytes``."""
+    bed, one trait with NAs) in float32 and float64, and kernel 3 (the
+    wave scan's float32 instance, a block of the anchor's shapes), on
+    inputs drawn from one seed on the card, their raw bytes written into
+    OUT: the kernels that share templates across the two types, compared
+    across two trees by ``same_bytes``."""
     import torch
     from gmrm_tpu_torch.ops.block_gram import blocks_gram_scaled
     from gmrm_tpu_torch.ops.predict_sums import predict_sums
+    from gmrm_tpu_torch.ops.scan_kernel_wave import WaveScanSweep
     os.makedirs(out)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -2932,17 +2962,24 @@ def kernel_bytes(out):
         outs["predict_sums" + tag] = torch.stack(predict_sums(
             bed[:4096].contiguous(), na[0].to(dtype).contiguous(),
             y.to(dtype).contiguous()))
+    ops, c, gs, _ = f64_scan_operands(dev, gen, T, B, K, 2, 96)
+    f32 = [x.float() if x.is_floating_point() else x for x in ops]
+    sweep = WaveScanSweep(*f32, wave=W)
+    sweep.step(1, c.float(), gs["NT=4"].float(), 1, bc=1)
+    for name in ("dbeta", "d", "beta_new", "comp_new", "acum_new"):
+        outs["wave_scan_" + name] = getattr(sweep, name)[1]
     for name, x in outs.items():
         with open(os.path.join(out, name + ".bin"), "wb") as fh:
             fh.write(x.cpu().numpy().tobytes())
 
 
 def same_bytes(tree, card):
-    """``--same-bytes TREE``: phase 4's and 4b's float32 chains written by
-    the tree at TREE and by this one, each in its own process on the one
-    card, in the order TREE, this, this, TREE (``f32_chains``), with the
-    float32 and float64 kernel outputs of ``kernel_bytes``; the files of
-    the first two runs must be equal byte for byte."""
+    """``--same-bytes TREE``: phase 4's and 4b's float32 chains and phase
+    7c's float64 W=1 chain written by the tree at TREE and by this one,
+    each in its own process on the one card, in the order TREE, this,
+    this, TREE (``f32_chains``), with the kernel outputs of
+    ``kernel_bytes``; the files of the first two runs must be equal byte
+    for byte."""
     import filecmp
     import pickle
     with tempfile.TemporaryDirectory() as tmp:
@@ -2957,14 +2994,15 @@ def same_bytes(tree, card):
                                   os.path.join(tmp, name), "--repo", repo])
             if run.returncode:
                 fail(f"--f32-chains in {repo} failed")
-        for w in (f"w{W}", "w1", "kernels"):
+        for w in (f"w{W}", "w1", "w1_f64", "kernels"):
             a, b = os.path.join(tmp, "a", w), os.path.join(tmp, "b", w)
             names = sorted(os.listdir(a))
             _, differ, errors = filecmp.cmpfiles(a, b, names, shallow=False)
             if differ or errors or names != sorted(os.listdir(b)):
-                fail(f"float32 {w}: {tree} and {REPO} wrote other bytes "
+                fail(f"{w}: {tree} and {REPO} wrote other bytes "
                      f"({differ or errors})")
             what = ("float32 and float64 kernel outputs'" if w == "kernels"
+                    else "float64 W=1 chain's" if w == "w1_f64"
                     else f"float32 {w} chain's")
             print(f"# same bytes: the {what} {len(names)} "
                   f"files of {tree} and {REPO} are equal  [{card}]",
@@ -3913,7 +3951,281 @@ def float64_phase(sim, small, dev, tmp, card, gen):
     return rows, launches, numbers
 
 
-# Kernels A-D: source, the TPU kernel whose float64 side each is, and the
+# Kernel E's gate beyond the anchor, at 8-byte values: (T, B, K, W) and
+# the plan (tables staged, waves of Gram rows staged, traits a CTA) each
+# must get: every wave's rows staged (T=2), none staged and the tables in
+# global memory (T=16), a grid of trait groups (T=33), value-sized
+# cp.async copies (B=36, W=6: no bulk copy) and 16 components.  The
+# anchor (T=4) stages wave 0's rows and reads the others' from L2.
+E_SHAPES = ((2, 128, 4, 32, (1, 3, 2)), (16, 128, 4, 32, (0, 0, 16)),
+            (33, 128, 4, 32, (0, 0, 17)), (3, 36, 8, 6, (1, 5, 3)),
+            (2, 64, 16, 16, (1, 3, 2)))
+E_ANCHOR_PLAN = (1, 1, T)
+ITERS_F64_WAVE = 10     # the float64 W=32 anchor run (phase 7h)
+
+
+def wave_f64_gate(dev, gen):
+    """Kernel E against wave_scan_plain on the card: at the anchor on the
+    sweep's 157-block arrays (a middle block and the last, with its 96 pad
+    slots) with per-trait Grams at |c| of order 30 and 1e3 (where live
+    draws must take the |dlogl| > 700 guard) and the shared Gram at the
+    middle block, then at E_SHAPES on one block, at both |c|.  Each launch
+    twice (bit-equal), comp exact, dbeta, beta and acum within 1e-10 of
+    their largest magnitude, d = msig * dbeta bit for bit, the one-block
+    wrapper bit-equal to the sweep interface.  Returns (max abs err, a
+    note, the anchor's (sweep, c, {NT: gs}))."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    err = 0.0
+    drawn = set()
+
+    def held(where, sweep, ops, c, gs, b, Wv):
+        nonlocal err
+
+        def step():
+            sweep.step(b, c, gs, b, bc=b)
+            return tuple(x[b].clone() for x in (
+                sweep.dbeta, sweep.beta_new, sweep.comp_new, sweep.acum_new,
+                sweep.d))
+        got = bit_equal_twice(f"wave_scan_f64 ({where})", step)
+        base = (c[b] + ops[4][b] * ops[0][:, None]).contiguous()
+        blk = (base, *(x[b] for x in ops[1:4]), gs[b],
+               *(x[b] for x in ops[4:11]), ops[12])
+        want = sw.wave_scan_plain(*blk, Wv)
+        if got[0].dtype != torch.float64 or not torch.equal(got[2], want[2]):
+            fail(f"wave_scan_f64 ({where}): comp differs from the plain "
+                 f"version in {int((got[2] != want[2]).sum())} entries")
+        for part, g, w in zip(("dbeta", "beta", "acum"),
+                              (got[0], got[1], got[3]),
+                              (want[0], want[1], want[3])):
+            err = max(err, close64(f"wave_scan_f64 ({where}) {part}", g, w))
+        if not torch.equal(got[4], ops[11][b] * got[0]):
+            fail(f"wave_scan_f64 ({where}): d is not msig * dbeta bit for "
+                 f"bit")
+        one = sw.wave_scan(*blk, wave=Wv)
+        if not all(torch.equal(x, y) for x, y in zip(one, got)):
+            fail(f"wave_scan_f64 ({where}): the one-block wrapper and the "
+                 f"sweep interface wrote different bits")
+        drawn.update(want[2][ops[9][b] != 0].tolist())
+        return want, blk
+
+    def guarded(blk, dbeta, live_b, Wv):
+        """Live draws where some |L_k - L_i| > 700, each num rebuilt from
+        the plain version's dbeta and the folds of the earlier waves."""
+        base, lc, rd, gs_b, i2se = blk[0], blk[1], blk[2], blk[4], blk[-1]
+        wv = torch.arange(base.shape[1], device=base.device) // Wv
+        earlier = (wv[:, None] < wv[None, :]).to(gs_b.dtype)
+        num = base + (dbeta[:, :, None] * gs_b * earlier).sum(1)
+        logl = lc + rd * num * (num * i2se[:, None])
+        spread = logl.max(0).values - logl.min(0).values
+        return int(((spread > 700.0) & (live_b != 0)).sum())
+
+    nblocks = -(-MT // B)
+    bm = nblocks // 2
+    ops, c, gs, live = f64_scan_operands(dev, gen, T, B, K, nblocks, 96)
+    sweep = sw.WaveScanSweep(*ops, wave=W)
+    if tuple(sweep.plan) != E_ANCHOR_PLAN:
+        fail(f"wave_scan_f64: the anchor's plan {sweep.plan}")
+    n_guard = 0
+    for scale in (1.0, 40.0):
+        for b in (bm, nblocks - 1):
+            want, blk = held(f"anchor, block {b}, NT={T}, |c| "
+                             f"~{30 * scale:.0f}", sweep, ops, c * scale,
+                             gs["NT=4"], b, W)
+            if scale > 1:
+                n_guard += guarded(blk, want[0], live[b], W)
+    held(f"anchor, block {bm}, NT=1", sweep, ops, c, gs["NT=1"], bm, W)
+    if not n_guard:
+        fail("wave_scan_f64: no draw at |c| ~1e3 took the 700 guard")
+    if not torch.equal(sweep.beta_new[-1][:, B - 96:], ops[4][-1][:, B - 96:]):
+        fail("wave_scan_f64: the last block's pad slots moved")
+    for Tv, Bv, Kv, Wv, plan in E_SHAPES:
+        o2, c2, g2, _ = f64_scan_operands(dev, gen, Tv, Bv, Kv, 1,
+                                          min(3, Bv - 1))
+        sw2 = sw.WaveScanSweep(*o2, wave=Wv)
+        if tuple(sw2.plan) != plan:
+            fail(f"wave_scan_f64: plan {sw2.plan} at T={Tv}, B={Bv}, "
+                 f"K={Kv}, W={Wv}")
+        for scale in (1.0, 40.0):
+            held(f"T={Tv}, B={Bv}, K={Kv}, W={Wv}, |c| ~{30 * scale:.0f}",
+                 sw2, o2, c2 * scale, g2["NT=4"], 0, Wv)
+        del o2, c2, g2, sw2
+    if len(drawn) < 2:
+        fail(f"wave_scan_f64: the blocks drew components {drawn} only")
+    note = (f"plan at the anchor (tables staged, waves of Gram rows staged, "
+            f"traits a CTA) {E_ANCHOR_PLAN}; {n_guard} live draws of the two "
+            f"anchor blocks at |c| ~1e3 took the 700 guard; also held at "
+            f"(T, B, K, W, plan) {list(E_SHAPES)}, per-trait Grams")
+    return err, note, (sweep, c, gs)
+
+
+def wave_f64_times(sweep, c, gs, b):
+    """Kernel E's ms a block at block b (graph replay) with the shared Gram
+    (NT=1) and per-trait Grams (NT=4), its plain version's, kernel 3 on
+    the same operands cast to float32 (NT=1), the %globaltimer split of one
+    stamped launch, and the bound: the block's operands and outputs once
+    and the Gram rows a fold reads, of the waves that moved a marker;
+    operations those folds and the draws, at the float64 peak."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    ms = {nt: cuda_ms(lambda g=g: sweep.step(b, c, g, b, bc=b), 20)
+          for nt, g in gs.items()}
+    ops_b = [x[b] for x in sweep.state]
+    base = (c[b] + ops_b[0] * sweep.nm1[:, None]).contiguous()
+    blk = (base, *(x[b] for x in sweep.tables), gs["NT=1"][b], *ops_b,
+           sweep.i2se)
+    plain = cuda_ms(lambda: sw.wave_scan_plain(*blk, sweep.wave), 1)
+    f32 = [x.float() if x.is_floating_point() else x
+           for x in (sweep.nm1, *sweep.tables, *sweep.state, sweep.msig_p,
+                     sweep.i2se)]
+    sweep3 = sw.WaveScanSweep(*f32, wave=sweep.wave)
+    c3, gs3 = c.float(), gs["NT=1"].float()
+    k3 = cuda_ms(lambda: sweep3.step(b, c3, gs3, b, bc=b), 20)
+    nw = B // sweep.wave
+    st = torch.zeros(2 + 2 * nw, dtype=torch.int64, device=c.device)
+    sweep.step(b, c, gs["NT=1"], b, bc=b, stamps=st)
+    torch.cuda.synchronize()
+    split = ", ".join(f"{name} {float(t) / 1e3:.2f}" for name, t in zip(
+        sw.wave_stamp_names(nw), (st - st[0]).cpu()))
+    db = sweep.dbeta[b]
+    Wv = sweep.wave
+    moved = [w for w in range(nw - 1)
+             if (db[:, w * Wv:(w + 1) * Wv] != 0).any()]
+    fold = sum(T * Wv * (B - (w + 1) * Wv) for w in moved)
+    tb = T * B * 8
+    # Ten float64 arrays (c, beta, acum, u, z, msig in; dbeta, d, beta,
+    # acum out) and four int32 ones (comp, live, zerob in; comp out).
+    bound = bound_of(3 * K * tb + 10 * tb + 4 * T * B * 4 + 2 * T * 8
+                     + fold * 8,
+                     (2 * fold + T * B * K * 12, F64_OPS))
+    return ms, plain, k3, split, bound
+
+
+def float64_wave_phase(sim, small, dev, tmp, card, gen):
+    """Phase 7h: --dtype float64 --wave-size 32 (the composed wave path on
+    kernels A, B and E).  (a) kernel E alone (``wave_f64_gate``,
+    ``wave_f64_times``); (b) one float64 W=32 sweep on the small panel on
+    the card against the plain float64 sweep on the host CPU, same uniform
+    order and draws, on one device and at S=2; (c) run_training at the
+    anchor twice from one seed (byte-equal), launches per
+    ``f64_counts(wave=32)`` (no Gram cache, no float32 kernel), h2 in
+    (0.05, 0.95), peak memory, ms/iteration, and a profiler window over 5
+    float64 W=32 iterations; (d) the chain cut at 5 (a checkpoint at 3)
+    and resumed to the end, byte-equal; (e) run_training_sharded at S=2.
+    Returns (kernel E's row, the path's launches, the phase's numbers)."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch.runner import run_training
+
+    t_phase = time.perf_counter()
+    err, note, (sweep, c_n, gs_n) = wave_f64_gate(dev, gen)
+    nblocks = -(-MT // B)
+    ms, plain, k3, split, bound = wave_f64_times(sweep, c_n, gs_n,
+                                                 nblocks // 2)
+    del sweep, c_n, gs_n
+    print(f"# wave_scan_f64: max abs err {err:.3e}; kernel ms a block (CUDA "
+          f"graph replay) NT=1 {ms['NT=1']:.5f}, NT={T} {ms['NT=4']:.5f}; "
+          f"plain ms {plain:.4f}; kernel 3 (float32) on the same block cast "
+          f"to float32 {k3:.5f}; bound {bound[0]:.5f} ms by {bound[1]}; "
+          f"{note}; stamps of one launch, us from its start: {split}  "
+          f"[{card}]", flush=True)
+    sweep_gate(small, dev, W, f"float64 W={W} sweep gate", card,
+               dtype="float64")
+    sharded_gate(small, dev, card, 2, W, f"float64 sharded W={W} sweep gate",
+                 dtype="float64")
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    runs = [training_phase(sim, dev, tmp, W, ITERS_F64_WAVE, dtype="float64",
+                           tag=tag) for tag in ("", "_again")]
+    res, counts, steady, h2, peak = runs[0]
+    add(counts)
+    add(runs[1][1])
+    f32_kernels = {k for k, v in counts.items()
+                   if v and not k.endswith("_f64")}
+    if f32_kernels:
+        fail(f"float64 W={W} training launched float32 kernels "
+             f"{f32_kernels}")
+    if res.state.eps.dtype != torch.float64 or not (
+            np.isfinite(h2).all() and (h2 > 0.05).all()
+            and (h2 < 0.95).all()):
+        fail(f"float64 W={W} training: dtype {res.state.eps.dtype}, h2 {h2}")
+    ref = os.path.join(tmp, f"out_w{W}_f64")
+    if not same_artifacts(sim, ref, ref + "_again"):
+        fail(f"float64 W={W} training: two runs of one seed wrote other "
+             f"bytes")
+    prof = profile_phase(sim, dev, wave=W, dtype="float64", top_n=8)
+    out = os.path.join(tmp, f"resume_f64_w{W}")
+    for stop, resume in ((5, False), (ITERS_F64_WAVE, True)):
+        opt = anchor_options(sim, out, W, stop, "float64")
+        opt.checkpoint_every, opt.resume = 3, resume
+        _, c = counted(lambda: run_training(opt, device=dev, verbose=False))
+        want = f64_counts(nblocks, sweeps=ITERS_F64_WAVE - 3 if resume
+                          else 5, wave=W)
+        if c != want:
+            fail(f"float64 W={W} resume: launches {c}, expected {want}")
+        add(c)
+    if not same_artifacts(sim, ref, out):
+        fail(f"float64 W={W} resume: the resumed chain wrote other bytes "
+             f"than the uninterrupted one")
+    sh = sharded_training_phase(sim, dev, tmp, 2, W, ITERS_F64_WAVE,
+                                dtype="float64")
+    add(sh[1])
+    numbers = dict(steady=steady, h2=h2, peak=peak, profile=prof,
+                   startup=res.startup_seconds, sharded=sh, k3_ms=k3,
+                   seconds=time.perf_counter() - t_phase)
+    return (err, ms["NT=1"], plain, None, bound), launches, numbers
+
+
+def wave64_only(dev, card):
+    """``--wave64-only``: phase 7h alone."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    with tempfile.TemporaryDirectory() as tmp:
+        with concurrent.futures.ProcessPoolExecutor(
+                2, mp_context=multiprocessing.get_context("spawn"),
+                initializer=one_thread) as pool:
+            sims = [pool.submit(make, os.path.join(tmp, name))
+                    for name, make in (("data", anchor_dataset),
+                                       ("small", small_dataset))]
+            t0 = time.perf_counter()
+            _build.library()
+            print(f"# build: {time.perf_counter() - t0:.1f} s", flush=True)
+            sim, small = (f.result() for f in sims)
+        _, launches, num = float64_wave_phase(sim, small, dev, tmp, card, gen)
+        print_wave64(num, launches, card)
+
+
+def print_wave64(num, launches, card):
+    """Phase 7h's summary lines."""
+    busy, wall, calls, top = num["profile"]
+    res_sh, launch_sh, steady_sh, span_sh, h2_sh, _ = num["sharded"]
+    print(f"# float64 training W={W} at the anchor: startup "
+          f"{num['startup']:.2f} s (no Gram cache); steady "
+          f"{num['steady'] * 1e3:.2f} ms/iteration = "
+          f"{MT / num['steady']:.0f} markers/s over iterations {THIN + 1}-"
+          f"{ITERS_F64_WAVE}; h2 {[round(float(x), 3) for x in num['h2']]}; "
+          f"peak device memory {num['peak'] / 2**20:.1f} MiB; two runs of "
+          f"one seed and the chain cut at 5 and resumed byte-equal; no "
+          f"float32 kernel launched  [{card}]", flush=True)
+    print(f"# profiler, float64 W={W} path, 5 iterations: device busy "
+          f"{busy:.3f} ms/iteration, wall {wall:.3f} ms/iteration, idle "
+          f"share {1 - busy / wall:.3f}, {calls:.1f} launches per iteration; "
+          f"busiest kernels (ms/iteration) {top}  [{card}]", flush=True)
+    print(f"# float64 sharded training S=2, W={W} (all shards on the one "
+          f"card): {steady_sh * 1e3:.2f} ms/iteration over {span_sh}; h2 "
+          f"{[round(float(x), 3) for x in h2_sh]}; launches {launch_sh}  "
+          f"[{card}]", flush=True)
+    print(f"# phase 7h (float64 W={W}) wall {num['seconds']:.1f} s; launches "
+          f"{launches}", flush=True)
+
+
+# Kernels A-E: source, the TPU kernel whose float64 side each is, and the
 # JAX package's float64 route that it replaces (kernel B's three launches
 # are the template of csrc/block_passes.cuh at double; the fused pass also
 # replaces pallas_kernels.py:275, F64_ALSO_REPLACES).
@@ -3935,6 +4247,11 @@ F64_SOURCES = {
                         "gmrm_tpu/sampler/scan.py:33"),
     "predict_sums_f64": ("gmrm_tpu_torch/csrc/predict_sums.cu",
                          "gmrm_tpu/predict.py:43", "gmrm_tpu/predict.py:43"),
+    # The JAX package's float64 W>1 run scans through this wrapper, which
+    # narrows the scan to float32; kernel E computes it in double.
+    "wave_scan_f64": ("gmrm_tpu_torch/csrc/wave_scan.cu",
+                      "gmrm_tpu/ops/scan_kernel_wave.py:57",
+                      "gmrm_tpu/ops/scan_kernel_wave.py:196"),
 }
 
 
@@ -4929,6 +5246,7 @@ def main():
     parser.add_argument("--sharded-only", type=int, default=0,
                         metavar="REPS")
     parser.add_argument("--f64-only", type=int, default=0, metavar="REPS")
+    parser.add_argument("--wave64-only", action="store_true")
     parser.add_argument("--traits-only", type=int, default=0,
                         metavar="REPS")
     parser.add_argument("--predict-only", type=int, default=0,
@@ -4965,6 +5283,9 @@ def main():
     if args.io_only:
         with tempfile.TemporaryDirectory() as tmp:
             io_only(dev, tmp, card)
+        return
+    if args.wave64_only:
+        wave64_only(dev, card)
         return
     if args.same_bytes:
         same_bytes(args.same_bytes, card)
@@ -5153,6 +5474,10 @@ def main():
         sh_prof = profile_phase(sim, dev, n_shards=s0)
         f64_rows, f64_launches, f64 = float64_phase(sim, small, dev, tmp,
                                                     card, gen)
+        f64_rows["wave_scan_f64"], e_launches, f64w = float64_wave_phase(
+            sim, small, dev, tmp, card, gen)
+        for k, v in e_launches.items():
+            f64_launches[k] = f64_launches.get(k, 0) + v
         trait_rows = traits_phase(dev, tmp, card, gen,
                                   [f.result() for f in sims[3:]])
         io_phase(sim, big, dev, tmp, card)
@@ -5287,8 +5612,15 @@ def main():
         print(f"# float64 predict at the anchor on the {key} ({T} traits, "
               f"the float64 run's .bet files): wall {wall:.3f} s = {parts}; "
               f"launches {launches}  [{card}]", flush=True)
-    print(f"# phase 7 (float64) wall {f64['seconds']:.1f} s; launches "
-          f"{f64_launches}", flush=True)
+    print(f"# phase 7 (float64) wall {f64['seconds']:.1f} s", flush=True)
+    print_wave64(f64w, e_launches, card)
+    print(f"# float64 at the anchor in this call: W={W} "
+          f"{f64w['steady'] * 1e3:.2f} ms/iteration against W=1 "
+          f"{f64['steady'] * 1e3:.2f}; kernel E "
+          f"{f64_rows['wave_scan_f64'][1]:.5f} ms a block against kernel C "
+          f"{f64_rows['serial_scan_f64'][1]:.5f} and kernel 3 (float32) "
+          f"{f64w['k3_ms']:.5f}; launches of phase 7 {f64_launches}  "
+          f"[{card}]", flush=True)
     for name, (src, rep, route) in F64_SOURCES.items():
         err, k_ms, p_ms, lib, bound = f64_rows[name]
         rows.append({"name": name, "route": "cuda", "source": src,

@@ -9,8 +9,10 @@ and ``WORLD_SIZE`` (``torchrun``, one process per card) the processes join
 one group first (in predict mode each process then writes its markers'
 lines of the one ``.mlma``).  ``--checkpoint-every``, ``--resume`` and
 ``--cache-dir`` work on one device and marker-sharded, and predict ignores
-them.  ``--dtype float64`` raises ``SliceNotCovered`` (an
-``OptionsError``) naming the ROADMAP.md item."""
+them.  ``--dtype float64`` trains the exact serial sweep by default and
+the float64 wave scan with an explicit ``--wave-size`` W > 1;
+``--use-pallas 0`` on CUDA raises ``SliceNotCovered`` (an
+``OptionsError``)."""
 
 from __future__ import annotations
 
@@ -55,9 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "shards — the reference's own multi-rank semantics). "
                         "Default: auto — 32, 16 or 8, whichever divides the "
                         "block size, and 1 on panels of fewer than 64 "
-                        "blocks")
+                        "blocks; 1 at --dtype float64, where an explicit "
+                        "W>1 runs the float64 wave scan")
     p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+                   choices=["float32", "float64"],
+                   help="the chain's float type; float64 trains the exact "
+                        "serial sweep unless --wave-size names W>1, and "
+                        "every float of the chain, the wave scan "
+                        "included, is float64")
     p.add_argument("--devices", type=int, default=0,
                    help="number of marker shards (0 = one per process); "
                         "more than one trains marker-sharded, every "
@@ -125,7 +132,7 @@ def main(argv=None, device=None) -> int:
         distributed.init_distributed(
             backend="nccl" if dev.type == "cuda" else "gloo")
     sharded = opt.n_devices > 1 or distributed.is_initialized()
-    check_slice(opt, dev.type, sharded)
+    check_slice(opt, dev.type)
     try:
         opt.validate()
         if opt.predict:

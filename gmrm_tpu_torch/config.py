@@ -234,8 +234,13 @@ def _auto_wave(block_size: int) -> int:
 
 def planned_wave(opt: Options) -> int:
     """The wave the options resolve to before the block-count guard:
-    ``Options.resolve_compute_plan`` semantics, where ``--use-pallas 0``
-    is the exact serial path; the auto wave is 1 at float64."""
+    ``--use-pallas 0`` is the exact serial path, as in
+    ``Options.resolve_compute_plan``; an explicit ``--wave-size`` is kept
+    at either dtype.  The auto wave at float64 is 1: the port's choice,
+    not the JAX package's, whose device plan at float64 is W = 32 with a
+    wave scan that narrows the chain to float32.  So a float64 run that
+    names no wave is the exact serial sweep, as it has always been here,
+    and ``--wave-size W`` asks for the float64 wave scan (kernel E)."""
     if opt.use_pallas is False:
         return 1
     if opt.wave_size is None and opt.dtype == "float64":
@@ -245,25 +250,12 @@ def planned_wave(opt: Options) -> int:
     return w if opt.block_size % w == 0 else 1
 
 
-def check_slice(opt: Options, device_type: str,
-                sharded: bool = False) -> None:
+def check_slice(opt: Options, device_type: str) -> None:
     """Raise SliceNotCovered for an option the ported slices lack: in
-    training, ``--dtype float64`` with an explicit ``--wave-size`` that
-    plans W > 1, and ``--use-pallas 0`` on CUDA.  Predict ignores the
-    training-only flags (``--wave-size``, ``--resume``,
-    ``--checkpoint-every``, ``--cache-dir``, ``--use-pallas``), as
-    gmrm_tpu/predict.py does.  ``sharded``: the run is marker-sharded (more
-    than one shard, or a process group)."""
-    if (opt.dtype == "float64" and not opt.predict
-            and opt.wave_size is not None and planned_wave(opt) > 1):
-        where = " on a marker-sharded run" if sharded else ""
-        raise SliceNotCovered(
-            f"--dtype float64 with --wave-size {opt.wave_size}{where} is "
-            f"not ported (ROADMAP §1 item 'float64 at W>1'): the JAX "
-            f"package computes no float64 chain at W > 1 (its wave scan "
-            f"narrows to float32), so there is no reference to hold one "
-            f"against.  Float64 runs the exact serial sweep: drop "
-            f"--wave-size, or pass --wave-size 1.")
+    training, ``--use-pallas 0`` on CUDA (the CUDA path always runs its
+    kernels).  Predict ignores the training-only flags (``--wave-size``,
+    ``--resume``, ``--checkpoint-every``, ``--cache-dir``,
+    ``--use-pallas``), as gmrm_tpu/predict.py does."""
     if opt.use_pallas is False and device_type == "cuda" and not opt.predict:
         raise SliceNotCovered(
             "--use-pallas 0 on CUDA: the CUDA path always runs its kernels "
@@ -272,7 +264,7 @@ def check_slice(opt: Options, device_type: str,
 
 
 def resolve_plan(opt: Options, device_type: str, m_local: int,
-                 verbose: bool = False, sharded: bool = False) -> int:
+                 verbose: bool = False) -> int:
     """Resolve the wave in place on ``opt`` and return the block count.
     ``m_local`` is the marker count the guard looks at: all markers on one
     device, ``m_total // n_shards`` on a sharded run.
@@ -281,7 +273,7 @@ def resolve_plan(opt: Options, device_type: str, m_local: int,
     drops to 1 (the exact serial sweep) below 64 blocks, and an explicit
     wave is kept with a warning.
     """
-    check_slice(opt, device_type, sharded)
+    check_slice(opt, device_type)
     opt.wave_auto = opt.wave_size is None
     opt.wave_size = planned_wave(opt)
     return opt.guard_wave_blocks(m_local, verbose=verbose)

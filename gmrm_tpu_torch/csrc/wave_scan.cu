@@ -1,5 +1,6 @@
 // Within-block Gibbs scan in waves of W markers (the W co-scheduled
-// shards relaxation, gmrm_tpu/ops/scan_kernel_wave.py).
+// shards relaxation, gmrm_tpu/ops/scan_kernel_wave.py), in float (kernel 3)
+// and double (kernel E, a --dtype float64 --wave-size W run).
 //
 // With base = c + beta_old (nonas - 1), per wave, for every trait t and
 // marker j of the wave:
@@ -13,7 +14,10 @@
 // Outputs dbeta, d = msig dbeta, beta_new, comp_new and acum_new.
 //
 // Replaces _wave_kernel (gmrm_tpu/ops/scan_kernel_wave.py:57, built by
-// _build_call :176, wrapper make_block_scan_wave :196).  The TPU kernel
+// _build_call :176, wrapper make_block_scan_wave :196); in double, what it
+// would compute at float64 (the JAX wrapper casts a float64 run's operands
+// to float32 and back, :208, :269-272; the double instance does not).  The
+// TPU kernel
 // takes the Gram wave-stacked to (T*B, B) for its lane layout and folds
 // with one block-diagonal MXU dot into all B columns; here gs keeps its
 // (T, B, B) layout and each wave folds into the later waves' columns.
@@ -34,12 +38,14 @@
 //     per row issued at entry by the warps that draw nothing.  Wave 0's
 //     rows complete one mbarrier, waited for before the first fold, the
 //     others a second, waited for before the second.  A packed row's
-//     stride is padded to 8 words past a multiple of 32, so the fold's
-//     lanes hit at most two to a bank.  The waves that do not fit beside
-//     the operands (large T B) are read from global memory, where the Gram
-//     stays in L2 (wave_plan in ops/scan_kernel_wave.py).  Where an address
-//     is not on 16 bytes (B or W not a multiple of 4, or an unaligned
-//     view) 4-byte cp.async copies take the bulk copies' place;
+//     stride is padded to 8 floats past a multiple of 32 (2 doubles past a
+//     multiple of 16), so the fold's lanes hit at most two to a bank.  The
+//     waves that do not fit beside the operands (large T B; at double, at
+//     T=4, B=128 all but wave 0) are read from global memory, where the
+//     Gram stays in L2 (wave_plan in ops/scan_kernel_wave.py).  Where an
+//     address is not on 16 bytes (B or W not a multiple of 4, or an
+//     unaligned view) value-sized cp.async copies take the bulk copies'
+//     place;
 //   - the fold of wave w into wave w + 1's columns runs on the chain, on
 //     every thread; its fold into the waves after that runs on the warps
 //     that draw nothing while wave w + 1 draws.  Each corr still receives
@@ -52,9 +58,15 @@
 // are independent, so a CTA takes its traits' slice of every operand and
 // runs the block as above, and each trait gets the bits it gets alone.
 // The draw is sweep_math.cuh's gmrm_wave_draw: every add and product uses
-// the _rn intrinsics, so comp agrees exactly with the plain PyTorch
-// version; the tables' K is a template bound (4, 8 or 16) so the
-// per-candidate arrays stay in registers.
+// the _rn intrinsics, exp is expf (float) or the library's exp written
+// out (double) and 1 / S is the IEEE division, so comp agrees exactly with
+// the plain PyTorch version; the tables' K is a template bound (4, 8 or
+// 16) so the per-candidate arrays stay in registers.
+// The value type V is a template parameter of the whole kernel; every
+// shared-memory offset below counts values of V (the mbarriers, the int
+// arrays and the waves' offsets take value-sized slots), and every copy's
+// byte count is its element size times its length.  The float instance is
+// kernel 3 as it was, operation for operation.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,27 +79,28 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int SMEM_CAP = 232448;   // dynamic shared memory of one CTA
 constexpr int NSTATE = 10;         // staged (T, B) arrays
 
+template <typename V>
 struct WaveArgs {
-  const float* c;         // (T, B); base itself when nm1 is null
-  const float* nm1;       // (T,) nonas - 1, or null
-  const float* lc;        // (K, T, B) per-marker tables
-  const float* rd;
-  const float* sqb;
-  const float* gs;        // (T, B, B) scaled Gram in processing order
-  const float* beta_old;  // (T, B), as acum_old, u, z, msig
+  const V* c;             // (T, B); base itself when nm1 is null
+  const V* nm1;           // (T,) nonas - 1, or null
+  const V* lc;            // (K, T, B) per-marker tables
+  const V* rd;
+  const V* sqb;
+  const V* gs;            // (T, B, B) scaled Gram in processing order
+  const V* beta_old;      // (T, B), as acum_old, u, z, msig
   const int* comp_old;    // (T, B), as live, zerob
-  const float* acum_old;
-  const float* u;
-  const float* z;
+  const V* acum_old;
+  const V* u;
+  const V* z;
   const int* live;
   const int* zerob;
-  const float* msig;      // or null (then d is null too)
-  const float* i2se;      // (T,)
-  float* dbeta;           // (T, B) outputs
-  float* d;
-  float* beta_new;
+  const V* msig;          // or null (then d is null too)
+  const V* i2se;          // (T,)
+  V* dbeta;               // (T, B) outputs
+  V* d;
+  V* beta_new;
   int* comp_new;
-  float* acum_new;
+  V* acum_new;
   unsigned long long* stamps;  // (2 + 2 nw,) or null: CTA 0's
   int T, B, K, W, tab, gsw, vec;  // T: the CTA's traits (after wave_group)
   int TK;  // the launch's traits: the k stride of the tables in traits
@@ -97,8 +110,9 @@ struct WaveArgs {
 // CTA blockIdx.x's traits t0 = blockIdx.x TG .. (TG of them, fewer in the
 // last CTA): every (T, ..) operand offset to them; the tables keep the
 // launch's k stride.  One CTA of every trait (TG = T) is unchanged.
-__device__ __forceinline__ WaveArgs wave_group(const WaveArgs& a0) {
-  WaveArgs a = a0;
+template <typename V>
+__device__ __forceinline__ WaveArgs<V> wave_group(const WaveArgs<V>& a0) {
+  WaveArgs<V> a = a0;
   const int t0 = blockIdx.x * a0.TG;
   const size_t o = (size_t)t0 * a0.B;
   a.T = min(a0.TG, a0.T - t0);
@@ -130,34 +144,42 @@ __device__ __forceinline__ WaveArgs wave_group(const WaveArgs& a0) {
 __host__ __device__ inline int al4(int x) { return (x + 3) & ~3; }
 
 // Per trait, the packed offset of wave w's rows: W rows of B - (w'+1) W
-// floats for every earlier wave w'.
+// values for every earlier wave w'.
 __host__ __device__ inline int gs_wave_offset(int B, int W, int w) {
   return W * (w * B - W * (w * (w + 1) / 2));
 }
 
-// The stride of a packed row of `rest` floats in shared memory: padded to 8
-// words past a multiple of 32, so that the lanes of a fold, which read rows
-// 1 .. 7 apart at neighbouring columns, hit at most two to a bank.
+// The stride of a packed row of `rest` values in shared memory, so that
+// the lanes of a fold, which read rows 1 .. 7 apart at neighbouring
+// columns, hit at most two to a bank: floats padded to 8 past a multiple
+// of 32; doubles (two banks each, a warp's 8-byte loads served a half-warp
+// at a time) to 2 past a multiple of 16, where the 8 rows of the 2 columns
+// of a half-warp at a split of 8 fall on 16 distinct bank pairs.  Both keep
+// a row on 16 bytes for its bulk copy.
+template <typename V>
 __host__ __device__ inline int row_stride(int rest) {
+  if (sizeof(V) == 8) return rest + (18 - rest % 16) % 16;
   return rest + (40 - rest % 32) % 32;
 }
 
 // Per trait, the shared-memory offset of wave w's packed rows.
+template <typename V>
 __host__ __device__ inline int gs_smem_offset(int B, int W, int w) {
   int o = 0;
-  for (int v = 0; v < w; ++v) o += W * row_stride(B - (v + 1) * W);
+  for (int v = 0; v < w; ++v) o += W * row_stride<V>(B - (v + 1) * W);
   return o;
 }
 
 constexpr int NBAR = 3;  // mbarriers: operands, wave 0's rows, the rest
 
-// Shared memory offsets in 4-byte words; the mbarriers (8 bytes each) come
+// Shared memory offsets in values of V; the mbarriers (8 bytes each) come
 // first.
 struct Layout {
   int c, corr, beta, acum, u, z, msig, comp, live, zerob, i2se, nm1, wdb;
   int goff, lc, rd, sqb, gs, words;
 };
 
+template <typename V>
 __host__ __device__ inline Layout make_layout(int T, int B, int K, int W,
                                               int tab, int gsw) {
   Layout L;
@@ -183,7 +205,7 @@ __host__ __device__ inline Layout make_layout(int T, int B, int K, int W,
   L.sqb = o + 2 * ktb;
   o += 3 * ktb;
   L.gs = o;
-  o += al4(T * gs_smem_offset(B, W, gsw));
+  o += al4(T * gs_smem_offset<V>(B, W, gsw));
   L.words = o;
   return L;
 }
@@ -198,9 +220,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   smem_u32(smem)), "l"(gmem));
+// N (4 or 8) bytes from global to shared memory, in the current copy group.
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_u32(smem)), "l"(gmem), "n"(N));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -242,10 +266,10 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "r"(smem_u32(bar)) : "memory");
 }
 
-// Copy k of a list: n words from src to dst.  With vec (every address on
-// 16 bytes, n a multiple of 4) one bulk copy, issued by the lane `by` of
-// warp `by / 32` and counted on bar; else 4-byte cp.async copies by every
-// thread of [tid0, THREADS), in the current copy group.
+// Copy k of a list: n 4-byte words from src to dst.  With vec (every
+// address on 16 bytes, n a multiple of 4) one bulk copy, issued by the lane
+// `by` of warp `by / 32` and counted on bar; else 4-byte cp.async copies by
+// every thread of [tid0, THREADS), in the current copy group.
 __device__ __forceinline__ void copy_words(void* dst, const void* src, int n,
                                            bool vec, uint64_t* bar, int by,
                                            int tid0) {
@@ -255,57 +279,60 @@ __device__ __forceinline__ void copy_words(void* dst, const void* src, int n,
   }
   if ((int)threadIdx.x < tid0) return;
   for (int x = threadIdx.x - tid0; x < n; x += THREADS - tid0)
-    cp_async4((uint32_t*)dst + x, (const uint32_t*)src + x);
+    cp_async<4>((uint32_t*)dst + x, (const uint32_t*)src + x);
 }
 
-// Wave w's packed Gram rows in 4-byte cp.async copies by the threads
+// Wave w's packed Gram rows in value-sized cp.async copies by the threads
 // tid0 .. THREADS - 1: for each trait t and row j of the wave, the columns
 // of the later waves, into dst[(t W + j) row_stride + i].
-__device__ __forceinline__ void stage_gs_wave(float* dst, const float* gs,
-                                              int T, int B, int W, int w,
+template <typename V>
+__device__ __forceinline__ void stage_gs_wave(V* dst, const V* gs, int T,
+                                              int B, int W, int w,
                                               int tid0) {
-  const int rest = B - (w + 1) * W, rs = row_stride(rest);
+  const int rest = B - (w + 1) * W, rs = row_stride<V>(rest);
   const int n = T * W * rest;
   for (int x = threadIdx.x - tid0; x < n; x += THREADS - tid0) {
     const int row = x / rest, col = x % rest;
     const int t = row / W, j = row % W;
-    cp_async4(dst + row * rs + col,
-              gs + ((size_t)t * B + w * W + j) * B + (w + 1) * W + col);
+    cp_async<sizeof(V)>(
+        dst + row * rs + col,
+        gs + ((size_t)t * B + w * W + j) * B + (w + 1) * W + col);
   }
 }
 
-template <int MK, bool TAB, bool ST>
+template <typename V, int MK, bool TAB, bool ST>
 __global__ void __launch_bounds__(THREADS)
-wave_scan_kernel(const WaveArgs a0) {
-  extern __shared__ __align__(16) float sm[];
-  const WaveArgs a = wave_group(a0);
+wave_scan_kernel(const WaveArgs<V> a0) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  V* sm = reinterpret_cast<V*>(smem_bytes);
+  const WaveArgs<V> a = wave_group(a0);
   const int T = a.T, B = a.B, K = a.K, W = a.W;
   const int TB = T * B, TW = T * W;
   const int nw = B / W;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool vec = a.vec != 0;
-  const Layout L = make_layout(T, B, K, W, TAB ? 1 : 0, a.gsw);
-  float* sc = sm + L.c;
-  float* scorr = sm + L.corr;
-  float* sbeta = sm + L.beta;
-  float* sacum = sm + L.acum;
-  float* su = sm + L.u;
-  float* sz = sm + L.z;
-  float* smsig = sm + L.msig;
+  const Layout L = make_layout<V>(T, B, K, W, TAB ? 1 : 0, a.gsw);
+  V* sc = sm + L.c;
+  V* scorr = sm + L.corr;
+  V* sbeta = sm + L.beta;
+  V* sacum = sm + L.acum;
+  V* su = sm + L.u;
+  V* sz = sm + L.z;
+  V* smsig = sm + L.msig;
   int* scomp = (int*)(sm + L.comp);
   int* slive = (int*)(sm + L.live);
   int* szerob = (int*)(sm + L.zerob);
-  float* si2se = sm + L.i2se;
-  float* snm1 = sm + L.nm1;
+  V* si2se = sm + L.i2se;
+  V* snm1 = sm + L.nm1;
   int* goff = (int*)(sm + L.goff);
-  float* swdb = sm + L.wdb;
-  float* sgs = sm + L.gs;
+  V* swdb = sm + L.wdb;
+  V* sgs = sm + L.gs;
   // The tables' k stride: the staged copy's, or the launch's in global
   // memory.
   const size_t tstride = TAB ? (size_t)TB : (size_t)a.TK * B;
-  const float* lcp = TAB ? sm + L.lc : a.lc;
-  const float* rdp = TAB ? sm + L.rd : a.rd;
-  const float* sqbp = TAB ? sm + L.sqb : a.sqb;
+  const V* lcp = TAB ? sm + L.lc : a.lc;
+  const V* rdp = TAB ? sm + L.rd : a.rd;
+  const V* sqbp = TAB ? sm + L.sqb : a.sqb;
   int ev = 0;
   auto stamp = [&]() {
     if (ST && tid == 0 && blockIdx.x == 0) a.stamps[ev] = global_ns();
@@ -322,20 +349,22 @@ wave_scan_kernel(const WaveArgs a0) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     goff[0] = 0;
     for (int w = 0; w < nw; ++w)
-      goff[w + 1] = goff[w] + T * W * row_stride(B - (w + 1) * W);
+      goff[w + 1] = goff[w] + T * W * row_stride<V>(B - (w + 1) * W);
   }
   __syncthreads();
+  // n: the piece's length in 4-byte words (a value of V is vw of them).
+  constexpr int vw = sizeof(V) / 4;
   struct Piece {
     void* dst;
     const void* src;
     int n;
   };
   const Piece state[] = {
-      {sc, a.c, TB},           {sbeta, a.beta_old, TB},
-      {sacum, a.acum_old, TB}, {su, a.u, TB},
-      {sz, a.z, TB},           {scomp, a.comp_old, TB},
-      {slive, a.live, TB},     {szerob, a.zerob, TB},
-      {smsig, a.msig, a.msig ? TB : 0}};
+      {sc, a.c, vw * TB},           {sbeta, a.beta_old, vw * TB},
+      {sacum, a.acum_old, vw * TB}, {su, a.u, vw * TB},
+      {sz, a.z, vw * TB},           {scomp, a.comp_old, TB},
+      {slive, a.live, TB},          {szerob, a.zerob, TB},
+      {smsig, a.msig, a.msig ? vw * TB : 0}};
   constexpr int NSTATE_OPS = sizeof(state) / sizeof(state[0]);
   // Each table is one copy of its K planes when the CTA has every trait,
   // a copy a plane when its traits are a slice of each plane.
@@ -345,9 +374,9 @@ wave_scan_kernel(const WaveArgs a0) {
   auto piece = [&](int k) -> Piece {
     if (k < NSTATE_OPS) return state[k];
     const int q = (k - NSTATE_OPS) / tp, p = (k - NSTATE_OPS) % tp;
-    const float* tab = q == 0 ? a.lc : q == 1 ? a.rd : a.sqb;
+    const V* tab = q == 0 ? a.lc : q == 1 ? a.rd : a.sqb;
     return {sm + L.lc + q * ktb + p * TB, tab + (size_t)p * a.TK * B,
-            tp == 1 ? K * TB : TB};
+            vw * (tp == 1 ? K * TB : TB)};
   };
   if (vec && tid == 0) {
     uint32_t bytes = 0;
@@ -369,26 +398,26 @@ wave_scan_kernel(const WaveArgs a0) {
   const bool bg_fold = draw_warps < NWARPS;
   const int tid0 = bg_fold ? 32 * draw_warps : 0;
   if (vec && tid == tid0 && a.gsw > 0) {
-    bar_arrive_tx(bars + 1, 4u * TW * (B - W));
+    bar_arrive_tx(bars + 1, (uint32_t)sizeof(V) * TW * (B - W));
     if (a.gsw > 1)
-      bar_arrive_tx(bars + 2,
-                    4u * T * (gs_wave_offset(B, W, a.gsw) - W * (B - W)));
+      bar_arrive_tx(bars + 2, (uint32_t)sizeof(V) * T *
+                                  (gs_wave_offset(B, W, a.gsw) - W * (B - W)));
   }
   if (vec && tid >= tid0) {
     // Row r = t W + j of wave w.
     for (int x = tid - tid0; x < TW * a.gsw; x += THREADS - tid0) {
       const int w = x / TW, r = x % TW;
       const int t = r / W, j = r % W, rest = B - (w + 1) * W;
-      bulk_copy(sgs + goff[w] + r * row_stride(rest),
+      bulk_copy(sgs + goff[w] + r * row_stride<V>(rest),
                 a.gs + ((size_t)t * B + w * W + j) * B + (w + 1) * W,
-                4u * rest, bars + (w == 0 ? 1 : 2));
+                (uint32_t)sizeof(V) * rest, bars + (w == 0 ? 1 : 2));
     }
   }
   for (int t = tid; t < T; t += THREADS) {
     si2se[t] = a.i2se[t];
-    snm1[t] = a.nm1 != nullptr ? a.nm1[t] : 0.0f;
+    snm1[t] = a.nm1 != nullptr ? a.nm1[t] : V(0);
   }
-  for (int x = tid; x < TB; x += THREADS) scorr[x] = 0.0f;
+  for (int x = tid; x < TB; x += THREADS) scorr[x] = V(0);
   if (vec)
     bar_wait(bars);
   else
@@ -397,7 +426,7 @@ wave_scan_kernel(const WaveArgs a0) {
   stamp();
   if (!vec && tid >= tid0) {
     for (int w = 0; w < a.gsw; ++w) {
-      stage_gs_wave(sgs + goff[w], a.gs, T, B, W, w, tid0);
+      stage_gs_wave<V>(sgs + goff[w], a.gs, T, B, W, w, tid0);
       if (w == 0) cp_async_commit();
     }
     cp_async_commit();
@@ -411,11 +440,11 @@ wave_scan_kernel(const WaveArgs a0) {
   // power of two up to 8 that keeps the fold to one pass.  Whole warps run
   // the loop, so every shuffle has all its lanes.
   auto fold = [&](int w, int i0, int i1, int warp0, int nthr) {
-    const int rs = row_stride(B - (w + 1) * W);
+    const int rs = row_stride<V>(B - (w + 1) * W);
     const int cols = i1 - i0;
-    const float* sw = swdb + (w & 1) * TW;
+    const V* sw = swdb + (w & 1) * TW;
     const bool staged = w < a.gsw;
-    const float* gw = sgs + goff[w];
+    const V* gw = sgs + goff[w];
     int ls = 0;                                 // split = 1 << ls
     while (ls < 3 && T * cols * (2 << ls) <= nthr) ++ls;
     const int split = 1 << ls;
@@ -425,16 +454,16 @@ wave_scan_kernel(const WaveArgs a0) {
       const int x = x0 + lane;
       const int o = x >> ls, h = x & (split - 1);
       const int t = o / cols, i = i0 + o - t * cols;
-      float s = 0.0f;
+      V s = V(0);
       if (x < n) {
         // Lane h of an output takes the terms j = h, h + split, ...
-        const float* dw = sw + t * W;
+        const V* dw = sw + t * W;
         if (staged) {
-          const float* g = gw + (size_t)t * W * rs + i;
+          const V* g = gw + (size_t)t * W * rs + i;
 #pragma unroll 4
           for (int j = h; j < W; j += split) s += dw[j] * g[j * rs];
         } else {
-          const float* g =
+          const V* g =
               a.gs + ((size_t)t * B + w * W) * B + (w + 1) * W + i;
 #pragma unroll 4
           for (int j = h; j < W; j += split)
@@ -452,31 +481,30 @@ wave_scan_kernel(const WaveArgs a0) {
 #pragma unroll 1
   for (int w = 0; w < nw; ++w) {
     const int w0 = w * W;
-    float* sw = swdb + (w & 1) * TW;     // this wave's dbeta, (T, W)
+    V* sw = swdb + (w & 1) * TW;         // this wave's dbeta, (T, W)
     int moved = 0;
 #pragma unroll 1
     for (int x = tid; x < TW; x += THREADS) {
       const int t = x / W;
       const int o = t * B + w0 + x % W;
       // base = c + beta_old * (nonas - 1), rounded as the plain expression.
-      const float base =
-          has_nm1 ? __fadd_rn(sc[o], __fmul_rn(sbeta[o], snm1[t]))
-                  : sc[o];
-      const float num = __fadd_rn(base, scorr[o]);
-      const GmrmDraw dr = gmrm_wave_draw<MK>(num, si2se[t], lcp + o, rdp + o,
-                                             sqbp + o, tstride, K, su[o],
-                                             sz[o]);
+      const V base =
+          has_nm1 ? add_rn(sc[o], mul_rn(sbeta[o], snm1[t])) : sc[o];
+      const V num = add_rn(base, scorr[o]);
+      const GmrmDrawT<V> dr = gmrm_wave_draw<MK>(
+          num, si2se[t], lcp + o, rdp + o, sqbp + o, tstride, K, su[o],
+          sz[o]);
       const bool lv = slive[o] != 0;
       const bool zb = szerob[o] != 0;
-      const float bo = sbeta[o];
-      const float db = lv ? __fsub_rn(bo, dr.samp) : 0.0f;
+      const V bo = sbeta[o];
+      const V db = lv ? sub_rn(bo, dr.samp) : V(0);
       a.dbeta[o] = db;
-      if (a.d != nullptr) a.d[o] = __fmul_rn(smsig[o], db);
-      a.beta_new[o] = lv ? dr.samp : (zb ? 0.0f : bo);
+      if (a.d != nullptr) a.d[o] = mul_rn(smsig[o], db);
+      a.beta_new[o] = lv ? dr.samp : (zb ? V(0) : bo);
       a.comp_new[o] = lv ? dr.comp : scomp[o];
-      a.acum_new[o] = lv ? dr.acum : (zb ? 1.0f : sacum[o]);
+      a.acum_new[o] = lv ? dr.acum : (zb ? V(1) : sacum[o]);
       sw[x] = db;
-      moved |= (db != 0.0f);
+      moved |= (db != V(0));
     }
     // Meanwhile the warps that draw nothing fold the wave before into the
     // waves after this one.
@@ -507,33 +535,92 @@ wave_scan_kernel(const WaveArgs a0) {
   cp_async_wait<0>();
 }
 
-template <int MK, bool TAB, bool ST>
-int launch_kernel(const WaveArgs& a, size_t smem, cudaStream_t s) {
+template <typename V, int MK, bool TAB, bool ST>
+int launch_kernel(const WaveArgs<V>& a, size_t smem, cudaStream_t s) {
   // The attribute is set once per device, to the most a CTA can have.
   static bool raised[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64 || !raised[dev]) {
-    err = cudaFuncSetAttribute(wave_scan_kernel<MK, TAB, ST>,
+    err = cudaFuncSetAttribute(wave_scan_kernel<V, MK, TAB, ST>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_CAP);
     if (err != cudaSuccess) return (int)err;
     if (dev >= 0 && dev < 64) raised[dev] = true;
   }
-  wave_scan_kernel<MK, TAB, ST><<<(a.T + a.TG - 1) / a.TG, THREADS, smem,
-                                  s>>>(a);
+  wave_scan_kernel<V, MK, TAB, ST><<<(a.T + a.TG - 1) / a.TG, THREADS,
+                                     smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int MK>
-int launch(const WaveArgs& a, size_t smem, cudaStream_t s) {
+template <typename V, int MK>
+int launch(const WaveArgs<V>& a, size_t smem, cudaStream_t s) {
   const bool st = a.stamps != nullptr;
   if (a.tab)
-    return st ? launch_kernel<MK, true, true>(a, smem, s)
-              : launch_kernel<MK, true, false>(a, smem, s);
-  return st ? launch_kernel<MK, false, true>(a, smem, s)
-            : launch_kernel<MK, false, false>(a, smem, s);
+    return st ? launch_kernel<V, MK, true, true>(a, smem, s)
+              : launch_kernel<V, MK, true, false>(a, smem, s);
+  return st ? launch_kernel<V, MK, false, true>(a, smem, s)
+            : launch_kernel<V, MK, false, false>(a, smem, s);
+}
+
+template <typename V>
+int run(const void* c, const void* nm1, const void* lc, const void* rd,
+        const void* sqb, const void* gs, const void* beta_old,
+        const void* comp_old, const void* acum_old, const void* u,
+        const void* z, const void* live, const void* zerob, const void* msig,
+        const void* i2se, void* dbeta, void* d, void* beta_new,
+        void* comp_new, void* acum_new, void* stamps, int b, int bc, int bg,
+        int T, int B, int K, int W, int tab, int gsw, int TG, void* stream) {
+  if (K < 1 || K > GMRM_MAX_K || T < 1 || B < 1 || W < 1 || B % W != 0 ||
+      b < 0 || bc < 0 || bg < 0 || tab < 0 || tab > 1 || gsw < 0 ||
+      gsw > B / W || (msig == nullptr) != (d == nullptr) || TG < 1 ||
+      TG > T || (T + TG - 1) / TG > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t tb = (size_t)b * T * B, ktb = (size_t)b * K * T * B;
+  WaveArgs<V> a;
+  a.c = (const V*)c + (size_t)bc * T * B;
+  a.nm1 = (const V*)nm1;
+  a.lc = (const V*)lc + ktb;
+  a.rd = (const V*)rd + ktb;
+  a.sqb = (const V*)sqb + ktb;
+  a.gs = (const V*)gs + (size_t)bg * T * B * B;
+  a.beta_old = (const V*)beta_old + tb;
+  a.comp_old = (const int*)comp_old + tb;
+  a.acum_old = (const V*)acum_old + tb;
+  a.u = (const V*)u + tb;
+  a.z = (const V*)z + tb;
+  a.live = (const int*)live + tb;
+  a.zerob = (const int*)zerob + tb;
+  a.msig = msig ? (const V*)msig + tb : nullptr;
+  a.i2se = (const V*)i2se;
+  a.dbeta = (V*)dbeta + tb;
+  a.d = d ? (V*)d + tb : nullptr;
+  a.beta_new = (V*)beta_new + tb;
+  a.comp_new = (int*)comp_new + tb;
+  a.acum_new = (V*)acum_new + tb;
+  a.stamps = (unsigned long long*)stamps;
+  a.T = T;
+  a.B = B;
+  a.K = K;
+  a.W = W;
+  a.tab = tab;
+  a.gsw = gsw;
+  a.TK = T;
+  a.TG = TG;
+  const void* ptrs[] = {a.c,    a.lc,       a.rd,       a.sqb, a.gs,
+                        a.beta_old, a.comp_old, a.acum_old, a.u, a.z,
+                        a.live, a.zerob,    a.msig};
+  int vec = B % 4 == 0 && W % 4 == 0;
+  for (const void* p : ptrs) vec &= ((uintptr_t)p % 16 == 0);
+  a.vec = vec;
+  const size_t smem =
+      sizeof(V) * (size_t)make_layout<V>(TG, B, K, W, tab, gsw).words;
+  if (smem > (size_t)SMEM_CAP) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K <= 4) return launch<V, 4>(a, smem, s);
+  if (K <= 8) return launch<V, 8>(a, smem, s);
+  return launch<V, 16>(a, smem, s);
 }
 
 }  // namespace
@@ -555,52 +642,24 @@ extern "C" int gmrm_wave_scan(
     void* dbeta, void* d, void* beta_new, void* comp_new, void* acum_new,
     void* stamps, int b, int bc, int bg, int T, int B, int K, int W, int tab,
     int gsw, int TG, void* stream) {
-  if (K < 1 || K > GMRM_MAX_K || T < 1 || B < 1 || W < 1 || B % W != 0 ||
-      b < 0 || bc < 0 || bg < 0 || tab < 0 || tab > 1 || gsw < 0 ||
-      gsw > B / W || (msig == nullptr) != (d == nullptr) || TG < 1 ||
-      TG > T || (T + TG - 1) / TG > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t tb = (size_t)b * T * B, ktb = (size_t)b * K * T * B;
-  WaveArgs a;
-  a.c = (const float*)c + (size_t)bc * T * B;
-  a.nm1 = (const float*)nm1;
-  a.lc = (const float*)lc + ktb;
-  a.rd = (const float*)rd + ktb;
-  a.sqb = (const float*)sqb + ktb;
-  a.gs = (const float*)gs + (size_t)bg * T * B * B;
-  a.beta_old = (const float*)beta_old + tb;
-  a.comp_old = (const int*)comp_old + tb;
-  a.acum_old = (const float*)acum_old + tb;
-  a.u = (const float*)u + tb;
-  a.z = (const float*)z + tb;
-  a.live = (const int*)live + tb;
-  a.zerob = (const int*)zerob + tb;
-  a.msig = msig ? (const float*)msig + tb : nullptr;
-  a.i2se = (const float*)i2se;
-  a.dbeta = (float*)dbeta + tb;
-  a.d = d ? (float*)d + tb : nullptr;
-  a.beta_new = (float*)beta_new + tb;
-  a.comp_new = (int*)comp_new + tb;
-  a.acum_new = (float*)acum_new + tb;
-  a.stamps = (unsigned long long*)stamps;
-  a.T = T;
-  a.B = B;
-  a.K = K;
-  a.W = W;
-  a.tab = tab;
-  a.gsw = gsw;
-  a.TK = T;
-  a.TG = TG;
-  const void* ptrs[] = {a.c,    a.lc,       a.rd,       a.sqb, a.gs,
-                        a.beta_old, a.comp_old, a.acum_old, a.u, a.z,
-                        a.live, a.zerob,    a.msig};
-  int vec = B % 4 == 0 && W % 4 == 0;
-  for (const void* p : ptrs) vec &= ((uintptr_t)p % 16 == 0);
-  a.vec = vec;
-  const size_t smem = 4 * (size_t)make_layout(TG, B, K, W, tab, gsw).words;
-  if (smem > (size_t)SMEM_CAP) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (K <= 4) return launch<4>(a, smem, s);
-  if (K <= 8) return launch<8>(a, smem, s);
-  return launch<16>(a, smem, s);
+  return run<float>(c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u,
+                    z, live, zerob, msig, i2se, dbeta, d, beta_new, comp_new,
+                    acum_new, stamps, b, bc, bg, T, B, K, W, tab, gsw, TG,
+                    stream);
+}
+
+// The same in float64 (kernel E): every float array float64; tab, gsw
+// from ops/scan_kernel_wave.wave_plan at 8-byte values.
+extern "C" int gmrm_wave_scan_f64(
+    const void* c, const void* nm1, const void* lc, const void* rd,
+    const void* sqb, const void* gs, const void* beta_old,
+    const void* comp_old, const void* acum_old, const void* u, const void* z,
+    const void* live, const void* zerob, const void* msig, const void* i2se,
+    void* dbeta, void* d, void* beta_new, void* comp_new, void* acum_new,
+    void* stamps, int b, int bc, int bg, int T, int B, int K, int W, int tab,
+    int gsw, int TG, void* stream) {
+  return run<double>(c, nm1, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
+                     u, z, live, zerob, msig, i2se, dbeta, d, beta_new,
+                     comp_new, acum_new, stamps, b, bc, bg, T, B, K, W, tab,
+                     gsw, TG, stream);
 }

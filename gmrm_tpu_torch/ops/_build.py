@@ -98,7 +98,7 @@ SIGNATURES = {
     # gmrm_predict_sums' arguments, then stamps, stream: the stamped
     # launch, for measurement (not counted)
     "gmrm_predict_sums_probe": [_P] * 5 + [_I] * 2 + [_P, _P],
-    # The float64 kernels of the exact serial path (A-D).
+    # The float64 kernels of the exact serial path (A-D; E below).
     # bed, rows, na (float32), mave, msig, gs, stamps (or null), nb, T, B,
     # mb, nt, panels, stages, grid, stream
     "gmrm_block_gram_f64": [_P] * 7 + [_I] * 8 + [_P],
@@ -110,6 +110,10 @@ SIGNATURES = {
     # Kernel C: kernel 6's template at double (csrc/serial_scan.cu), with
     # gmrm_serial_scan's arguments and TG, the traits of a CTA, after NG.
     "gmrm_serial_scan_f64": [_P] * 21 + [_I] * 10 + [_P],
+    # Kernel E: kernel 3's template at double (csrc/wave_scan.cu), the
+    # float64 wave scan of a --dtype float64 --wave-size W run, with
+    # gmrm_wave_scan's arguments.
+    "gmrm_wave_scan_f64": [_P] * 21 + [_I] * 10 + [_P],
     # x, out (n, 4), n, stream: kernel C's float64 reciprocal and exp
     # beside the IEEE division and the library's exp, for chip_smoke.py's
     # check (not counted)
@@ -117,6 +121,11 @@ SIGNATURES = {
     # bed, na, y, keep (scratch), out, M, L, stream
     "gmrm_predict_sums_f64": [_P] * 5 + [_I] * 2 + [_P],
 }
+
+# The entry point suffix of each dtype a templated kernel takes (the value
+# type of its csrc template): the passes (B at float64) and the wave scan
+# (E at float64).
+SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 # Launches per kernel since the last reset_launch_counts().  A wrapper
 # adds one where it launches its kernel and nowhere else, so a run can
@@ -126,7 +135,8 @@ _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0,
              "predict_sums": 0, "block_gram_f64": 0, "block_cdot_f64": 0,
              "eps_update_f64": 0, "update_cdot_f64": 0,
-             "serial_scan_f64": 0, "predict_sums_f64": 0}
+             "serial_scan_f64": 0, "predict_sums_f64": 0,
+             "wave_scan_f64": 0}
 
 
 def launch_counts() -> dict:

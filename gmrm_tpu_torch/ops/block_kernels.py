@@ -52,9 +52,6 @@ SLICE_TARGET = 264   # slices that fill the H100's 132 SMs twice
 SLICE_MAX = 256      # byte columns a CTA at most
 SMEM_BYTES = 232448  # dynamic shared memory of one CTA on the H100
 UPDATE, CDOT = 1, 2  # pass bits (csrc UPDATE, CDOT); both: the fused pass
-# The entry point suffix of each dtype the passes take (the value type of
-# the csrc template).
-_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
 def block_cdot_plain(bed, rows, eps, mave, msig):
@@ -155,7 +152,7 @@ def _check_blocks(bed, rows, mave, msig, na, width=None):
     lead = tuple(mave.shape[:-2])
     dev = bed.device
     dtype = mave.dtype
-    if dtype not in _SUFFIX:
+    if dtype not in _build.SUFFIX:
         raise ValueError(f"mave has dtype {dtype}: the passes take float32 "
                          f"or float64")
     plan = pass_plan(width or T, B, bed.shape[1], mave.element_size())
@@ -198,22 +195,22 @@ NST = len(PASS_STAMPS)
 # address, and ``stamps`` a stamp buffer or None.
 def _launch_cdot(dtype, bed, rows, eps, mave, msig, c, scratch, T, B, mb, S,
                  stamps=None):
-    _build.launch("block_cdot" + _SUFFIX[dtype], bed, rows, eps, mave, msig,
-                  c, scratch, T, B, mb, S, stamps)
+    _build.launch("block_cdot" + _build.SUFFIX[dtype], bed, rows, eps,
+                  mave, msig, c, scratch, T, B, mb, S, stamps)
 
 
 def _launch_update(dtype, bed, rows, d, mave, na, eps, T, B, mb, S,
                    stamps=None):
-    _build.launch("eps_update" + _SUFFIX[dtype], bed, rows, d, mave, na, eps,
-                  T, B, mb, S, stamps)
+    _build.launch("eps_update" + _build.SUFFIX[dtype], bed, rows, d, mave,
+                  na, eps, T, B, mb, S, stamps)
 
 
 def _launch_update_cdot(dtype, bed, rows, rows_next, d, mave, mave_next,
                         msig_next, na, eps, c_next, scratch, T, B, mb, S,
                         stamps=None):
-    _build.launch("update_cdot" + _SUFFIX[dtype], bed, rows, rows_next, d,
-                  mave, mave_next, msig_next, na, eps, c_next, scratch, T, B,
-                  mb, S, stamps)
+    _build.launch("update_cdot" + _build.SUFFIX[dtype], bed, rows,
+                  rows_next, d, mave, mave_next, msig_next, na, eps, c_next,
+                  scratch, T, B, mb, S, stamps)
 
 
 def block_cdot(bed, rows, eps, mave, msig):

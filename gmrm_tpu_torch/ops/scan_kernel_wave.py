@@ -1,4 +1,5 @@
-"""The within-block scan in waves of W markers (kernel 3).
+"""The within-block scan in waves of W markers (kernel 3, and kernel E at
+float64).
 
 Port of ``make_block_scan_wave`` (gmrm_tpu/ops/scan_kernel_wave.py:196):
 the block's markers are drawn in B/W serial waves; markers of one wave
@@ -17,13 +18,17 @@ Two interfaces, one kernel (csrc/wave_scan.cu), as kernel 6 has:
   ``d = msig * dbeta``, the operand of the residual update (the composed
   W > 1 sweep, sampler/gibbs.py).
 
-CUDA tensors launch the kernel; CPU tensors run ``wave_scan_plain``.
-Limits on CUDA tensors: K <= 16 and W dividing B.  One CTA takes every
-trait while the block's state (10 T B words) fits in its shared memory
-(``wave_plan``: about T B <= 5,700); beyond that the launch is a grid of
-trait groups, TG traits a CTA (``launch_plan``), so any T runs while one
-trait's state fits.  Anything else of the wrong device, dtype, shape or
-layout raises ``ValueError``.
+Float32 operands launch kernel 3 (``gmrm_wave_scan``), float64 operands
+kernel E (``gmrm_wave_scan_f64``, the double instance of the same
+template: a ``--dtype float64 --wave-size W`` run scans in double, where
+the JAX package's wave kernel narrows to float32).  CUDA tensors launch
+the kernel; CPU tensors run ``wave_scan_plain`` at either dtype.  Limits
+on CUDA tensors: K <= 16 and W dividing B.  One CTA takes every trait
+while the block's state (10 T B values) fits in its shared memory
+(``wave_plan``: about T B <= 5,700 at float32, 2,850 at float64); beyond
+that the launch is a grid of trait groups, TG traits a CTA
+(``launch_plan``), so any T runs while one trait's state fits.  Anything
+else of the wrong device, dtype, shape or layout raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,37 +49,44 @@ def _al4(x: int) -> int:
     return (x + 3) & ~3
 
 
-def row_stride(rest: int) -> int:
-    """A packed Gram row's stride in shared memory (csrc): ``rest`` floats
-    padded to 8 words past a multiple of 32."""
+def row_stride(rest: int, es: int = 4) -> int:
+    """A packed Gram row's stride in shared memory (csrc), in values of es
+    bytes: ``rest`` floats padded to 8 past a multiple of 32, ``rest``
+    doubles to 2 past a multiple of 16.  The fold's lanes read up to 8
+    rows at neighbouring columns; a double takes two banks and a warp's
+    8-byte loads go by half-warps, so at float64 the 8 rows of 2 columns
+    of a half-warp fall on 16 distinct bank pairs."""
+    if es == 8:
+        return rest + (18 - rest % 16) % 16
     return rest + (40 - rest % 32) % 32
 
 
-def _layout_words(T, B, K, W, tab, gsw) -> int:
-    """Shared memory words of csrc/wave_scan.cu make_layout: the mbarriers,
-    the state, i2se and nm1, two waves' dbeta, the waves' offsets, the
-    tables, the packed rows."""
-    rows = sum(W * row_stride(B - (v + 1) * W) for v in range(gsw))
+def _layout_words(T, B, K, W, tab, gsw, es=4) -> int:
+    """Shared memory of csrc/wave_scan.cu make_layout in values of es bytes
+    (4: float, 8: double): the mbarriers, the state, i2se and nm1, two
+    waves' dbeta, the waves' offsets, the tables, the packed rows."""
+    rows = sum(W * row_stride(B - (v + 1) * W, es) for v in range(gsw))
     return (_al4(2 * NBAR) + NSTATE * _al4(T * B) + 2 * _al4(T)
             + _al4(2 * T * W) + _al4(B // W + 1) + 3 * tab * _al4(K * T * B)
             + _al4(T * rows))
 
 
-def wave_plan(T: int, B: int, K: int, W: int):
-    """(tab, gsw) of the kernel's shared memory, or None when the block's
-    state does not fit: tab 1 stages the per-marker tables, and the packed
-    Gram rows of waves 0 .. gsw - 1 are staged (in wave order, as many as
-    fit beside the rest); the later waves' rows are read from global
-    memory.  The last wave has no rows to fold."""
+def wave_plan(T: int, B: int, K: int, W: int, es: int = 4):
+    """(tab, gsw) of the kernel's shared memory at values of es bytes, or
+    None when the block's state does not fit: tab 1 stages the per-marker
+    tables, and the packed Gram rows of waves 0 .. gsw - 1 are staged (in
+    wave order, as many as fit beside the rest); the later waves' rows are
+    read from global memory, where the Gram sits in L2.  The last wave has
+    no rows to fold."""
     if B % W:
         raise ValueError(f"wave {W} must divide B={B}")
-    cap = SMEM_BYTES // 4
-    if _layout_words(T, B, K, W, 0, 0) > cap:
+    cap = SMEM_BYTES // es
+    if _layout_words(T, B, K, W, 0, 0, es) > cap:
         return None
-    tab = int(_layout_words(T, B, K, W, 1, 0) <= cap)
+    tab = int(_layout_words(T, B, K, W, 1, 0, es) <= cap)
     gsw = 0
     while (gsw < B // W - 1
-           and _layout_words(T, B, K, W, tab, gsw + 1) <= cap):
+           and _layout_words(T, B, K, W, tab, gsw + 1, es) <= cap):
         gsw += 1
     return tab, gsw
 
@@ -96,27 +108,29 @@ def _plan_or_raise(T, B, K, W):
     return plan
 
 
-def launch_plan(T, B, K, W):
-    """(tab, gsw, TG) of a launch at T traits: one CTA of all of them (TG =
-    T) where ``wave_plan`` holds them, else a grid of trait groups, TG the
-    width of the most even split of T into groups of at most the most
-    traits it holds; the plan is that of a CTA of TG traits."""
+def launch_plan(T, B, K, W, es=4):
+    """(tab, gsw, TG) of a launch at T traits and es-byte values: one CTA
+    of all of them (TG = T) where ``wave_plan`` holds them, else a grid of
+    trait groups, TG the width of the most even split of T into groups of
+    at most the most traits it holds; the plan is that of a CTA of TG
+    traits."""
     if K > MAX_K:
         raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
-    plan = wave_plan(T, B, K, W)
+    plan = wave_plan(T, B, K, W, es)
     if plan is not None:
         return (*plan, T)
-    cap = most_that_fit(T, lambda t: wave_plan(t, B, K, W) is not None)
+    cap = most_that_fit(T, lambda t: wave_plan(t, B, K, W, es) is not None)
     if cap == 0:
         raise ValueError(f"B={B}: one trait's block state exceeds the wave "
                          f"scan's shared memory")
     TG = even_width(T, cap)
-    return (*wave_plan(TG, B, K, W), TG)
+    return (*wave_plan(TG, B, K, W, es), TG)
 
 
 def wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
                     u, z, live, zerob, i2se, wave):
-    """Plain PyTorch version of kernel 3, operation for operation.
+    """Plain PyTorch version of kernels 3 and E, operation for operation,
+    in the dtype of the operands.
 
     Each add and product is rounded on its own, and the sums over K run in
     index order, as in the kernel, so only the fold's sum order differs.
@@ -180,66 +194,71 @@ def wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,
 
 def wave_scan(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old, u, z,
               live, zerob, i2se, *, wave):
-    """Kernel 3 on one block (the sweep interface's nb = 1 case, with base
-    given and no d).
+    """Kernel 3 (kernel E on float64 operands) on one block (the sweep
+    interface's nb = 1 case, with base given and no d).
 
     base/beta_old/acum_old/u/z (T, B) float32; lc/rd/sqb (K, T, B) float32
     per-marker tables; gs (T, B, B) float32 scaled Gram in processing
     order; comp_old/live/zerob (T, B) int32; i2se (T,) = 1/(2 sigmaE).
-    Returns (dbeta, beta_new, comp_new, acum_new), each (T, B).
+    Every float operand float64 at float64.  Returns (dbeta, beta_new,
+    comp_new, acum_new), each (T, B).
     """
     if base.device.type == "cpu":
         return wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old,
                                acum_old, u, z, live, zerob, i2se, wave)
     T, B = base.shape
     K = lc.shape[0]
-    plan = launch_plan(T, B, K, wave)
+    dty, i32 = base.dtype, torch.int32
+    if dty not in _build.SUFFIX:
+        raise ValueError(f"base has dtype {dty}: the wave scan takes "
+                         f"float32 or float64")
+    plan = launch_plan(T, B, K, wave, base.element_size())
     dev = base.device
-    f32, i32 = torch.float32, torch.int32
     for name, x in (("base", base), ("beta_old", beta_old),
                     ("acum_old", acum_old), ("u", u), ("z", z)):
-        _build.check(x, name, f32, (T, B), dev)
+        _build.check(x, name, dty, (T, B), dev)
     for name, x in (("lc", lc), ("rd", rd), ("sqb", sqb)):
-        _build.check(x, name, f32, (K, T, B), dev)
+        _build.check(x, name, dty, (K, T, B), dev)
     for name, x in (("comp_old", comp_old), ("live", live),
                     ("zerob", zerob)):
         _build.check(x, name, i32, (T, B), dev)
-    _build.check(gs, "gs", f32, (T, B, B), dev)
-    _build.check(i2se, "i2se", f32, (T,), dev)
-    dbeta = torch.empty((T, B), dtype=f32, device=dev)
+    _build.check(gs, "gs", dty, (T, B, B), dev)
+    _build.check(i2se, "i2se", dty, (T,), dev)
+    dbeta = torch.empty((T, B), dtype=dty, device=dev)
     beta_new = torch.empty_like(dbeta)
     acum_new = torch.empty_like(dbeta)
     comp_new = torch.empty((T, B), dtype=i32, device=dev)
-    _build.launch("wave_scan", base, None, lc, rd, sqb, gs, beta_old,
-                  comp_old, acum_old, u, z, live, zerob, None, i2se, dbeta,
-                  None, beta_new, comp_new, acum_new, None, 0, 0, 0, T, B, K,
-                  wave, *plan)
+    _build.launch("wave_scan" + _build.SUFFIX[dty], base, None, lc, rd,
+                  sqb, gs, beta_old, comp_old, acum_old, u, z, live, zerob,
+                  None, i2se, dbeta, None, beta_new, comp_new, acum_new,
+                  None, 0, 0, 0, T, B, K, wave, *plan)
     return dbeta, beta_new, comp_new, acum_new
 
 
 class WaveScanSweep(ScanSweep):
-    """Kernel 3 over a sweep's blocks (``ScanSweep``): the operands as for
-    ``SerialScanSweep``, and the wave width.  On CUDA tensors ``step``
-    takes an optional stamp buffer (2 + 2 B/W,) int64 that the launch
-    fills (``wave_stamp_names``)."""
+    """Kernel 3 over a sweep's blocks (``ScanSweep``), kernel E on float64
+    operands: the operands as for ``SerialScanSweep``, and the wave width.
+    On CUDA tensors ``step`` takes an optional stamp buffer (2 + 2 B/W,)
+    int64 that the launch fills (``wave_stamp_names``)."""
 
     def __init__(self, *operands, wave):
         self.wave = wave
         super().__init__(*operands)
 
     def _plan(self, T, B, K):
-        if self.dtype != torch.float32:
+        if self.dtype not in _build.SUFFIX:
             raise ValueError(f"beta_p has dtype {self.dtype}: the wave scan "
-                             f"is float32 only (float64 runs at W=1)")
-        return launch_plan(T, B, K, self.wave)
+                             f"takes float32 or float64")
+        return launch_plan(T, B, K, self.wave, self.dtype.itemsize)
 
     def _plain(self, *args):
         return wave_scan_plain(*args, self.wave)
 
     def _launch(self, pc, pgs, b, bc, bg, stamps=None):
         nb, T, B, K = self.shape
-        _build.launch("wave_scan", pc, *self.head, pgs, *self.tail, stamps, b,
-                      bc, bg, T, B, K, self.wave, *self.plan)
+        _build.launch("wave_scan" + _build.SUFFIX[self.dtype], pc,
+                      *self.head, pgs, *self.tail, stamps, b, bc, bg, T, B,
+                      K, self.wave, *self.plan)
 
 
 def scan_masks(grp, valid, sigmag):

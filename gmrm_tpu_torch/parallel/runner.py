@@ -62,9 +62,9 @@ from gmrm_tpu_torch.parallel.distributed import (
 from gmrm_tpu_torch.parallel.mesh import marker_blocks
 from gmrm_tpu_torch.runner import (
     LANE_PAD, RunResult, _guard_resume_without_checkpoint,
-    check_finite_chain, initial_sigmag, interleave_order, open_outputs,
-    replicated_inputs, resolve_device, resume_missing_bet, round_up, run_dtype,
-    static_for_markers, stem,
+    check_finite_chain, gram_cached, initial_sigmag, interleave_order,
+    open_outputs, replicated_inputs, resolve_device, resume_missing_bet,
+    round_up, run_dtype, static_for_markers, stem,
 )
 from gmrm_tpu_torch.sampler.dists import RngPlan
 from gmrm_tpu_torch.sampler.gibbs import gibbs_iteration_sharded
@@ -180,15 +180,14 @@ def shard_caches(data: ProcessData, opt: Options
     shard layout."""
     if not opt.cache_dir:
         return [None] * len(data.local_ids)
-    wave_mode = opt.wave_size > 1
     shared_na = all(ph.nas == 0 for ph in data.phens)
     lay = data.layout
     return [StartupCache(opt.cache_dir, bed, opt.phen_files, dict(
         runner="sharded", n=data.n, m_total=data.m_total,
         n_shards=lay.n_shards, shard=i, marker_range=lay.blocks[i],
         m_pad_shard=lay.m_pad_shard, mb_pad=data.mb_pad,
-        block_size=opt.block_size, interleave=wave_mode,
-        shared_na=shared_na, gram=wave_mode, dtype=opt.dtype))
+        block_size=opt.block_size, interleave=opt.wave_size > 1,
+        shared_na=shared_na, gram=gram_cached(opt), dtype=opt.dtype))
         for i, bed in zip(data.local_ids, data.bed_local)]
 
 
@@ -196,7 +195,7 @@ def build_static_sharded(data: ProcessData, opt: Options, device,
                          caches: Optional[Sequence] = None
                          ) -> List[StaticInputs]:
     """Per local shard: its bed rows, marker statistics (pad rows zeroed)
-    and, in wave mode, its own Gram cache
+    and, in float32 wave mode, its own Gram cache
     (gmrm_tpu/parallel/runner.py:670-720), from its ``caches`` entry
     (:func:`shard_caches`) when that holds them.  The replicated inputs are
     one set of tensors shared by every shard's copy."""
@@ -421,8 +420,7 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
     _, m_pre = read_dim(opt.dim_file)
     if opt.trunc_markers:
         m_pre = min(m_pre, opt.trunc_markers)
-    resolve_plan(opt, dev.type, m_pre // n_shards, verbose=chatty,
-                 sharded=True)
+    resolve_plan(opt, dev.type, m_pre // n_shards, verbose=chatty)
     data = load_data_process(opt, n_shards, local_ids,
                              interleave=opt.wave_size > 1)
     if chatty:

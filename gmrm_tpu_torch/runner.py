@@ -9,8 +9,10 @@ iteration's sweep is one launch of the whole-sweep kernel
 arithmetic (sampler/whole_sweep.py); at W = 1 it is the per-block exact
 serial path.  Iterations are queued back to back; the host waits on the
 device only at thin boundaries, at checkpoints and at the end of the chain.
-``--dtype float64`` runs the W = 1 path with every float tensor of the
-chain in float64 (``run_dtype``) on the float64 kernels.
+``--dtype float64`` runs the chain with every float tensor in float64
+(``run_dtype``) on the float64 kernels: the W = 1 path, or with an
+explicit ``--wave-size`` W > 1 the composed wave path (storage
+interleaved, no Gram cache, a uniform shuffle, eager iterations).
 
 ``--checkpoint-every N`` saves the chain every N iterations
 (gmrm_tpu_torch/checkpoint.py) and ``--resume`` continues it from the
@@ -57,6 +59,13 @@ def round_up(x: int, m: int) -> int:
 def run_dtype(opt: Options) -> torch.dtype:
     """The chain's float dtype, from ``--dtype``."""
     return torch.float64 if opt.dtype == "float64" else torch.float32
+
+
+def gram_cached(opt: Options) -> bool:
+    """Whether the run keeps the one-time Gram cache: float32 wave mode
+    only (gmrm_tpu/runner.py:223-225); a float64 run recomputes each
+    block's Gram in the sweep at any wave."""
+    return opt.wave_size > 1 and opt.dtype == "float32"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -191,7 +200,8 @@ def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
                        ) -> StaticInputs:
     """The static inputs of one device's, or one shard's, markers: bed
     (m_pad, mb_pad) with ``m_local`` real rows, their statistics and, in
-    wave mode, their Gram cache; ``rep`` from :func:`replicated_inputs`.
+    float32 wave mode (:func:`gram_cached`), their Gram cache; ``rep``
+    from :func:`replicated_inputs`.
     With ``cache``, the statistics and the Gram cache come from its entry
     when it has one, and are saved to it when they are built."""
     bed = torch.as_tensor(bed, device=device)
@@ -205,7 +215,7 @@ def static_for_markers(bed: np.ndarray, group_of: np.ndarray, m_local: int,
         mave = torch.where(valid, mave, 0.0).contiguous()
         msig = torch.where(valid, msig, 0.0).contiguous()
         gram_cache = None
-        if opt.wave_size > 1:
+        if gram_cached(opt):
             gram_cache = build_gram_cache(bed, rep["na"],
                                           block_size=opt.block_size,
                                           shared_na=shared_na)
@@ -224,19 +234,19 @@ def startup_cache(data: LoadedData, opt: Options) -> Optional[StartupCache]:
     dtype of the statistics included."""
     if not opt.cache_dir:
         return None
-    wave_mode = opt.wave_size > 1
     return StartupCache(opt.cache_dir, data.bed, opt.phen_files, dict(
         runner="one device", n=data.n, m_total=data.m_total,
         m_pad=data.m_pad, mb_pad=data.mb_pad, block_size=opt.block_size,
-        interleave=wave_mode, shared_na=shared_na_of(data),
-        gram=wave_mode, dtype=opt.dtype))
+        interleave=opt.wave_size > 1, shared_na=shared_na_of(data),
+        gram=gram_cached(opt), dtype=opt.dtype))
 
 
 def build_static(data: LoadedData, opt: Options, device,
                  cache: Optional[StartupCache] = None) -> StaticInputs:
-    """Marker statistics, and in wave mode the one-time Gram cache, from
-    ``cache`` (:func:`startup_cache`) when it holds them; W = 1 recomputes
-    each block's Gram in the sweep (gmrm_tpu/runner.py:223-225)."""
+    """Marker statistics, and in float32 wave mode the one-time Gram cache,
+    from ``cache`` (:func:`startup_cache`) when it holds them; W = 1 and
+    float64 recompute each block's Gram in the sweep
+    (gmrm_tpu/runner.py:223-225)."""
     rep = replicated_inputs(data.na, data.nonas, data.mtotgrp, data.n, opt,
                             device)
     return static_for_markers(data.bed, data.group_of, data.m_local, rep,
@@ -399,11 +409,12 @@ def _host_record(state: SamplerState, data: LoadedData) -> dict:
 
 def iteration_step(state: SamplerState, static: StaticInputs, rng: RngPlan,
                    opt: Options):
-    """One iteration of the chain as ``step(it) -> (state, aux)``: in wave
-    mode the whole-sweep iteration with its host work in two CUDA graphs
-    (sampler/whole_sweep.py; eager on the CPU), which updates ``state`` in
-    place; at W = 1 ``gibbs_iteration``."""
-    if opt.wave_size > 1:
+    """One iteration of the chain as ``step(it) -> (state, aux)``: in
+    float32 wave mode the whole-sweep iteration with its host work in two
+    CUDA graphs (sampler/whole_sweep.py; eager on the CPU), which updates
+    ``state`` in place; at W = 1, and at float64 at any wave (no Gram
+    cache, so no whole-sweep kernel), ``gibbs_iteration``."""
+    if gram_cached(opt):
         return WholeSweepIteration(state, static, rng,
                                    block_size=opt.block_size,
                                    wave=opt.wave_size,

@@ -10,12 +10,13 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
    - W > 1, the default (gibbs.py:184-239): the whole sweep in one launch
      of the sweep kernel (ops/sweep_kernel.sweep_blocks), from
      natural-order operands and group-level tables;
-   - W > 1 with ``megakernel=False``, the composed path
-     (gibbs.py:353-400, ``use_cache``) and W = 1, the exact serial path,
-     at one cadence: the scaled Grams of a run of blocks first (they do
-     not depend on the residual; at W > 1 the cached raw Grams gathered to
-     processing order and scaled in plain PyTorch, at W = 1 the
-     block-Gram kernel, one launch per run), then the c-dot kernel of
+   - W > 1 with ``megakernel=False`` or without a Gram cache (float64),
+     the composed path (gibbs.py:353-400), and W = 1, the exact serial
+     path, at one cadence: the scaled Grams of a run of blocks first (they
+     do not depend on the residual; with a Gram cache, float32 W > 1, the
+     cached raw Grams gathered to processing order and scaled in plain
+     PyTorch, else the block-Gram kernel, one launch per run), then the
+     c-dot kernel of
      block 0 and per block the scan kernel (wave scan or serial scan) on
      the sweep's arrays and a block index and one launch of the residual
      update fused with the next block's c-dot (the update alone after the
@@ -27,7 +28,8 @@ Structure, as in the reference outer loop (bayes.cpp:340-671):
      a block step of all local shards is one launch of the sharded
      block-step kernel (ops/sweep_kernel.ShardedBlockSweep), which sums
      the shards' deltas itself and, with no process group, adds the sum
-     into the residual; at W = 1, or with ``megakernel=False``, each shard
+     into the residual; at W = 1, at float64, or with
+     ``megakernel=False``, each shard
      runs the composed kernels with the update added into a zeroed delta
      instead of into the residual,
 4. the hyperparameter block (gibbs.py:529-568); on a sharded run the
@@ -39,11 +41,15 @@ as device-side row indices, so a chain of iterations is queued without a
 host sync.
 
 The run's dtype is the residual's (``eps``): float32, or float64 on a
-``--dtype float64`` run, which plans W = 1.  At float64 the draws of the
-intercept and the sweep (u, z) are float64, as the JAX package draws them
-in the run's dtype (gibbs.py:514-515), and the W = 1 path's kernels take
-their float64 routes (kernels A-C: ops/block_gram, ops/block_kernels,
-ops/scan_kernel).
+``--dtype float64`` run, which plans W = 1 unless ``--wave-size`` names
+W > 1.  At float64 the draws of the intercept and the sweep (u, z) are
+float64, as the JAX package draws them in the run's dtype
+(gibbs.py:514-515), and the composed path's kernels take their float64
+routes (kernels A, B and, at W = 1, C: ops/block_gram, ops/block_kernels,
+ops/scan_kernel; at W > 1, E: ops/scan_kernel_wave).  A float64 run has
+no Gram cache and shuffles uniformly at any wave, as the JAX package's
+(gibbs.py:489-491, runner.py:223-225), so its W > 1 sweep is the
+composed path with the blocks' Grams from kernel A.
 """
 
 from __future__ import annotations
@@ -111,18 +117,19 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
     """The full marker sweep with all randomness injected.
 
     blocks (nblocks, B) the processing order, as in the JAX package: slot
-    k of the sweep holds marker ``blocks.reshape(-1)[k]``.  With wave > 1
-    every row must lie in one natural block (the block-preserving
-    shuffle), whose Gram comes from ``static.gram_cache``; at wave = 1 any
-    permutation goes.  u_all/z_all (nblocks, T, B) uniforms and standard
+    k of the sweep holds marker ``blocks.reshape(-1)[k]``.  With a Gram
+    cache (float32 wave > 1) every row must lie in one natural block (the
+    block-preserving shuffle), whose Gram comes from
+    ``static.gram_cache``; without one (wave = 1, float64) any permutation
+    goes.  u_all/z_all (nblocks, T, B) uniforms and standard
     normals.  ``eps`` is updated IN PLACE (the residual-update kernel adds
     each block's delta into it).  Returns (eps, betas, comp, acum, cass).
 
     ``megakernel``, as in the JAX package (gibbs.py:73, :184-200): None
     takes the whole-sweep kernel whenever wave > 1 and there is a Gram
-    cache, which is every wave-mode run of the port; False takes the
-    composed per-block path; True raises where the whole-sweep kernel
-    cannot run.
+    cache, which is every float32 wave-mode run of the port; False
+    takes the composed per-block path, as a float64 run always does; True
+    raises where the whole-sweep kernel cannot run.
     """
     nblocks, B = blocks.shape
     K = static.cva.shape[1]
@@ -173,14 +180,15 @@ def marker_sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est,
 class _ComposedSweep:
     """One sweep of one shard on the composed per-block path, a block step
     at a time: the c-dot and residual-update kernels (2 and 4, fused per
-    step on one device, ``BlockPasses``) around the wave-scan kernel (3,
-    ``WaveScanSweep``) at wave > 1 or the serial-scan kernel (6,
-    ``SerialScanSweep``) at wave = 1.  The blocks' scaled Grams are made
-    ahead of the block loop, a run of ``gram_run_blocks`` blocks at a
-    time: at wave > 1 gathered from the cache and scaled in plain PyTorch
-    (``cached_grams_scaled``), at wave = 1 by kernel 5 (one launch per
-    run); the first run here, a further one when a step leaves the run it
-    has.
+    step on one device, ``BlockPasses``; B at float64) around the
+    wave-scan kernel (3, ``WaveScanSweep``; E at float64) at wave > 1 or
+    the serial-scan kernel (6, ``SerialScanSweep``; C at float64) at
+    wave = 1.  The blocks' scaled Grams are made ahead of the block loop,
+    a run of ``gram_run_blocks`` blocks at a time: with a Gram cache
+    (float32, wave > 1) gathered from it and scaled in plain PyTorch
+    (``cached_grams_scaled``), without one by kernel 5 (A at float64; one
+    launch per run) on the rows the order gives; the first run here, a
+    further one when a step leaves the run it has.
 
     Every per-marker operand is gathered to processing order once and
     split into contiguous (nblocks, ..., B) blocks; the scan writes the
@@ -216,10 +224,11 @@ class _ComposedSweep:
                     split(live), split(zerob), msig_p, i2se)
         self.passes = BlockPasses(static.bed, rows, mave_p, msig_p,
                                   static.na)
+        self.scan = (WaveScanSweep(*operands, wave=wave) if wave > 1
+                     else SerialScanSweep(*operands))
         # The Gram builders close over tensors only, not over self, so a
         # finished sweep is freed at once and not by the cycle collector.
-        if wave > 1:
-            self.scan = WaveScanSweep(*operands, wave=wave)
+        if wave > 1 and static.gram_cache is not None:
             blk = perm.reshape(nblocks, B)[:, 0] // B
             win = perm.reshape(nblocks, B) - blk[:, None] * B
             win2 = torch.cat([win, win + B], dim=1)         # (nblocks, 2B)
@@ -229,7 +238,6 @@ class _ComposedSweep:
                 return cached_grams_scaled(cache, blk[s], win2[s], mave_p[s],
                                            msig_p[s])
         else:
-            self.scan = SerialScanSweep(*operands)
             bed = static.bed
             # The raw Gram stage takes the 0/1 mask in float32 at any dtype.
             na_gram = (static.na[:1] if static.shared_na
@@ -317,15 +325,16 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
     zeros), and only then added into ``eps``, IN PLACE: the reference's
     per-marker MPI_Allgatherv (bayes.cpp:500-553) at block cadence.
 
-    wave > 1 takes kernel 9 (``ShardedBlockSweep``): one launch per block
-    step for all local shards, which also sums their deltas in shard
+    wave > 1 with a Gram cache on every shard (float32) takes kernel 9
+    (``ShardedBlockSweep``): one launch per block step for all local
+    shards, which also sums their deltas in shard
     order.  With no sum across processes to make (``comm.sums()`` False)
     the launch adds that sum into ``eps`` itself, and the host issues
     nothing else per block step; otherwise it writes the local sum, which
     ``comm.all_reduce_sum`` sums over processes before ``eps += sum``.
-    Both give the same bits.  wave = 1, and ``megakernel=False`` at any
-    wave, take the composed kernels with the update added into a zeroed
-    delta.  ``megakernel=True`` raises: the whole-sweep kernel holds the
+    Both give the same bits.  wave = 1, float64 (no Gram cache) and
+    ``megakernel=False`` at any wave take the composed kernels with the
+    update added into a zeroed delta.  ``megakernel=True`` raises: the whole-sweep kernel holds the
     residual for a whole sweep and cannot merge deltas per block.
 
     Returns (eps, [(betas, comp, acum)], cass), cass (T, G, K) summed over
@@ -338,8 +347,9 @@ def marker_sweep_sharded(eps, marker_states, sigmag, sigmae, pi_est, statics,
     nblocks, B = blocks[0].shape
     K = statics[0].cva.shape[1]
     dty = eps.dtype
-    fused = wave > 1 and megakernel is not False
-    if fused and (B % wave or any(s.gram_cache is None for s in statics)):
+    cached = [s.gram_cache is not None for s in statics]
+    fused = wave > 1 and megakernel is not False and any(cached)
+    if fused and (B % wave or not all(cached)):
         raise ValueError(f"the sharded wave sweep needs wave {wave} to "
                          f"divide B={B} and a Gram cache on every shard")
     tables = build_sweep_tables(sigmag, sigmae, pi_est, statics[0].cva,
@@ -465,19 +475,21 @@ def _hyper(betas, cass, eps, sigmag, pi_est, static, beta_sqn, chisq,
 
 
 def block_order(rng: RngPlan, it: int, nblocks: int, B: int, *,
-                shuffle: bool, wave: int, m_local: int):
+                shuffle: bool, block_mode: bool, m_local: int):
     """The sweep's processing order (nblocks, B) (gibbs.py:489-511).
 
-    wave > 1: the block-preserving shuffle, a random block order pi_b and
-    a random row order win within each block, slot order pi_b*B + win.
-    wave = 1: a uniform shuffle of the m_local real markers, pad slots
-    pinned to the end.  Without shuffle, the natural order.
+    ``block_mode`` (a wave > 1 sweep with a Gram cache, i.e. float32):
+    the block-preserving shuffle, a random block order pi_b and a random
+    row order win within each block, slot order pi_b*B + win.  Otherwise
+    (W = 1, or a float64 run, which has no Gram cache to keep blocks for):
+    a uniform shuffle of the m_local real markers, pad slots pinned to the
+    end.  Without shuffle, the natural order.
     """
     dev = rng.device
     m_pad = nblocks * B
     if not shuffle:
         return torch.arange(m_pad, device=dev).reshape(nblocks, B)
-    if wave > 1:
+    if block_mode:
         pi_b = torch.randperm(nblocks, generator=rng.gen(it, "block_order"),
                               device=dev)
         r = torch.rand((nblocks, B), generator=rng.gen(it, "row_order"),
@@ -517,7 +529,8 @@ def _sweep_draws(state, static, it, rng, block_size, wave, shuffle):
         raise ValueError("pad markers to a multiple of block_size")
     nblocks = m_pad // B
     dev = state.eps.device
-    blocks = block_order(rng, it, nblocks, B, shuffle=shuffle, wave=wave,
+    blocks = block_order(rng, it, nblocks, B, shuffle=shuffle,
+                         block_mode=wave > 1 and static.gram_cache is not None,
                          m_local=static.m_local)
     dtype = state.eps.dtype
     u_all = torch.rand((nblocks, T, B), generator=rng.gen(it, "u"),

@@ -2,8 +2,9 @@
 gmrm_tpu/sampler/scan.py, ops/scan_kernel.py:159 and
 ops/scan_kernel_wave.py:196).
 
-``block_scan`` is the exact serial recursion (W=1, kernel 6) and
-``block_scan_wave`` the wave relaxation (W>1, kernel 3).  Both take the
+``block_scan`` is the exact serial recursion (W=1, kernel 6; C at
+float64) and ``block_scan_wave`` the wave relaxation (W>1, kernel 3; E at
+float64).  Both take the
 arguments of the JAX package's ``block_scan`` and return the same
 ``BlockScanResult``.  The sweep (sampler/gibbs.py) runs the same prep once
 per sweep for every block and calls the kernels directly.
@@ -81,7 +82,9 @@ def block_scan_wave(c, gs, beta_old, comp_old, acum_old, grp, valid, u, z,
                     sigmag, sigmae, pi_est, cva, cvai, nonas, n_total, *,
                     wave) -> BlockScanResult:
     """Counterpart of ``make_block_scan_wave(wave)`` of the JAX package:
-    the wave relaxation over the block (kernel 3)."""
+    the wave relaxation over the block (kernel 3; kernel E at float64,
+    where the JAX kernel narrows to float32 and this scan stays float64,
+    by ``_scan``'s dtype rule)."""
     def kernel(*args):
         return wave_scan(*args, wave=wave)
     return _scan(kernel, c, gs, beta_old, comp_old, acum_old, grp, valid, u,

@@ -1,5 +1,5 @@
-"""The startup cache (``--cache-dir``): the marker statistics and, in wave
-mode, the Gram cache of a run's markers, kept on disk between runs of one
+"""The startup cache (``--cache-dir``): the marker statistics and, in
+float32 wave mode, the Gram cache of a run's markers, kept on disk between runs of one
 dataset and geometry (counterpart of the cache half of
 gmrm_tpu/runner.build_static, gmrm_tpu/runner.py:192-269, and of
 gmrm_tpu/parallel/runner.py:632-668).

@@ -38,7 +38,7 @@ from gmrm_tpu.sampler import gibbs as jgibbs
 from gmrm_tpu.sampler.scan import block_scan as jax_block_scan
 from gmrm_tpu_torch import checkpoint, cli
 from gmrm_tpu_torch import runner as trunner
-from gmrm_tpu_torch.config import Options, SliceNotCovered, resolve_plan
+from gmrm_tpu_torch.config import Options, resolve_plan
 from gmrm_tpu_torch.io.writers import read_history
 from gmrm_tpu_torch.ops.block_gram import (
     block_gram_scaled, blocks_gram_scaled, gram_run_blocks,
@@ -580,28 +580,32 @@ def _opt(sim, out, **kw):
     return Options(**base)
 
 
-def test_explicit_wave_at_f64_is_not_covered(sim_small, tmp_path):
-    """--dtype float64 plans W = 1 (auto); an explicit --wave-size 32 is
-    refused, naming the ROADMAP item and why, on one device and sharded;
-    --wave-size 1, and predict with any wave, pass."""
+def test_explicit_wave_at_f64_is_not_covered(sim_small, tmp_path, capsys):
+    """--dtype float64 plans W = 1 when no wave is named (the port's auto
+    plan at float64); an explicit --wave-size 32 is kept, on one device and
+    sharded, with the block guard's warning below 64 blocks; --wave-size 1
+    stays 1; and the command line trains float64 at --wave-size 32 (the
+    float64 wave path, tests/test_torch_float64_wave.py)."""
     opt = _opt(sim_small, str(tmp_path), block_size=64)
     resolve_plan(opt, "cpu", sim_small.m)
     assert opt.wave_size == 1
-    for sharded in (False, True):
+    for m_local in (sim_small.m, sim_small.m // 2):
         opt = _opt(sim_small, str(tmp_path), block_size=64, wave_size=32)
-        with pytest.raises(SliceNotCovered,
-                           match="float64 at W>1.*no float64 chain"):
-            resolve_plan(opt, "cpu", sim_small.m, sharded=sharded)
+        assert resolve_plan(opt, "cpu", m_local, verbose=True) < 64
+        assert opt.wave_size == 32 and not opt.wave_auto
+        assert "WARNING: only" in capsys.readouterr().out
     opt = _opt(sim_small, str(tmp_path), wave_size=1)
     resolve_plan(opt, "cuda", sim_small.m)
     assert opt.wave_size == 1
+    out = str(tmp_path / "cli")
     argv = ["--bed-file", sim_small.bed, "--dim-file", sim_small.dim,
             "--phen-files", ",".join(sim_small.phens), "--group-index-file",
             sim_small.gri, "--group-mixture-file", sim_small.grm,
             "--block-size", "32", "--wave-size", "32", "--dtype", "float64",
-            "--out-dir", str(tmp_path / "cli")]
-    with pytest.raises(SliceNotCovered, match="ROADMAP"):
-        cli.main(argv, device="cpu")
+            "--iterations", "2", "--verbosity", "-1", "--out-dir", out]
+    assert cli.main(argv, device="cpu") == 0
+    its, bet = read_history(os.path.join(out, "test1.bet"), "f8")
+    assert list(its) == [1, 2] and np.isfinite(bet).all()
 
 
 def _static_of(opt, cache_dir=""):

@@ -116,8 +116,8 @@ def test_cli_refuses_uncovered_options(sim_tiny, tmp_path, flags):
     float32 chain of the same seed; predict at float64 writes the
     .mlma), --resume, --checkpoint-every and --cache-dir, and the run
     writes its chain, checkpoint or startup cache, or resumes a chain from
-    one.  (--dtype float64 with an explicit --wave-size > 1 is refused:
-    tests/test_torch_float64.py.)"""
+    one.  (--dtype float64 with an explicit --wave-size > 1 trains the
+    float64 wave path: tests/test_torch_float64_wave.py.)"""
     out = str(tmp_path / "out")
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),

@@ -441,17 +441,17 @@ def test_uniform_shuffle_pins_pad_slots():
     wave order keeps every row inside one natural block."""
     plan = RngPlan(4, "cpu")
     nblocks, B, m_local = 5, 8, 37
-    blocks = block_order(plan, 2, nblocks, B, shuffle=True, wave=1,
-                         m_local=m_local).reshape(-1)
+    blocks = block_order(plan, 2, nblocks, B, shuffle=True,
+                         block_mode=False, m_local=m_local).reshape(-1)
     assert sorted(blocks.tolist()) == list(range(nblocks * B))
     assert blocks[m_local:].tolist() == list(range(m_local, nblocks * B))
     assert blocks[:m_local].tolist() != list(range(m_local))
-    waves = block_order(plan, 2, nblocks, B, shuffle=True, wave=8,
-                        m_local=m_local)
+    waves = block_order(plan, 2, nblocks, B, shuffle=True,
+                        block_mode=True, m_local=m_local)
     assert ((waves // B) == (waves[:, :1] // B)).all()
     assert torch.equal(
-        block_order(plan, 2, nblocks, B, shuffle=False, wave=1,
-                    m_local=m_local).reshape(-1),
+        block_order(plan, 2, nblocks, B, shuffle=False,
+                    block_mode=False, m_local=m_local).reshape(-1),
         torch.arange(nblocks * B))
 
 

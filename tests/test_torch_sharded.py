@@ -722,8 +722,8 @@ def test_cli_sharded_refusals_name_the_roadmap_item(sim_tiny, tmp_path,
     chain (other bytes than the float32 one of the same seed) and predicts
     from it; --resume, --checkpoint-every and --cache-dir write the v2
     checkpoint or one startup entry per shard, or resume a chain from its
-    checkpoint.  (--dtype float64 with an explicit --wave-size > 1 is
-    refused, naming the ROADMAP item: tests/test_torch_float64.py.)"""
+    checkpoint.  (--dtype float64 with an explicit --wave-size > 1 trains
+    the sharded float64 wave path: tests/test_torch_float64_wave.py.)"""
     out = str(tmp_path / "out")
     argv = ["--bed-file", sim_tiny.bed, "--dim-file", sim_tiny.dim,
             "--phen-files", ",".join(sim_tiny.phens),

@@ -149,11 +149,17 @@ Phases, each of which must pass (any failure exits non-zero):
    wave path on kernels A, B and E, csrc/wave_scan.cu at double): kernel
    E against its plain version at the anchor's 157-block arrays (NT=1 and
    NT=4, an adaV group, the last block's 96 pad slots, |c| ~30 and ~1e3)
-   and at E_SHAPES (T=2 with every wave's Gram rows staged, T=16 with
-   none, T=33 as a grid of trait groups, 4-byte-aligned copies, K=16),
+   and at E_SHAPES and E_SHAPES_MORE (one trait a CTA with the tables and
+   every wave's Gram rows staged at T=2, 8, 16 and 33; value-sized
+   copies at B=36, W=6; K=16; B=256 with four of seven waves staged),
    comp exact, values within 1e-10 of the largest magnitude, twice
-   bit-equal, timed by graph replay beside kernel 3 on the same block in
-   float32; one float64 W=32 sweep on the small panel against the plain
+   bit-equal, and the anchor block through the raw entry point at two and
+   three traits a CTA, the parent design's one CTA and one CTA with
+   nothing staged (E_GATE_PLANS), each trait's bytes equal at every plan;
+   timed by graph replay beside kernel 3 on the same block in float32,
+   and per plan of E_TIMED_PLANS at T=4 and 16 alone, in sweep order
+   against a rewritten Gram run and by one stamped launch (its chain in
+   cycles); one float64 W=32 sweep on the small panel against the plain
    one on the host CPU, on one device and at S=2; run_training at the
    anchor twice (byte-equal, no Gram cache, no float32 kernel), a
    profiler window, the chain cut at 5 and resumed (byte-equal), and
@@ -232,6 +238,13 @@ counts.  ``--predict-pairs N --against TREE`` loads TREE's kernel library
 beside this tree's and times the float32 predict kernel and D of both in
 N alternating pairs in one process, on that seeded bed, the anchor
 dataset's own bed and at N=100,000 (``predict_pairs``).
+``--wave64-pairs N --against TREE`` (repeatable) builds csrc/wave_scan.cu
+of this tree and of each TREE alone and times kernel E (where the tree
+has it; this tree's also at two and three traits a CTA) and kernel 3, each
+at its own tree's plan, in N alternating pairs in one process: E at the
+anchor (NT=1, NT=4) and at T=16, a block alone and in sweep order against
+a rewritten Gram run, kernel 3 alone, with one stamped launch of each
+(``wave64_pairs``); with ``--wave64-only``, after phase 7h.
 ``--same-bytes TREE`` runs phase 4's and 4b's float32 chains and phase
 7c's float64 W=1 chain in TREE and in this tree (TREE, this, this, TREE;
 a process each) and requires equal ``.bet/.cpn/.csv`` bytes, and equal
@@ -247,6 +260,7 @@ import gc
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3953,15 +3967,51 @@ def float64_phase(sim, small, dev, tmp, card, gen):
 
 # Kernel E's gate beyond the anchor, at 8-byte values: (T, B, K, W) and
 # the plan (tables staged, waves of Gram rows staged, traits a CTA) each
-# must get: every wave's rows staged (T=2), none staged and the tables in
-# global memory (T=16), a grid of trait groups (T=33), value-sized
-# cp.async copies (B=36, W=6: no bulk copy) and 16 components.  The
-# anchor (T=4) stages wave 0's rows and reads the others' from L2.
-E_SHAPES = ((2, 128, 4, 32, (1, 3, 2)), (16, 128, 4, 32, (0, 0, 16)),
-            (33, 128, 4, 32, (0, 0, 17)), (3, 36, 8, 6, (1, 5, 3)),
-            (2, 64, 16, 16, (1, 3, 2)))
-E_ANCHOR_PLAN = (1, 1, T)
+# must get.  At B=128 every plan stages the tables and every wave's rows,
+# one trait a CTA: T=2, 16, and 33 (33 CTAs); value-sized cp.async copies
+# (B=36, W=6: no bulk copy); 16 components.  E_SHAPES_MORE (a generator of
+# their own, so the later phases' draws stay as they were): T=8, and B=256,
+# where one trait holds the tables and four of its seven waves' rows and
+# the later waves fold from global memory.
+E_SHAPES = ((2, 128, 4, 32, (1, 3, 1)), (16, 128, 4, 32, (1, 3, 1)),
+            (33, 128, 4, 32, (1, 3, 1)), (3, 36, 8, 6, (1, 5, 1)),
+            (2, 64, 16, 16, (1, 3, 1)))
+E_SHAPES_MORE = ((8, 128, 4, 32, (1, 3, 1)), (4, 256, 4, 32, (1, 4, 1)))
+E_ANCHOR_PLAN = (1, 3, 1)
+# The plans (tab, gsw, TG) the anchor block is also launched at through
+# the raw entry point, each of which must give every trait the bytes of
+# E_ANCHOR_PLAN: two and three traits a CTA (everything staged), the
+# parent design's one CTA of the four (the tables and wave 0's rows
+# staged, waves 1 and 2 folded from L2) and one CTA with nothing staged.
+E_GATE_PLANS = ((1, 3, 2), (1, 3, 3), (1, 1, T), (0, 0, T))
+# Kernel E's plans timed at T=4 (the anchor) and T=16: one, two and three
+# traits a CTA, and the parent design's one CTA (at T=16 it staged
+# nothing).
+E_TIMED_PLANS = {T: ((1, 3, 1), (1, 3, 2), (1, 3, 3), (1, 1, T)),
+                 16: ((1, 3, 1), (1, 3, 2), (1, 3, 3), (0, 0, 16))}
 ITERS_F64_WAVE = 10     # the float64 W=32 anchor run (phase 7h)
+
+
+def e_launch(fn, sweep, c, gs, b, plan, stamps=None):
+    """A wave-scan entry point ``fn`` (kernel E's, kernel 3's, or another
+    tree's) on block b of a WaveScanSweep's arrays, against c[b] and Gram
+    b of gs, at a plan of the caller's ((tab, gsw, TG), or (tab, gsw) for
+    an entry that takes no TG).  Not counted: the gates and timings around
+    the main path launch it so."""
+    import torch
+    _, Tv, Bv, Kv = sweep.shape
+    err = fn(c.data_ptr(), *sweep.head, gs.data_ptr(), *sweep.tail,
+             None if stamps is None else stamps.data_ptr(), b, b, b, Tv, Bv,
+             Kv, sweep.wave, *plan, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"wave scan entry at plan {plan}: launch error {err}")
+
+
+def sweep_outputs(sweep, b):
+    """Block b's results of a scan sweep: dbeta, beta, comp, acum, d."""
+    return tuple(x[b].clone() for x in (
+        sweep.dbeta, sweep.beta_new, sweep.comp_new, sweep.acum_new,
+        sweep.d))
 
 
 def wave_f64_gate(dev, gen):
@@ -3969,12 +4019,15 @@ def wave_f64_gate(dev, gen):
     sweep's 157-block arrays (a middle block and the last, with its 96 pad
     slots) with per-trait Grams at |c| of order 30 and 1e3 (where live
     draws must take the |dlogl| > 700 guard) and the shared Gram at the
-    middle block, then at E_SHAPES on one block, at both |c|.  Each launch
-    twice (bit-equal), comp exact, dbeta, beta and acum within 1e-10 of
-    their largest magnitude, d = msig * dbeta bit for bit, the one-block
-    wrapper bit-equal to the sweep interface.  Returns (max abs err, a
+    middle block, then at E_SHAPES and E_SHAPES_MORE on one block, at both
+    |c|.  Each launch twice (bit-equal), comp exact, dbeta, beta and acum
+    within 1e-10 of their largest magnitude, d = msig * dbeta bit for bit,
+    the one-block wrapper bit-equal to the sweep interface.  Then the
+    middle block through the raw entry point at E_GATE_PLANS (twice each),
+    every result byte-equal to E_ANCHOR_PLAN's.  Returns (max abs err, a
     note, the anchor's (sweep, c, {NT: gs}))."""
     import torch
+    from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.ops import scan_kernel_wave as sw
     err = 0.0
     drawn = set()
@@ -3984,9 +4037,7 @@ def wave_f64_gate(dev, gen):
 
         def step():
             sweep.step(b, c, gs, b, bc=b)
-            return tuple(x[b].clone() for x in (
-                sweep.dbeta, sweep.beta_new, sweep.comp_new, sweep.acum_new,
-                sweep.d))
+            return sweep_outputs(sweep, b)
         got = bit_equal_twice(f"wave_scan_f64 ({where})", step)
         base = (c[b] + ops[4][b] * ops[0][:, None]).contiguous()
         blk = (base, *(x[b] for x in ops[1:4]), gs[b],
@@ -4007,7 +4058,7 @@ def wave_f64_gate(dev, gen):
             fail(f"wave_scan_f64 ({where}): the one-block wrapper and the "
                  f"sweep interface wrote different bits")
         drawn.update(want[2][ops[9][b] != 0].tolist())
-        return want, blk
+        return want, blk, got
 
     def guarded(blk, dbeta, live_b, Wv):
         """Live draws where some |L_k - L_i| > 700, each num rebuilt from
@@ -4027,46 +4078,136 @@ def wave_f64_gate(dev, gen):
     if tuple(sweep.plan) != E_ANCHOR_PLAN:
         fail(f"wave_scan_f64: the anchor's plan {sweep.plan}")
     n_guard = 0
+    refs = {}
     for scale in (1.0, 40.0):
         for b in (bm, nblocks - 1):
-            want, blk = held(f"anchor, block {b}, NT={T}, |c| "
-                             f"~{30 * scale:.0f}", sweep, ops, c * scale,
-                             gs["NT=4"], b, W)
+            want, blk, got = held(f"anchor, block {b}, NT={T}, |c| "
+                                  f"~{30 * scale:.0f}", sweep, ops,
+                                  c * scale, gs["NT=4"], b, W)
             if scale > 1:
                 n_guard += guarded(blk, want[0], live[b], W)
-    held(f"anchor, block {bm}, NT=1", sweep, ops, c, gs["NT=1"], bm, W)
+            if b == bm:
+                refs[(scale, "NT=4")] = got
+    refs[(1.0, "NT=1")] = held(f"anchor, block {bm}, NT=1", sweep, ops, c,
+                               gs["NT=1"], bm, W)[2]
     if not n_guard:
         fail("wave_scan_f64: no draw at |c| ~1e3 took the 700 guard")
     if not torch.equal(sweep.beta_new[-1][:, B - 96:], ops[4][-1][:, B - 96:]):
         fail("wave_scan_f64: the last block's pad slots moved")
-    for Tv, Bv, Kv, Wv, plan in E_SHAPES:
-        o2, c2, g2, _ = f64_scan_operands(dev, gen, Tv, Bv, Kv, 1,
-                                          min(3, Bv - 1))
-        sw2 = sw.WaveScanSweep(*o2, wave=Wv)
-        if tuple(sw2.plan) != plan:
-            fail(f"wave_scan_f64: plan {sw2.plan} at T={Tv}, B={Bv}, "
-                 f"K={Kv}, W={Wv}")
-        for scale in (1.0, 40.0):
-            held(f"T={Tv}, B={Bv}, K={Kv}, W={Wv}, |c| ~{30 * scale:.0f}",
-                 sw2, o2, c2 * scale, g2["NT=4"], 0, Wv)
-        del o2, c2, g2, sw2
+    # Each trait's bytes at every plan, the parent design's included.
+    fn = _build.library().gmrm_wave_scan_f64
+    for (scale, nt), ref in refs.items():
+        cs = c * scale
+        for plan in E_GATE_PLANS:
+            def run(plan=plan):
+                e_launch(fn, sweep, cs, gs[nt], bm, plan)
+                return sweep_outputs(sweep, bm)
+            got = bit_equal_twice(f"wave_scan_f64 (anchor, plan {plan})",
+                                  run)
+            if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                fail(f"wave_scan_f64 (anchor, block {bm}, {nt}, |c| "
+                     f"~{30 * scale:.0f}): plan {plan} wrote other bytes "
+                     f"than plan {E_ANCHOR_PLAN}")
+    gen_more = torch.Generator(device=dev)
+    gen_more.manual_seed(20261019)
+    for shapes, g_ in ((E_SHAPES, gen), (E_SHAPES_MORE, gen_more)):
+        for Tv, Bv, Kv, Wv, plan in shapes:
+            o2, c2, g2, _ = f64_scan_operands(dev, g_, Tv, Bv, Kv, 1,
+                                              min(3, Bv - 1))
+            sw2 = sw.WaveScanSweep(*o2, wave=Wv)
+            if tuple(sw2.plan) != plan:
+                fail(f"wave_scan_f64: plan {sw2.plan} at T={Tv}, B={Bv}, "
+                     f"K={Kv}, W={Wv}")
+            for scale in (1.0, 40.0):
+                held(f"T={Tv}, B={Bv}, K={Kv}, W={Wv}, |c| "
+                     f"~{30 * scale:.0f}", sw2, o2, c2 * scale, g2["NT=4"],
+                     0, Wv)
+            del o2, c2, g2, sw2
     if len(drawn) < 2:
         fail(f"wave_scan_f64: the blocks drew components {drawn} only")
     note = (f"plan at the anchor (tables staged, waves of Gram rows staged, "
-            f"traits a CTA) {E_ANCHOR_PLAN}; {n_guard} live draws of the two "
+            f"traits a CTA) {E_ANCHOR_PLAN}, each trait's bytes equal at "
+            f"plans {list(E_GATE_PLANS)}; {n_guard} live draws of the two "
             f"anchor blocks at |c| ~1e3 took the 700 guard; also held at "
-            f"(T, B, K, W, plan) {list(E_SHAPES)}, per-trait Grams")
+            f"(T, B, K, W, plan) {list(E_SHAPES + E_SHAPES_MORE)}, "
+            f"per-trait Grams")
     return err, note, (sweep, c, gs)
+
+
+def e_stamps(fn, sweep, c, gs, b, plan):
+    """One stamped launch at a plan: CTA 0's %globaltimer at
+    scan_kernel_wave.wave_stamp_names' events, us from the start."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    nw = sweep.shape[2] // sweep.wave
+    st = torch.zeros(2 + 2 * nw, dtype=torch.int64, device=c.device)
+    e_launch(fn, sweep, c, gs, b, plan, st)
+    torch.cuda.synchronize()
+    return dict(zip(sw.wave_stamp_names(nw),
+                    ((st - st[0]).double() / 1e3).tolist()))
+
+
+def e_chain(stamps):
+    """The chain of a stamped launch after its operands are in: each
+    wave's draw (from the fold before it) and chain fold, us; the chain,
+    their sum; and the chain bound, us: B/W draws and B/W - 1 chain folds
+    each at the least that one took (the dependent steps of a wave, with
+    no wait for its rows and no first pass through the code)."""
+    nw = (len(stamps) - 2) // 2
+    draws, folds, t = [], [], stamps["operands staged"]
+    for w in range(nw):
+        draws.append(stamps[f"wave {w} drawn"] - t)
+        t = stamps[f"wave {w} folded"]
+        folds.append(t - stamps[f"wave {w} drawn"])
+    bound = nw * min(draws) + (nw - 1) * min(folds[:-1] or [0.0])
+    return draws, folds, t - stamps["operands staged"], bound
+
+
+def e_sweep_order_ms(fn, sweep, c, gs, plan, reps=3):
+    """A scan entry over every block of the sweep's arrays in processing
+    order, block b against Gram b of the run gs: ms a block, the median of
+    ``reps`` replays of one CUDA graph of the launches, each replay right
+    after the run is rewritten in place (gs *= 1), as kernel A writes a
+    run before the scans read it (the run's head out of L2, its last ~50 MB
+    in it)."""
+    import torch
+    nb = sweep.shape[0]
+
+    def every_block():
+        for b in range(nb):
+            e_launch(fn, sweep, c, gs, b, plan)
+    every_block()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        every_block()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        gs.mul_(1.0)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / nb)
+    return sorted(times)[reps // 2]
 
 
 def wave_f64_times(sweep, c, gs, b):
     """Kernel E's ms a block at block b (graph replay) with the shared Gram
     (NT=1) and per-trait Grams (NT=4), its plain version's, kernel 3 on
-    the same operands cast to float32 (NT=1), the %globaltimer split of one
-    stamped launch, and the bound: the block's operands and outputs once
-    and the Gram rows a fold reads, of the waves that moved a marker;
-    operations those folds and the draws, at the float64 peak."""
+    the same operands cast to float32 (NT=1), and the bound: the block's
+    operands and outputs once and the Gram rows a fold reads, of the waves
+    that moved a marker; operations those folds and the draws, at the
+    float64 peak.  Then per plan of E_TIMED_PLANS at T=4 and T=16
+    (seeded operands of the anchor's shapes, 157 blocks): ms a block
+    alone (graph replay, NT=1), in sweep order against a rewritten Gram
+    run (NT=1; NT=4 too at T=4) and one stamped launch.  The chain bound
+    (E_ANCHOR_PLAN's stamped chain at the anchor) goes into
+    CHAIN_BOUND_MS."""
     import torch
+    from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.ops import scan_kernel_wave as sw
     ms = {nt: cuda_ms(lambda g=g: sweep.step(b, c, g, b, bc=b), 20)
           for nt, g in gs.items()}
@@ -4081,14 +4222,10 @@ def wave_f64_times(sweep, c, gs, b):
     sweep3 = sw.WaveScanSweep(*f32, wave=sweep.wave)
     c3, gs3 = c.float(), gs["NT=1"].float()
     k3 = cuda_ms(lambda: sweep3.step(b, c3, gs3, b, bc=b), 20)
-    nw = B // sweep.wave
-    st = torch.zeros(2 + 2 * nw, dtype=torch.int64, device=c.device)
-    sweep.step(b, c, gs["NT=1"], b, bc=b, stamps=st)
-    torch.cuda.synchronize()
-    split = ", ".join(f"{name} {float(t) / 1e3:.2f}" for name, t in zip(
-        sw.wave_stamp_names(nw), (st - st[0]).cpu()))
+    del sweep3, c3, gs3, f32
     db = sweep.dbeta[b]
     Wv = sweep.wave
+    nw = B // Wv
     moved = [w for w in range(nw - 1)
              if (db[:, w * Wv:(w + 1) * Wv] != 0).any()]
     fold = sum(T * Wv * (B - (w + 1) * Wv) for w in moved)
@@ -4098,7 +4235,27 @@ def wave_f64_times(sweep, c, gs, b):
     bound = bound_of(3 * K * tb + 10 * tb + 4 * T * B * 4 + 2 * T * 8
                      + fold * 8,
                      (2 * fold + T * B * K * 12, F64_OPS))
-    return ms, plain, k3, split, bound
+    fn = _build.library().gmrm_wave_scan_f64
+    gen16 = torch.Generator(device=c.device)
+    gen16.manual_seed(20261020)
+    o16, c16, g16, _ = f64_scan_operands(c.device, gen16, 16, B, K,
+                                         sweep.shape[0], 96)
+    runs = {T: (sweep, c, gs), 16: (sw.WaveScanSweep(*o16, wave=Wv), c16,
+                                    g16)}
+    plans = {}
+    for Tv, (sw_, c_, gs_) in runs.items():
+        for plan in E_TIMED_PLANS[Tv]:
+            row = {"alone": cuda_ms(lambda: e_launch(
+                fn, sw_, c_, gs_["NT=1"], b, plan), 20)}
+            for nt in (("NT=1", "NT=4") if Tv == T else ("NT=1",)):
+                row[f"sweep order {nt}"] = e_sweep_order_ms(
+                    fn, sw_, c_, gs_[nt], plan)
+            row["stamps"] = e_stamps(fn, sw_, c_, gs_["NT=1"], b, plan)
+            plans[(Tv, plan)] = row
+    del runs, o16, c16, g16
+    CHAIN_BOUND_MS["wave_scan_f64"] = e_chain(
+        plans[(T, E_ANCHOR_PLAN)]["stamps"])[3] / 1e3
+    return ms, plain, k3, plans, bound
 
 
 def float64_wave_phase(sim, small, dev, tmp, card, gen):
@@ -4120,15 +4277,16 @@ def float64_wave_phase(sim, small, dev, tmp, card, gen):
     t_phase = time.perf_counter()
     err, note, (sweep, c_n, gs_n) = wave_f64_gate(dev, gen)
     nblocks = -(-MT // B)
-    ms, plain, k3, split, bound = wave_f64_times(sweep, c_n, gs_n,
+    ms, plain, k3, plans, bound = wave_f64_times(sweep, c_n, gs_n,
                                                  nblocks // 2)
     del sweep, c_n, gs_n
     print(f"# wave_scan_f64: max abs err {err:.3e}; kernel ms a block (CUDA "
           f"graph replay) NT=1 {ms['NT=1']:.5f}, NT={T} {ms['NT=4']:.5f}; "
           f"plain ms {plain:.4f}; kernel 3 (float32) on the same block cast "
           f"to float32 {k3:.5f}; bound {bound[0]:.5f} ms by {bound[1]}; "
-          f"{note}; stamps of one launch, us from its start: {split}  "
+          f"chain bound {CHAIN_BOUND_MS['wave_scan_f64']:.5f} ms; {note}  "
           f"[{card}]", flush=True)
+    print_e_plans(plans, card)
     sweep_gate(small, dev, W, f"float64 W={W} sweep gate", card,
                dtype="float64")
     sharded_gate(small, dev, card, 2, W, f"float64 sharded W={W} sweep gate",
@@ -4178,6 +4336,238 @@ def float64_wave_phase(sim, small, dev, tmp, card, gen):
                    startup=res.startup_seconds, sharded=sh, k3_ms=k3,
                    seconds=time.perf_counter() - t_phase)
     return (err, ms["NT=1"], plain, None, bound), launches, numbers
+
+
+def print_e_plans(plans, card):
+    """Kernel E per plan (``wave_f64_times``): its ms a block alone and in
+    sweep order, one stamped launch's events and its chain, in us and in
+    cycles at the SM clock nvidia-smi reads right after."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz, mhz_max = (float(x) for x in smi.stdout.split(",")[:2])
+    for (Tv, plan), row in plans.items():
+        draws, folds, chain, bound = e_chain(row["stamps"])
+        times = ", ".join(f"{k} {v:.5f}" for k, v in row.items()
+                          if k != "stamps")
+        events = ", ".join(f"{k} {v:.2f}" for k, v in row["stamps"].items())
+        print(f"# wave_scan_f64 T={Tv} plan {plan} ({-(-Tv // plan[2])} "
+              f"CTAs): ms a block {times}; stamps, us from the start: "
+              f"{events}; chain {chain:.2f} us = {chain * mhz:.0f} cycles at "
+              f"{mhz:.0f} MHz (max {mhz_max:.0f}): draws "
+              f"{[round(x * mhz) for x in draws]}, chain folds "
+              f"{[round(x * mhz) for x in folds]} cycles; chain bound "
+              f"{bound:.2f} us = {bound * mhz:.0f} cycles  [{card}]",
+              flush=True)
+
+
+# A tree's wave-scan plans for --wave64-pairs, printed as JSON by a process
+# of that tree's own package: the argument count of gmrm_wave_scan, and
+# kernel 3's and kernel E's plans at the shapes asked (E's None where the
+# tree has no kernel E; a tree before the trait-group grid plans (tab, gsw)).
+WAVE_PLAN_CODE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from gmrm_tpu_torch.ops import _build, scan_kernel_wave as sw
+shapes = json.loads(sys.argv[2])
+f64 = "gmrm_wave_scan_f64" in _build.SIGNATURES
+plan = getattr(sw, "launch_plan", sw.wave_plan)
+print(json.dumps({
+    "nargs": len(_build.SIGNATURES["gmrm_wave_scan"]),
+    "f32": [list(plan(*s)) for s in shapes],
+    "f64": [list(sw.launch_plan(*s, 8)) if f64 else None for s in shapes]}))
+"""
+
+
+def ptxas_summary(log):
+    """Registers, stack frame and spills of each K <= 4 wave-scan kernel
+    in an nvcc -Xptxas=-v log, by value type, tables staged and stamps."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"wave_scan_kernelI([fd]?)Li4ELb([01])ELb([01])E",
+                      name or "")
+        if not m:
+            continue
+        tag = f"{'E' if m.group(1) == 'd' else '3'} tab={m.group(2)} " \
+              f"st={m.group(3)}"
+        if "stack frame" in line:
+            out.append(f"{tag}: " + " ".join(line.split()[:2]) + " stack, "
+                       + ", ".join(x.strip() for x in line.split(",")[1:]))
+        elif "Used" in line:
+            out[-1] += ", " + line.split(":")[-1].strip().split(",")[0]
+    return "; ".join(out)
+
+
+def wave_libraries(trees, tmp):
+    """This tree's ("." first) and each TREE's csrc/wave_scan.cu built
+    alone with this tree's nvcc flags, all at once, into tmp and loaded,
+    with each tree's plans (WAVE_PLAN_CODE) at T=4 and T=16 of the
+    anchor's shapes: {label: (library, plans)}."""
+    import ctypes
+    from gmrm_tpu_torch.ops import _build
+    roots = {".": str(_build.CSRC.parent.parent),
+             **{t: os.path.abspath(t) for t in trees}}
+    shapes = json.dumps([(T, B, K, W), (16, B, K, W)])
+    procs = {}
+    for i, (label, root) in enumerate(roots.items()):
+        csrc = os.path.join(root, "gmrm_tpu_torch", "csrc")
+        so = os.path.join(tmp, f"wave{i}.so")
+        procs[label] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared",
+             "-o", so, os.path.join(csrc, "wave_scan.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            subprocess.Popen([sys.executable, "-c", WAVE_PLAN_CODE, root,
+                              shapes], stdout=subprocess.PIPE, text=True))
+    out = {}
+    for label, (so, build, plan) in procs.items():
+        log = build.communicate(timeout=900)[0]
+        text = plan.communicate(timeout=300)[0]
+        if build.returncode or plan.returncode:
+            fail(f"wave pairs: {label}'s wave_scan.cu or plans failed:\n"
+                 f"{log[-3000:]}")
+        print(f"# wave pairs, {label}: {ptxas_summary(log)}", flush=True)
+        info = json.loads(text.strip().splitlines()[-1])
+        lib = ctypes.CDLL(so)
+        for fn in ("gmrm_wave_scan", "gmrm_wave_scan_f64"):
+            if hasattr(lib, fn):
+                f = getattr(lib, fn)
+                f.argtypes = ([ctypes.c_void_p] * 21
+                              + [ctypes.c_int] * (info["nargs"] - 22)
+                              + [ctypes.c_void_p])
+                f.restype = ctypes.c_int
+        out[label] = (lib, info)
+    return out
+
+
+def wave64_pairs(dev, card, trees, pairs, tmp):
+    """``--wave64-pairs N --against TREE`` (repeatable): kernel E and
+    kernel 3 of this tree and of each TREE, each tree's csrc/wave_scan.cu
+    built alone (``wave_libraries``) and launched at the plan of that
+    tree's own package, in one process.  Seeded float64 operands of the
+    anchor's shapes (157 blocks, the last with 96 pad slots, an adaV
+    group) at T=4 and T=16, and kernel 3 on the T=4 ones cast to float32.
+    This tree's E also at two and three traits a CTA (". TG=2", ". TG=3").
+    Held first: every variant of this tree byte-equal to its launch plan's
+    bytes, every TREE's E with this tree's comp and values within 1e-10 of
+    the largest magnitude; kernel 3's bytes against this tree's are
+    printed.  Then N pairs, the variants in turn (in the listed order in
+    the even pairs, reversed in the odd ones): E at the anchor, block 78,
+    NT=1 and NT=4 alone (graph replay of 20), at T=16 alone, in sweep
+    order over the 157 blocks against a rewritten Gram run (NT=1, T=4 and
+    T=16; ``e_sweep_order_ms``), and kernel 3 alone.  Prints every pair
+    and, per case and TREE, both ranges and in how many pairs this tree
+    read below all of TREE's readings."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    nblocks = -(-MT // B)
+    bm = nblocks // 2
+    data = {}
+    for Tv in (T, 16):
+        ops, c, gs, _ = f64_scan_operands(dev, gen, Tv, B, K, nblocks, 96)
+        data[Tv] = (sw.WaveScanSweep(*ops, wave=W), c, gs["NT=1"],
+                    gs["NT=4"])
+    s4 = data[T][0]
+    f32 = [x.float() if x.is_floating_point() else x
+           for x in (s4.nm1, *s4.tables, *s4.state, s4.msig_p, s4.i2se)]
+    k3 = (sw.WaveScanSweep(*f32, wave=W), data[T][1].float(),
+          data[T][2].float())
+    libs = wave_libraries(trees, tmp)
+    variants = {}        # label -> (E entry or None, {T: plan}, 3's, plan)
+    for label, (lib, info) in libs.items():
+        fe = getattr(lib, "gmrm_wave_scan_f64", None)
+        variants[label] = (fe if info["f64"][0] else None,
+                           {T: info["f64"][0], 16: info["f64"][1]},
+                           lib.gmrm_wave_scan, info["f32"][0])
+    fe, p_e = variants["."][:2]
+    for tg in (2, 3):
+        variants[f". TG={tg}"] = (fe, {Tv: (*p[:2], tg)
+                                       for Tv, p in p_e.items()}, None, None)
+    for Tv, (sweep, c, gs1, _) in data.items():
+        outs = {}
+        for label, (f, plans, _, _) in variants.items():
+            if f is not None:
+                e_launch(f, sweep, c, gs1, bm, plans[Tv])
+                outs[label] = sweep_outputs(sweep, bm)
+        for label, got in outs.items():
+            ref = outs["."]
+            if label.startswith("."):
+                same = all(torch.equal(x, y) for x, y in zip(got, ref))
+                if not same:
+                    fail(f"wave pairs, T={Tv}: {label} wrote other bytes "
+                         f"than .")
+                continue
+            if not torch.equal(got[2], ref[2]):
+                fail(f"wave pairs, T={Tv}: {label}'s comp differs")
+            for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+                close64(f"wave pairs, T={Tv}, {label}", g, r)
+    outs = {}
+    for label, (_, _, f3, p3) in variants.items():
+        if f3 is not None:
+            e_launch(f3, *k3, bm, p3)
+            outs[label] = sweep_outputs(k3[0], bm)
+    for label, got in outs.items():
+        same = all(torch.equal(x, y) for x, y in zip(got, outs["."]))
+        print(f"# wave pairs: kernel 3 of {label} at plan "
+              f"{variants[label][3]}: bytes {'' if same else 'NOT '}equal "
+              f"to this tree's; E plans {variants[label][1]}", flush=True)
+    for label, (f, plans, f3, p3) in variants.items():
+        for name, fn, run, plan in (
+                ("E", f, data[T][:3], plans[T]),
+                ("kernel 3", f3, k3, p3)):
+            if fn is None:
+                continue
+            st = e_stamps(fn, *run, bm, plan)
+            print(f"# wave pairs: {name} of {label} at plan {plan}, T={T}, "
+                  f"stamps, us from the start: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in st.items()),
+                  flush=True)
+    cases = {
+        "E anchor NT=1 alone": lambda f, p: cuda_ms(lambda: e_launch(
+            f, data[T][0], data[T][1], data[T][2], bm, p[T]), 20),
+        "E anchor NT=4 alone": lambda f, p: cuda_ms(lambda: e_launch(
+            f, data[T][0], data[T][1], data[T][3], bm, p[T]), 20),
+        "E T=16 NT=1 alone": lambda f, p: cuda_ms(lambda: e_launch(
+            f, data[16][0], data[16][1], data[16][2], bm, p[16]), 20),
+        "E anchor NT=1 sweep order": lambda f, p: e_sweep_order_ms(
+            f, data[T][0], data[T][1], data[T][2], p[T]),
+        "E T=16 NT=1 sweep order": lambda f, p: e_sweep_order_ms(
+            f, data[16][0], data[16][1], data[16][2], p[16]),
+        "kernel 3 anchor NT=1 alone": None,
+    }
+    ms = {(case, label): [] for case in cases for label in variants}
+    labels = list(variants)
+    for i in range(pairs):
+        order = labels if i % 2 == 0 else labels[::-1]
+        for case, timed in cases.items():
+            read = []
+            for label in order:
+                fe_, pe, f3, p3 = variants[label]
+                if timed is None and f3 is not None:
+                    x = cuda_ms(lambda: e_launch(f3, *k3, bm, p3), 20)
+                elif timed is not None and fe_ is not None:
+                    x = timed(fe_, pe)
+                else:
+                    continue
+                ms[(case, label)].append(x)
+                read.append(f"{label} {x:.5f}")
+            print(f"# wave pair {i + 1}, {case}: {', '.join(read)} ms a "
+                  f"block", flush=True)
+    for (case, label), xs in ms.items():
+        if not xs:
+            continue
+        mine = ms[(case, ".")]
+        wins = (f"; this tree below all of its readings in "
+                f"{sum(x < min(xs) for x in mine)} of {len(mine)} pairs"
+                if label != "." else "")
+        print(f"# wave pairs, {case}: {label} {min(xs):.5f}-{max(xs):.5f} "
+              f"ms a block over {len(xs)} pairs{wins}  [{card}]", flush=True)
 
 
 def wave64_only(dev, card):
@@ -5247,6 +5637,7 @@ def main():
                         metavar="REPS")
     parser.add_argument("--f64-only", type=int, default=0, metavar="REPS")
     parser.add_argument("--wave64-only", action="store_true")
+    parser.add_argument("--wave64-pairs", type=int, default=0, metavar="N")
     parser.add_argument("--traits-only", type=int, default=0,
                         metavar="REPS")
     parser.add_argument("--predict-only", type=int, default=0,
@@ -5286,6 +5677,11 @@ def main():
         return
     if args.wave64_only:
         wave64_only(dev, card)
+        if not args.wave64_pairs:
+            return
+    if args.wave64_pairs:
+        with tempfile.TemporaryDirectory() as tmp:
+            wave64_pairs(dev, card, args.against, args.wave64_pairs, tmp)
         return
     if args.same_bytes:
         same_bytes(args.same_bytes, card)

@@ -23,29 +23,34 @@
 // (T, B, B) layout and each wave folds into the later waves' columns.
 //
 // Bound on the H100: latency.  The B/W waves are a serial chain of small
-// steps (T*W draws, then a T*W-by-W fold), so one CTA of 512 threads runs
-// the block and its time is the chain of dependent steps and barriers.
+// steps (T*W draws, then a T*W-by-W fold), so a CTA of 512 threads runs
+// the block (its traits' part) and its time is the chain of dependent
+// steps and barriers.
 // The design follows the scan CTA of the whole-sweep kernel
 // (sweep_blocks.cu):
 //   - every per-marker operand of the block (c, the marker state, the
 //     draws, the masks and, while they fit, the per-marker tables) is
-//     staged into shared memory at entry, a bulk copy (the tensor memory
-//     accelerator) per array, so no global load sits on a wave's chain;
-//     the kernel forms base itself, in the draw;
-//   - the scaled Gram is staged the same way, packed wave by wave: wave
-//     w's W rows by the columns of the later waves only, T W (B - (w+1) W)
-//     floats (96 KB of the 256 KB Gram at T=4, B=128, W=32), a bulk copy
-//     per row issued at entry by the warps that draw nothing.  Wave 0's
-//     rows complete one mbarrier, waited for before the first fold, the
-//     others a second, waited for before the second.  A packed row's
-//     stride is padded to 8 floats past a multiple of 32 (2 doubles past a
-//     multiple of 16), so the fold's lanes hit at most two to a bank.  The
-//     waves that do not fit beside the operands (large T B; at double, at
-//     T=4, B=128 all but wave 0) are read from global memory, where the
-//     Gram stays in L2 (wave_plan in ops/scan_kernel_wave.py).  Where an
-//     address is not on 16 bytes (B or W not a multiple of 4, or an
-//     unaligned view) value-sized cp.async copies take the bulk copies'
-//     place;
+//     staged into shared memory at entry, so no global load sits on a
+//     wave's chain; the kernel forms base itself, in the draw.  Float: a
+//     bulk copy (the tensor memory accelerator) per array.  Double: 16-byte
+//     cp.async copies of every thread, each array named (a list indexed at
+//     run time sits in local memory: kernel 3's 216-byte stack frame since
+//     its trait groups), so that they do not queue behind the Gram rows'
+//     bulk copies either;
+//   - the scaled Gram is staged too, packed wave by wave: wave w's W rows
+//     by the columns of the later waves only, T W (B - (w+1) W) values
+//     (96 KB of the 256 KB Gram at T=4, B=128, W=32 in float), a bulk copy
+//     per row issued by the warps that draw nothing, at entry in float and
+//     once the operands are in in double.  In float, wave 0's rows
+//     complete one mbarrier, waited for before the first fold, the others
+//     a second, waited for before the second; in double, waves 0 .. 5 an
+//     mbarrier each, waited for before each one's own fold (nbar).  A packed row's stride is padded to 8 floats past a multiple
+//     of 32 (2 doubles past a multiple of 16), so the fold's lanes hit at
+//     most two to a bank.  The waves that do not fit beside the operands
+//     (large T B in float; B >= 256 in double) are read from global
+//     memory (wave_plan in ops/scan_kernel_wave.py).  Where an address is
+//     not on 16 bytes (B or W not a multiple of 4, or an unaligned view)
+//     value-sized cp.async copies take the bulk copies' place;
 //   - the fold of wave w into wave w + 1's columns runs on the chain, on
 //     every thread; its fold into the waves after that runs on the warps
 //     that draw nothing while wave w + 1 draws.  Each corr still receives
@@ -53,10 +58,17 @@
 //   - each fold term's W-long sum is split over up to 8 neighbouring lanes,
 //     lane h taking the terms h, h + split, ... in order, then a fixed
 //     shuffle tree, so two launches on the same inputs write the same bits.
-// A block whose state one CTA cannot hold (large T B) runs as a grid of
-// trait groups, TG traits a CTA (ops/trait_chunks.py): the traits' chains
+// A launch is a grid of trait groups, TG traits a CTA: the traits' chains
 // are independent, so a CTA takes its traits' slice of every operand and
-// runs the block as above, and each trait gets the bits it gets alone.
+// runs the block as above.  In float the grid is one CTA of every trait
+// unless their state does not fit; in double (kernel E) the traits are
+// spread over CTAs until each stages the tables and every wave's rows
+// (launch_plan: one trait a CTA at T=4, B=128, K=4, W=32, 74 KB where one
+// CTA of four held 188 KB and folded waves 1 and 2 from L2), so no fold
+// on the chain leaves shared memory and the block's staging is split over
+// as many SMs (two and three traits a CTA ran slower on the card).
+// Since the double fold's lane split depends on W alone, a trait gets the
+// same bits at any TG.
 // The draw is sweep_math.cuh's gmrm_wave_draw: every add and product uses
 // the _rn intrinsics, exp is expf (float) or the library's exp written
 // out (double) and 1 / S is the IEEE division, so comp agrees exactly with
@@ -65,8 +77,8 @@
 // The value type V is a template parameter of the whole kernel; every
 // shared-memory offset below counts values of V (the mbarriers, the int
 // arrays and the waves' offsets take value-sized slots), and every copy's
-// byte count is its element size times its length.  The float instance is
-// kernel 3 as it was, operation for operation.
+// byte count is its element size times its length.  The float instance's
+// arithmetic is kernel 3's as it was, operation for operation.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -141,7 +153,7 @@ __device__ __forceinline__ WaveArgs<V> wave_group(const WaveArgs<V>& a0) {
   return a;
 }
 
-__host__ __device__ inline int al4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int al4(int x) { return (x + 3) & ~3; }
 
 // Per trait, the packed offset of wave w's rows: W rows of B - (w'+1) W
 // values for every earlier wave w'.
@@ -170,7 +182,20 @@ __host__ __device__ inline int gs_smem_offset(int B, int W, int w) {
   return o;
 }
 
-constexpr int NBAR = 3;  // mbarriers: operands, wave 0's rows, the rest
+constexpr int NBAR = 3;  // the float instance's mbarriers: operands,
+                         // wave 0's rows, the rest
+
+// The mbarriers of the instance: the operands' (0, used by the float
+// instance only), then the staged waves' rows, wave w on barrier
+// 1 + min(w, nbar - 2).  The float instance
+// waits for wave 0's rows before the first fold and for the rest before
+// the second; the double instance, whose barrier slots (al4(2 NBAR)
+// values) hold 8, gives waves 0 .. 5 a barrier each, so that each of
+// those folds waits for its own wave only, and the rest barrier 7.
+template <typename V>
+__host__ __device__ constexpr int nbar() {
+  return sizeof(V) == 8 ? 8 : NBAR;
+}
 
 // Shared memory offsets in values of V; the mbarriers (8 bytes each) come
 // first.
@@ -282,6 +307,19 @@ __device__ __forceinline__ void copy_words(void* dst, const void* src, int n,
     cp_async<4>((uint32_t*)dst + x, (const uint32_t*)src + x);
 }
 
+// n 4-byte words from src to dst by cp.async copies of every thread: 16
+// bytes each with vec (both on 16 bytes, n a multiple of 4), else 4.
+__device__ __forceinline__ void copy_threads(void* dst, const void* src,
+                                             int n, bool vec) {
+  if (vec) {
+    for (int x = threadIdx.x; x < n / 4; x += THREADS)
+      cp_async<16>((uint4*)dst + x, (const uint4*)src + x);
+    return;
+  }
+  for (int x = threadIdx.x; x < n; x += THREADS)
+    cp_async<4>((uint32_t*)dst + x, (const uint32_t*)src + x);
+}
+
 // Wave w's packed Gram rows in value-sized cp.async copies by the threads
 // tid0 .. THREADS - 1: for each trait t and row j of the wave, the columns
 // of the later waves, into dst[(t W + j) row_stride + i].
@@ -340,70 +378,103 @@ wave_scan_kernel(const WaveArgs<V> a0) {
   };
   stamp();
 
-  // The per-marker operands first, alone, so that they arrive at the
-  // memory system's full rate: a bulk copy of each array (one lane each),
-  // or 4-byte cp.async copies where an address is not on 16 bytes.
+  // The per-marker operands first, so that they arrive at the memory
+  // system's full rate: in float a bulk copy of each array (one lane
+  // each), in double cp.async copies of every thread (below); 4-byte
+  // cp.async copies where an address is not on 16 bytes.
   uint64_t* bars = (uint64_t*)sm;
+  constexpr int NB = nbar<V>();
+  static_assert(8 * NB <= sizeof(V) * al4(2 * NBAR), "barrier slots");
   if (tid == 0) {
-    for (int q = 0; q < NBAR; ++q) bar_init(bars + q);
+    for (int q = 0; q < NB; ++q) bar_init(bars + q);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     goff[0] = 0;
     for (int w = 0; w < nw; ++w)
       goff[w + 1] = goff[w] + T * W * row_stride<V>(B - (w + 1) * W);
   }
   __syncthreads();
-  // n: the piece's length in 4-byte words (a value of V is vw of them).
+  // A value of V is vw 4-byte words.
   constexpr int vw = sizeof(V) / 4;
-  struct Piece {
-    void* dst;
-    const void* src;
-    int n;
-  };
-  const Piece state[] = {
-      {sc, a.c, vw * TB},           {sbeta, a.beta_old, vw * TB},
-      {sacum, a.acum_old, vw * TB}, {su, a.u, vw * TB},
-      {sz, a.z, vw * TB},           {scomp, a.comp_old, TB},
-      {slive, a.live, TB},          {szerob, a.zerob, TB},
-      {smsig, a.msig, a.msig ? vw * TB : 0}};
-  constexpr int NSTATE_OPS = sizeof(state) / sizeof(state[0]);
   // Each table is one copy of its K planes when the CTA has every trait,
   // a copy a plane when its traits are a slice of each plane.
   const int tp = a.TK == T ? 1 : K;
-  const int nops = NSTATE_OPS + (TAB ? 3 * tp : 0);
   const int ktb = al4(K * TB);
-  auto piece = [&](int k) -> Piece {
-    if (k < NSTATE_OPS) return state[k];
-    const int q = (k - NSTATE_OPS) / tp, p = (k - NSTATE_OPS) % tp;
-    const V* tab = q == 0 ? a.lc : q == 1 ? a.rd : a.sqb;
-    return {sm + L.lc + q * ktb + p * TB, tab + (size_t)p * a.TK * B,
-            vw * (tp == 1 ? K * TB : TB)};
-  };
-  if (vec && tid == 0) {
-    uint32_t bytes = 0;
-    for (int k = 0; k < nops; ++k) bytes += 4u * piece(k).n;
-    bar_arrive_tx(bars, bytes);
+  if constexpr (sizeof(V) == 8) {
+    // Kernel E: every array by cp.async copies of every thread (16 bytes
+    // where vec), named one by one, so that the operands do not queue in
+    // the SM's bulk-copy unit behind the Gram rows' many small copies and
+    // no list of them indexed at run time sits in local memory.
+    copy_threads(sc, a.c, vw * TB, vec);
+    copy_threads(sbeta, a.beta_old, vw * TB, vec);
+    copy_threads(sacum, a.acum_old, vw * TB, vec);
+    copy_threads(su, a.u, vw * TB, vec);
+    copy_threads(sz, a.z, vw * TB, vec);
+    copy_threads(scomp, a.comp_old, TB, vec);
+    copy_threads(slive, a.live, TB, vec);
+    copy_threads(szerob, a.zerob, TB, vec);
+    if (a.msig) copy_threads(smsig, a.msig, vw * TB, vec);
+    if (TAB) {
+      for (int k = 0; k < 3 * tp; ++k) {
+        const int q = k / tp, p = k % tp;
+        const V* tab = q == 0 ? a.lc : q == 1 ? a.rd : a.sqb;
+        copy_threads(sm + L.lc + q * ktb + p * TB,
+                     tab + (size_t)p * a.TK * B,
+                     vw * (tp == 1 ? K * TB : TB), vec);
+      }
+    }
+  } else {
+    // n: the piece's length in 4-byte words.
+    struct Piece {
+      void* dst;
+      const void* src;
+      int n;
+    };
+    const Piece state[] = {
+        {sc, a.c, vw * TB},           {sbeta, a.beta_old, vw * TB},
+        {sacum, a.acum_old, vw * TB}, {su, a.u, vw * TB},
+        {sz, a.z, vw * TB},           {scomp, a.comp_old, TB},
+        {slive, a.live, TB},          {szerob, a.zerob, TB},
+        {smsig, a.msig, a.msig ? vw * TB : 0}};
+    constexpr int NSTATE_OPS = sizeof(state) / sizeof(state[0]);
+    const int nops = NSTATE_OPS + (TAB ? 3 * tp : 0);
+    auto piece = [&](int k) -> Piece {
+      if (k < NSTATE_OPS) return state[k];
+      const int q = (k - NSTATE_OPS) / tp, p = (k - NSTATE_OPS) % tp;
+      const V* tab = q == 0 ? a.lc : q == 1 ? a.rd : a.sqb;
+      return {sm + L.lc + q * ktb + p * TB, tab + (size_t)p * a.TK * B,
+              vw * (tp == 1 ? K * TB : TB)};
+    };
+    if (vec && tid == 0) {
+      uint32_t bytes = 0;
+      for (int k = 0; k < nops; ++k) bytes += 4u * piece(k).n;
+      bar_arrive_tx(bars, bytes);
+    }
+    for (int k = 0; k < nops; ++k) {
+      const Piece pc = piece(k);
+      if (pc.n) copy_words(pc.dst, pc.src, pc.n, vec, bars, k, 0);
+    }
   }
-  for (int k = 0; k < nops; ++k) {
-    const Piece pc = piece(k);
-    if (pc.n) copy_words(pc.dst, pc.src, pc.n, vec, bars, k, 0);
-  }
-  // The packed Gram rows of the staged waves, issued at entry beside the
-  // operands by the warps that draw nothing (by all when every warp draws),
-  // a bulk copy per row and trait (one lane each): wave 0's rows count on
-  // barrier 1, waited for before the first fold, the other waves' on
-  // barrier 2, waited for before the second.  Where an address is not on
-  // 16 bytes: 4-byte cp.async copies once the operands are in, copy group
-  // 0 for wave 0, 1 for the rest.
+  // The packed Gram rows of the staged waves, issued by the warps that
+  // draw nothing (by all when every warp draws), in wave order, a bulk
+  // copy per row and trait (one lane each).  Float: at entry beside the
+  // operands; wave 0's rows count on barrier 1, waited for before the
+  // first fold, the other waves' on barrier 2, waited for before the
+  // second.  Double: once the operands are in (issued at entry, the
+  // bulk copies held the operands' barrier back by ~0.6 us a block),
+  // wave w's rows on barrier 1 + min(w, NB - 2) (nbar), waited for before
+  // the fold of the first wave on it.  Where an address is not on 16
+  // bytes: value-sized cp.async copies once the operands are in, copy
+  // group 0 for wave 0, 1 for the rest.
   const int draw_warps = (TW + 31) / 32;
   const bool bg_fold = draw_warps < NWARPS;
   const int tid0 = bg_fold ? 32 * draw_warps : 0;
-  if (vec && tid == tid0 && a.gsw > 0) {
+  if (sizeof(V) == 4 && vec && tid == tid0 && a.gsw > 0) {
     bar_arrive_tx(bars + 1, (uint32_t)sizeof(V) * TW * (B - W));
     if (a.gsw > 1)
       bar_arrive_tx(bars + 2, (uint32_t)sizeof(V) * T *
                                   (gs_wave_offset(B, W, a.gsw) - W * (B - W)));
   }
-  if (vec && tid >= tid0) {
+  if (sizeof(V) == 4 && vec && tid >= tid0) {
     // Row r = t W + j of wave w.
     for (int x = tid - tid0; x < TW * a.gsw; x += THREADS - tid0) {
       const int w = x / TW, r = x % TW;
@@ -418,12 +489,35 @@ wave_scan_kernel(const WaveArgs<V> a0) {
     snm1[t] = a.nm1 != nullptr ? a.nm1[t] : V(0);
   }
   for (int x = tid; x < TB; x += THREADS) scorr[x] = V(0);
-  if (vec)
+  if (vec && sizeof(V) == 4) {
     bar_wait(bars);
-  else
+  } else {
+    // A wait covers committed copy groups only: commit the operands'.
+    cp_async_commit();
     cp_async_wait<0>();
+  }
   __syncthreads();
   stamp();
+  if constexpr (sizeof(V) == 8) {
+    if (vec && tid == tid0) {
+      // Barrier q counts waves q - 1 .. wb - 1 (the last, every wave left).
+      for (int q = 1; q < NB && q <= a.gsw; ++q) {
+        const int wb = q == NB - 1 ? a.gsw : q;
+        bar_arrive_tx(bars + q, (uint32_t)sizeof(V) * T *
+                                    (gs_wave_offset(B, W, wb) -
+                                     gs_wave_offset(B, W, q - 1)));
+      }
+    }
+    if (vec && tid >= tid0) {
+      for (int x = tid - tid0; x < TW * a.gsw; x += THREADS - tid0) {
+        const int w = x / TW, r = x % TW;
+        const int t = r / W, j = r % W, rest = B - (w + 1) * W;
+        bulk_copy(sgs + goff[w] + r * row_stride<V>(rest),
+                  a.gs + ((size_t)t * B + w * W + j) * B + (w + 1) * W,
+                  (uint32_t)sizeof(V) * rest, bars + 1 + min(w, NB - 2));
+      }
+    }
+  }
   if (!vec && tid >= tid0) {
     for (int w = 0; w < a.gsw; ++w) {
       stage_gs_wave<V>(sgs + goff[w], a.gs, T, B, W, w, tid0);
@@ -436,9 +530,12 @@ wave_scan_kernel(const WaveArgs<V> a0) {
   // corr of the later waves' markers i in [i0, i1) (counted from the first
   // marker after wave w), on `nthr` threads from warp `warp0` on.  `split`
   // neighbouring lanes share an output, lane h summing the terms h,
-  // h + split, ... in order, then a shuffle tree; split is the largest
-  // power of two up to 8 that keeps the fold to one pass.  Whole warps run
-  // the loop, so every shuffle has all its lanes.
+  // h + split, ... in order, then a shuffle tree.  In float, split is the
+  // largest power of two up to 8 that keeps the fold to one pass; in
+  // double, the largest up to 8 and W, in as many passes as the outputs
+  // need, so that a trait's bits do not depend on the CTA's traits or
+  // threads (the plan's TG).  Whole warps run the loop, so every shuffle
+  // has all its lanes.
   auto fold = [&](int w, int i0, int i1, int warp0, int nthr) {
     const int rs = row_stride<V>(B - (w + 1) * W);
     const int cols = i1 - i0;
@@ -446,7 +543,11 @@ wave_scan_kernel(const WaveArgs<V> a0) {
     const bool staged = w < a.gsw;
     const V* gw = sgs + goff[w];
     int ls = 0;                                 // split = 1 << ls
-    while (ls < 3 && T * cols * (2 << ls) <= nthr) ++ls;
+    if constexpr (sizeof(V) == 8) {
+      while (ls < 3 && (2 << ls) <= W) ++ls;
+    } else {
+      while (ls < 3 && T * cols * (2 << ls) <= nthr) ++ls;
+    }
     const int split = 1 << ls;
     const int n = T * cols * split;
 #pragma unroll 1
@@ -510,8 +611,11 @@ wave_scan_kernel(const WaveArgs<V> a0) {
     // waves after this one.
     if (bg_fold && warp >= draw_warps && w >= 1 && any_prev && w + 1 < nw)
       fold(w - 1, W, B - w0, draw_warps, THREADS - 32 * draw_warps);
-    // The Gram rows the next fold reads.
-    if (w == 0 && a.gsw > 0) {
+    // The Gram rows the next fold reads: wave w's, where it is the first
+    // wave on its barrier (or its copy group).
+    if (sizeof(V) == 8 && vec) {
+      if (w < a.gsw && w < NB - 1) bar_wait(bars + 1 + w);
+    } else if (w == 0 && a.gsw > 0) {
       if (vec)
         bar_wait(bars + 1);
       else
@@ -648,8 +752,9 @@ extern "C" int gmrm_wave_scan(
                     stream);
 }
 
-// The same in float64 (kernel E): every float array float64; tab, gsw
-// from ops/scan_kernel_wave.wave_plan at 8-byte values.
+// The same in float64 (kernel E): every float array float64; tab, gsw, TG
+// from ops/scan_kernel_wave.launch_plan at 8-byte values (any plan that
+// fits gives each trait the same bits).
 extern "C" int gmrm_wave_scan_f64(
     const void* c, const void* nm1, const void* lc, const void* rd,
     const void* sqb, const void* gs, const void* beta_old,

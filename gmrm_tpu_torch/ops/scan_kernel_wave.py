@@ -23,11 +23,12 @@ kernel E (``gmrm_wave_scan_f64``, the double instance of the same
 template: a ``--dtype float64 --wave-size W`` run scans in double, where
 the JAX package's wave kernel narrows to float32).  CUDA tensors launch
 the kernel; CPU tensors run ``wave_scan_plain`` at either dtype.  Limits
-on CUDA tensors: K <= 16 and W dividing B.  One CTA takes every trait
-while the block's state (10 T B values) fits in its shared memory
-(``wave_plan``: about T B <= 5,700 at float32, 2,850 at float64); beyond
-that the launch is a grid of trait groups, TG traits a CTA
-(``launch_plan``), so any T runs while one trait's state fits.  Anything
+on CUDA tensors: K <= 16 and W dividing B.  A launch is a grid of trait
+groups, TG traits a CTA (``launch_plan``), so any T runs while one trait's
+state fits.  Kernel 3 takes every trait in one CTA while the block's
+state (10 T B values) fits in its shared memory (``wave_plan``: about
+T B <= 5,700); kernel E spreads the traits over CTAs so that each stages
+the tables and every wave's Gram rows (``f64_traits_a_cta``).  Anything
 else of the wrong device, dtype, shape or layout raises ``ValueError``.
 """
 
@@ -109,13 +110,17 @@ def _plan_or_raise(T, B, K, W):
 
 
 def launch_plan(T, B, K, W, es=4):
-    """(tab, gsw, TG) of a launch at T traits and es-byte values: one CTA
-    of all of them (TG = T) where ``wave_plan`` holds them, else a grid of
-    trait groups, TG the width of the most even split of T into groups of
-    at most the most traits it holds; the plan is that of a CTA of TG
-    traits."""
+    """(tab, gsw, TG) of a launch at T traits and es-byte values; TG, the
+    traits a CTA, gives a grid of ceil(T / TG) CTAs and the plan is that of
+    a CTA of TG traits.  At 4-byte values (kernel 3): one CTA of all of
+    them (TG = T) where ``wave_plan`` holds them, else TG the width of the
+    most even split of T into groups of at most the most traits it holds.
+    At 8-byte values (kernel E): ``f64_traits_a_cta``."""
     if K > MAX_K:
         raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
+    if es == 8:
+        TG = f64_traits_a_cta(T, B, K, W)
+        return (*wave_plan(TG, B, K, W, 8), TG)
     plan = wave_plan(T, B, K, W, es)
     if plan is not None:
         return (*plan, T)
@@ -125,6 +130,30 @@ def launch_plan(T, B, K, W, es=4):
                          f"scan's shared memory")
     TG = even_width(T, cap)
     return (*wave_plan(TG, B, K, W, es), TG)
+
+
+# Kernel E's traits a CTA where that many stage everything: the most even
+# split of T into groups of at most this many (on the H100 one trait a CTA
+# ran faster than two or three at the anchor and at T=16;
+# chip_smoke.py --wave64-pairs).
+F64_TG = 1
+
+
+def f64_traits_a_cta(T, B, K, W):
+    """Kernel E's traits a CTA: a trait's chain needs no other trait's, so
+    the traits are spread over CTAs until each CTA stages the tables and
+    every wave's packed Gram rows (no fold reads L2 or device memory), at
+    most ``F64_TG`` traits a CTA; where one trait cannot hold every wave,
+    the most traits a CTA that stage as much as one trait does (the tables
+    first, then waves in wave order), fewer CTAs on a tie."""
+    one = wave_plan(1, B, K, W, 8)
+    if one is None:
+        raise ValueError(f"B={B}: one trait's block state exceeds the wave "
+                         f"scan's shared memory")
+    cap = most_that_fit(T, lambda t: wave_plan(t, B, K, W, 8) == one)
+    if one == (1, B // W - 1):
+        cap = min(cap, F64_TG)
+    return even_width(T, cap)
 
 
 def wave_scan_plain(base, lc, rd, sqb, gs, beta_old, comp_old, acum_old,

@@ -409,44 +409,46 @@ def test_megakernel_true_raises_at_f64_wave(setup64):
 # --------------------------------------------------------------------------
 
 def test_wave_plan_at_f64_anchor_summed_by_hand():
-    """The anchor (T=4, B=128, K=4, W=32) at 8-byte values: the mbarriers
-    (8 values), the state (10 x 512), i2se and nm1 (2 x 4), two waves'
-    dbeta (256), the waves' offsets (8), the tables (3 x 2,048) and wave
-    0's packed rows (4 traits x 32 rows x a stride of 98) make 24,088
-    doubles, 192,704 bytes; wave 1's 8,448 more do not fit, so gsw = 1.
-    The float32 plan is unchanged."""
+    """The anchor (T=4, B=128, K=4, W=32) at 8-byte values: one trait a
+    CTA, four CTAs.  A CTA's shared memory: the mbarriers (8 values), the
+    state (10 x 128), i2se and nm1 (2 x 4), two waves' dbeta (64), the
+    waves' offsets (8), the tables (3 x 512) and the three foldable waves'
+    packed rows (32 rows each at strides 98, 66 and 34) make 9,240
+    doubles, 73,920 bytes: every fold reads shared memory.  One CTA of the
+    four traits held the tables and wave 0's rows only (24,088 doubles,
+    192,704 bytes).  The float32 plan is unchanged."""
     assert sw.row_stride(96, 8) == 98 and sw.row_stride(64, 8) == 66
-    words = 8 + 10 * 512 + 2 * 4 + 256 + 8 + 3 * 2048 + 4 * 32 * 98
-    assert words == 24088
+    assert sw.row_stride(32, 8) == 34
+    words = 8 + 10 * 128 + 2 * 4 + 64 + 8 + 3 * 512 + 32 * (98 + 66 + 34)
+    assert words == 9240
+    assert sw.wave_plan(1, 128, 4, 32, 8) == (1, 3)
+    assert sw._layout_words(1, 128, 4, 32, 1, 3, 8) == words
+    assert 8 * words == 73920 <= sw.SMEM_BYTES
+    assert sw.launch_plan(4, 128, 4, 32, 8) == (1, 3, 1)
     assert sw.wave_plan(4, 128, 4, 32, 8) == (1, 1)
-    assert sw._layout_words(4, 128, 4, 32, 1, 1, 8) == words
-    assert 8 * words == 192704 <= sw.SMEM_BYTES
-    assert 8 * (words + 4 * 32 * 66) > sw.SMEM_BYTES
-    assert sw.launch_plan(4, 128, 4, 32, 8) == (1, 1, 4)
+    assert 8 * sw._layout_words(4, 128, 4, 32, 1, 1, 8) == 192704
     assert sw.wave_plan(4, 128, 4, 32) == (1, 3)
+    assert sw.launch_plan(4, 128, 4, 32) == (1, 3, 4)
 
 
 @pytest.mark.parametrize("T,B,K,W,plan", [
-    (2, 128, 4, 32, (1, 3, 2)),       # every wave's rows staged
-    (4, 128, 4, 8, (1, 4, 4)),        # 4 of 15 waves' rows staged
-    (16, 128, 4, 32, (0, 0, 16)),     # tables and rows in global memory
-    (33, 128, 4, 32, (0, 0, 17)),     # a grid of two trait groups
+    (2, 128, 4, 32, (1, 3, 1)),       # every wave's rows staged
+    (4, 128, 4, 8, (1, 15, 1)),       # all 15 foldable waves' rows staged
+    (16, 128, 4, 32, (1, 3, 1)),      # one CTA staged nothing: now all
+    (33, 128, 4, 32, (1, 3, 1)),      # a grid of 33 trait groups
 ])
 def test_wave_launch_plan_at_f64(T, B, K, W, plan):
     """Kernel E's launch plans: each fits a CTA's shared memory at 8-byte
-    values and is maximal there (tables first, then waves of rows); T=33
-    is a grid of trait groups at float64 where float32 takes one CTA."""
+    values, stages the tables and every wave's rows, and takes F64_TG
+    traits a CTA (float32 takes all T in one CTA at these shapes)."""
     got = sw.launch_plan(T, B, K, W, 8)
     assert got == plan
     tab, gsw, TG = got
     cap = sw.SMEM_BYTES // 8
     assert sw._layout_words(TG, B, K, W, tab, gsw, 8) <= cap
-    assert tab == 1 or sw._layout_words(TG, B, K, W, 1, 0, 8) > cap
-    assert (gsw == B // W - 1
-            or sw._layout_words(TG, B, K, W, tab, gsw + 1, 8) > cap)
-    if TG < T:
-        assert sw.wave_plan(T, B, K, W, 8) is None
-        assert sw.launch_plan(T, B, K, W)[2] == T
+    assert (tab, gsw) == (1, B // W - 1)
+    assert TG == min(T, sw.F64_TG)
+    assert sw.launch_plan(T, B, K, W)[2] == T
 
 
 def test_f64_row_stride_keeps_fold_lanes_off_each_others_banks():
@@ -466,8 +468,9 @@ def test_f64_row_stride_keeps_fold_lanes_off_each_others_banks():
 
 
 def test_wave_scan_sweep_plans_f64_on_8_byte_values(monkeypatch):
-    """WaveScanSweep on float64 (meta) tensors plans at 8-byte values and
-    launches kernel E's entry point, a block index a launch."""
+    """WaveScanSweep on float64 (meta) tensors plans at 8-byte values (one
+    trait a CTA at the anchor: a grid of four) and launches kernel E's
+    entry point, a block index a launch."""
     T, B, K, W, nb = 4, 128, 4, 32, 2
     meta = torch.device("meta")
 
@@ -479,13 +482,13 @@ def test_wave_scan_sweep_plans_f64_on_8_byte_values(monkeypatch):
            e(nb, T, B), e(nb, T, B, dtype=i32), e(nb, T, B, dtype=i32),
            e(nb, T, B), e(T))
     scan = sw.WaveScanSweep(*ops, wave=W)
-    assert scan.plan == (1, 1, 4)
+    assert scan.plan == (1, 3, 1)
     calls = []
     monkeypatch.setattr(_build, "launch",
                         lambda kernel, *args: calls.append((kernel, args)))
     scan.step(1, e(nb, T, B), e(1, T, B, B), 0, bc=1)
     assert [k for k, _ in calls] == ["wave_scan_f64"]
-    assert calls[0][1][-10:] == (1, 1, 0, T, B, K, W, 1, 1, 4)
+    assert calls[0][1][-10:] == (1, 1, 0, T, B, K, W, 1, 3, 1)
     assert "wave_scan_f64" in _build.launch_counts()
     assert _build.SIGNATURES["gmrm_wave_scan_f64"] == _build.SIGNATURES[
         "gmrm_wave_scan"]

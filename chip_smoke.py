@@ -197,6 +197,24 @@ Phases, each of which must pass (any failure exits non-zero):
    other, kernels 1 and 7 (W=32) and 5, 6 and the passes (W=1) launched;
    run_predict on the W=32 chain by each route, byte-equal .mlma, its wall
    split.  ``--io-only`` runs phase 9 alone.
+10. whole chains (``--chains-only`` runs it alone): (a) every training
+   path for CHAIN_ITERS=3 whole iterations from one start, every random
+   number scripted from a numpy seed (ChainScript: the order, u and z, the
+   intercept's normal and one uniform a gamma variate, whose variate is
+   gamma_quantile, held to scipy.special.gammaincinv first), with the
+   kernels on the card (the default path through its CUDA graphs) and
+   with the plain versions on the host CPU: W=32 default, composed W=32,
+   W=1, S=2 at W=32 and W=1, float64 W=1 and W=32, NT=4 (four phenotypes
+   with 2% NAs) and the anchor's bed with 300 annotation groups; comp,
+   cass and m0 equal after every iteration, max|dbeta|, max|deps| <=
+   1e-4 (1e-9 at float64), the hyperparameters within rtol 1e-4 (1e-10);
+   each path's peak device memory; the paths whose plain versions loop
+   over markers (W=1, S=2 W=1, float64) on the small panel; (b) the
+   anchor-scale dataset of benchmarking/EQUIVALENCE.md regenerated with
+   the port's simulator, its digest (phenotypes at float32) against the
+   JAX package's, W=32 chains at three seeds and a W=1 control of 400
+   iterations each, every trait's pooled h2 and sigmaE held to the
+   compiled reference's rows by that file's criterion.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -455,11 +473,12 @@ def close(name, got, want, rtol, atol_rel):
     return max_err(got, want)
 
 
-def to_device(obj, dev):
-    """A state/static dataclass with every tensor moved to ``dev``."""
+def to_device(obj, dev, copy=False):
+    """A state/static dataclass with every tensor moved to ``dev`` (copied
+    even where it is there already, with ``copy``)."""
     import torch
     return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(dev)
+        f.name: getattr(obj, f.name).to(dev, copy=copy)
         for f in dataclasses.fields(obj)
         if isinstance(getattr(obj, f.name), torch.Tensor)})
 
@@ -5627,6 +5646,703 @@ def io_only(dev, tmp, card):
     io_phase(sim, big, dev, tmp, card)
 
 
+# --------------------------------------------------------------------------
+# Phase 10: whole iterations from scripted draws, and anchor-scale posteriors
+# --------------------------------------------------------------------------
+
+CHAIN_ITERS = 3          # phase 10(a): whole iterations a path
+CHAIN_GROUPS = 300       # the anchor's bed with this many annotation groups
+# Phase 10(b): the dataset of benchmarking/EQUIVALENCE.md "Anchor-scale"
+# (benchmarking/equivalence_ref.py:154-156), its chains and its criterion.
+EQ_N, EQ_M, EQ_T, EQ_SEED = 10_000, 20_000, 4, 20260819
+EQ_SEEDS, EQ_ITERS, EQ_THIN, EQ_BURN = (42, 43, 44), 400, 2, 0.4
+EQ_W1_SEED = 4242
+# dataset_digest of that dataset as the JAX package's simulator writes it
+# (its phenotypes at float32), made in the repository's root with:
+#   python -c "import numpy as np, chip_smoke; from gmrm_tpu.io.sim import
+#   simulate; print(chip_smoke.dataset_digest(simulate('/tmp/eq', n=10000,
+#   m=20000, n_traits=4, n_causal=5000, h2=0.5, n_groups=2, na_rate=0.01,
+#   seed=20260819, mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))))"
+# (realized h2 0.481606, 0.509875, 0.519018, 0.513289).
+EQ_DIGEST = "33990c2bffdcf8bf82e330f5da6fa7581efcadf0660cf12a228754102c5628f2"
+# benchmarking/EQUIVALENCE.md:27-59: per trait, the compiled reference's
+# posterior-mean h2 at its two seeds (W=32 rows), and its W=1 control's.
+EQ_REF_H2 = ((0.4080, 0.4141), (0.4886, 0.4821), (0.4637, 0.4651),
+             (0.4886, 0.4852))
+EQ_REF_W1 = (0.4030, 0.4804, 0.4543, 0.4783)
+# ... and its posterior-mean sigmaE at the same two seeds.
+EQ_REF_SE = ((0.5922, 0.5889), (0.5130, 0.5209), (0.5432, 0.5421),
+             (0.5134, 0.5179))
+# The paths of phase 10(a): name -> (dataset, kind, --wave-size, dtype,
+# shards, phenotypes).  Kinds: "default" the whole-sweep iteration (its
+# CUDA graphs), "composed" gibbs_iteration(megakernel=False), "gibbs"
+# gibbs_iteration on the path its plan gives, "sharded"
+# gibbs_iteration_sharded.  "small" is the small panel (Mt=4,096): the
+# cut where the host CPU's plain versions would take too long at the
+# anchor (the serial scans' plain versions loop over markers).
+CHAIN_PATHS = {
+    "W=32 default": ("anchor", "default", W, "float32", 1, None),
+    "W=32 composed": ("anchor", "composed", W, "float32", 1, None),
+    "W=1": ("small", "gibbs", 1, "float32", 1, None),
+    "S=2 W=32": ("anchor", "sharded", W, "float32", 2, None),
+    "S=2 W=1": ("small", "sharded", 1, "float32", 2, None),
+    "float64 W=1": ("small", "gibbs", 1, "float64", 1, None),
+    "float64 W=32": ("small", "gibbs", W, "float64", 1, None),
+    "NT=4 W=32": ("anchor_na", "default", W, "float32", 1, T),
+    f"G={CHAIN_GROUPS} W=32": ("groups", "default", W, "float32", 1, None),
+}
+CHAIN_SHARD_KEYED = ("block_order", "row_order", "marker_order", "u", "z")
+
+
+class ChainScript:
+    """Every random number of iterations 1, 2, ... from a numpy seed (the
+    port's side of tests/torch_chain_script.py): z_mu (T,); the order as
+    pi_b (nblocks,) and row keys (nblocks, B), or marker keys (m_pad,),
+    distinct multiples of 1/B or 1/m_pad; u and z (nblocks, T, B); one
+    uniform a gamma variate of the hyperparameter block.  The order, u and
+    z per shard."""
+
+    def __init__(self, seed, T, G, K, nblocks, Bv, n_shards=1):
+        self.seed, self.T, self.G, self.K = seed, T, G, K
+        self.nblocks, self.B, self.n_shards = nblocks, Bv, n_shards
+        self.cache = {}
+
+    def __call__(self, it):
+        import numpy as np
+        if it not in self.cache:
+            T, G, Kv, nb, Bv, D = (self.T, self.G, self.K, self.nblocks,
+                                   self.B, self.n_shards)
+            rng = np.random.default_rng([self.seed, it])
+            m_pad = nb * Bv
+            self.cache[it] = {
+                "mu": rng.normal(size=T),
+                "block_order": np.stack([rng.permutation(nb)
+                                         for _ in range(D)]),
+                "row_order": ((np.stack([np.stack([rng.permutation(Bv)
+                                                   for _ in range(nb)])
+                                         for _ in range(D)]) + 0.5) / Bv
+                              ).astype(np.float32),
+                "marker_order": ((np.stack([rng.permutation(m_pad)
+                                            for _ in range(D)]) + 0.5)
+                                 / m_pad).astype(np.float32),
+                "u": rng.uniform(size=(D, nb, T, Bv)),
+                "z": rng.normal(size=(D, nb, T, Bv)),
+                "sigmag": rng.uniform(size=(T, G)),
+                "pi": rng.uniform(size=(T, G, Kv)),
+                "sigmae": rng.uniform(size=T),
+            }
+        return self.cache[it]
+
+    def value(self, it, purpose, shard=0):
+        x = self(it)[purpose]
+        return x[shard] if purpose in CHAIN_SHARD_KEYED else x
+
+    def order(self, it, block_mode, m_local, shard=0):
+        """The processing order (m_pad,) the sweep derives."""
+        import numpy as np
+        if block_mode:
+            pi_b = self.value(it, "block_order", shard)
+            rows = np.argsort(self.value(it, "row_order", shard), axis=1)
+            return (pi_b[:, None] * self.B + rows).reshape(-1)
+        r = self.value(it, "marker_order", shard).astype(np.float64)
+        r = np.where(np.arange(r.size) < m_local, r, 2.0)
+        return np.argsort(r, kind="stable")
+
+
+class ChainToken:
+    """What ChainPlan.gen returns in place of a generator."""
+
+    def __init__(self, it, purpose, shard):
+        self.it, self.purpose, self.shard = it, purpose, shard
+
+
+class ChainPlan:
+    """RngPlan's interface over a ChainScript."""
+
+    def __init__(self, script, device, shard=None):
+        import torch
+        self.script = script
+        self.device = torch.device(device)
+        self.shard = 0 if shard is None else int(shard)
+
+    def gen(self, it, purpose):
+        return ChainToken(int(it), purpose, self.shard)
+
+
+class ChainTorch:
+    """torch, with randn, rand and randperm of a ChainToken answered from
+    the script (written into ``out`` where the caller gives one)."""
+
+    def __init__(self, script):
+        self.script = script
+
+    def __getattr__(self, name):
+        import torch
+        return getattr(torch, name)
+
+    def _draw(self, real, size, generator, out, dtype, device, kw):
+        import numpy as np
+        import torch
+        if not isinstance(generator, ChainToken):
+            return real(size, generator=generator, out=out, dtype=dtype,
+                        device=device, **kw)
+        x = torch.from_numpy(np.ascontiguousarray(self.script.value(
+            generator.it, generator.purpose, generator.shard)))
+        want = (size,) if isinstance(size, int) else tuple(size)
+        if tuple(x.shape) != want:
+            fail(f"scripted draw {generator.purpose}: {tuple(x.shape)} "
+                 f"for {want}")
+        if out is not None:
+            return out.copy_(x)
+        if dtype is None:
+            dtype = torch.int64 if real is torch.randperm else torch.float32
+        return x.to(device=device, dtype=dtype)
+
+    def randn(self, size, *, generator=None, out=None, dtype=None,
+              device=None, **kw):
+        import torch
+        return self._draw(torch.randn, size, generator, out, dtype, device,
+                          kw)
+
+    def rand(self, size, *, generator=None, out=None, dtype=None,
+             device=None, **kw):
+        import torch
+        return self._draw(torch.rand, size, generator, out, dtype, device,
+                          kw)
+
+    def randperm(self, n, *, generator=None, out=None, dtype=None,
+                 device=None, **kw):
+        import torch
+        return self._draw(torch.randperm, n, generator, out, dtype, device,
+                          kw)
+
+
+def gamma_quantile(shape, u, where=None, steps=120):
+    """Gamma(shape, 1) at quantile u, float64, on shape's device: bisection
+    of log x against torch.special.gammainc (the upper tail Q above u =
+    0.5), torch operations only, so that the whole-sweep iteration's
+    second CUDA graph can hold it (scipy.special.gammaincinv, which the CPU
+    tests use, runs on the host; gamma_quantile_gate holds this to it).
+    Computed on ``where`` (default: shape's device): phase 10 computes
+    both sides' variates on the card, so that they are the same
+    (torch.special.gammainc is good to ~3e-10 of P near shape 20 on the
+    CPU, to ~1e-13 on the card)."""
+    import torch
+    where = shape.device if where is None else where
+    a = shape.double().to(where)
+    u = u.double().to(where)
+    lo = torch.full_like(a, -740.0)
+    hi = torch.log(4.0 * a + 1000.0)
+    upper = u > 0.5
+    q = 1.0 - u
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        x = torch.exp(mid)
+        below = torch.where(upper, torch.special.gammaincc(a, x) > q,
+                            torch.special.gammainc(a, x) < u)
+        lo = torch.where(below, mid, lo)
+        hi = torch.where(below, hi, mid)
+    return torch.exp(0.5 * (lo + hi)).to(shape.device)
+
+
+def gamma_quantile_gate(dev, card):
+    """gamma_quantile on ``dev`` against scipy.special.gammaincinv, on the
+    shapes the hyperparameter block makes (half-integers to 0.5 (V0E + N),
+    counts + 1) and uniforms from 1e-9 to 1 - 1e-9: relative error <=
+    1e-12 on the card (1e-9 on the CPU)."""
+    import numpy as np
+    import scipy.special
+    import torch
+    shapes = np.concatenate([np.arange(0.5, 200.0, 0.5), [0.50005, 1.00005,
+                             2500.5, 5000.00005, 5000.5, 20001.0]])
+    us = np.concatenate([[1e-9, 1e-6, 1e-3], np.linspace(0.01, 0.99, 21),
+                         [1 - 1e-3, 1 - 1e-6, 1 - 1e-9]])
+    a, u = (x.ravel() for x in np.meshgrid(shapes, us))
+    want = scipy.special.gammaincinv(a, u)
+    got = gamma_quantile(torch.from_numpy(a).to(dev),
+                         torch.from_numpy(u).to(dev)).cpu().numpy()
+    worst = float(np.max(np.abs(got - want) / want))
+    print(f"# phase 10: gamma_quantile on the {dev.type} against "
+          f"scipy.special.gammaincinv on {a.size} (shape, u) pairs: max "
+          f"relative error {worst:.3e}  [{card}]", flush=True)
+    if worst > (1e-12 if dev.type == "cuda" else 1e-9):
+        fail(f"gamma_quantile is {worst:.3e} from scipy's gammaincinv")
+
+
+@contextlib.contextmanager
+def scripted(script, where):
+    """The port's iteration fed from ``script`` (with ChainPlan in place of
+    its RngPlan): torch's draws in sampler.gibbs and sampler.whole_sweep,
+    and the hyperparameter block's gamma draws (the uniform in the boost
+    slot) and variates (gamma_quantile, computed on ``where``); undone on
+    exit."""
+    import torch
+    from gmrm_tpu_torch.sampler import dists
+    from gmrm_tpu_torch.sampler import gibbs as pgibbs
+    from gmrm_tpu_torch.sampler import whole_sweep
+
+    def gamma_draws(gen, shape, device, out=None):
+        u = torch.as_tensor(script.value(gen.it, gen.purpose),
+                            dtype=torch.float64, device=device)
+        if out is None:
+            return (None, None, u)
+        out[2].copy_(u)
+        return out
+
+    def gamma_from_draws(shape, draws):
+        return gamma_quantile(shape, draws[2], where).to(
+            dists._out_dtype(shape))
+
+    proxy = ChainTorch(script)
+    patches = [(pgibbs, "torch", proxy), (whole_sweep, "torch", proxy),
+               (pgibbs, "gamma_draws", gamma_draws),
+               (dists, "gamma_draws", gamma_draws),
+               (dists, "gamma_from_draws", gamma_from_draws)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def groups_dataset(sim, out_dir, n_groups=CHAIN_GROUPS):
+    """``sim`` (its bed and phens) with a .gri/.grm of ``n_groups``
+    annotation groups of consecutive markers, each with the anchor's
+    mixtures."""
+    os.makedirs(out_dir, exist_ok=True)
+    gri = os.path.join(out_dir, f"g{n_groups}.gri")
+    grm = os.path.join(out_dir, f"g{n_groups}.grm")
+    with open(gri, "w") as fh:
+        for j in range(sim.m):
+            fh.write(f"{j} {j * n_groups // sim.m}\n")
+    with open(grm, "w") as fh:
+        for _ in range(n_groups):
+            fh.write("0.00000 0.00010 0.00100 0.01000\n")
+    return dataclasses.replace(sim, gri=gri, grm=grm)
+
+
+def shard_states_to(states, dev):
+    """Copies on ``dev`` of per-shard states that share their replicated
+    leaves (one residual), as the sharded run's do."""
+    first = to_device(states[0], dev, copy=True)
+    return [dataclasses.replace(first, **{
+        k: getattr(s, k).to(dev, copy=True) for k in ("betas", "comp",
+                                                      "acum")})
+            for s in states]
+
+
+def chain_fields(states, aux):
+    """The compared leaves on the host, the shards' marker leaves
+    concatenated."""
+    import torch
+    if not isinstance(states, (list, tuple)):
+        states = [states]
+    out = {k: getattr(states[0], k).detach().cpu().clone()
+           for k in ("eps", "cass", "sigmag", "sigmae", "pi_est", "mu")}
+    for k in ("betas", "comp", "acum"):
+        out[k] = torch.cat([getattr(s, k).detach().cpu() for s in states],
+                           dim=1)
+    out["m0"] = aux.m0.detach().cpu().clone()
+    return out
+
+
+def chain_compare(name, it, kern, plain, script, block_mode, m_locals,
+                  m_pad, onehot, f64, tied, ties):
+    """Phase 10(a)'s gates on one iteration: comp, cass and m0 equal;
+    max|dbeta|, max|deps| <= 1e-4 (1e-9 at float64); acum within rtol
+    1e-3, atol 1e-5 (1e-10, 1e-12); sigmaE, pi and mu within rtol 1e-4
+    (1e-10), sigmaG too, and also by as much as the betas' differences
+    move its group's sum of beta^2 (``onehot``: markers x groups).  A
+    trait whose comp differs must have its first differing draw in
+    processing order within TIE_ULPS ulps of its CDF boundary in the plain
+    version's arithmetic; it is printed and left out from then on.
+    Returns (max|dbeta|, max|deps|, sigmaG's largest relative error)."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch.config import V0G, S02G
+    nT = kern["betas"].shape[0]
+    for t in range(nT):
+        if t in tied or torch.equal(kern["comp"][t], plain["comp"][t]):
+            continue
+        orders, u_nat = [], np.zeros(tuple(plain["betas"].shape))
+        for s, ml in enumerate(m_locals):
+            o = script.order(it, block_mode, ml, shard=s)
+            u = np.moveaxis(script.value(it, "u", s), 1, 0).reshape(nT, -1)
+            u_nat[:, s * m_pad + o] = u
+            orders.append(s * m_pad + o)
+        order = np.concatenate(orders)
+        diff = (kern["comp"][t, order] != plain["comp"][t, order]).numpy()
+        r = int(order[int(np.argmax(diff))])
+        u = (np.float64 if f64 else np.float32)(u_nat[t, r])
+        margin = abs(float(u) - float(plain["acum"][t, r]))
+        ulps = margin / float(np.spacing(u))
+        msg = (f"{name}: iteration {it}, trait {t}: comp differs first at "
+               f"marker {r} (card {int(kern['comp'][t, r])}, plain "
+               f"{int(plain['comp'][t, r])}); u {float(u):.9g}, acum card "
+               f"{float(kern['acum'][t, r]):.9g}, plain "
+               f"{float(plain['acum'][t, r]):.9g}; |u - cdf| {margin:.3e} = "
+               f"{ulps:.2f} ulps")
+        if ulps > TIE_ULPS:
+            fail(msg)
+        tied.add(t)
+        ties.append(msg)
+    keep = [t for t in range(nT) if t not in tied]
+    if not keep:
+        fail(f"{name}: every trait tied")
+    k = {f: x[keep] for f, x in kern.items()}
+    p = {f: x[keep] for f, x in plain.items()}
+    for f in ("comp", "cass", "m0"):
+        if not torch.equal(k[f], p[f]):
+            fail(f"{name}, iteration {it}: {f} differs in "
+                 f"{int((k[f] != p[f]).sum())} places")
+    tol = 1e-9 if f64 else 1e-4
+    db, de = max_err(k["betas"], p["betas"]), max_err(k["eps"], p["eps"])
+    if db > tol or de > tol:
+        fail(f"{name}, iteration {it}: max|dbeta| {db:.3e}, max|deps| "
+             f"{de:.3e} above {tol}")
+    rtol, atol = (1e-10, 1e-12) if f64 else (1e-3, 1e-5)
+    if not torch.allclose(k["acum"].double(), p["acum"].double(), rtol=rtol,
+                          atol=atol):
+        fail(f"{name}, iteration {it}: acum off by "
+             f"{max_err(k['acum'], p['acum']):.3e}")
+    rtol = 1e-10 if f64 else 1e-4
+    for f in ("sigmae", "pi_est", "mu"):
+        if not torch.allclose(k[f].double(), p[f].double(), rtol=rtol,
+                              atol=0.0):
+            fail(f"{name}, iteration {it}: {f} off by "
+                 f"{max_err(k[f], p[f]):.3e} (rtol {rtol})")
+    bw = p["betas"].double().abs()
+    d = (k["betas"].double() - p["betas"].double()).abs()
+    slack = (2.0 * bw * d + d * d) @ onehot
+    m0 = p["m0"].double()
+    sg = p["sigmag"].double().abs()
+    sqn = (bw * bw) @ onehot
+    allowed = rtol * sg + sg * m0 * slack / (m0 * sqn + V0G * S02G)
+    dsg = (k["sigmag"].double() - p["sigmag"].double()).abs()
+    if (dsg > allowed).any():
+        fail(f"{name}, iteration {it}: sigmag off by {float(dsg.max()):.3e}"
+             f" beyond rtol {rtol} and the betas' share")
+    return db, de, float((dsg / sg.clamp(min=1e-300)).max())
+
+
+def chain_stepper(kind, static, state, script, dev, wave, shards):
+    """``step(it) -> (state(s), aux)`` of a phase 10(a) path on ``dev``."""
+    from gmrm_tpu_torch.parallel.distributed import Communicator
+    from gmrm_tpu_torch.sampler.gibbs import (
+        gibbs_iteration, gibbs_iteration_sharded,
+    )
+    from gmrm_tpu_torch.sampler.whole_sweep import WholeSweepIteration
+    if kind == "default":
+        return WholeSweepIteration(state, static, ChainPlan(script, dev),
+                                   block_size=B, wave=wave)
+    box = [state]
+    if kind == "sharded":
+        plans = [ChainPlan(script, dev, shard=i) for i in range(shards)]
+        comm = Communicator(dev)
+
+        def step(it):
+            box[0], aux = gibbs_iteration_sharded(
+                box[0], static, it, plans, block_size=B, wave=wave,
+                comm=comm)
+            return box[0], aux
+        return step
+    plan = ChainPlan(script, dev)
+    mega = False if kind == "composed" else None
+
+    def step(it):
+        box[0], aux = gibbs_iteration(box[0], static, it, plan, block_size=B,
+                                      wave=wave, megakernel=mega)
+        return box[0], aux
+    return step
+
+
+def chain_path(name, sims, dev, card):
+    """Phase 10(a) on one path: CHAIN_ITERS whole iterations from one start
+    and one script with the kernels on the card and with the plain versions
+    on the host CPU, compared after every iteration (chain_compare).
+    Returns its figures."""
+    import torch
+    from gmrm_tpu_torch import runner
+    from gmrm_tpu_torch.config import resolve_plan
+    from gmrm_tpu_torch.ops import _build
+
+    t_path = time.perf_counter()
+    ds, kind, wave, dtype, shards, n_ph = CHAIN_PATHS[name]
+    sim = sims[ds]
+    phens = sim.phens[:n_ph] if n_ph else None
+    cpu = torch.device("cpu")
+    if shards > 1:
+        opt, data, statics, states, _ = sharded_setup(sim, dev, shards, wave,
+                                                      dtype, phens)
+        m_pad, m_locals = data.layout.m_pad_shard, list(data.m_local)
+        start = {"card": (statics, states),
+                 "host": ([to_device(x, cpu) for x in statics],
+                          shard_states_to(states, cpu))}
+        static0 = statics[0]
+        group_of = torch.cat([x.group_of.cpu() for x in statics])
+    else:
+        opt = anchor_options(sim, "", wave, dtype=dtype, phens=phens)
+        resolve_plan(opt, "cuda", sim.m)
+        data = runner.load_data(opt)
+        static0 = runner.build_static(data, opt, dev)
+        state = runner.init_sampler_state(data, opt, dev)
+        m_pad, m_locals = data.m_pad, [data.m_local]
+        start = {"card": (static0, state),
+                 "host": (to_device(static0, cpu),
+                          to_device(state, cpu, copy=True))}
+        group_of = static0.group_of.cpu()
+    if opt.wave_size != wave:
+        fail(f"{name}: the plan resolved to W={opt.wave_size}")
+    nT = len(opt.phen_files)
+    G, Kv = static0.cva.shape
+    nblocks = m_pad // B
+    block_mode = static0.gram_cache is not None
+    if kind == "default" and not block_mode:
+        fail(f"{name}: the whole-sweep path needs a Gram cache")
+    script = ChainScript(20261018, nT, G, Kv, nblocks, B, n_shards=shards)
+    fields, seconds = {}, {}
+    cuda = dev.type == "cuda"
+    with scripted(script, dev):
+        for side, d in (("card", dev), ("host", cpu)):
+            step = chain_stepper(kind, *start[side], script, d, wave,
+                                 shards)
+            if side == "card" and cuda:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            fields[side] = [chain_fields(*step(it))
+                            for it in range(1, CHAIN_ITERS + 1)]
+            seconds[side] = time.perf_counter() - t0
+            if side == "card":
+                peak = torch.cuda.max_memory_allocated() if cuda else 0
+                launches = {k: v for k, v in _build.launch_counts().items()
+                            if v}
+    if cuda and not launches:
+        fail(f"{name}: no kernel launched on the card")
+    onehot = (group_of[:, None] == torch.arange(G)[None, :]).double()
+    tied, ties, worst = set(), [], (0.0, 0.0, 0.0)
+    for it, (kern, plain) in enumerate(zip(fields["card"], fields["host"]),
+                                       1):
+        got = chain_compare(name, it, kern, plain, script, block_mode,
+                            m_locals, m_pad, onehot, dtype == "float64",
+                            tied, ties)
+        worst = tuple(max(a, b) for a, b in zip(worst, got))
+    moved = int((fields["card"][-1]["comp"] != 0).sum())
+    if not moved:
+        fail(f"{name}: no marker left component 0")
+    wall = time.perf_counter() - t_path
+    print(f"# phase 10(a) {name} (T={nT}, W={opt.wave_size}, S={shards}, "
+          f"{dtype}, {nblocks} blocks{' a shard' if shards > 1 else ''}, "
+          f"Mt={sim.m}, G={G}, NT={1 if static0.shared_na else nT}): "
+          f"{CHAIN_ITERS} whole iterations, card against the plain versions "
+          f"on the host CPU from one start and one script: comp, cass and m0 "
+          f"equal after each, max|dbeta| {worst[0]:.3e}, max|deps| "
+          f"{worst[1]:.3e}, sigmaG max rel {worst[2]:.3e}; "
+          f"{'; '.join(ties) if ties else 'no tie'}; {moved} (trait, "
+          f"marker) pairs off component 0; card {seconds['card']:.2f} s, "
+          f"host CPU {seconds['host']:.2f} s; launches {launches}; peak "
+          f"device memory {peak / 2**20:.1f} MiB; {wall:.1f} s  [{card}]",
+          flush=True)
+    return {"seconds": wall, "peak": peak, "launches": launches,
+            "worst": worst, "ties": ties}
+
+
+def dataset_digest(sim):
+    """sha256 over a dataset: each file's base name, the bytes of its
+    .bed, .dim, .bim, .gri and .grm, and of each .phen every line's ids
+    with its value rounded to float32 (the simulator's phenotypes come from
+    a BLAS product, whose last bits differ from machine to machine: two
+    hosts with other numpy builds write other .phen bytes from the same
+    genotypes)."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for p in [sim.bed, sim.dim, sim.bim, sim.gri, sim.grm, *sim.phens]:
+        h.update(os.path.basename(p).encode())
+        if p not in sim.phens:
+            with open(p, "rb") as fh:
+                h.update(fh.read())
+            continue
+        with open(p) as fh:
+            for line in fh:
+                fid, iid, val = line.split()
+                h.update(f"{fid} {iid} ".encode())
+                h.update(b"NA" if val == "NA"
+                         else np.float32(float(val)).tobytes())
+    return h.hexdigest()
+
+
+def equiv_dataset(tmp):
+    """benchmarking/EQUIVALENCE.md's anchor-scale dataset (N=10,000,
+    M=20,000, 4 traits), from the port's simulator."""
+    import numpy as np
+    from gmrm_tpu_torch.io.sim import simulate
+    return simulate(tmp, n=EQ_N, m=EQ_M, n_traits=EQ_T, n_causal=EQ_M // 4,
+                    h2=0.5, n_groups=2, na_rate=0.01, seed=EQ_SEED,
+                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
+
+
+def csv_chain(path):
+    """(sigmaE, h2) per record of a .csv."""
+    import numpy as np
+    se, h2 = [], []
+    with open(path) as fh:
+        for line in fh:
+            parts = [p.strip() for p in line.split(",") if p.strip()]
+            if parts:
+                g = int(parts[1])
+                se.append(float(parts[2 + g]))
+                h2.append(float(parts[3 + g]))
+    return np.asarray(se), np.asarray(h2)
+
+
+def equivalence_phase(sim, dev, tmp, card):
+    """Phase 10(b): the anchor-scale dataset regenerated by the port's
+    simulator (its digest checked against the JAX package's), run_training
+    at W=32 (B=128) for EQ_ITERS iterations at each of EQ_SEEDS (thin
+    EQ_THIN, the first 40% of records burn-in) and a W=1 control; each
+    trait's pooled posterior-mean h2 held to EQUIVALENCE.md's reference
+    rows: |diff| <= max(3 hypot(SEM_ref, SEM_port), 0.015), the control
+    within 0.03 of the reference's control (the criterion's floor, which
+    governs at these chains' spread), and the pooled sigmaE within
+    max(3 hypot(SEM_ref, SEM_port), 3% of the mean)."""
+    import numpy as np
+    from gmrm_tpu_torch.config import Options
+    from gmrm_tpu_torch.io.writers import read_history
+    from gmrm_tpu_torch.runner import run_training
+
+    t_phase = time.perf_counter()
+    digest = dataset_digest(sim)
+    if digest != EQ_DIGEST:
+        fail(f"phase 10(b): the dataset's digest {digest} is not the JAX "
+             f"package's {EQ_DIGEST}")
+    print(f"# phase 10(b): the anchor-scale dataset from the port's "
+          f"simulator (N={EQ_N}, M={EQ_M}, {EQ_T} traits, 2 groups, 1% NAs, "
+          f"seed {EQ_SEED}): digest (phenotypes at float32) equal to the JAX "
+          f"package's; realized h2 "
+          f"{[round(float(x), 6) for x in sim.h2_realized]}", flush=True)
+
+    def chain(seed, wave):
+        out = os.path.join(tmp, f"eq_w{wave}_s{seed}")
+        opt = Options(bed_file=sim.bed, dim_file=sim.dim,
+                      phen_files=list(sim.phens), group_index_file=sim.gri,
+                      group_mixture_file=sim.grm, iterations=EQ_ITERS,
+                      seed=seed, out_dir=out, block_size=B, wave_size=wave,
+                      output_thin_rate=EQ_THIN)
+        opt.validate()
+        opt.load_group_mixtures()
+        t0 = time.perf_counter()
+        run_training(opt, device=dev, verbose=False)
+        rows = []
+        for t, ph in enumerate(sim.phens):
+            base = os.path.join(out, os.path.splitext(
+                os.path.basename(ph))[0])
+            se, h2 = csv_chain(base + ".csv")
+            _, bet = read_history(base + ".bet", "f8")
+            if len(h2) != EQ_ITERS // EQ_THIN or bet.shape[0] != len(h2):
+                fail(f"phase 10(b): {base}.csv/.bet hold {len(h2)} and "
+                     f"{bet.shape[0]} records")
+            k = int(len(h2) * EQ_BURN)
+            beta = bet[k:].mean(axis=0)
+            rows.append({"h2": float(h2[k:].mean()),
+                         "h2_sd": float(h2[k:].std()),
+                         "sigmae": float(se[k:].mean()),
+                         "corr_truth": float(np.corrcoef(
+                             beta, sim.beta_true[:, t])[0, 1])})
+        return rows, time.perf_counter() - t0
+
+    runs = [chain(s, W) for s in EQ_SEEDS]
+    control, ctl_s = chain(EQ_W1_SEED, 1)
+    ok = True
+    lines = []
+    for t in range(EQ_T):
+        ours = np.array([r[0][t]["h2"] for r in runs])
+        ref = np.array(EQ_REF_H2[t])
+        sem_o = ours.std(ddof=1) / np.sqrt(len(ours))
+        sem_r = ref.std(ddof=1) / np.sqrt(len(ref))
+        tol = max(3.0 * float(np.hypot(sem_r, sem_o)), 0.015)
+        diff = abs(ours.mean() - ref.mean())
+        cd = abs(control[t]["h2"] - EQ_REF_W1[t])
+        se_o = np.array([r[0][t]["sigmae"] for r in runs])
+        se_r = np.array(EQ_REF_SE[t])
+        se_tol = max(3.0 * float(np.hypot(
+            se_r.std(ddof=1) / np.sqrt(len(se_r)),
+            se_o.std(ddof=1) / np.sqrt(len(se_o)))),
+            0.03 * (se_o.mean() + se_r.mean()) / 2)
+        se_diff = abs(se_o.mean() - se_r.mean())
+        ok = ok and diff <= tol and cd <= 0.03 and se_diff <= se_tol
+        lines.append(
+            f"trait {t}: port W={W} h2 {[round(float(x), 4) for x in ours]} "
+            f"pooled "
+            f"{ours.mean():.4f}+-{sem_o:.4f} against the reference "
+            f"{ref.mean():.4f}+-{sem_r:.4f}: diff {diff:.4f} <= tol "
+            f"{tol:.4f} {'PASS' if diff <= tol else 'FAIL'}; W=1 control "
+            f"{control[t]['h2']:.4f} against {EQ_REF_W1[t]:.4f}: diff "
+            f"{cd:.4f} <= 0.03 {'PASS' if cd <= 0.03 else 'FAIL'}; sigmaE "
+            f"pooled {se_o.mean():.4f} against {se_r.mean():.4f}: diff "
+            f"{se_diff:.4f} <= tol {se_tol:.4f} "
+            f"{'PASS' if se_diff <= se_tol else 'FAIL'}; corr(beta, truth) "
+            f"{min(r[0][t]['corr_truth'] for r in runs):.4f} at the least "
+            f"seed")
+    for line in lines:
+        print(f"# phase 10(b) {line}  [{card}]", flush=True)
+    secs = [round(r[1], 2) for r in runs]
+    print(f"# phase 10(b): W={W} chains of {EQ_ITERS} iterations at seeds "
+          f"{EQ_SEEDS}: {secs} s each (run_training, startup included); W=1 "
+          f"control {ctl_s:.2f} s; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s  [{card}]", flush=True)
+    if not ok:
+        fail("phase 10(b): the anchor-scale posteriors fail the criterion "
+             "of benchmarking/EQUIVALENCE.md")
+
+
+def chains_phase(sims, dev, tmp, card):
+    """Phase 10: (a) every training path's whole iterations on the card
+    against the plain versions (chain_path, CHAIN_PATHS), with its peak
+    device memory; (b) the anchor-scale posteriors (equivalence_phase)."""
+    t_phase = time.perf_counter()
+    gamma_quantile_gate(dev, card)
+    sims = dict(sims, groups=groups_dataset(
+        sims["anchor"], os.path.join(tmp, "groups")))
+    rows = {name: chain_path(name, sims, dev, card)
+            for name in CHAIN_PATHS}
+    t_a = time.perf_counter() - t_phase
+    print(f"# phase 10(a): {len(rows)} paths in {t_a:.1f} s; peak device "
+          f"memory MiB "
+          f"{ {k: round(v['peak'] / 2**20, 1) for k, v in rows.items()} }  "
+          f"[{card}]", flush=True)
+    equivalence_phase(sims["equiv"], dev, tmp, card)
+    print(f"# phase 10 wall {time.perf_counter() - t_phase:.1f} s  [{card}]",
+          flush=True)
+    return rows
+
+
+def chains_only(dev, tmp, card):
+    """``--chains-only``: phase 10 alone, its datasets simulated by worker
+    processes while the kernels build."""
+    from gmrm_tpu_torch.ops import _build
+    datasets = (("anchor", anchor_dataset), ("small", small_dataset),
+                ("traits16na", traits_anchor_na), ("equiv", equiv_dataset))
+    with concurrent.futures.ProcessPoolExecutor(
+            len(datasets), mp_context=multiprocessing.get_context("spawn"),
+            initializer=one_thread) as pool:
+        futs = {name: pool.submit(make, os.path.join(tmp, name))
+                for name, make in datasets}
+        build_host_library()
+        t0 = time.perf_counter()
+        _build.build()
+        _build.library()
+        print(f"# build {time.perf_counter() - t0:.1f} s", flush=True)
+        sims = {name: f.result() for name, f in futs.items()}
+    sims["anchor_na"] = sims.pop("traits16na")
+    chains_phase(sims, dev, tmp, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--training-only", type=int, default=0,
@@ -5647,6 +6363,7 @@ def main():
     parser.add_argument("--against", action="append", default=[],
                         metavar="TREE")
     parser.add_argument("--io-only", action="store_true")
+    parser.add_argument("--chains-only", action="store_true")
     parser.add_argument("--same-bytes", default="", metavar="TREE")
     parser.add_argument("--f32-chains", nargs=2, metavar=("SIM", "OUT"))
     parser.add_argument("--repo", default=REPO)
@@ -5674,6 +6391,10 @@ def main():
     if args.io_only:
         with tempfile.TemporaryDirectory() as tmp:
             io_only(dev, tmp, card)
+        return
+    if args.chains_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            chains_only(dev, tmp, card)
         return
     if args.wave64_only:
         wave64_only(dev, card)
@@ -5734,7 +6455,8 @@ def main():
     # The three datasets are simulated by worker processes, one thread each,
     # while the kernels build and phase 2 runs.
     datasets = (("data", anchor_dataset), ("small", small_dataset),
-                ("big", big_dataset), *TRAIT_DATASETS)
+                ("big", big_dataset), *TRAIT_DATASETS,
+                ("equiv", equiv_dataset))
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ProcessPoolExecutor(
                 len(datasets),
@@ -5874,9 +6596,12 @@ def main():
             sim, small, dev, tmp, card, gen)
         for k, v in e_launches.items():
             f64_launches[k] = f64_launches.get(k, 0) + v
-        trait_rows = traits_phase(dev, tmp, card, gen,
-                                  [f.result() for f in sims[3:]])
+        trait_sims = [f.result() for f in sims[3:3 + len(TRAIT_DATASETS)]]
+        trait_rows = traits_phase(dev, tmp, card, gen, trait_sims)
         io_phase(sim, big, dev, tmp, card)
+        chains_phase({"anchor": sim, "small": small,
+                      "anchor_na": trait_sims[1],
+                      "equiv": sims[-1].result()}, dev, tmp, card)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2, peak) in runs.items():
         startup = ("load + stats + Gram cache of "

@@ -215,6 +215,25 @@ Phases, each of which must pass (any failure exits non-zero):
    JAX package's, W=32 chains at three seeds and a W=1 control of 400
    iterations each, every trait's pooled h2 and sigmaE held to the
    compiled reference's rows by that file's criterion.
+11. any number of mixture components (``--any-k-only`` runs it alone):
+   (a) kernels 6, C, 3 and E against their plain versions on the card at
+   K = 17 and 33 on the anchor's 157-block arrays and at K = 65 on the
+   small panel's 32 blocks (a quarter of the draws past the 700 guard,
+   per-trait Grams, each launch twice bit-equal), and kernel 6's one-CTA
+   routes and kernel C's tables in global memory, comp exact but for a
+   tie (TIE_ULPS), the rest within the phases' gates, each kernel's ms a
+   block at K = 4, 17, 33 and 65 beside its plain version and bound;
+   (b) kernels 7/8 and 9 through one sweep against the plain sweep on the
+   host CPU (W=32 and S=2 at W=32, tie-aware) with a K-column .grm at
+   K = 17 and 33 at the anchor and K = 65 on the small panel; (c) python
+   -m gmrm_tpu_torch at the anchor with a 17-column .grm at W=32, W=1,
+   S=2 and float64 W=1 and W=32, and on the small panel with a 65-column
+   .grm at W=32 and W=1; (d) phase 10(a)'s W=32 default,
+   composed, W=1, S=2 W=32 and float64 W=1 and W=32 paths with that .grm
+   on the small panel;
+   (e) run_training at the anchor at W=32 and W=1 at K = 4, 17 and 33,
+   ms/iteration; and the ptxas registers, stack and spills of every
+   instance that takes any K.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -267,7 +286,8 @@ a rewritten Gram run, kernel 3 alone, with one stamped launch of each
 7c's float64 W=1 chain in TREE and in this tree (TREE, this, this, TREE;
 a process each) and requires equal ``.bet/.cpn/.csv`` bytes, and equal
 bytes from the block Gram and predict sums kernels, float32 and float64,
-and kernel 3 (float32), on seeded inputs.
+and kernel 3 (float32), on seeded inputs; then every kernel instance of
+TREE must have equal ptxas registers, stack frame and spills here.
 """
 
 import argparse
@@ -1953,8 +1973,54 @@ def anchor_options(sim, out_dir, wave=W, iterations=ITERS, dtype="float32",
     return opt
 
 
+def tied_traits(name, kern, plain, orders, us):
+    """The traits whose comp differs between two float32 sweeps, each
+    allowed only as a tie: per shard, (comp, acum) of the kernels and of
+    the plain versions (T, slots), the order (nblocks, B) of the slots
+    drawn and u (nblocks, T, B) in that order.  In such a trait the first
+    differing draws (the earliest block step over the shards, each shard's
+    first there: ``first_flip``) must have u within TIE_ULPS ulps of the
+    nearer of the two CDF values drawn; the trait's chain differs from
+    there on.  Returns (the tied traits, a line for each); fails
+    otherwise."""
+    import torch
+    nT = kern[0][0].shape[0]
+    tied, msgs = [], []
+    for t in range(nT):
+        firsts = []
+        for s, ((kc, ka), (pc, pa), order, u) in enumerate(zip(
+                kern, plain, orders, us)):
+            o = order.reshape(-1).long()
+            if bool((kc[t, o] != pc[t, o]).any()):
+                u_nat = torch.empty_like(pa)
+                u_nat[:, o] = torch.as_tensor(u).movedim(1, 0).reshape(
+                    nT, -1).to(u_nat.dtype)
+                flip = first_flip((None, None, kc, ka), (None, None, pc, pa),
+                                  u_nat, o, t)
+                firsts.append((flip[0] // order.shape[1], s, flip))
+        if not firsts:
+            continue
+        step = min(f[0] for f in firsts)
+        for st, s, (_, r, u, margin, ulps) in firsts:
+            if st != step:
+                continue
+            msg = (f"trait {t}: comp differs first at block step {step}, "
+                   f"shard {s}, slot {r} ({int(kern[s][0][t, r])} against "
+                   f"{int(plain[s][0][t, r])}): u {u:.9g}, |u - cdf| "
+                   f"{margin:.3e} = {ulps:.2f} ulps")
+            if ulps > TIE_ULPS:
+                fail(f"{name}: {msg}; more than {TIE_ULPS} ulps from its CDF "
+                     f"boundary")
+            msgs.append(msg)
+        tied.append(t)
+    if len(tied) == nT:
+        fail(f"{name}: every trait tied")
+    return tied, msgs
+
+
 def sweep_gate(sim, dev, wave, name, card, against="plain",
-               dtype="float32", phens=None, mega=None, timed=True):
+               dtype="float32", phens=None, mega=None, timed=True,
+               tie_aware=False):
     """Phases 3, 3b, 3c, 7b, 7h and 8a: one sweep through the default
     marker_sweep on the card (the whole-sweep kernel at W>1; at W=1
     kernels 5, 2, 6, the fused pass and 4, or at float64 kernels A, B and
@@ -1965,6 +2031,8 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
     which must resolve to W=1.  ``phens``: a subset of the phenotypes (the
     launches counted with the kernels' trait chunks).  At float64 the draws
     are float64 and |dbeta|, |deps| are held to 1e-9 (1e-4 at float32).
+    ``tie_aware`` (phase 11): a trait whose comp differs is allowed as a
+    tie (``tied_traits``) and left out of the other comparisons.
     Returns the Gram cache's bytes."""
     import numpy as np
     import torch
@@ -2025,6 +2093,14 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
             and counts[against] != composed_counts(nblocks, traits=nT,
                                                    mb=mb)):
         fail(f"{name}: launches {counts}")
+    ties = []
+    if tie_aware:
+        tied, ties = tied_traits(
+            name, [(res["kernels"][2], res["kernels"][3])],
+            [(res[against][2], res[against][3])], [inj[0]],
+            [inj[1].numpy()])
+        keep = [t for t in range(nT) if t not in tied]
+        res = {k: [x[keep] for x in v] for k, v in res.items()}
     (ke, kb, kc, _, kcass), (pe, pb, pc, _, pcass) = (res["kernels"],
                                                       res[against])
     n_diff = int((kc != pc).sum())
@@ -2036,19 +2112,24 @@ def sweep_gate(sim, dev, wave, name, card, against="plain",
           f"sweep: comp mismatches {n_diff} of {kc.numel()}, cass equal "
           f"{torch.equal(kcass, pcass)}, max|dbeta| {db:.3e}, max|deps| "
           f"{de:.3e}; launches {counts['kernels']}; "
+          f"{'; '.join(ties) + ' (left out); ' if ties else ''}"
           f"{time.perf_counter() - t_gate:.1f} s", flush=True)
     if n_diff or not torch.equal(kcass, pcass) or db > tol or de > tol:
         where = (kc != pc).nonzero()
-        u_nat = torch.empty_like(res[against][3])
-        u_nat[:, inj[0].reshape(-1).long()] = inj[1].movedim(1, 0).reshape(
-            nT, -1).to(u_nat.dtype)
-        margin = torch.minimum((u_nat - res["kernels"][3]).abs(),
-                               (u_nat - res[against][3]).abs())[kc != pc]
+        least = 0.0
+        if n_diff:          # (tie_aware leaves no comp difference)
+            u_nat = torch.empty_like(res[against][3])
+            u_nat[:, inj[0].reshape(-1).long()] = inj[1].movedim(
+                1, 0).reshape(nT, -1).to(u_nat.dtype)
+            least = float(torch.minimum(
+                (u_nat - res["kernels"][3]).abs(),
+                (u_nat - res[against][3]).abs())[kc != pc].min())
         fail(f"{name}: the kernels disagree with the {against} sweep; comp "
              f"differs at (trait, slot) {where[:12].tolist()}; least margin "
-             f"|u - acum| there {float(margin.min()) if n_diff else 0:.3e}")
+             f"|u - acum| there {least:.3e}")
     if opt.wave_size > 1 and mega is None and timed and dtype == "float32":
-        plan = sweep_plan(nT, B, data.mb_pad, nt, K, opt.wave_size)
+        plan = sweep_plan(nT, B, data.mb_pad, nt, int(static.cva.shape[1]),
+                         opt.wave_size)
         dev_inj = [x.to(dev) for x in inj]
 
         def sweep_ms(mega, reps):
@@ -2149,7 +2230,7 @@ def sharded_setup(sim, dev, n_shards, wave=W, dtype="float32", phens=None):
 
 
 def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
-                 phens=None, against="composed"):
+                 phens=None, against="composed", tie_aware=False):
     """Phases 3d, 3e, 7e and 8a: one sharded sweep on the card, with the
     same injected order and draws per shard on both sides.  At float32
     W > 1 the fused per-block kernel against the composed kernels 2, 3 and
@@ -2158,7 +2239,8 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
     auto plan, which must resolve to W=1) kernels 5, 2, 6 and 4 (at
     float64 A, B and C), and at float64 W > 1 kernels A, B and E, adding
     into a delta against their plain versions on the host CPU.
-    ``phens``: a subset of the phenotypes."""
+    ``phens``: a subset of the phenotypes.  ``tie_aware`` as in
+    sweep_gate."""
     import numpy as np
     import torch
     from gmrm_tpu_torch.ops import _build
@@ -2232,6 +2314,15 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
                     out[2].cpu()))
         ms.append(call_ms(sweep, 2) if d.type == "cuda" else None)
     (ae, a_st, acass), (be, b_st, bcass) = res
+    ties = []
+    if tie_aware:
+        tied, ties = tied_traits(
+            name, [(x[1], x[2]) for x in a_st], [(x[1], x[2]) for x in b_st],
+            [torch.from_numpy(o) for o in orders], u)
+        keep = [t for t in range(nT) if t not in tied]
+        ae, be, acass, bcass = ae[keep], be[keep], acass[keep], bcass[keep]
+        a_st, b_st = ([[x[keep] for x in ms_] for ms_ in st_]
+                      for st_ in (a_st, b_st))
     n_diff = sum(int((a[1] != b[1]).sum()) for a, b in zip(a_st, b_st))
     db = max(max_err(a[0], b[0]) for a, b in zip(a_st, b_st))
     de = max_err(ae, be)
@@ -2245,6 +2336,7 @@ def sharded_gate(sim, dev, card, n_shards, wave, name, dtype="float32",
           f"mismatches {n_diff} of {n_shards * nT * mps}, cass equal "
           f"{torch.equal(acass, bcass)}, max|dbeta| {db:.3e}, max|deps| "
           f"{de:.3e}; {timing} (CUDA events around eager calls); "
+          f"{'; '.join(ties) + ' (left out); ' if ties else ''}"
           f"{time.perf_counter() - t_gate:.1f} s  [{card}]", flush=True)
     tol = 1e-9 if dtype == "float64" else 1e-4
     if (n_diff or not torch.equal(acass, bcass) or db > tol or de > tol
@@ -3012,7 +3104,9 @@ def same_bytes(tree, card):
     each in its own process on the one card, in the order TREE, this,
     this, TREE (``f32_chains``), with the kernel outputs of
     ``kernel_bytes``; the files of the first two runs must be equal byte
-    for byte."""
+    for byte.  Then every kernel instance of TREE must compile here to the
+    same registers, stack frame and spills (``ptxas_resources`` of both
+    trees' build logs); and prints how many compile to the same SASS."""
     import filecmp
     import pickle
     with tempfile.TemporaryDirectory() as tmp:
@@ -3040,6 +3134,28 @@ def same_bytes(tree, card):
             print(f"# same bytes: the {what} {len(names)} "
                   f"files of {tree} and {REPO} are equal  [{card}]",
                   flush=True)
+    # Every kernel instance of TREE compiles to the same resources here.
+    logs = [os.path.join(root, "gmrm_tpu_torch", "_build", "build.log")
+            for root in (tree, REPO)]
+    old, new = (ptxas_resources(open(x).read()) for x in logs)
+    differ = {n: (r, new.get(n)) for n, r in old.items() if new.get(n) != r}
+    if not old or differ:
+        fail(f"ptxas: instances of {tree} whose registers, stack or spills "
+             f"differ here: {differ or 'no instance read'}")
+    print(f"# same ptxas resources: all {len(old)} kernel instances of "
+          f"{tree} have equal registers, stack frame and spills in "
+          f"{REPO}; {len(new) - len(old)} instances are new here: "
+          f"{sorted(set(new) - set(old))}  [{card}]", flush=True)
+    # And their instructions (printed, not gated: the gates are the bytes
+    # and the resources above).
+    import glob
+    old, new = (sass_of(sorted(glob.glob(os.path.join(
+        root, "gmrm_tpu_torch", "_build", "libgmrm_kernels_*.so")))[-1])
+        for root in (tree, REPO))
+    same = [n for n, code in old.items() if new.get(n) == code]
+    print(f"# SASS: {len(same)} of the {len(old)} kernels of {tree} compile "
+          f"to the same instructions in {REPO}; differ: "
+          f"{sorted(set(old) - set(same))}  [{card}]", flush=True)
 
 
 def training_only(dev, reps, card, repo):
@@ -3201,6 +3317,27 @@ def sass_counts(lib, fn_part, ops):
                 if instr and instr.group(1).startswith(op):
                     counts[fn][op] += 1
     return counts
+
+
+def sass_of(lib):
+    """Each kernel's SASS in the shared library ``lib`` (``cuobjdump
+    -sass``): {name (ANON_NS reduced): its instructions, without their
+    addresses and encodings}."""
+    from gmrm_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = ANON_NS.sub(r"_ZN\1_", head.group(1))
+            out[fn] = []
+        elif fn:
+            instr = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if instr:
+                out[fn].append(instr.group(1))
+    return out
 
 
 def ad_times(dev, gen, card, repo, rep):
@@ -4402,23 +4539,14 @@ print(json.dumps({
 def ptxas_summary(log):
     """Registers, stack frame and spills of each K <= 4 wave-scan kernel
     in an nvcc -Xptxas=-v log, by value type, tables staged and stamps."""
-    out, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+    out = []
+    for name, (regs, stack, st, ld) in ptxas_resources(log).items():
+        m = re.search(r"wave_scan_kernelI([fd]?)Li4ELb([01])ELb([01])E", name)
         if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"wave_scan_kernelI([fd]?)Li4ELb([01])ELb([01])E",
-                      name or "")
-        if not m:
-            continue
-        tag = f"{'E' if m.group(1) == 'd' else '3'} tab={m.group(2)} " \
-              f"st={m.group(3)}"
-        if "stack frame" in line:
-            out.append(f"{tag}: " + " ".join(line.split()[:2]) + " stack, "
-                       + ", ".join(x.strip() for x in line.split(",")[1:]))
-        elif "Used" in line:
-            out[-1] += ", " + line.split(":")[-1].strip().split(",")[0]
+            out.append(f"{'E' if m.group(1) == 'd' else '3'} tab={m.group(2)}"
+                       f" st={m.group(3)}: {stack} bytes stack, {st} bytes "
+                       f"spill stores, {ld} bytes spill loads, {regs} "
+                       f"registers")
     return "; ".join(out)
 
 
@@ -6059,18 +6187,18 @@ def chain_stepper(kind, static, state, script, dev, wave, shards):
     return step
 
 
-def chain_path(name, sims, dev, card):
-    """Phase 10(a) on one path: CHAIN_ITERS whole iterations from one start
-    and one script with the kernels on the card and with the plain versions
-    on the host CPU, compared after every iteration (chain_compare).
-    Returns its figures."""
+def chain_path(name, sims, dev, card, paths=CHAIN_PATHS):
+    """Phase 10(a) on one path of ``paths``: CHAIN_ITERS whole iterations
+    from one start and one script with the kernels on the card and with the
+    plain versions on the host CPU, compared after every iteration
+    (chain_compare).  Returns its figures."""
     import torch
     from gmrm_tpu_torch import runner
     from gmrm_tpu_torch.config import resolve_plan
     from gmrm_tpu_torch.ops import _build
 
     t_path = time.perf_counter()
-    ds, kind, wave, dtype, shards, n_ph = CHAIN_PATHS[name]
+    ds, kind, wave, dtype, shards, n_ph = paths[name]
     sim = sims[ds]
     phens = sim.phens[:n_ph] if n_ph else None
     cpu = torch.device("cpu")
@@ -6343,6 +6471,439 @@ def chains_only(dev, tmp, card):
     chains_phase(sims, dev, tmp, card)
 
 
+# ---- phase 11: any number of mixture components -----------------------------
+
+ANY_K = (17, 33)        # the kernels' gates and training at the anchor
+ANY_K_SMALL = 65        # and on the small panel
+ANY_K_ITERS = 10        # run_training at K = 4, 17, 33 (ms/iteration over
+                        # the iterations after THIN, sync to sync)
+ANY_K_CLI_ITERS = 3     # the command line's runs with a 17-column .grm
+# Phase 10(a)'s paths with a 17-column .grm (CHAIN_ITERS whole iterations
+# each against the plain versions), on the small panel: the host CPU's
+# plain sweeps are the phase's time, and 32 blocks take a fifth of the
+# anchor's; the composed path has no command-line switch, so it is held
+# here only.
+ANY_K_CHAIN_PATHS = {
+    "K=17 W=32 default": ("small17", "default", W, "float32", 1, None),
+    "K=17 W=32 composed": ("small17", "composed", W, "float32", 1, None),
+    "K=17 W=1": ("small17", "gibbs", 1, "float32", 1, None),
+    "K=17 S=2 W=32": ("small17", "sharded", W, "float32", 2, None),
+    "K=17 float64 W=1": ("small17", "gibbs", 1, "float64", 1, None),
+    "K=17 float64 W=32": ("small17", "gibbs", W, "float64", 1, None),
+}
+# The command line's runs at the anchor with a 17-column .grm: name ->
+# extra arguments.
+ANY_K_CLI = {"W=32": [], "W=1": ["--wave-size", "1"],
+             "S=2": ["--devices", "2"],
+             "float64 W=1": ["--dtype", "float64"],
+             "float64 W=32": ["--dtype", "float64", "--wave-size", str(W)]}
+# And on the small panel with a 65-column .grm (its 32 blocks plan W=1
+# unless the wave is named).
+ANY_K_CLI_SMALL = {"W=32": ["--wave-size", str(W)],
+                   "W=1": ["--wave-size", "1"]}
+# The scans' kernels: (name, scan class, dtype); kernels 7/8 and 9 are
+# held through their sweeps.
+ANY_K_SCANS = (("serial_scan", "serial", "float32"),
+               ("serial_scan_f64", "serial", "float64"),
+               ("wave_scan", "wave", "float32"),
+               ("wave_scan_f64", "wave", "float64"))
+
+
+def mixtures(Kv):
+    """A .grm row of Kv strictly ascending variances: 0, then Kv - 1 log
+    spaced from 1e-5 to 1e-2."""
+    import numpy as np
+    return np.concatenate([[0.0], np.logspace(-5, -2, Kv - 1)])
+
+
+def mixtures_dataset(sim, out_dir, Kv):
+    """``sim`` with a one-group .grm of Kv components (``mixtures``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    grm = os.path.join(out_dir, f"k{Kv}.grm")
+    with open(grm, "w") as fh:
+        fh.write(" ".join(f"{v:.10g}" for v in mixtures(Kv)) + "\n")
+    return dataclasses.replace(sim, grm=grm)
+
+
+def any_k_bound(kind, Tv, Bv, Kv, Wv, es):
+    """The least ms of one block's scan: each operand read once (c, the
+    state, the draws and msig, three int32 masks, the 3 K tables, the Gram
+    entries the fold reads), the outputs written once (dbeta, d, beta,
+    acum; comp), against the operations: the fold's product and sum per
+    Gram entry read and, per (trait, marker), K exponentials of some 4
+    operations (the wave draw) or K^2 (the serial draw's K sums)."""
+    tb = Tv * Bv
+    rows = (Bv * (Bv - 1) // 2 if kind == "serial"
+            else Wv * sum(Bv - (w + 1) * Wv for w in range(Bv // Wv)))
+    nbytes = es * (6 * tb + 3 * Kv * tb + Tv * rows + 4 * tb) + 4 * 4 * tb
+    ops = 2 * Tv * rows + 4 * tb * Kv * (Kv if kind == "serial" else 1)
+    return bound_of(nbytes, (ops, F64_OPS if es == 8 else F32_OPS))
+
+
+def any_k_operands(dev, gen, Kv, nb, pad, dtype):
+    """The scans' sweep operands (f64_scan_operands at T, B) in ``dtype``,
+    with a quarter of the markers' c scaled by 40, so that their draws take
+    the 700 guard; per-trait Grams."""
+    import torch
+    ops, c, gs, live = f64_scan_operands(dev, gen, T, B, Kv, nb, pad)
+    big = torch.rand(c.shape, generator=gen, device=dev) < 0.25
+    c = torch.where(big, c * 40.0, c)
+    cast = [x.to(dtype) if x.is_floating_point() else x for x in ops]
+    return cast, c.to(dtype), gs["NT=4"].to(dtype), live
+
+
+def any_k_held(name, got, want, u, f64, live):
+    """comp equal to the plain version's, where a trait's first differing
+    draw may be a tie (within TIE_ULPS ulps of its CDF boundary: the
+    trait is then left out); dbeta, beta and acum within the paths'
+    gates.  Returns (max abs err, ties)."""
+    import numpy as np
+    keep, ties = [], []
+    for t in range(got[2].shape[0]):
+        diff = (got[2][t] != want[2][t]).nonzero()
+        if not len(diff):
+            keep.append(t)
+            continue
+        j = int(diff[0])
+        uj = float(u[t, j])
+        margin = min(abs(uj - float(got[3][t, j])),
+                     abs(uj - float(want[3][t, j])))
+        ulps = margin / float(np.spacing((np.float64 if f64
+                                          else np.float32)(uj)))
+        msg = (f"{name}: trait {t} comp differs first at marker {j} "
+               f"({int(got[2][t, j])} against {int(want[2][t, j])}), "
+               f"|u - cdf| {ulps:.2f} ulps")
+        if ulps > TIE_ULPS:
+            fail(msg)
+        ties.append(msg)
+    if not keep:
+        fail(f"{name}: every trait tied")
+    err = 0.0
+    for part, i in (("dbeta", 0), ("beta", 1), ("acum", 3)):
+        g, w = got[i][keep], want[i][keep]
+        err = max(err, close64(f"{name} {part}", g, w) if f64
+                  else close(f"{name} {part}", g, w, 1e-5, 1e-5))
+    if int(want[2][live != 0].max()) < 1:
+        fail(f"{name}: no live draw left component 0")
+    return err, ties
+
+
+def any_k_guarded(blk, dbeta, live_b, Wv):
+    """Live (trait, marker) draws of a block whose log-likelihoods spread
+    over more than 700, num rebuilt from the plain version's dbeta (the
+    corrections of the markers before it: of the earlier waves)."""
+    import torch
+    base, lc, rd, gs_b, i2se = blk[0], blk[1], blk[2], blk[4], blk[-1]
+    j = torch.arange(base.shape[1], device=base.device)
+    before = (j[:, None] // Wv) < (j[None, :] // Wv)
+    num = base + (dbeta[:, :, None] * gs_b * before).sum(1)
+    logl = lc + rd * num * (num * i2se[:, None])
+    spread = logl.max(0).values - logl.min(0).values
+    return int(((spread > 700.0) & (live_b != 0)).sum())
+
+
+def any_k_scan_gates(dev, gen, card):
+    """Kernels 6, C, 3 and E against their plain versions on the card at
+    K = 17 and 33 on the anchor's 157-block arrays (a middle block and the
+    last, with its 96 pad slots) and at K = 65 on the small panel's 32
+    blocks, per-trait Grams, a quarter of the draws past the 700 guard:
+    each launch twice (bit-equal), comp exact but for a tie, the rest
+    within the kernels' gates (any_k_held).  Then kernel 6 at K=17 in its
+    one-CTA routes (one trait; two traits in passes at B=640, the state
+    staged; three at K=33, nothing staged) and kernel C at K=65, B=512
+    with its tables in global memory (mode 1).  The ms of
+    a block (graph replay) at K = 4, 17, 33 and 65, the plain version's,
+    and the bound.  Returns {name: rows}."""
+    import torch
+    from gmrm_tpu_torch.ops import scan_kernel as sk6
+    from gmrm_tpu_torch.ops import scan_kernel_wave as sw
+    nblocks = -(-MT // B)
+    rows = {}
+    cases = [(Kv, nblocks, 96) for Kv in (K, *ANY_K)]
+    cases.append((ANY_K_SMALL, MT_SMALL // B, 3))
+    for Kv, nb, pad in cases:
+        for name, kind, dtype in ANY_K_SCANS:
+            f64 = dtype == "float64"
+            dty = torch.float64 if f64 else torch.float32
+            ops, c, gs, live = any_k_operands(dev, gen, Kv, nb, pad, dty)
+            Wv = W if kind == "wave" else 1
+            sweep = (sw.WaveScanSweep(*ops, wave=W) if kind == "wave"
+                     else sk6.SerialScanSweep(*ops))
+            errs, ties, guarded, top = 0.0, [], 0, 0
+            for b in (nb // 2, nb - 1):
+                def step(b=b):
+                    sweep.step(b, c, gs, b, bc=b)
+                    return tuple(x[b].clone() for x in (
+                        sweep.dbeta, sweep.beta_new, sweep.comp_new,
+                        sweep.acum_new, sweep.d))
+                got = bit_equal_twice(f"{name} K={Kv} block {b}", step)
+                if Kv == K:
+                    continue
+                base = (c[b] + ops[4][b] * ops[0][:, None]).contiguous()
+                blk = (base, *(x[b] for x in ops[1:4]), gs[b],
+                       *(x[b] for x in ops[4:11]), ops[12])
+                want = (sw.wave_scan_plain(*blk, W) if kind == "wave"
+                        else sk6.serial_scan_plain(*blk))
+                top = max(top, int(want[2][live[b] != 0].max()))
+                e, t = any_k_held(f"{name} K={Kv} block {b}", got, want,
+                                  ops[7][b], f64, live[b])
+                errs, ties = max(errs, e), ties + t
+                guarded += any_k_guarded(blk, want[0], live[b], Wv)
+                if not torch.equal(got[4], ops[11][b] * got[0]):
+                    fail(f"{name} K={Kv}: d is not msig * dbeta bit for bit")
+            if Kv != K and not guarded:
+                fail(f"{name} K={Kv}: no draw took the 700 guard")
+            plan = list(sw.launch_plan(T, B, Kv, W, 8 if f64 else 4)
+                        if kind == "wave" else sk6.f64_plan(T, B, Kv) if f64
+                        else sk6.launch_plan(T, B, Kv))
+            bm = nb // 2
+            base = (c[bm] + ops[4][bm] * ops[0][:, None]).contiguous()
+            blk = (base, *(x[bm] for x in ops[1:4]), gs[bm],
+                   *(x[bm] for x in ops[4:11]), ops[12])
+            ms = cuda_ms(lambda: sweep.step(bm, c, gs, bm, bc=bm), 50)
+            plain = ((lambda: sw.wave_scan_plain(*blk, W)) if kind == "wave"
+                     else (lambda: sk6.serial_scan_plain(*blk)))
+            plain_ms = call_ms(plain, 2)
+            bound = any_k_bound(kind, T, B, Kv, Wv, 8 if f64 else 4)
+            rows.setdefault(name, []).append(dict(
+                K=Kv, blocks=nb, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], max_abs_err=errs, guarded=guarded,
+                top=top, plan=plan, ties=ties))
+            print(f"# any K: {name} K={Kv} ({nb} blocks, T={T}, B={B}, plan "
+                  f"{plan}): "
+                  + ("the timing's reference, ungated here (phase 2 and 7 "
+                     "gate K=4); " if Kv == K else
+                     f"two blocks against the plain version, comp equal"
+                     f"{' but ' + '; '.join(ties) if ties else ''}, max abs "
+                     f"err {errs:.3e}, {guarded} live draws past the 700 "
+                     f"guard, components drawn up to {top}; ")
+                  + f"kernel {ms:.5f} ms a block (graph replay), plain "
+                  f"{plain_ms:.3f} ms (eager), bound {bound[0]:.6f} ms by "
+                  f"{bound[1]}  [{card}]", flush=True)
+            del ops, c, gs, sweep
+    # Kernel 6's one-CTA routes and kernel C's tables in global memory,
+    # one block's tensors each.
+    for Tv, Bv, Kv, f64, plan in ((1, B, 17, False, (2, 8, 16, 1)),
+                                  (2, 640, 17, False, (1, 8, 2, 2)),
+                                  (3, 640, 33, False, (0, 8, 2, 3)),
+                                  (2, 512, 65, True, (1, 8, 4, 1))):
+        args, live = scan_case(dev, gen, Tv, Bv, Kv)
+        if f64:
+            args = tuple(x.double() if x.is_floating_point() else x
+                         for x in args)
+        got_plan = (sk6.f64_plan(Tv, Bv, Kv) if f64
+                    else sk6.launch_plan(Tv, Bv, Kv))
+        if got_plan != plan:
+            fail(f"serial_scan T={Tv}, B={Bv}, K={Kv}: plan {got_plan}")
+        name = f"serial_scan{'_f64' if f64 else ''} T={Tv}, B={Bv}, K={Kv}"
+        got = bit_equal_twice(name, lambda: sk6.serial_scan(*args))
+        want = sk6.serial_scan_plain(*args)
+        err, ties = any_k_held(name, got, want, args[8], f64, live)
+        print(f"# any K: {name}, plan {got_plan}: comp equal"
+              f"{' but ' + '; '.join(ties) if ties else ''}, max abs err "
+              f"{err:.3e}  [{card}]", flush=True)
+    return rows
+
+
+def any_k_training(sim, dev, tmp, Kv, wave, iterations):
+    """run_training at the anchor with a Kv-column .grm: the launches (the
+    Gram cache once and kernels 7/8 once an iteration at W>1; the serial
+    path's at W=1), components drawn up to Kv - 1, the steady ms an
+    iteration after THIN."""
+    import numpy as np
+    import torch
+    from gmrm_tpu_torch.io.writers import read_history
+    from gmrm_tpu_torch.ops import _build
+    from gmrm_tpu_torch.runner import run_training
+    out_dir = os.path.join(tmp, f"anyk_k{Kv}_w{wave}")
+    opt = anchor_options(sim, out_dir, wave, iterations)
+    gc.collect()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    res = run_training(opt, device=dev, verbose=False)
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    want = ({"gram_cache": 1, "sweep_blocks": iterations} if wave > 1
+            else serial_counts(-(-MT // B), sweeps=iterations))
+    if launches != want:
+        fail(f"K={Kv} W={wave} training: launches {launches}, expected "
+             f"{want}")
+    base = os.path.join(out_dir, os.path.splitext(
+        os.path.basename(sim.phens[0]))[0])
+    _, cpn = read_history(base + ".cpn", "i4")
+    if cpn.min() < 0 or cpn.max() >= Kv or not np.isfinite(
+            res.state.sigmag.cpu().numpy()).all():
+        fail(f"K={Kv} W={wave} training: components or chain out of range")
+    return sum(res.iter_seconds[THIN:]) / (iterations - THIN), int(cpn.max())
+
+
+def any_k_cli(sim, Kv, where, paths, dev, tmp, card):
+    """``python -m gmrm_tpu_torch`` (cli.main) on the card with ``sim``'s
+    Kv-column .grm, ANY_K_CLI_ITERS iterations of each of ``paths`` (name
+    -> extra arguments, ANY_K_CLI's): exit 0, the path's kernels launched,
+    every .cpn component in 0 .. Kv - 1.  Returns {path: launches}."""
+    import numpy as np
+    from gmrm_tpu_torch import cli
+    from gmrm_tpu_torch.io.writers import read_history
+    from gmrm_tpu_torch.ops import _build
+    out = {}
+    scans = {"W=32": "sweep_blocks", "W=1": "serial_scan",
+             "S=2": "block_sweep", "float64 W=1": "serial_scan_f64",
+             "float64 W=32": "wave_scan_f64"}
+    for name, extra in paths.items():
+        out_dir = os.path.join(tmp, f"anyk_cli_k{Kv}_" + name.replace(
+            " ", "_").replace("=", ""))
+        argv = ["--bed-file", sim.bed, "--dim-file", sim.dim,
+                "--phen-files", ",".join(sim.phens),
+                "--group-index-file", sim.gri,
+                "--group-mixture-file", sim.grm,
+                "--iterations", str(ANY_K_CLI_ITERS), "--seed", "42",
+                "--out-dir", out_dir, "--output-thin-rate", "1",
+                "--verbosity", "-1", *extra]
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli.main(argv, device=dev):
+            fail(f"any K: the command line's {name} run with a {Kv}-column "
+                 f".grm exited non-zero")
+        launches = {k: v for k, v in _build.launch_counts().items() if v}
+        if not launches.get(scans[name]):
+            fail(f"any K: the command line's {name} run launched "
+                 f"{launches}, not {scans[name]}")
+        top = 0
+        for ph in sim.phens:
+            base = os.path.join(out_dir, os.path.splitext(
+                os.path.basename(ph))[0])
+            _, cpn = read_history(base + ".cpn", "i4")
+            if cpn.shape[0] != ANY_K_CLI_ITERS or cpn.min() < 0 \
+                    or cpn.max() >= Kv or not np.isfinite(
+                        read_history(base + ".bet", "f8")[1]).all():
+                fail(f"any K: {base}.cpn/.bet of the {name} run")
+            top = max(top, int(cpn.max()))
+        out[name] = launches
+        print(f"# any K: python -m gmrm_tpu_torch {' '.join(extra) or '(W=32 '
+              f'auto)'} {where} with a {Kv}-column .grm, "
+              f"{ANY_K_CLI_ITERS} iterations: exit 0, components up to "
+              f"{top}, launches {launches}; {time.perf_counter() - t0:.1f} s"
+              f"  [{card}]", flush=True)
+    return out
+
+
+def any_k_phase(sims, dev, gen, tmp, card):
+    """Phase 11: any number of mixture components.  (a) the scans'
+    kernels (any_k_scan_gates); (b) kernels 7/8 and 9 through one sweep
+    against their plain versions on the host CPU (sweep_gate and
+    sharded_gate: W=32, S=2 at W=32) at K = 17 and 33 at the anchor and at
+    K = 65 on the small panel; (c) the command line at the anchor with a
+    17-column .grm and on the small panel with a 65-column one
+    (any_k_cli); (d) phase 10(a)'s paths with a 17-column .grm on the
+    small panel (ANY_K_CHAIN_PATHS); (e) run_training at the anchor at
+    W=32 and W=1 at K = 4, 17 and 33, ms/iteration; and the ptxas
+    resources of every instance of the kernels that take any K."""
+    t_phase = time.perf_counter()
+    anchor, small = sims["anchor"], sims["small"]
+    data = {f"anchor{Kv}": mixtures_dataset(anchor, os.path.join(
+        tmp, f"anyk_anchor{Kv}"), Kv) for Kv in ANY_K}
+    data["small17"] = mixtures_dataset(small, os.path.join(
+        tmp, "anyk_small17"), 17)
+    data[f"small{ANY_K_SMALL}"] = mixtures_dataset(small, os.path.join(
+        tmp, f"anyk_small{ANY_K_SMALL}"), ANY_K_SMALL)
+    rows = any_k_scan_gates(dev, gen, card)
+    for key in (*(f"anchor{Kv}" for Kv in ANY_K), f"small{ANY_K_SMALL}"):
+        sweep_gate(data[key], dev, W, f"any K: {key} W={W} sweep gate", card,
+                   tie_aware=True)
+        sharded_gate(data[key], dev, card, 2, W,
+                     f"any K: {key} S=2 W={W} sharded sweep gate",
+                     against="plain", tie_aware=True)
+    cli_launches = any_k_cli(data["anchor17"], 17, "at the anchor",
+                             ANY_K_CLI, dev, tmp, card)
+    cli_launches.update({f"K={ANY_K_SMALL} {k}": v for k, v in any_k_cli(
+        data[f"small{ANY_K_SMALL}"], ANY_K_SMALL, "on the small panel",
+        ANY_K_CLI_SMALL, dev, tmp, card).items()})
+    chains = {name: chain_path(name, data, dev, card, ANY_K_CHAIN_PATHS)
+              for name in ANY_K_CHAIN_PATHS}
+    per_iter = {}
+    for Kv in (K, *ANY_K):
+        sim = anchor if Kv == K else data[f"anchor{Kv}"]
+        for wave in (W, 1):
+            per_iter[(Kv, wave)] = any_k_training(sim, dev, tmp, Kv, wave,
+                                                  ANY_K_ITERS)
+    for (Kv, wave), (steady, top) in per_iter.items():
+        print(f"# any K: run_training at the anchor, K={Kv}, W={wave}: "
+              f"{steady * 1e3:.2f} ms/iteration over iterations "
+              f"{THIN + 1}-{ANY_K_ITERS}, components up to {top}  [{card}]",
+              flush=True)
+    print(f"# any K: ptxas of the instances that take any K: "
+          f"{any_k_ptxas()}", flush=True)
+    print(f"# phase 11 (any K) wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return {"scans": rows, "cli": cli_launches, "chains": chains,
+            "per_iter": per_iter}
+
+
+# A kernel's anonymous namespace in its mangled name, which the compiler
+# names after the source's path: reduced to the source's file name, so
+# that two trees' kernels compare by name.
+ANON_NS = re.compile(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]+")
+
+
+def ptxas_resources(log):
+    """{entry function (ANON_NS reduced): (registers, stack bytes, spill
+    stores, spill loads)} of an nvcc -Xptxas=-v log."""
+    out, name, frame, props = {}, None, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, frame = m.group(1), None
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and props == name:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and frame is not None:
+            out[ANON_NS.sub(r"_ZN\1_", name)] = (int(m.group(1)), *frame)
+            name = None
+    return out
+
+
+def any_k_ptxas():
+    """The ptxas resources of this tree's instances that take any K (the
+    serial scan's of 32 lanes a trait, the others' of bound GMRM_ANY_K):
+    'function: registers/stack/spill stores/spill loads'."""
+    from gmrm_tpu_torch.ops import _build
+    res = ptxas_resources((_build.BUILD_DIR / "build.log").read_text())
+    pat = re.compile(r"serial_scan_kernelI[fd]Li32E|"
+                     r"(wave_scan|sweep_blocks|block_sweep)_kernelI\w*Li0E")
+    return "; ".join(f"{n}: {'/'.join(map(str, r))}"
+                     for n, r in sorted(res.items()) if pat.search(n))
+
+
+def any_k_only(dev, tmp, card):
+    """``--any-k-only``: phase 11 alone, the anchor and the small panel
+    simulated by worker processes while the kernels build."""
+    import torch
+    from gmrm_tpu_torch.ops import _build
+    datasets = (("anchor", anchor_dataset), ("small", small_dataset))
+    with concurrent.futures.ProcessPoolExecutor(
+            len(datasets), mp_context=multiprocessing.get_context("spawn"),
+            initializer=one_thread) as pool:
+        futs = {name: pool.submit(make, os.path.join(tmp, name))
+                for name, make in datasets}
+        build_host_library()
+        t0 = time.perf_counter()
+        _build.build()
+        _build.library()
+        print(f"# build {time.perf_counter() - t0:.1f} s", flush=True)
+        sims = {name: f.result() for name, f in futs.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261019)
+    any_k_phase(sims, dev, gen, tmp, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--training-only", type=int, default=0,
@@ -6364,6 +6925,7 @@ def main():
                         metavar="TREE")
     parser.add_argument("--io-only", action="store_true")
     parser.add_argument("--chains-only", action="store_true")
+    parser.add_argument("--any-k-only", action="store_true")
     parser.add_argument("--same-bytes", default="", metavar="TREE")
     parser.add_argument("--f32-chains", nargs=2, metavar=("SIM", "OUT"))
     parser.add_argument("--repo", default=REPO)
@@ -6395,6 +6957,10 @@ def main():
     if args.chains_only:
         with tempfile.TemporaryDirectory() as tmp:
             chains_only(dev, tmp, card)
+        return
+    if args.any_k_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            any_k_only(dev, tmp, card)
         return
     if args.wave64_only:
         wave64_only(dev, card)
@@ -6602,6 +7168,8 @@ def main():
         chains_phase({"anchor": sim, "small": small,
                       "anchor_na": trait_sims[1],
                       "equiv": sims[-1].result()}, dev, tmp, card)
+        any_k = any_k_phase({"anchor": sim, "small": small}, dev, gen, tmp,
+                            card)
     torch.cuda.synchronize()
     for w, (res, launches, steady, h2, peak) in runs.items():
         startup = ("load + stats + Gram cache of "
@@ -6758,6 +7326,13 @@ def main():
         print(f"# traits T={nT} W={wave}: {steady * 1e3:.2f} ms/iteration, "
               f"{sum(per_iter.values()):.0f} launches an iteration, peak "
               f"{peak / 2**20:.1f} MiB  [{card}]", flush=True)
+    # Phase 11: the scans' ms a block at K = 4, 17, 33 (the anchor) and 65
+    # (the small panel), beside their plain versions and bounds.
+    for row in rows:
+        if row["name"] in any_k["scans"]:
+            row["any_k"] = [{k: r[k] for k in ("K", "ms", "plain_ms",
+                                                "bound_ms", "bound_by")}
+                            for r in any_k["scans"][row["name"]]]
     print(f"# the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

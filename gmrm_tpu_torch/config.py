@@ -263,6 +263,36 @@ def check_slice(opt: Options, device_type: str) -> None:
             "or run on the CPU.")
 
 
+def check_kernels(opt: Options, device_type: str) -> None:
+    """Raise SliceNotCovered, before any data is read, where a CUDA kernel
+    of the resolved plan cannot take the run's shapes: the planners'
+    checks of its first sweep, on the host, for T traits, block size B, K
+    mixture components (``opt.cva``), the wave and the dtype.  The exact
+    serial sweep (W = 1, one device or sharded) runs kernel 6 (C at
+    float64) and the passes; float64 W > 1 runs kernel E and the passes;
+    float32 W > 1 runs kernels 7/8 (one device) or 9 (sharded), whose
+    launch plans need the card and are checked at their first sweep."""
+    if device_type != "cuda" or opt.predict or opt.cva is None:
+        return
+    from gmrm_tpu_torch.ops import scan_kernel, scan_kernel_wave
+    from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
+    T, B, K = len(opt.phen_files), opt.block_size, int(opt.cva.shape[1])
+    W, f64 = opt.wave_size, opt.dtype == "float64"
+    try:
+        if W == 1:
+            (scan_kernel._plan_f64_or_raise if f64
+             else scan_kernel._plan_f32_or_raise)(T, B, K)
+        elif f64:
+            scan_kernel_wave.launch_plan(T, B, K, W, 8)
+        if W == 1 or f64:
+            trait_chunks("passes", T, B, 1, 8 if f64 else 4)
+    except ValueError as e:
+        raise SliceNotCovered(
+            f"no CUDA kernel of this plan takes T={T}, B={B}, K={K}, "
+            f"W={W} at {opt.dtype}: {e} (ROADMAP.md, \"Configurations the "
+            f"port does not run\")") from None
+
+
 def resolve_plan(opt: Options, device_type: str, m_local: int,
                  verbose: bool = False) -> int:
     """Resolve the wave in place on ``opt`` and return the block count.
@@ -271,9 +301,12 @@ def resolve_plan(opt: Options, device_type: str, m_local: int,
 
     Keeps ``Options.guard_wave_blocks`` semantics: an auto-selected wave
     drops to 1 (the exact serial sweep) below 64 blocks, and an explicit
-    wave is kept with a warning.
+    wave is kept with a warning.  Then ``check_kernels``: a shape that no
+    kernel of the plan takes raises here, before ``load_data``.
     """
     check_slice(opt, device_type)
     opt.wave_auto = opt.wave_size is None
     opt.wave_size = planned_wave(opt)
-    return opt.guard_wave_blocks(m_local, verbose=verbose)
+    nblocks = opt.guard_wave_blocks(m_local, verbose=verbose)
+    check_kernels(opt, device_type)
+    return nblocks

@@ -76,6 +76,8 @@
 // With a stamp buffer, thread 0 of every CTA records %globaltimer at the
 // events of BLOCK_STEP_STAMPS (ops/sweep_kernel.py), in a separate
 // instantiation.
+// Any K: a K above 16 takes the instances of bound GMRM_ANY_K, as in
+// csrc/sweep_blocks.cu.
 // A launch takes at most MAX_T traits.  A run with more takes a block step
 // in launches of trait chunks (ops/trait_chunks.py), as csrc/sweep_blocks.cu
 // does a sweep: the entry point offsets every operand to the chunk's first
@@ -747,7 +749,9 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
     const int v_comp = s.comp[o];
     const float v_u = s.u[d], v_z = s.z[d];
     const bool adav = a.sigmag[tg] == 0.0f;
-    float tl[MK], tr[MK], ts[MK];
+    // Any K (MK = GMRM_ANY_K): the tables are staged below, in chunks.
+    constexpr int MR = MK == GMRM_ANY_K ? GMRM_MAX_K : MK;
+    float tl[MR], tr[MR], ts[MR];
 #pragma unroll
     for (int k = 0; k < MK; ++k) {
       if (tab_s && k < K) {
@@ -771,6 +775,29 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
         slc[k * TB + x] = tl[k];
         srd[k * TB + x] = tr[k];
         ssqb[k * TB + x] = ts[k];
+      }
+    }
+    if constexpr (MK == GMRM_ANY_K) {
+      // MR components at a time, each chunk's loads before its stores.
+#pragma unroll 1
+      for (int k0 = 0; tab_s && k0 < K; k0 += MR) {
+#pragma unroll
+        for (int k = 0; k < MR; ++k) {
+          if (k0 + k < K) {
+            const size_t e = (size_t)(k0 + k) * a.TS * G + tg;
+            tl[k] = a.lc[e];
+            tr[k] = a.rd[e];
+            ts[k] = a.sqb[e];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < MR; ++k) {
+          if (k0 + k < K) {
+            slc[(k0 + k) * TB + x] = tl[k];
+            srd[(k0 + k) * TB + x] = tr[k];
+            ssqb[(k0 + k) * TB + x] = ts[k];
+          }
+        }
       }
     }
   }
@@ -870,11 +897,11 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
       const float num = dry ? 0.0f : __fadd_rn(sbase[o], scorr[o]);
       const int tg = t * G + sgrp[i];
       const GmrmDraw dr =
-          tab_s ? gmrm_wave_draw<MK>(num, a.i2se[t], slc + o, srd + o,
-                                     ssqb + o, (size_t)TB, K, su[o], sz[o])
-                : gmrm_wave_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
-                                     a.sqb + tg, (size_t)a.TS * G, K, su[o],
-                                     sz[o]);
+          tab_s ? gmrm_draw<MK>(num, a.i2se[t], slc + o, srd + o, ssqb + o,
+                                (size_t)TB, K, su[o], sz[o])
+                : gmrm_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
+                                a.sqb + tg, (size_t)a.TS * G, K, su[o],
+                                sz[o]);
       const bool lv = sflag[o] & 1;
       const bool zb = sflag[o] & 2;
       const float bo = sbeta[o];
@@ -970,15 +997,18 @@ struct Plan {
 template <bool ST>
 const void* pick_kernel(int T, int K) {
   // Register arrays sized for T <= 4 or 8 traits and K <= 4, 8 or 16
-  // mixture components.
-  const void* kernels[2][3] = {
+  // mixture components; any larger K takes the instances of GMRM_ANY_K.
+  const void* kernels[2][4] = {
       {(const void*)block_sweep_kernel<4, 4, ST>,
        (const void*)block_sweep_kernel<4, 8, ST>,
-       (const void*)block_sweep_kernel<4, GMRM_MAX_K, ST>},
+       (const void*)block_sweep_kernel<4, GMRM_MAX_K, ST>,
+       (const void*)block_sweep_kernel<4, GMRM_ANY_K, ST>},
       {(const void*)block_sweep_kernel<MAX_T, 4, ST>,
        (const void*)block_sweep_kernel<MAX_T, 8, ST>,
-       (const void*)block_sweep_kernel<MAX_T, GMRM_MAX_K, ST>}};
-  return kernels[T <= 4 ? 0 : 1][K <= 4 ? 0 : K <= 8 ? 1 : 2];
+       (const void*)block_sweep_kernel<MAX_T, GMRM_MAX_K, ST>,
+       (const void*)block_sweep_kernel<MAX_T, GMRM_ANY_K, ST>}};
+  return kernels[T <= 4 ? 0 : 1]
+                 [K <= 4 ? 0 : K <= 8 ? 1 : K <= GMRM_MAX_K ? 2 : 3];
 }
 
 // Whether a grid of ncol + ns CTAs with `smem` bytes each is resident at
@@ -1011,7 +1041,7 @@ constexpr int MIN_TILE = 64;
 
 cudaError_t plan_uncached(int T, int B, int mb, int nt, int K, int W,
                           int want, Plan* p) {
-  if (T < 1 || T > MAX_T || K < 1 || K > GMRM_MAX_K || W < 2 || B < W ||
+  if (T < 1 || T > MAX_T || K < 1 || W < 2 || B < W ||
       B % W != 0 || mb < 1 || (nt != 1 && nt != T) || want < 1)
     return cudaErrorInvalidValue;
   p->kernels[0] = pick_kernel<false>(T, K);

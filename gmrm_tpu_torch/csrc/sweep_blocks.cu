@@ -67,6 +67,10 @@
 // Buffers written inside the launch (partials, dbeta, the scaled Gram) are
 // read with __ldcg, never through the non-coherent path.
 //
+// The tables' K is a template bound of register arrays (4, 8 or 16); a
+// larger K takes the instances of bound GMRM_ANY_K, which stage the tables
+// 16 components at a time and draw with sweep_math.cuh's
+// gmrm_wave_draw_any (no per-component array, the same roundings).
 // A launch takes at most MAX_T traits (register arrays).  A run with more
 // is launched once a chunk of traits, back to back on the stream, reusing
 // one scratch (ops/trait_chunks.py): the traits' chains are independent,
@@ -701,7 +705,9 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
       const size_t ux = (size_t)b * a.TS * B + x;
       const float v_u = a.u[ux], v_z = a.z[ux];
       const bool adav = a.sigmag[tg] == 0.0f;
-      float tl[MK], tr[MK], ts[MK];
+      // Any K (MK = GMRM_ANY_K): the tables are staged below, in chunks.
+      constexpr int MR = MK == GMRM_ANY_K ? GMRM_MAX_K : MK;
+      float tl[MR], tr[MR], ts[MR];
 #pragma unroll
       for (int k = 0; k < MK; ++k) {
         if (tab_s && k < K) {
@@ -726,6 +732,29 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
           slc[k * TB + x] = tl[k];
           srd[k * TB + x] = tr[k];
           ssqb[k * TB + x] = ts[k];
+        }
+      }
+      if constexpr (MK == GMRM_ANY_K) {
+        // MR components at a time, each chunk's loads before its stores.
+#pragma unroll 1
+        for (int k0 = 0; tab_s && k0 < K; k0 += MR) {
+#pragma unroll
+          for (int k = 0; k < MR; ++k) {
+            if (k0 + k < K) {
+              const size_t s = (size_t)(k0 + k) * a.TS * G + tg;
+              tl[k] = a.lc[s];
+              tr[k] = a.rd[s];
+              ts[k] = a.sqb[s];
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < MR; ++k) {
+            if (k0 + k < K) {
+              slc[(k0 + k) * TB + x] = tl[k];
+              srd[(k0 + k) * TB + x] = tr[k];
+              ssqb[(k0 + k) * TB + x] = ts[k];
+            }
+          }
         }
       }
     }
@@ -830,11 +859,11 @@ __device__ void scan_cta(const SweepArgs& a, const Layout& L,
         const float num = __fadd_rn(sbase[o], scorr[o]);
         const int tg = t * G + sgrp[i];
         const GmrmDraw dr =
-            tab_s ? gmrm_wave_draw<MK>(num, a.i2se[t], slc + o, srd + o,
-                                       ssqb + o, (size_t)TB, K, su[o], sz[o])
-                  : gmrm_wave_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
-                                       a.sqb + tg, (size_t)a.TS * G, K,
-                                       su[o], sz[o]);
+            tab_s ? gmrm_draw<MK>(num, a.i2se[t], slc + o, srd + o, ssqb + o,
+                                  (size_t)TB, K, su[o], sz[o])
+                  : gmrm_draw<MK>(num, a.i2se[t], a.lc + tg, a.rd + tg,
+                                  a.sqb + tg, (size_t)a.TS * G, K, su[o],
+                                  sz[o]);
         const bool lv = sflag[o] & 1;
         const bool zb = sflag[o] & 2;
         const float bo = sbeta[o];
@@ -937,20 +966,23 @@ struct Plan {
 template <bool ST>
 const void* pick_kernel(int T, int K) {
   // Register arrays sized for T <= 4 or 8 traits and K <= 4, 8 or 16
-  // mixture components.
-  const void* kernels[2][3] = {
+  // mixture components; any larger K takes the instances of GMRM_ANY_K.
+  const void* kernels[2][4] = {
       {(const void*)sweep_blocks_kernel<4, 4, ST>,
        (const void*)sweep_blocks_kernel<4, 8, ST>,
-       (const void*)sweep_blocks_kernel<4, GMRM_MAX_K, ST>},
+       (const void*)sweep_blocks_kernel<4, GMRM_MAX_K, ST>,
+       (const void*)sweep_blocks_kernel<4, GMRM_ANY_K, ST>},
       {(const void*)sweep_blocks_kernel<MAX_T, 4, ST>,
        (const void*)sweep_blocks_kernel<MAX_T, 8, ST>,
-       (const void*)sweep_blocks_kernel<MAX_T, GMRM_MAX_K, ST>}};
-  return kernels[T <= 4 ? 0 : 1][K <= 4 ? 0 : K <= 8 ? 1 : 2];
+       (const void*)sweep_blocks_kernel<MAX_T, GMRM_MAX_K, ST>,
+       (const void*)sweep_blocks_kernel<MAX_T, GMRM_ANY_K, ST>}};
+  return kernels[T <= 4 ? 0 : 1]
+                 [K <= 4 ? 0 : K <= 8 ? 1 : K <= GMRM_MAX_K ? 2 : 3];
 }
 
 cudaError_t plan_sweep(int T, int B, int mb, int nt, int K, int W,
                        bool stamped, Plan* p) {
-  if (T < 1 || T > MAX_T || K < 1 || K > GMRM_MAX_K || W < 1 || B % W != 0 ||
+  if (T < 1 || T > MAX_T || K < 1 || W < 1 || B % W != 0 ||
       B < 1 || mb < 1 || (nt != 1 && nt != T))
     return cudaErrorInvalidValue;
   p->kernel = stamped ? pick_kernel<true>(T, K) : pick_kernel<false>(T, K);

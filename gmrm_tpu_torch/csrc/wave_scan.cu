@@ -73,7 +73,9 @@
 // the _rn intrinsics, exp is expf (float) or the library's exp written
 // out (double) and 1 / S is the IEEE division, so comp agrees exactly with
 // the plain PyTorch version; the tables' K is a template bound (4, 8 or
-// 16) so the per-candidate arrays stay in registers.
+// 16) so the per-candidate arrays stay in registers, and a larger K takes
+// the instances of bound GMRM_ANY_K, whose draw (gmrm_wave_draw_any) walks
+// K in chunks with no such array, in the same order of roundings.
 // The value type V is a template parameter of the whole kernel; every
 // shared-memory offset below counts values of V (the mbarriers, the int
 // arrays and the waves' offsets take value-sized slots), and every copy's
@@ -592,7 +594,7 @@ wave_scan_kernel(const WaveArgs<V> a0) {
       const V base =
           has_nm1 ? add_rn(sc[o], mul_rn(sbeta[o], snm1[t])) : sc[o];
       const V num = add_rn(base, scorr[o]);
-      const GmrmDrawT<V> dr = gmrm_wave_draw<MK>(
+      const GmrmDrawT<V> dr = gmrm_draw<MK>(
           num, si2se[t], lcp + o, rdp + o, sqbp + o, tstride, K, su[o],
           sz[o]);
       const bool lv = slive[o] != 0;
@@ -676,7 +678,7 @@ int run(const void* c, const void* nm1, const void* lc, const void* rd,
         const void* i2se, void* dbeta, void* d, void* beta_new,
         void* comp_new, void* acum_new, void* stamps, int b, int bc, int bg,
         int T, int B, int K, int W, int tab, int gsw, int TG, void* stream) {
-  if (K < 1 || K > GMRM_MAX_K || T < 1 || B < 1 || W < 1 || B % W != 0 ||
+  if (K < 1 || T < 1 || B < 1 || W < 1 || B % W != 0 ||
       b < 0 || bc < 0 || bg < 0 || tab < 0 || tab > 1 || gsw < 0 ||
       gsw > B / W || (msig == nullptr) != (d == nullptr) || TG < 1 ||
       TG > T || (T + TG - 1) / TG > 65535)
@@ -724,7 +726,8 @@ int run(const void* c, const void* nm1, const void* lc, const void* rd,
   cudaStream_t s = (cudaStream_t)stream;
   if (K <= 4) return launch<V, 4>(a, smem, s);
   if (K <= 8) return launch<V, 8>(a, smem, s);
-  return launch<V, 16>(a, smem, s);
+  if (K <= GMRM_MAX_K) return launch<V, 16>(a, smem, s);
+  return launch<V, GMRM_ANY_K>(a, smem, s);
 }
 
 }  // namespace

@@ -26,23 +26,27 @@ counterpart of the JAX package's XLA ``block_scan``
 (gmrm_tpu/sampler/scan.py:33).  ``serial_scan_plain`` is written for
 either dtype.
 
-Limits on CUDA tensors: K <= 16 mixture components (4, 8 or 16 lanes a
-trait).  ``scan_plan`` fits a CTA's traits into the 227 KB of shared
-memory, in values of the dtype's size: the running correction (T B
-values), the steps' raw results (4 T B), the packed inputs of eight steps
-(8 KB in float, 16 in double), a ring of Gram rows (a power of two of
-groups of 8, 4, 2 or 1 rows), and, while they fit beside a ring of 16
-rows, the block's state (9 T B) and tables (3 K T B); larger blocks leave
-the tables, or tables and state, in global memory (the large-block
-branch, slower).  Float32: one CTA takes every trait while it holds them
-(T <= 32 and about T B <= 6,000); 32 // lanes traits are drawn at once and
-more take further passes over the warp.  Where one CTA cannot hold them,
-and always at float64 (``f64_plan``), the launch is a grid of trait groups
-(``group_plan``; ``launch_plan`` chooses): T <= 65,535 and B <= 512;
-a CTA takes at most one pass of traits, as many as fit (about T B <= 6,000
-in float, 3,000 in double), and the grid the rest, so every such block
-runs.  Any operand of the wrong device, dtype, shape or layout raises
-``ValueError``.
+Any number K of mixture components on CUDA tensors: a trait takes 4, 8
+or 16 lanes of the scanning warp for K <= 4, 8, 16, and all 32 for any
+larger K (``lanes_of``), whose draw keeps L and s of a step in a scratch
+of 2 K values of shared memory.  ``scan_plan`` fits a CTA's traits into
+the 227 KB of shared memory, in values of the dtype's size: the running
+correction (T B values), the steps' raw results (4 T B), the packed
+inputs of eight steps (8 KB in float, 16 in double), a ring of Gram rows
+(a power of two of groups of 8, 4, 2 or 1 rows), that scratch past 16
+components, and, while they fit beside a ring of 16 rows, the block's
+state (9 T B) and tables (3 K T B); larger blocks, and tables of many
+components, stay in global memory (the large-block branch, slower).
+Float32: one CTA takes every trait while it holds them (T <= 32 and about
+T B <= 6,000); 32 // lanes traits are drawn at once and more take further
+passes over the warp.  Where one CTA cannot hold them, past 16
+components (one trait a pass: its traits' chains then run side by side)
+while B <= 512, and always at float64 (``f64_plan``), the launch is a grid
+of trait groups (``group_plan``; ``launch_plan`` chooses): T <= 65,535 and
+B <= 512; a CTA takes at most one pass of traits, as many as fit (about
+T B <= 6,000 in float, 3,000 in double), and the grid the rest, so every
+such block runs.  Any operand of the wrong device, dtype, shape or layout
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ import torch
 
 from gmrm_tpu_torch.ops import _build
 
-MAX_K = 16     # mixture components (lanes of a trait)
+LANE_K = 16    # components of the instances of a lane a component
+               # (csrc GMRM_MAX_K); past it a trait takes all 32 lanes
 MAX_T = 32     # traits of a CTA (csrc MAX_T)
 MAX_NG = 32    # ring groups (csrc MAX_NG)
 NSTATE = 9     # staged (T, B) arrays (csrc NSTATE)
@@ -75,14 +80,17 @@ def _al4(x: int) -> int:
 
 
 def _layout_words(T, B, K, mode, GR, NG, es=4) -> int:
-    """Shared memory of csrc/serial_scan.cu make_layout, in values of es
-    bytes (4: float, 8: double)."""
+    """Shared memory of csrc/serial_scan.cu scan_words (its make_layout,
+    and past 16 components the draw's scratch), in values of es bytes (4:
+    float, 8: double)."""
     o = ((8 * (2 + 2 * MAX_NG) + 15) // 16 * (16 // es) + 2 * MAX_T * 4 // es
          + 2 * MAX_T + REC_SLOTS * 32 * 8 + T * _al4(B) + 4 * T * B)
     if mode >= 1:
         o += NSTATE * _al4(T * B)
     if mode >= 2:
         o += 3 * _al4(K * T * B)
+    if K > LANE_K:
+        o += 2 * _al4(K)
     return o + NG * GR * T * _al4(B)
 
 
@@ -111,8 +119,9 @@ def scan_plan(T: int, B: int, K: int, es: int = 4):
 
 
 def lanes_of(K: int) -> int:
-    """Lanes of the scanning warp a trait takes (csrc MAXK)."""
-    return 4 if K <= 4 else 8 if K <= 8 else 16
+    """Lanes of the scanning warp a trait takes (csrc MAXK): one a
+    component up to 16 components, and every lane past that."""
+    return 4 if K <= 4 else 8 if K <= 8 else 16 if K <= LANE_K else 32
 
 
 def group_plan(T: int, B: int, K: int, es: int = 4):
@@ -131,8 +140,12 @@ def launch_plan(T: int, B: int, K: int, es: int = 4):
     """(mode, GR, NG, TG) of a launch at T traits and ``es``-byte values:
     at float32 one CTA of all of them (TG = T) where it holds them (T <=
     MAX_T and ``scan_plan``), else, and always at float64, a grid of trait
-    groups (``group_plan``).  None when not even one trait fits."""
-    if es == 4 and T <= MAX_T:
+    groups (``group_plan``).  Past 16 components, where a trait takes a
+    pass of the warp, the grid of one trait a CTA whenever it runs (B <=
+    512), so that the traits' chains run side by side.  None when not even
+    one trait fits."""
+    wide = lanes_of(K) == 32 and B <= F64_MAX_B
+    if es == 4 and T <= MAX_T and not wide:
         plan = scan_plan(T, B, K)
         if plan is not None:
             return (*plan, T)
@@ -146,8 +159,6 @@ def f64_plan(T: int, B: int, K: int):
 
 
 def _plan_f64_or_raise(T, B, K):
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     if B > F64_MAX_B:
         raise ValueError(f"B={B} exceeds the float64 serial scan's "
                          f"{F64_MAX_B} markers a block")
@@ -163,8 +174,6 @@ def _plan_f64_or_raise(T, B, K):
 
 def _plan_or_raise(T, B, K):
     """The plan of one float32 CTA of all T traits, or ``ValueError``."""
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     if T > MAX_T:
         raise ValueError(f"T={T} traits exceed MAX_T={MAX_T}")
     plan = scan_plan(T, B, K)
@@ -176,8 +185,6 @@ def _plan_or_raise(T, B, K):
 
 def _plan_f32_or_raise(T, B, K):
     """``launch_plan`` of a float32 launch, or ``ValueError``."""
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     plan = launch_plan(T, B, K)
     if plan is not None and plan[3] == T:
         return plan

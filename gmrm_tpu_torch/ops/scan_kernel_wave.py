@@ -22,8 +22,10 @@ Float32 operands launch kernel 3 (``gmrm_wave_scan``), float64 operands
 kernel E (``gmrm_wave_scan_f64``, the double instance of the same
 template: a ``--dtype float64 --wave-size W`` run scans in double, where
 the JAX package's wave kernel narrows to float32).  CUDA tensors launch
-the kernel; CPU tensors run ``wave_scan_plain`` at either dtype.  Limits
-on CUDA tensors: K <= 16 and W dividing B.  A launch is a grid of trait
+the kernel; CPU tensors run ``wave_scan_plain`` at either dtype.  Any
+number K of mixture components (past 16 the kernel's draw keeps no array
+of them and reads the tables K-fold, from shared memory while they fit
+beside the state); W must divide B.  A launch is a grid of trait
 groups, TG traits a CTA (``launch_plan``), so any T runs while one trait's
 state fits.  Kernel 3 takes every trait in one CTA while the block's
 state (10 T B values) fits in its shared memory (``wave_plan``: about
@@ -40,7 +42,6 @@ from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.scan_kernel import ScanSweep
 from gmrm_tpu_torch.ops.trait_chunks import even_width, most_that_fit
 
-MAX_K = 16     # mixture components the kernel keeps in registers
 NSTATE = 10    # staged (T, B) arrays (csrc NSTATE)
 NBAR = 3       # mbarriers (csrc NBAR)
 SMEM_BYTES = 232448   # dynamic shared memory of one CTA on the H100
@@ -100,8 +101,6 @@ def wave_stamp_names(nw: int) -> tuple:
 
 def _plan_or_raise(T, B, K, W):
     """The plan of one CTA of all T traits, or ``ValueError``."""
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     plan = wave_plan(T, B, K, W)
     if plan is None:
         raise ValueError(f"T={T}, B={B} exceed the wave scan's shared "
@@ -116,8 +115,6 @@ def launch_plan(T, B, K, W, es=4):
     them (TG = T) where ``wave_plan`` holds them, else TG the width of the
     most even split of T into groups of at most the most traits it holds.
     At 8-byte values (kernel E): ``f64_traits_a_cta``."""
-    if K > MAX_K:
-        raise ValueError(f"K={K} mixture components exceed MAX_K={MAX_K}")
     if es == 8:
         TG = f64_traits_a_cta(T, B, K, W)
         return (*wave_plan(TG, B, K, W, 8), TG)

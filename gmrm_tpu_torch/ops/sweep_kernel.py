@@ -23,7 +23,10 @@ plan's ``LAUNCH_MAX_T``).  A run with more
 is launched in trait chunks (``trait_chunks.trait_chunks``), back to back
 on the stream with one scratch: every operand is passed whole, with the
 chunk's first trait and the run's trait count, and each chunk computes
-what it would alone.
+what it would alone.  They take any number of mixture components: past 16
+the scan's draw keeps no register array of them (csrc/sweep_math.cuh
+``gmrm_wave_draw_any``) and the tables stay in global memory where the
+scan CTA's shared memory cannot hold them.
 """
 
 from __future__ import annotations
@@ -38,8 +41,6 @@ import torch
 from gmrm_tpu_torch.ops import _build
 from gmrm_tpu_torch.ops.decode import decode_planes
 from gmrm_tpu_torch.ops.trait_chunks import trait_chunks
-
-MAX_K = 16     # mixture components the kernels keep in registers
 
 
 def raw_gram_plain(bed_rows: torch.Tensor,
@@ -291,8 +292,6 @@ class SweepBlocks:
         dev = bed.device
         mb = bed.shape[1]
         K, _, G = lc.shape
-        if K > MAX_K:
-            raise ValueError(f"K={K} exceeds the kernel's MAX_K={MAX_K}")
         if m_pad >= 2 ** 31:
             raise ValueError(f"{m_pad} marker slots exceed the kernel's "
                              f"int32 row index")
@@ -573,8 +572,6 @@ class ShardedBlockSweep:
         self.chunks = ((0, T),)
         if eps.device.type != "cpu":
             K, _, G = lc_tab.shape
-            if K > MAX_K:
-                raise ValueError(f"K={K} exceeds the kernel's MAX_K={MAX_K}")
             # The plan, and with it the columns each CTA sums over, is the
             # one of all the step's shards, however many launches take
             # them: a split step gives the bits of one launch.  Each trait

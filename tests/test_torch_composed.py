@@ -148,8 +148,13 @@ def test_wave_plan_values_and_refusals():
         wave_plan(4, 128, 4, 24)
     with pytest.raises(ValueError, match="shared"):
         tsw._plan_or_raise(8, 1024, 4, 32)
-    with pytest.raises(ValueError, match="MAX_K"):
-        tsw._plan_or_raise(4, 128, 17, 32)
+    # Any K (no MAX_K refusal): at K=17 the tables are staged beside the
+    # state and two waves' rows; at K=65 they are not (400 KB at T=4), so
+    # they stay in global memory and the rows take their place.
+    assert tsw._plan_or_raise(4, 128, 17, 32) == (1, 2)
+    assert tsw._plan_or_raise(4, 128, 65, 32) == (0, 3)
+    assert 4 * tsw._layout_words(4, 128, 65, 32, 1, 0) > tsw.SMEM_BYTES
+    assert tsw.launch_plan(4, 128, 65, 32) == (0, 3, 4)
     assert tsw.wave_stamp_names(2) == (
         "start", "operands staged", "wave 0 drawn",
         "wave 0 folded", "wave 1 drawn", "wave 1 folded")

@@ -126,9 +126,16 @@ def test_f64_plan_splits_traits_over_ctas(K, lanes, per_cta):
 
 
 def test_f64_plan_refusals():
-    """Beyond the float64 kernel's limits the wrapper's check raises."""
-    with pytest.raises(ValueError, match="MAX_K"):
-        sk._plan_f64_or_raise(4, 128, 17)
+    """Beyond the float64 kernel's limits the wrapper's check raises; any
+    K has a plan: past 16 components one trait a CTA (a trait takes all
+    32 lanes), its tables staged at K=17 and left in global memory at K=65,
+    where they would not fit beside a ring of 16 rows."""
+    assert sk.lanes_of(17) == sk.lanes_of(65) == 32
+    assert sk._plan_f64_or_raise(4, 128, 17) == (2, 8, 16, 1)
+    mode, GR, NG, TG = sk._plan_f64_or_raise(4, 128, 65)
+    assert (mode, TG) == (1, 1)
+    assert 8 * sk._layout_words(1, 128, 65, 2, 8, 2, 8) > sk.SMEM_BYTES
+    assert 8 * sk._layout_words(1, 128, 65, mode, GR, NG, 8) <= sk.SMEM_BYTES
     with pytest.raises(ValueError, match="markers a block"):
         sk._plan_f64_or_raise(4, sk.F64_MAX_B + 1, 4)
     with pytest.raises(ValueError, match="traits exceed"):

@@ -313,8 +313,11 @@ def test_scan_plan_refuses_what_cannot_fit():
     assert tscan.scan_plan(8, 1024, 4) is None
     with pytest.raises(ValueError, match="shared memory"):
         tscan._plan_or_raise(8, 1024, 4)
-    with pytest.raises(ValueError, match="MAX_K"):
-        tscan._plan_or_raise(4, 128, 17)
+    # Any K: one CTA of 4 traits at K=17 stages its tables; at K=65 (3 K T
+    # B values, 400 KB) it leaves them in global memory.
+    assert tscan._plan_or_raise(4, 128, 17) == (2, 8, 4)
+    assert tscan._plan_or_raise(4, 128, 65) == (1, 8, 8)
+    assert 4 * tscan._layout_words(4, 128, 65, 2, 1, 1) > tscan.SMEM_BYTES
     with pytest.raises(ValueError, match="MAX_T"):
         tscan._plan_or_raise(33, 8, 4)
 

@@ -76,12 +76,15 @@ def test_f64_plan_at_b256_stages_what_one_trait_holds(K):
 
 
 def test_f64_plan_refuses_what_one_trait_cannot_hold():
-    """One trait's block state beyond a CTA raises, as before; K above 16
-    raises."""
+    """One trait's block state beyond a CTA raises, as before; any K has a
+    plan: at K=17 one trait a CTA stages everything, at K=65 its tables
+    (200 KB) leave no room for a wave's rows, which are read from global
+    memory."""
     with pytest.raises(ValueError, match="shared memory"):
         sw.launch_plan(4, 4096, 4, 32, 8)
-    with pytest.raises(ValueError, match="MAX_K"):
-        sw.launch_plan(4, 128, 17, 32, 8)
+    assert sw.launch_plan(4, 128, 17, 32, 8) == (1, 3, 1)
+    assert sw.launch_plan(4, 128, 65, 32, 8) == (1, 0, 1)
+    assert 8 * sw._layout_words(1, 128, 65, 32, 1, 1, 8) > sw.SMEM_BYTES
     with pytest.raises(ValueError, match="divide"):
         sw.launch_plan(4, 128, 4, 24, 8)
 

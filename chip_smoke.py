@@ -1456,34 +1456,24 @@ def stamp_split(sk, run, nblocks):
     """Where a sweep's time goes: one launch with a stamp buffer, each CTA
     recording the global timer at the events of ``sk.SWEEP_STAMPS``; the
     mean microseconds between consecutive events over the inner blocks,
-    for CTA 0 and averaged over the column CTAs."""
+    for CTA 0 and averaged over the column CTAs, and the chain's segments
+    (``sk.stamp_summary``; a tree without it reduces none)."""
     import torch
+    if not hasattr(sk, "stamp_summary"):
+        return "not reduced (the tree has no sweep_kernel.stamp_summary)"
     grid = sk.sweep_plan(T, B, MB, 1, K, W)["grid"]
     stamps = torch.zeros((grid, nblocks + 1, sk.NST), dtype=torch.int64,
                          device="cuda")
     run(stamps)
     torch.cuda.synchronize()
-    full = stamps.cpu().double()
-    s = full[:, 2:nblocks, :]                     # blocks 1 .. nblocks - 2
-    period = float((s[0, 1:, 0] - s[0, :-1, 0]).mean()) / 1e3
-    parts = [f"{period:.2f} us per block"]
-    for role, rows in (("CTA 0", s[:1]), ("column CTAs", s[1:])):
-        names = sk.SWEEP_STAMPS["scan" if role == "CTA 0" else "column"]
-        d = (rows[:, :, 1:len(names) + 1] - rows[:, :, :len(names)])
+    s = sk.stamp_summary(stamps.cpu())
+    parts = [f"{s['block_us']:.2f} us per block"]
+    for role, key in (("CTA 0", "scan"), ("column CTAs", "column")):
         parts.append(f"{role}: " + ", ".join(
-            f"{n} {float(x) / 1e3:.2f}"
-            for n, x in zip(names, d.mean(dim=(0, 1)))))
+            f"{n} {x:.2f}" for n, x in s[key].items()))
     if hasattr(sk, "SWEEP_CHAIN"):
-        # The critical chain: each checkpoint's time over blocks 1 ..
-        # nblocks - 3, a column event at the last column CTA to reach it.
-        def at(role, off, e):
-            rows = full[0:1] if role == "scan" else full[1:]
-            return rows[:, 2 + off:nblocks - 1 + off, e].max(dim=0).values
-        times = [at(r, o, e) for r, o, e, _ in sk.SWEEP_CHAIN]
         parts.append("chain: " + ", ".join(
-            f"{what} +{float((b - a).mean()) / 1e3:.2f}"
-            for a, b, (_, _, _, what) in zip(times, times[1:],
-                                              sk.SWEEP_CHAIN[1:])))
+            f"{what} +{x:.2f}" for what, x in s["chain"].items()))
     return "; ".join(parts) + " (us)"
 
 
@@ -3823,25 +3813,27 @@ def scan_stamp_split(sweep, c, gs, b, bc=None):
     (summed over the block's steps by the scanning warp's lane 0, each
     phase ended once its value is known), the steps that waited for a
     helper warp or the Gram ring, and the chain bound: the cycles of the
-    step's dependent phases (CHAIN_PHASES) over the block, at that clock.
-    Returns {"text", "chain_ms"}; chain_ms is None for a tree whose kernel
-    records none."""
+    step's dependent phases (CHAIN_PHASES) over the block, at that clock
+    (``scan_kernel.scan_stamp_summary``).  Returns {"text", "chain_ms"};
+    chain_ms is None for a tree whose kernel records none or that has no
+    such reducer."""
     import torch
     from gmrm_tpu_torch.ops import scan_kernel as sk6
     names = getattr(sk6, "SCAN_STAMPS", None)
-    if names is None:
+    if names is None or not hasattr(sk6, "scan_stamp_summary"):
         return {"text": "none recorded", "chain_ms": None}
     st = torch.zeros(len(names), dtype=torch.int64, device=c.device)
     sweep.step(b, c, gs, b, bc=b if bc is None else bc, stamps=st)
     torch.cuda.synchronize()
-    v = dict(zip(names, st.tolist()))
-    ns = v["end_ns"] - v["start_ns"]
+    v = sk6.scan_stamp_summary(st.cpu(), c.shape[-1])
+    ns = v["chain_ns"]
     ghz = v["cycles"] / ns
-    nsteps = c.shape[-1]
-    chain = sum(v[k] for k in CHAIN_PHASES)
+    nsteps = v["steps"]
+    chain = sum(v["phases"][k] for k in CHAIN_PHASES)
     text = (f"chain {ns / 1e3:.2f} us, {v['cycles'] / nsteps:.0f} cycles a "
             f"step at {ghz * 1e3:.0f} MHz; cycles a step by phase "
-            + ", ".join(f"{k} {v[k] / nsteps:.0f}" for k in sk6.SCAN_PHASES)
+            + ", ".join(f"{k} {x / nsteps:.0f}"
+                        for k, x in v["phases"].items())
             + f"; chain bound {chain / nsteps:.0f} cycles a step, "
             f"{chain / ghz / 1e6:.5f} ms a block")
     for what in ("helper", "ring"):

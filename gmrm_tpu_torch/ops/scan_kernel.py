@@ -75,6 +75,21 @@ SCAN_STAMPS = ("start_ns", "end_ns", "cycles", *SCAN_PHASES, "helper_waits",
                "helper_wait_cycles", "ring_waits", "ring_wait_cycles")
 
 
+def scan_stamp_summary(stamps, steps: int) -> dict:
+    """A stamped sweep's launches, from their (launches, len(SCAN_STAMPS))
+    int64 stamps on the host, ``steps`` steps (markers) a launch, summed
+    over the launches: ``chain_ns`` (end_ns - start_ns), ``cycles`` and
+    ``steps``, ``cycles_per_step``, ``phases`` (each of ``SCAN_PHASES``'
+    cycles), and the helper and ring waits and their cycles."""
+    rows = stamps.reshape(-1, len(SCAN_STAMPS))
+    v = dict(zip(SCAN_STAMPS, rows.sum(dim=0).tolist()))
+    n = rows.shape[0] * steps
+    return {"chain_ns": v["end_ns"] - v["start_ns"], "cycles": v["cycles"],
+            "steps": n, "cycles_per_step": v["cycles"] / n,
+            "phases": {k: v[k] for k in SCAN_PHASES},
+            **{k: v[k] for k in SCAN_STAMPS[3 + len(SCAN_PHASES):]}}
+
+
 def _al4(x: int) -> int:
     return (x + 3) & ~3
 
@@ -396,10 +411,14 @@ class SerialScanSweep(ScanSweep):
     def _plain(*args):
         return serial_scan_plain(*args)
 
+    def stampable(self) -> bool:
+        """Whether the launches take ``stamps``: on the card, at K = 4 and
+        one pass over the lanes of a CTA."""
+        return self.cuda and self.shape[3] == 4 and self.plan[3] * 4 <= 32
+
     def _launch(self, pc, pgs, b, bc, bg, stamps=None):
-        """``stamps``: an int64 (len(SCAN_STAMPS),) buffer that one launch
-        fills (K = 4 and one pass over the lanes of a CTA only; CTA 0's
-        chain)."""
+        """``stamps``: an int64 (len(SCAN_STAMPS),) buffer, or its address,
+        that one launch fills (``stampable`` only; CTA 0's chain)."""
         nb, T, B, K = self.shape
         kernel = ("serial_scan_f64" if self.dtype == torch.float64
                   else "serial_scan")

@@ -256,6 +256,40 @@ SWEEP_CHAIN = (("scan", 0, 5, "CTA 0 has published the last wave"),
 NST = 8
 
 
+def stamp_summary(stamps):
+    """Where a stamped sweep's time went, from its (grid, nblocks + 1, NST)
+    int64 stamps on the host: ``blocks``, the sweep's; then in µs over the
+    inner blocks (1 .. nblocks - 2): ``block_us``, CTA 0's period a block;
+    ``scan`` and ``column``, the mean of each ``SWEEP_STAMPS`` interval
+    for CTA 0 and over the column CTAs; ``chain``, the mean of each
+    segment of ``SWEEP_CHAIN`` (a column event at the last column CTA to
+    reach it); ``scan_us``, CTA 0's own part of the chain, from "has seen
+    them all" to "has published the next last wave".  None below 4
+    blocks."""
+    full = stamps.double()
+    nblocks = full.shape[1] - 1
+    if nblocks < 4:
+        return None
+    s = full[:, 2:nblocks, :]
+    out = {"blocks": nblocks,
+           "block_us": float((s[0, 1:, 0] - s[0, :-1, 0]).mean()) / 1e3}
+    for role, rows in (("scan", s[:1]), ("column", s[1:])):
+        names = SWEEP_STAMPS[role]
+        d = rows[:, :, 1:len(names) + 1] - rows[:, :, :len(names)]
+        out[role] = {n: float(x) / 1e3 for n, x in zip(names,
+                                                        d.mean(dim=(0, 1)))}
+
+    def at(role, off, e):
+        rows = full[0:1] if role == "scan" else full[1:]
+        return rows[:, 2 + off:nblocks - 1 + off, e].max(dim=0).values
+    times = [at(r, o, e) for r, o, e, _ in SWEEP_CHAIN]
+    out["chain"] = {what: float((b - a).mean()) / 1e3
+                    for a, b, (_, _, _, what) in zip(times, times[1:],
+                                                     SWEEP_CHAIN[1:])}
+    out["scan_us"] = float((times[-1] - times[-3]).mean()) / 1e3
+    return out
+
+
 class SweepBlocks:
     """Kernels 7 and 8 as a callable with the arguments of
     :func:`sweep_blocks`, for a caller that sweeps again and again with the
@@ -266,6 +300,15 @@ class SweepBlocks:
     def __init__(self):
         self.seen = {}
         self.scratch = None
+
+    @staticmethod
+    def stamp_shape(T, B, mb, nt, K, wave, nblocks):
+        """The shape of the ``stamps`` a launch at these sizes takes, or
+        None where the sweep is more than one launch (trait chunks)."""
+        if len(trait_chunks("sweep_blocks", T, B)) > 1:
+            return None
+        grid = sweep_plan(T, B, mb, 1 if nt == 1 else T, K, wave)["grid"]
+        return (grid, nblocks + 1, NST)
 
     def __call__(self, bed, blkidx, win_p, m_local, gram_cache, eps, na,
                  mave, msig, beta_old, comp_old, acum_old, grp, u_p, z_p,
@@ -335,10 +378,10 @@ class SweepBlocks:
                 or self.scratch.numel() < words):
             self.scratch = torch.empty((words,), dtype=f32, device=dev)
         if stamps is not None:
-            if len(chunks) > 1:
+            shape = self.stamp_shape(T, B, mb, nt, K, wave, nblocks)
+            if shape is None:
                 raise ValueError("stamps record one launch")
-            _build.check(stamps, "stamps", torch.int64,
-                         (plans[T]["grid"], nblocks + 1, NST), dev)
+            _build.check(stamps, "stamps", torch.int64, shape, dev)
         for t0, t1 in chunks:
             _build.launch("sweep_blocks", *ptrs, self.scratch,
                           0 if stamps is None else stamps, nblocks, t1 - t0,

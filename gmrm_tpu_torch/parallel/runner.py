@@ -61,7 +61,7 @@ from gmrm_tpu_torch.parallel.distributed import (
 )
 from gmrm_tpu_torch.parallel.mesh import marker_blocks
 from gmrm_tpu_torch.runner import (
-    LANE_PAD, RunResult, _guard_resume_without_checkpoint,
+    LANE_PAD, CompletionClock, RunResult, _guard_resume_without_checkpoint,
     check_finite_chain, gram_cached, initial_sigmag, interleave_order,
     open_outputs, replicated_inputs, resolve_device, resume_missing_bet,
     round_up, run_dtype, static_for_markers, stem,
@@ -484,15 +484,18 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
 
     ranges = [data.layout.blocks[i] for i in local_ids]
     t_chain = time.perf_counter()
+    clock = CompletionClock(dev)
     for it in range(start_it, opt.iterations + 1):
         t0 = time.perf_counter()
         states, aux = gibbs_iteration_sharded(
             states, statics, it, rngs, block_size=opt.block_size,
             wave=opt.wave_size, comm=comm, shuffle=opt.shuffle_markers)
+        clock.mark()
         if it % opt.output_thin_rate == 0:
             first = states[0]
             host = {k: getattr(first, k).cpu().numpy().astype(np.float64)
                     for k in ("sigmag", "sigmae", "pi_est")}
+            result.iter_seconds += clock.read()
             check_finite_chain(host["sigmag"], host["sigmae"], it)
             slices = _host_slices(states, data)
             outputs.write_thinned(n_rec, it, host,
@@ -512,7 +515,6 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
                 print(f"RESULT : It {it}  total proc time = "
                       f"{time.perf_counter() - t0:7.3f} sec, with sync time "
                       f"= {sync_est:7.3f} sec (measured {sync_how})")
-        result.iter_seconds.append(time.perf_counter() - t0)
         if ckpt and opt.checkpoint_every and it % opt.checkpoint_every == 0:
             checkpoint.save_sharded_checkpoint(
                 ckpt, states, it, ranges, data.inv_orders, beta_acc, n_rec,
@@ -520,6 +522,7 @@ def run_training_sharded(opt: Options, n_devices: int = 0, device=None,
 
     check_finite_chain(states[0].sigmag.cpu().numpy(),
                        states[0].sigmae.cpu().numpy(), opt.iterations)
+    result.iter_seconds += clock.read()
     result.chain_seconds = time.perf_counter() - t_chain
     result.iters_run = max(0, opt.iterations - start_it + 1)
     result.state = states

@@ -31,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from gmrm_tpu_torch import checkpoint
+from gmrm_tpu_torch import checkpoint, trace
 from gmrm_tpu_torch.config import Options, resolve_plan
 from gmrm_tpu_torch.io.bed import bed_bytes_per_marker, read_bed
 from gmrm_tpu_torch.io.grouping import read_dim, read_group_index
@@ -278,6 +278,8 @@ def init_sampler_state(data: LoadedData, opt: Options,
 @dataclass
 class RunResult:
     state: SamplerState
+    # Each iteration's seconds from the completion of the one before it to
+    # its own (CompletionClock).
     iter_seconds: List[float] = field(default_factory=list)
     beta_mean: Optional[np.ndarray] = None   # (T, M) posterior mean
     chain_seconds: float = 0.0               # wall-clock of the chain
@@ -286,6 +288,36 @@ class RunResult:
     kernel_launches: dict = field(default_factory=dict)  # in this run
     # The --cache-dir entries of the run (one, or one per local shard).
     caches: List[StartupCache] = field(default_factory=list)
+
+
+class CompletionClock:
+    """Completion marks of the iterations: a CUDA event recorded after each
+    step on the card, the host clock on the CPU.  ``read`` gives the
+    seconds between consecutive marks; on the card call it only where the
+    loop already waits for the device (a record's copies, the end), so
+    that timing adds no synchronize."""
+
+    def __init__(self, dev: torch.device):
+        self.stream = (torch.cuda.current_stream(dev)
+                       if dev.type == "cuda" else None)
+        self.marks = [self._now()]
+
+    def _now(self):
+        if self.stream is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(self.stream)
+            return ev
+        return time.perf_counter()
+
+    def mark(self) -> None:
+        self.marks.append(self._now())
+
+    def read(self) -> List[float]:
+        """The seconds of the iterations marked since the last read."""
+        m, self.marks = self.marks, self.marks[-1:]
+        if self.stream is not None:
+            return [a.elapsed_time(b) * 1e-3 for a, b in zip(m, m[1:])]
+        return [b - a for a, b in zip(m, m[1:])]
 
 
 def _guard_resume_without_checkpoint(opt: Options, data) -> None:
@@ -367,13 +399,14 @@ class OutputSet:
         (T, m_local) as NumPy arrays."""
         if not self.enabled:
             return
-        for ti in range(len(self.bet)):
-            row = format_csv_record(it, host["sigmag"][ti],
-                                    float(host["sigmae"][ti]),
-                                    int(m0[ti].sum()), host["pi_est"][ti])
-            write_csv_record(self.csv_paths[ti], rec, row)
-            self.bet[ti].write_record(it, host["betas"][ti], rec=rec)
-            self.cpn[ti].write_record(it, host["comp"][ti], rec=rec)
+        with trace.span("record.write"):
+            for ti in range(len(self.bet)):
+                row = format_csv_record(it, host["sigmag"][ti],
+                                        float(host["sigmae"][ti]),
+                                        int(m0[ti].sum()), host["pi_est"][ti])
+                write_csv_record(self.csv_paths[ti], rec, row)
+                self.bet[ti].write_record(it, host["betas"][ti], rec=rec)
+                self.cpn[ti].write_record(it, host["comp"][ti], rec=rec)
 
 
 _SIGMA_DIVERGED = 1.0e6
@@ -399,11 +432,12 @@ def _host_record(state: SamplerState, data: LoadedData) -> dict:
     """One device-to-host copy of what a thinned record needs, with the
     marker axis back in original order."""
     ml = data.m_local
-    host = {k: getattr(state, k).cpu().numpy()
-            for k in ("sigmag", "sigmae", "pi_est")}
-    for k in ("betas", "comp"):
-        x = getattr(state, k)[:, :ml].cpu().numpy()
-        host[k] = x[:, data.inv_order]
+    with trace.span("record.fetch"):
+        host = {k: getattr(state, k).cpu().numpy()
+                for k in ("sigmag", "sigmae", "pi_est")}
+        for k in ("betas", "comp"):
+            x = getattr(state, k)[:, :ml].cpu().numpy()
+            host[k] = x[:, data.inv_order]
     return host
 
 
@@ -517,11 +551,14 @@ def run_training(opt: Options, device=None, verbose: bool = True
     # uninterrupted chain's does.
     step = iteration_step(state, static, rng, opt)
     t_chain = time.perf_counter()
+    clock = CompletionClock(dev)
     for it in range(start_it, opt.iterations + 1):
         t0 = time.perf_counter()
         state, aux = step(it)
+        clock.mark()
         if it % opt.output_thin_rate == 0:
             host = _host_record(state, data)
+            result.iter_seconds += clock.read()
             check_finite_chain(host["sigmag"], host["sigmae"], it)
             outputs.write_thinned(n_rec, it, host, aux.m0.cpu().numpy(),
                                   data)
@@ -538,7 +575,6 @@ def run_training(opt: Options, device=None, verbose: bool = True
                 torch.cuda.synchronize(dev)
             print(f"RESULT : It {it}  total proc time = "
                   f"{time.perf_counter() - t0:7.3f} sec")
-        result.iter_seconds.append(time.perf_counter() - t0)
         if ckpt and opt.checkpoint_every and it % opt.checkpoint_every == 0:
             checkpoint.save_checkpoint(
                 ckpt, state, it, beta_acc, n_rec, opt.seed,
@@ -546,6 +582,7 @@ def run_training(opt: Options, device=None, verbose: bool = True
 
     check_finite_chain(state.sigmag.cpu().numpy(),
                        state.sigmae.cpu().numpy(), opt.iterations)
+    result.iter_seconds += clock.read()
     result.chain_seconds = time.perf_counter() - t_chain
     result.iters_run = max(0, opt.iterations - start_it + 1)
     result.state = state

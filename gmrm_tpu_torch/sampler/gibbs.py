@@ -54,16 +54,20 @@ composed path with the blocks' Grams from kernel A.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
+from gmrm_tpu_torch import trace
 from gmrm_tpu_torch.config import V0E, S02E, V0G, S02G
 from gmrm_tpu_torch.ops.block_gram import (
     blocks_gram_scaled, gram_run_blocks, scale_gram,
 )
 from gmrm_tpu_torch.ops.block_kernels import BlockPasses
-from gmrm_tpu_torch.ops.scan_kernel import SerialScanSweep
+from gmrm_tpu_torch.ops.scan_kernel import (
+    SCAN_STAMPS, SerialScanSweep, scan_stamp_summary,
+)
 from gmrm_tpu_torch.ops.scan_kernel_wave import WaveScanSweep, scan_masks
 from gmrm_tpu_torch.ops.sweep_kernel import (
     ShardOperands, ShardedBlockSweep, build_sweep_tables, sweep_blocks,
@@ -251,12 +255,23 @@ class _ComposedSweep:
                                         betas.element_size())
         self.gs, self.gs_start = None, 0
         self._build_grams(0)
+        # Kernel 6/C's stamps (trace.sweep_stamps): a row a block step.
+        self.stamp_at = None
+        stamps = (trace.sweep_stamps(
+            "serial_scan", (nblocks, len(SCAN_STAMPS)), betas.device,
+            functools.partial(scan_stamp_summary, steps=B))
+            if trace.recording() and wave == 1 and self.scan.stampable()
+            else None)
+        if stamps is not None:
+            self.stamp_at = (stamps.data_ptr(),
+                             len(SCAN_STAMPS) * stamps.element_size())
 
     def _build_grams(self, start):
         """The scaled Grams of blocks start .. start + gram_run - 1."""
-        self.gs = None                    # free the last run first
-        self.gs = self.grams(slice(start, start + self.gram_run))
-        self.gs_start = start
+        with trace.span("grams"):
+            self.gs = None                    # free the last run first
+            self.gs = self.grams(slice(start, start + self.gram_run))
+            self.gs_start = start
 
     def step(self, b, eps, target):
         """Block step ``b`` against the residual ``eps``; the block's
@@ -274,7 +289,12 @@ class _ComposedSweep:
         fused = target is eps
         if b == 0 or not fused:
             self.passes.cdot(b, eps)
-        self.scan.step(b, self.passes.c, self.gs, b - self.gs_start, bc=b)
+        if self.stamp_at is None:
+            self.scan.step(b, self.passes.c, self.gs, b - self.gs_start, bc=b)
+        else:
+            ptr, row = self.stamp_at
+            self.scan.step(b, self.passes.c, self.gs, b - self.gs_start, bc=b,
+                           stamps=ptr + b * row)
         if fused and b + 1 < self.rows.shape[0]:
             self.passes.update_cdot_(b, self.scan.d, eps)
         else:
@@ -546,20 +566,24 @@ def gibbs_iteration(state: SamplerState, static: StaticInputs, it: int,
     """One iteration; ``it`` is 1-based (runner.py:517).  The residual
     buffer of ``state`` is updated in place and carried into the result.
     ``megakernel`` as in :func:`marker_sweep`."""
-    eps, sigmae, mu_new = _intercept_step(state, static, it, rng)
-    blocks, u_all, z_all = _sweep_draws(state, static, it, rng, block_size,
-                                        wave, shuffle)
-
-    eps, betas, comp, acum, cass = marker_sweep(
-        eps, state.betas, state.comp, state.acum, state.sigmag, sigmae,
-        state.pi_est, static, blocks, u_all, z_all, wave=wave,
-        megakernel=megakernel)
-    sigmag, sigmae_new, pi_est, m0, e_sqn = hyper_block(
-        betas, cass, eps, state.sigmag, state.pi_est, static,
-        lambda name: rng.gen(it, name))
-    new_state = state.replace(
-        eps=eps, betas=betas, comp=comp, acum=acum, cass=cass,
-        sigmag=sigmag, sigmae=sigmae_new, pi_est=pi_est, mu=mu_new)
+    with trace.span("iteration"):
+        with trace.span("intercept"):
+            eps, sigmae, mu_new = _intercept_step(state, static, it, rng)
+        with trace.span("draws"):
+            blocks, u_all, z_all = _sweep_draws(state, static, it, rng,
+                                                block_size, wave, shuffle)
+        with trace.span("sweep"):
+            eps, betas, comp, acum, cass = marker_sweep(
+                eps, state.betas, state.comp, state.acum, state.sigmag,
+                sigmae, state.pi_est, static, blocks, u_all, z_all,
+                wave=wave, megakernel=megakernel)
+        with trace.span("hyper"):
+            sigmag, sigmae_new, pi_est, m0, e_sqn = hyper_block(
+                betas, cass, eps, state.sigmag, state.pi_est, static,
+                lambda name: rng.gen(it, name))
+        new_state = state.replace(
+            eps=eps, betas=betas, comp=comp, acum=acum, cass=cass,
+            sigmag=sigmag, sigmae=sigmae_new, pi_est=pi_est, mu=mu_new)
     return new_state, IterAux(m0=m0, e_sqn=e_sqn)
 
 

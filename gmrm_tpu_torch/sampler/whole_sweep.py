@@ -28,7 +28,10 @@ from __future__ import annotations
 
 import torch
 
-from gmrm_tpu_torch.ops.sweep_kernel import SweepBlocks, build_sweep_tables
+from gmrm_tpu_torch import trace
+from gmrm_tpu_torch.ops.sweep_kernel import (
+    SweepBlocks, build_sweep_tables, stamp_summary,
+)
 from gmrm_tpu_torch.sampler.dists import RngPlan, gamma_buffers
 from gmrm_tpu_torch.sampler.gibbs import (
     IterAux, _natural_cass, hyper_block_from_draws, hyper_draws, hyper_shapes,
@@ -125,14 +128,28 @@ class WholeSweepIteration:
                 tables, i2se)
 
     def _sweep(self, ops):
-        """The sweep kernel, the marker state updated in place."""
+        """The sweep kernel, the marker state updated in place; stamped
+        while a profiler records."""
         st, static = self.state, self.static
         blk_idx, win, (lc, rd, sqb), i2se = ops
         self.sweep(static.bed, blk_idx, win, static.m_local,
                    static.gram_cache, st.eps, self.na_in, static.mave,
                    static.msig, st.betas, st.comp, st.acum, self.grp, self.u,
                    self.z, st.sigmag, lc, rd, sqb, i2se, self.nonas,
-                   wave=self.wave, out=(st.betas, st.comp, st.acum))
+                   wave=self.wave, out=(st.betas, st.comp, st.acum),
+                   stamps=self._stamps() if trace.recording() else None)
+
+    def _stamps(self):
+        """Kernel 7/8's stamp buffer for this sweep (``trace.sweep_stamps``),
+        where the sweep is one launch on the card; else None."""
+        if not self.graphed:
+            return None
+        T, B = self.u.shape[1:]
+        shape = self.sweep.stamp_shape(
+            T, B, self.static.bed.shape[1], self.na_in.shape[0],
+            self.static.cva.shape[1], self.wave, self.nblocks)
+        return (None if shape is None else trace.sweep_stamps(
+            "sweep_blocks", shape, self.u.device, stamp_summary))
 
     def _post(self):
         """Everything after the sweep (``_natural_cass``, ``hyper_block``),
@@ -159,16 +176,25 @@ class WholeSweepIteration:
         self.graphs = (pre, post, ops, aux)
 
     def __call__(self, it: int):
-        self._draw(it)
-        if it == 1 or not self.graphed or not self.warm:
-            self._sweep(self._pre(first=it == 1))
-            aux = self._post()
-            self.warm = True
-        else:
-            if self.graphs is None:
-                self._capture()
-            pre, post, ops, aux = self.graphs
-            pre.replay()
-            self._sweep(ops)
-            post.replay()
+        with trace.span("iteration"):
+            with trace.span("draws"):
+                self._draw(it)
+            if it == 1 or not self.graphed or not self.warm:
+                with trace.span("pre"):
+                    ops = self._pre(first=it == 1)
+                with trace.span("sweep"):
+                    self._sweep(ops)
+                with trace.span("post"):
+                    aux = self._post()
+                self.warm = True
+            else:
+                if self.graphs is None:
+                    self._capture()
+                pre, post, ops, aux = self.graphs
+                with trace.span("pre"):
+                    pre.replay()
+                with trace.span("sweep"):
+                    self._sweep(ops)
+                with trace.span("post"):
+                    post.replay()
         return self.state, IterAux(m0=aux[0], e_sqn=aux[1])

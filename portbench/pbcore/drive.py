@@ -59,24 +59,32 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def loaded_from_device(cell, opt, device):
-    """A ``runner.LoadedData`` around genotypes already in device memory,
-    in the layout ``runner.load_data`` gives; the phenotype and group
-    files go through the program's readers."""
-    from gmrm_tpu_torch import runner
-    from gmrm_tpu_torch.io.grouping import read_group_index
+def phenotypes(opt, n: int, mb_pad: int):
+    """The phenotype files through the program's reader: (phens, eps0,
+    na), the residual's start and the observed masks (T, 4, mb_pad) in
+    phase planes, as the program's loaders lay them out."""
     from gmrm_tpu_torch.io.phen import read_phen
     from gmrm_tpu_torch.ops.decode import to_phase_planes
-    d = cell
-    m_pad, mb_pad = d.bed.shape
-    mb = -(-d.n // 4)
-    phens = [read_phen(fp, d.n) for fp in opt.phen_files]
+    mb = -(-n // 4)
+    phens = [read_phen(fp, n) for fp in opt.phen_files]
     T = len(phens)
     eps0 = np.zeros((T, 4, mb_pad))
     na = np.zeros((T, 4, mb_pad))
     for i, ph in enumerate(phens):
         eps0[i, :, :mb] = to_phase_planes(ph.epsilon_padded())
         na[i, :, :mb] = to_phase_planes(ph.na_vector_padded())
+    return phens, eps0, na
+
+
+def loaded_from_device(cell, opt, device):
+    """A ``runner.LoadedData`` around genotypes already in device memory,
+    in the layout ``runner.load_data`` gives; the phenotype and group
+    files go through the program's readers."""
+    from gmrm_tpu_torch import runner
+    from gmrm_tpu_torch.io.grouping import read_group_index
+    d = cell
+    m_pad, mb_pad = d.bed.shape
+    phens, eps0, na = phenotypes(opt, d.n, mb_pad)
     gidx = read_group_index(opt.group_index_file, opt.n_groups)[:d.m]
     group_of = np.zeros(m_pad, dtype=np.int32)
     group_of[:d.m] = gidx[d.order]
@@ -261,9 +269,11 @@ def _run(spec, seed, seconds, traced, device, fault, log, extra, workdir):
     return rec
 
 
-def traced_window(rec, step, state, aux, it, thin, record, device, count):
+def traced_window(rec, step, state, aux, it, thin, record, device, count,
+                  ops=False):
     """``count`` more iterations under ``torch.profiler``; reduces the
-    trace into ``rec['trace']``."""
+    trace into ``rec['trace']``.  With ``ops`` (the cells on several
+    cards) also each device operation's seconds and launches (``ops``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -283,5 +293,7 @@ def traced_window(rec, step, state, aux, it, thin, record, device, count):
     lo, hi = trace.window_bounds(host)
     red = trace.reduce(dev, host, lo, hi)
     red["iterations"] = count
+    if ops:
+        red["ops"] = trace.op_table(dev, lo, hi)
     rec["trace"] = red
     return state, aux, it

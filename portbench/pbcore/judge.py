@@ -24,6 +24,17 @@ draws, and sets its answer beside the program's (``after``):
 - ``record_mismatch``: fields of the thinned records on disk that differ
   from what the run wrote (counts, iterations, and the last record
   against the program's state after the check iteration).
+
+On a cell of several cards (:func:`judge_shard`) every process judges its
+own shard, the reference following the sharded block step with its sums
+over the processes; the parent takes each number's largest over them.
+There ``record_mismatch`` covers each process's marker range of the
+``.bet``/``.cpn`` records, and process 0's ``.csv``, and one more number
+is compared:
+
+- ``replica_mismatch``: elements of the replicated state (residual,
+  sigmaG, sigmaE, pi, intercept, component counts) after the check
+  iteration that differ, bit for bit, from process 0's.
 """
 
 from __future__ import annotations
@@ -62,21 +73,22 @@ def reference_state(before: dict) -> dict:
 
 
 def numbers(inp: ref.Inputs, before: dict, after: dict, prog_dtype, seed: int,
-            it: int, traffic: dict) -> dict:
+            it: int, traffic: dict, shard=None, allsum=None) -> dict:
     """The four gaps of ``after`` (one iteration from ``before``) against
     the reference in float64, and the number of ties at which the two
-    drew different components."""
+    drew different components; ``shard`` and ``allsum`` on a sharded run
+    (``reference.iterate``)."""
     T = inp.na.shape[0]
     G, K = inp.cva.shape
     B = inp.block_size
     nblocks = inp.bed.shape[0] // B
     dr = ref.draws(seed, it, T, G, K, nblocks, B, inp.m_local,
-                   block_mode(traffic), prog_dtype, inp.bed.device)
+                   block_mode(traffic), prog_dtype, inp.bed.device, shard)
     check = check_blocks(nblocks, int(traffic["check_blocks"]), seed)
     out = ref.iterate(inp, reference_state(before), dr, dtype=F64,
                       follow=dict({k: after[k] for k in ("betas", "comp", "acum")},
                                   eps=after["eps"].reshape(T, -1)),
-                      check=check)
+                      check=check, allsum=allsum)
     eps_p = after["eps"].reshape(T, -1).to(F64)
     obs = inp.na > 0
     rms = torch.sqrt((out["eps"][obs] ** 2).mean())
@@ -141,21 +153,28 @@ def record_mismatch(cell, program: dict) -> int:
     written: record counts and iterations, and the last record (the check
     iteration's) against the program's state, marker by marker in the
     original order."""
-    files, after = program["files"], program["after"]
-    its_want = program["records"]
-    m = cell.m
-    inv = np.argsort(cell.order, kind="stable")
+    return _records(program, program["after"], cell.m, 0, cell.m,
+                    np.argsort(cell.order, kind="stable"), csv=True)
+
+
+def _records(program, after, m, start, ln, inv, csv) -> int:
+    """:func:`record_mismatch` over markers ``start`` .. ``start + ln`` of
+    the ``m`` in the records, held in ``after`` in storage order (``inv``
+    back to the original), and with ``csv`` over the ``.csv`` rows."""
+    files, its_want = program["files"], program["records"]
     bad = 0
     for t, base in enumerate(files["bases"]):
         b = os.path.join(files["dir"], base)
-        beta = after["betas"][t, :m].to(F64).cpu().numpy()[inv]
-        comp = after["comp"][t, :m].cpu().numpy().astype(np.int32)[inv]
+        beta = after["betas"][t, :ln].to(F64).cpu().numpy()[inv]
+        comp = after["comp"][t, :ln].cpu().numpy().astype(np.int32)[inv]
         for suffix, kind, want in ((".bet", "<f8", beta), (".cpn", "<i4", comp)):
             got = _history(b + suffix, m, kind)
             if got is None or got[0] != its_want:
                 bad += 1 + len(its_want)
                 continue
-            bad += int((got[1] != want).sum())
+            bad += int((got[1][start:start + ln] != want).sum())
+        if not csv:
+            continue
         with open(b + ".csv") as fh:
             rows = [r for r in fh.read().splitlines() if r.strip()]
         if len(rows) != len(its_want):
@@ -206,6 +225,82 @@ def control(spec, cell, program: dict, seed: int) -> dict:
     out = ref.iterate(inp, reference_state(before), dr, dtype=torch.float32,
                       lowp=True)
     return numbers(inp, before, out, torch.float32, seed, it, tr)
+
+
+REPLICATED = ("eps", "sigmag", "sigmae", "pi_est", "mu", "cass")
+
+
+def replica_mismatch(after: dict, gather) -> int:
+    """Elements of the replicated state that differ, bit for bit, from
+    process 0's (``gather(x)``: every process's ``x`` in rank order)."""
+    bad = 0
+    for k in REPLICATED:
+        x = after[k].contiguous()
+        bits = x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+        every = gather(bits)
+        bad += sum(int((y != every[0]).sum()) for y in every[1:])
+    return bad
+
+
+def judge_shard(spec, cell, program: dict, seed: int, ranks) -> dict:
+    """The compared numbers of this process's shard of a sharded run
+    (``cell`` a ``data.ShardData`` of one shard, ``program`` with one
+    entry a shard in ``before``, ``after`` and ``gram``), each with its
+    limit; ``ranks`` gives ``allsum`` and ``gather`` over the processes
+    and ``rank``."""
+    tr = spec.traffic
+    inp = data_mod.shard_reference_inputs(cell, tr, 0)
+    ref.marker_stats(inp, F64)
+    vals = numbers(inp, program["before"][0], program["after"][0],
+                   program["dtype"], seed, program["records"][-1], tr,
+                   shard=cell.shards[0], allsum=ranks.allsum)
+    info = {"flips": vals.pop("flips")}
+    if program["gram"][0] is not None:
+        shared = bool(cell.mask.all())
+        vals["gram_mismatch"] = gram_mismatch(
+            inp, dict(program, gram=program["gram"][0]), shared)
+    vals["record_mismatch"] = _records(
+        program, program["after"][0], cell.m, cell.starts[0],
+        cell.m_locals[0], np.argsort(cell.orders[0], kind="stable"),
+        csv=ranks.rank == 0)
+    vals["replica_mismatch"] = program["replica_mismatch"]
+    out = {k: {"value": v, "limit": spec.limits[k]} for k, v in vals.items()}
+    out["_info"] = info
+    return out
+
+
+def control_shard(spec, cell, program: dict, seed: int, ranks) -> dict:
+    """:func:`control` on a sharded run: the reference in the program's
+    place block step after block step, its residual summed over the
+    processes at every step, each process judging its own shard."""
+    tr = spec.traffic
+    inp = data_mod.shard_reference_inputs(cell, tr, 0)
+    ref.marker_stats(inp, F64)
+    before, it = program["before"][0], program["records"][-1]
+    T = inp.na.shape[0]
+    G, K = inp.cva.shape
+    nblocks = inp.bed.shape[0] // inp.block_size
+    dr = ref.draws(seed, it, T, G, K, nblocks, inp.block_size, inp.m_local,
+                   block_mode(tr), torch.float32, inp.bed.device,
+                   cell.shards[0])
+    out = ref.iterate(inp, reference_state(before), dr, dtype=torch.float32,
+                      lowp=True, allsum=ranks.allsum)
+    return numbers(inp, before, out, torch.float32, seed, it, tr,
+                   shard=cell.shards[0], allsum=ranks.allsum)
+
+
+def merge(per_rank: list) -> dict:
+    """Each compared number's largest over the processes, with its limit;
+    the ties summed."""
+    out = {}
+    for checks in per_rank:
+        for k, c in checks.items():
+            if k.startswith("_"):
+                continue
+            if k not in out or c["value"] > out[k]["value"]:
+                out[k] = dict(c)
+    out["_info"] = {"flips": sum(c["_info"]["flips"] for c in per_rank)}
+    return out
 
 
 def correct(checks: dict) -> bool:

@@ -8,19 +8,26 @@ is frozen here, each named where it is defined:
 
 - the draw scheme: one ``torch.Generator`` per (seed, iteration, purpose),
   seeded from ``numpy.random.SeedSequence``, and the calls that draw each
-  purpose's numbers (:func:`draws`);
+  purpose's numbers (:func:`draws`); on a marker-sharded run the shuffle
+  and the sweep's draws (``SHARD_KEYED``) also keyed by the global shard
+  id plus one;
 - the storage order of the markers, a stride interleave across blocks at
   W > 1 (:func:`interleave_order`);
 - the 2-bit PLINK decode and the phase-plane layout of individuals
   (:func:`decode`, :func:`to_planes`);
 - the wave relaxation at W > 1: markers of one wave of a block are drawn
-  against the residual as the wave found it (:func:`scan`).
+  against the residual as the wave found it (:func:`scan`);
+- the sharded block step: at each step every shard draws its block
+  against the residual as the step found it, and the residual then takes
+  the sum of all shards' updates.
 
 It runs in float64 to judge the program, and in a lower precision in the
 program's place as the control.  :func:`iterate` either follows the
 program (it takes the program's component where the two differ by a tie
 and the program's residual updates, and reports by how much each marker's
-draw differs) or produces an iteration of its own.
+draw differs) or produces an iteration of its own.  On a sharded run each
+process computes its own shard's part, and ``allsum``, a plain sum over
+the processes, gives the residual and the hyperparameters' sums.
 """
 
 from __future__ import annotations
@@ -37,11 +44,17 @@ ROUNDS = 32                     # Marsaglia-Tsang candidates drawn at once
 V0E = S02E = V0G = S02G = 1.0e-4
 GUARD = 700.0                   # log-likelihood gap past which a share is 0
 MISSING = 0x55                  # a byte of four missing genotypes
+# The draws that differ from shard to shard on a marker-sharded run.
+SHARD_KEYED = ("block_order", "row_order", "marker_order", "u", "z")
 
 
-def generator(seed: int, it: int, purpose: str, device) -> torch.Generator:
-    """The generator of draw ``purpose`` at iteration ``it``."""
+def generator(seed: int, it: int, purpose: str, device,
+              shard: Optional[int] = None) -> torch.Generator:
+    """The generator of draw ``purpose`` at iteration ``it``, of global
+    shard ``shard`` on a sharded run."""
     key = [int(seed), int(it), PURPOSES.index(purpose)]
+    if shard is not None and purpose in SHARD_KEYED:
+        key.append(int(shard) + 1)
     state = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     g = torch.Generator(device=device)
     g.manual_seed(int(state))
@@ -131,33 +144,34 @@ def raw_gram(bed_rows: torch.Tensor, na: torch.Tensor) -> torch.Tensor:
 
 
 def draws(seed: int, it: int, T: int, G: int, K: int, nblocks: int, B: int,
-          m_local: int, block_mode: bool, dtype, device) -> dict:
+          m_local: int, block_mode: bool, dtype, device,
+          shard: Optional[int] = None) -> dict:
     """Every random number of iteration ``it`` in the program's draw
     scheme; ``dtype`` is the program's run dtype, in which the intercept's
-    and the sweep's numbers are drawn."""
+    and the sweep's numbers are drawn; ``shard`` the global shard id on a
+    sharded run."""
     m_pad = nblocks * B
-    z_mu = torch.randn((T,), generator=generator(seed, it, "mu", device),
-                       device=device, dtype=dtype)
+
+    def gen(purpose):
+        return generator(seed, it, purpose, device, shard)
+    z_mu = torch.randn((T,), generator=gen("mu"), device=device, dtype=dtype)
     if block_mode:
         pi_b = torch.empty((nblocks,), dtype=torch.int64, device=device)
-        torch.randperm(nblocks, generator=generator(seed, it, "block_order",
-                                                    device), out=pi_b)
-        r = torch.rand((nblocks, B), device=device,
-                       generator=generator(seed, it, "row_order", device))
+        torch.randperm(nblocks, generator=gen("block_order"), out=pi_b)
+        r = torch.rand((nblocks, B), device=device, generator=gen("row_order"))
         blocks = pi_b[:, None] * B + torch.argsort(r, dim=1)
     else:
-        r = torch.rand((m_pad,), device=device,
-                       generator=generator(seed, it, "marker_order", device))
+        r = torch.rand((m_pad,), device=device, generator=gen("marker_order"))
         r = torch.where(torch.arange(m_pad, device=device) < m_local, r, 2.0)
         blocks = torch.argsort(r, stable=True).reshape(nblocks, B)
     u = torch.rand((nblocks, T, B), device=device, dtype=dtype,
-                   generator=generator(seed, it, "u", device))
+                   generator=gen("u"))
     z = torch.randn((nblocks, T, B), device=device, dtype=dtype,
-                    generator=generator(seed, it, "z", device))
+                    generator=gen("z"))
     hyper = {}
     for name, shape in (("sigmag", (T, G)), ("pi", (T, G, K)),
                         ("sigmae", (T,))):
-        g = generator(seed, it, name, device)
+        g = gen(name)
         f64 = torch.float64
         hyper[name] = (
             torch.randn((ROUNDS,) + shape, generator=g, device=device, dtype=f64),
@@ -294,7 +308,7 @@ def products(lowp: bool):
 
 
 def iterate(inp: Inputs, state: dict, dr: dict, *, dtype, follow=None,
-            check=None, lowp=False) -> dict:
+            check=None, lowp=False, allsum=None) -> dict:
     """One iteration (it > 1) from ``state`` (eps (T, 4 mb_pad), betas,
     comp, acum (T, m_pad), sigmag (T, G), sigmae, mu (T,), pi_est
     (T, G, K)) on the draws ``dr``, in ``dtype``; ``lowp`` rounds the
@@ -305,11 +319,19 @@ def iterate(inp: Inputs, state: dict, dr: dict, *, dtype, follow=None,
     scan runs on the blocks ``check`` (processing positions; None: all)
     with the program's components taken at ties, and the result holds the
     reference's numbers beside the program's.  Without it the iteration
-    is produced block after block on its own updates."""
-    return _iterate(inp, state, dr, dtype, follow, check, products(lowp))
+    is produced block after block on its own updates.
+
+    ``allsum``, on a sharded run, sums a tensor over the processes, each
+    of which holds its own shard in ``inp`` and ``state`` and the same
+    replicated leaves: the shards' updates of every block step, and the
+    per-group sums of the hyperparameter block.  Judging, the residual
+    takes the sum only before each step checked and at the end, since the
+    program's updates do not depend on it."""
+    return _iterate(inp, state, dr, dtype, follow, check, products(lowp),
+                    allsum)
 
 
-def _iterate(inp, state, dr, dtype, follow, check, mm):
+def _iterate(inp, state, dr, dtype, follow, check, mm, allsum=None):
     dev = inp.bed.device
     f = {k: (v.to(dtype) if v.is_floating_point() else v)
          for k, v in state.items()}
@@ -380,7 +402,8 @@ def _iterate(inp, state, dr, dtype, follow, check, mm):
                        op["sqb"], gram(a, b, rows)[None], op["beta_old"],
                        op["comp_old"], op["acum_old"], u[k][None], z[k][None],
                        op["live"], op["zerob"], i2se, W, mm=mm)
-            eps = eps + update(a, b, rows, res["dbeta"][0])
+            upd = update(a, b, rows, res["dbeta"][0])
+            eps = eps + (upd if allsum is None else allsum(upd))
             new["betas"][:, rows] = res["beta_new"][0]
             new["comp"][:, rows] = res["comp_new"][0]
             new["acum"][:, rows] = res["acum_new"][0]
@@ -393,13 +416,22 @@ def _iterate(inp, state, dr, dtype, follow, check, mm):
         check = list(range(nblocks)) if check is None else sorted(check)
         want = set(check)
         cs, gs = [], []
+        pend = None if allsum is None else torch.zeros_like(eps)
         for k in range(nblocks):
             rows = blocks[k]
             a, b = xmats(rows)
             if k in want:
+                if pend is not None:        # every shard's steps before k
+                    eps = eps + allsum(pend)
+                    pend.zero_()
                 cs.append(cdot(a, b, rows))
                 gs.append(gram(a, b, rows))
-            eps = eps + update(a, b, rows, db_prog[:, rows])
+            if pend is None:
+                eps = eps + update(a, b, rows, db_prog[:, rows])
+            else:
+                pend += update(a, b, rows, db_prog[:, rows])
+        if pend is not None:
+            eps = eps + allsum(pend)
         rows = blocks[check]                                   # (nc, B)
         op = per_block(rows)
         base = torch.stack(cs) + op["beta_old"] * nm1
@@ -428,6 +460,8 @@ def _iterate(inp, state, dr, dtype, follow, check, mm):
     cass = cass.reshape(T, G, K)
     onehot = (grp[:, None] == torch.arange(G, device=dev)[None]).to(dtype)
     beta_sqn = mm(betas * betas, onehot).to(dtype)
+    if allsum is not None:
+        cass, beta_sqn = allsum(cass), allsum(beta_sqn)
     mtot = inp.mtotgrp
     m0 = torch.where(mtot > 0, mtot - cass[:, :, 0], 0)
     m0f = m0.to(dtype)

@@ -97,6 +97,16 @@ def reduce(dev, host, lo: float, hi: float, top: int = 10) -> dict:
         launches=launches)
 
 
+def op_table(dev, lo: float, hi: float) -> dict:
+    """{device operation: [seconds, activities]} in the window [lo, hi]."""
+    out = defaultdict(lambda: [0.0, 0])
+    for name, s, e in dev:
+        if e > lo and s < hi:
+            out[name][0] += min(e, hi) - max(s, lo)
+            out[name][1] += 1
+    return dict(out)
+
+
 def window_bounds(host) -> Tuple[float, float]:
     """Start and end of the harness's traced-window span."""
     for name, s, e in host:

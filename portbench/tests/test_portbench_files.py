@@ -33,7 +33,9 @@ def test_benchmark_json_keys_and_names():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and len(w["why"]) <= 200
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
+    fours = sum(w["chips"] == 4 for w in b["workloads"])
+    assert fours <= max(1, len(b["workloads"]) // 4)
     for kind in ("end_to_end", "per_layer"):
         for m in b[kind]:
             assert NAME.match(m["name"]) and UNIT.match(m["unit"])
@@ -72,6 +74,9 @@ def test_every_cell_resolves_by_name():
         c = spec.cell(w["name"])
         names = {m.name for m in c.metrics}
         assert {"gibbs_markers_per_s", "setup_s"} <= names
+        if c.chips > 1:         # one shard a process and a card
+            assert c.config["shards"] == c.chips
+            assert "replica_mismatch" in c.limits
         assert {"beta_gap", "eps_gap", "hyper_gap", "record_mismatch"} <= set(c.limits)
 
 

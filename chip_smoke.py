@@ -43,10 +43,13 @@ Phases, each of which must pass (any failure exits non-zero):
    (bit-equal), in place against out mode plus the add (bit-equal), as
    one launch per shard against one launch (bit-equal) and, for one
    shard, from a block's own slices against the whole arrays (bit-equal);
-   the same again on four blocks of two wide panels, mb_pad=25,088 (NT=4)
-   and 60,000 (NT=1), where a column CTA takes its columns in tiles; timed
-   per launch by graph replay, per eager step and by the host's clock,
-   beside a torch.matmul yardstick, with one stamped launch each;
+   the same again on four blocks of three wide panels, mb_pad=25,088
+   (NT=4), 60,000 (NT=1) and the UK Biobank shard's 100,352 (NT=4), whose
+   column passes run on the tensor cores (the launches counted under
+   ``block_sweep_mma`` must be the launches there and none at the
+   anchor); timed per launch by graph replay, per eager step and by the
+   host's clock, beside a torch.matmul yardstick, with one stamped launch
+   each;
 3. the wave path's (W=32) one-sweep agreement gate at the anchor: the
    default marker_sweep, so the whole-sweep kernel, on the card against the
    same sweep from the plain versions (on the host CPU), with the same
@@ -450,15 +453,18 @@ def fail(msg):
 
 def launch_counts():
     """The kernels' launches since the last reset (``_build
-    .launch_counts``), without the count of the launches of kernels 7/8
-    that ran their column passes on the tensor cores (a subset of
-    "sweep_blocks", which the plan picks by shape; phase 3f checks it)."""
+    .launch_counts``), without the counts of the launches of kernels 7/8
+    and 9 that ran their column passes on the tensor cores (subsets of
+    "sweep_blocks" and "block_sweep", which the plans pick by shape;
+    phases 3f and 2 check them)."""
     from gmrm_tpu_torch.ops import _build
     counts = _build.launch_counts()
-    mma = counts.pop("sweep_blocks_mma", 0)
-    if mma > counts["sweep_blocks"]:
-        fail(f"{mma} tensor-core launches of kernels 7/8 out of "
-             f"{counts['sweep_blocks']}")
+    for sub, kernel in (("sweep_blocks_mma", "sweep_blocks"),
+                        ("block_sweep_mma", "block_sweep")):
+        mma = counts.pop(sub, 0)
+        if mma > counts[kernel]:
+            fail(f"{mma} tensor-core launches of {kernel} out of "
+                 f"{counts[kernel]}")
     return counts
 
 
@@ -1801,6 +1807,7 @@ def block_sweep_phase(dev, gen, mb=MB, mt=MT, masks=(True, False)):
     torch.matmul yardstick; one stamped launch per S_loc where the step is
     one launch."""
     import torch
+    from gmrm_tpu_torch.ops import _build
     from gmrm_tpu_torch.ops import sweep_kernel as sk
     from gmrm_tpu_torch.ops.decode import decode_planes
 
@@ -1875,6 +1882,24 @@ def block_sweep_phase(dev, gen, mb=MB, mt=MT, masks=(True, False)):
                     fail(f"{name}, step {b}: pad columns of the sum are "
                          f"not 0")
                 err = max(err, d_eps)
+            # The column passes' design the plan reports, and the
+            # launches that ran it.
+            plan = sk.block_sweep_plan(T, B, mb, nt, K, W, n_sh)
+            want_design = ("tensor cores" if mb == MB_WIDE
+                           else "CUDA cores" if mb == MB else None)
+            if want_design and plan.get("passes") != want_design:
+                fail(f"{name}: the plan runs the column passes on the "
+                     f"{plan.get('passes')}, not the {want_design}")
+            before = _build.launch_counts()
+            kernel(copied(shards), torch.empty_like(eps))
+            after = _build.launch_counts()
+            n_launch = after["block_sweep"] - before["block_sweep"]
+            n_mma = (after["block_sweep_mma"] - before["block_sweep_mma"])
+            if n_mma != (n_launch if plan["passes"] == "tensor cores"
+                         else 0):
+                fail(f"{name}: {n_mma} of {n_launch} launches counted on "
+                     f"the tensor cores, the plan's passes "
+                     f"{plan['passes']}")
             # Two launches on the same inputs; out mode + add against the
             # in-place mode; one shard a launch against one launch.
             outs = bit_equal_twice(name, lambda: (
@@ -1981,9 +2006,9 @@ def block_sweep_phase(dev, gen, mb=MB, mt=MT, masks=(True, False)):
 
 
 # Kernel 9 on panels wider than the anchor's: the large-N panel's width
-# (N=100,000) at NT=4, and N=240,000 at NT=1, four blocks each, the last
-# with 96 pad slots.
-WIDE_BLOCK_STEPS = ((MB_BIG, False), (60_000, True))
+# (N=100,000) at NT=4, N=240,000 at NT=1 and the UK Biobank shard's
+# N=400,000 at NT=4, four blocks each, the last with 96 pad slots.
+WIDE_BLOCK_STEPS = ((MB_BIG, False), (60_000, True), (MB_WIDE, False))
 STEP_MT = 4 * B - 96
 
 

@@ -61,6 +61,25 @@
 //     wave is in and take the same passes.  A column CTA is the only reader
 //     and writer of its eps columns within the launch, and the next block
 //     step is the next launch.
+//   - from 256 / T byte columns a tile (and from 128 at any T: mma_passes,
+//     kernel 7/8's rule), the column passes (1) and (4) run on the tensor
+//     cores, an instance of their own (column_cta_mma), in kernel 7/8's
+//     form: mma.sync m16n8k16 with bf16 inputs and float32 accumulators,
+//     the bed's 2-bit codes decoded straight into genotype fragments by
+//     byte permutes (a in {0, 1, 2}, b in {0, 1}: exact in bf16), the
+//     float operand (eps in (1), msig dbeta and mave msig dbeta in (4))
+//     split into three bf16 parts whose sum is the float exactly (split3),
+//     so every product is exact and only the float32 sums round; the traits
+//     in the product's N, so that each code is decoded once for all traits;
+//     the three parts' sums added in a fixed order.  eps is new at every
+//     step (the sum over processes comes between launches), so a column
+//     CTA splits its slice as it stages it.  Only (1) reads the parts and
+//     (4) reads no eps, so each shard's delta accumulates over the waves in
+//     the bytes the parts held, and nothing float of eps or na is staged:
+//     the sum's write reads na, and in place eps, from global memory.  That
+//     keeps the UK Biobank shard's 768 columns a column CTA in one tile.
+//     Below the rule, where each warp's share is too short a chain to pay,
+//     the passes run on the CUDA cores as described above;
 // No grid-wide barrier, and nothing for the host to reset: each ticket's
 // last arrival zeroes it, and the last CTA to finish zeroes the flags, so
 // the next launch, or a replay of a captured one, finds the scratch as the
@@ -73,6 +92,8 @@
 // equals the plain version's.  The scan is a copy of csrc/sweep_blocks.cu's,
 // not shared with it: moving the draw into a shared header once changed the
 // schedule of wave_scan.cu and nearly doubled its time (see sweep_math.cuh).
+// The tensor-core helpers (decode_pairs, split3, tile_sums, mma_bf16,
+// part_plane) are copies of csrc/sweep_blocks.cu's for the same reason.
 // With a stamp buffer, thread 0 of every CTA records %globaltimer at the
 // events of BLOCK_STEP_STAMPS (ops/sweep_kernel.py), in a separate
 // instantiation.
@@ -147,6 +168,7 @@ struct StepArgs {
   int step, ns, mode;
   int T, B, mb, nt, K, W, G, C, span, cap, vec, flags, ncol, ngroups,
       gs_tot;
+  int vec16;  // every shard's bed rows start on 16 bytes (mb % 16 == 0)
   int TS;   // the run's traits: the stride of u, z (nblocks, TS, B), the
             //   tables (K, TS, G) and a Gram cache of a mask a trait
             //   (nb, TS, 2B, 2B), each offset to the chunk's first trait
@@ -158,19 +180,29 @@ __host__ __device__ inline int gs_wave_offset(int B, int W, int w) {
   return W * (w * B - W * (w * (w + 1) / 2));
 }
 
+// A flag of the plan beside GS_SMEM and TAB_SMEM: the column passes on the
+// tensor cores (column_cta_mma), C a multiple of 32.
+enum { MMA_PASSES = 4 };
+
 // Shared memory offsets in bytes.  Scan CTAs and column CTAs lay out the
 // same allocation differently; total is the larger of the two.
 struct Layout {
-  // column CTAs; per shard of the launch: row, win, mave, msig, bed, acc
+  // column CTAs; per shard of the launch: row, win, mave, msig, bed, acc.
+  // On the tensor cores eps holds eps's bf16 parts for (1), then acc the
+  // shards' deltas in the same bytes, and dm the wave's operand parts.
   size_t row, win, mave, msig, bed, eps, na, red, acc, dm, last;
   // scan CTAs
   size_t s_row, s_grp, s_beta, s_acum, s_comp, s_flag, s_u, s_z, s_x0,
       s_x1, s_wdb, s_lc, s_rd, s_sqb, s_gs;
   size_t total;
-  int SP;  // bed row stride in bytes: an odd number of words
-  int P;   // column parts of the c-dot (threads per marker row)
+  int SP;  // bed row stride in bytes: an odd number of words (tensor
+           //   cores: 4 past a multiple of 8, so rows start on 16 bytes)
+  int P;   // column parts of the c-dot (threads per marker row; tensor
+           //   cores: warps per m16 tile of marker rows)
   int WP;  // words of a part
   int RP;  // row parts of a wave in the update (accumulators per shard)
+  int QS;  // tensor cores: bf16 values per part plane of eps, 4 C + 16
+  int QW;  // tensor cores: bf16 values per part plane of the wave's operand
 };
 
 // ns shards in a launch of a plan that takes `cap`: the parts P and RP
@@ -189,27 +221,54 @@ __host__ __device__ inline Layout make_layout(int T, int B, int W, int K,
   };
   const size_t tb = (size_t)T * B * 4;
   const size_t plane = (size_t)T * 4 * C * 4;
-  L.SP = ((C / 4) % 2 == 0) ? C + 4 : C;
-  const int p_busy = (BS_THREADS + cap * B - 1) / (cap * B);
-  L.P = C / 4 < 8 ? C / 4 : 8;
-  if (p_busy < L.P) L.P = p_busy;
-  L.WP = (C / 4 + L.P - 1) / L.P;
-  // The update: a thread per shard, row part, plane and word (4 columns),
-  // at most one round of the CTA's threads where the columns allow.
-  const int r_fit = BS_THREADS / (cap * C);
-  L.RP = r_fit < 1 ? 1 : (r_fit < 8 ? r_fit : 8);
-  if (L.RP > W) L.RP = W;
-  L.row = take((size_t)ns * B * 4);
-  L.win = take((size_t)ns * B * 4);
-  L.mave = take(ns * tb);
-  L.msig = take(ns * tb);
-  L.bed = take((size_t)ns * B * L.SP);
-  L.eps = take(plane);
-  L.na = take((size_t)nt * 4 * C * 4);
-  L.red = take((size_t)ns * L.P * 2 * tb);
-  L.acc = take((size_t)ns * L.RP * plane);
-  L.dm = take((size_t)ns * T * W * 8);
-  L.last = take((size_t)ns * 4);
+  L.QS = 4 * C + 16;
+  L.QW = (W + 15) / 16 * 16 + 8;
+  if (flags & MMA_PASSES) {
+    // Rows 4 words past a multiple of 8: the fragments' loads of a warp
+    // (rows g, g + 8 at word q; rows 2q + m at word g) fall in 32 banks.
+    L.SP = C + 16;
+    // Warps per m16 tile of every shard's marker rows at `cap` shards.
+    const int tiles = cap * ((B + 15) / 16);
+    L.P = tiles >= BS_THREADS / 32 ? 1 : BS_THREADS / 32 / tiles;
+    L.WP = 0;
+    L.RP = 1;
+    L.row = take((size_t)ns * B * 4);
+    L.win = take((size_t)ns * B * 4);
+    L.mave = take(ns * tb);
+    L.msig = take(ns * tb);
+    L.bed = take((size_t)ns * B * L.SP);
+    // eps's parts (3T planes of QS), later the shards' deltas.
+    const size_t parts = (size_t)3 * T * L.QS * 2;
+    L.eps = take(parts > ns * plane ? parts : ns * plane);
+    L.acc = L.eps;
+    L.na = off;
+    L.red = take((size_t)ns * L.P * 2 * tb);
+    L.dm = take((size_t)ns * 6 * T * L.QW * 2);
+    L.last = take((size_t)ns * 4);
+  } else {
+    L.SP = ((C / 4) % 2 == 0) ? C + 4 : C;
+    const int p_busy = (BS_THREADS + cap * B - 1) / (cap * B);
+    L.P = C / 4 < 8 ? C / 4 : 8;
+    if (p_busy < L.P) L.P = p_busy;
+    L.WP = (C / 4 + L.P - 1) / L.P;
+    // The update: a thread per shard, row part, plane and word (4
+    // columns), at most one round of the CTA's threads where the columns
+    // allow.
+    const int r_fit = BS_THREADS / (cap * C);
+    L.RP = r_fit < 1 ? 1 : (r_fit < 8 ? r_fit : 8);
+    if (L.RP > W) L.RP = W;
+    L.row = take((size_t)ns * B * 4);
+    L.win = take((size_t)ns * B * 4);
+    L.mave = take(ns * tb);
+    L.msig = take(ns * tb);
+    L.bed = take((size_t)ns * B * L.SP);
+    L.eps = take(plane);
+    L.na = take((size_t)nt * 4 * C * 4);
+    L.red = take((size_t)ns * L.P * 2 * tb);
+    L.acc = take((size_t)ns * L.RP * plane);
+    L.dm = take((size_t)ns * T * W * 8);
+    L.last = take((size_t)ns * 4);
+  }
   const size_t col_total = off;
   off = 0;
   L.s_row = take((size_t)B * 4);
@@ -687,6 +746,669 @@ __device__ __forceinline__ void column_cta(const StepArgs& a, const Layout& L,
   stamp<ST>(a, 5);
 }
 
+// ---- the column passes on the tensor cores ---------------------------------
+// Copies of csrc/sweep_blocks.cu's helpers (the file header says why).
+constexpr uint32_t PAD_WORD = 0x55555555u;  // four pad bytes: a = b = 0
+// The bf16 bits of a (0x4000 = 2, 0x3F80 = 1) and of b for codes 0..3, as
+// byte tables for a permute: the low bytes of codes 0..3, then the high.
+constexpr uint32_t A_LO = 0x00800000u, A_HI = 0x003F0040u;
+constexpr uint32_t B_LO = 0x80800080u, B_HI = 0x3F3F003Fu;
+
+// Code k (bits 2k, 2k+1) of each byte of w as bf16 pairs: a01 holds a of
+// bytes 0 and 1 (byte 0 in the low half), a23 of bytes 2 and 3, b01 and
+// b23 likewise.  A byte's selector nibbles become (code, code + 4): its
+// value's low byte, then its high byte.
+__device__ __forceinline__ void decode_pairs(uint32_t w, int k,
+                                             uint32_t& a01, uint32_t& a23,
+                                             uint32_t& b01, uint32_t& b23) {
+  const uint32_t v = ((w >> (2 * k)) & 0x03030303u) * 0x11u + 0x40404040u;
+  a01 = __byte_perm(A_LO, A_HI, v);
+  a23 = __byte_perm(A_LO, A_HI, v >> 16);
+  b01 = __byte_perm(B_LO, B_HI, v);
+  b23 = __byte_perm(B_LO, B_HI, v >> 16);
+}
+
+// x as three bf16 parts, each the top 16 bits of what the parts before it
+// leave: 8 + 8 + 8 significant bits.  Both subtractions are exact, so
+// hi + mid + lo == x for every finite x whose last part stays in bf16's
+// normal range (|x| >= 2^-103), and a genotype times a part is exact.
+__device__ __forceinline__ void split3(float x, uint16_t& hi, uint16_t& mid,
+                                       uint16_t& lo) {
+  const uint32_t xb = __float_as_uint(x);
+  const float r = x - __uint_as_float(xb & 0xFFFF0000u);
+  const uint32_t rb = __float_as_uint(r);
+  const float l = r - __uint_as_float(rb & 0xFFFF0000u);
+  hi = (uint16_t)(xb >> 16);
+  mid = (uint16_t)(rb >> 16);
+  lo = (uint16_t)(__float_as_uint(l) >> 16);
+}
+
+// A tile's trait sums, (hi + mid) + lo, spread over the lanes: d[x] for
+// trait t0 + (x & 1) at row r0 + (x >> 1) (0: g, 1: g + 8), x < nx.  At
+// MT = 8 a lane holds every part of its traits 2q, 2q + 1: both rows.  At
+// MT = 4 lanes q and q ^ 2 hold a trait's parts between them (hi and lo
+// at q < 2, mid at q + 2) and exchange them so that each takes one row:
+// lane q < 2 row g, lane q + 2 row g + 8.
+template <int MT, int NTL>
+__device__ __forceinline__ void tile_sums(const float (&acc)[NTL][4], int tq,
+                                          float (&d)[4], int& t0, int& r0,
+                                          int& nx) {
+  if constexpr (MT == 4) {
+    const bool up = tq < 2;
+    float got[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // up sends hi, hi, lo, lo of row g + 8; the partner mid of row g.
+      const float v = up ? acc[i < 2 ? 0 : 1][2 + (i & 1)] : acc[0][i & 1];
+      got[i] = __shfl_xor_sync(0xffffffffu, v, 2);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      d[e] = up ? __fadd_rn(__fadd_rn(acc[0][e], got[e]), acc[1][e])
+                : __fadd_rn(__fadd_rn(got[e], acc[0][2 + e]), got[2 + e]);
+    t0 = 2 * (tq & 1);
+    r0 = up ? 0 : 1;
+    nx = 2;
+  } else {
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      d[x] = __fadd_rn(__fadd_rn(acc[0][x], acc[1][x]), acc[2][x]);
+    t0 = 2 * tq;
+    r0 = 0;
+    nx = 4;
+  }
+}
+
+// c += A B on one m16n8k16 tile: A's four registers (rows g and g + 8 at
+// k = 2q, 2q + 1, then at k = 2q + 8, 2q + 9, for lane 4g + q), B's two.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The part plane that column n of an N tile holds: part p = n / MT of trait
+// t = n % MT; plane 0 for the columns past 3T, whose sums are never read.
+template <int MT>
+__device__ __forceinline__ int part_plane(int n, int T) {
+  const int p = n / MT, t = n % MT;
+  return p < 3 && t < T ? p * T + t : 0;
+}
+
+// The column CTAs on the tensor cores: column_cta's protocol (stamps,
+// tickets, the scaled Gram's share, waves as they arrive, tiles), with
+// (1) [A; B]^T eps over the tile's individuals and (4) X_w [dv; -mdv] over
+// each wave's markers as kernel 7/8's tensor-core passes compute them.  C
+// is a multiple of 32; every shard's bed rows and eps's parts of a tile
+// are staged whole, zeros and pad bytes past the CTA's columns.
+template <int MT, bool ST>
+__device__ __forceinline__ void column_cta_mma(const StepArgs& a,
+                                               const Layout& L,
+                                               unsigned char* sm) {
+  const int T = a.T, B = a.B, W = a.W, C = a.C, mb = a.mb, ns = a.ns;
+  const int TB = T * B, T4C = T * 4 * C;
+  const int nw = B / W;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;  // the fragments' row and column
+  const int g = blockIdx.x - ns;
+  const int own0 = g * a.span;
+  const int own1 = min(own0 + a.span, mb);
+  const int ntile = (own1 - own0 + C - 1) / C;
+  const int C4 = C / 4, C16 = C / 16;
+  const int group = g / GROUP;
+  const int gsize = min(GROUP, a.ncol - group * GROUP);
+  const int SP = L.SP, QS = L.QS, QW = L.QW, KH = L.P;
+  constexpr int NTL = MT == 4 ? 2 : 3;   // N tiles of 8: 3 parts x MT traits
+  const Slot so = slot_layout(a.ncol, a.ngroups, T, B, a.gs_tot);
+  int* srow = (int*)(sm + L.row);           // (ns, B) rows in the operands
+  int* swin = (int*)(sm + L.win);           // (ns, B) rows in the block
+  float* smave = (float*)(sm + L.mave);     // (ns, T, B) processing order
+  float* smsig = (float*)(sm + L.msig);
+  uint8_t* sbed = sm + L.bed;               // (ns, B, SP)
+  // eps's parts for (1): plane p*T + t (part p of trait t), code k at
+  // k * C, QS a plane; then, in the same bytes, the shards' deltas.
+  uint16_t* spl = (uint16_t*)(sm + L.eps);
+  float* sacc = (float*)(sm + L.acc);       // (ns, T*4, C)
+  float* sred = (float*)(sm + L.red);       // (ns, KH, 2T, B)
+  // The wave's (4) operand: dv = msig dbeta and -mdv = -(mave dv) as three
+  // bf16 parts, plane ((q*2 + v)*3 + p)*T + t (v = 0 dv, 1 -mdv), QW a plane.
+  uint16_t* sdv = (uint16_t*)(sm + L.dm);
+  int* slast = (int*)(sm + L.last);         // (ns,) last of its group/top
+  auto slot = [&](int q) { return a.scratch + (size_t)q * a.slot_words; };
+  stamp<ST>(a, 0);
+
+  // Every shard's B bed rows of the tile at col0 (the pad byte 0x55 past
+  // the CTA's columns) in one round of cp.async copies; with `stats`,
+  // every shard's statistics in processing order; with `parts`, eps's
+  // three parts of the tile (0 past the CTA's columns), split as loaded.
+  auto stage = [&](int col0, bool stats, bool parts) {
+#pragma unroll 1
+    for (int q = 0; q < ns; ++q) {
+      const ShardOps& s = a.sh[q];
+      const int* rq = srow + q * B;
+      uint8_t* bq = sbed + (size_t)q * B * SP;
+#pragma unroll 1
+      for (int x = tid; x < B * C16; x += BS_THREADS) {
+        const int i = x / C16, c = 16 * (x % C16);
+        uint8_t* d = bq + (size_t)i * SP + c;
+        const uint8_t* src = s.bed + (size_t)rq[i] * mb + col0 + c;
+        const int n = own1 - (col0 + c);
+        if (n >= 16 && a.vec16) {
+          cp_async16(d, src);
+          continue;
+        }
+#pragma unroll 1
+        for (int j = 0; j < 16; j += 4) {
+          if (n - j >= 4 && a.vec) {
+            cp_async4(d + j, src + j);
+          } else {
+            uint32_t w = PAD_WORD;
+            for (int e = 0; e < 4 && j + e < n; ++e)
+              w = (w & ~(0xFFu << (8 * e))) | ((uint32_t)src[j + e] << (8 * e));
+            *(uint32_t*)(d + j) = w;
+          }
+        }
+      }
+      if (stats) {
+        const size_t m_in = (size_t)s.nb * B;
+        for (int x = tid; x < TB; x += BS_THREADS) {
+          const size_t o = (size_t)(x / B) * m_in + rq[x % B];
+          cp_async4(smave + q * TB + x, s.mave + o);
+          cp_async4(smsig + q * TB + x, s.msig + o);
+        }
+      }
+    }
+    if (parts) {
+      // Four words of a thread's loads in flight before their splits.
+      constexpr int NB = 4;
+      const int n4 = T * 4 * C4;
+#pragma unroll 1
+      for (int y0 = tid; y0 < n4; y0 += NB * BS_THREADS) {
+        float4 e[NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const int y = y0 + u * BS_THREADS;
+          e[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          const int p = y / C4, c = 4 * (y % C4), col = col0 + c;
+          const float* src = a.eps + (size_t)p * mb + col;
+          if (y >= n4 || col >= own1) continue;
+          if (a.vec) {
+            e[u] = __ldcg((const float4*)src);
+          } else {
+            e[u].x = __ldcg(src);
+            if (col + 1 < own1) e[u].y = __ldcg(src + 1);
+            if (col + 2 < own1) e[u].z = __ldcg(src + 2);
+            if (col + 3 < own1) e[u].w = __ldcg(src + 3);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const int y = y0 + u * BS_THREADS;
+          if (y >= n4) break;
+          const int p = y / C4, c = 4 * (y % C4);
+          uint16_t h[4], m[4], l[4];
+          split3(e[u].x, h[0], m[0], l[0]);
+          split3(e[u].y, h[1], m[1], l[1]);
+          split3(e[u].z, h[2], m[2], l[2]);
+          split3(e[u].w, h[3], m[3], l[3]);
+          uint16_t* o = spl + (size_t)(p >> 2) * QS + (p & 3) * C + c;
+          *(uint2*)o = make_uint2(h[0] | (uint32_t)h[1] << 16,
+                                  h[2] | (uint32_t)h[3] << 16);
+          *(uint2*)(o + (size_t)T * QS) =
+              make_uint2(m[0] | (uint32_t)m[1] << 16,
+                         m[2] | (uint32_t)m[3] << 16);
+          *(uint2*)(o + (size_t)2 * T * QS) =
+              make_uint2(l[0] | (uint32_t)l[1] << 16,
+                         l[2] | (uint32_t)l[3] << 16);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  };
+
+  // ---- staging: the rows first, then the tiles ----------------------------
+#pragma unroll 1
+  for (int x = tid; x < ns * B; x += BS_THREADS) {
+    const ShardOps& s = a.sh[x / B];
+    const int blk = shard_block(s, a.step);
+    const int w = s.win[(size_t)a.step * B + x % B];
+    swin[x] = w;
+    srow[x] = (s.nb > 1 ? blk * B : 0) + w;
+  }
+  __syncthreads();
+
+  // ---- (1) every shard's centred partial of the CTA's columns -------------
+  // Per m16 tile of a shard's marker rows, the a plane and the b plane
+  // against eps's part planes, reduced over the tile's individuals.  A unit
+  // of a warp is a shard, a marker tile and part h of the tile's 16-column
+  // chunks; in a chunk lane 4g + q reads the word of columns 4q .. 4q + 3
+  // of rows g and g + 8, and k step k takes code k of its four bytes.  The
+  // sums of part h go to sred[((q KH + h) 2T + 2t + v) B + i] (v = 0 a,
+  // 1 b), added tile by tile.
+  const int mtiles = (B + 15) / 16;
+  auto partials = [&](int tile) {
+    int pl[NTL];
+#pragma unroll
+    for (int j = 0; j < NTL; ++j) pl[j] = part_plane<MT>(8 * j + gr, T);
+#pragma unroll 1
+    for (int u = warp; u < ns * mtiles * KH; u += BS_THREADS / 32) {
+      const int q = u / (mtiles * KH), r = u % (mtiles * KH);
+      const int mt = r % mtiles, h = r / mtiles;
+      const int ch0 = h * C16 / KH, ch1 = (h + 1) * C16 / KH;
+      const int i0 = mt * 16 + gr, i1 = i0 + 8;
+      const uint8_t* rp[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = x ? i1 : i0;
+        rp[x] = i < B ? sbed + ((size_t)q * B + i) * SP + 4 * tq : nullptr;
+      }
+      float acc[2][NTL][4];
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int j = 0; j < NTL; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[v][j][e] = 0.0f;
+      // Chunks in batches of CB, the next batch's words loaded before this
+      // one's products.
+      constexpr int CB = 4;
+      uint32_t nx[CB][2];
+      auto fetch = [&](int c0, uint32_t (&wd)[CB][2]) {
+#pragma unroll
+        for (int cc = 0; cc < CB; ++cc)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            wd[cc][x] = rp[x] != nullptr && c0 + cc < ch1
+                            ? *(const uint32_t*)(rp[x] + 16 * (c0 + cc))
+                            : PAD_WORD;
+      };
+      fetch(ch0, nx);
+#pragma unroll 1
+      for (int c0 = ch0; c0 < ch1; c0 += CB) {
+        uint32_t cw[CB][2];
+#pragma unroll
+        for (int cc = 0; cc < CB; ++cc) {
+          cw[cc][0] = nx[cc][0];
+          cw[cc][1] = nx[cc][1];
+        }
+        if (c0 + CB < ch1) fetch(c0 + CB, nx);
+#pragma unroll
+        for (int cc = 0; cc < CB; ++cc) {
+          if (c0 + cc >= ch1) break;
+          const int c = 16 * (c0 + cc) + 4 * tq;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            uint32_t bf[NTL][2];
+#pragma unroll
+            for (int j = 0; j < NTL; ++j) {
+              const uint2 v = *(const uint2*)(spl + (size_t)pl[j] * QS +
+                                              k * C + c);
+              bf[j][0] = v.x;
+              bf[j][1] = v.y;
+            }
+            uint32_t a0, a1, a2, a3, b0, b1, b2, b3;
+            decode_pairs(cw[cc][0], k, a0, a2, b0, b2);
+            decode_pairs(cw[cc][1], k, a1, a3, b1, b3);
+#pragma unroll
+            for (int j = 0; j < NTL; ++j) {
+              mma_bf16(acc[0][j], a0, a1, a2, a3, bf[j][0], bf[j][1]);
+              mma_bf16(acc[1][j], b0, b1, b2, b3, bf[j][0], bf[j][1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        float d[4];
+        int t0, r0, nx_;
+        tile_sums<MT, NTL>(acc[v], tq, d, t0, r0, nx_);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int t = t0 + (x & 1), i = r0 + (x >> 1) ? i1 : i0;
+          if (x < nx_ && t < T && i < B) {
+            float* o = sred + (((size_t)q * KH + h) * 2 * T + 2 * t + v) * B
+                       + i;
+            *o = tile == 0 ? d[x] : __fadd_rn(*o, d[x]);
+          }
+        }
+      }
+    }
+  };
+
+  // Tile by tile, the last one left staged.
+#pragma unroll 1
+  for (int tile = 0; tile < ntile; ++tile) {
+    if (tile > 0) __syncthreads();             // the last tile's reads done
+    stage(own0 + tile * C, tile == 0, true);
+    if (tile == 0) stamp<ST>(a, 1);
+    partials(tile);
+  }
+  __syncthreads();
+  // eps's parts are read: their bytes take the shards' deltas.
+#pragma unroll 1
+  for (int x = tid; x < ns * T4C / 4; x += BS_THREADS)
+    ((float4*)sacc)[x] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+  for (int x = tid; x < ns * TB; x += BS_THREADS) {
+    const int q = x / TB, o = x % TB;
+    const int t = o / B, i = o % B;
+    const float* red = sred + (size_t)q * KH * 2 * TB;
+    float s_a = red[(2 * t) * B + i], s_b = red[(2 * t + 1) * B + i];
+#pragma unroll 1
+    for (int h = 1; h < KH; ++h) {
+      s_a += red[((size_t)h * 2 * T + 2 * t) * B + i];
+      s_b += red[((size_t)h * 2 * T + 2 * t + 1) * B + i];
+    }
+    float* mine = (float*)slot(q) + so.part + (size_t)g * TB;
+    mine[o] = __fsub_rn(s_a, __fmul_rn(smave[x], s_b));
+  }
+  __syncthreads();
+
+  // ---- the tree, every shard's tickets at once (thread q: shard q) --------
+  if (tid < ns) {
+    unsigned* gcount = slot(tid) + (size_t)(SYNC_GROUPS + group) * LINE;
+    const bool is_last = atom_add_acq_rel(gcount, 1) == (unsigned)gsize - 1;
+    if (is_last) *gcount = 0;
+    slast[tid] = is_last;
+  }
+  __syncthreads();
+  bool any_last = false;
+#pragma unroll 1
+  for (int q = 0; q < ns; ++q) {
+    if (!slast[q]) continue;
+    any_last = true;
+    const float* src =
+        (const float*)slot(q) + so.part + (size_t)group * GROUP * TB;
+    float* gpart = (float*)slot(q) + so.gpart;
+#pragma unroll 1
+    for (int o = tid; o < TB; o += BS_THREADS)
+      gpart[(size_t)group * TB + o] = sum_in_order(src + o, gsize, TB);
+  }
+  if (any_last) {
+    __syncthreads();
+    if (tid < ns && slast[tid]) {
+      unsigned* top = slot(tid) + SYNC_TOP * LINE;
+      if (atom_add_acq_rel(top, 1) == (unsigned)a.ngroups - 1) {
+        *top = 0;
+        st_release(slot(tid) + SYNC_C * LINE, 1u);
+      }
+    }
+  }
+  stamp<ST>(a, 2);
+
+  // ---- (2) the CTA's share of every shard's scaled Gram, packed ------------
+  {
+    const int B2 = 2 * B;
+    const size_t quad = (size_t)B2 * B2;
+    const int per = T * a.gs_tot;
+#pragma unroll 1
+    for (int e = g * BS_THREADS + tid; e < ns * per;
+         e += a.ncol * BS_THREADS) {
+      const int q = e / per;
+      const int t = (e % per) / a.gs_tot;
+      int rem = e % a.gs_tot;
+      int w = 0;
+      while (rem >= W * (B - (w + 1) * W)) {
+        rem -= W * (B - (w + 1) * W);
+        ++w;
+      }
+      const int len = B - (w + 1) * W;
+      const int j = w * W + rem / len;
+      const int i = (w + 1) * W + rem % len;
+      const ShardOps& s = a.sh[q];
+      const int blk = s.nb > 1 ? s.blk[a.step] : 0;
+      const float* gq =
+          s.gram + ((size_t)blk * (a.nt == 1 ? 1 : a.TS) +
+                    (a.nt == 1 ? 0 : t)) * quad;
+      const int wj = swin[q * B + j], wi = swin[q * B + i];
+      const float* mq = smave + q * TB + t * B;
+      const float* sq = smsig + q * TB + t * B;
+      float* out = (float*)slot(q) + so.gs;
+      out[e % per] = gmrm_scale_gram(
+          __ldg(gq + (size_t)wj * B2 + wi),
+          __ldg(gq + (size_t)(B + wj) * B2 + wi),
+          __ldg(gq + (size_t)wj * B2 + B + wi),
+          __ldg(gq + (size_t)(B + wj) * B2 + B + wi), mq[i], mq[j], sq[i],
+          sq[j]);
+    }
+    __syncthreads();
+    if (tid == 0) red_release(a.scratch + SYNC_GS * LINE, 1);
+  }
+
+  // ---- (4) wave w of every shard into the shards' deltas of the staged
+  // tile.  Per m16 tile, 16 individuals x 8 part columns, reduced over the
+  // wave's markers, the a plane against dv and the b plane against -mdv.
+  // A unit of a warp is a shard, a super-tile of 32 byte columns (lane
+  // group g owns columns 4g .. 4g + 3), one half h of them and a group of
+  // codes: tile (h, k) holds individual (column 4g + 2h, code k) in row g
+  // and (column 4g + 2h + 1, code k) in row g + 8.  Wave -1 applies zeros
+  // (+0 stays +0).
+  const int W16 = QW - 8;
+  const int KW = W16 / 16;
+  const int nst = C / 32;
+  int KS = 1;  // code groups: enough units for the warps on a narrow slice
+  while (KS < 4 && ns * nst * 2 * KS < BS_THREADS / 32) KS *= 2;
+  const int CPU = 4 / KS, per_q = nst * 2 * KS, units = ns * per_q;
+  auto apply_wave = [&](int w) {
+    const int wr = w < 0 ? 0 : w;
+#pragma unroll 1
+    for (int x = tid; x < ns * T * W16; x += BS_THREADS) {
+      const int q = x / (T * W16), r = x % (T * W16);
+      const int t = r / W16, i = r % W16;
+      float dv = 0.0f, mdv = 0.0f;
+      if (w >= 0 && i < W) {
+        const int o = t * B + wr * W + i;
+        const float* dbuf = (const float*)slot(q) + so.dbuf;
+        dv = __fmul_rn(smsig[q * TB + o], __ldcg(dbuf + o));
+        mdv = __fmul_rn(smave[q * TB + o], dv);
+      }
+      uint16_t* d = sdv + ((size_t)q * 6 * T + t) * QW + i;
+      split3(dv, d[0], d[(size_t)T * QW], d[(size_t)2 * T * QW]);
+      d += (size_t)3 * T * QW;
+      split3(-mdv, d[0], d[(size_t)T * QW], d[(size_t)2 * T * QW]);
+    }
+    __syncthreads();
+    // This lane's bed words of unit u for k steps s0, s0 + 1: [s][pair][m],
+    // marker 16 s + 2q + 8 pair + m of the wave, columns 4g .. 4g + 3 of
+    // the unit's super-tile.
+    auto load_words = [&](int u, int s0, uint32_t (&wd)[2][2][2]) {
+      const int q = u / per_q;
+      const uint8_t* bw = sbed + ((size_t)q * B + wr * W) * SP +
+                          (u % per_q) / (2 * KS) * 32 + 4 * gr;
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const int i = 16 * (s0 + s) + 2 * tq + 8 * pr + m;
+            wd[s][pr][m] =
+                i < W ? *(const uint32_t*)(bw + (size_t)i * SP) : PAD_WORD;
+          }
+    };
+    // The B fragments of shard q for k steps s0, s0 + 1: [s][dv or
+    // -mdv][tile][pair], column g of each tile.
+    auto load_frags = [&](int q, int s0, uint32_t (&bq)[2][2][NTL][2]) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+#pragma unroll
+          for (int j = 0; j < NTL; ++j)
+#pragma unroll
+            for (int pr = 0; pr < 2; ++pr)
+              bq[s][v][j][pr] = *(const uint32_t*)(
+                  sdv + (((size_t)q * 2 + v) * 3 * T +
+                         part_plane<MT>(8 * j + gr, T)) * QW +
+                  16 * (s0 + s) + 2 * tq + 8 * pr);
+    };
+    // Code k of the two markers of each pair, their bytes of columns 4g +
+    // 2h and + 1 interleaved ([m0 c, m1 c, m0 c+1, m1 c+1]), into acc.
+    auto products = [&](const uint32_t (&xw)[2][2],
+                        const uint32_t (&bq)[2][2][NTL][2], int s0, int k,
+                        float (&acc)[NTL][4]) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s0 + s >= KW) break;
+        uint32_t a0, a1, a2, a3, b0, b1, b2, b3;
+        decode_pairs(xw[s][0], k, a0, a1, b0, b1);
+        decode_pairs(xw[s][1], k, a2, a3, b2, b3);
+#pragma unroll
+        for (int j = 0; j < NTL; ++j) {
+          mma_bf16(acc[j], a0, a1, a2, a3, bq[s][0][j][0], bq[s][0][j][1]);
+          mma_bf16(acc[j], b0, b1, b2, b3, bq[s][1][j][0], bq[s][1][j][1]);
+        }
+      }
+    };
+    auto interleave = [&](const uint32_t (&wd)[2][2][2], int h,
+                          uint32_t (&xw)[2][2]) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr)
+          xw[s][pr] = __byte_perm(wd[s][pr][0], wd[s][pr][1],
+                                  h ? 0x7362 : 0x5140);
+    };
+    // k steps 0 and 1 (the whole wave at W <= 32): a shard's fragments
+    // loaded when a warp's units reach it, and each unit's words loaded
+    // while the unit before computes.
+    uint32_t bq[2][2][NTL][2];
+    int q_frags = -1;
+    uint32_t wd[2][2][2];
+    if (warp < units) load_words(warp, 0, wd);
+#pragma unroll 1
+    for (int u = warp; u < units; u += BS_THREADS / 32) {
+      const int q = u / per_q, uq = u % per_q;
+      const int h = (uq / KS) % 2, k0 = (uq % KS) * CPU;
+      const int col = uq / (2 * KS) * 32 + 4 * gr;
+      if (q != q_frags) {
+        load_frags(q, 0, bq);
+        q_frags = q;
+      }
+      uint32_t xw[2][2];
+      interleave(wd, h, xw);
+      if (u + BS_THREADS / 32 < units)
+        load_words(u + BS_THREADS / 32, 0, wd);
+      float* accq = sacc + (size_t)q * T4C;
+#pragma unroll 1
+      for (int k = k0; k < k0 + CPU; ++k) {
+        float acc[NTL][4];
+#pragma unroll
+        for (int j = 0; j < NTL; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+        products(xw, bq, 0, k, acc);
+#pragma unroll 1
+        for (int s0 = 2; s0 < KW; s0 += 2) {  // W > 32
+          uint32_t wg[2][2][2], xg[2][2], bg[2][2][NTL][2];
+          load_words(u, s0, wg);
+          interleave(wg, h, xg);
+          load_frags(q, s0, bg);
+          products(xg, bg, s0, k, acc);
+        }
+        // The shard's delta += the wave's, for the lane's outputs.
+        float d[4];
+        int t0, r0, nx;
+        tile_sums<MT, NTL>(acc, tq, d, t0, r0, nx);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int t = t0 + (x & 1), c = col + 2 * h + r0 + (x >> 1);
+          if (x < nx && t < T) {
+            float* o = accq + (size_t)(t * 4 + k) * C + c;
+            *o = __fadd_rn(*o, d[x]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  };
+
+  // The shards' deltas of the staged tile at col0, each masked, summed in
+  // shard order, then written or added into eps (na, eps and a previous
+  // launch's sum read from global memory).
+  const bool acc_in = a.mode & ACCUMULATE;
+  const bool in_place = a.mode & IN_PLACE;
+  auto write_tile = [&](int col0) {
+    const int n = min(C, own1 - col0);
+#pragma unroll 1
+    for (int y = tid; y < T * 4 * C4; y += BS_THREADS) {
+      const int p = y / C4, c = 4 * (y % C4);
+      if (c >= n) continue;
+      const int ne = min(4, n - c);
+      const bool v4 = a.vec && ne == 4;
+      const size_t o = (size_t)p * mb + col0 + c;
+      const float* nap =
+          a.na + (size_t)((a.nt == 1 ? 0 : p >> 2) * 4 + (p & 3)) * mb +
+          col0 + c;
+      auto load = [&](const float* src, float (&v)[4]) {
+        if (v4) {
+          const float4 x = __ldcg((const float4*)src);
+          v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+        } else {
+          for (int e = 0; e < ne; ++e) v[e] = __ldcg(src + e);
+        }
+      };
+      float nv[4], tot[4], ev[4];
+      load(nap, nv);
+      if (acc_in) load(a.out + o, tot);
+      if (in_place) load(a.eps + o, ev);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e >= ne) break;
+#pragma unroll 1
+        for (int q = 0; q < ns; ++q) {
+          // Shard q's delta, masked.
+          const float d =
+              __fmul_rn(nv[e], sacc[(size_t)q * T4C + p * C + c + e]);
+          tot[e] = (q == 0 && !acc_in) ? d : __fadd_rn(tot[e], d);
+        }
+        if (in_place) tot[e] = __fadd_rn(ev[e], tot[e]);
+      }
+      float* dst = in_place ? a.eps + o : a.out + o;
+      if (v4)
+        *(float4*)dst = make_float4(tot[0], tot[1], tot[2], tot[3]);
+      else
+        for (int e = 0; e < ne; ++e) dst[e] = tot[e];
+    }
+  };
+
+  // The staged tile takes every wave of every shard as it arrives: a dry
+  // pass first (it runs the pass's code once while the first wave is
+  // drawn, so that the instructions are cached when the waves come).
+#pragma unroll 1
+  for (int w = -1; w < nw; ++w) {
+    // Thread q waits for shard q's wave: one round trip for all shards.
+    if (w >= 0 && tid < ns)
+      spin_geq(slot(tid) + SYNC_DBETA * LINE, (unsigned)(w + 1));
+    __syncthreads();
+    apply_wave(w);
+    if (w == 0) stamp<ST>(a, 3);
+  }
+  stamp<ST>(a, 4);
+  write_tile(own0 + (ntile - 1) * C);
+  // The other tiles, once every wave is in: their bed rows staged again
+  // (from L2), every wave applied, written.
+#pragma unroll 1
+  for (int tile = 0; tile + 1 < ntile; ++tile) {
+    __syncthreads();
+    stage(own0 + tile * C, false, false);
+#pragma unroll 1
+    for (int x = tid; x < ns * T4C / 4; x += BS_THREADS)
+      ((float4*)sacc)[x] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+#pragma unroll 1
+    for (int w = 0; w < nw; ++w) apply_wave(w);
+    write_tile(own0 + tile * C);
+  }
+  stamp<ST>(a, 5);
+}
+
 // ---- the scan CTAs: one per shard of the launch ----------------------------
 template <int MK, bool ST>
 __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
@@ -954,7 +1676,10 @@ __device__ __forceinline__ void scan_cta(const StepArgs& a, const Layout& L,
   stamp<ST>(a, 5);
 }
 
-template <int MT, int MK, bool ST>
+// MMA: the column passes on the tensor cores (the plan's MMA_PASSES), an
+// instance of its own, so that neither design's registers or code weigh on
+// the other's.
+template <int MT, int MK, bool ST, bool MMA>
 __global__ void __launch_bounds__(BS_THREADS, 1)
 block_sweep_kernel(const __grid_constant__ StepArgs a) {
   extern __shared__ __align__(16) unsigned char sm[];
@@ -962,6 +1687,8 @@ block_sweep_kernel(const __grid_constant__ StepArgs a) {
       make_layout(a.T, a.B, a.W, a.K, a.nt, a.C, a.ns, a.flags, a.cap);
   if ((int)blockIdx.x < a.ns)
     scan_cta<MK, ST>(a, L, sm);
+  else if constexpr (MMA)
+    column_cta_mma<MT, ST>(a, L, sm);
   else
     column_cta<MT, ST>(a, L, sm);
   // The last CTA to finish zeroes the flags: every CTA is past its last
@@ -984,6 +1711,7 @@ block_sweep_kernel(const __grid_constant__ StepArgs a) {
 struct Plan {
   int cap;      // shards a launch takes at most
   int C;        // byte columns of a tile (a column CTA's staged columns)
+  int mma;      // the column passes on the tensor cores
   int span;     // byte columns a column CTA owns, in tiles of C
   int ncol;     // column CTAs
   int flags;
@@ -994,21 +1722,32 @@ struct Plan {
   const void* kernels[2];  // plain, stamped
 };
 
-template <bool ST>
+template <bool ST, bool MMA>
 const void* pick_kernel(int T, int K) {
   // Register arrays sized for T <= 4 or 8 traits and K <= 4, 8 or 16
   // mixture components; any larger K takes the instances of GMRM_ANY_K.
   const void* kernels[2][4] = {
-      {(const void*)block_sweep_kernel<4, 4, ST>,
-       (const void*)block_sweep_kernel<4, 8, ST>,
-       (const void*)block_sweep_kernel<4, GMRM_MAX_K, ST>,
-       (const void*)block_sweep_kernel<4, GMRM_ANY_K, ST>},
-      {(const void*)block_sweep_kernel<MAX_T, 4, ST>,
-       (const void*)block_sweep_kernel<MAX_T, 8, ST>,
-       (const void*)block_sweep_kernel<MAX_T, GMRM_MAX_K, ST>,
-       (const void*)block_sweep_kernel<MAX_T, GMRM_ANY_K, ST>}};
+      {(const void*)block_sweep_kernel<4, 4, ST, MMA>,
+       (const void*)block_sweep_kernel<4, 8, ST, MMA>,
+       (const void*)block_sweep_kernel<4, GMRM_MAX_K, ST, MMA>,
+       (const void*)block_sweep_kernel<4, GMRM_ANY_K, ST, MMA>},
+      {(const void*)block_sweep_kernel<MAX_T, 4, ST, MMA>,
+       (const void*)block_sweep_kernel<MAX_T, 8, ST, MMA>,
+       (const void*)block_sweep_kernel<MAX_T, GMRM_MAX_K, ST, MMA>,
+       (const void*)block_sweep_kernel<MAX_T, GMRM_ANY_K, ST, MMA>}};
   return kernels[T <= 4 ? 0 : 1]
                  [K <= 4 ? 0 : K <= 8 ? 1 : K <= GMRM_MAX_K ? 2 : 3];
+}
+
+// Whether a tile of C byte columns runs the column passes of T traits on
+// the tensor cores (MMA_PASSES), else on the CUDA cores: kernel 7/8's rule
+// (csrc/sweep_blocks.cu mma_passes, measured there), from 256 / T byte
+// columns and from 128 at any T.  The CUDA cores' work grows with T x C,
+// the tensor cores' with C alone.
+constexpr int MMA_TRAIT_COLS = 256;
+constexpr int MMA_ALL_COLS = 128;
+inline bool mma_passes(int T, int C) {
+  return C >= MMA_ALL_COLS || T * C >= MMA_TRAIT_COLS;
 }
 
 // Whether a grid of ncol + ns CTAs with `smem` bytes each is resident at
@@ -1036,7 +1775,10 @@ cudaError_t fits(const Plan& p, int ns, int smem, int sms, int optin,
 // Then, keeping as much in the scan CTAs' shared memory as fits, the most
 // shards, up to `want` and MAX_SHARDS, that a resident grid takes with a
 // tile of at least min(span, MIN_TILE) columns, and for them the fewest
-// tiles a span: so a panel of any width takes at least one shard.
+// tiles a span: so a panel of any width takes at least one shard.  On the
+// tensor cores where mma_passes takes the span, tiles of a multiple of 32
+// columns, as long as mma_passes takes the tile too; else on the CUDA
+// cores.
 constexpr int MIN_TILE = 64;
 
 cudaError_t plan_uncached(int T, int B, int mb, int nt, int K, int W,
@@ -1044,8 +1786,6 @@ cudaError_t plan_uncached(int T, int B, int mb, int nt, int K, int W,
   if (T < 1 || T > MAX_T || K < 1 || W < 2 || B < W ||
       B % W != 0 || mb < 1 || (nt != 1 && nt != T) || want < 1)
     return cudaErrorInvalidValue;
-  p->kernels[0] = pick_kernel<false>(T, K);
-  p->kernels[1] = pick_kernel<true>(T, K);
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1057,40 +1797,55 @@ cudaError_t plan_uncached(int T, int B, int mb, int nt, int K, int W,
   p->gs_tot = gs_wave_offset(B, W, B / W - 1);
   if (want > MAX_SHARDS) want = MAX_SHARDS;
   if (want >= sms) return cudaErrorCooperativeLaunchTooLarge;
-  const int span = 4 * ((mb + 4 * (sms - want) - 1) / (4 * (sms - want)));
-  p->span = span;
-  p->ncol = (mb + span - 1) / span;
-  p->ngroups = (p->ncol + GROUP - 1) / GROUP;
-  const int min_tile = span < MIN_TILE ? span : MIN_TILE;
-  for (int flags : {GS_SMEM | TAB_SMEM, (int)GS_SMEM, (int)TAB_SMEM, 0}) {
-    for (int ns = want; ns >= 1; --ns) {
-      auto smem_of = [&](int C) {
-        return make_layout(T, B, W, K, nt, C, ns, flags, ns).total;
-      };
-      // The widest tile that fits, then the fewest tiles of even width.
-      int C = span;
-      while (C > min_tile && smem_of(C) > (size_t)optin) C -= 4;
-      if (C < min_tile || smem_of(C) > (size_t)optin) continue;
-      const int ntile = (span + C - 1) / C;
-      C = 4 * ((span + 4 * ntile - 1) / (4 * ntile));
-      const int smem = (int)smem_of(C);
-      bool ok = false;
-      err = fits(*p, ns, smem, sms, optin, &ok);
-      if (err != cudaSuccess) return err;
-      if (!ok) continue;
-      p->cap = ns;
-      p->C = C;
-      p->flags = flags;
-      p->smem = smem;
-      p->slot_words =
-          slot_layout(p->ncol, p->ngroups, T, B, p->gs_tot).total;
-      // Both instantiations take the plan's shared memory size.
-      for (const void* k : p->kernels) {
-        err = cudaFuncSetAttribute(
-            k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int span4 = 4 * ((mb + 4 * (sms - want) - 1) / (4 * (sms - want)));
+  for (int mma = mma_passes(T, span4) ? 1 : 0; mma >= 0; --mma) {
+    // On the tensor cores a multiple of 16 columns, so that every tile
+    // starts on 16 bytes of a bed row.
+    const int span = mma ? (span4 + 15) / 16 * 16 : span4;
+    const int min_tile = span < MIN_TILE ? span : MIN_TILE;
+    p->span = span;
+    p->ncol = (mb + span - 1) / span;
+    p->ngroups = (p->ncol + GROUP - 1) / GROUP;
+    p->mma = mma;
+    p->kernels[0] = mma ? pick_kernel<false, true>(T, K)
+                        : pick_kernel<false, false>(T, K);
+    p->kernels[1] = mma ? pick_kernel<true, true>(T, K)
+                        : pick_kernel<true, false>(T, K);
+    // Tiles of a multiple of `step` columns.
+    const int step = mma ? 32 : 4;
+    const int design = mma ? (int)MMA_PASSES : 0;
+    for (int flags : {GS_SMEM | TAB_SMEM, (int)GS_SMEM, (int)TAB_SMEM, 0}) {
+      for (int ns = want; ns >= 1; --ns) {
+        auto smem_of = [&](int C) {
+          return make_layout(T, B, W, K, nt, C, ns, flags | design, ns)
+              .total;
+        };
+        // The widest tile that fits, then the fewest tiles of even width.
+        int C = (span + step - 1) / step * step;
+        while (C > min_tile && smem_of(C) > (size_t)optin) C -= step;
+        if (C < min_tile || smem_of(C) > (size_t)optin) continue;
+        const int ntile = (span + C - 1) / C;
+        C = step * ((span + step * ntile - 1) / (step * ntile));
+        if (mma && !mma_passes(T, C)) continue;
+        const int smem = (int)smem_of(C);
+        bool ok = false;
+        err = fits(*p, ns, smem, sms, optin, &ok);
         if (err != cudaSuccess) return err;
+        if (!ok) continue;
+        p->cap = ns;
+        p->C = C;
+        p->flags = flags | design;
+        p->smem = smem;
+        p->slot_words =
+            slot_layout(p->ncol, p->ngroups, T, B, p->gs_tot).total;
+        // Both instantiations take the plan's shared memory size.
+        for (const void* k : p->kernels) {
+          err = cudaFuncSetAttribute(
+              k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          if (err != cudaSuccess) return err;
+        }
+        return cudaSuccess;
       }
-      return cudaSuccess;
     }
   }
   return cudaErrorCooperativeLaunchTooLarge;
@@ -1151,15 +1906,16 @@ cudaError_t plan_step(int T, int B, int mb, int nt, int K, int W, int want,
 
 // out: shards a launch takes (0 when not even one shard's grid is resident
 // at these shapes), C, column CTAs, flags (1 the scaled Gram, 2 the scan
-// tables in shared memory), dynamic shared memory bytes, groups of the
-// tree, packed scaled-Gram floats per trait, scratch words per shard.  No
-// launch.
+// tables in shared memory, 4 the column passes on the tensor cores),
+// dynamic shared memory bytes, groups of the tree, packed scaled-Gram
+// floats per trait, scratch words per shard, the span, the column passes'
+// design (0 CUDA cores, 1 tensor cores).  No launch.
 extern "C" int gmrm_block_sweep_plan(int T, int B, int mb, int nt, int K,
                                      int W, int want, int* out) {
   Plan p;
   const cudaError_t err = plan_step(T, B, mb, nt, K, W, want, &p);
   if (err == cudaErrorCooperativeLaunchTooLarge) {
-    for (int i = 0; i < 9; ++i) out[i] = 0;
+    for (int i = 0; i < 10; ++i) out[i] = 0;
     return 0;
   }
   if (err != cudaSuccess) return (int)err;
@@ -1172,6 +1928,7 @@ extern "C" int gmrm_block_sweep_plan(int T, int B, int mb, int nt, int K,
   out[6] = p.gs_tot;
   out[7] = (int)p.slot_words;
   out[8] = p.span;
+  out[9] = p.mma;
   return 0;
 }
 
@@ -1244,8 +2001,11 @@ extern "C" int gmrm_block_sweep(
   a.cap = p.cap;
   const uintptr_t al16 = (uintptr_t)eps | (uintptr_t)na;
   a.vec = mb % 4 == 0 && al16 % 16 == 0;
-  for (int q = 0; q < ns; ++q)
+  a.vec16 = mb % 16 == 0 && p.span % 16 == 0 && p.C % 16 == 0;
+  for (int q = 0; q < ns; ++q) {
     a.vec = a.vec && (uintptr_t)a.sh[q].bed % 4 == 0;
+    a.vec16 = a.vec16 && (uintptr_t)a.sh[q].bed % 16 == 0;
+  }
   a.flags = p.flags;
   a.ncol = p.ncol;
   a.ngroups = p.ngroups;

@@ -133,14 +133,16 @@ SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 # of a CUDA graph adds the launches captured in it, so a run can show
 # that its main path went through the kernels.  "sweep_blocks_mma"
 # counts the launches of kernels 7/8 whose plan ran the column passes on
-# the tensor cores (also counted under "sweep_blocks").
+# the tensor cores (also counted under "sweep_blocks"), "block_sweep_mma"
+# those of kernel 9 (also counted under "block_sweep").
 _LAUNCHES = {"gram_cache": 0, "block_cdot": 0, "wave_scan": 0,
              "eps_update": 0, "block_gram": 0, "serial_scan": 0,
              "sweep_blocks": 0, "block_sweep": 0, "update_cdot": 0,
              "predict_sums": 0, "block_gram_f64": 0, "block_cdot_f64": 0,
              "eps_update_f64": 0, "update_cdot_f64": 0,
              "serial_scan_f64": 0, "predict_sums_f64": 0,
-             "wave_scan_f64": 0, "sweep_blocks_mma": 0}
+             "wave_scan_f64": 0, "sweep_blocks_mma": 0,
+             "block_sweep_mma": 0}
 
 
 def launch_counts() -> dict:

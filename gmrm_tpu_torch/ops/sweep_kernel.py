@@ -205,10 +205,10 @@ def sweep_blocks_plain(bed, blkidx, win_p, m_local, gram_cache, eps, na,
     return eps, beta_new, comp_new, acum_new
 
 
-# The column passes' designs of the sweep kernel, by the code its plan
-# reports: on the tensor cores from 256 / T byte columns a column CTA (and
-# from 128 at any T: csrc/sweep_blocks.cu's mma_passes), on the CUDA cores
-# below.
+# The column passes' designs of kernels 7/8 and 9, by the code their
+# plans report: on the tensor cores from 256 / T byte columns a column CTA
+# (kernel 9: a tile) and from 128 at any T (csrc/sweep_blocks.cu's and
+# csrc/block_sweep.cu's mma_passes), on the CUDA cores below.
 PASS_DESIGNS = {0: "CUDA cores", 1: "tensor cores"}
 
 
@@ -542,8 +542,11 @@ def block_sweep_plan(T: int, B: int, mb: int, nt: int, K: int, wave: int,
     column CTA owns (``span``) and stages at a time (``cols``; ``tiles``
     of them make a span, more than one only on a wide panel), the grid of
     a full launch (one scan CTA per shard and the column CTAs), its shared
-    memory and the scratch words per shard.  Launches nothing."""
-    out = (ctypes.c_int * 9)()
+    memory, the scratch words per shard and ``passes``, the design of the
+    c-dot and the delta (``PASS_DESIGNS``: on the tensor cores from
+    256 / T byte columns a tile and from 128 at any T, kernel 7/8's rule).
+    Launches nothing."""
+    out = (ctypes.c_int * 10)()
     err = _build.library().gmrm_block_sweep_plan(
         T, B, mb, nt, K, wave, shards, ctypes.addressof(out))
     if err != 0:
@@ -551,7 +554,7 @@ def block_sweep_plan(T: int, B: int, mb: int, nt: int, K: int, wave: int,
             f"the sharded block-step kernel cannot run at T={T}, B={B}, "
             f"mb={mb}, NT={nt}, K={K}, W={wave}: "
             f"{_build.error_string(err)}")
-    cap, cols, ncol, flags, smem, groups, gs_tot, slot, span = out
+    cap, cols, ncol, flags, smem, groups, gs_tot, slot, span, passes = out
     if cap == 0:
         raise RuntimeError(
             f"the sharded block-step kernel finds no resident grid for "
@@ -561,6 +564,7 @@ def block_sweep_plan(T: int, B: int, mb: int, nt: int, K: int, wave: int,
             "tiles": -(-span // cols), "column_ctas": ncol,
             "grid": ncol + cap, "smem_bytes": smem, "groups": groups,
             "gs_tot": gs_tot, "slot_words": slot,
+            "passes": PASS_DESIGNS[passes],
             "resident": [name for bit, name in ((1, "scaled Gram"),
                                                 (2, "scan tables"))
                          if flags & bit]}
@@ -636,11 +640,15 @@ class ShardedBlockSweep:
             # chunk has its own, at its width.
             want = len(shards)
             self.chunks = trait_chunks("block_sweep", T, B)
-            plans = [block_sweep_plan(w, B, mb, 1 if nt == 1 else w, K,
-                                      wave, want)
-                     for w in {t1 - t0 for t0, t1 in self.chunks}]
-            cap = min(min(p["cap"] for p in plans), MAX_SHARDS)
-            self._set_up(plans, (T, B, mb, nt, K, wave, want, G), nblocks)
+            plans = {w: block_sweep_plan(w, B, mb, 1 if nt == 1 else w, K,
+                                         wave, want)
+                     for w in {t1 - t0 for t0, t1 in self.chunks}}
+            cap = min(min(p["cap"] for p in plans.values()), MAX_SHARDS)
+            # The chunk widths whose launches run on the tensor cores.
+            self.mma = {w for w, p in plans.items()
+                        if p["passes"] == "tensor cores"}
+            self._set_up(list(plans.values()),
+                         (T, B, mb, nt, K, wave, want, G), nblocks)
         n = len(self.shards)
         self.groups = [(s0, min(cap, n - s0)) for s0 in range(0, n, cap)]
         p = self.partial
@@ -739,6 +747,8 @@ class ShardedBlockSweep:
                               *tail, self.scratch.data_ptr(),
                               0 if stamps is None else stamps.data_ptr(),
                               t1 - t0, *shapes[1:], t0, T)
+                if t1 - t0 in self.mma:
+                    _build.count_launch("block_sweep_mma")
         return self.eps if out is None else out
 
     def finish(self):

@@ -175,7 +175,15 @@ def test_graphed_sweeps_equal_the_eager_steps(card, nccl_group, case,
     states = _iterate(states, statics, rngs, summed[4:], summing)
     (graph,) = gibbs._SWEEP_GRAPHS.values()
     assert graph.graph is not None and graph.sweeps == SUMMED
-    assert graph.captured == {"block_sweep": nblocks}
+    # Kernel 9's design at this width (csrc/block_sweep.cu mma_passes):
+    # the tensor cores' launches are counted beside the kernel's.
+    nt = T if per_trait else 1
+    mma = sk.block_sweep_plan(T, B, mb, nt, K, W, shards)["passes"] == (
+        "tensor cores")
+    assert mma == (mb == 100_352)
+    assert graph.captured == ({"block_sweep": nblocks,
+                               "block_sweep_mma": nblocks} if mma
+                              else {"block_sweep": nblocks})
     got = _snapshot(states)
     states = _iterate(states, statics, rngs, unsummed, quiet)
     (graph_q,) = gibbs._SWEEP_GRAPHS.values()
@@ -184,6 +192,8 @@ def test_graphed_sweeps_equal_the_eager_steps(card, nccl_group, case,
     got_q = _snapshot(states)
     assert _build.launch_counts()["block_sweep"] == nblocks * (
         SUMMED + UNSUMMED)
+    assert _build.launch_counts()["block_sweep_mma"] == (
+        nblocks * (SUMMED + UNSUMMED) if mma else 0)
 
     # The eager steps: a new object every sweep never captures.
     with monkeypatch.context() as m:
